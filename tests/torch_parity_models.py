@@ -1,14 +1,17 @@
-"""The narrow DenseNet that tests/test_torch_densenet.py and
-tests/test_torch_slice.py run in both packages (JAX side and weight
-randomisation)."""
+"""The narrow DenseNet and ConvNeXtV2 embedders that the tests/test_torch_*.py
+files run in both packages (JAX side and weight randomisation)."""
 from __future__ import annotations
+
+from typing import Optional
 
 import flax.linen as fnn
 import jax
 import numpy as np
 
 from xmir_tpu.losses.metric_losses import l2_normalize
+from xmir_tpu.models.convnext import ConvNeXtV2Backbone
 from xmir_tpu.models.densenet import DenseNetBackbone
+from xmir_tpu.models.heads import PCAMPool, SRA
 
 # the narrow DenseNet the CPU tests run in both packages
 NARROW = dict(growth_rate=8, block_config=(2, 2, 2, 2), num_init_features=16)
@@ -40,10 +43,44 @@ def randomized(variables, seed):
         names = [getattr(p, "key", "") for p in path]
         if names[-1] == "var":
             return rng.uniform(0.5, 1.5, leaf.shape).astype(np.float32)
-        if names[-1] in ("mean", "bias"):
+        if names[-1] == "mean" or names[-1].endswith("bias"):
             return (0.1 * rng.standard_normal(leaf.shape)).astype(np.float32)
         if names[-1] == "scale":
             return rng.uniform(0.8, 1.2, leaf.shape).astype(np.float32)
+        if names[-1] in ("gamma", "beta"):  # GRN: zero at init
+            return (0.2 * rng.standard_normal(leaf.shape)).astype(np.float32)
         return np.asarray(leaf)  # conv / dense kernels keep their init
 
     return jax.tree_util.tree_map_with_path(fill, jax.device_get(variables))
+
+
+# the narrow ConvNeXtV2 the CPU tests run in both packages
+NARROW_CONVNEXT = dict(depths=(1, 1, 1, 1), dims=(8, 16, 32, 64))
+
+
+class JaxNarrowConvNeXt(fnn.Module):
+    """xmir_tpu's ConvNeXtV2Embedder ("plain"), ConvNeXtV2SRAEmbedder ("sra")
+    or ConvNeXtV2PCAMEmbedder ("pcam") with the narrow backbone: the same
+    __call__ bodies (eval mode)."""
+
+    kind: str = "plain"
+    embedding_dim: Optional[int] = None
+    num_heads: int = 8
+    lam: float = 0.1
+    num_classes: int = 3
+
+    @fnn.compact
+    def __call__(self, x, train: bool = False):
+        out = ConvNeXtV2Backbone(**NARROW_CONVNEXT, name="backbone")(x, train)
+        if self.kind == "plain":
+            feat = out["pooled_norm"]
+            if self.embedding_dim:
+                feat = fnn.Dense(self.embedding_dim, name="fc")(feat)
+            return {"embedding": l2_normalize(feat, axis=1), "features": out["features"]}
+        if self.kind == "sra":
+            feat = SRA(1024, self.num_heads, self.lam, name="sra")(
+                out["features"], out["head_norm"])
+            return {"embedding": l2_normalize(feat, axis=1), "features": out["features"]}
+        embedding, _, _ = PCAMPool(1024, self.num_classes, self.lam, self.embedding_dim,
+                                   name="pcam")(out["features"], out["head_norm"])
+        return {"embedding": embedding, "features": out["features"]}

@@ -90,15 +90,20 @@ def build_dataset(args, split: str = "train"):
 def build_model(args, device):
     """(model in eval mode on ``device``, spec). Weights are drawn from a
     torch.Generator seeded with --seed, then --resume (a torch .pt/.pth
-    state dict) replaces them all with a strict load."""
+    state dict) replaces them with a strict load: the whole DenseNet121
+    embedder, or a ConvNeXtV2 embedder's backbone (its fc / SRA / PCAM head
+    keeps its init, as the JAX package's strict=False merge does)."""
     from ..models.convert import load_torch_checkpoint
     from ..models.registry import create_model
 
     overrides = {"generator": torch.Generator().manual_seed(args.seed)}
-    if getattr(args, "embedding_dim", None):
+    # the SRA embedder's output width is fixed, as in the reference
+    if getattr(args, "embedding_dim", None) and args.model != "convnextv2_sra":
         overrides["embedding_dim"] = args.embedding_dim
-    if getattr(args, "num_labels", None):
+    if getattr(args, "num_labels", None) and args.model == "densenet121":
         overrides["num_labels"] = args.num_labels
+    if args.model == "convnextv2_sra":
+        overrides.update(num_heads=args.sra_num_heads, lam=args.sra_lam)
     model, spec = create_model(args.model, **overrides)
     resume = getattr(args, "resume", "")
     if resume:

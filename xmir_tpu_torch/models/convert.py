@@ -1,11 +1,13 @@
-"""Weights into the port's DenseNet: from the JAX package's variable tree, and
-from a reference CheXNet / torchvision ``.pt``.
+"""Weights into the port's DenseNet and ConvNeXtV2 embedders: from the JAX
+package's variable tree, and from a reference CheXNet / torchvision or timm
+``.pt``.
 
 Conventions (the inverse of xmir_tpu/models/convert.py):
   conv   flax (kh, kw, I, O)  -> torch (O, I, kh, kw)
   dense  flax (I, O)          -> torch (O, I)
   batchnorm params scale/bias -> weight/bias; batch_stats mean/var ->
   running_mean/running_var
+  layernorm scale/bias        -> weight/bias
 """
 from __future__ import annotations
 
@@ -16,9 +18,12 @@ import numpy as np
 import torch
 
 BACKBONE_PREFIX = "densenet121.0."
+CONVNEXT_PREFIX = "convnext."
 # wrappers the reference's checkpoints put around the torchvision features
 # (xmir_tpu/models/convert.py::convert_densenet121)
 _TORCH_PREFIXES = ("densenet121.0.", "densenet121.features.", "features.")
+# wrappers around a timm backbone in checkpoints (xmir_tpu/cli/common.py:154-165)
+_TIMM_PREFIXES = ("convnext.", "swinv2.", "backbone.", "model.")
 
 
 def _conv(k):
@@ -108,14 +113,116 @@ def embedder_state_dict_from_torch(sd: Dict[str, torch.Tensor]) -> Dict[str, tor
     return out
 
 
-def load_torch_checkpoint(model: torch.nn.Module, path: str):
-    """Load a ``.pt``/``.pth`` into a DenseNet121Embedder with strict=True.
-    Tolerates a {"state_dict" | "state-dict" | "model": ...} wrapper."""
+def _ln(sd, name, p):
+    sd[f"{name}.weight"] = np.asarray(p["scale"])
+    sd[f"{name}.bias"] = np.asarray(p["bias"])
+
+
+def _convnext_backbone_state_dict(params) -> Dict[str, np.ndarray]:
+    """A ConvNeXtV2Backbone tree -> timm keys (the layout of
+    xmir_tpu/models/export.py::export_convnextv2_timm), for any depths."""
+    sd = {"stem.0.weight": _conv(params["stem_conv"]["kernel"]),
+          "stem.0.bias": np.asarray(params["stem_conv"]["bias"])}
+    _ln(sd, "stem.1", params["stem_norm"])
+    stages = sorted({int(m.group(1)) for key in params
+                     if (m := re.fullmatch(r"stage(\d+)_block\d+", key))})
+    for si in stages:
+        if si > 0:
+            _ln(sd, f"stages.{si}.downsample.0", params[f"downsample{si}_norm"])
+            conv = params[f"downsample{si}_conv"]
+            sd[f"stages.{si}.downsample.1.weight"] = _conv(conv["kernel"])
+            sd[f"stages.{si}.downsample.1.bias"] = np.asarray(conv["bias"])
+        for bi in _numbered(params, f"stage{si}_block"):
+            pre, blk = f"stages.{si}.blocks.{bi}", params[f"stage{si}_block{bi}"]
+            sd[f"{pre}.conv_dw.weight"] = _conv(blk["dwconv"]["kernel"])
+            sd[f"{pre}.conv_dw.bias"] = np.asarray(blk["dwconv"]["bias"])
+            _ln(sd, f"{pre}.norm", blk["norm"])
+            _dense(sd, f"{pre}.mlp.fc1", blk["pwconv1"])
+            _dense(sd, f"{pre}.mlp.fc2", blk["pwconv2"])
+            sd[f"{pre}.mlp.grn.weight"] = np.asarray(blk["grn"]["gamma"]).reshape(-1)
+            sd[f"{pre}.mlp.grn.bias"] = np.asarray(blk["grn"]["beta"]).reshape(-1)
+    _ln(sd, "head.norm", params["head_norm"])
+    return sd
+
+
+def convnextv2_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX package's ConvNeXtV2 embedder tree (numpy leaves:
+    params["backbone"] and any of "fc", "sra", "pcam") -> the port's
+    ConvNeXtV2{,SRA,PCAM}Embedder state dict."""
+    params = variables["params"]
+    sd = {CONVNEXT_PREFIX + k: v
+          for k, v in _convnext_backbone_state_dict(params["backbone"]).items()}
+    if "fc" in params:
+        _dense(sd, "fc", params["fc"])
+    if "sra" in params:
+        sd["sra.conv_att.weight"] = _conv(params["sra"]["conv_att"]["kernel"])
+    if "pcam" in params:
+        pcam = params["pcam"]
+        kernel = np.asarray(pcam["classifier_kernel"])  # (C, K)
+        sd["pcam.classifier.weight"] = kernel.T[:, :, None, None]
+        sd["pcam.classifier.bias"] = np.asarray(pcam["classifier_bias"])
+        if "fc" in pcam:
+            _dense(sd, "pcam.fc", pcam["fc"])
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def convnextv2_backbone_state_dict_from_torch(
+        sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A timm ConvNeXtV2 state dict -> ConvNeXtV2Backbone keys.
+
+    Strips a ``module.`` DataParallel prefix and the wrappers
+    ``convnext.``/``swinv2.``/``backbone.``/``model.``; takes GRN as
+    ``mlp.grn.weight/bias`` or ``grn.gamma/beta`` of shape (1, 1, 1, C)
+    (xmir_tpu/models/convert.py::convert_convnextv2_timm). Keeps the
+    backbone's keys (``stem.``, ``stages.``, ``head.norm.``) and, like the
+    reference, ignores every other key: timm's classifier and any head."""
+    out = {}
+    for key, value in sd.items():
+        key = key.replace("module.", "")
+        for prefix in _TIMM_PREFIXES:
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+                break
+        if not key.startswith(("stem.", "stages.", "head.norm.")):
+            continue
+        key = re.sub(r"\.blocks\.(\d+)\.grn\.gamma$", r".blocks.\1.mlp.grn.weight", key)
+        key = re.sub(r"\.blocks\.(\d+)\.grn\.beta$", r".blocks.\1.mlp.grn.bias", key)
+        out[key] = value.reshape(-1) if ".mlp.grn." in key else value
+    return out
+
+
+def _read_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pt``/``.pth`` state dict, unwrapped from a {"state_dict" |
+    "state-dict" | "model": ...} wrapper."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(obj, dict):
         for key in ("state_dict", "state-dict", "model"):
             if isinstance(obj.get(key), dict):
-                obj = obj[key]
-                break
-    model.load_state_dict(embedder_state_dict_from_torch(obj), strict=True)
+                return obj[key]
+    return obj
+
+
+def load_torch_checkpoint(model: torch.nn.Module, path: str):
+    """Load a ``.pt``/``.pth`` into ``model``, dispatched by its type (as
+    xmir_tpu/cli/common.py::_convert_torch_checkpoint does by name): a
+    DenseNet121Embedder takes the whole state dict with strict=True; a
+    ConvNeXtV2 embedder takes its backbone with strict=True and keeps its
+    head (fc, SRA, PCAM) as initialised."""
+    from .embedders import (
+        ConvNeXtV2Embedder,
+        ConvNeXtV2PCAMEmbedder,
+        ConvNeXtV2SRAEmbedder,
+        DenseNet121Embedder,
+    )
+
+    sd = _read_torch_state_dict(path)
+    if isinstance(model, DenseNet121Embedder):
+        model.load_state_dict(embedder_state_dict_from_torch(sd), strict=True)
+    elif isinstance(model, (ConvNeXtV2Embedder, ConvNeXtV2SRAEmbedder, ConvNeXtV2PCAMEmbedder)):
+        backbone = convnextv2_backbone_state_dict_from_torch(sd)
+        model.convnext.load_state_dict(backbone, strict=True)
+        print(f">> loaded the ConvNeXtV2 backbone ({len(backbone)} tensors, strict); "
+              "the head keeps its init")
+    else:
+        raise ValueError(f"no torch-checkpoint loader for {type(model).__name__}")
     return model

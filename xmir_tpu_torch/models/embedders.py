@@ -1,5 +1,5 @@
-"""Embedding models (port of DenseNet121Embedder in
-xmir_tpu/models/embedders.py).
+"""Embedding models (port of DenseNet121Embedder and the ConvNeXtV2
+embedders in xmir_tpu/models/embedders.py).
 
 An embedder maps NHWC images to {"embedding": (B, D) L2-normalised,
 "features": NHWC map, "logits": ... when a classification head is set}.
@@ -12,7 +12,9 @@ import torch
 from torch import nn
 
 from ..ops.distance import l2_normalize
+from . import convnext
 from .densenet import DenseNetBackbone, init_weights_
+from .heads import PCAMPool, SRA
 
 
 class DenseNet121Embedder(nn.Module):
@@ -51,3 +53,92 @@ class DenseNet121Embedder(nn.Module):
         if self.classification_head is not None:
             result["logits"] = self.classification_head(feat)
         return result
+
+
+CONVNEXTV2_BASE = dict(depths=(3, 3, 27, 3), dims=(128, 256, 512, 1024))
+
+
+def _normal_(weight, generator, std):
+    with torch.no_grad():
+        weight.copy_(torch.randn(weight.shape, generator=generator) * std)
+
+
+def _init_head_linear_(linear: Optional[nn.Linear], generator):
+    """N(0, 1/fan_in) weight, zero bias (the DenseNet embedder's fc init)."""
+    if linear is not None:
+        _normal_(linear.weight, generator, linear.in_features ** -0.5)
+        with torch.no_grad():
+            linear.bias.zero_()
+
+
+class ConvNeXtV2Embedder(nn.Module):
+    """timm num_classes=0 semantics: GAP -> head LayerNorm -> optional ``fc``
+    (reference model.py:87-117). Keys: ``convnext.<timm backbone>``,
+    ``fc.*``. The backbone widths default to ConvNeXtV2-Base's; narrower
+    ones are for tests."""
+
+    def __init__(self, embedding_dim: Optional[int] = None, *,
+                 depths: Sequence[int] = CONVNEXTV2_BASE["depths"],
+                 dims: Sequence[int] = CONVNEXTV2_BASE["dims"],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.convnext = convnext.ConvNeXtV2Backbone(depths, dims)
+        self.fc = nn.Linear(dims[-1], embedding_dim) if embedding_dim else None
+        if generator is not None:
+            convnext.init_weights_(self.convnext, generator)
+            _init_head_linear_(self.fc, generator)
+
+    def forward(self, x):
+        out = self.convnext(x)
+        feat = out["pooled_norm"]
+        if self.fc is not None:
+            feat = self.fc(feat)
+        return {"embedding": l2_normalize(feat, dim=1), "features": out["features"]}
+
+
+class ConvNeXtV2SRAEmbedder(nn.Module):
+    """Backbone features -> SRA (sharing the head LayerNorm) -> normalise
+    (reference model.py:165-196). Keys: ``convnext.*``, ``sra.conv_att.weight``."""
+
+    def __init__(self, num_heads: int = 8, lam: float = 0.1, *,
+                 depths: Sequence[int] = CONVNEXTV2_BASE["depths"],
+                 dims: Sequence[int] = CONVNEXTV2_BASE["dims"],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.convnext = convnext.ConvNeXtV2Backbone(depths, dims)
+        self.sra = SRA(dims[-1], num_heads, lam)
+        if generator is not None:
+            convnext.init_weights_(self.convnext, generator)
+            _normal_(self.sra.conv_att.weight, generator, 1e-4)  # the JAX init
+
+    def forward(self, x):
+        out = self.convnext(x)
+        feat = self.sra(out["features"], out["head_norm"])
+        return {"embedding": l2_normalize(feat, dim=1), "features": out["features"]}
+
+
+class ConvNeXtV2PCAMEmbedder(nn.Module):
+    """Backbone features -> PCAM pooling (reference model.py:249-278). Keys:
+    ``convnext.*``, ``pcam.classifier.*``, ``pcam.fc.*``. Inference only: the
+    class logits and CAM maps the JAX module returns in training are not
+    outputs here."""
+
+    def __init__(self, num_classes: int = 3, lam: float = 0.1,
+                 embedding_dim: Optional[int] = None, *,
+                 depths: Sequence[int] = CONVNEXTV2_BASE["depths"],
+                 dims: Sequence[int] = CONVNEXTV2_BASE["dims"],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.convnext = convnext.ConvNeXtV2Backbone(depths, dims)
+        self.pcam = PCAMPool(dims[-1], num_classes, lam, embedding_dim)
+        if generator is not None:
+            convnext.init_weights_(self.convnext, generator)
+            _normal_(self.pcam.classifier.weight, generator, dims[-1] ** -0.5)
+            with torch.no_grad():
+                self.pcam.classifier.bias.zero_()
+            _init_head_linear_(self.pcam.fc, generator)
+
+    def forward(self, x):
+        out = self.convnext(x)
+        embedding, _, _ = self.pcam(out["features"], out["head_norm"])
+        return {"embedding": embedding, "features": out["features"]}

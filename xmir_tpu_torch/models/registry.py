@@ -1,12 +1,18 @@
 """Model registry (port of xmir_tpu/models/registry.py): one spec per
 backbone with its input size, resize size, embedding width and
-normalisation. Only DenseNet121 is ported so far."""
+normalisation. Ported so far: DenseNet121 and the three ConvNeXtV2
+embedders."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Tuple
 
-from .embedders import DenseNet121Embedder
+from .embedders import (
+    ConvNeXtV2Embedder,
+    ConvNeXtV2PCAMEmbedder,
+    ConvNeXtV2SRAEmbedder,
+    DenseNet121Embedder,
+)
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -28,6 +34,9 @@ class ModelSpec:
 # sizes follow the reference transforms (train.py:928-993, test.py:1286-1332)
 _SPECS = {
     "densenet121": ModelSpec("densenet121", DenseNet121Embedder, 224, 256, 1024),
+    "convnextv2": ModelSpec("convnextv2", ConvNeXtV2Embedder, 384, 432, 1024),
+    "convnextv2_sra": ModelSpec("convnextv2_sra", ConvNeXtV2SRAEmbedder, 384, 432, 1024),
+    "convnextv2_pcam": ModelSpec("convnextv2_pcam", ConvNeXtV2PCAMEmbedder, 384, 432, 1024),
 }
 
 

@@ -1,7 +1,8 @@
 """Builds the port's CUDA kernels with nvcc and loads them with ctypes.
 
 The sources under ``xmir_tpu_torch/csrc`` compile into one shared library with
-a plain C interface, for ``sm_90a`` (Hopper). The library goes to
+a plain C interface, for ``sm_90a`` (Hopper): one nvcc per source, all started
+together, then one link. The library goes to
 ``build/xmir_tpu_torch/<hash>/`` beside the package (a directory git ignores),
 keyed by a hash of the sources and the flags, and is built at first use: a
 second call in the same checkout loads the cached library.
@@ -22,9 +23,9 @@ from pathlib import Path
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_ROOT = _PKG_DIR.parent / "build" / "xmir_tpu_torch"
-NVCC_FLAGS = (
+NVCC_FLAGS = (  # per source; the objects are then linked with -shared
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 _LIB_NAME = "libxmir_kernels.so"
 
@@ -36,6 +37,11 @@ _SIGNATURES = {
     "xmir_topk_plan": (_I, _I, _I, _I, _P, _P, _P),
     # q transposed, g, bias, dtype, Q, N, D, k, n_sms, part_v, part_i, out_v, out_i, stream
     "xmir_topk": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # rows -> row tiles per image (int pointer)
+    "xmir_convnext_plan": (_I, _P),
+    # a, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta, dtype, batch, rows,
+    # c, c4, h, part, nx, out, stream
+    "xmir_convnext_tail": (_P,) * 10 + (_I,) * 5 + (_P,) * 5,
 }
 
 
@@ -79,15 +85,32 @@ def build() -> Path:
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{_LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    tag = os.getpid()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = (f"$ {' '.join(cmd)}\n# {time.perf_counter() - t0:.1f} s, "
-           f"rc {proc.returncode}\n{proc.stdout}{proc.stderr}")
+    jobs = []  # (command, object, output file, process): every source compiles at once
+    for src in sources():
+        obj, out = out_dir / f"{src.stem}.{tag}.o", out_dir / f"{src.stem}.{tag}.log"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        with open(out, "w") as f:
+            jobs.append((cmd, obj, out, subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)))
+    log, ok = [], True
+    for cmd, _, out, proc in jobs:
+        rc = proc.wait()
+        ok &= rc == 0
+        log.append(f"$ {' '.join(cmd)}\n# rc {rc}\n{out.read_text()}")
+        out.unlink()
+    tmp = out_dir / f"{_LIB_NAME}.{tag}.tmp"
+    if ok:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        ok = proc.returncode == 0
+        log.append(f"$ {' '.join(cmd)}\n# rc {proc.returncode}\n{proc.stdout}{proc.stderr}")
+    for _, obj, _, _ in jobs:
+        obj.unlink(missing_ok=True)
+    log = f"# {time.perf_counter() - t0:.1f} s\n" + "\n".join(log)
     (out_dir / "build.log").write_text(log)
-    if proc.returncode != 0:
-        raise KernelBuildError(f"nvcc failed (rc {proc.returncode}):\n{log}")
+    if not ok:
+        raise KernelBuildError(f"nvcc failed:\n{log}")
     os.replace(tmp, lib)  # atomic: concurrent builders never load a partial file
     return lib
 
