@@ -214,6 +214,8 @@ def test_port_imports_no_jax():
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "xmir_tpu_torch").rglob("*.py")
     )
+    assert {"xmir_tpu_torch.ops.vit_attn", "xmir_tpu_torch.ops.plain_attn",
+            "xmir_tpu_torch.ops.ln_dense", "xmir_tpu_torch.models.vit"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
@@ -225,4 +227,4 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) == len(modules) >= 15
+    assert int(proc.stdout.strip()) == len(modules) >= 19

@@ -1,0 +1,125 @@
+"""The ViT kernels K2 (csrc/vit_attn.cu), K7 and K8 (csrc/ln_dense.cu) against
+their plain PyTorch versions on the card. Only torch and the port are
+imported, so the card's machine (which has no flax) runs this file:
+
+    python -m pytest tests/test_torch_vit_kernels_cuda.py -m cuda -q
+
+On a machine without a card every test here skips.
+"""
+import pytest
+import torch
+
+from xmir_tpu_torch.ops import ln_dense as ld
+from xmir_tpu_torch.ops import vit_attn as va
+
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+def _r(gen, *shape, sc=1.0):
+    return (torch.randn(shape, generator=gen) * sc).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,n,hd", [(24, 1370, 64), (3, 1, 64), (2, 7, 16), (2, 197, 32),
+                                     (2, 257, 72), (2, 729, 128), (2, 1024, 64), (3, 65, 8)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_matches_plain_on_card(dtype, bh, n, hd):
+    _need_card()
+    gen = torch.Generator().manual_seed(bh + n + hd)
+    q, k, v = (_r(gen, bh, n, hd).to(dtype) for _ in range(3))
+    before = va.vit_attention_fused.launches
+    with torch.inference_mode():
+        out = va.vit_attention_fused(q, k, v, hd ** -0.5)
+        torch.cuda.synchronize()
+        assert va.vit_attention_fused.launches == before + 1
+        e = va.agreement(out, va.attention_plain(q, k, v, hd ** -0.5))
+        assert va.agrees(e), e
+        assert torch.equal(out, va.vit_attention_fused(q, k, v, hd ** -0.5))
+        loose = (out.float() - va.attention_reference(q, k, v, hd ** -0.5).float()).abs().max()
+    assert loose <= (2e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_negative_and_dominant_rows_on_card(dtype):
+    """Rows whose every score is very negative and rows with one dominant
+    score whose tile comes late: the running max jumps and the sums rescale."""
+    _need_card()
+    gen = torch.Generator().manual_seed(0)
+    q = -_r(gen, 4, 300, 64).abs() * 3
+    k = _r(gen, 4, 300, 64).abs() * 3
+    v = _r(gen, 4, 300, 64)
+    k[:, 290] *= -4.0
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    with torch.inference_mode():
+        out = va.vit_attention_fused(q, k, v, 0.125)
+        ref = va.attention_plain(q, k, v, 0.125)
+    assert torch.isfinite(out.float()).all()
+    e = va.agreement(out, ref)
+    assert va.agrees(e), e
+
+
+@pytest.mark.cuda
+def test_attention_wrapper_raises_on_card():
+    _need_card()
+    q = torch.zeros((2, 16, 64), device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        va.vit_attention_fused(q.transpose(0, 1).contiguous().transpose(0, 1), q, q, 0.125)
+    bad = torch.zeros((2, 16, 20), device="cuda")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        va.vit_attention_fused(bad, bad, bad, 0.125)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        va.vit_attention_fused(q.half(), q.half(), q.half(), 0.125)
+    with pytest.raises(RuntimeError, match="forward only"):
+        va.vit_attention_fused(q.requires_grad_(), q, q, 0.125)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,c,heads", [(2, 1370, 768, 12), (2, 7, 128, 4), (3, 197, 256, 2),
+                                         (1, 1, 128, 1), (2, 257, 384, 12)])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ln_kernels_match_plain_on_card(dtype, b, n, c, heads):
+    _need_card()
+    gen = torch.Generator().manual_seed(b + n + c)
+    x = (_r(gen, b, n, c) * 2 + 0.5).to(dtype)
+    lns, lnb = 1 + _r(gen, c, sc=0.2), _r(gen, c, sc=0.1)
+    w, bias = _r(gen, 3 * c, c, sc=c ** -0.5).to(dtype), _r(gen, 3 * c, sc=0.1)
+    w1, b1 = _r(gen, 4 * c, c, sc=c ** -0.5).to(dtype), _r(gen, 4 * c, sc=0.1)
+    before = (ld.ln_qkv_fused.launches, ld.ln_dense_fused.launches)
+    with torch.inference_mode():
+        out = ld.ln_qkv_fused(x, lns, lnb, w, bias, heads)
+        torch.cuda.synchronize()
+        for o, r in zip(out, ld.ln_qkv_reference(x, lns, lnb, w, bias, heads)):
+            assert o.shape == (b, heads, n, c // heads) and o.is_contiguous()
+            e = ld.agreement(o, r)
+            assert ld.agrees(e), e
+        for o, o2 in zip(out, ld.ln_qkv_fused(x, lns, lnb, w, bias, heads)):
+            assert torch.equal(o, o2)
+        rows = x.reshape(b * n, c)
+        for act in ("gelu", ""):
+            for bb in (b1, None):
+                o = ld.ln_dense_fused(rows, lns, lnb, w1, bb, 1e-6, act)
+                e = ld.agreement(o, ld.ln_dense_reference(rows, lns, lnb, w1, bb, 1e-6, act))
+                assert ld.agrees(e), (act, bb is None, e)
+    assert (ld.ln_qkv_fused.launches, ld.ln_dense_fused.launches) == (before[0] + 2,
+                                                                       before[1] + 4)
+
+
+@pytest.mark.cuda
+def test_ln_wrappers_raise_on_card():
+    _need_card()
+    x = torch.zeros((2, 8, 64), device="cuda")
+    lns, w = torch.ones(64, device="cuda"), torch.zeros((192, 64), device="cuda")
+    with pytest.raises(TypeError, match="float32 or both bfloat16"):
+        ld.ln_qkv_fused(x, lns, lns, w.bfloat16(), None, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        ld.ln_qkv_fused(x.transpose(0, 1).contiguous().transpose(0, 1), lns, lns, w, None, 2)
+    with pytest.raises(ValueError, match="eps"):
+        ld.ln_qkv_fused(x, lns, lns, w, None, 2, 1e-5)
+    with pytest.raises(RuntimeError, match="forward only"):
+        ld.ln_dense_fused(x.reshape(16, 64), lns, lns, w.requires_grad_(), None)

@@ -1,4 +1,4 @@
-"""Weights into the port's DenseNet and ConvNeXtV2 embedders: from the JAX
+"""Weights into the port's DenseNet, ConvNeXtV2 and ViT embedders: from the JAX
 package's variable tree, and from a reference CheXNet / torchvision or timm
 ``.pt``.
 
@@ -8,6 +8,8 @@ Conventions (the inverse of xmir_tpu/models/convert.py):
   batchnorm params scale/bias -> weight/bias; batch_stats mean/var ->
   running_mean/running_var
   layernorm scale/bias        -> weight/bias
+  ViT qkv   flax (C, 3C), columns q | k | v with the heads inside each ->
+  torch (3C, C), rows in the same order (timm's ``qkv.weight``)
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 BACKBONE_PREFIX = "densenet121.0."
 CONVNEXT_PREFIX = "convnext."
+VIT_PREFIX = "backbone."
 # wrappers the reference's checkpoints put around the torchvision features
 # (xmir_tpu/models/convert.py::convert_densenet121)
 _TORCH_PREFIXES = ("densenet121.0.", "densenet121.features.", "features.")
@@ -191,6 +194,62 @@ def convnextv2_backbone_state_dict_from_torch(
     return out
 
 
+def _vit_backbone_state_dict(params) -> Dict[str, np.ndarray]:
+    """A ViTBackbone tree -> timm keys (the inverse of
+    xmir_tpu/models/convert.py::convert_vit_timm), for any depth, with or
+    without LayerScale."""
+    sd = {"cls_token": np.asarray(params["cls_token"]).reshape(1, 1, -1),
+          "pos_embed": np.asarray(params["pos_embed"]),
+          "patch_embed.proj.weight": _conv(params["patch_embed"]["kernel"]),
+          "patch_embed.proj.bias": np.asarray(params["patch_embed"]["bias"])}
+    _ln(sd, "norm", params["norm"])
+    for i in _numbered(params, "block"):
+        pre, blk = f"blocks.{i}", params[f"block{i}"]
+        _ln(sd, f"{pre}.norm1", blk["norm1"])
+        _ln(sd, f"{pre}.norm2", blk["norm2"])
+        _dense(sd, f"{pre}.attn.qkv", blk["attn"]["qkv"])
+        _dense(sd, f"{pre}.attn.proj", blk["attn"]["proj"])
+        _dense(sd, f"{pre}.mlp.fc1", blk["mlp"]["fc1"])
+        _dense(sd, f"{pre}.mlp.fc2", blk["mlp"]["fc2"])
+        for ls in ("ls1", "ls2"):
+            if ls in blk:
+                sd[f"{pre}.{ls}.gamma"] = np.asarray(blk[ls]["gamma"])
+    return sd
+
+
+def vit_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX package's ViT tree (numpy leaves) -> the port's state dict: a
+    DinoV2Embedder tree (params["backbone"], optional "fc") gives
+    DinoV2Embedder keys; a bare ViTBackbone tree gives ViTBackbone keys."""
+    params = variables["params"]
+    if "backbone" not in params:
+        sd = _vit_backbone_state_dict(params)
+    else:
+        sd = {VIT_PREFIX + k: v for k, v in _vit_backbone_state_dict(params["backbone"]).items()}
+        if "fc" in params:
+            _dense(sd, "fc", params["fc"])
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def vit_backbone_state_dict_from_torch(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A timm ViT (``vit_base_patch14_dinov2``) state dict -> ViTBackbone
+    keys. Strips a ``module.`` DataParallel prefix and the wrappers
+    ``convnext.``/``swinv2.``/``backbone.``/``model.``
+    (xmir_tpu/cli/common.py:157-162); keeps the backbone's keys and, like the
+    reference, ignores every other key: timm's classifier and any head."""
+    out = {}
+    for key, value in sd.items():
+        key = key.replace("module.", "")
+        for prefix in _TIMM_PREFIXES:
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+                break
+        if key in ("cls_token", "pos_embed") or key.startswith(
+                ("patch_embed.", "blocks.", "norm.")):
+            out[key] = value.reshape(1, 1, -1) if key == "cls_token" else value
+    return out
+
+
 def _read_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A ``.pt``/``.pth`` state dict, unwrapped from a {"state_dict" |
     "state-dict" | "model": ...} wrapper."""
@@ -206,13 +265,14 @@ def load_torch_checkpoint(model: torch.nn.Module, path: str):
     """Load a ``.pt``/``.pth`` into ``model``, dispatched by its type (as
     xmir_tpu/cli/common.py::_convert_torch_checkpoint does by name): a
     DenseNet121Embedder takes the whole state dict with strict=True; a
-    ConvNeXtV2 embedder takes its backbone with strict=True and keeps its
-    head (fc, SRA, PCAM) as initialised."""
+    ConvNeXtV2 or DINOv2 embedder takes its backbone with strict=True and
+    keeps its head (fc, SRA, PCAM) as initialised."""
     from .embedders import (
         ConvNeXtV2Embedder,
         ConvNeXtV2PCAMEmbedder,
         ConvNeXtV2SRAEmbedder,
         DenseNet121Embedder,
+        DinoV2Embedder,
     )
 
     sd = _read_torch_state_dict(path)
@@ -222,6 +282,11 @@ def load_torch_checkpoint(model: torch.nn.Module, path: str):
         backbone = convnextv2_backbone_state_dict_from_torch(sd)
         model.convnext.load_state_dict(backbone, strict=True)
         print(f">> loaded the ConvNeXtV2 backbone ({len(backbone)} tensors, strict); "
+              "the head keeps its init")
+    elif isinstance(model, DinoV2Embedder):
+        backbone = vit_backbone_state_dict_from_torch(sd)
+        model.backbone.load_state_dict(backbone, strict=True)
+        print(f">> loaded the ViT backbone ({len(backbone)} tensors, strict); "
               "the head keeps its init")
     else:
         raise ValueError(f"no torch-checkpoint loader for {type(model).__name__}")

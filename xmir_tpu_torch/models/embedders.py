@@ -1,8 +1,9 @@
-"""Embedding models (port of DenseNet121Embedder and the ConvNeXtV2
-embedders in xmir_tpu/models/embedders.py).
+"""Embedding models (port of DenseNet121Embedder, the ConvNeXtV2 embedders
+and DinoV2Embedder in xmir_tpu/models/embedders.py).
 
-An embedder maps NHWC images to {"embedding": (B, D) L2-normalised,
-"features": NHWC map, "logits": ... when a classification head is set}.
+A convolutional embedder maps NHWC images to {"embedding": (B, D)
+L2-normalised, "features": NHWC map, "logits": ... when a classification
+head is set}; the ViT embedder to {"embedding", "tokens", "attentions"}.
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.distance import l2_normalize
-from . import convnext
+from . import convnext, vit
 from .densenet import DenseNetBackbone, init_weights_
 from .heads import PCAMPool, SRA
 
@@ -142,3 +143,30 @@ class ConvNeXtV2PCAMEmbedder(nn.Module):
         out = self.convnext(x)
         embedding, _, _ = self.pcam(out["features"], out["head_norm"])
         return {"embedding": embedding, "features": out["features"]}
+
+
+class DinoV2Embedder(nn.Module):
+    """DINOv2 CLS-token embedder (reference model.py:448-494): ViT backbone
+    -> CLS -> optional ``fc`` -> normalise. Keys: ``backbone.<timm ViT>``,
+    ``fc.*``. Returns {"embedding": (B, D), "tokens": (B, N, C) patch tokens,
+    "attentions": None or per-block (B, H, N + 1, N + 1)}. The backbone
+    widths default to ViT-B/14's; narrower ones are for tests."""
+
+    def __init__(self, embedding_dim: Optional[int] = None, *, img_size: int = 518,
+                 patch_size: int = 14, dim: int = 768, depth: int = 12, num_heads: int = 12,
+                 use_layerscale: bool = True, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.backbone = vit.ViTBackbone(img_size, patch_size, dim, depth, num_heads,
+                                        use_layerscale=use_layerscale)
+        self.fc = nn.Linear(dim, embedding_dim) if embedding_dim else None
+        if generator is not None:
+            vit.init_weights_(self.backbone, generator)
+            _init_head_linear_(self.fc, generator)
+
+    def forward(self, x, output_attentions: bool = False):
+        out = self.backbone(x, output_attentions)
+        feat = out["cls"]
+        if self.fc is not None:
+            feat = vit._dense(feat, self.fc)
+        return {"embedding": l2_normalize(feat, dim=1), "tokens": out["tokens"],
+                "attentions": out["attentions"]}

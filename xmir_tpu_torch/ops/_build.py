@@ -31,7 +31,7 @@ _LIB_NAME = "libxmir_kernels.so"
 
 # ctypes signatures of the C entry points: every pointer and the stream are
 # c_void_p, or ctypes would pass them as 32-bit ints and cut them.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # Q, N, k, n_sms -> block_queries, n_splits, rows_per_split (int pointers)
     "xmir_topk_plan": (_I, _I, _I, _I, _P, _P, _P),
@@ -42,6 +42,12 @@ _SIGNATURES = {
     # a, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta, dtype, batch, rows,
     # c, c4, h, part, nx, out, stream
     "xmir_convnext_tail": (_P,) * 10 + (_I,) * 5 + (_P,) * 5,
+    # x, lns, lnb, w, bias, dtype, batch, n_tok, c, heads, q, k, v, stream
+    "xmir_ln_qkv": (_P,) * 5 + (_I,) * 5 + (_P,) * 4,
+    # x, lns, lnb, w, bias, dtype, rows, c, m, gelu, out, stream
+    "xmir_ln_dense": (_P,) * 5 + (_I,) * 5 + (_P,) * 2,
+    # q, k, v, o, dtype, bh, n, hd, scale * log2(e), stream
+    "xmir_vit_attn": (_P,) * 4 + (_I,) * 4 + (_F, _P),
 }
 
 

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 LN_EPS = 1e-6
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def fused_mlp_enabled(dtype, device) -> bool:
@@ -62,7 +62,7 @@ def layer_norm(x, weight, bias, eps: float = LN_EPS):
     return (y * weight.float() + bias.float()).to(torch.promote_types(x.dtype, weight.dtype))
 
 
-def _linear_f32(a, w):
+def linear_f32(a, w):
     """a @ w.T accumulated and returned in f32, the TPU kernel's
     ``preferred_element_type=f32``: a bf16 CUDA GEMM with an f32 output
     (cuBLAS), else the f32 GEMM of a's and w's values."""
@@ -80,12 +80,12 @@ def mlp_grn_reference(y, x, w1, b1, w2, b2, gamma, beta):
     The GEMMs accumulate in f32 and everything after them is f32, so the
     only roundings to the input dtype are the kernel's: h, z and the
     output."""
-    h = F.gelu(_linear_f32(y, w1) + b1.float(), approximate="tanh").to(y.dtype)
+    h = F.gelu(linear_f32(y, w1) + b1.float(), approximate="tanh").to(y.dtype)
     hf = h.float()
     gx = torch.sqrt(torch.sum(hf * hf, dim=1, keepdim=True) + 1e-12)  # (B, 1, 4C)
     nx = gx / (torch.mean(gx, dim=-1, keepdim=True) + 1e-6)
     z = gamma.float() * (hf * nx) + beta.float() + hf
-    out = _linear_f32(z.to(y.dtype), w2) + b2.float()
+    out = linear_f32(z.to(y.dtype), w2) + b2.float()
     return (x.float() + out).to(x.dtype)
 
 
@@ -115,22 +115,24 @@ def bf16_step(v):
     return torch.exp2((e - 8).float())
 
 
-def agreement(out, ref):
-    """K9 / K11's ``out`` against its plain version's ``ref`` (same shape and
+def agreement(out, ref, atol: float = BF16_ATOL, floor: float = 2 ** -4):
+    """A kernel's ``out`` against its plain version's ``ref`` (same shape and
     dtype): the largest |out - ref|, its largest share of the per-output
-    bound (``of_bound``) and, in bf16, the mean error in bf16 steps
-    (``mean_steps``). They agree when of_bound <= 1 and mean_steps <=
-    BF16_MEAN_STEPS; NaN agrees with nothing."""
+    bound (``of_bound``) and, in bf16, the mean error in bf16 steps over
+    |ref| >= ``floor`` (``mean_steps``). They agree when of_bound <= 1 and
+    mean_steps <= BF16_MEAN_STEPS; NaN agrees with nothing. ``atol`` and
+    ``floor`` default to K9 / K11's; a kernel whose outputs are smaller
+    states its own."""
     r = ref.float()
     d = (out.float() - r).abs()
     if ref.dtype == torch.float32:
         return {"max_abs_err": d.max().item(),
                 "of_bound": (d / (F32_RTOL * (1 + r.abs()))).max().item(), "mean_steps": 0.0}
     step = bf16_step(r)
-    big = r.abs() >= 2 ** -4
+    big = r.abs() >= floor
     return {"max_abs_err": d.max().item(),
-            "of_bound": (d / (BF16_STEPS * step + BF16_ATOL)).max().item(),
-            "mean_steps": (d[big] / step[big]).mean().item()}
+            "of_bound": (d / (BF16_STEPS * step + atol)).max().item(),
+            "mean_steps": (d[big] / step[big]).mean().item() if big.any() else 0.0}
 
 
 def agrees(stats) -> bool:
@@ -162,7 +164,7 @@ def _launch(a, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta):
     given, else the normalised input) and residual ``x``."""
     from . import _build
 
-    if a.dtype not in _DTYPE_CODES or any(t.dtype != a.dtype for t in (x, w1, w2)):
+    if a.dtype not in DTYPE_CODES or any(t.dtype != a.dtype for t in (x, w1, w2)):
         raise TypeError(f"a, x, w1 and w2 must all be float32 or all bfloat16, got "
                         f"{a.dtype}, {x.dtype}, {w1.dtype} and {w2.dtype}")
     bsz, rows, c = a.shape
@@ -190,7 +192,7 @@ def _launch(a, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         err = lib.xmir_convnext_tail(
             a.data_ptr(), x.data_ptr(), ptr(lns), ptr(lnb), w1.data_ptr(), b1f.data_ptr(),
-            w2.data_ptr(), b2f.data_ptr(), gf.data_ptr(), bef.data_ptr(), _DTYPE_CODES[a.dtype],
+            w2.data_ptr(), b2f.data_ptr(), gf.data_ptr(), bef.data_ptr(), DTYPE_CODES[a.dtype],
             bsz, rows, c, c4, h.data_ptr(), part.data_ptr(), nx.data_ptr(), out.data_ptr(),
             stream,
         )

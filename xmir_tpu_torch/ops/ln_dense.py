@@ -1,0 +1,192 @@
+"""LayerNorm fused into the following projection (K7: LN -> qkv, head-major;
+K8: LN -> dense with an optional tanh-GELU): the CUDA kernels' wrappers and
+their plain PyTorch versions.
+
+Port of ``xmir_tpu/ops/ln_dense_pallas.py``, forward only. Both kernels read
+a tile of the residual stream once, normalise it on its way into shared
+memory and feed the product from there, with the TPU kernels' rounding
+points: LayerNorm in f32 with the fast variance, rounded to x's dtype before
+the product; the weight in x's dtype; f32 accumulation; the bias added in
+f32; tanh-GELU in f32; one rounding to the output dtype.
+
+``ln_qkv_fused`` (K7) and ``ln_dense_fused`` (K8) launch
+``csrc/ln_dense.cu`` for CUDA tensors and count each call in their
+``launches``. A tensor on the CPU takes the plain version instead; any other
+device raises. There is no fallback from the kernel to the plain version.
+On CUDA the wrappers take no input that requires grad while grad mode is on:
+the backward is not ported yet.
+
+Weights are in torch's ``nn.Linear`` layout (out, in): ``w`` is (3C, C) for
+K7, rows ordered q | k | v with the heads inside each (timm's ``qkv.weight``,
+the transpose of the JAX package's (C, 3C) kernel), and (M, C) for K8.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.nn.functional as F
+
+from .convnext_block import (  # noqa: F401  (agreement, agrees: this module's bounds too)
+    DTYPE_CODES, LN_EPS, agreement, agrees, layer_norm, linear_f32)
+
+
+def fused_ln_enabled(dtype, device) -> bool:
+    """Whether a block whose compute dtype is ``dtype`` on ``device`` folds its
+    LayerNorms into the projections: bf16 on CUDA (the JAX package: bf16 on
+    the TPU). ``XMIR_FUSED_LN`` = 0 or 1 overrides, as in the JAX package."""
+    flag = os.environ.get("XMIR_FUSED_LN", "")
+    if flag == "0":
+        return False
+    if flag == "1":
+        return True
+    return dtype == torch.bfloat16 and torch.device(device).type == "cuda"
+
+
+def ln_qkv_eligible(c: int, head_dim: int) -> bool:
+    """The widths the model sends to K7, the JAX package's without its
+    head_dim = 72 switch: a channel width that is a multiple of 128 and a
+    head of 32, 64 or 128 (the DINOv2 / ViT family)."""
+    return c % 128 == 0 and head_dim in (32, 64, 128)
+
+
+def _ln_rows(x, lns, lnb, eps):
+    """LayerNorm of x's rows in f32 (fast variance), rounded to x's dtype."""
+    return layer_norm(x, lns.float(), lnb.float(), eps).to(x.dtype)
+
+
+def ln_qkv_reference(x, lns, lnb, w, b, num_heads: int, eps: float = LN_EPS):
+    """Plain version of K7 (``_ln_qkv_reference`` of the TPU file): x
+    (B, N, C), w (3C, C), b (3C,) or None. Returns q, k, v each
+    (B, H, N, hd) in x's dtype."""
+    bsz, n, c = x.shape
+    qkv = linear_f32(_ln_rows(x, lns, lnb, eps), w.to(x.dtype))
+    if b is not None:
+        qkv = qkv + b.float()
+    qkv = qkv.to(x.dtype).reshape(bsz, n, 3, num_heads, c // num_heads).permute(2, 0, 3, 1, 4)
+    return qkv[0].contiguous(), qkv[1].contiguous(), qkv[2].contiguous()
+
+
+def ln_dense_reference(x, lns, lnb, w, b, eps: float = LN_EPS, act: str = ""):
+    """Plain version of K8 (``_ln_dense_reference``): x (R, C), w (M, C), b
+    (M,) or None; ``act`` "" or "gelu" (the tanh form). Returns (R, M) in
+    x's dtype."""
+    out = linear_f32(_ln_rows(x, lns, lnb, eps), w.to(x.dtype))
+    if b is not None:
+        out = out + b.float()
+    if act == "gelu":
+        out = F.gelu(out, approximate="tanh")
+    return out.to(x.dtype)
+
+
+# How far K7 / K8 may lie from their plain versions is K9 / K11's bound
+# (``agreement`` and ``agrees`` of ops/convnext_block.py): the plain versions
+# round where the kernels round, so only the f32 summation order (and,
+# through it, a rare flip of the LayerNorm output's rounding) differs. A
+# LayerNorm output left unrounded or an erf GELU for the tanh form moves the
+# bf16 average several times past its bound (PERF.md).
+
+
+def _check(x, lns, lnb, w, b, c, m):
+    if lns.shape != (c,) or lnb.shape != (c,):
+        raise ValueError(f"lns and lnb must be ({c},), got {tuple(lns.shape)} and "
+                         f"{tuple(lnb.shape)}")
+    if w.shape != (m, c):
+        raise ValueError(f"w must be ({m}, {c}) (torch Linear layout), got {tuple(w.shape)}")
+    if b is not None and b.shape != (m,):
+        raise ValueError(f"b must be ({m},), got {tuple(b.shape)}")
+    tensors = [t for t in (x, lns, lnb, w, b) if t is not None]
+    if any(t.device != x.device for t in tensors):
+        raise ValueError(f"all operands must lie on {x.device}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no LN -> dense kernel for device {x.device}")
+
+
+def _cuda_operands(x, lns, lnb, w, b):
+    """The kernel's view of the operands: dtype, alignment, contiguity and
+    grad checked; the f32 vectors made."""
+    if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
+        raise TypeError(f"x and w must both be float32 or both bfloat16, got {x.dtype} and "
+                        f"{w.dtype}")
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, lns, lnb, w, b)):
+        raise RuntimeError("the LN -> dense kernels are forward only: call them under "
+                           "torch.inference_mode() or torch.no_grad()")
+    if x.shape[-1] % 8:
+        raise ValueError(f"the kernel needs C to be a multiple of 8, got {x.shape[-1]}")
+    vecs = [None if t is None else t.detach().float().contiguous() for t in (lns, lnb, b)]
+    for t in (x, w, *(v for v in vecs if v is not None)):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("the kernel's operands must be contiguous and 16-byte aligned; "
+                             "nothing is copied here")
+    return vecs
+
+
+def ln_qkv_fused(x, lns, lnb, w, b, num_heads: int, eps: float = LN_EPS):
+    """K7: LayerNorm(x) . w^T + b, stored head-major. x (B, N, C); lns, lnb
+    (C,); w (3C, C) in x's dtype; b (3C,) or None. Returns q, k, v each
+    (B, H, N, hd) in x's dtype, contiguous."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, N, C), got {tuple(x.shape)}")
+    bsz, n, c = x.shape
+    if num_heads < 1 or c % num_heads:
+        raise ValueError(f"C={c} does not split into {num_heads} heads")
+    _check(x, lns, lnb, w, b, c, 3 * c)
+    if x.device.type == "cpu":
+        return ln_qkv_reference(x, lns, lnb, w, b, num_heads, eps)
+    from . import _build
+
+    if eps != LN_EPS:
+        raise ValueError(f"the kernel's eps is {LN_EPS}, got {eps}")
+    head_dim = c // num_heads
+    if head_dim % 2:
+        raise ValueError(f"the kernel needs an even head_dim, got {head_dim}")
+    lns32, lnb32, b32 = _cuda_operands(x, lns, lnb, w, b)
+    q, k, v = (torch.empty((bsz, num_heads, n, head_dim), dtype=x.dtype, device=x.device)
+               for _ in range(3))
+    with torch.cuda.device(x.device):
+        err = _build.load().xmir_ln_qkv(
+            x.data_ptr(), lns32.data_ptr(), lnb32.data_ptr(), w.data_ptr(),
+            None if b32 is None else b32.data_ptr(), DTYPE_CODES[x.dtype], bsz, n, c,
+            num_heads, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"LN -> qkv kernel launch failed: cudaError_t {err}")
+    ln_qkv_fused.launches += 1
+    return q, k, v
+
+
+def ln_dense_fused(x, lns, lnb, w, b, eps: float = LN_EPS, act: str = ""):
+    """K8: LayerNorm(x) . w^T + b, then the tanh-GELU when ``act`` is "gelu".
+    x (R, C); lns, lnb (C,); w (M, C) in x's dtype; b (M,) or None. Returns
+    (R, M) in x's dtype."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (R, C), got {tuple(x.shape)}")
+    if act not in ("", "gelu"):
+        raise ValueError(f"act must be '' or 'gelu', got {act!r}")
+    rows, c = x.shape
+    m = w.shape[0]
+    _check(x, lns, lnb, w, b, c, m)
+    if x.device.type == "cpu":
+        return ln_dense_reference(x, lns, lnb, w, b, eps, act)
+    from . import _build
+
+    if eps != LN_EPS:
+        raise ValueError(f"the kernel's eps is {LN_EPS}, got {eps}")
+    if m % 2:
+        raise ValueError(f"the kernel needs an even output width, got {m}")
+    lns32, lnb32, b32 = _cuda_operands(x, lns, lnb, w, b)
+    out = torch.empty((rows, m), dtype=x.dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = _build.load().xmir_ln_dense(
+            x.data_ptr(), lns32.data_ptr(), lnb32.data_ptr(), w.data_ptr(),
+            None if b32 is None else b32.data_ptr(), DTYPE_CODES[x.dtype], rows, c, m,
+            int(act == "gelu"), out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"LN -> dense kernel launch failed: cudaError_t {err}")
+    ln_dense_fused.launches += 1
+    return out
+
+
+ln_qkv_fused.launches = 0
+ln_dense_fused.launches = 0
