@@ -1,8 +1,10 @@
-"""Plants one fault at a time in the ViT kernels (K2, K7, K8) on an NVIDIA
-card and prints how far each faulty kernel lies from its plain PyTorch
-version, beside the real kernels' readings: the evidence the bounds in
-xmir_tpu_torch/ops/vit_attn.py and ops/convnext_block.py (``agreement``)
-were set from.
+"""Plants one fault at a time in the ViT kernels (K2, K7, K8), the Swin
+attention kernels (K4, K6) and the large-k top-k (K1') on an NVIDIA card and
+prints how far each faulty kernel lies from its plain PyTorch version, beside
+the real kernels' readings: the evidence the bounds in
+xmir_tpu_torch/ops/vit_attn.py (``agreement``, ``window_agreement``) and
+ops/convnext_block.py (``agreement``) were set from. K1' is held to bit-equal
+ids and values on integer inputs.
 
     python3 chip_faults.py
 
@@ -27,11 +29,13 @@ from xmir_tpu_torch.ops import _build
 from xmir_tpu_torch.ops import convnext_block as cb
 from xmir_tpu_torch.ops import ln_dense as ld
 from xmir_tpu_torch.ops import vit_attn as va
+from xmir_tpu_torch.ops import window_attn as wa
+from xmir_tpu_torch.ops.topk_kernels import fused_topk_scores, topk_scores_reference
 
 REAL_CSRC = _build.CSRC_DIR
 ROUND_BF16 = "__bfloat162float(__float2bfloat16({}))"
 
-# name -> (file, old text, new text): one substitution in a copy of the sources
+# name -> (file, old text, new text, ...): substitutions in a copy of the sources
 SOURCE_FAULTS = {
     "K2: e rounded before the sum z": (
         "vit_attn.cu", "sum += e0 + e1;",
@@ -51,6 +55,28 @@ SOURCE_FAULTS = {
         "if (n < N) emit(m, n, acc[i][j] + bias[j], acc[i][j + 1] + bias[j + 1], true);",
         "if (n < N) emit(m, n, round_to(acc[i][j], T()) + bias[j], "
         "round_to(acc[i][j + 1], T()) + bias[j + 1], true);"),
+    "K4: bias not scaled by log2(e)": (
+        "window_attn.cu", "return __fadd_rn(s, MODE == kV1 ? b : __fmul_rn(b, kLog2e));",
+        "return __fadd_rn(s, b);"),
+    "K4: q rounded after the normalisation too, before the scale": (
+        "window_attn.cu", "for (int i = 0; i < 8; ++i) f[i] = __fmul_rn(f[i], rn);",
+        f"for (int i = 0; i < 8; ++i) f[i] = {ROUND_BF16.format('__fmul_rn(f[i], rn)')};"),
+    "K4, K6: group index off by one fold": (
+        "window_attn.cu", "return (i / g.d1) % g.m1 * g.s1 +",
+        "return (i / g.d1 + 1) % g.m1 * g.s1 +"),
+    "K4: norm clamp 1e-12 on the sum of squares for 1e-24": (
+        "window_attn.cu", "fmaxf(sum_sq, 1e-24f)", "fmaxf(sum_sq, 1e-12f)"),
+    "K6: weights rounded before they are normalised": (
+        "window_attn.cu", "return d < -87.f ? 0.f : expf(d) / z;",
+        f"return d < -87.f ? 0.f : {ROUND_BF16.format('expf(d)')} / z;"),
+    "K1': ties to the higher row": (
+        "topk_select.cu", "static_cast<unsigned>(~row);", "static_cast<unsigned>(row);",
+        "return static_cast<int>(~static_cast<unsigned>(key & 0xffffffffu));",
+        "return static_cast<int>(static_cast<unsigned>(key & 0xffffffffu));"),
+    "K1': the k-th key left out of the gather": (
+        "topk_select.cu", "take = key >= prefix;", "take = key > prefix;"),
+    "K1': -0 ranked below +0": (
+        "topk_select.cu", "__float_as_uint(__fadd_rn(score, 0.f))", "__float_as_uint(score)"),
 }
 
 
@@ -131,6 +157,95 @@ def read_ln(dtype, plain_unrounded=False):
     return worst(r7), worst(r8)
 
 
+def window_cases(gen, dtype):
+    """K4's operands in its fold (head, window, image): SwinV2-Base's last two
+    stage shapes at B = 2, a shifted fold with ragged N, and a case with every
+    scale at the clamp, few live keys a row and rows of norm 1e-9 (which only
+    the 1e-24 clamp normalises). Yields (q, k, v, bias, scale, g_size, b, nw, h)."""
+    for b, nw, h, n, shifted, hard in ((2, 1, 16, 576, False, False), (2, 1, 32, 144, False, False),
+                                       (2, 4, 2, 140, True, False), (3, 4, 2, 144, True, True)):
+        q, k, v = (torch.randn((h * nw * b, n, 32), generator=gen).cuda() for _ in range(3))
+        groups = h * nw if shifted else h
+        bias = (16 * torch.rand((groups, n, n), generator=gen)).cuda()
+        if shifted:
+            bias += torch.where(torch.rand((groups, n, n), generator=gen) < 0.4, -100.0,
+                                0.0).cuda()
+        scale = (1 + 59 * torch.rand(groups, generator=gen)).cuda()
+        if hard:
+            scale.fill_(100.0)
+            bias[:, :, 3:] -= 100.0
+            q[:, ::3] *= 1e-9 / 5.6
+            k[:, 1::4] *= 1e-9 / 5.6
+        yield (q.to(dtype), k.to(dtype), v.to(dtype), bias, scale,
+               b if shifted else nw * b, b, nw, h)
+
+
+def plain_k_unrounded(q, k, v, bias, scale, g_size, cosine):
+    """K4's plain version with the normalised k left in f32."""
+    gidx = va.group_index(q.shape[0], bias.shape[0], g_size, q.device)
+    c = (scale.reshape(-1).float() * va.LOG2E)[gidx][:, None, None]
+    qf, kf = q.float(), k.float()
+    qs = ((qf * va.inv_norm(qf)) * c).to(q.dtype)
+    s = torch.matmul(qs.float(), (kf * va.inv_norm(kf)).transpose(-1, -2))
+    s = s + (bias.float() * va.LOG2E)[gidx]
+    e = torch.exp2(s - s.amax(dim=-1, keepdim=True))
+    o = torch.matmul(e.to(v.dtype).float(), v.float())
+    return (o / e.sum(dim=-1, keepdim=True)).to(v.dtype)
+
+
+def read_window(dtype, k4_plain=va.biased_attention_plain):
+    """(K4's, K6's) worst reading over ``window_cases``."""
+    gen = torch.Generator().manual_seed(2)
+    r4, r6 = [], []
+    with torch.inference_mode():
+        for q, k, v, bias, scale, g_size, b, nw, h in window_cases(gen, dtype):
+            out = va.biased_attention_fused(q, k, v, bias, scale, g_size, True)
+            r4.append(va.window_agreement(out, k4_plain(q, k, v, bias, scale, g_size, True)))
+            n = q.shape[1]
+
+            def layout(t):
+                return t.reshape(h, nw, b, n, 32).permute(1, 2, 0, 3, 4).contiguous()
+
+            qf, kf = layout(q).float(), layout(k).float()
+            per_head = scale.reshape(h, -1)[:, 0].reshape(1, 1, h, 1, 1)
+            ops = ((qf * va.inv_norm(qf) * per_head).to(dtype), (kf * va.inv_norm(kf)).to(dtype),
+                   layout(v), bias.reshape(h, -1, n, n).permute(1, 0, 2, 3).contiguous())
+            r6.append(va.window_agreement(wa.window_attention_fused(*ops),
+                                          wa.window_attention_plain(*ops)))
+    return worst(r4), worst(r6)
+
+
+def read_select():
+    """K1' on integer inputs with planted ties, masked rows and -0 scores:
+    of_bound 0 when ids and values are bit-equal to the plain version's."""
+    gen = torch.Generator().manual_seed(3)
+    equal = True
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randint(-3, 4, (33, 64), generator=gen).float()
+        g = torch.randint(-3, 4, (4099, 64), generator=gen).float()
+        g[[5, 63, 64, 2048, 4098]] = g[3].clone()
+        q[0] = g[3]
+        q, g = q.to("cuda", dtype), g.to("cuda", dtype)
+        bias = torch.zeros(4099, device="cuda")
+        bias[4090:] = float("-inf")
+        for k in (1025, 2048, 4099):
+            v, i = fused_topk_scores(q, g, bias, k)
+            torch.cuda.synchronize()
+            rv, ri = topk_scores_reference(q, g, bias, k)
+            equal &= torch.equal(v, rv) and torch.equal(i, ri)
+        # a last product that underflows to -0 on some rows, plus a bias of
+        # -0, gives scores of -0 there and +0 on the rest: all equal, so the
+        # ranking is the row order
+        q = torch.zeros((2, 64))
+        g = torch.zeros((2100, 64))
+        q[0, 63], q[1, 63] = -1e-30, 1e-30
+        g[10:900:7, 63] = 1e-30
+        i = fused_topk_scores(q.to("cuda", dtype), g.to("cuda", dtype),
+                              torch.full((2100,), -0.0, device="cuda"), 2100)[1]
+        equal &= torch.equal(i, torch.arange(2100, device="cuda", dtype=torch.int32).expand(2, -1))
+    return {"max_abs_err": 0.0, "of_bound": 0.0 if equal else float("inf"), "mean_steps": 0.0}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_faults: torch.cuda.is_available() is False; this script needs a "
@@ -152,21 +267,46 @@ def main():
         e7, e8 = read_ln(dtype)
         report("the kernel", f"K7 {str(dtype)[6:]}", e7, True)
         report("the kernel", f"K8 {str(dtype)[6:]}", e8, True)
+    for dtype in (torch.bfloat16, torch.float32):
+        e4, e6 = read_window(dtype)
+        report("the kernel", f"K4 {str(dtype)[6:]}", e4, True)
+        report("the kernel", f"K6 {str(dtype)[6:]}", e6, True)
+    report("the kernel", "K1'", read_select(), True)
+    report("K4's plain version with the normalised k left unrounded", "K4 bf16",
+           read_window(torch.bfloat16, plain_k_unrounded)[0], False)
     report("K2: q-scale constant not rounded to bf16", "K2 bf16",
            read_attention(lambda s, dtype: s * va.LOG2E), False)
     report("K8's plain version with the LN output left unrounded", "K8 bf16",
            read_ln(torch.bfloat16, plain_unrounded=True)[1], False)
     with tempfile.TemporaryDirectory() as tmp:
-        for i, (name, (file, old, new)) in enumerate(SOURCE_FAULTS.items()):
+        for i, (name, (file, *subs)) in enumerate(SOURCE_FAULTS.items()):
             directory = Path(tmp) / f"fault{i}"
             shutil.copytree(REAL_CSRC, directory)
             text = (directory / file).read_text()
-            if text.count(old) != 1:
-                raise SystemExit(f"chip_faults: {file} does not hold exactly one {old!r}")
-            (directory / file).write_text(text.replace(old, new))
+            for old, new in zip(subs[0::2], subs[1::2]):
+                if text.count(old) < 1:
+                    raise SystemExit(f"chip_faults: {file} does not hold {old!r}")
+                text = text.replace(old, new)  # every occurrence: the f32 and bf16 kernels
+            (directory / file).write_text(text)
             use_sources(directory)
             if name.startswith("K2"):
                 report(name, "K2 bf16", read_attention(), False)
+                continue
+            if name.startswith("K1'"):
+                report(name, "K1'", read_select(), False)
+                continue
+            if name.startswith(("K4", "K6")):
+                b4, b6 = read_window(torch.bfloat16)
+                f4, f6 = read_window(torch.float32)
+                rounding = "rounded" in name  # faults of rounding do not show in f32
+                if "K4" in name:
+                    report(name, "K4 bf16", b4, False)
+                    if not rounding:
+                        report(name, "K4 float32", f4, False)
+                if "K6" in name:
+                    report(name, "K6 bf16", b6, False)
+                    if not rounding:
+                        report(name, "K6 float32", f6, False)
                 continue
             e7, e8 = read_ln(torch.bfloat16)
             f7, f8 = read_ln(torch.float32)

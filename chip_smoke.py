@@ -61,6 +61,36 @@ Phases, each of which raises (exit code != 0) on any failure:
              batch 16 at 518 px with the kernels, with K8 too, with the
              kernels' plain versions, and on the eager path, the kernels'
              embeddings held to the last two; CUDA events, in turns
+ 12. kernel  K4 and K6 (csrc/window_attn.cu) against their plain versions, f32
+             and bf16: every SwinV2-Base shape at 384 px (stages 1-4, shifted
+             and unshifted, B = 16), ragged N (140, 77, 1), groups that wrap,
+             every logit scale at its clamp of 100 with a -100 mask that
+             leaves rows few live keys, rows of tiny norm; within the bounds
+             of ops/vit_attn.py::window_agreement; two runs bit-equal
+ 13. kernel  K1' (csrc/topk_select.cu) against the plain top-k: bit-equal on
+             integer inputs for k in {1025, 2048, 4096, N} at N in {4096,
+             100,000}, f32 and bf16, and its first 1024 entries against K1's
+ 14. slice   the ingest -> query CLIs with SwinV2-Base at full width (432
+             decode, 384 crop, 24 blocks, 1024-d) under XMIR_FUSED_ATTN=1 and
+             --resume of a timm-layout .pt with random nonzero LN / logit_scale
+             / cpb / biases: K4 in every block of every batch, K6 in none, K1
+             for the search; then cli.test --save-dir on the query set (K4
+             again; the artifact's metrics against those recomputed from its
+             own embeddings with numpy); then ingest -> query again under
+             XMIR_SWIN_KERNEL=v1: K6 in every block, K4 in none; the hits
+             against the plain top-k, and the query embeddings against the
+             same model with the kernels' plain versions and on the eager path
+ 15. slice   cli.query --top-k 0 over a DenseNet121 gallery of 2048 rows: K1'
+             once, K1 never, the whole gallery ranked as a stable sort
+ 16. rates   K4 and K6 at the six SwinV2-Base shapes at B = 16, bf16 and f32,
+             against their plain versions and one
+             scaled_dot_product_attention call on pre-normalised inputs (timed
+             here, used nowhere in the port), with the time of the fold and
+             unfold copies around K4; K1' at Q = 1024, N = 100,000, D = 1024,
+             k = 2048 and at Q = 64, k = N, with K1 at k = 10 in the same
+             turns; SwinV2-Base bf16 (weights and input) batch 16 at 384 px
+             with K4, with K6, with the kernels' plain versions and on the
+             eager path; CUDA events, in turns
 The launch counts are set to 0 before each slice and read after it. Each
 kernel's bound (the least time the card could take: bytes moved once over
 3.35 TB/s, or operations over the peak of their type) is reckoned from the
@@ -84,10 +114,12 @@ import torch
 import torch.nn.functional as F
 
 from xmir_tpu_torch.cli import common, ingest, query
+from xmir_tpu_torch.cli import test as test_cli
 from xmir_tpu_torch.data.pipeline import embed_dataset
 from xmir_tpu_torch.data.synthetic import write_synthetic_covidx
 from xmir_tpu_torch.index import ShardedGalleryIndex
 from xmir_tpu_torch.models import convnext as convnext_model
+from xmir_tpu_torch.models import swin as swin_model
 from xmir_tpu_torch.models import vit as vit_model
 from xmir_tpu_torch.models.registry import create_model
 from xmir_tpu_torch.ops import _build
@@ -95,9 +127,15 @@ from xmir_tpu_torch.ops import convnext_block as cb
 from xmir_tpu_torch.ops import ln_dense as ld
 from xmir_tpu_torch.ops import plain_attn
 from xmir_tpu_torch.ops import vit_attn as va
+from xmir_tpu_torch.ops import window_attn as wa
 from xmir_tpu_torch.ops.distance import l2_normalize
 from xmir_tpu_torch.ops.topk_fused import fused_topk
-from xmir_tpu_torch.ops.topk_kernels import fused_topk_scores, launch_plan, topk_scores_reference
+from xmir_tpu_torch.ops.topk_kernels import (
+    fused_topk_scores,
+    launch_plan,
+    select_topk_scores,
+    topk_scores_reference,
+)
 from xmir_tpu_torch.train import make_embed_fn
 
 REPO = Path(__file__).resolve().parent
@@ -105,9 +143,18 @@ KERNELS = {
     "K1": {"name": "fused_topk_scores", "route": "cuda",
            "source": "xmir_tpu_torch/csrc/topk.cu",
            "replaces": "xmir_tpu/ops/topk_pallas.py:243"},
+    "K1'": {"name": "select_topk_scores", "route": "cuda",
+            "source": "xmir_tpu_torch/csrc/topk_select.cu",
+            "replaces": "xmir_tpu/ops/topk_pallas.py:81"},
     "K2": {"name": "vit_attention_fused", "route": "cuda",
            "source": "xmir_tpu_torch/csrc/vit_attn.cu",
            "replaces": "xmir_tpu/ops/vit_attn_pallas.py:199"},
+    "K4": {"name": "biased_attention_fused", "route": "cuda",
+           "source": "xmir_tpu_torch/csrc/window_attn.cu",
+           "replaces": "xmir_tpu/ops/vit_attn_pallas.py:320"},
+    "K6": {"name": "window_attention_fused", "route": "cuda",
+           "source": "xmir_tpu_torch/csrc/window_attn.cu",
+           "replaces": "xmir_tpu/ops/window_attn_pallas.py:54"},
     "K7": {"name": "ln_qkv_fused", "route": "cuda",
            "source": "xmir_tpu_torch/csrc/ln_dense.cu",
            "replaces": "xmir_tpu/ops/ln_dense_pallas.py:193"},
@@ -319,7 +366,9 @@ def check_hits(calls, results, n_gallery, n_queries, dim):
     return max(err, s_err)
 
 
-WRAPPERS = {"K1": fused_topk_scores, "K2": va.vit_attention_fused, "K7": ld.ln_qkv_fused,
+WRAPPERS = {"K1": fused_topk_scores, "K1'": select_topk_scores, "K2": va.vit_attention_fused,
+            "K4": va.biased_attention_fused, "K6": wa.window_attention_fused,
+            "K7": ld.ln_qkv_fused,
             "K8": ld.ln_dense_fused, "K9": cb.convnext_block_fused,
             "K11": cb.convnext_mlp_grn_fused}
 
@@ -570,7 +619,7 @@ def phase_slice_convnext(workdir: Path):
               f"K9 launched {launches['K9']} times, not {DEPTH} x {batches} batches")
         check(launches["K1"] > 0, "the query path did not launch the top-k kernel")
         # every block takes K9 (LN inside); like the JAX model, none calls K11
-        check(all(launches[key] == 0 for key in ("K11", "K2", "K7", "K8")),
+        check(all(n == 0 for key, n in launches.items() if key not in ("K1", "K9")),
               f"ConvNeXtV2 launched a kernel that is not on its path: {launches}")
         log(f"[slice] ConvNeXtV2: K9 launches {launches['K9']} ({DEPTH} blocks x {batches} "
             f"batches), K1 launches {launches['K1']}, K11 launches {launches['K11']}")
@@ -883,8 +932,9 @@ def phase_slice_dinov2(workdir: Path):
                                                "--output", hits_path])
                 wall = time.perf_counter() - t0
             launches = read_launches()
-            want = {"K1": 1, "K2": per_path, "K7": per_path, "K8": per_path if mlp == "1" else 0,
-                    "K9": 0, "K11": 0}
+            want = dict.fromkeys(WRAPPERS, 0)
+            want.update({"K1": 1, "K2": per_path, "K7": per_path,
+                         "K8": per_path if mlp == "1" else 0})
             check(launches == want, f"{path}: launches {launches}, expected {want} "
                                     f"({VIT['depth']} blocks x {batches} batches)")
             log(f"[slice] {path}: launches {launches} ({VIT['depth']} blocks x {batches} "
@@ -1022,9 +1072,583 @@ def phase_vit_rates():
     return out
 
 
+# SwinV2-Base at 384 px: (windows per image, heads, tokens per window, shifted,
+# blocks of this shape per forward), head width 32 throughout
+SWIN_SHAPES = ((16, 4, 576, False, 1), (16, 4, 576, True, 1), (4, 8, 576, False, 1),
+               (4, 8, 576, True, 1), (1, 16, 576, False, 18), (1, 32, 144, False, 2))
+SWIN_DEPTH = sum(s[4] for s in SWIN_SHAPES)  # 24 blocks: K4 (or K6) launches per batch
+SWIN_HD = 32
+
+
+def _swin_inputs(gen, b, nw, h, n, shifted, dtype, scale_max=100.0):
+    """One block's attention operands in K4's fold (head, window, image):
+    q, k, v (h nw b, n, 32), the bias (CPB + a random -100 shift mask, one
+    slice per (head, window)) or (h, n, n), scales up to the clamp of 100."""
+    q, k, v = (torch.randn((h * nw * b, n, SWIN_HD), generator=gen).to("cuda", dtype)
+               for _ in range(3))
+    groups = h * nw if shifted else h
+    bias = (16 * torch.rand((groups, n, n), generator=gen)).cuda()
+    if shifted:
+        bias += torch.where(torch.rand((groups, n, n), generator=gen) < 0.4, -100.0, 0.0).cuda()
+    scale = (1 + (scale_max - 1) * torch.rand(groups, generator=gen)).cuda()
+    return q, k, v, bias, scale, (b if shifted else nw * b)
+
+
+def _v1_inputs(q, k, v, bias, scale, b, nw, h, shifted):
+    """The same block's operands as K6 takes them: (nw, b, h, n, 32) with q
+    normalised and scaled and k normalised outside, bias (nw or 1, h, n, n)."""
+    n = q.shape[1]
+    per_head = scale.reshape(h, -1)[:, 0].reshape(1, 1, h, 1, 1)
+
+    def layout(t):
+        return t.reshape(h, nw, b, n, SWIN_HD).permute(1, 2, 0, 3, 4).contiguous()
+
+    qf, kf = layout(q).float(), layout(k).float()
+    qs = (qf * va.inv_norm(qf) * per_head).to(q.dtype)
+    kn = (kf * va.inv_norm(kf)).to(q.dtype)
+    b6 = (bias.reshape(h, nw, n, n).permute(1, 0, 2, 3).contiguous() if shifted
+          else bias[None].contiguous())
+    return qs, kn, layout(v), b6
+
+
+def window_err(out, ref, what):
+    e = va.window_agreement(out, ref)
+    check(cb.agrees(e), f"{what}: the kernel differs from its plain version past the bounds of "
+                        f"ops/vit_attn.py::window_agreement: {e}")
+    return e
+
+
+def phase_kernel_window():
+    gen = torch.Generator().manual_seed(13)
+    err = {"K4": {}, "K6": {}}
+    cases = [(16, nw, h, n, sh, "Swin-B, B 16") for nw, h, n, sh, _ in SWIN_SHAPES] + [
+        (2, 3, 2, 140, True, "ragged N"), (1, 2, 2, 77, True, "odd N"),
+        (3, 1, 5, 1, False, "N 1"), (2, 4, 2, 144, False, "N 144")]
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            for b, nw, h, n, shifted, what in cases:
+                q, k, v, bias, scale, g_size = _swin_inputs(gen, b, nw, h, n, shifted, dtype)
+                shape = f"B={b} windows={nw} H={h} N={n} {'shifted' if shifted else 'unshifted'}"
+                e4 = {}
+                for cosine, sc in ((True, scale), (False, scale * 0.01)):
+                    out = va.biased_attention_fused(q, k, v, bias, sc, g_size, cosine)
+                    again = va.biased_attention_fused(q, k, v, bias, sc, g_size, cosine)
+                    torch.cuda.synchronize()
+                    check(torch.equal(out, again), f"K4 {name} {shape}: two runs differ")
+                    _worst(e4, window_err(
+                        out, va.biased_attention_plain(q, k, v, bias, sc, g_size, cosine),
+                        f"K4 {name} {shape} cosine={cosine}"))
+                    del out, again
+                ops = _v1_inputs(q, k, v, bias, scale, b, nw, h, shifted)
+                out = wa.window_attention_fused(*ops)
+                check(torch.equal(out, wa.window_attention_fused(*ops)),
+                      f"K6 {name} {shape}: two runs differ")
+                e6 = window_err(out, wa.window_attention_plain(*ops), f"K6 {name} {shape}")
+                _worst(err["K4"].setdefault(name, {}), e4)
+                _worst(err["K6"].setdefault(name, {}), e6)
+                log(f"[kernel] K4/K6 {name:8s} {shape} ({what}): K4 (cosine on / off) {e4}; "
+                    f"K6 {e6}; each twice bit-equal")
+                del q, k, v, bias, scale, ops, out
+                torch.cuda.empty_cache()
+            # every scale at the clamp, a mask that leaves rows one to three
+            # live keys, and rows of tiny norm (1e-9: normalised; 1e-14: below
+            # the clamp of 1e-24 on the sum of squares)
+            q, k, v, bias, scale, g_size = _swin_inputs(gen, 4, 4, 2, 144, True, torch.float32)
+            scale.fill_(100.0)
+            bias[:, :, 3:] -= 100.0
+            bias[:, ::5, 1:] -= 100.0
+            q[:, ::7] *= 1e-9 / 5.6
+            k[:, 2::9] *= 1e-14 / 5.6
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            out = va.biased_attention_fused(q, k, v, bias, scale, g_size, True)
+            check(torch.isfinite(out.float()).all(), "K4: non-finite output at the clamp")
+            e = window_err(out, va.biased_attention_plain(q, k, v, bias, scale, g_size, True),
+                           f"K4 {name} scale 100, few live keys, tiny rows")
+            _worst(err["K4"][name], e)
+            log(f"[kernel] K4 {name:8s} scale 100, rows with one to three live keys, rows of "
+                f"norm 1e-9 and 1e-14: {e}")
+    return err
+
+
+def phase_kernel_select():
+    gen = torch.Generator().manual_seed(14)
+    for dtype in (torch.float32, torch.bfloat16):
+        for q_n, n, d in ((70, 4096, 96), (64, 100_000, 64)):
+            for k in sorted({1025, 2048, 4096, n}):
+                q, g = _int_inputs(gen, q_n, n, d, 1024, dtype)
+                bias = torch.zeros(n, device="cuda")
+                bias[n - 9:] = float("-inf")
+                v, i = fused_topk_scores(q, g, bias, k)
+                torch.cuda.synchronize()
+                rv, ri = topk_scores_reference(q, g, bias, k)
+                check(torch.equal(v, rv) and torch.equal(i, ri),
+                      f"K1' integer inputs not bit-equal: {dtype} Q={q_n} N={n} D={d} k={k}")
+                v1, i1 = fused_topk_scores(q, g, bias, 1024)
+                check(torch.equal(v1, v[:, :1024]) and torch.equal(i1, i[:, :1024]),
+                      f"K1' and K1 disagree on the first 1024: {dtype} N={n} k={k}")
+            log(f"[kernel] K1' {str(dtype)[6:]:8s} Q={q_n} N={n} D={d}: k in 1025, 2048, 4096, N "
+                "bit-equal to the plain version on integer inputs (ties across tiles, masked "
+                "rows); first 1024 equal to K1's")
+    q, g = _random_inputs(gen, 70, 4099, 96, torch.float32)
+    bias = torch.zeros(4099, device="cuda")
+    v, i = fused_topk_scores(q, g, bias, 2048)
+    rv, ri = topk_scores_reference(q, g, bias, 2049)
+    err, checked, total = compare(v, i, rv[:, :2048], ri[:, :2048], 1e-5, rv)
+    log(f"[kernel] K1' random inputs k=2048: max err {err:.3g}, {checked}/{total} ids outside "
+        "near-ties equal")
+    return err
+
+
+@contextlib.contextmanager
+def swin_plain_versions():
+    """The Swin model's kernel calls pointed at the kernels' plain versions."""
+    saved = (swin_model.biased_attention_fused, swin_model.window_attention_fused)
+    swin_model.biased_attention_fused = va.biased_attention_plain
+    swin_model.window_attention_fused = wa.window_attention_plain
+    try:
+        yield
+    finally:
+        swin_model.biased_attention_fused, swin_model.window_attention_fused = saved
+
+
+def randomize_swin_(backbone, seed):
+    """Random nonzero LayerNorm, bias, q / v bias and logit_scale tensors
+    (log 3 to log 60, one head of each block above the clamp) in place: at
+    init they are 1 / 0 / log 10."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in backbone.named_parameters():
+            if name.endswith("logit_scale"):
+                p.copy_(1.1 + 3.0 * torch.rand(p.shape, generator=gen))
+                p[0] = 5.0
+            elif name.endswith((".bias", "q_bias", "v_bias")):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+            elif "norm" in name:
+                p.copy_(1 + 0.2 * torch.randn(p.shape, generator=gen))
+    return backbone
+
+
+def write_swin_checkpoint(path, seed):
+    """SwinV2-Base in timm's layout, wrapped in a ``swinv2.`` prefix, with
+    timm's buffers and classifier, which the port's loader drops."""
+    backbone = randomize_swin_(
+        swin_model.swinv2_base_window12to24_192to384(torch.Generator().manual_seed(seed)),
+        seed + 1)
+    sd = {f"swinv2.{k}": v for k, v in backbone.state_dict().items()}
+    sd.update({"swinv2.layers.0.blocks.1.attn_mask": torch.zeros(16, 576, 576),
+               "swinv2.layers.0.blocks.0.attn.relative_position_index":
+                   torch.zeros(576, 576, dtype=torch.long),
+               "swinv2.head.fc.weight": torch.zeros(1000, 1024),
+               "swinv2.head.fc.bias": torch.zeros(1000)})
+    torch.save(sd, path)
+
+
+# f32 unit embeddings of the SwinV2 slice's queries: the kernels against the
+# same model with their plain versions (the f32 sums' order) and against the
+# eager path (which also takes exp for exp2 and normalises q and k before
+# the scale): 5.3e-8 and 5.6e-8 seen (PERF.md), 2e-6 allowed, which a
+# moved rounding or a wrong bias slice passes by orders of magnitude
+SWIN_EMBED_TOL = {"plain versions": 2e-6, "eager": 2e-6}
+
+
+def phase_slice_swinv2(workdir: Path):
+    t0 = time.perf_counter()
+    n_g, n_q, batch = 32, 16, 16
+    img_dir, g_manifest = write_synthetic_covidx(str(workdir / "s_gallery"), n=n_g, size=256,
+                                                 seed=6)
+    q_dir, q_manifest = write_synthetic_covidx(str(workdir / "s_queries"), n=n_q, size=256,
+                                               seed=7)
+    pt = str(workdir / "swinv2_timm.pt")
+    write_swin_checkpoint(pt, seed=15)
+    log(f"[slice] SwinV2: wrote {n_g} + {n_q} PNGs and a timm-layout .pt in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gal, hits_path = str(workdir / "s_gallery.npz"), str(workdir / "s_hits.json")
+    model_args = ["--model", "swinv2", "--device", "cuda", "--seed", "0", "--resume", pt,
+                  "-j", "8"]
+    test_args = ["--dataset", "covid", "--dataset-dir", q_dir, "--test-image-list",
+                 q_manifest] + model_args
+    q_args = test_args + ["--split", "test"]
+    batches = -(-n_g // batch) + -(-n_q // batch)
+    p = argparse.ArgumentParser()
+    common.add_dataset_args(p)
+    common.add_model_args(p)
+    args, _ = p.parse_known_args(q_args)
+
+    def reembed():
+        model, spec = common.build_model(args, torch.device("cuda"))
+        ref, _ = embed_dataset(common.build_dataset(args, "test"), make_embed_fn(model), spec,
+                               device="cuda", batch_size=batch, num_workers=8)
+        return ref
+
+    out = {}
+    for path, v1 in (("swinv2", ""), ("swinv2_v1", "v1")):
+        calls = []
+        kernel, other = ("K6", "K4") if v1 else ("K4", "K6")
+        with env_flags(XMIR_FUSED_ATTN="1", XMIR_SWIN_KERNEL=v1):  # the f32 CLIs take the kernels
+            reset_launches()
+            with record_searches(calls):
+                t0 = time.perf_counter()
+                ingest.main(["--dataset", "covid", "--dataset-dir", img_dir,
+                             "--train-image-list", g_manifest, "--split", "train",
+                             "--output", gal, "--batch-size", str(batch)] + model_args)
+                results = query.main(q_args + ["--index", gal, "--top-k", "10", "--output",
+                                               hits_path, "--batch-size", str(batch)])
+                wall = time.perf_counter() - t0
+            launches = read_launches()
+            want = dict.fromkeys(WRAPPERS, 0)
+            want.update({"K1": 1, kernel: SWIN_DEPTH * batches})
+            check(launches == want, f"{path}: launches {launches}, expected {want} "
+                                    f"({SWIN_DEPTH} blocks x {batches} batches, no {other})")
+            log(f"[slice] {path}: launches {launches} ({SWIN_DEPTH} blocks x {batches} batches "
+                f"of {batch}); ingest + query {wall:.1f} s wall")
+            err = check_hits(calls, results, n_g, n_q, 1024)
+            out[path] = {"launches": launches, "err": err}
+            if not v1:
+                # the evaluation CLI on the query set: K4 again, and its artifact
+                reset_launches()
+                save_dir = str(workdir / "s_eval")
+                metrics = test_cli.main(test_args + ["--save-dir", save_dir,
+                                                     "--eval-batch-size", str(batch)])
+                launches = read_launches()
+                want = dict.fromkeys(WRAPPERS, 0)
+                want["K4"] = SWIN_DEPTH * -(-n_q // batch)
+                check(launches == want, f"cli.test: launches {launches}, expected {want}")
+                out["swinv2_test"] = {"launches": launches, "err": 0.0,
+                                      "metrics": check_evaluation(save_dir, metrics, n_q)}
+            with swin_plain_versions():
+                plain = reembed()
+        with env_flags(XMIR_FUSED_ATTN="0"):
+            eager = reembed()
+        emb = calls[0][1]
+        diff = {"plain versions": (emb - plain).abs().max().item(),
+                "eager": (emb - eager).abs().max().item()}
+        for k, v in diff.items():
+            check(v <= SWIN_EMBED_TOL[k], f"{path}: query embeddings differ from the {k}'s by "
+                                          f"{v} > {SWIN_EMBED_TOL[k]}")
+        log(f"[slice] {path}: query embeddings vs the same model's {diff} (bounds "
+            f"{SWIN_EMBED_TOL})")
+        out[path]["embedding_max_abs_err"] = diff
+    return out
+
+
+def check_evaluation(save_dir, metrics, n):
+    """cli.test's artifact: shapes, finite values, and every metric equal to
+    what numpy makes of the artifact's own embeddings and labels."""
+    art = np.load(os.path.join(save_dir, "evaluation_results.npz"))
+    embeds, labels, dists = art["embeds"], art["labels"], art["dists"]
+    check(embeds.shape == (n, 1024) and labels.shape == (n,) and dists.shape == (n, n),
+          f"artifact shapes {embeds.shape}, {labels.shape}, {dists.shape}")
+    check(np.isfinite(embeds).all() and np.isneginf(np.diag(dists)).all(), "bad artifact")
+    e = embeds.astype(np.float64)
+    exact = -np.sqrt(np.maximum(((e[:, None] - e[None]) ** 2).sum(-1), 0.0))
+    off = ~np.eye(n, dtype=bool)
+    d_err = np.abs(dists[off] - exact[off]).max()
+    # sqrt(|a|^2 + |b|^2 - 2 a.b) of nearly equal unit rows cancels: an f32
+    # residue of 2e-7 under the root is 5e-4 at worst
+    check(d_err <= 2e-3, f"the artifact's distances lie {d_err} from numpy's")
+    stored = json.loads(str(art["metrics"]))
+    check(stored == json.loads(json.dumps(metrics, default=float)), "artifact metrics != returned")
+    # R@K and majority vote at K = 1, recomputed from the stored distances
+    order = np.argsort(-dists, axis=1, kind="stable")
+    hit1 = labels[order[:, 0]] == labels
+    check(abs(stored["R@1"] - 100.0 * hit1.mean()) <= 1e-9, "R@1 differs from numpy's")
+    for k in (5, 10):
+        hit = (labels[order[:, :k]] == labels[:, None]).any(axis=1)
+        check(abs(stored[f"R@{k}"] - 100.0 * hit.mean()) <= 1e-9, f"R@{k} differs from numpy's")
+    vote1 = labels[np.argsort(-dists, axis=0, kind="stable")[0]] == labels  # ranked by column
+    check(abs(stored["classification"]["1"]["accuracy"] - 100.0 * vote1.mean()) <= 1e-9,
+          "majority vote at K = 1 differs from numpy's")
+    flat = [stored[k] for k in ("R@1", "R@5", "R@10", "mAP", "mP@1", "mP@5", "mP@10")] + [
+        v for c in stored["classification"].values() for v in c.values()]
+    check(len(flat) == 7 + 35 and np.isfinite(flat).all() and 0 < stored["mAP"] <= 100,
+          "missing or non-finite metrics")
+    log(f"[slice] cli.test: evaluation_results.npz holds {len(flat)} finite metrics (R@1 "
+        f"{stored['R@1']:.2f}, mAP {stored['mAP']:.2f}) equal to numpy's; distances within "
+        f"{d_err:.2g}")
+    return {k: stored[k] for k in ("R@1", "R@5", "R@10", "mAP")}
+
+
+def phase_slice_full_ranking(workdir: Path):
+    """--top-k 0 over a gallery above 1024 rows: the select kernel's path."""
+    t0 = time.perf_counter()
+    n_g, n_q = 2048, 16
+    img_dir, g_manifest = write_synthetic_covidx(str(workdir / "r_gallery"), n=n_g, size=64,
+                                                 seed=8)
+    q_dir, q_manifest = write_synthetic_covidx(str(workdir / "r_queries"), n=n_q, size=64, seed=9)
+    log(f"[slice] full ranking: wrote {n_g} + {n_q} PNGs (64 px) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gal, hits_path = str(workdir / "r_gallery.npz"), str(workdir / "r_hits.json")
+    model_args = ["--model", "densenet121", "--device", "cuda", "--seed", "0",
+                  "--batch-size", "128", "-j", "8"]
+    calls = []
+    ingest.main(["--dataset", "covid", "--dataset-dir", img_dir, "--train-image-list",
+                 g_manifest, "--split", "train", "--output", gal] + model_args)
+    reset_launches()
+    with record_searches(calls):
+        results = query.main(["--dataset", "covid", "--dataset-dir", q_dir, "--test-image-list",
+                              q_manifest, "--split", "test", "--index", gal, "--top-k", "0",
+                              "--output", hits_path] + model_args)
+    launches = read_launches()
+    want = dict.fromkeys(WRAPPERS, 0)
+    want["K1'"] = 1
+    check(launches == want, f"--top-k 0: launches {launches}, expected {want}")
+    idx, queries, k = calls[0]
+    check(k == n_g and all(len(r["results"]) == n_g for r in results), "not the whole gallery")
+    ids = torch.tensor([[h["id"] for h in r["results"]] for r in results], device="cuda")
+    v = torch.tensor([[h["similarity"] for h in r["results"]] for r in results], device="cuda")
+    rv, ri = topk_scores_reference(l2_normalize(queries), idx._device_embeds,
+                                   torch.zeros(n_g, device="cuda"), n_g)
+    check(torch.equal(ids.sort(dim=1).values, torch.arange(n_g, device="cuda").expand(n_q, -1)),
+          "a ranking is no permutation of the gallery")
+    err = (v - rv).abs().max().item()
+    check(err <= 1e-5 and (v[:, 1:] <= v[:, :-1]).all(), f"ranking values differ by {err}")
+    # equal scores keep row order, as a stable sort leaves them
+    order_ok = (v[:, 1:] < v[:, :-1]) | (ids[:, 1:] > ids[:, :-1])
+    check(order_ok.all(), "equal scores are not in row order")
+    gaps = ranked_gaps(torch.cat([rv, rv[:, -1:] - 1], dim=1).double(), n_g)
+    agree = ((ids == ri) | (gaps <= TIE_GAP)).all().item()
+    check(agree, "ids differ from the stable sort away from near-ties")
+    log(f"[slice] --top-k 0 over {n_g} rows: launches {launches}; every ranking a permutation "
+        f"in stable order, values within {err:.3g} of the plain version's, "
+        f"{int((gaps > TIE_GAP).sum())}/{gaps.numel()} ids outside near-ties equal")
+    return launches, err
+
+
+def _window_work(b, nw, h, n, shifted, dtype):
+    """(operations, bytes) of one K4 / K6 call: two matrix products per
+    score, q / k / v / out once, the bias slices and scales once."""
+    size = torch.empty((), dtype=dtype).element_size()
+    bh, groups = b * nw * h, (nw * h if shifted else h)
+    return 4 * bh * n * n * SWIN_HD, 4 * bh * n * SWIN_HD * size + groups * (n * n + 1) * 4
+
+
+def phase_window_rates():
+    gen = torch.Generator().manual_seed(16)
+    b = 16
+    out = {"K4": {}, "K6": {}}
+    with torch.inference_mode():
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype)[6:]
+            total = {key: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+                     for key in out}
+            bound_by, fold_ms = set(), 0.0
+            for nw, h, n, shifted, count in SWIN_SHAPES:
+                q, k, v, bias, scale, g_size = _swin_inputs(gen, b, nw, h, n, shifted, dtype,
+                                                            scale_max=30.0)
+                ops6 = _v1_inputs(q, k, v, bias, scale, b, nw, h, shifted)
+                # the library call on the same pre-normalised operands: heads
+                # (and, shifted, windows) on the head axis so the mask broadcasts
+                lq, lk, lv = (t.permute(1, 0, 2, 3, 4).reshape(b, -1, n, SWIN_HD) if shifted
+                              else t.reshape(b * nw, h, n, SWIN_HD) for t in ops6[:3])
+                mask = ops6[3].reshape(1, -1, n, n).to(dtype)
+                # the model's copies around K4: three folds of (B, nw, H, N, hd)
+                # into (H nw B, N, hd) and one back into (B nw, N, C)
+                bw_qkv = q.reshape(h, nw, b, n, SWIN_HD).permute(2, 1, 0, 3, 4).contiguous()
+
+                def folds():
+                    for _ in range(3):
+                        bw_qkv.permute(2, 1, 0, 3, 4).reshape(-1, n, SWIN_HD).contiguous()
+                    q.reshape(h, nw, b, n, SWIN_HD).permute(2, 1, 3, 0, 4).reshape(b * nw, n, -1)
+
+                fns = {
+                    "K4": lambda: va.biased_attention_fused(q, k, v, bias, scale, g_size, True),
+                    "K4 plain": lambda: va.biased_attention_plain(q, k, v, bias, scale, g_size,
+                                                                  True),
+                    "K6": lambda: wa.window_attention_fused(*ops6),
+                    "K6 plain": lambda: wa.window_attention_plain(*ops6),
+                    "library": lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                                                      scale=1.0),
+                    "fold": folds,
+                }
+                shape = (f"B={b} windows={nw} H={h} N={n} "
+                         f"{'shifted' if shifted else 'unshifted'} x{count}")
+                e4 = window_err(fns["K4"](), fns["K4 plain"](), f"K4 {name} {shape}")
+                e6 = window_err(fns["K6"](), fns["K6 plain"](), f"K6 {name} {shape}")
+                lib = fns["library"]()
+                lib = (lib.reshape(b, nw, h, n, SWIN_HD).permute(1, 0, 2, 3, 4) if shifted
+                       else lib.reshape(nw, b, h, n, SWIN_HD))
+                lib_err = (lib.float() - fns["K6"]().float()).abs().max().item()
+                ms, _ = _in_turns(fns)
+                work = _window_work(b, nw, h, n, shifted, dtype)
+                bound_ms, by = bound(*work, name)
+                bound_by.add(by)
+                fold_ms += count * ms["fold"]
+                for key in out:
+                    out[key][f"{name} {shape}"] = {
+                        "ms": ms[key], "plain_ms": ms[f"{key} plain"], "library_ms": ms["library"],
+                        "bound_ms": bound_ms, "bound_by": by}
+                    for field, value in (("ms", ms[key]), ("plain_ms", ms[f"{key} plain"]),
+                                         ("library_ms", ms["library"]), ("bound_ms", bound_ms)):
+                        total[key][field] += count * value
+                log(f"[rates] {name:8s} {shape}: K4 {ms['K4']:.3f} ms "
+                    f"({work[0] / ms['K4'] / 1e9:.1f} TFLOP/s; bound {bound_ms:.3f} ms by {by}) vs "
+                    f"plain {ms['K4 plain']:.3f} ms; K6 {ms['K6']:.3f} ms vs plain "
+                    f"{ms['K6 plain']:.3f} ms; library call {ms['library']:.3f} ms (max |diff| to "
+                    f"K6 {lib_err:.3g}); K4's fold + unfold copies {ms['fold']:.3f} ms; agreement "
+                    f"K4 {e4}, K6 {e6}")
+                del q, k, v, bias, scale, ops6, lq, lk, lv, mask, bw_qkv, fns, lib
+                torch.cuda.empty_cache()
+            for key in out:
+                out[key][name] = dict(total[key], bound_by="/".join(sorted(bound_by)))
+            log(f"[rates] {name:8s} the {SWIN_DEPTH} calls of one SwinV2-Base forward at B={b}: "
+                + "; ".join(f"{key} {total[key]['ms']:.3f} ms (plain {total[key]['plain_ms']:.3f}, "
+                            f"library {total[key]['library_ms']:.3f}, bound "
+                            f"{total[key]['bound_ms']:.3f})" for key in out)
+                + f"; K4's fold + unfold copies {fold_ms:.3f} ms")
+            out["K4"][name]["fold_ms"] = fold_ms
+    return out
+
+
+# the bf16 model's unit embeddings with the kernels against the same model
+# with the kernels' plain versions and on the eager bf16 path (which rounds
+# the normalised q and k to bf16 before the scale, where the kernels round
+# after it): 2.9e-3 and 1.3e-2 seen, K6 7.3e-3 from the eager path (PERF.md);
+# twice that is allowed
+SWIN_EMBED_BF16_TOL = {"plain versions": 6e-3, "eager": 2.6e-2}
+
+
+def _swin_bf16_model():
+    """(embed function, input batch): SwinV2-Base with bf16 weights and a
+    bf16 batch of 16 at 384 px, random nonzero vectors."""
+    model, _ = create_model("swinv2", generator=torch.Generator().manual_seed(17))
+    randomize_swin_(model.backbone, 18)
+    model = model.to("cuda", torch.bfloat16).eval()
+    x = torch.randn((16, 384, 384, 3), generator=torch.Generator().manual_seed(19)).to(
+        "cuda", torch.bfloat16)
+    return make_embed_fn(model), x
+
+
+def profile_swin():
+    """Where one bf16 SwinV2-Base batch's time goes (``--profile-swin``): the
+    host's wall time per forward beside the device time by kernel name, from
+    torch.profiler over three forwards on the default path (K4)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    embed, x = _swin_bf16_model()
+    for _ in range(3):
+        embed(x)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        embed(x)
+    enqueued = (time.perf_counter() - t0) / 3
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            embed(x)
+        torch.cuda.synchronize()
+    # the kernels' own rows: an operator's row repeats the time of its kernels
+    rows = [(e.key, e.self_device_time_total / 3e3, e.count / 3) for e in prof.key_averages()
+            if str(e.device_type).endswith("CUDA")]
+    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in rows)
+    log(f"[profile] SwinV2-Base bf16 batch 16 @384 with K4: {wall * 1e3:.2f} ms a forward on the "
+        f"host's clock ({enqueued * 1e3:.2f} ms to enqueue it), {device_ms:.2f} ms of device "
+        f"time in {sum(r[2] for r in rows):.0f} kernels: the device is idle "
+        f"{max(0.0, 1 - device_ms / (wall * 1e3)):.0%} of a forward")
+    for name, ms, count in rows[:30]:
+        log(f"[profile] {ms:8.3f} ms  {count:6.0f} x  {name[:110]}")
+
+
+def phase_swin_model_rates():
+    """SwinV2-Base in tools/bench_towers.py's configuration: bf16 weights and
+    input, batch 16, 384 px; the default rule sends bf16 blocks to K4."""
+    embed, x = _swin_bf16_model()
+
+    def with_v1():
+        with env_flags(XMIR_SWIN_KERNEL="v1"):
+            return embed(x)
+
+    def with_plain_versions():
+        with swin_plain_versions():
+            return embed(x)
+
+    def eager_path():
+        with env_flags(XMIR_FUSED_ATTN="0"):
+            return embed(x)
+
+    with env_flags(XMIR_FUSED_ATTN=None, XMIR_SWIN_KERNEL=None):
+        reset_launches()
+        e = embed(x)
+        launches = read_launches()
+        check(launches["K4"] == SWIN_DEPTH and launches["K6"] == 0,
+              f"bf16 blocks did not all take K4: {launches}")
+        reset_launches()
+        e6 = with_v1()
+        launches = read_launches()
+        check(launches["K6"] == SWIN_DEPTH and launches["K4"] == 0,
+              f"XMIR_SWIN_KERNEL=v1 did not take K6: {launches}")
+        ep, ee = with_plain_versions(), eager_path()
+        check(e.shape == (16, 1024) and torch.isfinite(e).all(), "bad embeddings")
+        diff = {"plain versions": (e - ep).abs().max().item(),
+                "eager": (e - ee).abs().max().item()}
+        v1_diff = (e6 - ee).abs().max().item()
+        for k, v in list(diff.items()) + [("eager", v1_diff)]:
+            check(v <= SWIN_EMBED_BF16_TOL[k], f"bf16 embeddings with the kernels differ from "
+                                               f"the {k}'s by {v} > {SWIN_EMBED_BF16_TOL[k]}")
+        ms, runs = _in_turns({"K4": lambda: embed(x), "K6": with_v1,
+                              "plain versions": with_plain_versions, "eager": eager_path})
+    rates = {k: 16 / v * 1e3 for k, v in ms.items()}
+    log("[rates] SwinV2-Base bf16 batch 16 @384 (device only): "
+        + "; ".join(f"{k} {ms[k]:.2f} ms = {rates[k]:.0f} img/s" for k in ms)
+        + f"; K4's embeddings within {diff} of those paths' and K6's within {v1_diff:.3g} of the "
+        f"eager path's (bounds {SWIN_EMBED_BF16_TOL}); runs "
+        f"{({k: [round(t, 2) for t in v] for k, v in runs.items()})}")
+    return rates
+
+
+def phase_select_rates():
+    """K1' at the serving gallery with k = 2048 and as a full ranking of 64
+    queries, with K1 at k = 10 in the same turns."""
+    n, d = 100_000, 1024
+    gen = torch.Generator().manual_seed(20)
+    q = l2_normalize(torch.randn((1024, d), generator=gen)).cuda()
+    g = l2_normalize(torch.randn((n, d), generator=gen)).cuda()
+    bias = torch.zeros(n, device="cuda")
+    out = {}
+    for label, q_n, k in (("Q=1024 k=2048", 1024, 2048), ("Q=64 k=N", 64, n)):
+        qq = q[:q_n].contiguous()
+        v, i = fused_topk_scores(qq, g, bias, k)
+        rv, ri = topk_scores_reference(qq[:64], g, bias, min(k + 1, n))
+        torch.cuda.synchronize()
+        sorted_ref = rv if k < n else torch.cat([rv, rv[:, -1:] - 1], dim=1)
+        err, checked, total = compare(v[:64], i[:64], rv[:, :k], ri[:, :k], 1e-5, sorted_ref)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms, runs = _in_turns({
+            "K1'": lambda: fused_topk_scores(qq, g, bias, k),
+            "plain": lambda: topk_scores_reference(qq, g, bias, k),
+            "K1 k=10": lambda: fused_topk_scores(q, g, bias, 10)}, rounds=3, reps=2)
+        bound_ms, bound_by = bound(2 * q_n * n * d, (q_n + n) * d * 4 + n * 4 + q_n * k * 8,
+                                   "float32")
+        out[label] = {"ms": ms["K1'"], "plain_ms": ms["plain"], "bound_ms": bound_ms,
+                      "bound_by": bound_by, "max_abs_err": err, "k1_k10_ms": ms["K1 k=10"]}
+        sel_ms = ms["K1'"]
+        log(f"[rates] K1' float32 {label} N={n} D={d}: {sel_ms:.3f} ms "
+            f"({2 * q_n * n * d / sel_ms / 1e9:.1f} TFLOP/s; bound "
+            f"{bound_ms:.3f} ms by {bound_by}) vs plain {ms['plain']:.3f} ms; K1 at k=10 in the "
+            f"same turns {ms['K1 k=10']:.3f} ms; max err {err:.3g}, {checked}/{total} ids of the "
+            f"first 64 queries checked equal; peak memory above the inputs "
+            f"{(torch.cuda.max_memory_allocated() - base) / 2 ** 20:.0f} MiB; runs "
+            f"{({k_: [round(t, 2) for t in v_] for k_, v_ in runs.items()})}")
+        del v, i, rv, ri, sorted_ref
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--profile-swin", action="store_true",
+                        help="only build, then print where a bf16 SwinV2-Base batch's time goes")
+    opts = parser.parse_args()
     smi = phase_device()
     phase_build()
+    if opts.profile_swin:
+        profile_swin()
+        print(smi)
+        return
     max_err = phase_kernel()
     with tempfile.TemporaryDirectory() as tmp:
         d_launches, slice_err = phase_slice(Path(tmp))
@@ -1038,17 +1662,36 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         v_slices = phase_slice_dinov2(Path(tmp))
     vit_rates = phase_vit_rates()
+    window_errs = phase_kernel_window()
+    select_err = phase_kernel_select()
+    with tempfile.TemporaryDirectory() as tmp:
+        s_slices = phase_slice_swinv2(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        r_launches, r_err = phase_slice_full_ranking(Path(tmp))
+    window_rates = phase_window_rates()
+    swin_rates = phase_swin_model_rates()
+    select_rates = phase_select_rates()
     by_path = {key: {"densenet121": d_launches[key], "convnextv2": c_launches[key],
-                     **{path: v["launches"][key] for path, v in v_slices.items()}}
+                     **{path: v["launches"][key] for path, v in v_slices.items()},
+                     **{path: v["launches"][key] for path, v in s_slices.items()},
+                     "densenet121_full_ranking": r_launches[key]}
                for key in WRAPPERS}
-    v_slice_err = max(v["err"] for v in v_slices.values())
+    slice_errs = [slice_err, c_slice_err] + [v["err"] for v in v_slices.values()] + [
+        v["err"] for v in s_slices.values()]
     f32 = serving["float32"]
     k1 = dict(KERNELS["K1"], launches=sum(by_path["K1"].values()),
-              max_abs_err=max(max_err, slice_err, c_slice_err, v_slice_err, f32["max_abs_err"]),
+              max_abs_err=max(max_err, f32["max_abs_err"], *slice_errs),
               ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
               bound_by=f32["bound_by"], library_ms=None, by_dtype=serving,
               shape="Q=1024 N=100000 D=1024 k=10, f32", launches_by_path=by_path["K1"])
-    kernels = [k1]
+    big = select_rates["Q=1024 k=2048"]
+    k1s = dict(KERNELS["K1'"], launches=sum(by_path["K1'"].values()),
+               max_abs_err=max(select_err, r_err, *(v["max_abs_err"] for v in
+                                                    select_rates.values())),
+               ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
+               bound_by=big["bound_by"], library_ms=None, by_shape=select_rates,
+               shape="Q=1024 N=100000 D=1024 k=2048, f32", launches_by_path=by_path["K1'"])
+    kernels = [k1, k1s]
     for key in ("K2", "K7", "K8"):
         bf16 = vit_rates[key]["bfloat16"]
         kernels.append(dict(
@@ -1058,9 +1701,20 @@ def main():
             bound_ms=bf16["bound_ms"], bound_by=bf16["bound_by"], library_ms=bf16["library_ms"],
             shape="bf16, one DINOv2 ViT-B/14 block's call at B=16, 518 px",
             by_dtype=vit_rates[key], launches_by_path=by_path[key]))
+    for key in ("K4", "K6"):
+        bf16 = window_rates[key]["bfloat16"]
+        kernels.append(dict(
+            KERNELS[key], launches=sum(by_path[key].values()),
+            max_abs_err=max(e["max_abs_err"] for e in window_errs[key].values()),
+            err_by_dtype=window_errs[key], ms=bf16["ms"], plain_ms=bf16["plain_ms"],
+            bound_ms=bf16["bound_ms"], bound_by=bf16["bound_by"], library_ms=bf16["library_ms"],
+            shape=f"bf16, the {SWIN_DEPTH} calls of one SwinV2-Base forward at B=16, 384 px "
+                  "(sum over the six stage shapes by their block counts)",
+            ms_by_shape=window_rates[key], launches_by_path=by_path[key]))
     for key in ("K9", "K11"):
         by_shape = rates[key]
         bf16 = [v for s, v in by_shape.items() if s.startswith("bfloat16")]
+        f32s = [v for s, v in by_shape.items() if s.startswith("float32")]
         kernels.append(dict(
             KERNELS[key], launches=sum(by_path[key].values()),
             max_abs_err=max(e["max_abs_err"] for e in tail_errs[key].values()),
@@ -1070,14 +1724,23 @@ def main():
             bound_by="operations" if all(v["bound_by"] == "operations" for v in bf16)
             else "mixed: see ms_by_shape", library_ms=None,
             shape="bf16, one block of each ConvNeXtV2-Base stage at B=32, 384 px (sum)",
+            f32_sum={"ms": sum(v["ms"] for v in f32s),
+                     "plain_ms": sum(v["plain_ms"] for v in f32s),
+                     "bound_ms": sum(v["bound_ms"] for v in f32s)},
             ms_by_shape=by_shape, launches_by_path=by_path[key]))
-    kernels[4]["embedding_max_abs_err_vs_plain_tail"] = emb_err
-    kernels[5]["main_path"] = "none: the JAX package reaches it only from its tests"
+    by_name = {k["name"]: k for k in kernels}
+    by_name["convnext_block_fused"]["embedding_max_abs_err_vs_plain_tail"] = emb_err
+    by_name["convnext_mlp_grn_fused"]["main_path"] = (
+        "none: the JAX package reaches it only from its tests")
     print(smi)
     print(json.dumps({"kernels": kernels, "convnextv2_embed_img_per_s": rates["embed_rate"],
                       "dinov2_embed_img_per_s": vit_rates["embed_rate"],
-                      "dinov2_embedding_max_abs_err": {
-                          path: v["embedding_max_abs_err"] for path, v in v_slices.items()}}))
+                      "swinv2_embed_img_per_s": swin_rates,
+                      "swinv2_eval_metrics": s_slices["swinv2_test"]["metrics"],
+                      "embedding_max_abs_err": {
+                          path: v["embedding_max_abs_err"]
+                          for path, v in {**v_slices, **s_slices}.items()
+                          if "embedding_max_abs_err" in v}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -139,10 +139,10 @@ def test_registry_spec_matches_jax():
     model, spec = registry.create_model("densenet121", embedding_dim=16)
     assert isinstance(model, DenseNet121Embedder) and model.fc.out_features == 16
     assert registry.list_models() == ["convnextv2", "convnextv2_pcam", "convnextv2_sra",
-                                      "densenet121", "dinov2"]
+                                      "densenet121", "dinov2", "swinv2"]
 
 
-@pytest.mark.parametrize("name", ["nih_convnextv2", "nih_dinov2", "swinv2", "resnet50", "nope"])
+@pytest.mark.parametrize("name", ["nih_convnextv2", "nih_dinov2", "medsiglip", "resnet50", "nope"])
 def test_registry_other_models_are_not_ported(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.get_spec(name)

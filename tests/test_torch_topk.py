@@ -7,6 +7,10 @@ gallery tiles and query blocks are crossed. The port side runs on the CPU,
 where the wrapper takes its plain PyTorch version; the CUDA kernel itself is
 held against that plain version on the card (test_kernel_matches_plain_on_card
 and chip_smoke.py).
+
+Above k = 1024 (K1', csrc/topk_select.cu on the card) the JAX side is its XLA
+path, ``tiled_topk`` and ``full_ranking``: its interpret-mode merge kernel
+unrolls k passes per tile and is too slow there.
 """
 import numpy as np
 import pytest
@@ -21,7 +25,14 @@ from xmir_tpu_torch.ops import _build
 from xmir_tpu_torch.ops import topk as port_topk
 from xmir_tpu_torch.ops.distance import scores as port_scores
 from xmir_tpu_torch.ops.topk_fused import fused_topk, fused_topk_masked
-from xmir_tpu_torch.ops.topk_kernels import fused_topk_scores, launch_plan, topk_scores_reference
+from xmir_tpu_torch.index import ShardedGalleryIndex
+from xmir_tpu_torch.ops.topk_kernels import (
+    BUFFER_K,
+    fused_topk_scores,
+    launch_plan,
+    select_topk_scores,
+    topk_scores_reference,
+)
 
 torch.set_num_threads(1)
 
@@ -130,11 +141,17 @@ def test_reference_reports_zero_index_in_neg_inf_slots():
     assert np.isneginf(v[0, 2:].numpy()).all() and i[0, 2:].tolist() == [0, 0]
 
 
-@pytest.mark.parametrize("k,match", [(0, "outside"), (1025, "outside"), (N + 1, "gallery size")])
+@pytest.mark.parametrize("k,match", [(0, "at least 1"), (1025, None), (N + 1, "gallery size")])
 def test_k_out_of_range_raises(k, match):
+    """k < 1 and k > N raise; k = 1025, which the kernel of k <= 1024 used to
+    refuse, is served."""
     g = torch.zeros((max(N, 1100), D))
     if match == "gallery size":
         g = torch.zeros((N, D))
+    if match is None:
+        v, i = fused_topk_scores(torch.zeros((2, D)), g, torch.zeros(g.shape[0]), k)
+        assert v.shape == i.shape == (2, k) and i[0].tolist() == list(range(k))
+        return
     with pytest.raises(ValueError, match=match):
         fused_topk_scores(torch.zeros((2, D)), g, torch.zeros(g.shape[0]), k)
 
@@ -233,6 +250,81 @@ def test_full_ranking_matches_jax():
     np.testing.assert_array_equal(r.numpy(), np.asarray(ref_r))
 
 
+BIG_N = 2100  # above 2048, so that k = 2048 is not the whole gallery
+
+
+def _big_inputs(kind, seed=5):
+    rng = np.random.default_rng(seed)
+    if kind == "int":
+        q = rng.integers(-3, 4, (5, D)).astype(np.float32)
+        g = rng.integers(-3, 4, (BIG_N, D)).astype(np.float32)
+        g[[5, 1023, 1024, 2047, 2048, BIG_N - 1]] = g[3]  # ties across every boundary
+        q[0] = g[3]
+    else:
+        q = rng.standard_normal((5, D)).astype(np.float32)
+        g = rng.standard_normal((BIG_N, D)).astype(np.float32)
+    return q, g
+
+
+@pytest.mark.parametrize("kind", ["int", "random"])
+@pytest.mark.parametrize("k", [1025, 2048, BIG_N])
+@pytest.mark.parametrize("metric", METRICS)
+def test_fused_topk_above_1024_matches_jax(metric, k, kind):
+    """k in {1025, 2048, N} against the JAX package's tiled_topk: ids and tie
+    order equal on integer-valued inputs, all four metrics."""
+    q, g = _big_inputs(kind)
+    ref_v, ref_i = jax_topk.tiled_topk(jnp.asarray(q), jnp.asarray(g), k, tile=512, metric=metric,
+                                      precision="highest")
+    v, i = fused_topk(torch.from_numpy(q), torch.from_numpy(g), k, metric)
+    assert v.shape == i.shape == (5, k) and k > BUFFER_K
+    if kind == "int" and metric != "cosine":
+        np.testing.assert_array_equal(i.numpy(), np.asarray(ref_i))
+        # l2 reports a square root, which the two stacks round an ulp apart
+        np.testing.assert_allclose(v.numpy(), np.asarray(ref_v),
+                                   rtol=1e-6 if metric == "l2" else 0, atol=0)
+    else:
+        true = _true_scores(q, g, metric, valid_count=BIG_N)
+        assert_topk_match(v, i, np.asarray(ref_v), np.asarray(ref_i), true, atol=1e-5)
+
+
+@pytest.mark.parametrize("metric", ["ip", "hamming"])
+def test_full_ranking_through_fused_topk_matches_jax(metric):
+    """k = N is the whole ranking: the JAX package's full_ranking order."""
+    q, g = _big_inputs("int")
+    _, ref_r = jax_topk.full_ranking(jnp.asarray(q), jnp.asarray(g), metric, precision="highest")
+    _, i = fused_topk(torch.from_numpy(q), torch.from_numpy(g), BIG_N, metric)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ref_r))
+    _, r = port_topk.full_ranking(torch.from_numpy(q), torch.from_numpy(g), metric)
+    np.testing.assert_array_equal(i.numpy(), r.numpy())
+
+
+@pytest.mark.parametrize("k", [1025, 2048, BIG_N])
+def test_index_search_above_1024(k):
+    """ShardedGalleryIndex.search needs no branch of its own for large k."""
+    q, g = _big_inputs("random", seed=6)
+    idx = ShardedGalleryIndex(D, metric="ip")
+    idx.add(g, np.arange(BIG_N) % 3, [str(n) for n in range(BIG_N)])
+    idx.build("cpu")
+    v, i = idx.search(torch.from_numpy(q), k)
+    order = np.argsort(-(q.astype(np.float64) @ g.astype(np.float64).T), axis=1, kind="stable")
+    assert_topk_match(v, i, np.take_along_axis(q @ g.T, order[:, :k], 1), order[:, :k],
+                      q.astype(np.float64) @ g.astype(np.float64).T, atol=1e-5)
+    hits = idx.search_with_metadata(q[:1], k)
+    assert len(hits[0]) == k and hits[0][0]["image_path"] == str(hits[0][0]["id"])
+
+
+def test_select_kernel_wrapper_takes_cuda_tensors_only():
+    q, g = _big_inputs("int")
+    before = select_topk_scores.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        select_topk_scores(torch.from_numpy(q), torch.from_numpy(g), torch.zeros(BIG_N), 1025)
+    with pytest.raises(ValueError, match="gallery size"):
+        select_topk_scores(torch.from_numpy(q), torch.from_numpy(g), torch.zeros(BIG_N),
+                           BIG_N + 1)
+    fused_topk(torch.from_numpy(q), torch.from_numpy(g), 1025, "ip")  # CPU: the plain version
+    assert select_topk_scores.launches == before
+
+
 def test_exclude_self_topk_matches_jax():
     rng = np.random.default_rng(3)
     vals = -np.sort(-rng.standard_normal((4, 6)).astype(np.float32), axis=1)
@@ -263,3 +355,48 @@ def test_kernel_matches_plain_on_card(dtype):
         assert fused_topk_scores.launches == before + 1
         rv, ri = topk_scores_reference(q, g, bias, k)
         assert torch.equal(v, rv) and torch.equal(i, ri)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_select_kernel_matches_plain_on_card(dtype):
+    """K1' on integer inputs with ties across tiles and masked rows: values
+    and ids bit-equal to the plain version, one count per call, and the
+    first 1024 entries equal to K1's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(rng.integers(-3, 4, (70, 96)).astype(np.float32)).to("cuda", dtype)
+    g = torch.from_numpy(rng.integers(-3, 4, (4099, 96)).astype(np.float32)).to("cuda", dtype)
+    g[[5, 63, 64, 2048, 4098]] = g[3].clone()
+    bias = torch.zeros(4099, device="cuda")
+    bias[4000:] = float("-inf")
+    k1_v, k1_i = fused_topk_scores(q, g, bias, 1024)
+    for k in (1025, 2048, 4096, 4099):
+        before = (select_topk_scores.launches, fused_topk_scores.launches)
+        v, i = fused_topk_scores(q, g, bias, k)
+        torch.cuda.synchronize()
+        assert (select_topk_scores.launches, fused_topk_scores.launches) == (
+            before[0] + 1, before[1])
+        rv, ri = topk_scores_reference(q, g, bias, k)
+        assert torch.equal(v, rv) and torch.equal(i, ri)
+        assert torch.equal(v[:, :1024], k1_v) and torch.equal(i[:, :1024], k1_i)
+
+
+@pytest.mark.cuda
+def test_select_kernel_walks_queries_in_chunks(monkeypatch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    from xmir_tpu_torch.ops import topk_kernels
+
+    rng = np.random.default_rng(8)
+    q = torch.from_numpy(rng.standard_normal((37, 64)).astype(np.float32)).cuda()
+    g = torch.from_numpy(rng.standard_normal((3000, 64)).astype(np.float32)).cuda()
+    bias = torch.zeros(3000, device="cuda")
+    whole = select_topk_scores(q, g, bias, 1500)
+    monkeypatch.setattr(topk_kernels, "SCRATCH_BYTES", 8 * (3000 + 2048) * 5)  # five queries
+    parts = select_topk_scores(q, g, bias, 1500)
+    assert torch.equal(whole[0], parts[0]) and torch.equal(whole[1], parts[1])
+    monkeypatch.setattr(topk_kernels, "SCRATCH_BYTES", 100)
+    with pytest.raises(ValueError, match="SCRATCH_BYTES"):
+        select_topk_scores(q, g, bias, 1500)

@@ -311,7 +311,7 @@ def test_registry_spec_matches_jax():
     model, _ = registry.create_model("dinov2", embedding_dim=8, img_size=56, **NARROW)
     assert isinstance(model, DinoV2Embedder) and model.fc.out_features == 8
     with pytest.raises(NotImplementedError, match="not ported"):
-        registry.get_spec("swinv2")
+        registry.get_spec("medsiglip")
 
 
 @pytest.fixture

@@ -1,4 +1,4 @@
-"""The narrow DenseNet and ConvNeXtV2 embedders that the tests/test_torch_*.py
+"""The narrow DenseNet, ConvNeXtV2 and SwinV2 embedders that the tests/test_torch_*.py
 files run in both packages (JAX side and weight randomisation)."""
 from __future__ import annotations
 
@@ -84,3 +84,28 @@ class JaxNarrowConvNeXt(fnn.Module):
         embedding, _, _ = PCAMPool(1024, self.num_classes, self.lam, self.embedding_dim,
                                    name="pcam")(out["features"], out["head_norm"])
         return {"embedding": embedding, "features": out["features"]}
+
+
+# the narrow SwinV2 the CPU tests run in both packages: at 32 px the stages'
+# maps are 8 x 8 (four 4 x 4 windows, the second block shifted), 4 x 4 (one
+# window, never shifted) and 2 x 2 (the window cut to the map); at 64 px 16 x
+# 16, 8 x 8 (both with shifted blocks) and 4 x 4
+NARROW_SWIN = dict(embed_dim=16, depths=(2, 2, 2), num_heads=(2, 4, 8), window=4,
+                   pretrained_window=(4, 4, 2))
+
+
+class JaxNarrowSwin(fnn.Module):
+    """xmir_tpu's SwinV2Embedder with the narrow backbone: the same __call__
+    body."""
+
+    embedding_dim: Optional[int] = None
+
+    @fnn.compact
+    def __call__(self, x, train: bool = False):
+        from xmir_tpu.models.swin import SwinV2Backbone
+
+        out = SwinV2Backbone(**NARROW_SWIN, name="backbone")(x, train)
+        feat = out["pooled"]
+        if self.embedding_dim:
+            feat = fnn.Dense(self.embedding_dim, name="fc")(feat)
+        return {"embedding": l2_normalize(feat, axis=1), "features": out["features"]}

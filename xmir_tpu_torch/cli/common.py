@@ -87,12 +87,17 @@ def build_dataset(args, split: str = "train"):
     )
 
 
+def is_multilabel(dataset_name: str) -> bool:
+    return dataset_name in ("vindr", "nih", "synthetic_ml")
+
+
 def build_model(args, device):
     """(model in eval mode on ``device``, spec). Weights are drawn from a
     torch.Generator seeded with --seed, then --resume (a torch .pt/.pth
     state dict) replaces them with a strict load: the whole DenseNet121
-    embedder, or a ConvNeXtV2 or DINOv2 embedder's backbone (its fc / SRA /
-    PCAM head keeps its init, as the JAX package's strict=False merge does)."""
+    embedder, or a ConvNeXtV2, SwinV2 or DINOv2 embedder's backbone (its fc /
+    SRA / PCAM head keeps its init, as the JAX package's strict=False merge
+    does)."""
     from ..models.convert import load_torch_checkpoint
     from ..models.registry import create_model
 

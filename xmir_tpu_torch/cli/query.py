@@ -1,12 +1,13 @@
 """Query CLI (port of xmir_tpu/cli/query.py): load a gallery index artifact,
-embed the queries, take the exact top-k through the CUDA top-k kernel, write
+embed the queries, take the exact top-k through the CUDA top-k kernels, write
 JSON results.
 
     python -m xmir_tpu_torch.cli.query --dataset synthetic --device cuda \
         --index gallery.npz --top-k 10 --output hits.json
 
-``--top-k 0`` asks for the whole gallery ranked (k = ntotal); the kernel takes
-k <= 1024, so on a larger gallery that raises.
+``--top-k 0`` asks for the whole gallery ranked (k = ntotal): up to 1024 rows
+through the buffered kernel, above that through the select kernel
+(ops/topk_kernels.py), in the same order.
 """
 from __future__ import annotations
 

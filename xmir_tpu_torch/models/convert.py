@@ -1,4 +1,4 @@
-"""Weights into the port's DenseNet, ConvNeXtV2 and ViT embedders: from the JAX
+"""Weights into the port's DenseNet, ConvNeXtV2, SwinV2 and ViT embedders: from the JAX
 package's variable tree, and from a reference CheXNet / torchvision or timm
 ``.pt``.
 
@@ -22,6 +22,9 @@ import torch
 BACKBONE_PREFIX = "densenet121.0."
 CONVNEXT_PREFIX = "convnext."
 VIT_PREFIX = "backbone."
+SWIN_PREFIX = "backbone."
+# timm's SwinV2 buffers: recomputed by the port from the map's size
+_SWIN_BUFFERS = ("relative_coords_table", "relative_position_index", "attn_mask")
 # wrappers the reference's checkpoints put around the torchvision features
 # (xmir_tpu/models/convert.py::convert_densenet121)
 _TORCH_PREFIXES = ("densenet121.0.", "densenet121.features.", "features.")
@@ -250,6 +253,74 @@ def vit_backbone_state_dict_from_torch(sd: Dict[str, torch.Tensor]) -> Dict[str,
     return out
 
 
+def _swin_backbone_state_dict(params) -> Dict[str, np.ndarray]:
+    """A SwinV2Backbone tree -> timm keys (the inverse of
+    xmir_tpu/models/convert.py::convert_swinv2_timm), for any depths."""
+    sd = {"patch_embed.proj.weight": _conv(params["patch_proj"]["kernel"]),
+          "patch_embed.proj.bias": np.asarray(params["patch_proj"]["bias"])}
+    _ln(sd, "patch_embed.norm", params["patch_norm"])
+    _ln(sd, "norm", params["norm"])
+    stages = sorted({int(m.group(1)) for key in params
+                     if (m := re.fullmatch(r"stage(\d+)_block\d+", key))})
+    for si in stages:
+        if si > 0:
+            _dense(sd, f"layers.{si}.downsample.reduction", params[f"merge{si}"]["reduction"])
+            _ln(sd, f"layers.{si}.downsample.norm", params[f"merge{si}"]["norm"])
+        for bi in _numbered(params, f"stage{si}_block"):
+            pre, blk = f"layers.{si}.blocks.{bi}", params[f"stage{si}_block{bi}"]
+            attn = blk["attn"]
+            sd[f"{pre}.attn.qkv.weight"] = np.transpose(np.asarray(attn["qkv_kernel"]))
+            for name in ("q_bias", "v_bias", "logit_scale"):
+                sd[f"{pre}.attn.{name}"] = np.asarray(attn[name])
+            _dense(sd, f"{pre}.attn.cpb_mlp.0", attn["cpb_fc1"])
+            _dense(sd, f"{pre}.attn.cpb_mlp.2", attn["cpb_fc2"])
+            _dense(sd, f"{pre}.attn.proj", attn["proj"])
+            _ln(sd, f"{pre}.norm1", blk["norm1"])
+            _ln(sd, f"{pre}.norm2", blk["norm2"])
+            _dense(sd, f"{pre}.mlp.fc1", blk["mlp_fc1"])
+            _dense(sd, f"{pre}.mlp.fc2", blk["mlp_fc2"])
+    return sd
+
+
+def swinv2_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX package's SwinV2 tree (numpy leaves) -> the port's state dict:
+    a SwinV2Embedder tree (params["backbone"], optional "fc") gives
+    SwinV2Embedder keys; a bare SwinV2Backbone tree gives SwinV2Backbone
+    keys."""
+    params = variables["params"]
+    if "backbone" not in params:
+        sd = _swin_backbone_state_dict(params)
+    else:
+        sd = {SWIN_PREFIX + k: v
+              for k, v in _swin_backbone_state_dict(params["backbone"]).items()}
+        if "fc" in params:
+            _dense(sd, "fc", params["fc"])
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def swinv2_backbone_state_dict_from_torch(
+        sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A timm SwinV2 (``swinv2_base_window12to24_192to384``) state dict ->
+    SwinV2Backbone keys. Strips a ``module.`` DataParallel prefix and the
+    wrappers ``convnext.``/``swinv2.``/``backbone.``/``model.``
+    (xmir_tpu/cli/common.py:157-162); keeps the backbone's parameters
+    (``patch_embed.``, ``layers.``, ``norm.``), drops timm's buffers
+    (``relative_coords_table``, ``relative_position_index``, ``attn_mask``)
+    and, like the reference, ignores every other key: timm's classifier and
+    any head."""
+    out = {}
+    for key, value in sd.items():
+        key = key.replace("module.", "")
+        for prefix in _TIMM_PREFIXES:
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+                break
+        if key.startswith(("patch_embed.", "layers.", "norm.")) and not key.endswith(
+                _SWIN_BUFFERS):
+            out[key] = value
+    return out
+
+
 def _read_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
     """A ``.pt``/``.pth`` state dict, unwrapped from a {"state_dict" |
     "state-dict" | "model": ...} wrapper."""
@@ -265,14 +336,15 @@ def load_torch_checkpoint(model: torch.nn.Module, path: str):
     """Load a ``.pt``/``.pth`` into ``model``, dispatched by its type (as
     xmir_tpu/cli/common.py::_convert_torch_checkpoint does by name): a
     DenseNet121Embedder takes the whole state dict with strict=True; a
-    ConvNeXtV2 or DINOv2 embedder takes its backbone with strict=True and
-    keeps its head (fc, SRA, PCAM) as initialised."""
+    ConvNeXtV2, SwinV2 or DINOv2 embedder takes its backbone with strict=True
+    and keeps its head (fc, SRA, PCAM) as initialised."""
     from .embedders import (
         ConvNeXtV2Embedder,
         ConvNeXtV2PCAMEmbedder,
         ConvNeXtV2SRAEmbedder,
         DenseNet121Embedder,
         DinoV2Embedder,
+        SwinV2Embedder,
     )
 
     sd = _read_torch_state_dict(path)
@@ -287,6 +359,11 @@ def load_torch_checkpoint(model: torch.nn.Module, path: str):
         backbone = vit_backbone_state_dict_from_torch(sd)
         model.backbone.load_state_dict(backbone, strict=True)
         print(f">> loaded the ViT backbone ({len(backbone)} tensors, strict); "
+              "the head keeps its init")
+    elif isinstance(model, SwinV2Embedder):
+        backbone = swinv2_backbone_state_dict_from_torch(sd)
+        model.backbone.load_state_dict(backbone, strict=True)
+        print(f">> loaded the SwinV2 backbone ({len(backbone)} tensors, strict); "
               "the head keeps its init")
     else:
         raise ValueError(f"no torch-checkpoint loader for {type(model).__name__}")

@@ -1,7 +1,7 @@
-"""Embedding models (port of DenseNet121Embedder, the ConvNeXtV2 embedders
-and DinoV2Embedder in xmir_tpu/models/embedders.py).
+"""Embedding models (port of DenseNet121Embedder, the ConvNeXtV2 embedders,
+SwinV2Embedder and DinoV2Embedder in xmir_tpu/models/embedders.py).
 
-A convolutional embedder maps NHWC images to {"embedding": (B, D)
+A convolutional or Swin embedder maps NHWC images to {"embedding": (B, D)
 L2-normalised, "features": NHWC map, "logits": ... when a classification
 head is set}; the ViT embedder to {"embedding", "tokens", "attentions"}.
 """
@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ..ops.distance import l2_normalize
-from . import convnext, vit
+from . import convnext, swin, vit
 from .densenet import DenseNetBackbone, init_weights_
 from .heads import PCAMPool, SRA
 
@@ -143,6 +143,34 @@ class ConvNeXtV2PCAMEmbedder(nn.Module):
         out = self.convnext(x)
         embedding, _, _ = self.pcam(out["features"], out["head_norm"])
         return {"embedding": embedding, "features": out["features"]}
+
+
+class SwinV2Embedder(nn.Module):
+    """SwinV2 embedder (reference model.py:418-445): backbone -> mean over the
+    final-norm map -> optional ``fc`` -> normalise. Keys: ``backbone.<timm
+    SwinV2>``, ``fc.*``. The backbone widths default to
+    swinv2_base_window12to24_192to384's; narrower ones are for tests."""
+
+    def __init__(self, embedding_dim: Optional[int] = None, *, embed_dim: int = 128,
+                 depths: Sequence[int] = (2, 2, 18, 2),
+                 num_heads: Sequence[int] = (4, 8, 16, 32), window: int = 24,
+                 pretrained_window: Sequence[int] = (12, 12, 12, 6),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.backbone = swin.SwinV2Backbone(embed_dim, depths, num_heads, window,
+                                            pretrained_window)
+        self.fc = (nn.Linear(self.backbone.num_features, embedding_dim) if embedding_dim
+                   else None)
+        if generator is not None:
+            swin.init_weights_(self.backbone, generator)
+            _init_head_linear_(self.fc, generator)
+
+    def forward(self, x):
+        out = self.backbone(x)
+        feat = out["pooled"]
+        if self.fc is not None:
+            feat = vit._dense(feat, self.fc)
+        return {"embedding": l2_normalize(feat, dim=1), "features": out["features"]}
 
 
 class DinoV2Embedder(nn.Module):

@@ -1,7 +1,7 @@
 """Model registry (port of xmir_tpu/models/registry.py): one spec per
 backbone with its input size, resize size, embedding width and
-normalisation. Ported so far: DenseNet121, the three ConvNeXtV2 embedders
-and the DINOv2 ViT-B/14 embedder."""
+normalisation. Ported so far: DenseNet121, the three ConvNeXtV2 embedders,
+the SwinV2-Base embedder and the DINOv2 ViT-B/14 embedder."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +13,7 @@ from .embedders import (
     ConvNeXtV2SRAEmbedder,
     DenseNet121Embedder,
     DinoV2Embedder,
+    SwinV2Embedder,
 )
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -38,6 +39,7 @@ _SPECS = {
     "convnextv2": ModelSpec("convnextv2", ConvNeXtV2Embedder, 384, 432, 1024),
     "convnextv2_sra": ModelSpec("convnextv2_sra", ConvNeXtV2SRAEmbedder, 384, 432, 1024),
     "convnextv2_pcam": ModelSpec("convnextv2_pcam", ConvNeXtV2PCAMEmbedder, 384, 432, 1024),
+    "swinv2": ModelSpec("swinv2", SwinV2Embedder, 384, 432, 1024),
     "dinov2": ModelSpec("dinov2", DinoV2Embedder, 518, 518, 768, interpolation="bicubic"),
 }
 

@@ -37,6 +37,8 @@ _SIGNATURES = {
     "xmir_topk_plan": (_I, _I, _I, _I, _P, _P, _P),
     # q transposed, g, bias, dtype, Q, N, D, k, n_sms, part_v, part_i, out_v, out_i, stream
     "xmir_topk": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # q, g, bias, dtype, Q, N, D, k, k_pad, keys, buf, out_v, out_i, stream
+    "xmir_topk_select": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     # rows -> row tiles per image (int pointer)
     "xmir_convnext_plan": (_I, _P),
     # a, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta, dtype, batch, rows,
@@ -48,6 +50,8 @@ _SIGNATURES = {
     "xmir_ln_dense": (_P,) * 5 + (_I,) * 5 + (_P,) * 2,
     # q, k, v, o, dtype, bh, n, hd, scale * log2(e), stream
     "xmir_vit_attn": (_P,) * 4 + (_I,) * 4 + (_F, _P),
+    # q, k, v, bias, scale, o, dtype, mode, bh, n, hd, d1, m1, s1, d2, m2, s2, stream
+    "xmir_window_attn": (_P,) * 6 + (_I,) * 11 + (_P,),
 }
 
 

@@ -115,19 +115,20 @@ def bf16_step(v):
     return torch.exp2((e - 8).float())
 
 
-def agreement(out, ref, atol: float = BF16_ATOL, floor: float = 2 ** -4):
+def agreement(out, ref, atol: float = BF16_ATOL, floor: float = 2 ** -4,
+              rtol: float = F32_RTOL):
     """A kernel's ``out`` against its plain version's ``ref`` (same shape and
     dtype): the largest |out - ref|, its largest share of the per-output
     bound (``of_bound``) and, in bf16, the mean error in bf16 steps over
     |ref| >= ``floor`` (``mean_steps``). They agree when of_bound <= 1 and
     mean_steps <= BF16_MEAN_STEPS; NaN agrees with nothing. ``atol`` and
-    ``floor`` default to K9 / K11's; a kernel whose outputs are smaller
-    states its own."""
+    ``floor`` (bf16) and ``rtol`` (f32) default to K9 / K11's; a kernel whose
+    outputs are smaller, or whose scores are larger, states its own."""
     r = ref.float()
     d = (out.float() - r).abs()
     if ref.dtype == torch.float32:
         return {"max_abs_err": d.max().item(),
-                "of_bound": (d / (F32_RTOL * (1 + r.abs()))).max().item(), "mean_steps": 0.0}
+                "of_bound": (d / (rtol * (1 + r.abs()))).max().item(), "mean_steps": 0.0}
     step = bf16_step(r)
     big = r.abs() >= floor
     return {"max_abs_err": d.max().item(),

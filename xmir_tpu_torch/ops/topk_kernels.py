@@ -5,10 +5,14 @@ Port of ``xmir_tpu/ops/topk_pallas.py::fused_topk_scores``: the exact top-k of
 ``q @ g.T + bias[row]`` per query, sorted by value descending with ties to the
 lower gallery row; slots no row filled are (-inf, 0).
 
-``fused_topk_scores`` launches ``csrc/topk.cu`` for CUDA tensors and counts the
-launch in ``fused_topk_scores.launches``. A tensor on the CPU takes
-``topk_scores_reference`` instead; any other device raises. There is no
-fallback from the kernel to the plain version.
+``fused_topk_scores`` takes any 1 <= k <= N. For CUDA tensors it launches
+``csrc/topk.cu`` (K1: a sorted per-query buffer in shared memory) for
+k <= 1024 and counts the launch in ``fused_topk_scores.launches``; above that
+it hands over to ``select_topk_scores`` (K1': ``csrc/topk_select.cu``, 64-bit
+keys in device memory, a radix select and a sort per query), which counts in
+``select_topk_scores.launches``. Both give the same values and the same
+order. A tensor on the CPU takes ``topk_scores_reference`` instead; any other
+device raises. There is no fallback from a kernel to the plain version.
 """
 from __future__ import annotations
 
@@ -16,7 +20,11 @@ import ctypes
 
 import torch
 
-MAX_K = 1024  # the kernel's per-query buffer; larger k is still to port
+BUFFER_K = 1024  # the largest k whose per-query buffer fits shared memory (K1)
+# K1' keeps 8 bytes per (query, gallery row) and per (query, slot of k rounded
+# up to a power of two) in device memory; it walks the queries in chunks so
+# that these two allocations stay within SCRATCH_BYTES in all.
+SCRATCH_BYTES = 2 ** 31
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -56,11 +64,8 @@ def _check(q, g, bias, k: int):
         raise ValueError(f"bias must be ({n},), got {tuple(bias.shape)}")
     if k > n:
         raise ValueError(f"k={k} > gallery size {n}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(
-            f"k={k} is outside 1..{MAX_K}, the range the top-k kernel supports "
-            "(k > 1024 is still to port, see ROADMAP.md)"
-        )
+    if k < 1:
+        raise ValueError(f"k={k} must be at least 1")
     if q.dtype != g.dtype or q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q and g must both be float32 or bfloat16, got {q.dtype} and {g.dtype}")
     if bias.dtype != torch.float32:
@@ -73,7 +78,7 @@ def fused_topk_scores(q, g, bias, k: int):
     """Exact top-k of ``q @ g.T + bias`` -> (vals (Q, k) f32, idxs (Q, k) i32).
 
     q (Q, D) and g (N, D) are both float32 or both bfloat16 (bf16 products are
-    accumulated in f32), bias (N,) float32, all on one device; 1 <= k <= 1024.
+    accumulated in f32), bias (N,) float32, all on one device; 1 <= k <= N.
     """
     _check(q, g, bias, k)
     if q.device.type == "cpu":
@@ -82,6 +87,8 @@ def fused_topk_scores(q, g, bias, k: int):
         raise ValueError(f"no top-k kernel for device {q.device}")
     if not (q.is_contiguous() and g.is_contiguous() and bias.is_contiguous()):
         raise ValueError("q, g and bias must be contiguous")
+    if k > BUFFER_K:
+        return select_topk_scores(q, g, bias, k)
     from . import _build
 
     n_q, n = q.shape[0], g.shape[0]
@@ -109,3 +116,46 @@ def fused_topk_scores(q, g, bias, k: int):
 
 
 fused_topk_scores.launches = 0
+
+
+def select_topk_scores(q, g, bias, k: int):
+    """K1': ``fused_topk_scores`` for CUDA tensors at any 1 <= k <= N, meant
+    for k above ``BUFFER_K``. Allocates, per chunk of queries, 8 N bytes of
+    keys and 8 k' bytes of sort buffer a query (k' the power of two at or
+    above k), at most ``SCRATCH_BYTES`` in all; one query must fit."""
+    _check(q, g, bias, k)
+    if q.device.type != "cuda":
+        raise ValueError(f"the select kernel runs on CUDA tensors, got {q.device}")
+    if not (q.is_contiguous() and g.is_contiguous() and bias.is_contiguous()):
+        raise ValueError("q, g and bias must be contiguous")
+    from . import _build
+
+    n_q, n = q.shape[0], g.shape[0]
+    vals = torch.empty((n_q, k), dtype=torch.float32, device=q.device)
+    idxs = torch.empty((n_q, k), dtype=torch.int32, device=q.device)
+    if n_q == 0:
+        return vals, idxs
+    k_pad = max(2, 1 << (k - 1).bit_length())
+    chunk = min(n_q, SCRATCH_BYTES // (8 * (n + k_pad)))
+    if chunk < 1:
+        raise ValueError(f"one query's keys and sort buffer ({8 * (n + k_pad)} bytes at N={n}, "
+                         f"k={k}) exceed SCRATCH_BYTES={SCRATCH_BYTES}")
+    keys = torch.empty((chunk, n), dtype=torch.int64, device=q.device)
+    buf = torch.empty((chunk, k_pad), dtype=torch.int64, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        for q0 in range(0, n_q, chunk):
+            rows = min(chunk, n_q - q0)
+            err = _build.load().xmir_topk_select(
+                q[q0:q0 + rows].data_ptr(), g.data_ptr(), bias.data_ptr(),
+                _DTYPE_CODES[q.dtype], rows, n, q.shape[1], k, k_pad, keys.data_ptr(),
+                buf.data_ptr(), vals[q0:q0 + rows].data_ptr(), idxs[q0:q0 + rows].data_ptr(),
+                stream,
+            )
+            if err != 0:
+                raise RuntimeError(f"top-k select kernel launch failed: cudaError_t {err}")
+    select_topk_scores.launches += 1
+    return vals, idxs
+
+
+select_topk_scores.launches = 0
