@@ -132,20 +132,22 @@ def test_train_eval_matches_jax_and_reference_golden(kind):
         golden = json.load(f)[kind]
     if kind == "single":
         emb, lab = _single_label()
-        out, ref = tm.train_eval_single_label(emb, lab), jm.train_eval_single_label(emb, lab)
-        tiny = tm.train_eval_single_label(emb[:1], lab[:1])
+        out = tm.train_eval_single_label(emb, lab, device="cpu")
+        ref = jm.train_eval_single_label(emb, lab)
+        tiny = tm.train_eval_single_label(emb[:1], lab[:1], device="cpu")
     else:
         emb, lab = _multilabel()
-        out, ref = tm.train_eval_multilabel(emb, lab), jm.train_eval_multilabel(emb, lab)
-        tiny = tm.train_eval_multilabel(emb[:1], lab[:1])
+        out = tm.train_eval_multilabel(emb, lab, device="cpu")
+        ref = jm.train_eval_multilabel(emb, lab)
+        tiny = tm.train_eval_multilabel(emb[:1], lab[:1], device="cpu")
     assert out.keys() == ref.keys() == {"mAP", "R@1", "R@5", "R@10"}
     for k, v in golden.items():
         np.testing.assert_allclose(out[k], v, rtol=1e-5, err_msg=k)
         np.testing.assert_allclose(out[k], ref[k], rtol=1e-6, err_msg=k)
     assert tiny == {"mAP": 0.0, "R@1": 0.0, "R@5": 0.0, "R@10": 0.0}
-    # a tensor, and a device, are taken as well
+    # a tensor is scored where it lies and needs no device
     again = (tm.train_eval_single_label if kind == "single" else tm.train_eval_multilabel)(
-        torch.from_numpy(emb), lab, device="cpu")
+        torch.from_numpy(emb), lab)
     assert again == out
 
 
@@ -192,7 +194,7 @@ def test_evaluate_suites_match_jax_cli(tmp_path, kind):
     same artifact as the JAX package's."""
     emb, lab = _single_label() if kind == "single" else _multilabel()
     name = "evaluate_single_label" if kind == "single" else "evaluate_multilabel"
-    out = getattr(test_cli, name)(emb, lab, str(tmp_path / "a"))
+    out = getattr(test_cli, name)(emb, lab, str(tmp_path / "a"), device="cpu")
     ref = getattr(jax_test_cli, name)(emb, lab, str(tmp_path / "b"))
     _, mismatches = compare_metrics(out, ref)
     assert mismatches == [] and json.dumps(out, default=float, sort_keys=True)
@@ -204,7 +206,30 @@ def test_evaluate_suites_match_jax_cli(tmp_path, kind):
     if kind == "single":
         off = ~np.eye(len(lab), dtype=bool)
         np.testing.assert_allclose(a["dists"][off], b["dists"][off], atol=1e-6)
-    assert getattr(test_cli, name)(emb, lab) == out  # no save_dir: no artifact needed
+    # no save_dir: no artifact needed; a CPU tensor names its own device
+    assert getattr(test_cli, name)(torch.from_numpy(emb), lab) == out
+    (tmp_path / "c").mkdir()
+    getattr(test_cli, name)(torch.from_numpy(emb), lab, str(tmp_path / "c"))
+    np.testing.assert_array_equal(np.load(str(tmp_path / "c" / "evaluation_results.npz"))["embeds"],
+                                  a["embeds"])
+
+
+@pytest.mark.parametrize("name", ["evaluate_single_label", "evaluate_multilabel",
+                                  "train_eval_single_label", "train_eval_multilabel"])
+def test_arrays_need_a_device(name):
+    """There is no default device: an array with no device raises rather than
+    being scored on the CPU beside an idle card; 'cpu' asks for the CPU."""
+    multilabel = name.endswith("multilabel")
+    emb, lab = _multilabel() if multilabel else _single_label()
+    fn = getattr(test_cli if name.startswith("evaluate") else tm, name)
+    with pytest.raises(ValueError, match="need a device"):
+        fn(emb, lab)
+    with pytest.raises(ValueError, match="need a device"):
+        tm.on_device(emb)
+    assert tm.on_device(emb, "cpu").dtype == torch.float32
+    t = torch.from_numpy(emb).double()
+    assert tm.on_device(t).device == t.device and tm.on_device(t).dtype == torch.float32
+    assert fn(emb, lab, device="cpu") == fn(torch.from_numpy(emb), lab)
 
 
 def _query_results(multilabel, seed=0):

@@ -121,6 +121,10 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take():
         big = [_r(gen, 1, 4096, 32) for _ in range(3)]
         with pytest.raises(ValueError, match="shared memory"):
             va.biased_attention_fused(*big, torch.zeros(1, 4096, 4096, device="cuda"), scale[:1])
+        # any other refusal of the launcher is not reported as a size problem
+        with pytest.raises(RuntimeError, match="cudaError_t 1"):
+            va.launch_window_attention(q, k, v, bias, scale.reshape(-1).contiguous(), 7,
+                                       (2, 2, 1, 1, 1, 0))
     q.requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward only"):
         va.biased_attention_fused(q, k, v, bias, scale, 2, True)

@@ -56,14 +56,15 @@ def single_label_metrics(dists: np.ndarray, labels: np.ndarray) -> dict:
     }
 
 
-def _on(embeds, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(embeds), dtype=torch.float32).to(device)
+def evaluate_single_label(embeds, labels: np.ndarray, save_dir=None, device=None):
+    """Score ``embeds`` against themselves on ``device`` and report the
+    single-label suite. Arrays need the device named; a tensor may leave it
+    out and is scored where it lies (metrics.on_device)."""
+    from ..metrics import fill_diagonal_neg_inf, on_device, pairwise_neg_l2
 
-
-def evaluate_single_label(embeds: np.ndarray, labels: np.ndarray, save_dir=None, device="cpu"):
-    from ..metrics import fill_diagonal_neg_inf, pairwise_neg_l2
-
-    dists = fill_diagonal_neg_inf(pairwise_neg_l2(_on(embeds, device))).cpu().numpy()
+    e = on_device(embeds, device)
+    dists = fill_diagonal_neg_inf(pairwise_neg_l2(e)).cpu().numpy()
+    embeds = e.cpu().numpy() if torch.is_tensor(embeds) else embeds
     metrics = single_label_metrics(dists, labels)
     cls = metrics["classification"]
     print(f">> R@1 {metrics['R@1']:.2f}  R@5 {metrics['R@5']:.2f}  "
@@ -99,10 +100,13 @@ def multilabel_metrics(sims: np.ndarray, labels: np.ndarray) -> dict:
     return metrics
 
 
-def evaluate_multilabel(embeds: np.ndarray, labels: np.ndarray, save_dir=None, device="cpu"):
-    from ..metrics import fill_diagonal_neg_inf, pairwise_cosine
+def evaluate_multilabel(embeds, labels: np.ndarray, save_dir=None, device=None):
+    """The multi-label suite; the device as in evaluate_single_label."""
+    from ..metrics import fill_diagonal_neg_inf, on_device, pairwise_cosine
 
-    sims = fill_diagonal_neg_inf(pairwise_cosine(_on(embeds, device))).cpu().numpy()
+    e = on_device(embeds, device)
+    sims = fill_diagonal_neg_inf(pairwise_cosine(e)).cpu().numpy()
+    embeds = e.cpu().numpy() if torch.is_tensor(embeds) else embeds
     metrics = multilabel_metrics(sims, labels)
     for t in (0.25, 0.5):
         print(f">> mAP (Jaccard > {t}): {metrics[f'mAP@jaccard>{t}']:.2f}%")

@@ -547,17 +547,21 @@ struct Args {
   cudaStream_t stream;
 };
 
+// returned in place of a cudaError_t code (all >= 0) when one window's K and V
+// do not fit a block's shared memory
+constexpr int kTooLarge = -1;
+
 template <int DP, int MODE>
-cudaError_t launch_one(const Args& a) {
+int launch_one(const Args& a) {
   const int n_pad = (a.n + kBK - 1) / kBK * kBK;
   cudaError_t err;
   if (a.dtype == 0) {
     const size_t bytes =
         sizeof(float) * (static_cast<size_t>(n_pad) * (2 * DP + 1) + kBQ * (DP + 1) + kBQ * (kBK + 1));
-    if (bytes > kSmemLimit) return cudaErrorInvalidValue;
+    if (bytes > kSmemLimit) return kTooLarge;
     err = cudaFuncSetAttribute(wattn_f32<DP, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess) return static_cast<int>(err);
     wattn_f32<DP, MODE><<<a.bh, kThreads, bytes, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), a.bias, a.scale, static_cast<float*>(a.o), a.n, a.hd,
@@ -565,20 +569,20 @@ cudaError_t launch_one(const Args& a) {
   } else {
     const size_t bytes =
         sizeof(__nv_bfloat16) * (2 * static_cast<size_t>(n_pad) + kWarps * 16) * (DP + 8);
-    if (bytes > kSmemLimit) return cudaErrorInvalidValue;
+    if (bytes > kSmemLimit) return kTooLarge;
     err = cudaFuncSetAttribute(wattn_bf16<DP, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(bytes));
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess) return static_cast<int>(err);
     wattn_bf16<DP, MODE><<<a.bh, kThreads, bytes, a.stream>>>(
         static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
         static_cast<const __nv_bfloat16*>(a.v), a.bias, a.scale,
         static_cast<__nv_bfloat16*>(a.o), a.n, a.hd, a.grp);
   }
-  return cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int DP>
-cudaError_t launch_mode(int mode, const Args& a) {
+int launch_mode(int mode, const Args& a) {
   if (mode == kScaled) return launch_one<DP, kScaled>(a);
   if (mode == kCosine) return launch_one<DP, kCosine>(a);
   return launch_one<DP, kV1>(a);
@@ -586,10 +590,9 @@ cudaError_t launch_mode(int mode, const Args& a) {
 
 }  // namespace
 
-// C entry point bound with ctypes; returns a cudaError_t code
-// (cudaErrorInvalidValue also when one window's K and V do not fit a block's
-// shared memory). q, k, v, o (bh, n, hd) contiguous, 16-byte aligned, of one
-// dtype (0 = float32, 1 = bfloat16); hd a multiple of 8 up to 64; bias
+// C entry point bound with ctypes; returns a cudaError_t code, or -1 when one
+// window's K and V do not fit a block's shared memory. q, k, v, o (bh, n, hd)
+// contiguous, 16-byte aligned, of one dtype (0 = float32, 1 = bfloat16); hd a multiple of 8 up to 64; bias
 // (groups, n, n) float32, 8-byte aligned; scale (groups,) float32, unread in
 // mode 2. mode: 0 = K4 without the cosine normalisation, 1 = K4 with it,
 // 2 = K6. Row i uses bias slice (i / d1) % m1 * s1 + (i / d2) % m2 * s2.
@@ -603,7 +606,7 @@ extern "C" int xmir_window_attn(const void* q, const void* k, const void* v, con
   }
   const Args a = {q, k, v, bias, scale, o, dtype, bh, n, hd, {d1, m1, s1, d2, m2, s2},
                   static_cast<cudaStream_t>(stream)};
-  if (hd <= 16) return (int)launch_mode<16>(mode, a);
-  if (hd <= 32) return (int)launch_mode<32>(mode, a);
-  return (int)launch_mode<64>(mode, a);
+  if (hd <= 16) return launch_mode<16>(mode, a);
+  if (hd <= 32) return launch_mode<32>(mode, a);
+  return launch_mode<64>(mode, a);
 }

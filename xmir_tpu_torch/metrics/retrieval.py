@@ -58,14 +58,23 @@ def fill_diagonal_neg_inf(sims: torch.Tensor) -> torch.Tensor:
     return sims.masked_fill(eye, float("-inf"))
 
 
+def on_device(embeds, device=None) -> torch.Tensor:
+    """``embeds`` as a float32 tensor on ``device``. A tensor may leave the
+    device out and stays where it lies; an array names no device of its own,
+    and there is no default one (as ShardedGalleryIndex.build has none): the
+    caller says ``"cuda"``, or ``"cpu"`` where the CPU is meant."""
+    if torch.is_tensor(embeds):
+        return embeds.to(device=device, dtype=torch.float32)
+    if device is None:
+        raise ValueError("embeddings given as an array need a device: 'cuda' to score them on "
+                         "the card, 'cpu' to ask for the CPU")
+    return torch.as_tensor(np.asarray(embeds), dtype=torch.float32).to(device)
+
+
 def _cosine_scores(embeds, device=None) -> np.ndarray:
     """The (N, N) cosine matrix with a -inf diagonal, computed on ``device``
-    (default: the embeddings' own, the CPU for arrays), as a numpy array."""
-    e = torch.as_tensor(np.asarray(embeds) if not torch.is_tensor(embeds) else embeds,
-                        dtype=torch.float32)
-    if device is not None:
-        e = e.to(device)
-    return fill_diagonal_neg_inf(pairwise_cosine(e)).cpu().numpy()
+    (see on_device), as a numpy array."""
+    return fill_diagonal_neg_inf(pairwise_cosine(on_device(embeds, device))).cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +303,7 @@ def train_eval_single_label(embeds, labels, topk=(1, 5, 10), device=None):
 
     AP = sum over hits of (cum_hits / rank) / (total relevant in gallery);
     queries with no relevant items contribute AP=0 (reference train.py:399-441).
+    Arrays need ``device`` named; a tensor is scored where it lies (on_device).
     """
     labels = np.asarray(labels).reshape(-1)
     n = len(labels)
@@ -347,7 +357,8 @@ def _average_precision_score(y_true, y_score):
 def train_eval_multilabel(embeds, labels, topk=(1, 5, 10), relevance_threshold=0.4,
                           device=None):
     """Multi-label train-time eval: sklearn-style AP over cosine scores with
-    Jaccard>threshold relevance, self excluded (reference train.py:444-487)."""
+    Jaccard>threshold relevance, self excluded (reference train.py:444-487).
+    The device as in train_eval_single_label."""
     labels = np.asarray(labels, dtype=np.float64)
     n = labels.shape[0]
     if n <= 1:

@@ -261,7 +261,7 @@ def launch_window_attention(q, k, v, bias, scale, mode: int, groups):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             None if scale is None else scale.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
             mode, bh, n, hd, *groups, torch.cuda.current_stream(q.device).cuda_stream)
-    if err == 1:  # cudaErrorInvalidValue: the kernel's own size check
+    if err == -1:  # the launcher's own size check, no cudaError_t code
         raise ValueError(f"one window's K and V (N={n}, hd={hd}, {q.dtype}) do not fit a "
                          "block's shared memory, where the window attention kernel keeps them")
     if err != 0:
