@@ -1,10 +1,10 @@
-"""Plants one fault at a time in the ViT kernels (K2, K7, K8), the Swin
+"""Plants one fault at a time in the ViT kernels (K2, K3, K7, K8), the Swin
 attention kernels (K4, K6) and the large-k top-k (K1') on an NVIDIA card and
 prints how far each faulty kernel lies from its plain PyTorch version, beside
 the real kernels' readings: the evidence the bounds in
-xmir_tpu_torch/ops/vit_attn.py (``agreement``, ``window_agreement``) and
-ops/convnext_block.py (``agreement``) were set from. K1' is held to bit-equal
-ids and values on integer inputs.
+xmir_tpu_torch/ops/vit_attn.py (``agreement``, ``grad_agreement``,
+``window_agreement``) and ops/convnext_block.py (``agreement``) were set
+from. K1' is held to bit-equal ids and values on integer inputs.
 
     python3 chip_faults.py
 
@@ -44,6 +44,20 @@ SOURCE_FAULTS = {
         "vit_attn.cu", "const float m_new = fmaxf(m_run[h], ceilf(mx));\n      alpha[h] = pow2i("
         "m_run[h] - m_new);",
         "const float m_new = fmaxf(m_run[h], mx);\n      alpha[h] = exp2f(m_run[h] - m_new);"),
+    "K3: dk rounded to bf16 after every query tile": (
+        "vit_attn_bwd.cu",
+        "        mma_bf16(acc_v[2 * dd + 1], pe, r[2], r[3]);\n      }\n    }\n",
+        "        mma_bf16(acc_v[2 * dd + 1], pe, r[2], r[3]);\n      }\n    }\n"
+        "    for (int dt = 0; dt < DP / 8; ++dt)\n      for (int e = 0; e < 4; ++e)\n"
+        f"        acc_k[dt][e] = {ROUND_BF16.format('acc_k[dt][e]')};\n"),
+    "K3: scale missing from dk": (
+        "vit_attn_bwd.cu", "rqz = scale8(rq, scale * zinv);", "rqz = scale8(rq, zinv);",
+        "[&](int row) { return scale * zinv(row); }", "zinv"),
+    "K3: dead key columns unmasked": (
+        "vit_attn_bwd.cu",
+        "const bool live = k0 + nt * 8 + 2 * t + (e & 1) < n;", "const bool live = true;",
+        "const float ev = k0 + tx + 16 * j < n ? exp2f(s[i][j] - m_row[i]) : 0.f;",
+        "const float ev = exp2f(s[i][j] - m_row[i]);"),
     "K7, K8: LN eps 1e-5 for 1e-6": (
         "gemm_tile.cuh", "constexpr float kLnEps = 1e-6f;", "constexpr float kLnEps = 1e-5f;"),
     "K8: erf GELU for tanh": (
@@ -87,10 +101,12 @@ def use_sources(directory: Path):
 
 
 def worst(readings):
+    """The largest of each reading; a NaN (which agrees with nothing) sticks."""
     out = {}
     for e in readings:
         for k, v in e.items():
-            out[k] = max(out.get(k, 0.0), v)
+            seen = out.get(k, 0.0)
+            out[k] = v if v != v or (seen == seen and v > seen) else seen
     return out
 
 
@@ -117,6 +133,80 @@ def read_attention(scale_constant=None):
                 va.scale_constant = real
             readings.append(va.agreement(out, va.attention_plain(q, k, v, sc)))
     return worst(readings)
+
+
+def backward_cases(gen, dtype):
+    """K3's operands (q, k, v, g, scale): random scores at the DINOv2 shape
+    and ragged ones, rows with few dominant scores, and rows whose every
+    shift lies below -128 at a ragged N (where 2^-m of an unmasked dead key
+    column overflows)."""
+    for bh, n, hd, gain in ((24, 1370, 64, 1.0), (3, 257, 64, 1.0), (2, 300, 72, 1.0),
+                            (3, 729, 64, 4.0), (4, 300, 64, -8.0)):
+        q, k, v, g = (torch.randn((bh, n, hd), generator=gen).cuda() for _ in range(4))
+        if gain < 0:
+            q, k = q.abs() * gain, k.abs() * -gain
+        else:
+            q = q * gain
+        yield q.to(dtype), k.to(dtype), v.to(dtype), g.to(dtype), hd ** -0.5
+
+
+def backward_plain_with(fault):
+    """``va.attention_bwd_plain`` with one rounding point moved: "t" leaves t
+    in f32; "z" applies 1 / z to the score tile (p = e / z) instead of the
+    small operands; "c" takes c = rowsum(p dp) from p and dp rounded to the
+    input dtype instead of rowsum(g o)."""
+    def plain(q, k, v, o, g, sm_scale):
+        dt = q.dtype
+        qs = q * torch.tensor(va.scale_constant(sm_scale, dt), dtype=dt, device=q.device)
+        s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+        e = torch.exp2(s - torch.ceil(s.amax(dim=-1, keepdim=True)))
+        zinv = 1.0 / e.sum(dim=-1, keepdim=True)
+        g32 = g.float()
+        dp = torch.matmul(g32, v.float().transpose(-1, -2))
+        if fault == "c":
+            c = ((e * zinv).to(dt).float() * dp.to(dt).float()).sum(dim=-1, keepdim=True)
+        else:
+            c = (g32 * o.float()).sum(dim=-1, keepdim=True)
+        if fault == "z":
+            e, row, zinv = e * zinv, sm_scale, 1.0
+        else:
+            row = sm_scale * zinv
+        t = e * (dp - c)
+        if fault != "t":
+            t = t.to(dt).float()
+        dq = (torch.matmul(t, k.float()) * row).to(dt)
+        qz, gz = (q.float() * row).to(dt), (g32 * zinv).to(dt)
+        dk = torch.matmul(t.transpose(-1, -2), qz.float()).to(dt)
+        dv = torch.matmul(e.to(dt).float().transpose(-1, -2), gz.float()).to(dt)
+        return dq, dk, dv
+
+    return plain
+
+
+def read_backward(dtype, plain=va.attention_bwd_plain):
+    """K3's worst ``va.grad_agreement`` reading over ``backward_cases``."""
+    gen = torch.Generator().manual_seed(4)
+    readings = []
+    for q, k, v, g, sc in backward_cases(gen, dtype):
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = va.vit_attention_fused(*leaves, sc)
+        grads = torch.autograd.grad(out, leaves, g)
+        for a, b, floor in zip(grads, plain(q, k, v, out.detach(), g, sc),
+                               va.grad_floors(q, k, v, g, sc)):
+            readings.append(va.grad_agreement(a, b, floor))
+    return worst(readings)
+
+
+def read_train_slice():
+    """chip_smoke.py's f32 DINOv2 training slice, the kernels against their
+    plain versions: the reading its TRAIN_F32_MEAN_TOL gates."""
+    import chip_smoke as cs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, pt, start, steps, _ = cs.dinov2_train_setup(Path(tmp))
+        run = cs.make_trainer(Path(tmp), "dinov2", data, "-p", "2")
+        with cs.env_flags(XMIR_FUSED_LN_MLP=None, **cs.FUSED_VIT):
+            return cs.f32_kernels_against_plain(run, pt, start, steps[0])
 
 
 def ln_plain_unrounded(x, lns, lnb, w, b, act):
@@ -254,9 +344,9 @@ def main():
     print(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}", flush=True)
     ok = True
 
-    def report(name, kernel, reading, want_inside):
+    def report(name, kernel, reading, want_inside, agrees=cb.agrees):
         nonlocal ok
-        inside = cb.agrees(reading)
+        inside = agrees(reading)
         ok &= inside == want_inside
         print(f"[faults] {name:60s} {kernel:9s} {'inside' if inside else 'OUTSIDE'} "
               f"(expected {'inside' if want_inside else 'outside'}): {reading}", flush=True)
@@ -272,6 +362,23 @@ def main():
         report("the kernel", f"K4 {str(dtype)[6:]}", e4, True)
         report("the kernel", f"K6 {str(dtype)[6:]}", e6, True)
     report("the kernel", "K1'", read_select(), True)
+    for dtype in (torch.bfloat16, torch.float32):
+        report("the kernel", f"K3 {str(dtype)[6:]}", read_backward(dtype), True, va.grad_agrees)
+    import chip_smoke as cs
+
+    def report_slice(name, want_inside):
+        nonlocal ok
+        reading = read_train_slice()
+        inside = reading["mean_apart_of_mean_moved"] <= cs.TRAIN_F32_MEAN_TOL
+        ok &= inside == want_inside
+        print(f"[faults] {name:60s} f32 slice {'inside' if inside else 'OUTSIDE'} (expected "
+              f"{'inside' if want_inside else 'outside'}): {reading}", flush=True)
+
+    report_slice("the kernel: cli.train dinov2 f32 against the plain versions", True)
+    for name, fault in (("t left in f32", "t"), ("1 / z applied to the score tile", "z"),
+                        ("c taken from p and dp rounded to bf16", "c")):
+        report(f"K3's plain version with {name}", "K3 bf16",
+               read_backward(torch.bfloat16, backward_plain_with(fault)), False, va.grad_agrees)
     report("K4's plain version with the normalised k left unrounded", "K4 bf16",
            read_window(torch.bfloat16, plain_k_unrounded)[0], False)
     report("K2: q-scale constant not rounded to bf16", "K2 bf16",
@@ -291,6 +398,14 @@ def main():
             use_sources(directory)
             if name.startswith("K2"):
                 report(name, "K2 bf16", read_attention(), False)
+                continue
+            if name.startswith("K3"):
+                report(name, "K3 bf16", read_backward(torch.bfloat16), False, va.grad_agrees)
+                if "rounded" not in name:  # faults of rounding do not show in f32
+                    report(name, "K3 float32", read_backward(torch.float32), False,
+                           va.grad_agrees)
+                if "scale missing" in name:
+                    report_slice(name, False)
                 continue
             if name.startswith("K1'"):
                 report(name, "K1'", read_select(), False)

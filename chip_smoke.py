@@ -91,6 +91,32 @@ Phases, each of which raises (exit code != 0) on any failure:
              turns; SwinV2-Base bf16 (weights and input) batch 16 at 384 px
              with K4, with K6, with the kernels' plain versions and on the
              eager path; CUDA events, in turns
+ 17. kernel  K3 (csrc/vit_attn_bwd.cu) against its plain version through the
+             autograd Function around K2 / K3, f32 and bf16: (BH, N, hd) in
+             {(24, 1370, 64), (4, 729, 72), (6, 64, 32), (2, 1, 64),
+             (3, 137, 128)}, rows of negative scores and rows with few
+             dominant keys; within the bounds of
+             ops/vit_attn.py::grad_agreement; two runs bit-equal; f32 also
+             within 3e-5 of the largest magnitude of the exact gradient; K7's
+             analytic backward against autograd through its plain forward
+ 18. slice   cli.train with DINOv2 ViT-B/14 at full width (518 px, 12 blocks,
+             --bf16 -p 2 -k 4: batch 8) on COVIDx-format PNGs: one epoch of
+             three steps, the evaluation and a checkpoint: K7 and K2 in every
+             block of every forward, K3 in every block of every train step;
+             finite losses; parameters moved, and under --freeze-backbone the
+             backbone's did not; --resume of the checkpoint continues at epoch
+             2 with the losses, bit for bit, of an uninterrupted two-epoch
+             run; then three f32 steps with the kernels and with their plain
+             versions, the parameters after them held together
+ 19. slice   cli.train with DenseNet121 (224 px, -p 3 -k 4, f32, no kernel):
+             finite losses, running statistics moved, resume exact
+ 20. rates   K3 at B = 8 and B = 16 (BH = 96 / 192, N = 1370, hd = 64), bf16
+             and f32, against its plain version and the backward of one
+             scaled_dot_product_attention call (timed here, used nowhere in
+             the port); the bf16 DINOv2 train step at batch 8 with the
+             kernels, with their plain versions and on the eager path: img/s,
+             peak memory, and forward / backward / optimiser shares
+``--train-only`` builds and runs phases 17 to 20 alone (no result line).
 The launch counts are set to 0 before each slice and read after it. Each
 kernel's bound (the least time the card could take: bytes moved once over
 3.35 TB/s, or operations over the peak of their type) is reckoned from the
@@ -115,12 +141,14 @@ import torch.nn.functional as F
 
 from xmir_tpu_torch.cli import common, ingest, query
 from xmir_tpu_torch.cli import test as test_cli
+from xmir_tpu_torch.cli import train as train_cli
 from xmir_tpu_torch.data.pipeline import embed_dataset
 from xmir_tpu_torch.data.synthetic import write_synthetic_covidx
 from xmir_tpu_torch.index import ShardedGalleryIndex
 from xmir_tpu_torch.models import convnext as convnext_model
 from xmir_tpu_torch.models import swin as swin_model
 from xmir_tpu_torch.models import vit as vit_model
+from xmir_tpu_torch.models.convert import load_torch_checkpoint
 from xmir_tpu_torch.models.registry import create_model
 from xmir_tpu_torch.ops import _build
 from xmir_tpu_torch.ops import convnext_block as cb
@@ -136,7 +164,13 @@ from xmir_tpu_torch.ops.topk_kernels import (
     select_topk_scores,
     topk_scores_reference,
 )
-from xmir_tpu_torch.train import make_embed_fn
+from xmir_tpu_torch.train import (
+    TrainState,
+    build_optimizer,
+    make_embed_fn,
+    make_embedding_train_step,
+)
+from xmir_tpu_torch.utils.checkpoint import checkpoint_name, load_checkpoint
 
 REPO = Path(__file__).resolve().parent
 KERNELS = {
@@ -149,6 +183,9 @@ KERNELS = {
     "K2": {"name": "vit_attention_fused", "route": "cuda",
            "source": "xmir_tpu_torch/csrc/vit_attn.cu",
            "replaces": "xmir_tpu/ops/vit_attn_pallas.py:199"},
+    "K3": {"name": "vit_attention_bwd", "route": "cuda",
+           "source": "xmir_tpu_torch/csrc/vit_attn_bwd.cu",
+           "replaces": "xmir_tpu/ops/vit_attn_pallas.py:683"},
     "K4": {"name": "biased_attention_fused", "route": "cuda",
            "source": "xmir_tpu_torch/csrc/window_attn.cu",
            "replaces": "xmir_tpu/ops/vit_attn_pallas.py:320"},
@@ -367,7 +404,7 @@ def check_hits(calls, results, n_gallery, n_queries, dim):
 
 
 WRAPPERS = {"K1": fused_topk_scores, "K1'": select_topk_scores, "K2": va.vit_attention_fused,
-            "K4": va.biased_attention_fused, "K6": wa.window_attention_fused,
+            "K3": va.vit_attention_bwd, "K4": va.biased_attention_fused, "K6": wa.window_attention_fused,
             "K7": ld.ln_qkv_fused,
             "K8": ld.ln_dense_fused, "K9": cb.convnext_block_fused,
             "K11": cb.convnext_mlp_grn_fused}
@@ -847,13 +884,43 @@ def env_flags(**flags):
                 os.environ[k] = v
 
 
+class PlainAttention(torch.autograd.Function):
+    """K2's and K3's plain versions as one differentiable call."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale):
+        out = va.attention_plain(q, k, v, sm_scale)
+        ctx.sm_scale = sm_scale
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out = ctx.saved_tensors
+        return (*va.attention_bwd_plain(q, k, v, out, g.contiguous(), ctx.sm_scale), None)
+
+
+class PlainLnQkv(torch.autograd.Function):
+    """K7's plain version with K7's own (plain tensor code) backward."""
+
+    @staticmethod
+    def forward(ctx, x, lns, lnb, w, b, num_heads):
+        ctx.save_for_backward(x, lns, lnb, w, b)
+        return ld.ln_qkv_reference(x, lns, lnb, w, b, num_heads)
+
+    @staticmethod
+    def backward(ctx, gq, gk, gv):
+        return (*ld.ln_qkv_backward(*ctx.saved_tensors, gq, gk, gv), None)
+
+
 @contextlib.contextmanager
 def vit_plain_versions():
-    """The ViT's kernel calls pointed at the kernels' plain versions."""
+    """The ViT's kernel calls pointed at the kernels' plain versions, the
+    forward's and the backward's."""
     saved = (vit_model.ln_qkv_fused, vit_model.ln_dense_fused, plain_attn.vit_attention_fused)
-    vit_model.ln_qkv_fused = ld.ln_qkv_reference
+    vit_model.ln_qkv_fused = PlainLnQkv.apply
     vit_model.ln_dense_fused = ld.ln_dense_reference
-    plain_attn.vit_attention_fused = va.attention_plain
+    plain_attn.vit_attention_fused = PlainAttention.apply
     try:
         yield
     finally:
@@ -1670,16 +1737,446 @@ def phase_select_rates():
         torch.cuda.empty_cache()
     return out
 
+def grad_err(outs, refs, floors, what):
+    """The worst ``va.grad_agreement`` reading over (dq, dk, dv), each with
+    its ``va.grad_floors`` entry; raises past the bounds stated in
+    ops/vit_attn.py."""
+    worst = {}
+    for name, out, ref, floor in zip(("dq", "dk", "dv"), outs, refs, floors):
+        e = va.grad_agreement(out, ref, floor)
+        check(va.grad_agrees(e), f"{what} {name}: K3 differs from its plain version past the "
+                                 f"bounds (GRAD_RTOL, GRAD_MEAN_RTOL): {e}")
+        _worst(worst, e)
+    return worst
+
+
+def attention_grads(q, k, v, g, sc):
+    """(out, (dq, dk, dv)) through the Function: K2 forward, K3 backward."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = va.vit_attention_fused(*leaves, sc)
+    return out.detach(), torch.autograd.grad(out, leaves, g)
+
+
+# f32 K3 against the exact gradient, of the largest magnitude (va.grad_floors at least)
+K3_EXACT_RTOL = 3e-5
+
+
+def phase_kernel_bwd():
+    gen = torch.Generator().manual_seed(21)
+    err = {"K3": {}, "K7 backward": {}}
+    cases = [(24, 1370, 64, "DINOv2, B 2"), (4, 729, 72, "hd 72 as 80"), (6, 64, 32, "one tile"),
+             (2, 1, 64, "N 1"), (3, 137, 128, "hd 128")]
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        inputs = [(_attn_inputs(gen, bh, n, hd, dtype), _attn_inputs(gen, bh, n, hd, dtype)[0],
+                   hd ** -0.5, f"BH={bh} N={n} hd={hd} ({what})") for bh, n, hd, what in cases]
+        # every score very negative with one dominant key in the last tile,
+        # and scores scaled up so that a row has few dominant keys
+        q, k, v = _attn_inputs(gen, 4, 300, 64, torch.float32)
+        g = _attn_inputs(gen, 4, 300, 64, dtype)[0]
+        qn, kn = -q.abs() * 3, k.abs() * 3
+        kn[:, 290] *= -4.0
+        inputs.append(((qn.to(dtype), kn.to(dtype), v.to(dtype)), g, 0.125,
+                       "negative scores, one dominant key"))
+        inputs.append((((q * 4).to(dtype), k.to(dtype), v.to(dtype)), g, 0.125,
+                       "few dominant keys"))
+        # every shift below -128: 2^-m of an unmasked dead key column would overflow
+        inputs.append((((-q.abs() * 8).to(dtype), (k.abs() * 8).to(dtype), v.to(dtype)), g, 0.125,
+                       "scores below -128"))
+        for (q, k, v), g, sc, what in inputs:
+            out, grads = attention_grads(q, k, v, g, sc)
+            _, again = attention_grads(q, k, v, g, sc)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(grads, again)),
+                  f"K3 {name} {what}: two runs differ")
+            check(all(torch.isfinite(t.float()).all() for t in grads), f"K3 {name} {what}: "
+                                                                       "non-finite gradients")
+            floors = va.grad_floors(q, k, v, g, sc)
+            e = grad_err(grads, va.attention_bwd_plain(q, k, v, out, g, sc), floors,
+                         f"K3 {name} {what}")
+            _worst(err["K3"].setdefault(name, {}), e)
+            exact = ""
+            # against the exact gradient on the random cases; where the softmax
+            # saturates both sides are residues of dp - c
+            if dtype == torch.float32 and what.startswith("BH="):
+                rel = max(((a - b).abs().max() / torch.maximum(b.abs().max(), floor)).item()
+                          for a, b, floor in zip(
+                              grads, va.attention_bwd_reference(q, k, v, g, sc), floors))
+                check(rel <= K3_EXACT_RTOL, f"K3 f32 {what}: {rel} of the largest magnitude from "
+                                            f"the exact gradient > {K3_EXACT_RTOL}")
+                exact = f"; within {rel:.2g} of the exact gradient (bound {K3_EXACT_RTOL})"
+            log(f"[kernel] K3 {name:8s} {what}: {e}; twice bit-equal{exact}")
+        # K7's backward (plain tensor code on the card) against autograd
+        # through its plain forward: of each gradient's largest magnitude
+        tol = 1e-5 if dtype == torch.float32 else 2 ** -6
+        x, lns, lnb, w, bias = _ln_inputs(gen, 2, VIT["n"], VIT["c"], 3 * VIT["c"], dtype)
+        cot = [torch.randn((2, VIT["heads"], VIT["n"], 64), generator=gen).to("cuda", dtype)
+               for _ in range(3)]
+        leaves = [t.detach().requires_grad_(True) for t in (x, lns, lnb, w, bias)]
+        got = torch.autograd.grad(ld.ln_qkv_fused(*leaves, VIT["heads"]), leaves, cot)
+        f32 = [t.detach().float().requires_grad_(True) for t in (x, lns, lnb, w, bias)]
+        ref = torch.autograd.grad(ld.ln_qkv_reference(*f32, VIT["heads"]), f32,
+                                  [t.float() for t in cot])
+        rel = {n_: ((a.float() - b).abs().max() / b.abs().max()).item()
+               for n_, a, b in zip(("dx", "dlns", "dlnb", "dw", "db"), got, ref)}
+        check(max(rel.values()) <= tol, f"K7 backward {name}: {rel} of the largest magnitude "
+                                        f"from autograd through the plain forward > {tol}")
+        err["K7 backward"][name] = rel
+        log(f"[kernel] K7 backward {name:8s} B=2 N={VIT['n']} C={VIT['c']}: {rel} of each "
+            f"gradient's largest magnitude from the f32 autograd gradient (bound {tol:.3g})")
+    return err
+
+
+def _train_args(img_dir, manifest, val_dir, val_manifest, model, save_dir, log_path, *extra):
+    return ["--dataset", "covid", "--dataset-dir", img_dir, "--train-image-list", manifest,
+            "--val-dataset-dir", val_dir, "--val-image-list", val_manifest, "--model", model,
+            "--device", "cuda", "--seed", "0", "-k", "4", "-j", "8", "--print-freq", "1",
+            # on unit embeddings a margin of 2 keeps every triplet active: every
+            # step has a gradient, however far apart random weights put the classes
+            "--margin", "2.0",
+            "--eval-freq", "1", "--ckpt-every", "1", "--eval-batch-size", "8", "--save-dir",
+            save_dir, "--metrics-log", log_path, *extra]
+
+
+def _option(extra, flag, default=None):
+    return extra[extra.index(flag) + 1] if flag in extra else default
+
+
+def make_trainer(workdir, model, data, *common_args):
+    """run(name, *extra) -> (losses [(epoch, step, loss)], the last epoch's
+    checkpoint path): cli.train.main on ``data`` into ``workdir / name``."""
+    def run(name, *extra):
+        extra = (*common_args, *extra)
+        save, log_path = str(workdir / name), str(workdir / f"{name}.jsonl")
+        train_cli.main(_train_args(*data, model, save, log_path, *extra))
+        dim = _option(extra, "--embedding-dim")
+        path = os.path.join(save, checkpoint_name(
+            "covid", model, embedding_dim=dim and int(dim), rand_resize="--rand-resize" in extra,
+            seed=0, epoch=int(_option(extra, "--epochs"))))
+        check(os.path.isfile(path) and os.path.isfile(path + ".json"), f"no checkpoint {path}")
+        records = [json.loads(line) for line in Path(log_path).read_text().splitlines()]
+        losses = [(r["epoch"], r["step"], r["loss"]) for r in records if r["kind"] == "train"]
+        check(losses and all(np.isfinite(v) for _, _, v in losses),
+              f"{name}: non-finite or no losses: {losses}")
+        check(all(np.isfinite(r["mAP"]) for r in records if r["kind"] == "eval"),
+              f"{name}: non-finite evaluation")
+        return losses, path
+
+    return run
+
+
+def pk_steps(manifest, p, k, epoch, seed=0):
+    """Train steps of one epoch: the full batches cli.train's PKSampler
+    yields for that (seed, epoch)."""
+    from xmir_tpu_torch.data.datasets import COVIDX_LABEL_MAP
+    from xmir_tpu_torch.data.samplers import PKSampler
+
+    labels = [COVIDX_LABEL_MAP[line.split()[2]]
+              for line in Path(manifest).read_text().splitlines()]
+    return len(list(PKSampler(labels, p, k, seed=seed + epoch))) // (p * k)
+
+
+def check_resume(run, steps, what, *first_args):
+    """One epoch (started with ``first_args``), then --resume of its
+    checkpoint for a second, against two epochs in one run: the second
+    epoch's losses and the final tensors are bit-equal. ``steps``: the train
+    steps of epochs 1 and 2. Returns the first epoch's checkpoint."""
+    first, ckpt1 = run("first", *first_args, "--epochs", "1")
+    whole, ckpt_w = run("whole", *first_args, "--epochs", "2")
+    second, ckpt_2 = run("second", "--epochs", "2", "--resume", ckpt1)
+    check([len(first), len(whole)] == [steps[0], sum(steps)],
+          f"{what}: {len(first)} and {len(whole)} steps, expected {steps}")
+    check(whole[:steps[0]] == first, f"{what}: two runs of epoch 1 differ: {whole} {first}")
+    check(second and second[0][0] == 2, f"{what}: the resumed run did not continue at epoch 2")
+    check(second == whole[steps[0]:],
+          f"{what}: the resumed epoch's losses {second} are not the uninterrupted run's "
+          f"{whole[steps[0]:]}")
+    a, b = load_checkpoint(ckpt_w, unwrap=False), load_checkpoint(ckpt_2, unwrap=False)
+    check(a["step"] == b["step"] == sum(steps) and a["epoch"] == b["epoch"] == 2,
+          f"{what}: steps {a['step']} / {b['step']}")
+    check(all(torch.equal(v, b["state_dict"][key]) for key, v in a["state_dict"].items()),
+          f"{what}: the resumed run's final tensors differ from the uninterrupted run's")
+    check(all(torch.equal(v, b["optimizer"]["state"][i][key])
+              for i, st in a["optimizer"]["state"].items() for key, v in st.items()),
+          f"{what}: the resumed run's Adam moments differ")
+    log(f"[slice] {what}: --resume continues at epoch 2; its {len(second)} losses and the final "
+        f"parameters, buffers and Adam moments equal the uninterrupted run's bit for bit "
+        f"(losses {[round(v, 4) for _, _, v in whole]})")
+    return ckpt1
+
+
+# f32 parameters after an epoch's train steps with the kernels against the
+# same steps with their plain versions: the mean distance between the two
+# runs' parameters as a share of the mean movement. 2.6e-6 to 2.8e-6 seen;
+# with the softmax scale left out of dk (chip_faults.py) 0.11 (PERF.md)
+TRAIN_F32_MEAN_TOL = 1e-3
+
+
+def dinov2_train_setup(workdir: Path, p=2, k=4):
+    """The training slice's inputs: (data, a timm-layout .pt to start from,
+    the model's state dict after loading it, the train steps of epochs 1 and
+    2, evaluation batches an epoch)."""
+    t0 = time.perf_counter()
+    n_train, n_val = 24, 16
+    data = (*write_synthetic_covidx(str(workdir / "t_train"), n=n_train, size=256, seed=10),
+            *write_synthetic_covidx(str(workdir / "t_val"), n=n_val, size=256, seed=11))
+    pt = str(workdir / "dinov2_timm.pt")
+    write_vit_checkpoint(pt, seed=25)
+    log(f"[slice] train: wrote {n_train} + {n_val} PNGs and a timm-layout .pt in "
+        f"{time.perf_counter() - t0:.1f} s")
+    start, _ = create_model("dinov2", generator=torch.Generator().manual_seed(0))
+    start = load_torch_checkpoint(start, pt).state_dict()
+    return data, pt, start, [pk_steps(data[1], p, k, epoch) for epoch in (1, 2)], -(-n_val // 8)
+
+
+def f32_kernels_against_plain(run, pt, start, steps):
+    """An epoch's f32 train steps (under FUSED_VIT) with the kernels, then
+    with their plain versions: how far apart the parameters end, as a share
+    of how far they moved."""
+    reset_launches()
+    _, f32_ckpt = run("f32", "--epochs", "1", "--resume", pt)
+    check(read_launches()["K3"] == VIT["depth"] * steps, "the f32 steps did not take K3")
+    with vit_plain_versions():
+        reset_launches()
+        _, plain_ckpt = run("f32_plain", "--epochs", "1", "--resume", pt)
+        check(not any(read_launches().values()), "the plain versions launched a kernel")
+    a, b = load_checkpoint(f32_ckpt), load_checkpoint(plain_ckpt)
+    moved = torch.cat([(v - start[key]).abs().flatten() for key, v in b.items()])
+    apart = torch.cat([(v - b[key]).abs().flatten() for key, v in a.items()])
+    return {"mean_apart_of_mean_moved": (apart.mean() / moved.mean()).item(),
+            "max_apart": apart.max().item(), "mean_moved": moved.mean().item(),
+            "share_outside_1e-6": (apart > 1e-6).float().mean().item()}
+
+
+def phase_train_dinov2(workdir: Path):
+    p = 2
+    data, pt, start, steps, eval_batches = dinov2_train_setup(workdir, p)
+    run = make_trainer(workdir, "dinov2", data, "-p", str(p))
+    out = {}
+    # the bf16 step takes K7 + K2 + K3 by the default rule; the in-training
+    # evaluation embeds in f32, which takes K7 + K2 under the switches
+    with env_flags(XMIR_FUSED_LN_MLP=None, **FUSED_VIT):
+        reset_launches()
+        t0 = time.perf_counter()
+        losses, ckpt = run("main", "--bf16", "--epochs", "1", "--resume", pt)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        want = dict.fromkeys(WRAPPERS, 0)
+        forwards = steps[0] + eval_batches
+        want.update({"K2": VIT["depth"] * forwards, "K7": VIT["depth"] * forwards,
+                     "K3": VIT["depth"] * steps[0]})
+        check(launches == want, f"cli.train dinov2: launches {launches}, expected {want} "
+                                f"({VIT['depth']} blocks x {steps[0]} steps + {eval_batches} "
+                                "evaluation batches)")
+        check(len(losses) == steps[0], f"{len(losses)} losses for {steps[0]} steps")
+        log(f"[slice] cli.train dinov2 --bf16: launches {launches} ({VIT['depth']} blocks x "
+            f"({steps[0]} train steps + {eval_batches} evaluation batches) forwards, x "
+            f"{steps[0]} backwards); losses {[round(v, 4) for _, _, v in losses]}; {wall:.1f} s "
+            "wall")
+        out["launches"] = launches
+        trained = load_checkpoint(ckpt)
+        still = [key for key, v in trained.items() if torch.equal(v, start[key])]
+        check(not still, f"parameters that did not move: {still}")
+        check(all(torch.isfinite(v).all() for v in trained.values()), "non-finite parameters")
+        reset_launches()
+        _, frozen_ckpt = run("frozen", "--bf16", "--epochs", "1", "--resume", pt,
+                             "--freeze-backbone", "--embedding-dim", "64")
+        frozen_launches = read_launches()
+        frozen = load_checkpoint(frozen_ckpt)
+        fresh64, _ = create_model("dinov2", embedding_dim=64,
+                                  generator=torch.Generator().manual_seed(0))
+        fresh64 = dict(fresh64.state_dict(), **start)  # the same backbone, a seeded head
+        for key, v in frozen.items():
+            check(torch.equal(v, fresh64[key]) == key.startswith("backbone."),
+                  f"--freeze-backbone: {key} " + ("moved" if key.startswith("backbone.")
+                                                  else "did not move"))
+        log(f"[slice] cli.train dinov2: every tensor moved; under --freeze-backbone the "
+            f"backbone's {sum(key.startswith('backbone.') for key in frozen)} tensors did not "
+            f"and the head's did (the backward stops at the head: launches {frozen_launches})")
+        check_resume(make_trainer(workdir, "dinov2", data, "-p", str(p), "--bf16"), steps,
+                     "cli.train dinov2 --bf16", "--resume", pt)
+        reading = f32_kernels_against_plain(run, pt, start, steps[0])
+    check(reading["mean_apart_of_mean_moved"] <= TRAIN_F32_MEAN_TOL,
+          f"f32 parameters after {steps[0]} steps with the kernels differ from the plain "
+          f"versions' past the bound {TRAIN_F32_MEAN_TOL}: {reading}")
+    log(f"[slice] cli.train dinov2 f32, {steps[0]} steps, kernels against their plain versions: "
+        f"{reading} (bound on the first {TRAIN_F32_MEAN_TOL})")
+    out["f32_vs_plain"] = reading
+    return out
+
+
+def phase_train_densenet(workdir: Path):
+    n_train, n_val, p, k = 36, 16, 3, 4
+    data = (*write_synthetic_covidx(str(workdir / "d_train"), n=n_train, size=256, seed=12),
+            *write_synthetic_covidx(str(workdir / "d_val"), n=n_val, size=256, seed=13))
+    steps = [pk_steps(data[1], p, k, epoch) for epoch in (1, 2)]
+    run = make_trainer(workdir, "densenet121", data, "-p", str(p), "--rand-resize")
+    reset_launches()
+    ckpt = check_resume(run, steps, "cli.train densenet121 (f32, no kernel)")
+    launches = read_launches()
+    check(not any(launches.values()), f"DenseNet121 training launched a kernel: {launches}")
+    trained = load_checkpoint(ckpt)
+    fresh, _ = create_model("densenet121", generator=torch.Generator().manual_seed(0))
+    fresh = fresh.state_dict()
+    check(all(not torch.equal(v, fresh[key]) for key, v in trained.items()),
+          "a DenseNet121 tensor did not move")
+    drift = max((trained[key] - fresh[key]).abs().max().item() for key in trained
+                if key.endswith("running_var"))
+    check(drift > 1e-3, f"the running variances moved by {drift} only")
+    log(f"[slice] cli.train densenet121: every parameter and running statistic moved in "
+        f"{steps[0]} steps (running variances by up to {drift:.3g}); launches {launches}")
+    return launches
+
+
+def _bwd_work(bh, n, hd, dtype):
+    """(operations, bytes) of one K3 call: five products of 2 n^2 hd a head;
+    q, k, v, o, g read and dq, dk, dv written once."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return 10 * bh * n * n * hd, 8 * bh * n * hd * size
+
+
+def phase_bwd_rates():
+    gen = torch.Generator().manual_seed(22)
+    n, hd, h = VIT["n"], VIT["c"] // VIT["heads"], VIT["heads"]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        for b in (16, 8):
+            bh, sc = b * h, hd ** -0.5
+            q, k, v = _attn_inputs(gen, bh, n, hd, dtype)
+            g = _attn_inputs(gen, bh, n, hd, dtype)[0]
+            o, stats = va.launch_attention_forward(q, k, v, sc, want_stats=True)
+            # the library call: one SDPA forward, its graph kept, its backward timed alone
+            lq, lk, lv = (t.reshape(b, h, n, hd).detach().requires_grad_(True) for t in (q, k, v))
+            lo = F.scaled_dot_product_attention(lq, lk, lv)
+            lg = g.reshape(b, h, n, hd)
+            fns = {
+                "K3": lambda: va.vit_attention_bwd(q, k, v, o, g, stats, sc),
+                "K3 plain": lambda: va.attention_bwd_plain(q, k, v, o, g, sc),
+                "K3 library": lambda: torch.autograd.grad(lo, (lq, lk, lv), lg,
+                                                          retain_graph=True),
+                "K2": lambda: va.launch_attention_forward(q, k, v, sc, want_stats=True),
+            }
+            e = grad_err(fns["K3"](), fns["K3 plain"](), va.grad_floors(q, k, v, g, sc),
+                         f"K3 {name} B={b}")
+            lib_rel = max(((a.float() - r.reshape(a.shape).float()).abs().max()
+                           / a.float().abs().max()).item()
+                          for a, r in zip(fns["K3"](), fns["K3 library"]()))
+            ms, _ = _in_turns(fns)
+            ops, nbytes = _bwd_work(bh, n, hd, dtype)
+            bound_ms, bound_by = bound(ops, nbytes, name)
+            out[f"{name} B={b}"] = {"ms": ms["K3"], "plain_ms": ms["K3 plain"],
+                                    "library_ms": ms["K3 library"], "forward_ms": ms["K2"],
+                                    "bound_ms": bound_ms, "bound_by": bound_by, "agreement": e}
+            log(f"[rates] K3 {name:8s} B={b} BH={bh} N={n} hd={hd}: {ms['K3']:.3f} ms "
+                f"({ops / ms['K3'] / 1e9:.1f} TFLOP/s of the 10 BH N^2 hd it must do; bound "
+                f"{bound_ms:.3f} ms by {bound_by}) vs plain {ms['K3 plain']:.3f} ms, library "
+                f"backward {ms['K3 library']:.3f} ms, K2 with statistics {ms['K2']:.3f} ms; "
+                f"agreement {e}; within {lib_rel:.3g} of the library's gradients' largest "
+                "magnitude")
+            del q, k, v, g, o, stats, lq, lk, lv, lo, lg, fns
+            torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_rates():
+    """The bf16 DINOv2 ViT-B/14 train step at batch 8, 518 px (f32 master
+    weights, triplet loss): with the kernels, with their plain versions and
+    on the eager path, in turns; peak memory of each; and where a step's time
+    goes."""
+    model, _ = create_model("dinov2", generator=torch.Generator().manual_seed(23))
+    with torch.no_grad():  # LayerScale at its 1e-5 init would hide the blocks
+        for name, p in model.named_parameters():
+            if name.endswith(".gamma"):
+                p.fill_(0.5)
+    model = model.to("cuda").train()
+    state = TrainState(model, build_optimizer(model, lr=1e-5))
+    step = make_embedding_train_step(model, "triplet", {"margin": 0.2},
+                                     compute_dtype=torch.bfloat16)
+    x = torch.randn((8, 518, 518, 3), generator=torch.Generator().manual_seed(24)).cuda()
+    labels = torch.tensor([0, 0, 0, 0, 1, 1, 1, 1], device="cuda")
+
+    def with_kernels():
+        return step(state, x, labels)
+
+    def with_plain_versions():
+        with vit_plain_versions():
+            return step(state, x, labels)
+
+    def eager_path():
+        with env_flags(XMIR_FLASH_ATTN="0", XMIR_FUSED_LN="0"):
+            return step(state, x, labels)
+
+    def forward_only():
+        step.loss_and_aux(x, labels)
+
+    def forward_backward():
+        state.optimizer.zero_grad(set_to_none=True)
+        step.loss_and_aux(x, labels)[0].backward()
+
+    paths = {"kernels": with_kernels, "plain versions": with_plain_versions, "eager": eager_path}
+    out = {}
+    with env_flags(XMIR_FLASH_ATTN=None, XMIR_FUSED_LN=None, XMIR_FUSED_LN_QKV=None,
+                   XMIR_FUSED_LN_MLP=None):
+        reset_launches()
+        loss = with_kernels()["loss"]
+        launches = read_launches()
+        check(launches["K2"] == launches["K7"] == launches["K3"] == VIT["depth"],
+              f"the bf16 step did not take K7, K2 and K3 in every block: {launches}")
+        check(torch.isfinite(loss).item(), "non-finite loss")
+        peak = {}
+        for name, fn in paths.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms, runs = _in_turns({**paths, "forward": forward_only,
+                              "forward + backward": forward_backward}, rounds=3, reps=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            with_kernels()
+        enqueue = (time.perf_counter() - t0) / 3 * 1e3
+        torch.cuda.synchronize()
+    for name in paths:
+        out[name] = {"ms": ms[name], "img_per_s": 8 / ms[name] * 1e3, "peak_gib": peak[name]}
+    shares = {"forward": ms["forward"], "backward": ms["forward + backward"] - ms["forward"],
+              "optimiser": ms["kernels"] - ms["forward + backward"]}
+    out["shares_ms"] = shares
+    out["enqueue_ms"] = enqueue
+    log("[rates] DINOv2 ViT-B/14 bf16 train step, batch 8 @518 (device time): "
+        + "; ".join(f"{k} {v['ms']:.2f} ms = {v['img_per_s']:.1f} img/s, peak {v['peak_gib']:.2f} "
+                    "GiB" for k, v in out.items() if isinstance(v, dict) and "ms" in v)
+        + f"; with the kernels a step is forward {shares['forward']:.2f} ms + backward "
+        f"{shares['backward']:.2f} ms + optimiser {shares['optimiser']:.2f} ms, and the host "
+        f"enqueues it in {enqueue:.2f} ms; runs "
+        f"{({k: [round(t, 2) for t in v] for k, v in runs.items()})}")
+    return out
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-swin", action="store_true",
                         help="only build, then print where a bf16 SwinV2-Base batch's time goes")
+    parser.add_argument("--train-only", action="store_true",
+                        help="only build, then the training phases (17 to 20); prints no result")
     opts = parser.parse_args()
     smi = phase_device()
     phase_build()
     if opts.profile_swin:
         profile_swin()
+        print(smi)
+        return
+    if opts.train_only:
+        phase_kernel_bwd()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_train_dinov2(Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_train_densenet(Path(tmp))
+        phase_bwd_rates()
+        phase_train_rates()
         print(smi)
         return
     max_err = phase_kernel()
@@ -1704,10 +2201,19 @@ def main():
     window_rates = phase_window_rates()
     swin_rates = phase_swin_model_rates()
     select_rates = phase_select_rates()
+    bwd_errs = phase_kernel_bwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        t_slice = phase_train_dinov2(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        dt_launches = phase_train_densenet(Path(tmp))
+    bwd_rates = phase_bwd_rates()
+    train_rates = phase_train_rates()
     by_path = {key: {"densenet121": d_launches[key], "convnextv2": c_launches[key],
                      **{path: v["launches"][key] for path, v in v_slices.items()},
                      **{path: v["launches"][key] for path, v in s_slices.items()},
-                     "densenet121_full_ranking": r_launches[key]}
+                     "densenet121_full_ranking": r_launches[key],
+                     "dinov2_train": t_slice["launches"][key],
+                     "densenet121_train": dt_launches[key]}
                for key in WRAPPERS}
     slice_errs = [slice_err, c_slice_err] + [v["err"] for v in v_slices.values()] + [
         v["err"] for v in s_slices.values()]
@@ -1734,6 +2240,14 @@ def main():
             bound_ms=bf16["bound_ms"], bound_by=bf16["bound_by"], library_ms=bf16["library_ms"],
             shape="bf16, one DINOv2 ViT-B/14 block's call at B=16, 518 px",
             by_dtype=vit_rates[key], launches_by_path=by_path[key]))
+    k3 = bwd_rates["bfloat16 B=16"]
+    kernels.append(dict(
+        KERNELS["K3"], launches=sum(by_path["K3"].values()),
+        max_abs_err=max(e["max_abs_err"] for e in bwd_errs["K3"].values()),
+        err_by_dtype=bwd_errs["K3"], ms=k3["ms"], plain_ms=k3["plain_ms"],
+        bound_ms=k3["bound_ms"], bound_by=k3["bound_by"], library_ms=k3["library_ms"],
+        shape="bf16, one DINOv2 ViT-B/14 block's backward call at B=16, 518 px",
+        by_shape=bwd_rates, launches_by_path=by_path["K3"]))
     for key in ("K4", "K6"):
         bf16 = window_rates[key]["bfloat16"]
         kernels.append(dict(
@@ -1768,6 +2282,9 @@ def main():
     print(smi)
     print(json.dumps({"kernels": kernels, "convnextv2_embed_img_per_s": rates["embed_rate"],
                       "dinov2_embed_img_per_s": vit_rates["embed_rate"],
+                      "dinov2_train_step": train_rates,
+                      "dinov2_train_f32_vs_plain": t_slice["f32_vs_plain"],
+                      "k7_backward_rel_err": bwd_errs["K7 backward"],
                       "swinv2_embed_img_per_s": swin_rates,
                       "swinv2_eval_metrics": s_slices["swinv2_test"]["metrics"],
                       "dinov2_embedding_max_abs_err": {

@@ -240,7 +240,10 @@ def test_port_imports_no_jax():
             "xmir_tpu_torch.ops.ln_dense", "xmir_tpu_torch.models.vit",
             "xmir_tpu_torch.ops.window_attn", "xmir_tpu_torch.models.swin",
             "xmir_tpu_torch.metrics.retrieval", "xmir_tpu_torch.cli.test",
-            "xmir_tpu_torch.cli.evaluate_query"} <= set(modules)
+            "xmir_tpu_torch.cli.evaluate_query", "xmir_tpu_torch.cli.train",
+            "xmir_tpu_torch.losses.metric_losses", "xmir_tpu_torch.train.optim",
+            "xmir_tpu_torch.train.state", "xmir_tpu_torch.utils.checkpoint",
+            "xmir_tpu_torch.data.samplers"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"

@@ -229,6 +229,26 @@ def test_dinov2_embedder_matches_jax(clean_flags, embedding_dim):
                                atol=EAGER_ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("flags", [{}, {"XMIR_FLASH_ATTN": "1", "XMIR_FUSED_LN": "1"}],
+                         ids=["eager", "fused"])
+def test_train_mode_changes_nothing_and_gradients_flow(clean_flags, flags):
+    """The ViT has no dropout and no drop-path: ``train()`` gives the eval
+    forward bit for bit, on the eager and on the fused path, and every
+    parameter gets a finite gradient through either."""
+    _, _, port = _backbone_pair(14, True, 56, seed=9)
+    for k, v in flags.items():  # after the pair: the JAX side initialises on its eager path
+        clean_flags.setenv(k, v)
+    x = torch.from_numpy(_images(2, 56, seed=10))
+    with torch.no_grad():
+        want = port.eval()(x)["tokens"]
+    out = port.train()(x)
+    assert torch.equal(out["tokens"], want)
+    (out["cls"].square().sum() + out["tokens"].square().sum()).backward()
+    for name, p in port.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+        assert p.grad.abs().max() > 0, name
+
+
 def test_fused_mlp_moves_f32_outputs_only_by_the_gelu_form(clean_flags):
     """K8 is always the tanh GELU while the f32 eager Mlp uses erf, so
     XMIR_FUSED_LN_MLP=1 moves f32 tokens by ~1e-3 and no more."""

@@ -75,8 +75,11 @@ def test_attention_wrapper_raises_on_card():
         va.vit_attention_fused(bad, bad, bad, 0.125)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         va.vit_attention_fused(q.half(), q.half(), q.half(), 0.125)
-    with pytest.raises(RuntimeError, match="forward only"):
-        va.vit_attention_fused(q.requires_grad_(), q, q, 0.125)
+    # an input that requires grad is taken: the backward is K3
+    leaf = torch.randn((2, 16, 64), device="cuda").requires_grad_()
+    before = va.vit_attention_bwd.launches
+    va.vit_attention_fused(leaf, q, q, 0.125).sum().backward()
+    assert va.vit_attention_bwd.launches == before + 1 and torch.isfinite(leaf.grad).all()
 
 
 @pytest.mark.cuda
@@ -121,5 +124,10 @@ def test_ln_wrappers_raise_on_card():
         ld.ln_qkv_fused(x.transpose(0, 1).contiguous().transpose(0, 1), lns, lns, w, None, 2)
     with pytest.raises(ValueError, match="eps"):
         ld.ln_qkv_fused(x, lns, lns, w, None, 2, 1e-5)
-    with pytest.raises(RuntimeError, match="forward only"):
-        ld.ln_dense_fused(x.reshape(16, 64), lns, lns, w.requires_grad_(), None)
+    # an input that requires grad is taken: the gradient is the plain version's
+    rows = torch.randn((16, 64), device="cuda")
+    w = torch.randn((192, 64), device="cuda").requires_grad_()
+    ld.ln_dense_fused(rows, lns, lns, w, None).sum().backward()
+    ref = w.detach().clone().requires_grad_()
+    ld.ln_dense_reference(rows, lns, lns, ref, None).sum().backward()
+    assert torch.allclose(w.grad, ref.grad, rtol=1e-4, atol=1e-4)

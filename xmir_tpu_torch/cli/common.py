@@ -31,7 +31,9 @@ def add_model_args(p: argparse.ArgumentParser):
     p.add_argument("--unfreeze-blocks", default=3, type=int)
     p.add_argument("--num-labels", default=None, type=int,
                    help="Dual-branch classification head size")
-    p.add_argument("--resume", default="", help="Checkpoint to load (torch .pt/.pth)")
+    p.add_argument("--resume", default="",
+                   help="Checkpoint to load (torch .pt/.pth): a reference / timm state dict, "
+                        "or a checkpoint that xmir_tpu_torch.cli.train wrote")
     p.add_argument("--seed", type=int, default=0,
                    help="Seed of the torch.Generator that draws the initial weights")
     p.add_argument("--device", default="cuda",
@@ -91,13 +93,14 @@ def is_multilabel(dataset_name: str) -> bool:
     return dataset_name in ("vindr", "nih", "synthetic_ml")
 
 
-def build_model(args, device):
-    """(model in eval mode on ``device``, spec). Weights are drawn from a
-    torch.Generator seeded with --seed, then --resume (a torch .pt/.pth
-    state dict) replaces them with a strict load: the whole DenseNet121
-    embedder, or a ConvNeXtV2, SwinV2 or DINOv2 embedder's backbone (its fc /
-    SRA / PCAM head keeps its init, as the JAX package's strict=False merge
-    does)."""
+def build_model(args, device, train: bool = False):
+    """(model on ``device``, spec), in eval mode unless ``train``. Weights
+    are drawn from a torch.Generator seeded with --seed, then --resume (a
+    torch .pt/.pth state dict) replaces them with a strict load: the whole
+    DenseNet121 embedder, or a ConvNeXtV2, SwinV2 or DINOv2 embedder's
+    backbone (its fc / SRA / PCAM head keeps its init, as the JAX package's
+    strict=False merge does), or the whole model from a checkpoint of the
+    train CLI."""
     from ..models.convert import load_torch_checkpoint
     from ..models.registry import create_model
 
@@ -115,8 +118,8 @@ def build_model(args, device):
         if not resume.endswith((".pt", ".pth")):
             raise ValueError(f"--resume takes a torch .pt/.pth state dict, got {resume!r}")
         load_torch_checkpoint(model, resume)
-    model = model.to(device=device, memory_format=torch.channels_last).eval()
-    return model, spec
+    model = model.to(device=device, memory_format=torch.channels_last)
+    return model.train(train), spec
 
 
 def add_precision_args(p: argparse.ArgumentParser):

@@ -1,5 +1,8 @@
-// Fused attention for the plain ViT towers on Hopper (sm_90a), forward only:
-// out = softmax(q k^T scale) v per (batch, head), q / k / v (BH, N, hd).
+// Fused attention for the plain ViT towers on Hopper (sm_90a), the forward:
+// out = softmax(q k^T scale) v per (batch, head), q / k / v (BH, N, hd). With
+// a stats pointer it also writes each query row's shift m (the integer-valued
+// running max below) and sum z, (BH, N, 2) f32, which the backward
+// (vit_attn_bwd.cu) reads in place of a pass for the row max.
 //
 // Replaces xmir_tpu/ops/vit_attn_pallas.py::_attention_fwd_pallas (K2, body
 // _kernel). The TPU kernel keeps a head's whole K and V in VMEM and runs one
@@ -64,7 +67,8 @@ template <int DP>
 __global__ void __launch_bounds__(128) attn_bf16(const __nv_bfloat16* __restrict__ q,
                                                  const __nv_bfloat16* __restrict__ k,
                                                  const __nv_bfloat16* __restrict__ v,
-                                                 __nv_bfloat16* __restrict__ o, int n, int hd,
+                                                 __nv_bfloat16* __restrict__ o,
+                                                 float* __restrict__ stats, int n, int hd,
                                                  int q_tiles, float c) {
   constexpr int S = DP + 8;    // row stride: 16-byte aligned, ldmatrix conflict-free
   constexpr int VPR = DP / 8;  // 16-byte vectors per row
@@ -217,6 +221,10 @@ __global__ void __launch_bounds__(128) attn_bf16(const __nv_bfloat16* __restrict
     z += __shfl_xor_sync(0xffffffffu, z, 2);
     const int row = q0 + warp * 16 + g + 8 * h;
     if (row >= n) continue;
+    if (stats != nullptr && t == 0) {
+      *reinterpret_cast<float2*>(stats + 2 * (static_cast<size_t>(bh) * n + row)) =
+          make_float2(m_run[h], z);
+    }
     __nv_bfloat16* dst = o + base + static_cast<size_t>(row) * hd;
 #pragma unroll
     for (int dt = 0; dt < DP / 8; ++dt) {
@@ -236,7 +244,8 @@ template <int DP>
 __global__ void __launch_bounds__(256) attn_f32(const float* __restrict__ q,
                                                 const float* __restrict__ k,
                                                 const float* __restrict__ v,
-                                                float* __restrict__ o, int n, int hd,
+                                                float* __restrict__ o,
+                                                float* __restrict__ stats, int n, int hd,
                                                 int q_tiles, float c) {
   constexpr int SQ = DP + 1;    // odd stride: conflict-free reads down a column
   constexpr int SP = kBK + 1;
@@ -364,6 +373,10 @@ __global__ void __launch_bounds__(256) attn_f32(const float* __restrict__ q,
     for (int off = 8; off > 0; off >>= 1) z += __shfl_xor_sync(0xffffffffu, z, off);
     const int row = q0 + ty + 16 * i;
     if (row >= n) continue;
+    if (stats != nullptr && tx == 0) {
+      *reinterpret_cast<float2*>(stats + 2 * (static_cast<size_t>(bh) * n + row)) =
+          make_float2(m_run[i], z);
+    }
 #pragma unroll
     for (int j = 0; j < DJ; ++j) {
       const int col = tx + 16 * j;
@@ -373,8 +386,8 @@ __global__ void __launch_bounds__(256) attn_f32(const float* __restrict__ q,
 }
 
 template <int DP>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, int bh, int n,
-                        int hd, float c, cudaStream_t stream) {
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, float* stats,
+                        int bh, int n, int hd, float c, cudaStream_t stream) {
   constexpr int kSmem = (kBQ + 4 * kBK) * (DP + 8) * (int)sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(attn_bf16<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
@@ -382,13 +395,14 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, void* o, in
   const int q_tiles = (n + kBQ - 1) / kBQ;
   attn_bf16<DP><<<bh * q_tiles, 128, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), n, hd, q_tiles, c);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), stats, n, hd,
+      q_tiles, c);
   return cudaGetLastError();
 }
 
 template <int DP>
-cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int bh, int n,
-                       int hd, float c, cudaStream_t stream) {
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, float* stats,
+                       int bh, int n, int hd, float c, cudaStream_t stream) {
   constexpr int kSmem =
       (kBQ * (DP + 1) + kBK * (DP + 1) + kBK * DP + kBQ * (kBK + 1)) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(attn_f32<DP>,
@@ -397,15 +411,15 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int
   const int q_tiles = (n + kBQ - 1) / kBQ;
   attn_f32<DP><<<bh * q_tiles, 256, kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), n, hd, q_tiles, c);
+      static_cast<float*>(o), stats, n, hd, q_tiles, c);
   return cudaGetLastError();
 }
 
 template <int DP>
-cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o, int bh,
-                   int n, int hd, float c, cudaStream_t stream) {
-  if (dtype == 0) return launch_f32<DP>(q, k, v, o, bh, n, hd, c, stream);
-  return launch_bf16<DP>(q, k, v, o, bh, n, hd, c, stream);
+cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void* o,
+                   float* stats, int bh, int n, int hd, float c, cudaStream_t stream) {
+  if (dtype == 0) return launch_f32<DP>(q, k, v, o, stats, bh, n, hd, c, stream);
+  return launch_bf16<DP>(q, k, v, o, stats, bh, n, hd, c, stream);
 }
 
 }  // namespace
@@ -413,18 +427,19 @@ cudaError_t launch(int dtype, const void* q, const void* k, const void* v, void*
 // C entry point bound with ctypes; returns a cudaError_t code. q, k, v, o
 // (bh, n, hd) contiguous, 16-byte aligned, of one dtype (0 = float32,
 // 1 = bfloat16); hd a multiple of 8 up to 128; c = scale log2(e), already
-// rounded to the dtype.
-extern "C" int xmir_vit_attn(const void* q, const void* k, const void* v, void* o, int dtype,
-                             int bh, int n, int hd, float c, void* stream) {
+// rounded to the dtype; stats null or (bh, n, 2) float32, 8-byte aligned.
+extern "C" int xmir_vit_attn(const void* q, const void* k, const void* v, void* o, void* stats,
+                             int dtype, int bh, int n, int hd, float c, void* stream) {
   if ((dtype != 0 && dtype != 1) || bh < 1 || n < 1 || hd < 8 || hd > 128 || hd % 8 != 0) {
     return (int)cudaErrorInvalidValue;
   }
   const long long blocks = static_cast<long long>(bh) * ((n + kBQ - 1) / kBQ);
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd <= 16) return (int)launch<16>(dtype, q, k, v, o, bh, n, hd, c, s);
-  if (hd <= 32) return (int)launch<32>(dtype, q, k, v, o, bh, n, hd, c, s);
-  if (hd <= 64) return (int)launch<64>(dtype, q, k, v, o, bh, n, hd, c, s);
-  if (hd <= 80) return (int)launch<80>(dtype, q, k, v, o, bh, n, hd, c, s);
-  return (int)launch<128>(dtype, q, k, v, o, bh, n, hd, c, s);
+  float* st = static_cast<float*>(stats);
+  if (hd <= 16) return (int)launch<16>(dtype, q, k, v, o, st, bh, n, hd, c, s);
+  if (hd <= 32) return (int)launch<32>(dtype, q, k, v, o, st, bh, n, hd, c, s);
+  if (hd <= 64) return (int)launch<64>(dtype, q, k, v, o, st, bh, n, hd, c, s);
+  if (hd <= 80) return (int)launch<80>(dtype, q, k, v, o, st, bh, n, hd, c, s);
+  return (int)launch<128>(dtype, q, k, v, o, st, bh, n, hd, c, s);
 }

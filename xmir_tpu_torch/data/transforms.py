@@ -1,9 +1,16 @@
-"""Evaluation preprocessing on the device (port of the eval half of
-xmir_tpu/data/transforms.py).
+"""Preprocessing on the device (port of xmir_tpu/data/transforms.py).
 
-The host decodes uint8 HWC images; resize + center crop + normalise run on
-the device in ``eval_preprocess``. Semantics are torchvision's: Resize(size)
-scales the SHORT side, CenterCrop pads if needed then crops the center.
+The host decodes uint8 HWC images; resize + crop + normalise run on the
+device in ``eval_preprocess`` and, with the augmentations, in
+``train_preprocess``. Semantics are torchvision's: Resize(size) scales the
+SHORT side, CenterCrop pads if needed then crops the center.
+
+Training augmentation is split in two: ``draw_train_augment`` draws a
+batch's crop offsets, flips and jitter factors from a ``torch.Generator``,
+``apply_train_augment`` is the arithmetic on those draws. The random streams
+cannot match the JAX package's; the arithmetic does, given the same draws.
+The crop's tops and lefts are drawn independently, as torchvision's
+RandomCrop draws them.
 
 The device resize is the identity when the input is already at the target
 size (as jax.image.resize is), which is the case on the serving path: the host
@@ -85,3 +92,74 @@ def eval_preprocess(batch_u8, resize_size: int, crop_size: int, mean, std,
     x = resize_short_side(batch_u8.float(), resize_size, method)
     x = center_crop(x, crop_size)
     return normalize(x, mean, std)
+
+
+def draw_train_augment(generator: torch.Generator, b: int, max_top: int = 0, max_left: int = 0):
+    """One batch's augmentation draws, made on the generator's device (the
+    CPU, so that a seed gives the same draws whatever device applies them):
+    ``tops`` in [0, max_top] and ``lefts`` in [0, max_left] (int64), ``flip``
+    (bool, p = 0.5), ``brightness`` and ``contrast`` uniform in [0.9, 1.1)."""
+    def uniform():
+        return 0.9 + 0.2 * torch.rand((b,), generator=generator)
+
+    return {"tops": torch.randint(0, max_top + 1, (b,), generator=generator),
+            "lefts": torch.randint(0, max_left + 1, (b,), generator=generator),
+            "flip": torch.rand((b,), generator=generator) < 0.5,
+            "brightness": uniform(), "contrast": uniform()}
+
+
+GREY_WEIGHTS = (0.299, 0.587, 0.114)
+
+
+def apply_train_augment(x, draws, crop_size: int, mean, std, rand_resize: bool = False,
+                        jitter: bool = True):
+    """The arithmetic of the training pipeline on a resized float (B, H, W, 3)
+    batch in 0..255: (pad 4 + crop at the drawn offsets | center crop) ->
+    flip -> brightness -> contrast about the per-image grey mean -> clip to
+    0..255 -> normalise. ``draws`` as ``draw_train_augment`` returns them, on
+    any device."""
+    b = x.shape[0]
+    draws = {k: v.to(x.device) for k, v in draws.items()}
+    if rand_resize:
+        x = F.pad(x, (0, 0, 4, 4, 4, 4))
+        rows = draws["tops"][:, None] + torch.arange(crop_size, device=x.device)
+        cols = draws["lefts"][:, None] + torch.arange(crop_size, device=x.device)
+        x = x[torch.arange(b, device=x.device)[:, None, None], rows[:, :, None], cols[:, None, :]]
+    else:
+        x = center_crop(x, crop_size)
+    x = torch.where(draws["flip"][:, None, None, None], x.flip(2), x)
+    if jitter:
+        x = x * draws["brightness"].to(x.dtype)[:, None, None, None]
+        grey = x @ torch.tensor(GREY_WEIGHTS, dtype=x.dtype, device=x.device)
+        grey_mean = grey.mean(dim=(1, 2), keepdim=True)[..., None]
+        x = (x - grey_mean) * draws["contrast"].to(x.dtype)[:, None, None, None] + grey_mean
+        x = torch.clamp(x, 0.0, 255.0)
+    return normalize(x, mean, std)
+
+
+def train_preprocess(generator: torch.Generator, batch_u8, resize_size: int, crop_size: int,
+                     mean, std, rand_resize: bool = False, jitter: bool = True,
+                     method: str = "bilinear"):
+    """Training pipeline (reference train.py:952-983): Resize -> (RandomCrop
+    pad 4 | CenterCrop) -> RandomHorizontalFlip -> ColorJitter(0.1, 0.1) ->
+    Normalize, over the batch with per-sample draws from ``generator``.
+    batch_u8: (B, H, W, 3) uint8 tensor on the device -> float32 NHWC."""
+    x = resize_short_side(batch_u8.float(), resize_size, method)
+    h, w = x.shape[1] + 8, x.shape[2] + 8  # after the pad of 4
+    draws = draw_train_augment(generator, x.shape[0],
+                               h - crop_size if rand_resize else 0,
+                               w - crop_size if rand_resize else 0)
+    return apply_train_augment(x, draws, crop_size, mean, std, rand_resize, jitter)
+
+
+def preprocess_for_spec(batch_u8, spec, train: bool = False, generator=None, rand_resize=False):
+    """Apply the registry ModelSpec's transform (sizes, normalisation,
+    interpolation)."""
+    if train:
+        if generator is None:
+            raise ValueError("train preprocessing needs a torch.Generator")
+        return train_preprocess(generator, batch_u8, spec.resize_size, spec.input_size,
+                                spec.mean, spec.std, rand_resize=rand_resize,
+                                method=spec.interpolation)
+    return eval_preprocess(batch_u8, spec.resize_size, spec.input_size, spec.mean, spec.std,
+                           method=spec.interpolation)

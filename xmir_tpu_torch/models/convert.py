@@ -321,23 +321,13 @@ def swinv2_backbone_state_dict_from_torch(
     return out
 
 
-def _read_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
-    """A ``.pt``/``.pth`` state dict, unwrapped from a {"state_dict" |
-    "state-dict" | "model": ...} wrapper."""
-    obj = torch.load(path, map_location="cpu", weights_only=True)
-    if isinstance(obj, dict):
-        for key in ("state_dict", "state-dict", "model"):
-            if isinstance(obj.get(key), dict):
-                return obj[key]
-    return obj
-
-
 def load_torch_checkpoint(model: torch.nn.Module, path: str):
     """Load a ``.pt``/``.pth`` into ``model``, dispatched by its type (as
     xmir_tpu/cli/common.py::_convert_torch_checkpoint does by name): a
     DenseNet121Embedder takes the whole state dict with strict=True; a
     ConvNeXtV2, SwinV2 or DINOv2 embedder takes its backbone with strict=True
-    and keeps its head (fc, SRA, PCAM) as initialised."""
+    and keeps its head (fc, SRA, PCAM) as initialised. A checkpoint that the
+    train CLI wrote (a state dict beside its optimiser's) loads whole, strictly."""
     from .embedders import (
         ConvNeXtV2Embedder,
         ConvNeXtV2PCAMEmbedder,
@@ -347,8 +337,14 @@ def load_torch_checkpoint(model: torch.nn.Module, path: str):
         SwinV2Embedder,
     )
 
-    sd = _read_torch_state_dict(path)
-    if isinstance(model, DenseNet121Embedder):
+    from ..utils.checkpoint import is_train_checkpoint, load_checkpoint, unwrap_state_dict
+
+    tree = load_checkpoint(path, unwrap=False)
+    sd = unwrap_state_dict(tree)
+    if is_train_checkpoint(tree):
+        model.load_state_dict(sd, strict=True)
+        print(f">> loaded the whole model ({len(sd)} tensors, strict)")
+    elif isinstance(model, DenseNet121Embedder):
         model.load_state_dict(embedder_state_dict_from_torch(sd), strict=True)
     elif isinstance(model, (ConvNeXtV2Embedder, ConvNeXtV2SRAEmbedder, ConvNeXtV2PCAMEmbedder)):
         backbone = convnextv2_backbone_state_dict_from_torch(sd)

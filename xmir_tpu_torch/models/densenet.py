@@ -7,8 +7,9 @@ takes NHWC input and returns NHWC features like the JAX module; inside, the
 tensors are NCHW views in channels_last memory, which is what cuDNN's fast
 convolutions want.
 
-BatchNorm runs in eval mode only (running statistics, eps 1e-5): this slice
-serves; training is still to port.
+BatchNorm (eps 1e-5) follows flax's ``nn.BatchNorm(momentum=0.9)``: in eval
+mode the running statistics, in training mode the batch's mean and biased
+variance, which also move the running buffers (``BatchNorm2d`` below).
 """
 from __future__ import annotations
 
@@ -21,10 +22,20 @@ from torch import nn
 BN_EPS = 1e-5
 
 
+BN_MOMENTUM = 0.9  # flax's: running = 0.9 running + 0.1 batch
+
+
 class BatchNorm2d(nn.Module):
-    """Eval-mode BatchNorm with torchvision's four tensors and no
-    ``num_batches_tracked``: the state-dict keys of
-    xmir_tpu/models/export.py."""
+    """BatchNorm over (B, H, W) of an NCHW tensor with torchvision's four
+    tensors and no ``num_batches_tracked``: the state-dict keys of
+    xmir_tpu/models/export.py.
+
+    In training mode it is flax's ``nn.BatchNorm``: the batch mean and the
+    BIASED batch variance, taken in f32 as max(E[x^2] - mean^2, 0) whatever
+    x's dtype, normalise the batch, and the same biased variance moves
+    ``running_var`` (``F.batch_norm(training=True)`` would feed the unbiased
+    one, n / (n - 1) larger). The buffers stay f32 and are updated in place,
+    under ``torch.no_grad()``, once per forward."""
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -34,8 +45,18 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x):
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                            self.bias, training=False, eps=BN_EPS)
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, training=False, eps=BN_EPS)
+        xs = x.float()
+        mean = xs.mean(dim=(0, 2, 3))
+        var = torch.clamp((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(BN_MOMENTUM).add_(mean.detach(), alpha=1 - BN_MOMENTUM)
+            self.running_var.mul_(BN_MOMENTUM).add_(var.detach(), alpha=1 - BN_MOMENTUM)
+        scale = torch.rsqrt(var + BN_EPS) * self.weight.float()
+        shift = self.bias.float() - mean * scale
+        return (xs * scale[None, :, None, None] + shift[None, :, None, None]).to(x.dtype)
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int = 1, padding: int = 0):

@@ -19,6 +19,11 @@ Otherwise attention alone takes K2 when its compute dtype (the input's
 promoted with the qkv weight's) passes ``plain_flash_enabled``; else the
 eager path, which is also the only one that returns attention weights.
 
+Training changes nothing in the graph (no dropout, no drop-path, as in the
+JAX module), and the gates read the compute dtype: an f32 master model run
+on bf16 copies of its parameters (train/steps.py) takes K7 and K2, whose
+backwards are ``ln_qkv_backward`` and K3.
+
 The patch convolution has no padding (timm's): at an image size that is not
 a multiple of the patch the JAX module (flax's SAME padding) pads and this
 one does not.

@@ -48,8 +48,10 @@ _SIGNATURES = {
     "xmir_ln_qkv": (_P,) * 5 + (_I,) * 5 + (_P,) * 4,
     # x, lns, lnb, w, bias, dtype, rows, c, m, gelu, out, stream
     "xmir_ln_dense": (_P,) * 5 + (_I,) * 5 + (_P,) * 2,
-    # q, k, v, o, dtype, bh, n, hd, scale * log2(e), stream
-    "xmir_vit_attn": (_P,) * 4 + (_I,) * 4 + (_F, _P),
+    # q, k, v, o, stats (or null), dtype, bh, n, hd, scale * log2(e), stream
+    "xmir_vit_attn": (_P,) * 5 + (_I,) * 4 + (_F, _P),
+    # q, k, v, o, g, stats, crow, dq, dk, dv, dtype, bh, n, hd, scale * log2(e), scale, stream
+    "xmir_vit_attn_bwd": (_P,) * 10 + (_I,) * 4 + (_F, _F, _P),
     # q, k, v, bias, scale, o, dtype, mode, bh, n, hd, d1, m1, s1, d2, m2, s2, stream
     "xmir_window_attn": (_P,) * 6 + (_I,) * 11 + (_P,),
 }

@@ -2,7 +2,7 @@
 K8: LN -> dense with an optional tanh-GELU): the CUDA kernels' wrappers and
 their plain PyTorch versions.
 
-Port of ``xmir_tpu/ops/ln_dense_pallas.py``, forward only. Both kernels read
+Port of ``xmir_tpu/ops/ln_dense_pallas.py``. Both kernels read
 a tile of the residual stream once, normalise it on its way into shared
 memory and feed the product from there, with the TPU kernels' rounding
 points: LayerNorm in f32 with the fast variance, rounded to x's dtype before
@@ -13,8 +13,11 @@ f32; tanh-GELU in f32; one rounding to the output dtype.
 ``csrc/ln_dense.cu`` for CUDA tensors and count each call in their
 ``launches``. A tensor on the CPU takes the plain version instead; any other
 device raises. There is no fallback from the kernel to the plain version.
-On CUDA the wrappers take no input that requires grad while grad mode is on:
-the backward is not ported yet.
+Both calls are differentiable (``torch.autograd.Function``s), with the JAX
+package's backwards, which are plain tensor code there too: K7's is the
+analytic ``ln_qkv_backward`` (two matrix products and the closed-form
+LayerNorm chain), K8's differentiates ``ln_dense_reference`` on the saved
+inputs.
 
 Weights are in torch's ``nn.Linear`` layout (out, in): ``w`` is (3C, C) for
 K7, rows ordered q | k | v with the heads inside each (timm's ``qkv.weight``,
@@ -103,15 +106,11 @@ def _check(x, lns, lnb, w, b, c, m):
 
 
 def _cuda_operands(x, lns, lnb, w, b):
-    """The kernel's view of the operands: dtype, alignment, contiguity and
-    grad checked; the f32 vectors made."""
+    """The kernel's view of the operands: dtype, alignment and contiguity
+    checked; the f32 vectors made."""
     if x.dtype not in DTYPE_CODES or w.dtype != x.dtype:
         raise TypeError(f"x and w must both be float32 or both bfloat16, got {x.dtype} and "
                         f"{w.dtype}")
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
-                                       for t in (x, lns, lnb, w, b)):
-        raise RuntimeError("the LN -> dense kernels are forward only: call them under "
-                           "torch.inference_mode() or torch.no_grad()")
     if x.shape[-1] % 8:
         raise ValueError(f"the kernel needs C to be a multiple of 8, got {x.shape[-1]}")
     vecs = [None if t is None else t.detach().float().contiguous() for t in (lns, lnb, b)]
@@ -122,20 +121,11 @@ def _cuda_operands(x, lns, lnb, w, b):
     return vecs
 
 
-def ln_qkv_fused(x, lns, lnb, w, b, num_heads: int, eps: float = LN_EPS):
-    """K7: LayerNorm(x) . w^T + b, stored head-major. x (B, N, C); lns, lnb
-    (C,); w (3C, C) in x's dtype; b (3C,) or None. Returns q, k, v each
-    (B, H, N, hd) in x's dtype, contiguous."""
-    if x.dim() != 3:
-        raise ValueError(f"x must be (B, N, C), got {tuple(x.shape)}")
-    bsz, n, c = x.shape
-    if num_heads < 1 or c % num_heads:
-        raise ValueError(f"C={c} does not split into {num_heads} heads")
-    _check(x, lns, lnb, w, b, c, 3 * c)
-    if x.device.type == "cpu":
-        return ln_qkv_reference(x, lns, lnb, w, b, num_heads, eps)
+def _launch_ln_qkv(x, lns, lnb, w, b, num_heads: int, eps: float):
+    """Launches K7 on CUDA operands; checks what the kernel needs."""
     from . import _build
 
+    bsz, n, c = x.shape
     if eps != LN_EPS:
         raise ValueError(f"the kernel's eps is {LN_EPS}, got {eps}")
     head_dim = c // num_heads
@@ -156,21 +146,71 @@ def ln_qkv_fused(x, lns, lnb, w, b, num_heads: int, eps: float = LN_EPS):
     return q, k, v
 
 
-def ln_dense_fused(x, lns, lnb, w, b, eps: float = LN_EPS, act: str = ""):
-    """K8: LayerNorm(x) . w^T + b, then the tanh-GELU when ``act`` is "gelu".
-    x (R, C); lns, lnb (C,); w (M, C) in x's dtype; b (M,) or None. Returns
-    (R, M) in x's dtype."""
-    if x.dim() != 2:
-        raise ValueError(f"x must be (R, C), got {tuple(x.shape)}")
-    if act not in ("", "gelu"):
-        raise ValueError(f"act must be '' or 'gelu', got {act!r}")
-    rows, c = x.shape
-    m = w.shape[0]
-    _check(x, lns, lnb, w, b, c, m)
-    if x.device.type == "cpu":
-        return ln_dense_reference(x, lns, lnb, w, b, eps, act)
+def ln_qkv_backward(x, lns, lnb, w, b, gq, gk, gv, eps: float = LN_EPS):
+    """Analytic backward of K7 (``_ln_qkv_bwd`` of the TPU file), plain tensor
+    code: (dx, dlns, dlnb, dw, db) from the head-major cotangents gq, gk, gv
+    (B, H, N, hd). Two matrix products (dw, dy) and the closed-form LayerNorm
+    chain on rows recomputed from the saved x. Rounding points: y is
+    recomputed in f32 with the fast variance and rounded to x's dtype before
+    dw, the cotangent cast to y's dtype for it; both products accumulate in
+    f32; dlns, dlnb and db are summed in f32; dx comes from the f32 dy. w is
+    (3C, C), so dw is the transpose of the JAX package's."""
+    bsz, n, c = x.shape
+    gcat = torch.cat([t.transpose(1, 2).reshape(bsz, n, c) for t in (gq, gk, gv)], dim=-1)
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = torch.clamp((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    xhat = (x32 - mean) * inv
+    y = (xhat * lns.float() + lnb.float()).to(x.dtype)
+    db = None if b is None else gcat.float().sum(dim=(0, 1)).to(b.dtype)
+    dw = linear_f32(gcat.to(y.dtype).reshape(-1, 3 * c).t(), y.reshape(-1, c).t()).to(w.dtype)
+    dy = linear_f32(gcat, w.to(gcat.dtype).t())
+    dlns = (dy * xhat).sum(dim=(0, 1)).to(lns.dtype)
+    dlnb = dy.sum(dim=(0, 1)).to(lnb.dtype)
+    dxhat = dy * lns.float()
+    dx = inv * (dxhat - dxhat.mean(dim=-1, keepdim=True)
+                - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+    return dx.to(x.dtype), dlns, dlnb, dw, db
+
+
+class _LnQkv(torch.autograd.Function):
+    """K7 forward (CPU: its plain version), ``ln_qkv_backward`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, lns, lnb, w, b, num_heads, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(x, lns, lnb, w, b)
+        if x.device.type == "cpu":
+            return ln_qkv_reference(x, lns, lnb, w, b, num_heads, eps)
+        return _launch_ln_qkv(x, lns, lnb, w, b, num_heads, eps)
+
+    @staticmethod
+    def backward(ctx, gq, gk, gv):
+        x, lns, lnb, w, b = ctx.saved_tensors
+        return (*ln_qkv_backward(x, lns, lnb, w, b, gq, gk, gv, ctx.eps), None, None)
+
+
+def ln_qkv_fused(x, lns, lnb, w, b, num_heads: int, eps: float = LN_EPS):
+    """K7: LayerNorm(x) . w^T + b, stored head-major, differentiable in x,
+    lns, lnb, w and b. x (B, N, C); lns, lnb (C,); w (3C, C) in x's dtype; b
+    (3C,) or None. Returns q, k, v each (B, H, N, hd) in x's dtype,
+    contiguous."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be (B, N, C), got {tuple(x.shape)}")
+    c = x.shape[2]
+    if num_heads < 1 or c % num_heads:
+        raise ValueError(f"C={c} does not split into {num_heads} heads")
+    _check(x, lns, lnb, w, b, c, 3 * c)
+    return _LnQkv.apply(x, lns, lnb, w, b, num_heads, eps)
+
+
+def _launch_ln_dense(x, lns, lnb, w, b, eps: float, act: str):
+    """Launches K8 on CUDA operands; checks what the kernel needs."""
     from . import _build
 
+    rows, c = x.shape
+    m = w.shape[0]
     if eps != LN_EPS:
         raise ValueError(f"the kernel's eps is {LN_EPS}, got {eps}")
     if m % 2:
@@ -186,6 +226,46 @@ def ln_dense_fused(x, lns, lnb, w, b, eps: float = LN_EPS, act: str = ""):
         raise RuntimeError(f"LN -> dense kernel launch failed: cudaError_t {err}")
     ln_dense_fused.launches += 1
     return out
+
+
+class _LnDense(torch.autograd.Function):
+    """K8 forward (CPU: its plain version); the backward differentiates
+    ``ln_dense_reference`` on the saved inputs (``_ln_dense_bwd`` of the TPU
+    file)."""
+
+    @staticmethod
+    def forward(ctx, x, lns, lnb, w, b, eps, act):
+        ctx.eps, ctx.act = eps, act
+        ctx.save_for_backward(x, lns, lnb, w, b)
+        if x.device.type == "cpu":
+            return ln_dense_reference(x, lns, lnb, w, b, eps, act)
+        return _launch_ln_dense(x, lns, lnb, w, b, eps, act)
+
+    @staticmethod
+    def backward(ctx, g):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(True) for t in saved]
+            out = ln_dense_reference(*leaves, ctx.eps, ctx.act)
+            wanted = [i for i, t in enumerate(leaves)
+                      if t is not None and ctx.needs_input_grad[i]]
+            grads = torch.autograd.grad(out, [leaves[i] for i in wanted], g)
+        full = [None] * 5
+        for i, grad in zip(wanted, grads):
+            full[i] = grad
+        return (*full, None, None)
+
+
+def ln_dense_fused(x, lns, lnb, w, b, eps: float = LN_EPS, act: str = ""):
+    """K8: LayerNorm(x) . w^T + b, then the tanh-GELU when ``act`` is "gelu",
+    differentiable in x, lns, lnb, w and b. x (R, C); lns, lnb (C,); w (M, C)
+    in x's dtype; b (M,) or None. Returns (R, M) in x's dtype."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be (R, C), got {tuple(x.shape)}")
+    if act not in ("", "gelu"):
+        raise ValueError(f"act must be '' or 'gelu', got {act!r}")
+    _check(x, lns, lnb, w, b, x.shape[1], w.shape[0])
+    return _LnDense.apply(x, lns, lnb, w, b, eps, act)
 
 
 ln_qkv_fused.launches = 0

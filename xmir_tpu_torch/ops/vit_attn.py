@@ -2,14 +2,16 @@
 attention of the Swin towers (K4): the CUDA kernels' wrappers and their plain
 PyTorch versions.
 
-Port of ``xmir_tpu/ops/vit_attn_pallas.py``, the two forwards only. K2 first;
-K4 (``biased_attention_fused``) is described above its functions below.
-``vit_attention_fused(q, k, v, sm_scale)`` on (BH, N, hd) launches
-``csrc/vit_attn.cu`` for CUDA tensors and counts each call in its
+Port of ``xmir_tpu/ops/vit_attn_pallas.py``: K2 with its backward K3 first;
+K4 (``biased_attention_fused``, the forward only) is described above its
+functions below. ``vit_attention_fused(q, k, v, sm_scale)`` on (BH, N, hd)
+launches ``csrc/vit_attn.cu`` for CUDA tensors and counts each call in its
 ``launches``. A tensor on the CPU takes ``attention_plain`` instead; any
 other device raises. There is no fallback from the kernel to a plain version.
-On CUDA the wrapper takes no input that requires grad while grad mode is on:
-the backward is not ported yet.
+The call is differentiable: it is a ``torch.autograd.Function`` whose
+backward, ``vit_attention_bwd``, launches ``csrc/vit_attn_bwd.cu`` (K3) for
+CUDA tensors, counted in its own ``launches``, and takes
+``attention_bwd_plain`` on the CPU.
 
 Two plain versions:
 
@@ -81,11 +83,7 @@ def agreement(out, ref):
     return _agreement(out, ref, atol=BF16_ATOL, floor=BF16_FLOOR)
 
 
-def vit_attention_fused(q, k, v, sm_scale: float):
-    """K2: softmax(q k^T sm_scale) v per leading index. q, k, v (BH, N, hd)
-    of one shape and dtype (float32 or bfloat16). Returns (BH, N, hd) in v's
-    dtype. On CUDA: contiguous, 16-byte aligned, hd a multiple of 8 up to
-    128, any N >= 1."""
+def _check_qkv(q, k, v):
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"need q, k and v of one (BH, N, hd) shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)} and {tuple(v.shape)}")
@@ -94,35 +92,202 @@ def vit_attention_fused(q, k, v, sm_scale: float):
                         f"{v.dtype}")
     if k.device != q.device or v.device != q.device:
         raise ValueError(f"all operands must lie on {q.device}")
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v, sm_scale)
-    if q.device.type != "cuda":
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention kernel for device {q.device}")
-    from . import _build
 
+
+def _check_cuda_operands(q, *others):
+    """What both kernels need of (BH, N, hd) CUDA tensors shaped like q."""
     bh, n, hd = q.shape
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
     if bh < 1 or n < 1 or hd % 8 or not 8 <= hd <= MAX_HEAD_DIM:
         raise ValueError(f"the kernel needs BH, N >= 1 and hd a multiple of 8 up to "
                          f"{MAX_HEAD_DIM}, got {tuple(q.shape)}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("the attention kernel is forward only: call it under "
-                           "torch.inference_mode() or torch.no_grad()")
-    for t in (q, k, v):
+    for t in (q, *others):
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("q, k and v must be contiguous and 16-byte aligned; nothing is "
-                             "copied here")
+            raise ValueError("the attention kernels' operands must be contiguous and 16-byte "
+                             "aligned; nothing is copied here")
+
+
+def launch_attention_forward(q, k, v, sm_scale: float, want_stats: bool):
+    """Launches K2 on checked CUDA tensors. Returns (out, stats): stats is
+    None, or (BH, N, 2) f32 with each query row's shift (the integer-valued
+    ceil of its largest score in exp2 space) and the sum z of its e."""
+    from . import _build
+
+    _check_cuda_operands(q, k, v)
+    bh, n, hd = q.shape
     out = torch.empty_like(v)
+    stats = torch.empty((bh, n, 2), dtype=torch.float32, device=q.device) if want_stats else None
     with torch.cuda.device(q.device):
         err = _build.load().xmir_vit_attn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype], bh,
-            n, hd, scale_constant(sm_scale, q.dtype),
-            torch.cuda.current_stream(q.device).cuda_stream)
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if stats is None else stats.data_ptr(), DTYPE_CODES[q.dtype], bh, n, hd,
+            scale_constant(sm_scale, q.dtype), torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError_t {err}")
     vit_attention_fused.launches += 1
-    return out
+    return out, stats
+
+
+def attention_bwd_reference(q, k, v, g, sm_scale: float):
+    """(dq, dk, dv): ``torch.autograd.grad`` of ``attention_reference`` at
+    cotangent g (the vjp of ``_attention_reference`` in the TPU file)."""
+    with torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = attention_reference(q, k, v, sm_scale)
+        return torch.autograd.grad(out, (q, k, v), g)
+
+
+def attention_bwd_plain(q, k, v, o, g, sm_scale: float):
+    """Plain version of K3 on (BH, N, hd): (dq, dk, dv) of
+    softmax(q k^T sm_scale) v from the saved output o and the cotangent g,
+    with the kernel's rounding points, which are the TPU kernel's
+    (``_bwd_kernel`` :659-677) with ``attention_plain``'s shift m = ceil(row
+    max) in place of the row max: qs = q times scale log2(e) in q's dtype;
+    f32 scores, e = exp2(s - m), z their f32 sum; c = rowsum(g o) and
+    dp = g v^T in f32; t = e (dp - c) rounded to q's dtype before both of its
+    products and e rounded to q's dtype for dv; 1 / z folded into the small
+    operands: dq = (t k) (scale / z) in f32, then one rounding, qz = q
+    (scale / z) and gz = g / z rounded to the input dtype; dk = t^T qz and
+    dv = e^T gz summed in f32 and rounded once."""
+    qs = q * torch.tensor(scale_constant(sm_scale, q.dtype), dtype=q.dtype, device=q.device)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    e = torch.exp2(s - torch.ceil(s.amax(dim=-1, keepdim=True)))
+    zinv = 1.0 / e.sum(dim=-1, keepdim=True)
+    sz = sm_scale * zinv
+    g32 = g.float()
+    c = (g32 * o.float()).sum(dim=-1, keepdim=True)
+    dp = torch.matmul(g32, v.float().transpose(-1, -2))
+    t = (e * (dp - c)).to(q.dtype).float()
+    dq = (torch.matmul(t, k.float()) * sz).to(q.dtype)
+    qz = (q.float() * sz).to(q.dtype)
+    gz = (g32 * zinv).to(g.dtype)
+    dk = torch.matmul(t.transpose(-1, -2), qz.float()).to(k.dtype)
+    dv = torch.matmul(e.to(q.dtype).float().transpose(-1, -2), gz.float()).to(v.dtype)
+    return dq, dk, dv
+
+
+# How far K3 may lie from ``attention_bwd_plain``, which rounds where the
+# kernel rounds. dq, dk and dv are sums over up to N terms of either sign, so
+# an output can be far smaller than its terms and a bound in steps of the
+# output (K2's) says nothing: both bounds are relative to the tensor's
+# largest magnitude, the worst output within GRAD_RTOL of it and the mean
+# error within GRAD_MEAN_RTOL. Where a gradient all but vanishes (N = 1, or a
+# row with one dominant key: p is one-hot and ds = p (dp - c) cancels) the
+# f32 residue of dp - c remains, which follows the size of the terms, not of
+# the result: the magnitude counts as GRAD_FLOOR of the terms' bound at least
+# (``grad_floors``). In f32 only the sums' order differs (3e-5 is also the
+# JAX package's own bound on its kernel, tests/test_vit_attn.py; a column of
+# residues adds up over its N rows). In bf16 a score
+# that moves in its last bit can flip the rounding of a t or an e to bf16, or
+# of an output, by one step. A rounding point moved moves most outputs and
+# the mean far past its bound (PERF.md has the kernel's and planted faults'
+# readings).
+GRAD_RTOL = {torch.float32: 3e-5, torch.bfloat16: 2 ** -7}
+GRAD_MEAN_RTOL = {torch.float32: 4e-6, torch.bfloat16: 2 ** -15}
+GRAD_FLOOR = 2 ** -8
+
+
+def grad_floors(q, k, v, g, sm_scale: float):
+    """The least magnitudes (for dq, dk, dv) that ``grad_agreement`` measures
+    against: GRAD_FLOOR of a bound on each gradient's terms. |dp| and |c| are
+    at most D = max|g row| max|v row| (Cauchy-Schwarz); a term of dq is at
+    most sm_scale 2 D max|k|, of dk sm_scale 2 D max|q|, of dv max|g|."""
+    d = torch.linalg.vector_norm(g.float(), dim=-1).max() * torch.linalg.vector_norm(
+        v.float(), dim=-1).max()
+    return (GRAD_FLOOR * sm_scale * d * k.float().abs().max(),
+            GRAD_FLOOR * sm_scale * d * q.float().abs().max(),
+            GRAD_FLOOR * g.float().abs().max())
+
+
+def grad_agreement(out, ref, floor=0.0):
+    """K3's ``out`` against ``attention_bwd_plain``'s ``ref`` (one of dq, dk,
+    dv): the largest |out - ref|, and the worst and the mean error as shares
+    of their bounds (``of_bound``, ``mean_of_bound``), both relative to the
+    larger of ref's largest magnitude and ``floor`` (its ``grad_floors``)."""
+    r = ref.float()
+    d = (out.float() - r).abs()
+    top = torch.maximum(r.abs().max(), torch.as_tensor(floor, dtype=r.dtype, device=r.device))
+    top = top.clamp_min(torch.finfo(torch.float32).tiny)
+    return {"max_abs_err": d.max().item(),
+            "of_bound": (d.max() / (GRAD_RTOL[ref.dtype] * top)).item(),
+            "mean_of_bound": (d.mean() / (GRAD_MEAN_RTOL[ref.dtype] * top)).item()}
+
+
+def grad_agrees(stats) -> bool:
+    """Whether a ``grad_agreement`` reading is within the bounds (NaN is not)."""
+    return stats["of_bound"] <= 1 and stats["mean_of_bound"] <= 1
+
+
+def vit_attention_bwd(q, k, v, o, g, stats, sm_scale: float):
+    """K3: (dq, dk, dv) of ``vit_attention_fused`` at cotangent g. q, k, v,
+    the saved output o and g are (BH, N, hd) of one dtype; ``stats`` is the
+    forward kernel's (BH, N, 2) f32 row statistics (None on the CPU, where
+    ``attention_bwd_plain`` finds its own). On CUDA: contiguous, 16-byte
+    aligned, hd a multiple of 8 up to 128, any N >= 1."""
+    _check_qkv(q, k, v)
+    if o.shape != q.shape or g.shape != q.shape or o.dtype != q.dtype or g.dtype != q.dtype:
+        raise ValueError(f"o and g must match q's shape {tuple(q.shape)} and dtype {q.dtype}")
+    if o.device != q.device or g.device != q.device:
+        raise ValueError(f"all operands must lie on {q.device}")
+    if q.device.type == "cpu":
+        return attention_bwd_plain(q, k, v, o, g, sm_scale)
+    from . import _build
+
+    _check_cuda_operands(q, k, v, o, g)
+    bh, n, hd = q.shape
+    if (stats is None or stats.shape != (bh, n, 2) or stats.dtype != torch.float32
+            or stats.device != q.device or not stats.is_contiguous()):
+        raise ValueError(f"stats must be the forward kernel's ({bh}, {n}, 2) float32 tensor")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    crow = torch.empty((bh, n), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _build.load().xmir_vit_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
+            stats.data_ptr(), crow.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            DTYPE_CODES[q.dtype], bh, n, hd, scale_constant(sm_scale, q.dtype), sm_scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"attention backward kernel launch failed: cudaError_t {err}")
+    vit_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+vit_attention_bwd.launches = 0
+
+
+class _VitAttention(torch.autograd.Function):
+    """K2 forward, K3 backward; on the CPU their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, sm_scale):
+        if q.device.type == "cpu":
+            out, stats = attention_plain(q, k, v, sm_scale), None
+        else:
+            needs_grad = any(ctx.needs_input_grad[:3])
+            out, stats = launch_attention_forward(q, k, v, sm_scale, want_stats=needs_grad)
+        ctx.sm_scale = sm_scale
+        ctx.save_for_backward(q, k, v, out, stats)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, stats = ctx.saved_tensors
+        # autograd hands the cotangent over in whatever layout the consumer
+        # left it: the kernel wants it contiguous
+        dq, dk, dv = vit_attention_bwd(q, k, v, out, g.contiguous(), stats, ctx.sm_scale)
+        return dq, dk, dv, None
+
+
+def vit_attention_fused(q, k, v, sm_scale: float):
+    """K2: softmax(q k^T sm_scale) v per leading index, differentiable in q,
+    k and v (backward: K3). q, k, v (BH, N, hd) of one shape and dtype
+    (float32 or bfloat16). Returns (BH, N, hd) in v's dtype. On CUDA:
+    contiguous, 16-byte aligned, hd a multiple of 8 up to 128, any N >= 1."""
+    _check_qkv(q, k, v)
+    return _VitAttention.apply(q, k, v, float(sm_scale))
 
 
 vit_attention_fused.launches = 0
