@@ -1,10 +1,11 @@
 """Plants one fault at a time in the ViT kernels (K2, K3, K7, K8), the Swin
-attention kernels (K4, K6) and the large-k top-k (K1') on an NVIDIA card and
-prints how far each faulty kernel lies from its plain PyTorch version, beside
-the real kernels' readings: the evidence the bounds in
-xmir_tpu_torch/ops/vit_attn.py (``agreement``, ``grad_agreement``,
-``window_agreement``) and ops/convnext_block.py (``agreement``) were set
-from. K1' is held to bit-equal ids and values on integer inputs.
+attention kernels (K4, K6), the large-k top-k (K1') and the ConvNeXtV2 tail
+backward (K10) on an NVIDIA card and prints how far each faulty kernel lies
+from its plain PyTorch version, beside the real kernels' readings: the
+evidence the bounds in xmir_tpu_torch/ops/vit_attn.py (``agreement``,
+``grad_agreement``, ``window_agreement``) and ops/convnext_block.py
+(``agreement``) were set from, K10's by ``grad_agreement`` too. K1' is held to
+bit-equal ids and values on integer inputs.
 
     python3 chip_faults.py
 
@@ -91,6 +92,18 @@ SOURCE_FAULTS = {
         "topk_select.cu", "take = key >= prefix;", "take = key > prefix;"),
     "K1': -0 ranked below +0": (
         "topk_select.cu", "__float_as_uint(__fadd_rn(score, 0.f))", "__float_as_uint(score)"),
+    "K10: the GRN term ab dgx / gx dropped from dab": (
+        "convnext_block_bwd.cu", "const float d = (dz[at] * ca + a * cb) * gelu_grad(x, t);",
+        "const float d = (dz[at] * ca) * gelu_grad(x, t);"),
+    "K10: the GELU derivative's 3 K1 written as K1": (
+        "convnext_block_bwd.cu", "constexpr float kGelu3K1 = 0.134145f;",
+        "constexpr float kGelu3K1 = 0.044715f;"),
+    "K10: the LN backward's xhat mean(dyh xhat) term dropped": (
+        "convnext_block_bwd.cu", "store(out + c, st.y * (dyh - m1 - xhat * m2));",
+        "store(out + c, st.y * (dyh - m1));"),
+    "K10: dW1 summed over the first image only": (
+        "convnext_block_bwd.cu", "TnArgs t1{dh1, y, br, ws.chunk, c4, c, part_w1};",
+        "TnArgs t1{dh1, y, rows, ws.chunk, c4, c, part_w1};"),
 }
 
 
@@ -207,6 +220,49 @@ def read_train_slice():
         run = cs.make_trainer(Path(tmp), "dinov2", data, "-p", "2")
         with cs.env_flags(XMIR_FUSED_LN_MLP=None, **cs.FUSED_VIT):
             return cs.f32_kernels_against_plain(run, pt, start, steps[0])
+
+
+def tail_bwd_cases(gen, dtype):
+    """K10's operands (h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta): two
+    of ConvNeXtV2-Base's stage shapes at 384 px (B = 2) and the tiny model's
+    width at 49 rows."""
+    for b, hw, c in ((2, 48, 256), (2, 12, 1024), (2, 7, 96)):
+        c4 = 4 * c
+
+        def r(*shape, sc=1.0):
+            return (torch.randn(shape, generator=gen) * sc).cuda()
+
+        h, dy = r(b, hw * hw, c).to(dtype), r(b, hw * hw, c).to(dtype)
+        yield (h, dy, 1 + r(c, sc=0.2), r(c, sc=0.1), r(c4, c, sc=c ** -0.5).to(dtype),
+               r(c4, sc=0.1), r(c, c4, sc=c4 ** -0.5).to(dtype), r(c4, sc=0.5), r(c4, sc=0.1))
+
+
+def tail_plain_dh1_unrounded(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta):
+    """K10's plain version with dh1 left in f32 before its products (dW1 and
+    dyln): tail_backward_reference from its intermediates, dh1b = dh1."""
+    t = cb._tail_backward_terms(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta)
+    c, c4 = h.shape[-1], w1.shape[0]
+    xhat, dh1 = t["xhat"], t["dh1"]
+    dyln = dh1 @ w1.float()
+    dyh = dyln * ln_scale.float()
+    dacc = t["rstd"] * (dyh - dyh.mean(dim=-1, keepdim=True)
+                        - xhat * (dyh * xhat).mean(dim=-1, keepdim=True))
+    return (dacc.to(h.dtype), (dyln * xhat).sum(dim=(0, 1)), dyln.sum(dim=(0, 1)),
+            dh1.reshape(-1, c4).t() @ t["y"].float().reshape(-1, c), dh1.sum(dim=(0, 1)),
+            cb.linear_f32(dy.reshape(-1, c).t(), t["z"].reshape(-1, c4).t()),
+            (t["s1"] * t["nx"]).sum(dim=(0, 1)), t["dz"].sum(dim=(0, 1)))
+
+
+def read_tail_bwd(dtype, plain=cb.tail_backward_reference):
+    """K10's worst ``va.grad_agreement`` reading over its eight outputs
+    and ``tail_bwd_cases``."""
+    gen = torch.Generator().manual_seed(5)
+    readings = []
+    for args in tail_bwd_cases(gen, dtype):
+        for out, ref, floor in zip(cb.convnext_tail_bwd(*args), plain(*args),
+                                   cb.tail_grad_floors(*args)):
+            readings.append(va.grad_agreement(out, ref, floor, dtype))
+    return worst(readings)
 
 
 def ln_plain_unrounded(x, lns, lnb, w, b, act):
@@ -364,6 +420,11 @@ def main():
     report("the kernel", "K1'", read_select(), True)
     for dtype in (torch.bfloat16, torch.float32):
         report("the kernel", f"K3 {str(dtype)[6:]}", read_backward(dtype), True, va.grad_agrees)
+    for dtype in (torch.bfloat16, torch.float32):
+        report("the kernel", f"K10 {str(dtype)[6:]}", read_tail_bwd(dtype), True,
+               va.grad_agrees)
+    report("K10's plain version with dh1 left unrounded before its products", "K10 bf16",
+           read_tail_bwd(torch.bfloat16, tail_plain_dh1_unrounded), False, va.grad_agrees)
     import chip_smoke as cs
 
     def report_slice(name, want_inside):
@@ -409,6 +470,11 @@ def main():
                 continue
             if name.startswith("K1'"):
                 report(name, "K1'", read_select(), False)
+                continue
+            if name.startswith("K10"):
+                for dtype in (torch.bfloat16, torch.float32):
+                    report(name, f"K10 {str(dtype)[6:]}", read_tail_bwd(dtype), False,
+                           va.grad_agrees)
                 continue
             if name.startswith(("K4", "K6")):
                 b4, b6 = read_window(torch.bfloat16)

@@ -116,7 +116,35 @@ Phases, each of which raises (exit code != 0) on any failure:
              the port); the bf16 DINOv2 train step at batch 8 with the
              kernels, with their plain versions and on the eager path: img/s,
              peak memory, and forward / backward / optimiser shares
-``--train-only`` builds and runs phases 17 to 20 alone (no result line).
+ 21. kernel  K10 (csrc/convnext_block_bwd.cu) against tail_backward_reference,
+             f32 and bf16: ConvNeXtV2-Base's four stage shapes at 384 px
+             (B = 2), 49 rows and 1 row at C = 96, 144 rows at B = 3; within
+             ops/vit_attn.py::grad_agreement's bounds (the run's dtype, the
+             floors of ops/convnext_block.py::tail_grad_floors); two runs
+             bit-equal; the fused block's eleven gradients (K9 forward, K10
+             backward) against autograd through the plain forward in f32
+ 22. slice   cli.train with ConvNeXtV2-Base at full width (432 decode, 384
+             crop, 36 blocks, --bf16 -p 2 -k 4) and a timm-layout --resume
+             with random nonzero LN, GRN and biases: K9 and K10 in the 6
+             blocks the training gate fuses, every step, nothing else;
+             parameters moved, none of the backbone's under
+             --freeze-backbone; --resume bit-exact; three f32 steps under
+             XMIR_FUSED_MLP=1 against the plain versions; one epoch each of
+             --model convnextv2_sra and convnextv2_pcam, K10 launched
+ 23. rates   K10 at the four stage shapes at B = 16, bf16 and f32, against
+             its plain version and autograd through a plain tail, beside one
+             block's forward + backward fused (K9 + K10) and plain: the
+             training gate's table; the bf16 ConvNeXtV2-Base train step at
+             batch 16, 384 px with the kernels, their plain versions and on
+             the eager path
+ 24. slice   main-path step 4 on DenseNet121 at full width (224 px, f32):
+             cli.test --save-dir, cli.compute_saliency --results (2 queries,
+             top 5, 2401 masks), cli.evaluate_saliency --saliency-dir (K1
+             once) and inline: maps finite and nonnegative, AUCs in [0, 1],
+             the saved maps' AUCs equal the inline ones; a narrow model's
+             maps and AUCs on the card against the CPU; SBSM images/s and
+             insertion / deletion pair-evals/s
+``--train-only`` builds and runs phases 17 to 23 alone (no result line).
 The launch counts are set to 0 before each slice and read after it. Each
 kernel's bound (the least time the card could take: bytes moved once over
 3.35 TB/s, or operations over the peak of their type) is reckoned from the
@@ -127,6 +155,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import statistics
@@ -201,6 +230,9 @@ KERNELS = {
     "K9": {"name": "convnext_block_fused", "route": "cuda",
            "source": "xmir_tpu_torch/csrc/convnext_block.cu",
            "replaces": "xmir_tpu/ops/convnext_block_pallas.py:124"},
+    "K10": {"name": "convnext_tail_bwd", "route": "cuda",
+            "source": "xmir_tpu_torch/csrc/convnext_block_bwd.cu",
+            "replaces": "xmir_tpu/ops/convnext_block_pallas.py:295"},
     "K11": {"name": "convnext_mlp_grn_fused", "route": "cuda",
             "source": "xmir_tpu_torch/csrc/convnext_block.cu",
             "replaces": "xmir_tpu/ops/convnext_block_pallas.py:45"},
@@ -407,7 +439,7 @@ WRAPPERS = {"K1": fused_topk_scores, "K1'": select_topk_scores, "K2": va.vit_att
             "K3": va.vit_attention_bwd, "K4": va.biased_attention_fused, "K6": wa.window_attention_fused,
             "K7": ld.ln_qkv_fused,
             "K8": ld.ln_dense_fused, "K9": cb.convnext_block_fused,
-            "K11": cb.convnext_mlp_grn_fused}
+            "K10": cb.convnext_tail_bwd, "K11": cb.convnext_mlp_grn_fused}
 
 
 def reset_launches():
@@ -2156,12 +2188,555 @@ def phase_train_rates():
     return out
 
 
+# --- ConvNeXtV2 training: K10 ------------------------------------------------
+
+
+def tail_bwd_inputs(gen, b, hw, c, dtype):
+    """(x, the block's parameters, h = dwconv(x) as (B, R, C) rows, a
+    cotangent dy) for one block of width c at hw x hw."""
+    x, a = _tail_inputs(gen, b, hw, c, dtype)
+    h = cb.dwconv(x, a["dw_weight"], a["dw_bias"]).reshape(b, hw * hw, c)
+    dy = torch.randn(h.shape, generator=gen).to("cuda", dtype)
+    return x, a, h, dy
+
+
+def tail_args(a):
+    """K10's parameters (ln_scale, ln_bias, w1, b1, w2, gamma, beta) of a
+    block's parameter dict."""
+    return tuple(a[k] for k in ("ln_scale", "ln_bias", "w1", "b1", "w2", "gamma", "beta"))
+
+
+def tail_bwd_err(outs, refs, floors, dtype, what):
+    """The worst ``va.grad_agreement`` reading (K10's floors, the run's
+    dtype) over K10's eight outputs; raises past the bounds stated in
+    ops/vit_attn.py."""
+    worst = {}
+    for name, out, ref, floor in zip(cb.TAIL_GRAD_NAMES, outs, refs, floors):
+        e = va.grad_agreement(out, ref, floor, dtype)
+        check(va.grad_agrees(e), f"{what} {name}: K10 differs from its plain version past the "
+                                 f"bounds (GRAD_RTOL, GRAD_MEAN_RTOL): {e}")
+        _worst(worst, e)
+    return worst
+
+
+def block_grads(fn, x, a, g):
+    """The eleven gradients of fn(x, **a) at cotangent g."""
+    leaves = [t.detach().requires_grad_(True) for t in (x, *a.values())]
+    out = fn(leaves[0], **dict(zip(a, leaves[1:])))
+    return torch.autograd.grad(out, leaves, g)
+
+
+# the Function's eleven gradients (K9 forward, K10 backward) against autograd
+# through the plain forward in f32, of each gradient's largest magnitude: f32
+# differs by the sums' order; bf16 by its roundings of the block's operands,
+# the tail's intermediates and the gradients themselves
+BLOCK_GRAD_RTOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -5}
+# ConvNeXtV2-Base's stage shapes at 384 px (B = 2), ragged rows, one row, and
+# the tiny model's width
+TAIL_BWD_CASES = [(2, hw, c, f"stage {i + 1}") for i, (hw, c) in enumerate(STAGES)] + [
+    (2, 7, 96, "R 49, C 96"), (2, 1, 96, "R 1, C 96"), (3, 12, 128, "144 rows, B 3")]
+
+
+def phase_kernel_tail_bwd():
+    gen = torch.Generator().manual_seed(31)
+    err = {"K10": {}, "block": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for b, hw, c, what in TAIL_BWD_CASES:
+            x, a, h, dy = tail_bwd_inputs(gen, b, hw, c, dtype)
+            p = tail_args(a)
+            outs = cb.convnext_tail_bwd(h, dy, *p)
+            again = cb.convnext_tail_bwd(h, dy, *p)
+            torch.cuda.synchronize()
+            check(all(torch.equal(u, v) for u, v in zip(outs, again)),
+                  f"K10 {name} {what}: two runs differ")
+            check(all(torch.isfinite(t.float()).all() for t in outs),
+                  f"K10 {name} {what}: non-finite gradients")
+            e = tail_bwd_err(outs, cb.tail_backward_reference(h, dy, *p),
+                             cb.tail_grad_floors(h, dy, *p), dtype,
+                             f"K10 {name} B={b} {hw}x{hw} C={c}")
+            _worst(err["K10"].setdefault(name, {}), e)
+            log(f"[kernel] K10 {name:8s} B={b} {hw:2d}x{hw:2d} C={c:4d} ({what}): {e}; twice "
+                "bit-equal")
+        # the Function's eleven gradients against autograd through the plain
+        # forward in f32
+        for b, hw, c, what in (TAIL_BWD_CASES[1], TAIL_BWD_CASES[4]):
+            x, a, h, dy = tail_bwd_inputs(gen, b, hw, c, dtype)
+            g = dy.reshape(x.shape)
+            got = block_grads(cb.convnext_block_fused, x, a, g)
+            ref = block_grads(plain_block, x.float(), {k: v.float() for k, v in a.items()},
+                              g.float())
+            rel = {n_: ((u.float() - v).abs().max() / v.abs().max()).item()
+                   for n_, u, v in zip(("dx", *a), got, ref)}
+            check(all(u.dtype == v.dtype for u, v in zip(got, (x, *a.values()))),
+                  "a gradient did not come back in its input's dtype")
+            check(max(rel.values()) <= BLOCK_GRAD_RTOL[dtype],
+                  f"the Function's gradients {name} {what}: {rel} of the largest magnitude from "
+                  f"autograd through the plain forward > {BLOCK_GRAD_RTOL[dtype]}")
+            err["block"][f"{name} {what}"] = rel
+            log(f"[kernel] K9 + K10 Function {name:8s} B={b} {hw}x{hw} C={c}: each gradient "
+                f"within {max(rel.values()):.3g} of its largest magnitude of the f32 autograd "
+                f"gradients (bound {BLOCK_GRAD_RTOL[dtype]:.3g}): {rel}")
+    return err
+
+
+def _tail_bwd_work(b, r, c, dtype):
+    """(operations, bytes) of one K10 call: five products of 2 R C 4C an
+    image; h and dy read and dacc written once, the weights read and their
+    f32 gradients written once."""
+    size = torch.empty((), dtype=dtype).element_size()
+    c4 = 4 * c
+    return 10 * b * r * c * c4, 3 * b * r * c * size + 2 * c * c4 * (size + 4) + 10 * c4 * 4
+
+
+def plain_block_module(dim, a, dtype):
+    """A ConvNeXtV2Block with the parameters of ``a`` (its plain path under
+    XMIR_FUSED_MLP=0)."""
+    blk = convnext_model.ConvNeXtV2Block(dim).to("cuda", dtype)
+    names = {"dw_weight": "conv_dw.weight", "dw_bias": "conv_dw.bias", "ln_scale": "norm.weight",
+             "ln_bias": "norm.bias", "w1": "mlp.fc1.weight", "b1": "mlp.fc1.bias",
+             "w2": "mlp.fc2.weight", "b2": "mlp.fc2.bias", "gamma": "mlp.grn.weight",
+             "beta": "mlp.grn.bias"}
+    blk.load_state_dict({names[k]: v.to(dtype) for k, v in a.items()})
+    return blk.train()
+
+
+def torch_tail(h, lns, lnb, w1, b1, w2, gamma, beta):
+    """The tail (no residual) in PyTorch's own differentiable operations in
+    h's dtype (F.linear, F.gelu): what autograd through a plain tail runs."""
+    y = cb.layer_norm(h, lns, lnb).to(h.dtype)
+    a = F.gelu(F.linear(y, w1, b1.to(h.dtype)), approximate="tanh").float()
+    gx = torch.sqrt(torch.sum(a * a, dim=1, keepdim=True) + 1e-12)
+    nx = gx / (torch.mean(gx, dim=-1, keepdim=True) + 1e-6)
+    return F.linear((gamma * (a * nx) + beta + a).to(h.dtype), w2)
+
+
+def phase_tail_bwd_rates():
+    """K10 per stage at B = 16 against its plain version and autograd through
+    the plain tail; one block of each stage forward + backward under autograd,
+    fused (K9 + K10) against the plain block (the training gate's table)."""
+    gen = torch.Generator().manual_seed(32)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        for i, (hw, c) in enumerate(STAGES):
+            b, r = 16, hw * hw
+            x, a, h, dy = tail_bwd_inputs(gen, b, hw, c, dtype)
+            p = tail_args(a)
+            what = f"stage {i + 1}"
+            e = tail_bwd_err(cb.convnext_tail_bwd(h, dy, *p),
+                             cb.tail_backward_reference(h, dy, *p),
+                             cb.tail_grad_floors(h, dy, *p), dtype, f"K10 {name} B=16 {what}")
+            hl = h.detach().requires_grad_(True)
+            pl = [t.detach().requires_grad_(True) for t in p]
+            tail = torch_tail(hl, *pl)
+            g = x.reshape(h.shape)  # any cotangent of the right shape
+            blk = plain_block_module(c, a, dtype)
+            xg = x.detach().requires_grad_(True)
+            ag = {k: v.detach().requires_grad_(True) for k, v in a.items()}
+
+            def fused_block():
+                o = cb.convnext_block_fused(xg, **ag)
+                return torch.autograd.grad(o, [xg, *ag.values()], g.reshape(x.shape))
+
+            def plain_block_step():
+                with env_flags(XMIR_FUSED_MLP="0"):
+                    o = blk(xg)
+                return torch.autograd.grad(o, [xg, *blk.parameters()], g.reshape(x.shape))
+
+            fns = {"K10": lambda: cb.convnext_tail_bwd(h, dy, *p),
+                   "K10 plain": lambda: cb.tail_backward_reference(h, dy, *p),
+                   "autograd": lambda: torch.autograd.grad(tail, [hl, *pl], dy, retain_graph=True),
+                   "fused block": fused_block, "plain block": plain_block_step}
+            ms, _ = _in_turns(fns)
+            ws = ctypes.c_longlong()
+            _build.load().xmir_convnext_bwd_plan(b, r, c, 4 * c, cb.DTYPE_CODES[dtype],
+                                                 ctypes.addressof(ws))
+            ops, nbytes = _tail_bwd_work(b, r, c, dtype)
+            bound_ms, bound_by = bound(ops, nbytes, name)
+            gate = "fused" if cb.fused_train_wins(r, c, 4 * c) else "plain"
+            out[f"{name} {what}"] = {
+                "ms": ms["K10"], "plain_ms": ms["K10 plain"], "autograd_ms": ms["autograd"],
+                "fused_block_ms": ms["fused block"], "plain_block_ms": ms["plain block"],
+                "bound_ms": bound_ms, "bound_by": bound_by, "workspace_mib": ws.value / 2 ** 20,
+                "agreement": e, "gate": gate}
+            log(f"[rates] K10 {name:8s} B=16 {hw}x{hw} C={c} ({what}): {ms['K10']:.3f} ms "
+                f"({ops / ms['K10'] / 1e9:.1f} TFLOP/s; bound {bound_ms:.3f} ms by {bound_by}) vs "
+                f"plain {ms['K10 plain']:.3f} ms, autograd through the plain tail "
+                f"{ms['autograd']:.3f} ms; workspace {ws.value / 2 ** 20:.0f} MiB; one block "
+                f"forward + backward: fused (K9 + K10) {ms['fused block']:.3f} ms, plain block "
+                f"{ms['plain block']:.3f} ms (gate: {gate}); "
+                f"agreement {e}")
+            del x, a, h, dy, p, hl, pl, tail, g, blk, xg, ag, fns
+            torch.cuda.empty_cache()
+    return out
+
+
+def write_convnext_train_checkpoint(path, seed):
+    """write_timm_checkpoint's ConvNeXtV2-Base with every bias random and
+    nonzero too (at init they are 0)."""
+    write_timm_checkpoint(path, seed)
+    sd = torch.load(path)
+    gen = torch.Generator().manual_seed(seed + 2)
+    for key, v in sd.items():
+        if key.endswith(".bias") and "norm" not in key and "grn" not in key:
+            sd[key] = 0.1 * torch.randn(v.shape, generator=gen)
+    torch.save(sd, path)
+
+
+@contextlib.contextmanager
+def convnext_plain_versions():
+    """The fused block's Function with K9 and K10 pointed at their plain
+    versions (block_tail_reference, tail_backward_reference) on the card."""
+    saved = (cb._block_forward, cb.convnext_tail_bwd)
+    cb._block_forward = plain_block
+    cb.convnext_tail_bwd = cb.tail_backward_reference
+    try:
+        yield
+    finally:
+        cb._block_forward, cb.convnext_tail_bwd = saved
+
+
+# ConvNeXtV2-Base at 384 px: the blocks the training gate fuses (stages 1
+# and 2, 3 blocks each): K9 and K10 launches per train step
+FUSED_TRAIN_BLOCKS = sum(d for (hw, _), d in zip(STAGES, (3, 3, 27, 3))
+                         if cb.fused_train_wins(hw * hw, 0, 0))
+
+
+def phase_train_convnext(workdir: Path):
+    p, n_train, n_val = 2, 32, 16  # three train steps in epoch 1, two in epoch 2
+    t0 = time.perf_counter()
+    data = (*write_synthetic_covidx(str(workdir / "ct_train"), n=n_train, size=256, seed=14),
+            *write_synthetic_covidx(str(workdir / "ct_val"), n=n_val, size=256, seed=15))
+    pt = str(workdir / "convnextv2_train_timm.pt")
+    write_convnext_train_checkpoint(pt, seed=26)
+    steps = [pk_steps(data[1], p, 4, epoch) for epoch in (1, 2)]
+    log(f"[slice] ConvNeXtV2 train: wrote {n_train} + {n_val} PNGs and a timm-layout .pt in "
+        f"{time.perf_counter() - t0:.1f} s; {steps} train steps in epochs 1, 2")
+    start, _ = create_model("convnextv2", generator=torch.Generator().manual_seed(0))
+    start = load_torch_checkpoint(start, pt).state_dict()
+    run = make_trainer(workdir, "convnextv2", data, "-p", str(p))
+    out = {}
+    # bf16 takes K9 + K10 in the blocks the gate fuses; the evaluation embeds
+    # in f32, which keeps the plain path
+    with env_flags(XMIR_FUSED_MLP=None):
+        reset_launches()
+        t0 = time.perf_counter()
+        losses, ckpt = run("main", "--bf16", "--epochs", "1", "--resume", pt)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        want = dict.fromkeys(WRAPPERS, 0)
+        want.update({"K9": FUSED_TRAIN_BLOCKS * steps[0], "K10": FUSED_TRAIN_BLOCKS * steps[0]})
+        check(launches == want, f"cli.train convnextv2: launches {launches}, expected {want} "
+                                f"({FUSED_TRAIN_BLOCKS} fused blocks x {steps[0]} steps)")
+        check(len(losses) == steps[0], f"{len(losses)} losses for {steps[0]} steps")
+        log(f"[slice] cli.train convnextv2 --bf16: launches {launches} ({FUSED_TRAIN_BLOCKS} fused "
+            f"blocks x {steps[0]} steps, forward and backward); losses "
+            f"{[round(v, 4) for _, _, v in losses]}; {wall:.1f} s wall")
+        out["launches"] = launches
+        trained = load_checkpoint(ckpt)
+        still = [key for key, v in trained.items() if torch.equal(v, start[key])]
+        check(not still, f"parameters that did not move: {still}")
+        check(all(torch.isfinite(v).all() for v in trained.values()), "non-finite parameters")
+        reset_launches()
+        _, frozen_ckpt = run("frozen", "--bf16", "--epochs", "1", "--resume", pt,
+                             "--freeze-backbone", "--embedding-dim", "64")
+        frozen_launches = read_launches()
+        check(frozen_launches["K10"] == 0, "the frozen backbone's blocks ran their backward")
+        frozen = load_checkpoint(frozen_ckpt)
+        fresh64, _ = create_model("convnextv2", embedding_dim=64,
+                                  generator=torch.Generator().manual_seed(0))
+        fresh64 = dict(fresh64.state_dict(), **start)
+        for key, v in frozen.items():
+            check(torch.equal(v, fresh64[key]) == key.startswith("convnext."),
+                  f"--freeze-backbone: {key} " + ("moved" if key.startswith("convnext.")
+                                                  else "did not move"))
+        log(f"[slice] cli.train convnextv2: every tensor moved; under --freeze-backbone the "
+            f"backbone's {sum(key.startswith('convnext.') for key in frozen)} tensors did not and "
+            f"the head's did (launches {frozen_launches})")
+        check_resume(make_trainer(workdir, "convnextv2", data, "-p", str(p), "--bf16"), steps,
+                     "cli.train convnextv2 --bf16", "--resume", pt)
+        for model in ("convnextv2_sra", "convnextv2_pcam"):
+            reset_launches()
+            losses, _ = make_trainer(workdir, model, data, "-p", str(p))(
+                f"{model}_bf16", "--bf16", "--epochs", "1", "--resume", pt)
+            got = read_launches()
+            check(got["K9"] == got["K10"] == FUSED_TRAIN_BLOCKS * steps[0],
+                  f"cli.train {model} --bf16: launches {got}")
+            log(f"[slice] cli.train {model} --bf16: {steps[0]} steps, losses "
+                f"{[round(v, 4) for _, _, v in losses]}, launches K9 {got['K9']}, K10 {got['K10']}")
+    # f32 under XMIR_FUSED_MLP=1: the fused blocks take K9 + K10 in f32
+    with env_flags(XMIR_FUSED_MLP="1"):
+        reset_launches()
+        _, f32_ckpt = run("f32", "--epochs", "1", "--resume", pt)
+        check(read_launches()["K10"] == FUSED_TRAIN_BLOCKS * steps[0],
+              "the f32 steps did not take K10")
+        with convnext_plain_versions():
+            reset_launches()
+            _, plain_ckpt = run("f32_plain", "--epochs", "1", "--resume", pt)
+            check(not any(read_launches().values()), "the plain versions launched a kernel")
+    a, b = load_checkpoint(f32_ckpt), load_checkpoint(plain_ckpt)
+    moved = torch.cat([(v - start[key]).abs().flatten() for key, v in b.items() if key in start])
+    apart = torch.cat([(v - b[key]).abs().flatten() for key, v in a.items() if key in start])
+    reading = {"mean_apart_of_mean_moved": (apart.mean() / moved.mean()).item(),
+               "max_apart": apart.max().item(), "mean_moved": moved.mean().item(),
+               "share_outside_1e-6": (apart > 1e-6).float().mean().item()}
+    check(reading["mean_apart_of_mean_moved"] <= TRAIN_F32_MEAN_TOL,
+          f"f32 parameters after {steps[0]} steps with K9 + K10 differ from the plain versions' "
+          f"past the bound {TRAIN_F32_MEAN_TOL}: {reading}")
+    log(f"[slice] cli.train convnextv2 f32 (XMIR_FUSED_MLP=1), {steps[0]} steps, K9 + K10 against "
+        f"their plain versions: {reading} (bound on the first {TRAIN_F32_MEAN_TOL})")
+    out["f32_vs_plain"] = reading
+    return out
+
+
+def phase_convnext_train_rates():
+    """The bf16 ConvNeXtV2-Base train step at batch 16, 384 px (f32 master
+    weights, triplet loss): with the kernels (K9 + K10 in the blocks the
+    gate fuses), with their plain versions and on the eager path (every
+    block plain), in turns; peak memory of each; and where a step's time
+    goes."""
+    model, _ = create_model("convnextv2", generator=torch.Generator().manual_seed(27))
+    model = model.to("cuda", memory_format=torch.channels_last).train()
+    state = TrainState(model, build_optimizer(model, lr=1e-5, backbone_prefixes=("convnext.",)))
+    step = make_embedding_train_step(model, "triplet", {"margin": 2.0},
+                                     compute_dtype=torch.bfloat16)
+    x = torch.randn((16, 384, 384, 3), generator=torch.Generator().manual_seed(28)).cuda()
+    labels = torch.tensor([0] * 8 + [1] * 8, device="cuda")
+
+    def with_kernels():
+        return step(state, x, labels)
+
+    def with_plain_versions():
+        with convnext_plain_versions():
+            return step(state, x, labels)
+
+    def eager_path():
+        with env_flags(XMIR_FUSED_MLP="0"):
+            return step(state, x, labels)
+
+    def forward_only():
+        step.loss_and_aux(x, labels)
+
+    def forward_backward():
+        state.optimizer.zero_grad(set_to_none=True)
+        step.loss_and_aux(x, labels)[0].backward()
+
+    paths = {"kernels": with_kernels, "plain versions": with_plain_versions, "eager": eager_path}
+    out = {}
+    with env_flags(XMIR_FUSED_MLP=None):
+        reset_launches()
+        loss = with_kernels()["loss"]
+        launches = read_launches()
+        check(launches["K9"] == launches["K10"] == FUSED_TRAIN_BLOCKS,
+              f"the bf16 step did not take K9 and K10 in the fused blocks: {launches}")
+        check(torch.isfinite(loss).item(), "non-finite loss")
+        peak = {}
+        for name, fn in paths.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms, runs = _in_turns({**paths, "forward": forward_only,
+                              "forward + backward": forward_backward}, rounds=3, reps=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            with_kernels()
+        enqueue = (time.perf_counter() - t0) / 3 * 1e3
+        torch.cuda.synchronize()
+    for name in paths:
+        out[name] = {"ms": ms[name], "img_per_s": 16 / ms[name] * 1e3, "peak_gib": peak[name]}
+    shares = {"forward": ms["forward"], "backward": ms["forward + backward"] - ms["forward"],
+              "optimiser": ms["kernels"] - ms["forward + backward"]}
+    out["shares_ms"] = shares
+    out["enqueue_ms"] = enqueue
+    log("[rates] ConvNeXtV2-Base bf16 train step, batch 16 @384 (device time): "
+        + "; ".join(f"{k} {v['ms']:.2f} ms = {v['img_per_s']:.1f} img/s, peak {v['peak_gib']:.2f} "
+                    "GiB" for k, v in out.items() if isinstance(v, dict) and "ms" in v)
+        + f"; with the kernels a step is forward {shares['forward']:.2f} ms + backward "
+        f"{shares['backward']:.2f} ms + optimiser {shares['optimiser']:.2f} ms, and the host "
+        f"enqueues it in {enqueue:.2f} ms; runs "
+        f"{({k: [round(t, 2) for t in v] for k, v in runs.items()})}")
+    del model, state, step, x
+    torch.cuda.empty_cache()
+    return out
+
+
+# the same narrow DenseNet121 SBSM and insertion / deletion on the card and on
+# the CPU: both IEEE f32, only the sums' order differs
+SALIENCY_CPU_TOL = 1e-5
+
+
+def _narrow_saliency(device):
+    """Pair SBSM maps and both curves' AUCs of one query and two retrieved
+    images through a narrow DenseNet121 on ``device``: (maps, AUCs)."""
+    from xmir_tpu_torch.models.embedders import DenseNet121Embedder
+    from xmir_tpu_torch.xai import (
+        blur_substrate,
+        generate_masks,
+        run_causal_metric_pairs_both,
+        sbsm_pair_saliency,
+        zeros_substrate,
+    )
+
+    model = DenseNet121Embedder(12, 3, growth_rate=8, block_config=(2, 2, 2, 2),
+                                num_init_features=16,
+                                generator=torch.Generator().manual_seed(29))
+    embed = make_embed_fn(model.to(device).eval())
+    gen = torch.Generator().manual_seed(30)
+    q, r = (torch.randn((n, 64, 64, 3), generator=gen).to(device) for n in (1, 2))
+    masks = torch.from_numpy(generate_masks(64, 16, 8)).to(device)
+    maps = sbsm_pair_saliency(embed, q, r, masks, chunk=32)
+    d, i = run_causal_metric_pairs_both(embed, q[0], r, list(maps[0]), zeros_substrate,
+                                        blur_substrate(), step=256)
+    return maps.cpu(), np.array([a for a, _ in d + i])
+
+
+def write_whitened_densenet(path, img_dir, manifest, dim=32):
+    """DenseNet121 with its seeded random backbone and an fc head that
+    whitens the pooled features of the images in ``manifest``: their first
+    ``dim`` principal directions about the mean, at unit variance. Random
+    weights give nearly collinear embeddings, where cli.test's -L2 ranking
+    and the index's cosine ranking of the same gallery part at near-ties;
+    whitened ones rank alike."""
+    model, spec = create_model("densenet121", embedding_dim=dim,
+                               generator=torch.Generator().manual_seed(0))
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    p = argparse.ArgumentParser()
+    common.add_dataset_args(p)
+    args = p.parse_args(["--dataset", "covid", "--dataset-dir", img_dir,
+                         "--test-image-list", manifest])
+
+    def pooled(x):
+        with torch.inference_mode():
+            return model.densenet121[0](x)["pooled"].float()
+
+    feats, _ = embed_dataset(common.build_dataset(args, "test"), pooled, spec, device="cuda",
+                             num_workers=8)
+    mean = feats.mean(dim=0)
+    _, sv, vh = torch.linalg.svd(feats - mean, full_matrices=False)
+    w = vh[:dim] / (sv[:dim, None] / (feats.shape[0] - 1) ** 0.5)
+    with torch.no_grad():
+        model.fc.weight.copy_(w)
+        model.fc.bias.copy_(-w @ mean)
+    torch.save({k: v.cpu().contiguous() for k, v in model.state_dict().items()}, path)
+
+
+def phase_saliency(workdir: Path):
+    """Main-path step 4 on DenseNet121 at full width (224 px, f32; a head
+    that whitens the gallery's features, ``write_whitened_densenet``):
+    cli.test --save-dir, cli.compute_saliency --results on 2 queries (top 5,
+    window 24, stride 5: 2401 masks), cli.evaluate_saliency --saliency-dir
+    and the same inline; then the rates of SBSM and of the curves."""
+    from xmir_tpu_torch.cli import compute_saliency, evaluate_saliency
+    from xmir_tpu_torch.xai import (
+        blur_substrate,
+        generate_masks,
+        run_causal_metric_pairs_both,
+        sbsm_pair_saliency,
+        zeros_substrate,
+    )
+
+    n, n_q, top_k = 64, 2, 5
+    img_dir, manifest = write_synthetic_covidx(str(workdir / "sal"), n=n, size=256, seed=16)
+    pt = str(workdir / "densenet121_whitened.pt")
+    write_whitened_densenet(pt, img_dir, manifest)
+    common = ["--dataset", "covid", "--dataset-dir", img_dir, "--test-image-list", manifest,
+              "--model", "densenet121", "--embedding-dim", "32", "--resume", pt,
+              "--device", "cuda", "--seed", "0", "-j", "8"]
+    res, maps = workdir / "sal_res", workdir / "sal_maps"
+    test_cli.main(common + ["--save-dir", str(res)])
+    xai = ["--window-size", "24", "--stride", "5", "--gpu-batch", "128", "--top-k", str(top_k),
+           "--limit", str(n_q)]
+    reset_launches()
+    t0 = time.perf_counter()
+    compute_saliency.main(common + xai + ["--results", str(res / "evaluation_results.npz"),
+                                          "--save-dir", str(maps)])
+    sbsm_wall = time.perf_counter() - t0
+    check(not any(read_launches().values()), "SBSM on DenseNet121 launched a kernel")
+    saved = sorted(maps.iterdir())
+    check(len(saved) == n_q * top_k, f"{len(saved)} maps for {n_q} queries x top {top_k}")
+    for path in saved:
+        m = np.load(path)
+        check(m.shape == (224, 224) and np.isfinite(m).all() and (m >= 0).all(),
+              f"{path.name}: not a finite nonnegative 224 x 224 map")
+    reset_launches()
+    ins = ["--step", "1000", "--top-k", str(top_k), "--limit", str(n_q)]
+    saved_out = evaluate_saliency.main(common + ins + ["--saliency-dir", str(maps), "--output",
+                                                       str(workdir / "insdel.json")])
+    launches = read_launches()
+    want = dict.fromkeys(WRAPPERS, 0)
+    want["K1"] = 1
+    check(launches == want, f"cli.evaluate_saliency: launches {launches}, expected K1 once")
+    inline = evaluate_saliency.main(common + ins + xai[:6] + ["--output",
+                                                             str(workdir / "inline.json")])
+    aucs = []
+    for r, s in zip(saved_out["results"], inline["results"]):
+        got = r["per_pair_del"] + r["per_pair_ins"]
+        aucs += got
+        check(all(0.0 <= a <= 1.0 for a in got), f"AUCs outside [0, 1]: {got}")
+        check(np.allclose(got, s["per_pair_del"] + s["per_pair_ins"], atol=1e-6, rtol=0),
+              f"the saved maps' AUCs {got} differ from the inline maps' {s}")
+    log(f"[slice] saliency DenseNet121 @224 f32: {len(saved)} SBSM maps ({n_q} queries x top "
+        f"{top_k}, 2401 masks) in {sbsm_wall:.1f} s wall through cli.compute_saliency; "
+        f"cli.evaluate_saliency launches {launches}; mean deletion AUC "
+        f"{saved_out['summary']['mean_deletion_auc']:.4f}, insertion "
+        f"{saved_out['summary']['mean_insertion_auc']:.4f}; the saved maps' AUCs equal the "
+        "inline maps' (1e-6)")
+    # the narrow model on the card and on the CPU
+    gpu_maps, gpu_aucs = _narrow_saliency("cuda")
+    cpu_maps, cpu_aucs = _narrow_saliency("cpu")
+    map_err = (gpu_maps - cpu_maps).abs().max().item()
+    auc_err = float(np.abs(gpu_aucs - cpu_aucs).max())
+    check(map_err <= SALIENCY_CPU_TOL and auc_err <= SALIENCY_CPU_TOL,
+          f"narrow SBSM / ins-del on the card vs the CPU: maps {map_err}, AUCs {auc_err} > "
+          f"{SALIENCY_CPU_TOL}")
+    log(f"[slice] narrow DenseNet121 SBSM + ins/del, card vs CPU: maps within {map_err:.3g}, AUCs "
+        f"within {auc_err:.3g} (bound {SALIENCY_CPU_TOL})")
+    # rates: one query's SBSM over its top 5, and its both-curves evaluation
+    model, spec = create_model("densenet121", generator=torch.Generator().manual_seed(0))
+    embed = make_embed_fn(model.to("cuda", memory_format=torch.channels_last).eval())
+    gen = torch.Generator().manual_seed(31)
+    q, r = (torch.randn((k, 224, 224, 3), generator=gen).cuda() for k in (1, top_k))
+    masks = torch.from_numpy(generate_masks(224, 24, 5)).cuda()
+    sal = sbsm_pair_saliency(embed, q, r, masks)
+    blur = blur_substrate()
+
+    def curves():
+        return run_causal_metric_pairs_both(embed, q[0], r, list(sal[0]), zeros_substrate,
+                                            blur, step=1000)
+
+    curves()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sbsm_pair_saliency(embed, q, r, masks)
+    torch.cuda.synchronize()
+    sbsm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    curves()
+    torch.cuda.synchronize()
+    curves_s = time.perf_counter() - t0
+    rates = {"sbsm_img_per_s": top_k * masks.shape[0] / sbsm_s,
+             "insdel_pair_evals_per_s": top_k / curves_s, "sbsm_s": sbsm_s, "curves_s": curves_s}
+    log(f"[rates] SBSM DenseNet121 @224 f32: {top_k} x {masks.shape[0]} masked images in "
+        f"{sbsm_s:.2f} s = {rates['sbsm_img_per_s']:.0f} images/s; insertion + deletion of "
+        f"{top_k} pairs (52 reveal slots each, both curves) in {curves_s:.3f} s = "
+        f"{rates['insdel_pair_evals_per_s']:.1f} pair-evals/s (wall, one query)")
+    return {"launches": launches, "rates": rates, "card_vs_cpu": {"maps": map_err,
+                                                                 "aucs": auc_err},
+            "mean_deletion_auc": saved_out["summary"]["mean_deletion_auc"],
+            "mean_insertion_auc": saved_out["summary"]["mean_insertion_auc"], "aucs": aucs}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-swin", action="store_true",
                         help="only build, then print where a bf16 SwinV2-Base batch's time goes")
     parser.add_argument("--train-only", action="store_true",
-                        help="only build, then the training phases (17 to 20); prints no result")
+                        help="only build, then the training phases (17 to 23); prints no result")
     opts = parser.parse_args()
     smi = phase_device()
     phase_build()
@@ -2177,6 +2752,11 @@ def main():
             phase_train_densenet(Path(tmp))
         phase_bwd_rates()
         phase_train_rates()
+        phase_kernel_tail_bwd()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_train_convnext(Path(tmp))
+        phase_tail_bwd_rates()
+        phase_convnext_train_rates()
         print(smi)
         return
     max_err = phase_kernel()
@@ -2208,12 +2788,21 @@ def main():
         dt_launches = phase_train_densenet(Path(tmp))
     bwd_rates = phase_bwd_rates()
     train_rates = phase_train_rates()
+    tail_bwd_errs = phase_kernel_tail_bwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        ct_slice = phase_train_convnext(Path(tmp))
+    tail_bwd_rates = phase_tail_bwd_rates()
+    convnext_train_rates = phase_convnext_train_rates()
+    with tempfile.TemporaryDirectory() as tmp:
+        sal = phase_saliency(Path(tmp))
     by_path = {key: {"densenet121": d_launches[key], "convnextv2": c_launches[key],
                      **{path: v["launches"][key] for path, v in v_slices.items()},
                      **{path: v["launches"][key] for path, v in s_slices.items()},
                      "densenet121_full_ranking": r_launches[key],
                      "dinov2_train": t_slice["launches"][key],
-                     "densenet121_train": dt_launches[key]}
+                     "densenet121_train": dt_launches[key],
+                     "convnextv2_train": ct_slice["launches"][key],
+                     "densenet121_saliency": sal["launches"][key]}
                for key in WRAPPERS}
     slice_errs = [slice_err, c_slice_err] + [v["err"] for v in v_slices.values()] + [
         v["err"] for v in s_slices.values()]
@@ -2275,6 +2864,22 @@ def main():
                      "plain_ms": sum(v["plain_ms"] for v in f32s),
                      "bound_ms": sum(v["bound_ms"] for v in f32s)},
             ms_by_shape=by_shape, launches_by_path=by_path[key]))
+    bf16 = [v for k, v in tail_bwd_rates.items() if k.startswith("bfloat16")]
+    f32s = [v for k, v in tail_bwd_rates.items() if k.startswith("float32")]
+    kernels.append(dict(
+        KERNELS["K10"], launches=sum(by_path["K10"].values()),
+        max_abs_err=max(e["max_abs_err"] for e in tail_bwd_errs["K10"].values()),
+        err_by_dtype=tail_bwd_errs["K10"], ms=sum(v["ms"] for v in bf16),
+        plain_ms=sum(v["plain_ms"] for v in bf16), bound_ms=sum(v["bound_ms"] for v in bf16),
+        bound_by="operations" if all(v["bound_by"] == "operations" for v in bf16)
+        else "mixed: see ms_by_shape", library_ms=None,
+        library="none: 5 products + LN / GELU / GRN backward",
+        autograd_ms=sum(v["autograd_ms"] for v in bf16),
+        shape="bf16, one block of each ConvNeXtV2-Base stage at B=16, 384 px (sum)",
+        f32_sum={"ms": sum(v["ms"] for v in f32s), "plain_ms": sum(v["plain_ms"] for v in f32s),
+                 "bound_ms": sum(v["bound_ms"] for v in f32s)},
+        ms_by_shape=tail_bwd_rates, function_grad_rel_err=tail_bwd_errs["block"],
+        launches_by_path=by_path["K10"]))
     by_name = {k["name"]: k for k in kernels}
     by_name["convnext_block_fused"]["embedding_max_abs_err_vs_plain_tail"] = emb_err
     by_name["convnext_mlp_grn_fused"]["main_path"] = (
@@ -2284,6 +2889,9 @@ def main():
                       "dinov2_embed_img_per_s": vit_rates["embed_rate"],
                       "dinov2_train_step": train_rates,
                       "dinov2_train_f32_vs_plain": t_slice["f32_vs_plain"],
+                      "convnextv2_train_step": convnext_train_rates,
+                      "convnextv2_train_f32_vs_plain": ct_slice["f32_vs_plain"],
+                      "saliency": {k: v for k, v in sal.items() if k != "launches"},
                       "k7_backward_rel_err": bwd_errs["K7 backward"],
                       "swinv2_embed_img_per_s": swin_rates,
                       "swinv2_eval_metrics": s_slices["swinv2_test"]["metrics"],

@@ -265,7 +265,7 @@ def test_block_matches_jax(dtype, fused, monkeypatch, interpret_kernels):
     ref = blk.apply(vj, xj)
     port = ConvNeXtV2Block(c)
     port.load_state_dict(_block_state_dict(variables["params"]), strict=True)
-    port = port.to(tdt)
+    port = port.to(tdt).eval()  # the JAX block's apply is train=False
     with torch.no_grad():
         out = port(torch.from_numpy(_f32(xj)).to(tdt))
     assert out.dtype == tdt
@@ -277,6 +277,7 @@ def test_fused_and_plain_f32_differ_by_the_gelu_form(monkeypatch):
     form: they agree to ~1e-3, not to f32 rounding."""
     c = 16
     port = port_convnext.init_weights_(ConvNeXtV2Block(c), torch.Generator().manual_seed(0))
+    port.eval()  # inference fuses at any size; training only where fused_train_wins
     with torch.no_grad():
         port.mlp.grn.weight.normal_(0.0, 0.5, generator=torch.Generator().manual_seed(1))
         port.mlp.fc1.weight.mul_(50.0)  # GELU inputs of order 1

@@ -61,7 +61,7 @@ NARROW_CONVNEXT = dict(depths=(1, 1, 1, 1), dims=(8, 16, 32, 64))
 class JaxNarrowConvNeXt(fnn.Module):
     """xmir_tpu's ConvNeXtV2Embedder ("plain"), ConvNeXtV2SRAEmbedder ("sra")
     or ConvNeXtV2PCAMEmbedder ("pcam") with the narrow backbone: the same
-    __call__ bodies (eval mode)."""
+    __call__ bodies (PCAM's class logits and CAM maps with train=True)."""
 
     kind: str = "plain"
     embedding_dim: Optional[int] = None
@@ -81,9 +81,13 @@ class JaxNarrowConvNeXt(fnn.Module):
             feat = SRA(1024, self.num_heads, self.lam, name="sra")(
                 out["features"], out["head_norm"])
             return {"embedding": l2_normalize(feat, axis=1), "features": out["features"]}
-        embedding, _, _ = PCAMPool(1024, self.num_classes, self.lam, self.embedding_dim,
-                                   name="pcam")(out["features"], out["head_norm"])
-        return {"embedding": embedding, "features": out["features"]}
+        embedding, class_logits, pcam_probs = PCAMPool(
+            1024, self.num_classes, self.lam, self.embedding_dim, name="pcam")(
+            out["features"], out["head_norm"])
+        result = {"embedding": embedding, "features": out["features"]}
+        if train:
+            result.update({"class_logits": class_logits, "pcam_maps": pcam_probs})
+        return result
 
 
 # the narrow SwinV2 the CPU tests run in both packages: at 32 px the stages'

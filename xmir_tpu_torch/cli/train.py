@@ -9,7 +9,10 @@ eval every N epochs with cosine mAP / R@K, best-mAP checkpointing.
         --model dinov2 --bf16 -p 2 -k 4 --epochs 2 --save-dir checkpoints
 
 Training asks cuDNN for its deterministic algorithms, so that two runs of
-the same steps, and a run resumed from a checkpoint, agree bit for bit.
+the same steps, and a run resumed from a checkpoint, agree bit for bit. It
+sets PyTorch's two TF32 switches off (IEEE f32 matmuls and convolutions), as
+``cli.test`` and ``cli.ingest`` do by default: a model is trained, and its
+best checkpoint picked, in the arithmetic it is then evaluated in.
 
 Not ported yet (ROADMAP.md): ``--use-mesh`` / ``--fsdp`` (the multi-card
 slice), ``--cache-dir`` (data/cache.py), ``--loss-name dual_branch`` and the
@@ -33,6 +36,7 @@ from .common import (
     build_model,
     is_multilabel,
     resolve_device,
+    set_tf32,
 )
 
 # the first component of each ported embedder's backbone parameters
@@ -40,9 +44,6 @@ BACKBONE_PREFIXES = ("backbone.", "densenet121.", "convnext.")
 # models whose train step needs a kernel that is still to port: the JAX
 # package trains them through it, so the plain path would be another result
 WAITING_FOR_KERNEL = {
-    "convnextv2": "K10 (the ConvNeXtV2 block tail's backward)",
-    "convnextv2_sra": "K10 (the ConvNeXtV2 block tail's backward)",
-    "convnextv2_pcam": "K10 (the ConvNeXtV2 block tail's backward)",
     "swinv2": "K5 (the grouped-bias window attention's backward)",
 }
 
@@ -119,13 +120,14 @@ def main(argv=None):
     if loss_name == "dual_branch":
         raise NotImplementedError(
             "--loss-name dual_branch waits for make_dual_branch_train_step and the NIH "
-            "dual-head models (ROADMAP.md, item 7)")
+            "dual-head models (ROADMAP.md, section 1 item 5)")
     device = resolve_device(args)
     np.random.seed(args.seed)
     # cuDNN's default backward-filter algorithms add up with atomics, so two
     # runs of the same steps differ in their last bits; a resumed run is to
     # continue exactly, so training takes cuDNN's deterministic algorithms
     torch.backends.cudnn.deterministic = True
+    set_tf32(False)
 
     train_ds = build_dataset(args, "train")
     try:

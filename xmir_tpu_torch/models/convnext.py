@@ -12,9 +12,11 @@ the convolutions see them as NCHW views in channels_last memory.
 Which path a block takes follows the JAX package. The block computes in
 ``dt``, its input's dtype promoted with its parameters' (flax promotes the
 same way, so f32 parameters keep every block in f32 whatever the image's
-dtype). ``fused_mlp_enabled(dt, device)`` then picks the fused tail (K9) or
-the plain path; bf16 autocast does not change ``dt``, since the LayerNorms
-here are written out (not ``F.layer_norm``) and keep the promoted dtype.
+dtype). ``fused_mlp_enabled(dt, device)`` then picks the fused block (K9
+forward, K10 backward) or the plain path, in training only where
+``fused_train_wins`` holds as well (``self.training`` stands for flax's
+``train``); bf16 autocast does not change ``dt``, since the LayerNorms here
+are written out (not ``F.layer_norm``) and keep the promoted dtype.
 """
 from __future__ import annotations
 
@@ -24,7 +26,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.convnext_block import convnext_block_fused, dwconv, fused_mlp_enabled, layer_norm
+from ..ops.convnext_block import (
+    convnext_block_fused,
+    dwconv,
+    fused_mlp_enabled,
+    fused_train_wins,
+    layer_norm,
+)
 from .activations import adaptive_gelu
 
 
@@ -88,7 +96,9 @@ class ConvNeXtV2Block(nn.Module):
         dt = torch.promote_types(x.dtype, self.conv_dw.weight.dtype)
         x = x.to(dt)
         mlp = self.mlp
-        if fused_mlp_enabled(dt, x.device):
+        dim = self.norm.weight.shape[0]
+        if fused_mlp_enabled(dt, x.device) and (
+                not self.training or fused_train_wins(x.shape[1] * x.shape[2], dim, 4 * dim)):
             return convnext_block_fused(
                 x, self.conv_dw.weight, self.conv_dw.bias, self.norm.weight, self.norm.bias,
                 mlp.fc1.weight.to(dt), mlp.fc1.bias, mlp.fc2.weight.to(dt), mlp.fc2.bias,

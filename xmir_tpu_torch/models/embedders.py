@@ -120,9 +120,9 @@ class ConvNeXtV2SRAEmbedder(nn.Module):
 
 class ConvNeXtV2PCAMEmbedder(nn.Module):
     """Backbone features -> PCAM pooling (reference model.py:249-278). Keys:
-    ``convnext.*``, ``pcam.classifier.*``, ``pcam.fc.*``. Inference only: the
-    class logits and CAM maps the JAX module returns in training are not
-    outputs here."""
+    ``convnext.*``, ``pcam.classifier.*``, ``pcam.fc.*``. In training mode
+    the output also holds ``class_logits`` and the CAM maps ``pcam_maps``, as
+    the JAX module's does with ``train=True``."""
 
     def __init__(self, num_classes: int = 3, lam: float = 0.1,
                  embedding_dim: Optional[int] = None, *,
@@ -141,8 +141,11 @@ class ConvNeXtV2PCAMEmbedder(nn.Module):
 
     def forward(self, x):
         out = self.convnext(x)
-        embedding, _, _ = self.pcam(out["features"], out["head_norm"])
-        return {"embedding": embedding, "features": out["features"]}
+        embedding, class_logits, pcam_maps = self.pcam(out["features"], out["head_norm"])
+        result = {"embedding": embedding, "features": out["features"]}
+        if self.training:
+            result.update({"class_logits": class_logits, "pcam_maps": pcam_maps})
+        return result
 
 
 class SwinV2Embedder(nn.Module):

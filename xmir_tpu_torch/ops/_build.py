@@ -44,6 +44,11 @@ _SIGNATURES = {
     # a, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta, dtype, batch, rows,
     # c, c4, h, part, nx, out, stream
     "xmir_convnext_tail": (_P,) * 10 + (_I,) * 5 + (_P,) * 5,
+    # batch, rows, c, c4, dtype -> workspace bytes (long long pointer)
+    "xmir_convnext_bwd_plan": (_I,) * 5 + (_P,),
+    # h, dy, lns, lnb, w1, b1, w1t, w2t, gamma, beta, dtype, batch, rows, c, c4,
+    # workspace, dacc, dw1, dw2, db1, dg, dbe, dlns, dlnb, stream
+    "xmir_convnext_bwd": (_P,) * 10 + (_I,) * 5 + (_P,) * 10,
     # x, lns, lnb, w, bias, dtype, batch, n_tok, c, heads, q, k, v, stream
     "xmir_ln_qkv": (_P,) * 5 + (_I,) * 5 + (_P,) * 4,
     # x, lns, lnb, w, bias, dtype, rows, c, m, gelu, out, stream

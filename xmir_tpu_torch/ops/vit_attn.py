@@ -184,7 +184,11 @@ def attention_bwd_plain(q, k, v, o, g, sm_scale: float):
 # that moves in its last bit can flip the rounding of a t or an e to bf16, or
 # of an output, by one step. A rounding point moved moves most outputs and
 # the mean far past its bound (PERF.md has the kernel's and planted faults'
-# readings).
+# readings). K10 (ops/convnext_block.py) is held by the same bound: its eight
+# outputs are sums over rows, columns or images of terms of either sign, and a
+# sum that moves in its last bit can flip the bf16 rounding of a z, an ab or a
+# dh1; its f32 parameter gradients of a bf16 run take the bf16 bounds (the
+# ``dtype`` of ``grad_agreement``), its floors are ``tail_grad_floors``.
 GRAD_RTOL = {torch.float32: 3e-5, torch.bfloat16: 2 ** -7}
 GRAD_MEAN_RTOL = {torch.float32: 4e-6, torch.bfloat16: 2 ** -15}
 GRAD_FLOOR = 2 ** -8
@@ -202,18 +206,22 @@ def grad_floors(q, k, v, g, sm_scale: float):
             GRAD_FLOOR * g.float().abs().max())
 
 
-def grad_agreement(out, ref, floor=0.0):
+def grad_agreement(out, ref, floor=0.0, dtype=None):
     """K3's ``out`` against ``attention_bwd_plain``'s ``ref`` (one of dq, dk,
-    dv): the largest |out - ref|, and the worst and the mean error as shares
-    of their bounds (``of_bound``, ``mean_of_bound``), both relative to the
-    larger of ref's largest magnitude and ``floor`` (its ``grad_floors``)."""
+    dv), or one of K10's outputs against ``tail_backward_reference``'s: the
+    largest |out - ref|, and the worst and the mean error as shares of their
+    bounds (``of_bound``, ``mean_of_bound``), both relative to the larger of
+    ref's largest magnitude and ``floor`` (``grad_floors``,
+    ``tail_grad_floors``). ``dtype``, the run's compute dtype, picks the
+    bounds (default: ref's)."""
+    dtype = dtype or ref.dtype
     r = ref.float()
     d = (out.float() - r).abs()
     top = torch.maximum(r.abs().max(), torch.as_tensor(floor, dtype=r.dtype, device=r.device))
     top = top.clamp_min(torch.finfo(torch.float32).tiny)
     return {"max_abs_err": d.max().item(),
-            "of_bound": (d.max() / (GRAD_RTOL[ref.dtype] * top)).item(),
-            "mean_of_bound": (d.mean() / (GRAD_MEAN_RTOL[ref.dtype] * top)).item()}
+            "of_bound": (d.max() / (GRAD_RTOL[dtype] * top)).item(),
+            "mean_of_bound": (d.mean() / (GRAD_MEAN_RTOL[dtype] * top)).item()}
 
 
 def grad_agrees(stats) -> bool:
