@@ -1,6 +1,6 @@
 """Plants one fault at a time in the ViT kernels (K2, K3, K7, K8), the Swin
-attention kernels (K4, K6), the large-k top-k (K1') and the ConvNeXtV2 tail
-backward (K10) on an NVIDIA card and prints how far each faulty kernel lies
+attention kernels (K4, K6) and K4's backward (K5), the large-k top-k (K1') and
+the ConvNeXtV2 tail backward (K10) on an NVIDIA card and prints how far each faulty kernel lies
 from its plain PyTorch version, beside the real kernels' readings: the
 evidence the bounds in xmir_tpu_torch/ops/vit_attn.py (``agreement``,
 ``grad_agreement``, ``window_agreement``) and ops/convnext_block.py
@@ -92,6 +92,20 @@ SOURCE_FAULTS = {
         "topk_select.cu", "take = key >= prefix;", "take = key > prefix;"),
     "K1': -0 ranked below +0": (
         "topk_select.cu", "__float_as_uint(__fadd_rn(score, 0.f))", "__float_as_uint(score)"),
+    "K5: dbias summed over the group's first folded row only": (
+        "window_attn_bwd.cu", "for (int j = 0; j < p.g_size; ++j) {",
+        "for (int j = 0; j < 1; ++j) {", "for (int jb = 0; jb < p.g_size; ++jb) {",
+        "for (int jb = 0; jb < 1; ++jb) {"),
+    "K5: the cosine chain's - qh alpha term dropped from dq": (
+        "window_attn_bwd.cu",
+        "__fmul_rn(__fsub_rn(dqh[dt][u], __fmul_rn(qh[dt][u], a)), qinv)",
+        "__fmul_rn(dqh[dt][u], qinv)",
+        "__fmul_rn(__fsub_rn(dqh[j], __fmul_rn(qh[j], a)), qinv)", "__fmul_rn(dqh[j], qinv)"),
+    "K5: z taken from the neighbouring row for dk and dv": (
+        "window_attn_bwd.cu", "auto zinv = [&](int r) { return st[r].y; };",
+        "auto zinv = [&](int r) { return st[r ^ 1].y; };",
+        "auto szinv = [&](int r) { return __fmul_rn(sc, st[r].y); };",
+        "auto szinv = [&](int r) { return __fmul_rn(sc, st[r ^ 1].y); };"),
     "K10: the GRN term ab dgx / gx dropped from dab": (
         "convnext_block_bwd.cu", "const float d = (dz[at] * ca + a * cb) * gelu_grad(x, t);",
         "const float d = (dz[at] * ca) * gelu_grad(x, t);"),
@@ -265,6 +279,75 @@ def read_tail_bwd(dtype, plain=cb.tail_backward_reference):
     return worst(readings)
 
 
+def k5_cases(gen, dtype):
+    """K5's operands (q, k, v, bias, scale, g, g_size) in Swin's fold at
+    B = 2: stage 3 (one window, 16 heads), stage 1 shifted (a -100 mask),
+    stage 4 (N = 144), and stage 3 with every scale at the clamp of 100."""
+    import chip_smoke as cs
+
+    for nw, h, n, shifted, clamp in ((1, 16, 576, False, False), (16, 4, 576, True, False),
+                                     (1, 32, 144, False, False), (1, 16, 576, False, True)):
+        bh, groups, g_size = cs.swin_fold(2, nw, h, shifted)
+        q, k, v, bias, scale, g = cs._k5_inputs(gen, bh, groups, n, cs.SWIN_HD, dtype, shifted,
+                                                scale_max=60.0)
+        if clamp:
+            scale.fill_(100.0)
+        yield q, k, v, bias, scale, g, g_size
+
+
+def k5_plain_t_unrounded(q, k, v, bias, scale, o, g, g_size, cosine):
+    """``va.biased_attention_bwd_plain`` with t left in f32 before its two
+    products (the rest written out as there)."""
+    bh, n, _ = q.shape
+    groups = bias.shape[0]
+    gidx = va.group_index(bh, groups, g_size, q.device)
+    sc = scale.reshape(-1).float()[gidx][:, None, None]
+    qf, kf = q.float(), k.float()
+    qinv, kinv = va.inv_norm(qf), va.inv_norm(kf)
+    qh32, kh32 = qf * qinv, kf * kinv
+    qh, kh = qh32.to(q.dtype).float(), kh32.to(k.dtype).float()
+    s2 = torch.matmul(qh, kh.transpose(-1, -2)) * (sc * va.LOG2E) + (bias * va.LOG2E)[gidx]
+    e = torch.exp2(s2 - s2.amax(dim=-1, keepdim=True))
+    zinv = 1.0 / e.sum(dim=-1, keepdim=True)
+    g32 = g.float()
+    t = e * (torch.matmul(g32, v.float().transpose(-1, -2))
+             - (g32 * o.float()).sum(dim=-1, keepdim=True))
+    tz = (t * zinv).reshape(groups, g_size, n, n)
+    dbias = tz[:, 0]
+    for r in range(1, g_size):
+        dbias = dbias + tz[:, r]
+    dqh = torch.matmul(t, kh) * (sc * zinv)
+    alpha = (dqh * qh32).sum(dim=-1, keepdim=True)
+    dkh = torch.matmul(t.transpose(-1, -2), (qh32 * (sc * zinv)).to(q.dtype).float())
+    dk = (dkh - kh32 * (dkh * kh32).sum(dim=-1, keepdim=True)) * kinv
+    dv = torch.matmul(e.to(q.dtype).float().transpose(-1, -2), (g32 * zinv).to(g.dtype).float())
+    dscale = alpha.sum(dim=(1, 2)).reshape(groups, -1).sum(dim=1) / scale
+    return (((dqh - qh32 * alpha) * qinv).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias,
+            dscale)
+
+
+def k5_dscale_undivided(q, k, v, bias, scale, o, g, g_size, cosine):
+    """K5 with its wrapper's division of dscale by scale_g left out."""
+    dq, dk, dv, dbias, dscale = va.biased_attention_bwd(q, k, v, bias, scale, o, g, g_size,
+                                                        cosine)
+    return dq, dk, dv, dbias, dscale * scale
+
+
+def read_k5(dtype, kernel=va.biased_attention_bwd, plain=va.biased_attention_bwd_plain):
+    """K5's worst ``va.biased_grad_agreement`` reading over its five outputs
+    and ``k5_cases``."""
+    gen = torch.Generator().manual_seed(6)
+    readings = []
+    for q, k, v, bias, scale, g, g_size in k5_cases(gen, dtype):
+        with torch.no_grad():
+            o = va.biased_attention_fused(q, k, v, bias, scale, g_size, True)
+        outs = kernel(q, k, v, bias, scale, o, g, g_size, True)
+        refs = plain(q, k, v, bias, scale, o, g, g_size, True)
+        floors = va.biased_grad_floors(q, k, v, bias, scale, g, g_size, True)
+        readings += va.biased_grad_agreement(outs, refs, floors, dtype).values()
+    return worst(readings)
+
+
 def ln_plain_unrounded(x, lns, lnb, w, b, act):
     """K8's plain version with the LayerNorm output left in f32."""
     y = cb.layer_norm(x, lns, lnb)
@@ -423,6 +506,13 @@ def main():
     for dtype in (torch.bfloat16, torch.float32):
         report("the kernel", f"K10 {str(dtype)[6:]}", read_tail_bwd(dtype), True,
                va.grad_agrees)
+    for dtype in (torch.bfloat16, torch.float32):
+        report("the kernel", f"K5 {str(dtype)[6:]}", read_k5(dtype), True, va.grad_agrees)
+    report("K5's plain version with t left unrounded before its products", "K5 bf16",
+           read_k5(torch.bfloat16, plain=k5_plain_t_unrounded), False, va.grad_agrees)
+    for dtype in (torch.bfloat16, torch.float32):
+        report("K5: dscale not divided by scale_g", f"K5 {str(dtype)[6:]}",
+               read_k5(dtype, kernel=k5_dscale_undivided), False, va.grad_agrees)
     report("K10's plain version with dh1 left unrounded before its products", "K10 bf16",
            read_tail_bwd(torch.bfloat16, tail_plain_dh1_unrounded), False, va.grad_agrees)
     import chip_smoke as cs
@@ -470,6 +560,10 @@ def main():
                 continue
             if name.startswith("K1'"):
                 report(name, "K1'", read_select(), False)
+                continue
+            if name.startswith("K5"):
+                for dtype in (torch.bfloat16, torch.float32):
+                    report(name, f"K5 {str(dtype)[6:]}", read_k5(dtype), False, va.grad_agrees)
                 continue
             if name.startswith("K10"):
                 for dtype in (torch.bfloat16, torch.float32):

@@ -144,7 +144,40 @@ Phases, each of which raises (exit code != 0) on any failure:
              the saved maps' AUCs equal the inline ones; a narrow model's
              maps and AUCs on the card against the CPU; SBSM images/s and
              insertion / deletion pair-evals/s
-``--train-only`` builds and runs phases 17 to 23 alone (no result line).
+ 25. kernel  K5 (csrc/window_attn_bwd.cu) against biased_attention_bwd_plain,
+             f32 and bf16, cosine on and off: the six SwinV2-Base (stage,
+             shifted) shapes at B = 2, N = 64 at hd = 8, and one group over 64
+             folded rows; logit scales up to the clamp of 100 and -100 shift
+             masks; within ops/vit_attn.py::biased_grad_agreement's bounds;
+             two runs bit-equal, dbias and dscale included; the Function's
+             five gradients (K4 forward, K5 backward) against f32 autograd
+             through biased_attention_reference
+ 26. slice   cli.train with SwinV2-Base at full width (432 decode, 384 crop, 24
+             blocks, --bf16 -p 2 -k 4) and a timm-layout --resume with random
+             nonzero LN, biases and logit_scale (one head above the clamp): K4
+             and K5 in every block of every step, K6 never, also under
+             XMIR_SWIN_KERNEL=v1 (the same losses); the f32 evaluation eager;
+             parameters moved, none of the backbone's under --freeze-backbone
+             (K5 never); --resume bit-exact; three f32 steps under
+             XMIR_FUSED_ATTN=1 against the plain versions
+ 27. rates   K5 at the six SwinV2-Base shapes at B = 8 (a train step's 24
+             calls), bf16 and f32, against its plain version and one
+             scaled_dot_product_attention backward with a float mask that
+             needs a gradient (timed here, used nowhere in the port)
+ 28. rates   the bf16 SwinV2-Base train step at batch 8, 384 px with the
+             kernels, their plain versions and on the eager path: img/s, peak
+             memory, forward / backward / optimiser, the host's enqueue time
+             beside the device time by kernel (torch.profiler)
+ 29. slice   the other explainers of main-path step 4 through both saliency
+             CLIs: SimAtt and SimCAM on DenseNet121 (224 px, f32), attention
+             rollout on DINOv2 ViT-B/14 (518 px); cli.debug_insdel on one pair
+             (K1 once for each index search); maps finite and nonnegative,
+             AUCs in [0, 1]; narrow models' maps and AUCs on the card against
+             the CPU; maps/s
+ 30. slice   python -m xmir_tpu_torch.demo_end_to_end --device cuda: train ->
+             test -> ingest -> query -> evaluate_saliency; its summary.json
+``--train-only`` builds and runs phases 17 to 23 and 25 to 28 alone (no
+result line).
 The launch counts are set to 0 before each slice and read after it. Each
 kernel's bound (the least time the card could take: bytes moved once over
 3.35 TB/s, or operations over the peak of their type) is reckoned from the
@@ -218,6 +251,9 @@ KERNELS = {
     "K4": {"name": "biased_attention_fused", "route": "cuda",
            "source": "xmir_tpu_torch/csrc/window_attn.cu",
            "replaces": "xmir_tpu/ops/vit_attn_pallas.py:320"},
+    "K5": {"name": "biased_attention_bwd", "route": "cuda",
+           "source": "xmir_tpu_torch/csrc/window_attn_bwd.cu",
+           "replaces": "xmir_tpu/ops/vit_attn_pallas.py:486"},
     "K6": {"name": "window_attention_fused", "route": "cuda",
            "source": "xmir_tpu_torch/csrc/window_attn.cu",
            "replaces": "xmir_tpu/ops/window_attn_pallas.py:54"},
@@ -436,7 +472,8 @@ def check_hits(calls, results, n_gallery, n_queries, dim):
 
 
 WRAPPERS = {"K1": fused_topk_scores, "K1'": select_topk_scores, "K2": va.vit_attention_fused,
-            "K3": va.vit_attention_bwd, "K4": va.biased_attention_fused, "K6": wa.window_attention_fused,
+            "K3": va.vit_attention_bwd, "K4": va.biased_attention_fused,
+            "K5": va.biased_attention_bwd, "K6": wa.window_attention_fused,
             "K7": ld.ln_qkv_fused,
             "K8": ld.ln_dense_fused, "K9": cb.convnext_block_fused,
             "K10": cb.convnext_tail_bwd, "K11": cb.convnext_mlp_grn_fused}
@@ -1299,11 +1336,29 @@ def phase_kernel_select():
     return err
 
 
+class PlainBiasedAttention(torch.autograd.Function):
+    """K4's and K5's plain versions as one differentiable call."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, g_size, cosine):
+        out = va.biased_attention_plain(q, k, v, bias, scale, g_size, cosine)
+        ctx.g_size, ctx.cosine = g_size, cosine
+        ctx.save_for_backward(q, k, v, bias, scale, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, scale, out = ctx.saved_tensors
+        return (*va.biased_attention_bwd_plain(q, k, v, bias, scale, out, g.contiguous(),
+                                               ctx.g_size, ctx.cosine), None, None)
+
+
 @contextlib.contextmanager
 def swin_plain_versions():
-    """The Swin model's kernel calls pointed at the kernels' plain versions."""
+    """The Swin model's kernel calls pointed at the kernels' plain versions
+    (K4's and K5's as one Function, K6's)."""
     saved = (swin_model.biased_attention_fused, swin_model.window_attention_fused)
-    swin_model.biased_attention_fused = va.biased_attention_plain
+    swin_model.biased_attention_fused = PlainBiasedAttention.apply
     swin_model.window_attention_fused = wa.window_attention_plain
     try:
         yield
@@ -2731,12 +2786,574 @@ def phase_saliency(workdir: Path):
             "mean_insertion_auc": saved_out["summary"]["mean_insertion_auc"], "aucs": aucs}
 
 
+# --- SwinV2 training: K5 -----------------------------------------------------
+
+
+def swin_fold(b, nw, h, shifted):
+    """(BH, G, g_size) of one SwinV2 block's fold at batch b: without a shift
+    mask a head's bias slice serves its nw b rows, with one a (head, window)
+    pair's serves its b rows."""
+    return b * nw * h, (nw * h if shifted else h), (b if shifted else nw * b)
+
+
+def _k5_inputs(gen, bh, groups, n, hd, dtype, shifted, scale_max=100.0):
+    """q, k, v (bh, n, hd), the bias (CPB-like, plus a random -100 shift mask
+    when ``shifted``), logit scales up to ``scale_max`` and a cotangent g."""
+    q, k, v, g = (torch.randn((bh, n, hd), generator=gen).to("cuda", dtype) for _ in range(4))
+    bias = 16 * torch.rand((groups, n, n), generator=gen)
+    if shifted:
+        bias += torch.where(torch.rand((groups, n, n), generator=gen) < 0.4, -100.0, 0.0)
+    scale = 1 + (scale_max - 1) * torch.rand(groups, generator=gen)
+    return q, k, v, bias.cuda(), scale.cuda(), g
+
+
+def k5_err(outs, refs, floors, dtype, what):
+    """The worst ``va.biased_grad_agreement`` reading over K5's five outputs
+    (and each output's); raises past the bounds stated in ops/vit_attn.py."""
+    readings = va.biased_grad_agreement(outs, refs, floors, dtype)
+    worst = {}
+    for name, e in readings.items():
+        check(va.grad_agrees(e), f"{what} {name}: K5 differs from its plain version past the "
+                                 f"bounds (GRAD_RTOL, GRAD_MEAN_RTOL, dscale's ten times): {e}")
+        _worst(worst, e)
+    return worst, readings
+
+
+def biased_grads(q, k, v, bias, scale, g, g_size, cosine=True):
+    """(out, the five gradients) through the Function: K4 forward, K5
+    backward (their plain versions for CPU tensors)."""
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v, bias, scale)]
+    out = va.biased_attention_fused(*leaves, g_size, cosine)
+    return out.detach(), torch.autograd.grad(out, leaves, g)
+
+
+# the Function's five gradients (K4 forward, K5 backward) against autograd
+# through the f32 reference, of each gradient's largest magnitude: f32 the JAX
+# package's bounds on its kernel (5e-5; dscale 5e-4, tests/test_vit_attn.py);
+# bf16 K10's Function bound (its roundings of qh, kh, t, e and the gradients),
+# dscale ten times it
+FUNCTION_GRAD_RTOL = {torch.float32: 5e-5, torch.bfloat16: 2 ** -5}
+# the six SwinV2-Base (stage, shifted) shapes at B = 2, a tiny head, one
+# group over 64 folded rows (an unshifted fold's large g_size)
+K5_CASES = [(2, nw, h, n, sh, SWIN_HD, "Swin-B, B 2") for nw, h, n, sh, _ in SWIN_SHAPES] + [
+    (2, 2, 2, 64, True, 8, "N 64, hd 8"), (64, 1, 1, 576, False, SWIN_HD, "G 1, g_size 64")]
+
+
+def phase_kernel_window_bwd():
+    gen = torch.Generator().manual_seed(32)
+    err = {"K5": {}, "function": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for b, nw, h, n, shifted, hd, what in K5_CASES:
+            bh, groups, g_size = swin_fold(b, nw, h, shifted)
+            q, k, v, bias, scale, g = _k5_inputs(gen, bh, groups, n, hd, dtype, shifted)
+            shape = (f"B={b} windows={nw} H={h} N={n} hd={hd} "
+                     f"{'shifted' if shifted else 'unshifted'}")
+            worst = {}
+            for cosine, sc in ((True, scale), (False, scale * 0.01)):
+                with torch.no_grad():
+                    o = va.biased_attention_fused(q, k, v, bias, sc, g_size, cosine)
+                outs = va.biased_attention_bwd(q, k, v, bias, sc, o, g, g_size, cosine)
+                again = va.biased_attention_bwd(q, k, v, bias, sc, o, g, g_size, cosine)
+                torch.cuda.synchronize()
+                check(all(torch.equal(a, c) for a, c in zip(outs, again)),
+                      f"K5 {name} {shape} cosine={cosine}: two runs differ")
+                check(all(torch.isfinite(t.float()).all() for t in outs),
+                      f"K5 {name} {shape}: non-finite gradients")
+                refs = va.biased_attention_bwd_plain(q, k, v, bias, sc, o, g, g_size, cosine)
+                floors = va.biased_grad_floors(q, k, v, bias, sc, g, g_size, cosine)
+                e, _ = k5_err(outs, refs, floors, dtype, f"K5 {name} {shape} cosine={cosine}")
+                _worst(worst, e)
+                del outs, again, refs
+            _worst(err["K5"].setdefault(name, {}), worst)
+            log(f"[kernel] K5 {name:8s} {shape} ({what}), scales to 100, cosine on / off: "
+                f"{worst}; twice bit-equal, dbias and dscale included")
+            del q, k, v, bias, scale, g
+            torch.cuda.empty_cache()
+        # the Function's five gradients against f32 autograd through the reference
+        for b, nw, h, n, shifted, hd, what in (K5_CASES[1], K5_CASES[5]):
+            bh, groups, g_size = swin_fold(b, nw, h, shifted)
+            q, k, v, bias, scale, g = _k5_inputs(gen, bh, groups, n, hd, dtype, shifted,
+                                                 scale_max=30.0)
+            _, got = biased_grads(q, k, v, bias, scale, g, g_size)
+            ref = va.biased_attention_bwd_reference(q.float(), k.float(), v.float(), bias, scale,
+                                                    None, g.float(), g_size, True)
+            check(all(a.dtype == t.dtype and a.shape == t.shape
+                      for a, t in zip(got, (q, k, v, bias, scale))),
+                  "a gradient did not come back in its input's dtype and shape")
+            rel = {n_: ((a.float() - r).abs().max() / r.abs().max()).item()
+                   for n_, a, r in zip(va.BIASED_GRAD_NAMES, got, ref)}
+            tol = FUNCTION_GRAD_RTOL[dtype]
+            check(all(v_ <= tol * (va.DSCALE_BOUND_FACTOR if n_ == "dscale" else 1)
+                      for n_, v_ in rel.items()),
+                  f"the Function's gradients {name} {what}: {rel} of the largest magnitude from "
+                  f"f32 autograd through the reference > {tol} (dscale ten times)")
+            err["function"][f"{name} N={n} {'shifted' if shifted else 'unshifted'}"] = rel
+            log(f"[kernel] K4 + K5 Function {name:8s} BH={bh} N={n} G={groups}: each gradient "
+                f"within {max(rel.values()):.3g} of its largest magnitude of the f32 autograd "
+                f"gradients (bound {tol:.3g}, dscale ten times): {rel}")
+    return err
+
+
+def _k5_work(bh, groups, n, hd, dtype):
+    """(operations, bytes) of one K5 call: five products of 2 N^2 hd a
+    folded row; q, k, v, o, g read and dq, dk, dv written once (eight
+    tensors), the bias read and dbias written once, the scales read and
+    dscale written once."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return 10 * bh * n * n * hd, 8 * bh * n * hd * size + 2 * groups * n * n * 4 + 2 * groups * 4
+
+
+def phase_window_bwd_rates():
+    """K5 at the SwinV2-Base shapes at B = 8 (a train step's 24 calls, each
+    shape by its block count), bf16 and f32, against its plain version and the
+    library call: one scaled_dot_product_attention backward whose float
+    attn_mask (the bias, per folded row) needs a gradient."""
+    gen = torch.Generator().manual_seed(34)
+    b, out = 8, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype)[6:]
+        total = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        bound_by = {"bytes": 0.0, "operations": 0.0}  # ms of the summed bound by what bounds it
+        library = "scaled_dot_product_attention backward (mask gradient)"
+        for nw, h, n, shifted, count in SWIN_SHAPES:
+            bh, groups, g_size = swin_fold(b, nw, h, shifted)
+            q, k, v, bias, scale, g = _k5_inputs(gen, bh, groups, n, SWIN_HD, dtype, shifted,
+                                                 scale_max=30.0)
+            with torch.no_grad():
+                o = va.biased_attention_fused(q, k, v, bias, scale, g_size, True)
+            gidx = va.group_index(bh, groups, g_size, "cuda")
+            qf, kf = q.float(), k.float()
+            lq = ((qf * va.inv_norm(qf)) * scale[gidx][:, None, None]).to(dtype)[:, None]
+            lk = (kf * va.inv_norm(kf)).to(dtype)[:, None]
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (lq, lk, v[:, None], bias[gidx][:, None].to(dtype))]
+            lg = g[:, None]
+            try:
+                lo = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
+                torch.autograd.grad(lo, leaves, lg, retain_graph=True)
+
+                def lib():
+                    return torch.autograd.grad(lo, leaves, lg, retain_graph=True)
+            except RuntimeError as exc:
+                library = ("autograd through biased_attention_reference (no SDPA backend gave a "
+                           f"mask gradient: {str(exc)[:80]})")
+                leaves = [t.detach().requires_grad_(True) for t in (q, k, v, bias, scale)]
+                lo = va.biased_attention_reference(*leaves, g_size, True)
+
+                def lib():
+                    return torch.autograd.grad(lo, leaves, g, retain_graph=True)
+            fns = {"K5": lambda: va.biased_attention_bwd(q, k, v, bias, scale, o, g, g_size, True),
+                   "plain": lambda: va.biased_attention_bwd_plain(q, k, v, bias, scale, o, g,
+                                                                  g_size, True),
+                   "library": lib}
+            e, _ = k5_err(fns["K5"](), fns["plain"](),
+                          va.biased_grad_floors(q, k, v, bias, scale, g, g_size, True), dtype,
+                          f"K5 {name} B={b}")
+            ms, _ = _in_turns(fns, rounds=3, reps=2)
+            ops, nbytes = _k5_work(bh, groups, n, SWIN_HD, dtype)
+            bound_ms, by = bound(ops, nbytes, name)
+            bound_by[by] += count * bound_ms
+            shape = (f"B={b} windows={nw} H={h} N={n} "
+                     f"{'shifted' if shifted else 'unshifted'} x{count}")
+            out[f"{name} {shape}"] = {"ms": ms["K5"], "plain_ms": ms["plain"],
+                                      "library_ms": ms["library"], "bound_ms": bound_ms,
+                                      "bound_by": by, "agreement": e}
+            for field, key in (("ms", "K5"), ("plain_ms", "plain"), ("library_ms", "library")):
+                total[field] += count * ms[key]
+            total["bound_ms"] += count * bound_ms
+            log(f"[rates] K5 {name:8s} {shape}: {ms['K5']:.3f} ms ({ops / ms['K5'] / 1e9:.1f} "
+                f"TFLOP/s of the 10 BH N^2 hd it must do; bound {bound_ms:.3f} ms by {by}) vs "
+                f"plain {ms['plain']:.3f} ms, library {ms['library']:.3f} ms; agreement {e}")
+            del q, k, v, bias, scale, g, o, qf, kf, lq, lk, leaves, lo, lg, fns
+            torch.cuda.empty_cache()
+        out[name] = dict(total, bound_by=max(bound_by, key=bound_by.get), library=library)
+        log(f"[rates] K5 {name:8s} the {SWIN_DEPTH} calls of one SwinV2-Base train step at B={b}: "
+            f"{total['ms']:.3f} ms (plain {total['plain_ms']:.3f}, library "
+            f"{total['library_ms']:.3f}, bound {total['bound_ms']:.3f} by "
+            f"{out[name]['bound_by']}); library = {library}")
+    return out
+
+
+def phase_train_swinv2(workdir: Path):
+    p, n_train, n_val = 2, 24, 8  # three train steps in epoch 1
+    t0 = time.perf_counter()
+    data = (*write_synthetic_covidx(str(workdir / "sw_train"), n=n_train, size=256, seed=17),
+            *write_synthetic_covidx(str(workdir / "sw_val"), n=n_val, size=256, seed=18))
+    pt = str(workdir / "swinv2_train_timm.pt")
+    write_swin_checkpoint(pt, seed=33)
+    steps = [pk_steps(data[1], p, 4, epoch) for epoch in (1, 2)]
+    log(f"[slice] SwinV2 train: wrote {n_train} + {n_val} PNGs and a timm-layout .pt in "
+        f"{time.perf_counter() - t0:.1f} s; {steps} train steps in epochs 1, 2")
+    start, _ = create_model("swinv2", generator=torch.Generator().manual_seed(0))
+    start = load_torch_checkpoint(start, pt).state_dict()
+    run = make_trainer(workdir, "swinv2", data, "-p", str(p))
+    out = {}
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update({"K4": SWIN_DEPTH * steps[0], "K5": SWIN_DEPTH * steps[0]})
+    # bf16 takes K4 + K5 in every block; the evaluation embeds in f32, which
+    # keeps the eager path; XMIR_SWIN_KERNEL=v1 changes nothing in training
+    with env_flags(XMIR_FUSED_ATTN=None, XMIR_SWIN_KERNEL=None):
+        reset_launches()
+        t0 = time.perf_counter()
+        losses, ckpt = run("main", "--bf16", "--epochs", "1", "--resume", pt)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check(launches == want, f"cli.train swinv2: launches {launches}, expected {want} "
+                                f"({SWIN_DEPTH} blocks x {steps[0]} steps, forward and backward)")
+        check(len(losses) == steps[0], f"{len(losses)} losses for {steps[0]} steps")
+        log(f"[slice] cli.train swinv2 --bf16: launches {launches} ({SWIN_DEPTH} blocks x "
+            f"{steps[0]} steps, forward and backward; the f32 evaluation eager); losses "
+            f"{[round(v, 4) for _, _, v in losses]}; {wall:.1f} s wall")
+        out["launches"] = launches
+        trained = load_checkpoint(ckpt)
+        still = [key for key, v in trained.items() if torch.equal(v, start[key])]
+        check(not still, f"parameters that did not move: {still}")
+        check(all(torch.isfinite(v).all() for v in trained.values()), "non-finite parameters")
+        with env_flags(XMIR_SWIN_KERNEL="v1"):
+            reset_launches()
+            v1_losses, _ = run("v1", "--bf16", "--epochs", "1", "--resume", pt)
+            v1_launches = read_launches()
+        check(v1_launches == want and v1_losses == losses,
+              f"under XMIR_SWIN_KERNEL=v1 training took launches {v1_launches} (expected {want}) "
+              f"and losses {v1_losses} (expected {losses})")
+        log(f"[slice] cli.train swinv2 --bf16 under XMIR_SWIN_KERNEL=v1: K6 {v1_launches['K6']}, "
+            f"K4 {v1_launches['K4']}, K5 {v1_launches['K5']}; the losses equal the default run's")
+        reset_launches()
+        _, frozen_ckpt = run("frozen", "--bf16", "--epochs", "1", "--resume", pt,
+                             "--freeze-backbone", "--embedding-dim", "64")
+        frozen_launches = read_launches()
+        check(frozen_launches["K5"] == 0, "the frozen backbone's blocks ran their backward")
+        frozen = load_checkpoint(frozen_ckpt)
+        fresh64, _ = create_model("swinv2", embedding_dim=64,
+                                  generator=torch.Generator().manual_seed(0))
+        fresh64 = dict(fresh64.state_dict(), **start)
+        for key, v in frozen.items():
+            check(torch.equal(v, fresh64[key]) == key.startswith("backbone."),
+                  f"--freeze-backbone: {key} " + ("moved" if key.startswith("backbone.")
+                                                  else "did not move"))
+        log(f"[slice] cli.train swinv2: every tensor moved; under --freeze-backbone the "
+            f"backbone's {sum(key.startswith('backbone.') for key in frozen)} tensors did not and "
+            f"the head's did (launches {frozen_launches})")
+        check_resume(make_trainer(workdir, "swinv2", data, "-p", str(p), "--bf16"), steps,
+                     "cli.train swinv2 --bf16", "--resume", pt)
+    # f32 under XMIR_FUSED_ATTN=1: every block takes K4 + K5 in f32
+    with env_flags(XMIR_FUSED_ATTN="1", XMIR_SWIN_KERNEL=None):
+        reset_launches()
+        _, f32_ckpt = run("f32", "--epochs", "1", "--resume", pt)
+        check(read_launches()["K5"] == SWIN_DEPTH * steps[0], "the f32 steps did not take K5")
+        with swin_plain_versions():
+            reset_launches()
+            _, plain_ckpt = run("f32_plain", "--epochs", "1", "--resume", pt)
+            check(not any(read_launches().values()), "the plain versions launched a kernel")
+    a, b = load_checkpoint(f32_ckpt), load_checkpoint(plain_ckpt)
+    moved = torch.cat([(v - start[key]).abs().flatten() for key, v in b.items() if key in start])
+    apart = torch.cat([(v - b[key]).abs().flatten() for key, v in a.items() if key in start])
+    reading = {"mean_apart_of_mean_moved": (apart.mean() / moved.mean()).item(),
+               "max_apart": apart.max().item(), "mean_moved": moved.mean().item(),
+               "share_outside_1e-6": (apart > 1e-6).float().mean().item()}
+    check(reading["mean_apart_of_mean_moved"] <= TRAIN_F32_MEAN_TOL,
+          f"f32 parameters after {steps[0]} steps with K4 + K5 differ from the plain versions' "
+          f"past the bound {TRAIN_F32_MEAN_TOL}: {reading}")
+    log(f"[slice] cli.train swinv2 f32 (XMIR_FUSED_ATTN=1), {steps[0]} steps, K4 + K5 against "
+        f"their plain versions: {reading} (bound on the first {TRAIN_F32_MEAN_TOL})")
+    out["f32_vs_plain"] = reading
+    return out
+
+
+def phase_swin_train_rates():
+    """The bf16 SwinV2-Base train step at batch 8, 384 px (f32 master
+    weights, triplet loss): with the kernels (K4 + K5 in every block), with
+    their plain versions and on the eager path, in turns; peak memory of
+    each; where a step's time goes; and the device time by kernel beside the
+    host's enqueue time (torch.profiler over one step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model, _ = create_model("swinv2", generator=torch.Generator().manual_seed(35))
+    randomize_swin_(model.backbone, 36)
+    model = model.to("cuda").train()
+    state = TrainState(model, build_optimizer(model, lr=1e-5))
+    step = make_embedding_train_step(model, "triplet", {"margin": 2.0},
+                                     compute_dtype=torch.bfloat16)
+    x = torch.randn((8, 384, 384, 3), generator=torch.Generator().manual_seed(37)).cuda()
+    labels = torch.tensor([0, 0, 0, 0, 1, 1, 1, 1], device="cuda")
+
+    def with_kernels():
+        return step(state, x, labels)
+
+    def with_plain_versions():
+        with swin_plain_versions():
+            return step(state, x, labels)
+
+    def eager_path():
+        with env_flags(XMIR_FUSED_ATTN="0"):
+            return step(state, x, labels)
+
+    def forward_only():
+        step.loss_and_aux(x, labels)
+
+    def forward_backward():
+        state.optimizer.zero_grad(set_to_none=True)
+        step.loss_and_aux(x, labels)[0].backward()
+
+    paths = {"kernels": with_kernels, "plain versions": with_plain_versions, "eager": eager_path}
+    out = {}
+    with env_flags(XMIR_FUSED_ATTN=None, XMIR_SWIN_KERNEL=None):
+        reset_launches()
+        loss = with_kernels()["loss"]
+        launches = read_launches()
+        check(launches["K4"] == launches["K5"] == SWIN_DEPTH,
+              f"the bf16 step did not take K4 and K5 in every block: {launches}")
+        check(torch.isfinite(loss).item(), "non-finite loss")
+        peak = {}
+        for name, fn in paths.items():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fn()
+            torch.cuda.synchronize()
+            peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms, runs = _in_turns({**paths, "forward": forward_only,
+                              "forward + backward": forward_backward}, rounds=3, reps=2)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            with_kernels()
+        enqueue = (time.perf_counter() - t0) / 3 * 1e3
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with_kernels()
+            torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    for name in paths:
+        out[name] = {"ms": ms[name], "img_per_s": 8 / ms[name] * 1e3, "peak_gib": peak[name]}
+    shares = {"forward": ms["forward"], "backward": ms["forward + backward"] - ms["forward"],
+              "optimiser": ms["kernels"] - ms["forward + backward"]}
+    out["shares_ms"] = shares
+    out["enqueue_ms"] = enqueue
+    out["profile"] = {"device_ms": sum(r[1] for r in rows), "kernels": sum(r[2] for r in rows),
+                      "top": [[n[:90], round(t, 3), c] for n, t, c in rows[:12]]}
+    log("[rates] SwinV2-Base bf16 train step, batch 8 @384 (device time): "
+        + "; ".join(f"{k} {v['ms']:.2f} ms = {v['img_per_s']:.1f} img/s, peak {v['peak_gib']:.2f} "
+                    "GiB" for k, v in out.items() if isinstance(v, dict) and "ms" in v)
+        + f"; with the kernels a step is forward {shares['forward']:.2f} ms + backward "
+        f"{shares['backward']:.2f} ms + optimiser {shares['optimiser']:.2f} ms, and the host "
+        f"enqueues it in {enqueue:.2f} ms; runs "
+        f"{({k: [round(t, 2) for t in v] for k, v in runs.items()})}")
+    log(f"[profile] SwinV2-Base bf16 train step with K4 + K5: {out['profile']['device_ms']:.2f} "
+        f"ms of device time in {out['profile']['kernels']} kernels; by kernel:")
+    for name, t, count in rows[:12]:
+        log(f"[profile] {t:8.3f} ms  {count:6d} x  {name[:110]}")
+    del model, state, step, x
+    torch.cuda.empty_cache()
+    return out
+
+
+# --- main-path step 4: the other explainers, debug_insdel, the demo ----------
+
+
+def _narrow_explainers(device, explanations=None):
+    """SimAtt, SimCAM (narrow DenseNet121) and rollout (narrow DINOv2) maps on
+    ``device``, and the AUCs of both curves there of ``explanations`` (the
+    SimAtt maps of the retrieved images by default)."""
+    from xmir_tpu_torch.models.embedders import DenseNet121Embedder, DinoV2Embedder
+    from xmir_tpu_torch.xai import (
+        blur_substrate,
+        get_feature_head,
+        rollout_saliency,
+        run_causal_metric_pairs_both,
+        simatt_saliency,
+        simcam_maps,
+        zeros_substrate,
+    )
+
+    model = DenseNet121Embedder(12, 3, growth_rate=8, block_config=(2, 2, 2, 2),
+                                num_init_features=16,
+                                generator=torch.Generator().manual_seed(38)).to(device).eval()
+    vit = DinoV2Embedder(16, img_size=56, dim=128, depth=2, num_heads=2,
+                         generator=torch.Generator().manual_seed(39)).to(device).eval()
+    gen = torch.Generator().manual_seed(40)
+    x = torch.randn((3, 64, 64, 3), generator=gen).to(device)
+    xv = torch.randn((2, 56, 56, 3), generator=gen).to(device)
+
+    def feats(t):
+        with torch.no_grad():
+            return model(t)["features"]
+
+    att = simatt_saliency(feats, get_feature_head("densenet121", model), x)
+    cam = simcam_maps(feats(x[:1])[0], feats(x[1:]), out_hw=(64, 64))
+    with torch.no_grad():
+        out = vit(xv, output_attentions=True)
+    roll = rollout_saliency(out["attentions"], (56, 56), prefix_tokens=1)
+    expl = att[1:] if explanations is None else explanations.to(device)
+    d, i = run_causal_metric_pairs_both(make_embed_fn(model), x[0], x[1:], list(expl),
+                                        zeros_substrate, blur_substrate(), step=256)
+    return [m.cpu() for m in (att, cam, roll)], np.array([a for a, _ in d + i])
+
+
+def phase_explainers(workdir: Path):
+    """SimAtt and SimCAM on DenseNet121 at full width (224 px, f32) and
+    attention rollout on DINOv2 ViT-B/14 (518 px) through both saliency
+    CLIs; cli.debug_insdel on one DenseNet121 pair; a narrow model's maps and
+    AUCs on the card against the CPU; maps/s of each explainer."""
+    from xmir_tpu_torch.cli import compute_saliency, debug_insdel, evaluate_saliency
+
+    n, n_q, top_k = 32, 2, 3
+    img_dir, manifest = write_synthetic_covidx(str(workdir / "ex"), n=n, size=256, seed=19)
+    dense_pt = str(workdir / "densenet121_whitened.pt")
+    write_whitened_densenet(dense_pt, img_dir, manifest)
+    vit_pt = str(workdir / "dinov2_timm.pt")
+    write_vit_checkpoint(vit_pt, seed=41)
+    data = ["--dataset", "covid", "--dataset-dir", img_dir, "--test-image-list", manifest,
+            "--device", "cuda", "--seed", "0", "-j", "8"]
+    dense = data + ["--model", "densenet121", "--embedding-dim", "32", "--resume", dense_pt]
+    vit = data + ["--model", "dinov2", "--resume", vit_pt]
+    res = workdir / "ex_res"
+    test_cli.main(dense + ["--save-dir", str(res)])
+    out = {"launches": dict.fromkeys(WRAPPERS, 0), "rates": {}, "aucs": {}}
+    for explainer, args, size, step in (("simatt", dense, 224, "1000"),
+                                        ("simcam", dense, 224, "1000"),
+                                        ("rollout", vit, 518, "10000")):
+        extra = ["--results", str(res / "evaluation_results.npz")] if explainer == "simatt" else []
+        maps_dir = workdir / f"ex_{explainer}"
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        count = compute_saliency.main(args + ["--explainer", explainer, "--top-k", str(top_k),
+                                              "--limit", str(n_q), "--save-dir", str(maps_dir)]
+                                      + extra)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(not any(read_launches().values()), f"{explainer} maps launched a kernel")
+        n_maps = 0
+        for path in sorted(maps_dir.iterdir()):
+            m = np.load(path)
+            n_maps += m.shape[0] * (m.shape[1] if m.ndim == 4 else 1)
+            check(m.shape[-2:] == (size, size) and np.isfinite(m).all() and (m >= 0).all(),
+                  f"{explainer} {path.name}: not finite nonnegative {size} x {size} maps")
+        check(count == n_q and len(list(maps_dir.iterdir())) == n_q,
+              f"{explainer}: {count} map files")
+        reset_launches()
+        t1 = time.perf_counter()
+        result = evaluate_saliency.main(args + ["--explainer", explainer, "--top-k", str(top_k),
+                                                "--limit", str(n_q), "--step", step, "--output",
+                                                str(workdir / f"ex_{explainer}.json")])
+        eval_wall = time.perf_counter() - t1
+        launches = read_launches()
+        check(launches["K1"] == 1 and sum(launches.values()) == 1,
+              f"cli.evaluate_saliency --explainer {explainer}: launches {launches}, expected K1 "
+              "once")
+        out["launches"]["K1"] += 1
+        aucs = [a for r in result["results"] for a in r["per_pair_del"] + r["per_pair_ins"]]
+        check(len(aucs) == 2 * n_q * top_k and all(0.0 <= a <= 1.0 for a in aucs),
+              f"{explainer}: AUCs {aucs}")
+        out["rates"][explainer] = {"maps_per_s": n_maps / wall, "compute_saliency_s": wall,
+                                   "evaluate_saliency_s": eval_wall}
+        out["aucs"][explainer] = {"mean_deletion_auc": result["summary"]["mean_deletion_auc"],
+                                  "mean_insertion_auc": result["summary"]["mean_insertion_auc"]}
+        model = "DINOv2 ViT-B/14 @518" if explainer == "rollout" else "DenseNet121 @224"
+        log(f"[slice] {explainer} ({model}, f32): {n_maps} maps in {wall:.2f} s wall through "
+            f"cli.compute_saliency = {n_maps / wall:.2f} maps/s (model builds and decode included); "
+            f"cli.evaluate_saliency inline over {n_q} queries x top {top_k} in {eval_wall:.1f} s, "
+            f"launches {launches}, mean deletion AUC "
+            f"{result['summary']['mean_deletion_auc']:.4f}, insertion "
+            f"{result['summary']['mean_insertion_auc']:.4f}")
+    # cli.debug_insdel on one pair, its neighbour through the index
+    reset_launches()
+    t0 = time.perf_counter()
+    dbg = debug_insdel.main(dense + ["--query-index", "0", "--step", "1000"])
+    launches = read_launches()
+    check(launches["K1"] == 1 and sum(launches.values()) == 1,
+          f"cli.debug_insdel: launches {launches}, expected K1 once")
+    out["launches"]["K1"] += 1
+    check(np.isfinite(dbg["saliency"]).all() and (dbg["saliency"] >= 0).all()
+          and all(0.0 <= dbg[m]["auc"] <= 1.0 for m in ("del", "ins"))
+          and dbg["retrieved_index"] != 0, f"cli.debug_insdel: {dbg['retrieved_index']}, "
+                                           f"{dbg['del']['auc']}, {dbg['ins']['auc']}")
+    out["debug_insdel"] = {"retrieved_index": dbg["retrieved_index"], "del_auc": dbg["del"]["auc"],
+                           "ins_auc": dbg["ins"]["auc"], "wall_s": time.perf_counter() - t0}
+    log(f"[slice] cli.debug_insdel DenseNet121 @224 pair (0, {dbg['retrieved_index']}): deletion "
+        f"AUC {dbg['del']['auc']:.4f}, insertion {dbg['ins']['auc']:.4f} over "
+        f"{len(dbg['del']['scores'])} steps each; launches {launches}; "
+        f"{out['debug_insdel']['wall_s']:.1f} s wall")
+    # the narrow models on the card and on the CPU: the card's own maps ->
+    # ranks -> AUCs, held to the CPU's AUCs of those same maps
+    cpu_maps, cpu_aucs = _narrow_explainers("cpu")
+    gpu_maps, gpu_aucs = _narrow_explainers("cuda")
+    _, cpu_aucs_of_gpu_maps = _narrow_explainers("cpu", gpu_maps[0][1:])
+    map_err = max((a - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
+                  for a, c in zip(gpu_maps, cpu_maps))
+    auc_err = float(np.abs(gpu_aucs - cpu_aucs_of_gpu_maps).max())
+    check(map_err <= SALIENCY_CPU_TOL and auc_err <= SALIENCY_CPU_TOL,
+          f"narrow SimAtt / SimCAM / rollout on the card vs the CPU: maps {map_err} of their "
+          f"largest magnitude, the card's AUCs of its maps {auc_err} from the CPU's AUCs of "
+          f"them > {SALIENCY_CPU_TOL}")
+    # the two devices' maps rank their pixels alike up to near-ties: any pair
+    # of pixels that the card's and the CPU's ranks order the other way round
+    # lies within the bound in the CPU's map
+    flips = [rank_flips(a, c) for a, c in zip(gpu_maps[0][1:], cpu_maps[0][1:])]
+    tie_gap = max(gap for _, gap in flips)
+    check(tie_gap <= SALIENCY_CPU_TOL, f"the card's SimAtt maps rank pixels {tie_gap} of the "
+                                       f"largest magnitude out of the CPU's order")
+    own_auc_err = float(np.abs(gpu_aucs - cpu_aucs).max())
+    out["card_vs_cpu"] = {"maps": map_err, "aucs_of_the_same_maps": auc_err,
+                          "aucs_of_own_maps": own_auc_err,
+                          "pixels_ranked_apart": [n_ for n_, _ in flips],
+                          "largest_gap_of_a_flipped_pair": tie_gap}
+    log(f"[slice] narrow SimAtt, SimCAM (DenseNet121) and rollout (DINOv2), card vs CPU: maps "
+        f"within {map_err:.3g} of their largest magnitude; the card's AUCs of its own SimAtt "
+        f"maps within {auc_err:.3g} of the CPU's AUCs of those maps (bound {SALIENCY_CPU_TOL}); "
+        f"{[n_ for n_, _ in flips]} pixels ranked apart, every flipped pair within "
+        f"{tie_gap:.3g} of the largest magnitude in the CPU's map (near-ties; bound "
+        f"{SALIENCY_CPU_TOL}); each device's AUCs of its own maps {own_auc_err:.3g} apart")
+    return out
+
+
+def rank_flips(a, c):
+    """(pixels whose ``saliency_rank`` differs between maps ``a`` and ``c``,
+    the largest gap in ``c``, of its largest magnitude, between two pixels
+    that ``a``'s order puts the other way round)."""
+    from xmir_tpu_torch.xai import saliency_rank
+
+    ra, rc = saliency_rank(a.cpu()), saliency_rank(c)
+    along = c.reshape(-1)[torch.argsort(ra)]  # c in a's order, most salient first
+    gap = (along - torch.cummin(along, dim=0).values).max().item()
+    return int((ra != rc).sum()), gap / max(c.abs().max().item(), 1e-30)
+
+
+def phase_demo(workdir: Path):
+    """The end-to-end demo on the card: train -> test -> ingest -> query ->
+    evaluate_saliency through the port's CLIs on its synthetic COVIDx."""
+    from xmir_tpu_torch import demo_end_to_end
+
+    reset_launches()
+    t0 = time.perf_counter()
+    summary = demo_end_to_end.main(["--workdir", str(workdir / "demo"), "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    maps = summary["eval_mAP_by_epoch"]
+    aucs = [a for r in summary["insdel"]["results"] for a in r["per_pair_del"] + r["per_pair_ins"]]
+    check(summary["platform"] == "cuda" and len(maps) == summary["epochs"] + 1
+          and all(np.isfinite(m) for m in maps), f"demo summary: {summary['platform']}, {maps}")
+    check(aucs and all(0.0 <= a <= 1.0 for a in aucs), f"demo AUCs {aucs}")
+    check(launches["K1"] >= 2 and sum(launches.values()) == launches["K1"],
+          f"demo launches {launches}: K1 for the query and the evaluation, nothing else")
+    log(f"[slice] demo_end_to_end --device cuda: {wall:.1f} s wall; mAP by epoch {maps}; top-1 "
+        f"label accuracy {summary['top1_label_accuracy_pct']:.1f}%; mean deletion AUC "
+        f"{summary['insdel']['summary']['mean_deletion_auc']:.4f}, insertion "
+        f"{summary['insdel']['summary']['mean_insertion_auc']:.4f}; launches {launches}")
+    return {"launches": launches, "wall_s": wall, "eval_mAP_by_epoch": maps}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-swin", action="store_true",
                         help="only build, then print where a bf16 SwinV2-Base batch's time goes")
     parser.add_argument("--train-only", action="store_true",
-                        help="only build, then the training phases (17 to 23); prints no result")
+                        help="only build, then the training phases (17 to 23, 25 to 28); prints "
+                             "no result")
     opts = parser.parse_args()
     smi = phase_device()
     phase_build()
@@ -2757,6 +3374,11 @@ def main():
             phase_train_convnext(Path(tmp))
         phase_tail_bwd_rates()
         phase_convnext_train_rates()
+        phase_kernel_window_bwd()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_train_swinv2(Path(tmp))
+        phase_window_bwd_rates()
+        phase_swin_train_rates()
         print(smi)
         return
     max_err = phase_kernel()
@@ -2795,6 +3417,15 @@ def main():
     convnext_train_rates = phase_convnext_train_rates()
     with tempfile.TemporaryDirectory() as tmp:
         sal = phase_saliency(Path(tmp))
+    k5_errs = phase_kernel_window_bwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        sw_slice = phase_train_swinv2(Path(tmp))
+    k5_rates = phase_window_bwd_rates()
+    swin_train_rates = phase_swin_train_rates()
+    with tempfile.TemporaryDirectory() as tmp:
+        ex = phase_explainers(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        demo = phase_demo(Path(tmp))
     by_path = {key: {"densenet121": d_launches[key], "convnextv2": c_launches[key],
                      **{path: v["launches"][key] for path, v in v_slices.items()},
                      **{path: v["launches"][key] for path, v in s_slices.items()},
@@ -2802,7 +3433,9 @@ def main():
                      "dinov2_train": t_slice["launches"][key],
                      "densenet121_train": dt_launches[key],
                      "convnextv2_train": ct_slice["launches"][key],
-                     "densenet121_saliency": sal["launches"][key]}
+                     "densenet121_saliency": sal["launches"][key],
+                     "swinv2_train": sw_slice["launches"][key],
+                     "explainers": ex["launches"][key], "demo": demo["launches"][key]}
                for key in WRAPPERS}
     slice_errs = [slice_err, c_slice_err] + [v["err"] for v in v_slices.values()] + [
         v["err"] for v in s_slices.values()]
@@ -2847,6 +3480,18 @@ def main():
             shape=f"bf16, the {SWIN_DEPTH} calls of one SwinV2-Base forward at B=16, 384 px "
                   "(sum over the six stage shapes by their block counts)",
             ms_by_shape=window_rates[key], launches_by_path=by_path[key]))
+    k5 = k5_rates["bfloat16"]
+    kernels.append(dict(
+        KERNELS["K5"], launches=sum(by_path["K5"].values()),
+        max_abs_err=max(e["max_abs_err"] for e in k5_errs["K5"].values()),
+        err_by_dtype=k5_errs["K5"], ms=k5["ms"], plain_ms=k5["plain_ms"],
+        bound_ms=k5["bound_ms"], bound_by=k5["bound_by"], library_ms=k5["library_ms"],
+        library=k5["library"], f32_sum={key: k5_rates["float32"][key] for key in
+                                        ("ms", "plain_ms", "library_ms", "bound_ms")},
+        shape=f"bf16, the {SWIN_DEPTH} calls of one SwinV2-Base train step's backward at B=8, "
+              "384 px (sum over the six stage shapes by their block counts)",
+        ms_by_shape=k5_rates, function_grad_rel_err=k5_errs["function"],
+        launches_by_path=by_path["K5"]))
     for key in ("K9", "K11"):
         by_shape = rates[key]
         bf16 = [v for s, v in by_shape.items() if s.startswith("bfloat16")]
@@ -2892,6 +3537,10 @@ def main():
                       "convnextv2_train_step": convnext_train_rates,
                       "convnextv2_train_f32_vs_plain": ct_slice["f32_vs_plain"],
                       "saliency": {k: v for k, v in sal.items() if k != "launches"},
+                      "swinv2_train_step": swin_train_rates,
+                      "swinv2_train_f32_vs_plain": sw_slice["f32_vs_plain"],
+                      "explainers": {k: v for k, v in ex.items() if k != "launches"},
+                      "demo": {k: v for k, v in demo.items() if k != "launches"},
                       "k7_backward_rel_err": bwd_errs["K7 backward"],
                       "swinv2_embed_img_per_s": swin_rates,
                       "swinv2_eval_metrics": s_slices["swinv2_test"]["metrics"],

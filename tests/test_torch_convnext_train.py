@@ -248,9 +248,9 @@ def test_cli_train_sets_tf32_off(tmp_path, narrow_convnext_models):
 
 
 def test_cli_train_names_the_roadmap_items_of_what_waits():
-    """swinv2 alone still waits for its kernel; dual_branch names the NIH
-    dual-head item."""
-    assert list(train_cli.WAITING_FOR_KERNEL) == ["swinv2"]
+    """No model waits for its kernel (swinv2's, K5, landed); dual_branch
+    names the NIH dual-head item."""
+    assert not hasattr(train_cli, "WAITING_FOR_KERNEL")
     with pytest.raises(NotImplementedError, match=r"ROADMAP.md, section 1 item 5"):
         train_cli.main(["--dataset", "synthetic", "--device", "cpu", "--loss-name",
                         "dual_branch"])

@@ -126,8 +126,12 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take():
             va.launch_window_attention(q, k, v, bias, scale.reshape(-1).contiguous(), 7,
                                        (2, 2, 1, 1, 1, 0))
     q.requires_grad_(True)
+    # K4's call is differentiable (its backward is K5); a direct launch of the
+    # forward kernel, which K6 also takes, stays forward only
+    assert va.biased_attention_fused(q, k, v, bias, scale, 2, True).requires_grad
     with pytest.raises(RuntimeError, match="forward only"):
-        va.biased_attention_fused(q, k, v, bias, scale, 2, True)
+        va.launch_window_attention(q, k, v, bias, scale.reshape(-1).contiguous(), 1,
+                                   (2, 2, 1, 1, 1, 0))
 
 
 NARROW = dict(embed_dim=64, depths=(2, 2), num_heads=(2, 4), window=4, pretrained_window=(4, 4))

@@ -650,9 +650,28 @@ def test_cli_train_checkpoint_serves_and_freeze_backbone_holds(tmp_path, narrow_
 
 
 @pytest.mark.parametrize("model,kernel", [("swinv2", "K5")])
-def test_cli_train_refuses_models_whose_kernel_waits(model, kernel):
-    with pytest.raises(NotImplementedError, match=f"{kernel}.*ROADMAP.md"):
-        train_cli.main(["--dataset", "synthetic", "--device", "cpu", "--model", model])
+def test_cli_train_refuses_models_whose_kernel_waits(tmp_path, monkeypatch, model, kernel):
+    """No model waits for a kernel any more: swinv2, the last, trains now
+    (K5 landed), here one epoch of a narrow backbone at 32 px through the
+    grouped-bias Function, whose backward is K5's plain version on the CPU."""
+    from torch_parity_models import NARROW_SWIN
+    from xmir_tpu_torch.ops import vit_attn as va
+
+    assert not hasattr(train_cli, "WAITING_FOR_KERNEL")
+    spec = dataclasses.replace(registry.get_spec(model), input_size=32, resize_size=32,
+                               kwargs=tuple(sorted(NARROW_SWIN.items())))
+    monkeypatch.setitem(registry._SPECS, model, spec)
+    monkeypatch.setenv("XMIR_FUSED_ATTN", "1")
+    monkeypatch.delenv("XMIR_SWIN_KERNEL", raising=False)
+    calls = []
+    real = va.biased_attention_bwd
+    monkeypatch.setattr(va, "biased_attention_bwd", lambda *a: calls.append(1) or real(*a))
+    log = str(tmp_path / "log.jsonl")
+    train_cli.main(_cli(tmp_path, model) + ["--epochs", "1", "--save-dir", str(tmp_path / "s"),
+                                            "--metrics-log", log])
+    losses = _losses(log)
+    assert losses and all(np.isfinite(v) for _, _, v in losses)
+    assert len(calls) == sum(NARROW_SWIN["depths"]) * len(losses), kernel
 
 
 def test_cli_train_refusals_and_halt(tmp_path, narrow_models):

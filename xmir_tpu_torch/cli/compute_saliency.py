@@ -12,8 +12,17 @@ of each query's top-k retrieved images against the query
 ``dists``). The masked copies are embedded ``--gpu-batch`` at a time on one
 card. The model runs in IEEE f32 unless ``--score-precision default``.
 
-Not ported yet: the other explainers (simatt, simcam, rollout: ROADMAP.md
-section 1 item 3; gradcam_sim: item 7) and ``--use-mesh`` (item 11).
+The other explainers, as the JAX CLI runs them (compute_saliency.py:130-213),
+for the first ``--limit`` images (16 by default): ``--explainer simatt``
+(a conv backbone with a feature head: densenet121, convnextv2) saves each
+anchor's stack of maps, [anchor, its top-k of ``--results``] or the anchor
+twice, as ``simatt_q{query:05d}.npy``; ``simcam`` the (2, H, W) query and
+retrieval maps of each image against the next as ``simcam_q{query:05d}.npy``;
+``rollout`` (a ViT: dinov2) each image's attention rollout as
+``rollout_q{query:05d}.npy``.
+
+Not ported yet: ``--explainer gradcam_sim`` (ROADMAP.md section 1 item 7) and
+``--use-mesh`` (item 11).
 """
 from __future__ import annotations
 
@@ -34,8 +43,7 @@ from .common import (
 )
 
 # the explainers still to port, by the ROADMAP.md item that brings them
-WAITING_EXPLAINERS = {"simatt": "section 1 item 3", "simcam": "section 1 item 3",
-                      "rollout": "section 1 item 3", "gradcam_sim": "section 1 item 7"}
+WAITING_EXPLAINERS = {"gradcam_sim": "section 1 item 7"}
 
 
 def refuse_unported(args):
@@ -59,6 +67,48 @@ def image_preprocessor(spec, device):
                                method=spec.interpolation)
 
     return prep
+
+
+def features_fn(model):
+    """x -> the model's last feature map (NHWC), without a graph."""
+    def features(x):
+        with torch.no_grad():
+            return model(x)["features"]
+
+    return features
+
+
+def rollout_maps(model, x, size: int):
+    """Attention rollout of each image of ``x`` on the patch grid, upsampled
+    to size x size: the model's attention weights (eager path), the leading
+    non-patch tokens (DINOv2's CLS) dropped from the importance."""
+    from ..xai import rollout_saliency
+
+    with torch.no_grad():
+        out = model(x, output_attentions=True)
+    prefix = out["attentions"][0].shape[-1] - out["tokens"].shape[1]
+    return rollout_saliency(out["attentions"], (size, size), prefix_tokens=prefix)
+
+
+def pair_explainer(args, model, embed, size: int, device):
+    """(q_img (1, H, W, C), r_imgs (P, H, W, C)) -> P (H, W) maps over the
+    retrieved images, by ``args.explainer`` (the JAX evaluate_saliency's
+    inline providers, evaluate_saliency.py:125-153)."""
+    from ..xai import generate_masks, sbsm_pair_saliency, simatt_saliency, simcam_maps
+
+    if args.explainer == "sbsm":
+        masks = torch.from_numpy(generate_masks(size, args.window_size, args.stride)).to(device)
+        return lambda q, r: list(sbsm_pair_saliency(embed, q, r, masks, chunk=args.gpu_batch)[0])
+    if args.explainer == "simatt":
+        from ..xai import get_feature_head
+
+        head_fn, feats = get_feature_head(args.model, model), features_fn(model)
+        return lambda q, r: list(simatt_saliency(feats, head_fn, torch.cat([q, r]), n_pos=1)[1:])
+    if args.explainer == "simcam":
+        feats = features_fn(model)
+        # index 1: the retrieval-side map (of the image that is perturbed)
+        return lambda q, r: list(simcam_maps(feats(q)[0], feats(r), out_hw=(size, size))[:, 1])
+    return lambda q, r: list(rollout_maps(model, r, size))
 
 
 def main(argv=None):
@@ -96,6 +146,8 @@ def main(argv=None):
     embed = make_embed_fn(model)
     prep = image_preprocessor(spec, device)
     os.makedirs(args.save_dir, exist_ok=True)
+    if args.explainer != "sbsm":
+        return other_explainers(args, dataset, model, prep, spec.input_size)
     masks = torch.from_numpy(generate_masks(spec.input_size, args.window_size,
                                             args.stride)).to(device)
     print(f">> {masks.shape[0]} occlusion masks (window={args.window_size}, "
@@ -124,6 +176,36 @@ def main(argv=None):
         for j, r in enumerate(ranks[qi]):
             np.save(os.path.join(args.save_dir, f"sal_q{qi:05d}_r{int(r):05d}.npy"), sal[0, j])
     print(f">> saved pair saliency for {n_q} queries to {args.save_dir}")
+    return n_q
+
+
+def other_explainers(args, dataset, model, prep, size: int):
+    """simatt, simcam or rollout maps of the first ``--limit`` images (16 by
+    default), saved one file an image. Returns the count."""
+    from ..xai import get_feature_head, simatt_saliency, simcam_maps
+
+    n_q = args.limit or min(len(dataset), 16)
+    dists = np.load(args.results, allow_pickle=True)["dists"] if args.results else None
+    feats = features_fn(model)
+    head_fn = get_feature_head(args.model, model) if args.explainer == "simatt" else None
+    for qi in range(n_q):
+        if args.explainer == "simatt":
+            if dists is not None:
+                ranks = np.argsort(-dists[qi], kind="stable")[:args.top_k]
+                stack = np.stack([dataset.load_image(qi)] +
+                                 [dataset.load_image(int(r)) for r in ranks])
+            else:
+                stack = dataset.load_image(qi)[None].repeat(2, axis=0)
+            maps = simatt_saliency(feats, head_fn, prep(stack), n_pos=1)
+        elif args.explainer == "simcam":
+            maps = simcam_maps(feats(prep(dataset.load_image(qi)[None]))[0],
+                               feats(prep(dataset.load_image((qi + 1) % len(dataset))[None])),
+                               out_hw=(size, size))
+        else:
+            maps = rollout_maps(model, prep(dataset.load_image(qi)[None]), size)
+        np.save(os.path.join(args.save_dir, f"{args.explainer}_q{qi:05d}.npy"),
+                maps.cpu().numpy())
+    print(f">> saved {args.explainer} maps for {n_q} images to {args.save_dir}")
     return n_q
 
 

@@ -14,8 +14,10 @@ per-class averages; the JSON saved every ``--save-every`` queries and
 resumable with ``--skip-existing`` (reference evaluate_test_dataset_milvus.py:
 428-437 substrates, 577-584 incremental save, 688-700 quality heuristics).
 The blur and the model run in IEEE f32 unless ``--score-precision default``.
+Without ``--saliency-dir`` the maps come from ``--explainer`` inline: sbsm,
+simatt (conv backbones with a feature head), simcam, or rollout (a ViT).
 
-Not ported yet: the other explainers (ROADMAP.md section 1 items 3 and 7) and
+Not ported yet: ``--explainer gradcam_sim`` (ROADMAP.md section 1 item 7) and
 ``--use-mesh`` (item 11).
 """
 from __future__ import annotations
@@ -25,7 +27,6 @@ import json
 import os
 
 import numpy as np
-import torch
 
 from .common import (
     add_dataset_args,
@@ -36,7 +37,7 @@ from .common import (
     build_model,
     resolve_device,
 )
-from .compute_saliency import image_preprocessor, refuse_unported
+from .compute_saliency import image_preprocessor, pair_explainer, refuse_unported
 
 
 def main(argv=None):
@@ -50,7 +51,7 @@ def main(argv=None):
     p.add_argument("--explainer", default="sbsm",
                    choices=["sbsm", "simatt", "simcam", "rollout", "gradcam_sim"],
                    help="Inline saliency (reference evaluate_test_dataset_milvus.py:368-426); "
-                        "sbsm is ported")
+                        "gradcam_sim is not ported yet")
     p.add_argument("--window-size", default=24, type=int)
     p.add_argument("--stride", default=5, type=int)
     p.add_argument("--gpu-batch", default=128, type=int)
@@ -74,13 +75,7 @@ def main(argv=None):
     from ..index import ShardedGalleryIndex
     from ..metrics.saliency import saliency_quality
     from ..train import make_embed_fn
-    from ..xai import (
-        blur_substrate,
-        generate_masks,
-        run_causal_metric_pairs_both,
-        sbsm_pair_saliency,
-        zeros_substrate,
-    )
+    from ..xai import blur_substrate, run_causal_metric_pairs_both, zeros_substrate
 
     device = resolve_device(args)
     dataset = build_dataset(args, args.split)
@@ -99,8 +94,8 @@ def main(argv=None):
 
     blur = blur_substrate()
     n_q = min(args.limit or len(dataset), len(dataset))
-    masks = torch.from_numpy(generate_masks(spec.input_size, args.window_size,
-                                            args.stride)).to(device)
+    pair_saliency = (None if args.saliency_dir
+                     else pair_explainer(args, model, embed, spec.input_size, device))
 
     results, done = [], set()
     if args.skip_existing and os.path.exists(args.output):
@@ -118,7 +113,7 @@ def main(argv=None):
             sals = [np.load(os.path.join(args.saliency_dir, f"sal_q{qi:05d}_r{int(r):05d}.npy"))
                     for r in topk_ids[qi]]
         else:
-            sals = list(sbsm_pair_saliency(embed, q_img, r_imgs, masks, chunk=args.gpu_batch)[0])
+            sals = pair_saliency(q_img, r_imgs)
         # deletion + insertion batched together across the top-k pairs: one
         # forward embeds a chunk of both curves' reveal images (2 x top_k
         # pairs; auto_batch_steps sizes the chunks)

@@ -15,8 +15,7 @@ sets PyTorch's two TF32 switches off (IEEE f32 matmuls and convolutions), as
 best checkpoint picked, in the arithmetic it is then evaluated in.
 
 Not ported yet (ROADMAP.md): ``--use-mesh`` / ``--fsdp`` (the multi-card
-slice), ``--cache-dir`` (data/cache.py), ``--loss-name dual_branch`` and the
-models whose training kernels are still to port.
+slice), ``--cache-dir`` (data/cache.py), ``--loss-name dual_branch``.
 """
 from __future__ import annotations
 
@@ -41,11 +40,6 @@ from .common import (
 
 # the first component of each ported embedder's backbone parameters
 BACKBONE_PREFIXES = ("backbone.", "densenet121.", "convnext.")
-# models whose train step needs a kernel that is still to port: the JAX
-# package trains them through it, so the plain path would be another result
-WAITING_FOR_KERNEL = {
-    "swinv2": "K5 (the grouped-bias window attention's backward)",
-}
 
 
 def parse_args(argv=None):
@@ -111,11 +105,6 @@ def epoch_generator(seed: int, epoch: int) -> torch.Generator:
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.model in WAITING_FOR_KERNEL:
-        raise NotImplementedError(
-            f"training --model {args.model} waits for {WAITING_FOR_KERNEL[args.model]}, which "
-            "ROADMAP.md lists as still to port: the JAX package trains this model through "
-            "that kernel, and the port does not train it on another path meanwhile")
     loss_name = select_loss(args)
     if loss_name == "dual_branch":
         raise NotImplementedError(

@@ -1,5 +1,6 @@
 """On-disk datasets of the ported slice: the COVIDx manifest (a copy of
-CovidxDataset in xmir_tpu/data/datasets.py, whose package init imports jax).
+CovidxDataset in xmir_tpu/data/datasets.py, whose package init imports jax),
+and ``split_txt``, a copy of its manifest splitter.
 
 A dataset exposes __len__, load_image(i) -> uint8 HWC RGB array, labels and
 image_names. PIL is imported where an image is opened, not at import time.
@@ -47,3 +48,19 @@ class CovidxDataset:
             mask = Image.open(self.mask_names[index]).resize(img.size)
             img = Image.composite(img, Image.new("RGB", img.size), mask)
         return np.asarray(img, dtype=np.uint8)
+
+
+def split_txt(input_file, train_file, val_file, val_fraction=0.1, seed=42):
+    """A manifest's non-empty lines split into train and validation files
+    (reference split_dataset.py:1-81): ``int(n val_fraction)`` lines, drawn by
+    numpy's default_rng(seed) permutation, go to ``val_file``; both keep the
+    manifest's order. Returns (train count, validation count)."""
+    with open(input_file) as f:
+        lines = [line for line in f.read().splitlines() if line.strip()]
+    order = np.random.default_rng(seed).permutation(len(lines))
+    n_val = int(len(lines) * val_fraction)
+    val_idx = set(order[:n_val].tolist())
+    with open(train_file, "w") as ftr, open(val_file, "w") as fv:
+        for i, line in enumerate(lines):
+            (fv if i in val_idx else ftr).write(line + "\n")
+    return len(lines) - n_val, n_val

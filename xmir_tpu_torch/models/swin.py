@@ -64,6 +64,43 @@ def _rel_position_index(win: int):
 
 
 @functools.lru_cache(maxsize=64)
+def _offset_onehot(win: int):
+    """(W^2, 2W-1) float32: row (i, j) is one at i - j + W - 1, the 1-D
+    relative offset of positions i and j along one axis of a window."""
+    i, j = np.meshgrid(np.arange(win), np.arange(win), indexing="ij")
+    onehot = np.zeros((win, win, 2 * win - 1), np.float32)
+    onehot[i, j, i - j + win - 1] = 1.0
+    return onehot.reshape(win * win, 2 * win - 1)
+
+
+class _RelBiasGather(torch.autograd.Function):
+    """table (2W-1, 2W-1, H) -> bias (H, W^2, W^2) with
+    bias[h, (yi, xi), (yj, xj)] = table[yi - yj + W - 1, xi - xj + W - 1, h].
+    The forward is one index_select. Its backward adds each offset's
+    gradients with two matrix products against ``_offset_onehot`` (a fixed
+    order): index_select's own backward adds them with atomics on CUDA, so two
+    runs of a train step, and a resumed run against an uninterrupted one,
+    would differ in their last bits."""
+
+    @staticmethod
+    def forward(ctx, table, window):
+        ctx.window = window
+        index = _on_device(_rel_position_index, (window,), table.device)
+        n = window * window
+        return torch.index_select(table.reshape(-1, table.shape[-1]).t(), 1,
+                                  index.reshape(-1)).reshape(-1, n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        w = ctx.window
+        heads = g.shape[0]
+        onehot = _on_device(_offset_onehot, (w,), g.device)
+        # (H, (yi, xi), (yj, xj)) -> (H, (yi, yj), (xi, xj))
+        g = g.reshape(heads, w, w, w, w).permute(0, 1, 3, 2, 4).reshape(heads, w * w, w * w)
+        return (onehot.t() @ g @ onehot).permute(1, 2, 0), None
+
+
+@functools.lru_cache(maxsize=64)
 def _shift_attn_mask(grid: int, win: int, shift: int):
     """(num_windows, W², W²) additive mask for shifted-window attention:
     -100 between tokens of different regions, not -inf."""
@@ -84,8 +121,11 @@ def _shift_attn_mask(grid: int, win: int, shift: int):
 @functools.lru_cache(maxsize=256)
 def _on_device(make, args, device):
     """``make(*args)`` (a cached numpy constant) as a tensor on ``device``,
-    made once per device."""
-    return torch.from_numpy(np.ascontiguousarray(make(*args))).to(device)
+    made once per device, and never as an inference tensor: a constant first
+    made under ``torch.inference_mode`` would refuse to be saved for a later
+    training step's backward."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.ascontiguousarray(make(*args))).to(device)
 
 
 def window_partition(x, win: int):
@@ -137,10 +177,7 @@ class WindowAttentionV2(nn.Module):
         table = _on_device(_rel_coords_table, (window, pretrained_window), device)
         hidden = F.relu(_dense(table, self.cpb_mlp[0]))
         t2 = 16.0 * torch.sigmoid(_dense(hidden, self.cpb_mlp[2])).float()  # (2W-1, 2W-1, H)
-        index = _on_device(_rel_position_index, (window,), device)
-        n = window * window
-        return torch.index_select(t2.reshape(-1, self.num_heads).t(), 1,
-                                  index.reshape(-1)).reshape(-1, n, n)
+        return _RelBiasGather.apply(t2, window)
 
     def forward(self, x, window: int, pretrained_window: int, num_windows: int = 1, mask=None,
                 output_attentions: bool = False):
@@ -160,7 +197,9 @@ class WindowAttentionV2(nn.Module):
 
         if not output_attentions and fused_attention_enabled(dt, x.device):
             nw, b_img = num_windows, bw // num_windows
-            if os.environ.get("XMIR_SWIN_KERNEL", "") == "v1":
+            # the kept-for-comparison v1 kernel (K6) has no backward: a module
+            # in training mode takes K4 + K5, as the JAX package does
+            if os.environ.get("XMIR_SWIN_KERNEL", "") == "v1" and not self.training:
                 qs = (_unit(q) * scale[None]).to(dt)
                 total = bias[None]  # (1, H, N, N)
                 if mask is not None:

@@ -3,8 +3,8 @@ attention of the Swin towers (K4): the CUDA kernels' wrappers and their plain
 PyTorch versions.
 
 Port of ``xmir_tpu/ops/vit_attn_pallas.py``: K2 with its backward K3 first;
-K4 (``biased_attention_fused``, the forward only) is described above its
-functions below. ``vit_attention_fused(q, k, v, sm_scale)`` on (BH, N, hd)
+K4 (``biased_attention_fused``) with its backward K5 (``biased_attention_bwd``,
+csrc/window_attn_bwd.cu) is described above its functions below. ``vit_attention_fused(q, k, v, sm_scale)`` on (BH, N, hd)
 launches ``csrc/vit_attn.cu`` for CUDA tensors and counts each call in its
 ``launches``. A tensor on the CPU takes ``attention_plain`` instead; any
 other device raises. There is no fallback from the kernel to a plain version.
@@ -442,8 +442,254 @@ def launch_window_attention(q, k, v, bias, scale, mode: int, groups):
     return out
 
 
+def _check_biased(q, k, v, bias, scale, g_size):
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"need q, k and v of one (BH, N, hd) shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k and v must be of one dtype, got {q.dtype}, {k.dtype} and "
+                        f"{v.dtype}")
+    n, n_groups = q.shape[1], bias.shape[0]
+    if bias.shape != (n_groups, n, n) or scale.numel() != n_groups:
+        raise ValueError(f"need bias (G, {n}, {n}) and G scales, got {tuple(bias.shape)} and "
+                         f"{tuple(scale.shape)}")
+    if g_size < 1:
+        raise ValueError(f"g_size={g_size} must be at least 1")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no attention kernel for device {q.device}")
+    if q.device.type == "cuda" and (bias.dtype != torch.float32 or scale.dtype != torch.float32):
+        raise TypeError(f"bias and scale must be float32, got {bias.dtype} and {scale.dtype}")
+
+
+# ---------------------------------------------------------------------------
+# K5: the backward of K4 (``_biased_bwd_pallas`` of the TPU file), for the
+# whole-window folds Swin makes (``_biased_bwd_eligible``). The CUDA kernel
+# (csrc/window_attn_bwd.cu) recomputes its own row max and sum from its own
+# logits, as the TPU kernel does, and rounds where it rounds:
+# ``biased_attention_bwd_plain`` writes that arithmetic out.
+
+BIASED_GRAD_NAMES = ("dq", "dk", "dv", "dbias", "dscale")
+MAX_BWD_WINDOW = 768
+
+
+def biased_bwd_eligible(n: int, bh: int, n_groups: int, g_size: int) -> bool:
+    """The TPU kernel's envelope (``_biased_bwd_eligible``): whole windows of
+    at most 768 tokens, N a multiple of 8, and exactly one contiguous run of
+    g_size folded rows per group (BH == G g_size), so that each group's dbias
+    is a sum over its own rows in their order."""
+    return n <= MAX_BWD_WINDOW and n % 8 == 0 and bh == n_groups * g_size
+
+
+def biased_attention_bwd_reference(q, k, v, bias, scale, o_unused, g, g_size: int = 1,
+                                   cosine: bool = False):
+    """(dq, dk, dv, dbias, dscale): ``torch.autograd.grad`` of
+    ``biased_attention_reference`` at cotangent g (the vjp of
+    ``_biased_reference`` in the TPU file). ``o_unused`` keeps K5's
+    signature."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v, bias, scale)]
+        out = biased_attention_reference(*leaves, g_size, cosine)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def _group_sums(rows, n_groups: int):
+    """Per-folded-row values (BH,) summed over each group's g_size rows in
+    order (BH == G g_size): (G,)."""
+    return rows.reshape(n_groups, -1).sum(dim=1)
+
+
+def biased_attention_bwd_plain(q, k, v, bias, scale, o, g, g_size: int = 1,
+                               cosine: bool = False):
+    """Plain version of K5 on (BH, N, hd): the TPU kernel's arithmetic
+    (``_bwd_kernel_biased`` :427-472), rounding where it rounds. With
+    ``cosine`` qh32, kh32 = q, k times ``inv_norm`` in f32 (the sums of
+    squares in ``sum_squares``' order, so that in bf16 the kernel normalises
+    bit for bit alike), qh, kh those rounded to the input dtype; without it
+    qh = q, kh = k. s2 = (qh kh^T) (scale_g log2 e) + bias log2 e in f32; m
+    the exact row max, e = exp2(s2 - m), z the f32 sum of e: the backward's
+    own statistics from its own s2 (K4 rounds q times scale log2 e before its
+    product, this rounds qh alone); c = rowsum(g o), dp = g v^T in f32;
+    t = e (dp - c), rounded to the input dtype (tb) before both of its
+    products; dbias_g = the sum of t / z over the group's folded rows, in
+    their order, f32; dqh = (tb kh) (scale_g / z); alpha = rowsum(dqh qh32);
+    dq = (dqh - qh32 alpha) / |q|; qz = qh32 (scale_g / z) rounded,
+    dkh = tb^T qz, beta = rowsum(dkh kh32), dk = (dkh - kh32 beta) / |k|;
+    gz = g / z rounded, dv = e^T gz on e rounded; dscale_g = the sum of alpha
+    over the group's rows, divided by scale_g (no extra pass: rowsum(dqh
+    qh32) is scale_g rowsum(ds s_cos)). Returns (dq, dk, dv) in the input
+    dtype, dbias (G, N, N) f32 and dscale in scale's shape and dtype. Needs
+    ``biased_bwd_eligible``'s BH == G g_size."""
+    bh, n, _ = q.shape
+    n_groups = bias.shape[0]
+    if bh != n_groups * g_size:
+        raise ValueError(f"the backward needs BH == G g_size, got BH={bh}, G={n_groups}, "
+                         f"g_size={g_size}")
+    gidx = group_index(bh, n_groups, g_size, q.device)
+    sc = scale.reshape(-1).float()[gidx][:, None, None]
+    qf, kf = q.float(), k.float()
+    if cosine:
+        qinv, kinv = inv_norm(qf), inv_norm(kf)
+        qh32, kh32 = qf * qinv, kf * kinv
+        qh, kh = qh32.to(q.dtype).float(), kh32.to(k.dtype).float()
+    else:
+        qh32, kh32, qh, kh = qf, kf, qf, kf
+    s2 = torch.matmul(qh, kh.transpose(-1, -2)) * (sc * LOG2E) + (bias.float() * LOG2E)[gidx]
+    e = torch.exp2(s2 - s2.amax(dim=-1, keepdim=True))
+    zinv = 1.0 / e.sum(dim=-1, keepdim=True)
+    g32 = g.float()
+    c = (g32 * o.float()).sum(dim=-1, keepdim=True)
+    dp = torch.matmul(g32, v.float().transpose(-1, -2))
+    t = e * (dp - c)
+    tb = t.to(q.dtype).float()
+    tz = (t * zinv).reshape(n_groups, g_size, n, n)
+    dbias = tz[:, 0]
+    for r in range(1, g_size):
+        dbias = dbias + tz[:, r]
+    szinv = sc * zinv
+    dqh = torch.matmul(tb, kh) * szinv
+    alpha = (dqh * qh32).sum(dim=-1, keepdim=True)
+    dq = (dqh - qh32 * alpha) * qinv if cosine else dqh
+    qz = (qh32 * szinv).to(q.dtype).float()
+    dkh = torch.matmul(tb.transpose(-1, -2), qz)
+    if cosine:
+        dk = (dkh - kh32 * (dkh * kh32).sum(dim=-1, keepdim=True)) * kinv
+    else:
+        dk = dkh
+    gz = (g32 * zinv).to(g.dtype).float()
+    dv = torch.matmul(e.to(q.dtype).float().transpose(-1, -2), gz)
+    dscale = _group_sums(alpha.sum(dim=(1, 2)), n_groups) / scale.reshape(-1).float()
+    return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias,
+            dscale.reshape(scale.shape).to(scale.dtype))
+
+
+def biased_grad_floors(q, k, v, bias, scale, g, g_size: int = 1, cosine: bool = False):
+    """The least magnitudes (for dq, dk, dv, dbias, dscale) that
+    ``grad_agreement`` measures K5 against: GRAD_FLOOR of a bound on each
+    gradient's terms, as ``grad_floors`` gives K3's. With D = max|g row|
+    max|v row|, |dp| and |c| are at most D, so a row's ds = t / z sums to at
+    most 2 D in magnitude: a term of dbias is at most 2 D; of dq at most
+    scale 2 D |kh| / |q| (|kh| = 1 with the cosine, else max|k|), of dk
+    likewise; of dv max|g|; of dscale, one folded row's alpha / scale, at most
+    N 2 D max|s_cos| (1 with the cosine)."""
+    d = torch.linalg.vector_norm(g.float(), dim=-1).max() * torch.linalg.vector_norm(
+        v.float(), dim=-1).max()
+    qf, kf = q.float(), k.float()
+    top = scale.float().abs().max() * 2 * d
+    if cosine:
+        dq_t, dk_t, smax = top * inv_norm(qf).max(), top * inv_norm(kf).max(), 1.0
+    else:
+        qm, km = qf.abs().max(), kf.abs().max()
+        dq_t, dk_t, smax = top * km, top * qm, qm * km * q.shape[-1]
+    return (GRAD_FLOOR * dq_t, GRAD_FLOOR * dk_t, GRAD_FLOOR * g.float().abs().max(),
+            GRAD_FLOOR * 2 * d, GRAD_FLOOR * q.shape[1] * 2 * d * smax)
+
+
+# dscale is a sum over g_size N rows of alpha, whose terms cancel (alpha =
+# scale rowsum(ds s_cos) with rowsum(ds) = 0): its bounds are ten times the
+# others', as the JAX package's own test gives it ten times theirs
+# (tests/test_vit_attn.py: 5e-4 of its largest magnitude against 5e-5).
+DSCALE_BOUND_FACTOR = 10.0
+
+
+def biased_grad_agreement(outs, refs, floors, dtype=None):
+    """{name: ``grad_agreement`` reading} for K5's five outputs against its
+    plain version's, each relative to the larger of its largest magnitude and
+    its ``biased_grad_floors`` entry; dscale's shares are of its own bounds
+    (DSCALE_BOUND_FACTOR times the others'). ``dtype``: the run's compute
+    dtype (dbias and dscale are f32 in every run)."""
+    dtype = dtype or outs[0].dtype
+    readings = {}
+    for name, out, ref, floor in zip(BIASED_GRAD_NAMES, outs, refs, floors):
+        e = grad_agreement(out, ref, floor, dtype)
+        if name == "dscale":
+            e["of_bound"] /= DSCALE_BOUND_FACTOR
+            e["mean_of_bound"] /= DSCALE_BOUND_FACTOR
+        readings[name] = e
+    return readings
+
+
+def biased_attention_bwd(q, k, v, bias, scale, o, g, g_size: int = 1, cosine: bool = False):
+    """K5: (dq, dk, dv, dbias, dscale) of ``biased_attention_fused`` at
+    cotangent g from the saved output o. q, k, v, o, g (BH, N, hd) of one
+    dtype; bias (G, N, N) and scale (G,) or (G, 1) float32; BH == G g_size.
+    A CPU tensor takes ``biased_attention_bwd_plain`` (any N). On CUDA only
+    inside the TPU kernel's envelope (``biased_bwd_eligible``), else it
+    raises, as for anything else the kernel does not take: Swin-B's folds
+    always satisfy it. On CUDA the operands are contiguous and 16-byte
+    aligned, hd a multiple of 8 up to 64. Returns (dq, dk, dv) in the input dtype, dbias
+    f32, dscale in scale's shape."""
+    _check_biased(q, k, v, bias, scale, g_size)
+    if o.shape != q.shape or g.shape != q.shape or o.dtype != q.dtype or g.dtype != q.dtype:
+        raise ValueError(f"o and g must match q's shape {tuple(q.shape)} and dtype {q.dtype}")
+    bh, n, hd = q.shape
+    n_groups = bias.shape[0]
+    tensors = (q, k, v, bias, scale, o, g)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"all operands must lie on {q.device}")
+    if q.device.type == "cpu":  # the plain version takes any N
+        return biased_attention_bwd_plain(q, k, v, bias, scale, o, g, g_size, cosine)
+    if not biased_bwd_eligible(n, bh, n_groups, g_size):
+        raise ValueError(f"K5 takes whole windows of N <= {MAX_BWD_WINDOW}, N a multiple of 8 and "
+                         f"BH == G g_size; got BH={bh}, N={n}, G={n_groups}, g_size={g_size}")
+    from . import _build
+
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
+    if hd % 8 or not 8 <= hd <= MAX_WINDOW_HEAD_DIM:
+        raise ValueError(f"the kernel needs hd a multiple of 8 up to {MAX_WINDOW_HEAD_DIM}, "
+                         f"got {hd}")
+    for t in tensors:
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError("K5's operands must be contiguous and 16-byte aligned; nothing is "
+                             "copied here")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.empty_like(bias)
+    stats = torch.empty((bh, n, 4), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _build.load().xmir_window_attn_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
+            bias.data_ptr(), scale.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dbias.data_ptr(), DTYPE_CODES[q.dtype], int(cosine), bh, n, hd,
+            n_groups, g_size, torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"window attention backward kernel launch failed: cudaError_t {err}")
+    biased_attention_bwd.launches += 1
+    # each folded row's alpha total, then each group's in order, over scale_g
+    dscale = _group_sums(stats[..., 3].sum(dim=1), n_groups) / scale.reshape(-1)
+    return dq, dk, dv, dbias, dscale.reshape(scale.shape)
+
+
+biased_attention_bwd.launches = 0
+
+
+class _BiasedAttention(torch.autograd.Function):
+    """K4 forward, K5 backward; on the CPU their plain versions."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, g_size, cosine):
+        if q.device.type == "cpu":
+            out = biased_attention_plain(q, k, v, bias, scale, g_size, cosine)
+        else:
+            out = launch_window_attention(q, k, v, bias, scale.reshape(-1), 1 if cosine else 0,
+                                          (g_size, bias.shape[0], 1, 1, 1, 0))
+            biased_attention_fused.launches += 1
+        ctx.g_size, ctx.cosine = g_size, cosine
+        ctx.save_for_backward(q, k, v, bias, scale, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, scale, out = ctx.saved_tensors
+        # autograd hands the cotangent over in whatever layout the consumer
+        # left it: the kernel wants it contiguous
+        grads = biased_attention_bwd(q, k, v, bias, scale, out, g.contiguous(), ctx.g_size,
+                                     ctx.cosine)
+        return (*grads, None, None)
+
+
 def biased_attention_fused(q, k, v, bias, scale, g_size: int = 1, cosine: bool = False):
-    """K4: softmax(norm(q) norm(k)^T scale_g + bias_g) v, fused. q, k, v
+    """K4: softmax(norm(q) norm(k)^T scale_g + bias_g) v, fused, and
+    differentiable in q, k, v, bias and scale (backward: K5). q, k, v
     (BH, N, hd) of one shape and dtype (float32 or bfloat16); bias (G, N, N)
     float32; scale (G,) or (G, 1) logit scales, float32; row i uses group
     (i // g_size) % G. ``cosine`` L2-normalises q and k rows inside the
@@ -451,30 +697,9 @@ def biased_attention_fused(q, k, v, bias, scale, g_size: int = 1, cosine: bool =
     bias = CPB + shift mask). Returns (BH, N, hd) in v's dtype. On CUDA:
     contiguous, 16-byte aligned, hd a multiple of 8 up to 64, one window's K
     and V within a block's shared memory (N = 576 at hd = 32 fits in both
-    dtypes)."""
-    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"need q, k and v of one (BH, N, hd) shape, got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)} and {tuple(v.shape)}")
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"q, k and v must be of one dtype, got {q.dtype}, {k.dtype} and "
-                        f"{v.dtype}")
-    n = q.shape[1]
-    n_groups = bias.shape[0]
-    if bias.shape != (n_groups, n, n) or scale.numel() != n_groups:
-        raise ValueError(f"need bias (G, {n}, {n}) and G scales, got {tuple(bias.shape)} and "
-                         f"{tuple(scale.shape)}")
-    if g_size < 1:
-        raise ValueError(f"g_size={g_size} must be at least 1")
-    if q.device.type == "cpu":
-        return biased_attention_plain(q, k, v, bias, scale, g_size, cosine)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention kernel for device {q.device}")
-    if bias.dtype != torch.float32 or scale.dtype != torch.float32:
-        raise TypeError(f"bias and scale must be float32, got {bias.dtype} and {scale.dtype}")
-    out = launch_window_attention(q, k, v, bias, scale.reshape(-1), 1 if cosine else 0,
-                                  (g_size, n_groups, 1, 1, 1, 0))
-    biased_attention_fused.launches += 1
-    return out
+    dtypes); the backward takes ``biased_bwd_eligible``'s folds."""
+    _check_biased(q, k, v, bias, scale, g_size)
+    return _BiasedAttention.apply(q, k, v, bias, scale, int(g_size), bool(cosine))
 
 
 biased_attention_fused.launches = 0

@@ -1,8 +1,7 @@
 """Explanations of a retrieval (port of xmir_tpu/xai): SBSM occlusion
-saliency and the insertion / deletion causal metrics. SimAtt, SimCAM, the
-feature heads and attention rollout come with ROADMAP.md section 1 item 3;
-Grad-CAM similarity, the ConceptXAI tools and the saliency variants with
-item 7."""
+saliency, the insertion / deletion causal metrics, SimAtt with the feature
+heads, SimCAM and attention rollout. Grad-CAM similarity, the ConceptXAI
+tools and the saliency variants come with ROADMAP.md section 1 item 7."""
 from .causal import (  # noqa: F401
     auto_batch_steps,
     blur_substrate,
@@ -14,4 +13,13 @@ from .causal import (  # noqa: F401
     saliency_rank,
     zeros_substrate,
 )
+from .feature_heads import convnext_head, densenet_head, get_feature_head  # noqa: F401
+from .rollout import attention_rollout, rollout_saliency  # noqa: F401
 from .sbsm import generate_masks, sbsm_pair_saliency, sbsm_self_saliency  # noqa: F401
+from .simatt import simatt_saliency  # noqa: F401
+from .simcam import (  # noqa: F401
+    point_specific_map,
+    simcam_decomposition,
+    simcam_maps,
+    simcam_vit_maps,
+)
