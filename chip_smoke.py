@@ -64,6 +64,7 @@ Phases, each of which raises (exit code != 0) on any failure:
  12. kernel  K4 and K6 (csrc/window_attn.cu) against their plain versions, f32
              and bf16: every SwinV2-Base shape at 384 px (stages 1-4, shifted
              and unshifted, B = 16), ragged N (140, 77, 1), groups that wrap,
+             groups of 3 and 5 images (bf16 K4 takes two images a block),
              every logit scale at its clamp of 100 with a -100 mask that
              leaves rows few live keys, rows of tiny norm; within the bounds
              of ops/vit_attn.py::window_agreement; two runs bit-equal
@@ -94,7 +95,9 @@ Phases, each of which raises (exit code != 0) on any failure:
  17. kernel  K3 (csrc/vit_attn_bwd.cu) against its plain version through the
              autograd Function around K2 / K3, f32 and bf16: (BH, N, hd) in
              {(24, 1370, 64), (4, 729, 72), (6, 64, 32), (2, 1, 64),
-             (3, 137, 128)}, rows of negative scores and rows with few
+             (3, 137, 128), (140, 200, 64), (133, 129, 32)} (the last two:
+             more (head, 128-key) units than SMs, a half-dead last unit),
+             rows of negative scores and rows with few
              dominant keys; within the bounds of
              ops/vit_attn.py::grad_agreement; two runs bit-equal; f32 also
              within 3e-5 of the largest magnitude of the exact gradient; K7's
@@ -115,7 +118,8 @@ Phases, each of which raises (exit code != 0) on any failure:
              scaled_dot_product_attention call (timed here, used nowhere in
              the port); the bf16 DINOv2 train step at batch 8 with the
              kernels, with their plain versions and on the eager path: img/s,
-             peak memory, and forward / backward / optimiser shares
+             peak memory, forward / backward / optimiser shares, and the
+             device time by kernel (torch.profiler), K3's share of it
  21. kernel  K10 (csrc/convnext_block_bwd.cu) against tail_backward_reference,
              f32 and bf16: ConvNeXtV2-Base's four stage shapes at 384 px
              (B = 2), 49 rows and 1 row at C = 96, 144 rows at B = 3; within
@@ -1259,7 +1263,9 @@ def phase_kernel_window():
     err = {"K4": {}, "K6": {}}
     cases = [(16, nw, h, n, sh, "Swin-B, B 16") for nw, h, n, sh, _ in SWIN_SHAPES] + [
         (2, 3, 2, 140, True, "ragged N"), (1, 2, 2, 77, True, "odd N"),
-        (3, 1, 5, 1, False, "N 1"), (2, 4, 2, 144, False, "N 144")]
+        (3, 1, 5, 1, False, "N 1"), (2, 4, 2, 144, False, "N 144"),
+        # bf16 K4 takes a group's images two to a block: an odd number a group
+        (3, 4, 2, 144, True, "3 images a group"), (5, 1, 4, 576, False, "5 images a group")]
     with torch.inference_mode():
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype)[6:]
@@ -1660,7 +1666,8 @@ def phase_window_rates():
                                          ("library_ms", ms["library"]), ("bound_ms", bound_ms)):
                         total[key][field] += count * value
                 log(f"[rates] {name:8s} {shape}: K4 {ms['K4']:.3f} ms "
-                    f"({work[0] / ms['K4'] / 1e9:.1f} TFLOP/s; bound {bound_ms:.3f} ms by {by}) vs "
+                    f"({work[0] / ms['K4'] / 1e9:.1f} TFLOP/s; bound {bound_ms:.3f} ms by {by}, "
+                    f"{bound_ms / ms['K4']:.1%} of it) vs "
                     f"plain {ms['K4 plain']:.3f} ms; K6 {ms['K6']:.3f} ms vs plain "
                     f"{ms['K6 plain']:.3f} ms; library call {ms['library']:.3f} ms (max |diff| to "
                     f"K6 {lib_err:.3g}); K4's fold + unfold copies {ms['fold']:.3f} ms; agreement "
@@ -1672,7 +1679,8 @@ def phase_window_rates():
             log(f"[rates] {name:8s} the {SWIN_DEPTH} calls of one SwinV2-Base forward at B={b}: "
                 + "; ".join(f"{key} {total[key]['ms']:.3f} ms (plain {total[key]['plain_ms']:.3f}, "
                             f"library {total[key]['library_ms']:.3f}, bound "
-                            f"{total[key]['bound_ms']:.3f})" for key in out)
+                            f"{total[key]['bound_ms']:.3f}: "
+                            f"{total[key]['bound_ms'] / total[key]['ms']:.1%} of it)" for key in out)
                 + f"; K4's fold + unfold copies {fold_ms:.3f} ms")
             out["K4"][name]["fold_ms"] = fold_ms
     return out
@@ -1695,6 +1703,19 @@ def _swin_bf16_model():
     x = torch.randn((16, 384, 384, 3), generator=torch.Generator().manual_seed(19)).to(
         "cuda", torch.bfloat16)
     return make_embed_fn(model), x
+
+
+# the device kernels of K3's and K4's bf16 launches, by name in a profiler trace
+K3_BF16_KERNELS = ("bwd_prep_bf16", "bwd_bf16_wg", "bwd_dq_finish")
+K4_BF16_KERNELS = ("wattn_bf16_wg",)
+
+
+def kernel_share(rows, names):
+    """(ms, share) of the device time in ``rows`` ((name, ms, count) from
+    torch.profiler) spent in kernels whose names hold any of ``names``."""
+    total = sum(r[1] for r in rows)
+    ms = sum(r[1] for r in rows if any(k in r[0] for k in names))
+    return ms, (ms / total if total else 0.0)
 
 
 def profile_swin():
@@ -1726,6 +1747,8 @@ def profile_swin():
         f"host's clock ({enqueued * 1e3:.2f} ms to enqueue it), {device_ms:.2f} ms of device "
         f"time in {sum(r[2] for r in rows):.0f} kernels: the device is idle "
         f"{max(0.0, 1 - device_ms / (wall * 1e3)):.0%} of a forward")
+    k4_ms, k4_share = kernel_share(rows, K4_BF16_KERNELS)
+    log(f"[profile] K4 (wattn_bf16_wg) {k4_ms:.3f} ms a forward = {k4_share:.1%} of the device time")
     for name, ms, count in rows[:30]:
         log(f"[profile] {ms:8.3f} ms  {count:6.0f} x  {name[:110]}")
 
@@ -1852,7 +1875,9 @@ def phase_kernel_bwd():
     gen = torch.Generator().manual_seed(21)
     err = {"K3": {}, "K7 backward": {}}
     cases = [(24, 1370, 64, "DINOv2, B 2"), (4, 729, 72, "hd 72 as 80"), (6, 64, 32, "one tile"),
-             (2, 1, 64, "N 1"), (3, 137, 128, "hd 128")]
+             (2, 1, 64, "N 1"), (3, 137, 128, "hd 128"),
+             # bf16: more (head, 128-key) units than blocks, a last unit half dead
+             (140, 200, 64, "more units than SMs"), (133, 129, 32, "half-dead last unit")]
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         inputs = [(_attn_inputs(gen, bh, n, hd, dtype), _attn_inputs(gen, bh, n, hd, dtype)[0],
@@ -2157,7 +2182,8 @@ def phase_bwd_rates():
                                     "bound_ms": bound_ms, "bound_by": bound_by, "agreement": e}
             log(f"[rates] K3 {name:8s} B={b} BH={bh} N={n} hd={hd}: {ms['K3']:.3f} ms "
                 f"({ops / ms['K3'] / 1e9:.1f} TFLOP/s of the 10 BH N^2 hd it must do; bound "
-                f"{bound_ms:.3f} ms by {bound_by}) vs plain {ms['K3 plain']:.3f} ms, library "
+                f"{bound_ms:.3f} ms by {bound_by}, {bound_ms / ms['K3']:.1%} of it) vs plain "
+                f"{ms['K3 plain']:.3f} ms, library "
                 f"backward {ms['K3 library']:.3f} ms, K2 with statistics {ms['K2']:.3f} ms; "
                 f"agreement {e}; within {lib_rel:.3g} of the library's gradients' largest "
                 "magnitude")
@@ -2169,8 +2195,11 @@ def phase_bwd_rates():
 def phase_train_rates():
     """The bf16 DINOv2 ViT-B/14 train step at batch 8, 518 px (f32 master
     weights, triplet loss): with the kernels, with their plain versions and
-    on the eager path, in turns; peak memory of each; and where a step's time
-    goes."""
+    on the eager path, in turns; peak memory of each; where a step's time
+    goes; and the device time by kernel (torch.profiler over one step), K3's
+    share of it."""
+    from torch.profiler import ProfilerActivity, profile
+
     model, _ = create_model("dinov2", generator=torch.Generator().manual_seed(23))
     with torch.no_grad():  # LayerScale at its 1e-5 init would hide the blocks
         for name, p in model.named_parameters():
@@ -2227,6 +2256,16 @@ def phase_train_rates():
             with_kernels()
         enqueue = (time.perf_counter() - t0) / 3 * 1e3
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with_kernels()
+            torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+                   if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0),
+                  key=lambda r: -r[1])
+    k3_ms, k3_share = kernel_share(rows, K3_BF16_KERNELS)
+    out["profile"] = {"device_ms": sum(r[1] for r in rows), "kernels": sum(r[2] for r in rows),
+                      "k3_ms": k3_ms, "k3_share": k3_share,
+                      "top": [[n[:90], round(t, 3), c] for n, t, c in rows[:12]]}
     for name in paths:
         out[name] = {"ms": ms[name], "img_per_s": 8 / ms[name] * 1e3, "peak_gib": peak[name]}
     shares = {"forward": ms["forward"], "backward": ms["forward + backward"] - ms["forward"],
@@ -2240,6 +2279,11 @@ def phase_train_rates():
         f"{shares['backward']:.2f} ms + optimiser {shares['optimiser']:.2f} ms, and the host "
         f"enqueues it in {enqueue:.2f} ms; runs "
         f"{({k: [round(t, 2) for t in v] for k, v in runs.items()})}")
+    log(f"[profile] DINOv2 ViT-B/14 bf16 train step with the kernels: "
+        f"{out['profile']['device_ms']:.2f} ms of device time in {out['profile']['kernels']} "
+        f"kernels, K3's launches {k3_ms:.3f} ms of it ({k3_share:.1%}); by kernel:")
+    for name, t, count in rows[:12]:
+        log(f"[profile] {t:8.3f} ms  {count:6d} x  {name[:110]}")
     return out
 
 
@@ -3142,8 +3186,11 @@ def phase_swin_train_rates():
         f"{shares['backward']:.2f} ms + optimiser {shares['optimiser']:.2f} ms, and the host "
         f"enqueues it in {enqueue:.2f} ms; runs "
         f"{({k: [round(t, 2) for t in v] for k, v in runs.items()})}")
+    k4_ms, k4_share = kernel_share(rows, K4_BF16_KERNELS)
+    out["profile"]["k4_ms"], out["profile"]["k4_share"] = k4_ms, k4_share
     log(f"[profile] SwinV2-Base bf16 train step with K4 + K5: {out['profile']['device_ms']:.2f} "
-        f"ms of device time in {out['profile']['kernels']} kernels; by kernel:")
+        f"ms of device time in {out['profile']['kernels']} kernels, K4 {k4_ms:.3f} ms of it "
+        f"({k4_share:.1%}); by kernel:")
     for name, t, count in rows[:12]:
         log(f"[profile] {t:8.3f} ms  {count:6d} x  {name[:110]}")
     del model, state, step, x

@@ -40,7 +40,12 @@ def _biased(gen, bh, n, hd, groups, dtype, masked, scale_max=100.0):
 # wrap, one group, other head widths
 CASES = [(32, 576, 32, 4, 8, False), (32, 576, 32, 16, 2, True), (64, 144, 32, 32, 2, False),
          (12, 140, 32, 6, 2, True), (6, 16, 32, 1, 1, False), (12, 77, 16, 2, 3, True),
-         (4, 200, 64, 2, 1, False), (3, 1, 8, 3, 1, False)]
+         (4, 200, 64, 2, 1, False), (3, 1, 8, 3, 1, False),
+         # bf16 takes two images a block: groups of an odd number of images (the
+         # last block of each run has one), a run cut short at the end of the
+         # batch, hd 64 at the window size where only one image fits
+         (15, 576, 32, 5, 3, True), (10, 100, 16, 2, 5, False), (7, 130, 32, 2, 3, True),
+         (6, 320, 64, 3, 2, True), (9, 66, 64, 3, 3, False)]
 
 
 @pytest.mark.cuda

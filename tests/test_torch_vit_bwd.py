@@ -148,6 +148,68 @@ def test_grad_agreement_reads_relative_to_the_largest_magnitude():
         [va.GRAD_FLOOR * 0.5 * d * 2.0, va.GRAD_FLOOR * 0.5 * d * 1.0, va.GRAD_FLOOR * 0.5])
 
 
+def _k3_blocked_model(q, k, v, o, g, sm_scale, unit_keys=128, q_tile=64):
+    """csrc/vit_attn_bwd.cu's bf16 design written out in plain PyTorch: qs,
+    qz, gz and (m, c) precomputed per row; per (head, unit of 128 keys) the
+    query tiles of 64 stream past, s^T and dp^T formed once, dk and dv summed
+    in f32 over the tiles, and each unit's dq part t k added to an f32 sum in
+    unit order; dq scaled by scale / z and rounded once at the end."""
+    dt = q.dtype
+    qs = q * torch.tensor(va.scale_constant(sm_scale, dt), dtype=dt)
+    s_full = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    m = torch.ceil(s_full.amax(dim=-1, keepdim=True))  # the forward's shift
+    zinv = 1.0 / torch.exp2(s_full - m).sum(dim=-1, keepdim=True)
+    c = (g.float() * o.float()).sum(dim=-1, keepdim=True)
+    qz = (q.float() * (sm_scale * zinv)).to(dt).float()
+    gz = (g.float() * zinv).to(dt).float()
+    bh, n, hd = q.shape
+    dq_acc = torch.zeros((bh, n, hd))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for k0 in range(0, n, unit_keys):
+        ku, vu = k[:, k0:k0 + unit_keys].float(), v[:, k0:k0 + unit_keys].float()
+        dk_u = torch.zeros_like(ku)
+        dv_u = torch.zeros_like(vu)
+        for q0 in range(0, n, q_tile):
+            rows = slice(q0, q0 + q_tile)
+            st = torch.matmul(ku, qs[:, rows].float().transpose(-1, -2))
+            dpt = torch.matmul(vu, g[:, rows].float().transpose(-1, -2))
+            e = torch.exp2(st - m[:, rows].transpose(-1, -2))
+            t = (e * (dpt - c[:, rows].transpose(-1, -2))).to(dt).float()
+            dv_u += torch.matmul(e.to(dt).float(), gz[:, rows])
+            dk_u += torch.matmul(t, qz[:, rows])
+            dq_acc[:, rows] = dq_acc[:, rows] + torch.matmul(t.transpose(-1, -2), ku)
+        dk[:, k0:k0 + unit_keys], dv[:, k0:k0 + unit_keys] = dk_u.to(dt), dv_u.to(dt)
+    return (dq_acc * (sm_scale * zinv)).to(dt), dk, dv
+
+
+@pytest.mark.parametrize("bh,n,d", [(2, 137, 64), (3, 200, 32), (2, 129, 72), (1, 1, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_blocking_matches_plain_and_pallas(dtype, bh, n, d):
+    """The bf16 kernel's blocking (``_k3_blocked_model``) against
+    ``attention_bwd_plain`` within ``grad_agreement``'s bounds (the two round
+    at the same points; only the order of the f32 sums differs), and against
+    the JAX backward in interpret mode at this file's tolerances."""
+    q, k, v, g = _inputs(bh, n, d, seed=5)
+    if dtype == torch.bfloat16:
+        q, k, v, g = (t.astype(ml_dtypes.bfloat16) for t in (q, k, v, g))
+    sc = d ** -0.5
+    jq, jk, jv, jg = (jnp.asarray(t) for t in (q, k, v, g))
+    o = _attention_fwd_pallas(jq, jk, jv, sc, interpret=True)
+    want = _attention_bwd_pallas(jq, jk, jv, o, jg, sc, interpret=True)
+    tq, tk, tv, tg = (torch.from_numpy(np.asarray(t, np.float32)).to(dtype) for t in (q, k, v, g))
+    out = va.attention_plain(tq, tk, tv, sc)
+    got = _k3_blocked_model(tq, tk, tv, out, tg, sc)
+    plain = va.attention_bwd_plain(tq, tk, tv, out, tg, sc)
+    floors = va.grad_floors(tq, tk, tv, tg, sc)
+    rtol = F32_RTOL if dtype == torch.float32 else BF16_RTOL
+    for name, a, b, w, floor in zip(("dq", "dk", "dv"), got, plain, want, floors):
+        assert a.dtype == dtype
+        e = va.grad_agreement(a, b, floor)
+        assert va.grad_agrees(e), (name, e)
+        if n > 1 or name == "dv":  # at N = 1 dq and dk are residues of dp - c
+            _close(a.float().numpy(), np.asarray(w, np.float32), rtol, name)
+
+
 # --- K7 / K8 backwards ---------------------------------------------------------
 
 

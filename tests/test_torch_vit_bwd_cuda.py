@@ -28,7 +28,10 @@ def _grads(q, k, v, g, sc):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,n,hd", [(24, 1370, 64), (4, 729, 72), (6, 64, 32), (2, 1, 64),
-                                     (3, 137, 128), (2, 300, 16), (3, 65, 8)])
+                                     (3, 137, 128), (2, 300, 16), (3, 65, 8),
+                                     # more (head, 128-key) units than blocks on the card,
+                                     # and a last unit whose second half of keys is dead
+                                     (140, 200, 64), (133, 129, 32), (5, 640, 128)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_backward_matches_plain_on_card(dtype, bh, n, hd):
     _need_card()

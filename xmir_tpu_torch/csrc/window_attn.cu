@@ -16,25 +16,46 @@
 //       normalised; natural exp; p = e / z is normalised BEFORE it is rounded
 //       to v's dtype for the value product, and the product is rounded once.
 //
-// One window's K and V (N <= 576 tokens of hd = 32 in Swin-B: 72 KB in bf16,
-// 144 KB in f32) fit a block's shared memory, unlike a ViT head's, so one
-// block owns one (image, window, head): K and V are staged once (K normalised
-// on the way in) and every query row of the window passes over them twice.
-// Pass 1 finds each row's exact max (and, for K6, its sum z); pass 2
-// recomputes the scores and forms e, z and the value product. With the exact
-// max the arithmetic is the TPU kernels' own, up to the order of the f32
-// sums. The (N, N) scores never reach device memory. Ragged N is masked with
-// -inf and predicated: nothing is padded in device memory.
+// Both keep a window's K (normalised on the way in) and V in shared memory
+// and pass every query row over them twice: pass 1 finds each row's exact
+// max (and, for K6, its sum z); pass 2 recomputes the scores and forms e, z
+// and the value product. With the exact max the arithmetic is the TPU
+// kernels' own, up to the order of the f32 sums. The (N, N) scores never
+// reach device memory. Ragged N is masked with -inf and predicated: nothing
+// is padded in device memory.
 //
-// What bounds it: at hd = 32 each score costs 128 FLOP on the tensor cores,
-// one exp2 and, twice, 4 bytes of bias, which is the largest stream: per
-// block of Swin-B's stage 1 it is 2 x N^2 x 4 B = 2.65 MB from L2 against 147
-// KB of q, k, v and out. Blocks run in group order (row_of_block), so the
-// blocks of one group (one bias slice) run together and the slice stays in
-// L2. bf16 runs on mma.sync m16n8k16 (eight warps, each owning 16-row strips
-// of the window with no barrier between them); f32 on IEEE f32 FMAs (no
-// TF32), 64 query rows at a time. wgmma, TMA and sharing a bias tile between
-// the images of a group are later work.
+// K4 in bf16 (modes 0 and 1: every SwinV2 block, serving and training),
+// wattn_bf16_wg. What bounds it on this card: at hd = 32 a score costs 128
+// FLOP on the tensor cores, one exp2 and, in each pass, 4 bytes of f32 bias,
+// which is the largest stream: 2 x N^2 x 4 B = 2.65 MB per window at N = 576
+// from L2, against 147 KB of q, k, v and out. The design: a block owns two
+// images of one bias group (consecutive rows of one run of g_size folded
+// rows; one where two windows' K and V do not fit, as at hd = 64 and N =
+// 576), one consumer warpgroup each with that image's K and V resident in
+// the swizzled panel layout of wgmma.cuh (144 KB for two at N = 576, hd =
+// 32), and a producer warp that streams the group's 64 x 64 bias tiles once
+// for both images through a ring of three 16 KB stages: two TMA boxes a tile
+// (128-byte swizzled, zeros outside the slice), full and empty mbarriers; so
+// each tile leaves L2 once per pair of images and is read from shared memory
+// where the copy has already landed. Where N is not a multiple of 4 the
+// bias rows are not 16-byte aligned for the copy engine and the producer's
+// lanes copy 4 bytes at a time into the same layout. Both products are
+// wgmma: q k^T (m64n64k16, the normalised, scaled, rounded q as A from
+// registers, K from shared memory) and e v (e rounded to bf16 as A from
+// registers, V MN-major from shared memory). A group with an odd number of
+// images leaves one warpgroup idle on its last block. Registers (-Xptxas -v,
+// sm_90a): 107 / 120 (hd 32, modes 0 / 1), 152 / 156 (hd 64), 94 / 95 (hd
+// 16), no spills; shared memory 203 KB at N = 576, hd = 32. What bounds it
+// now: the per-tile work of the two warpgroups (bias adds and masks, the
+// exponentials, the products' latency); the copies are off its path
+// (PERF.md).
+//
+// K6 and f32 K4 keep one block per (image, window, head), K and V staged
+// once, and read their rows' f32 bias straight from L2 in both passes;
+// blocks run in group order (row_of_block) so a slice stays in L2. K6's bf16
+// body (wattn_bf16) runs on mma.sync m16n8k16, eight warps each owning 16-row
+// strips; f32 on IEEE f32 FMAs (no TF32), 64 query rows at a time. The
+// launcher picks the body by mode and dtype alone.
 //
 // hd is a multiple of 8 up to 64, zero-padded in shared memory to 16, 32 or
 // 64. Launches go on the caller's stream and allocate nothing.
@@ -46,6 +67,7 @@
 #include <cuda_runtime.h>
 
 #include "attn_mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -87,12 +109,52 @@ __device__ __forceinline__ float inv_norm(float sum_sq) {
   return 1.f / sqrtf(fmaxf(sum_sq, 1e-24f));
 }
 
+// Row row0 + r, columns vc .. vc + 7 of an (n, hd) bf16 matrix as one 16-byte
+// vector, zeros for a dead row or the head's padding. With `normalise` the
+// row is divided by its norm in f32, with `scale` then multiplied by c, and
+// rounded to bf16 once. The DP / 8 lanes that hold one row's vectors are
+// neighbours (the norm is a shuffle over them), and every lane of the warp
+// takes part.
+template <int DP>
+__device__ __forceinline__ uint4 load_bf16(const __nv_bfloat16* src, int row0, int r, int vc,
+                                           int n, int hd, bool normalise, bool scale, float c) {
+  constexpr int VPR = DP / 8;
+  uint4 raw = make_uint4(0, 0, 0, 0);
+  if (row0 + r < n && vc < hd) {
+    raw = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * hd + vc));
+  }
+  if (normalise || scale) {
+    __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
+    float f[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 t = __bfloat1622float2(p[i]);
+      f[2 * i] = t.x;
+      f[2 * i + 1] = t.y;
+    }
+    if (normalise) {
+      float ss = 0.f;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) ss = fmaf(f[i], f[i], ss);
+#pragma unroll
+      for (int off = 1; off < VPR; off <<= 1) ss += __shfl_xor_sync(kFull, ss, off);
+      const float rn = inv_norm(ss);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) f[i] = __fmul_rn(f[i], rn);
+    }
+    if (scale) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) f[i] = __fmul_rn(f[i], c);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
+  }
+  return raw;
+}
+
 // Rows [row0, row0 + rows) of an (n, hd) bf16 matrix into shared memory at
-// stride DP + 8, dead rows and a head's padding as zeros. With `normalise`
-// each row is divided by its norm in f32, with `scale` then multiplied by c,
-// and rounded to bf16 once. The DP / 8 lanes that hold one row's 16-byte
-// vectors are neighbours; rows * DP / 8 is a multiple of 32, so whole warps
-// take each step.
+// stride DP + 8 (load_bf16 per vector). rows * DP / 8 is a multiple of 32, so
+// whole warps take each step.
 template <int DP>
 __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                            int row0, int rows, int n, int hd, bool normalise,
@@ -100,37 +162,8 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16* dst, const __nv_bfloat
   constexpr int S = DP + 8, VPR = DP / 8;
   for (int idx = tid; idx < rows * VPR; idx += n_threads) {
     const int r = idx / VPR, vc = (idx - r * VPR) * 8;
-    uint4 raw = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n && vc < hd) {
-      raw = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * hd + vc));
-    }
-    if (normalise || scale) {
-      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
-      float f[8];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float2 t = __bfloat1622float2(p[i]);
-        f[2 * i] = t.x;
-        f[2 * i + 1] = t.y;
-      }
-      if (normalise) {
-        float ss = 0.f;
-#pragma unroll
-        for (int i = 0; i < 8; ++i) ss = fmaf(f[i], f[i], ss);
-#pragma unroll
-        for (int off = 1; off < VPR; off <<= 1) ss += __shfl_xor_sync(kFull, ss, off);
-        const float rn = inv_norm(ss);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) f[i] = __fmul_rn(f[i], rn);
-      }
-      if (scale) {
-#pragma unroll
-        for (int i = 0; i < 8; ++i) f[i] = __fmul_rn(f[i], c);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-    }
-    *reinterpret_cast<uint4*>(dst + r * S + vc) = raw;
+    *reinterpret_cast<uint4*>(dst + r * S + vc) =
+        load_bf16<DP>(src, row0, r, vc, n, hd, normalise, scale, c);
   }
 }
 
@@ -381,6 +414,258 @@ __global__ void __launch_bounds__(kThreads, 2) wattn_bf16(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K4 in bf16 (modes kScaled and kCosine): one block owns `images` (2, or 1
+// where two windows' K and V do not fit) consecutive rows of one run of d1
+// folded rows, which share one bias slice. Warpgroup w (warps 4 w .. 4 w + 3)
+// owns image w: its K (normalised) and V stay in shared memory in the panel
+// layout of wgmma.cuh, and it walks the window's 64-row query tiles, each
+// warp staging its 16 query rows (normalised, scaled, rounded) for ldmatrix.
+// Warp 8, the producer, streams the slice's 64 x 64 f32 bias tiles in the
+// order both warpgroups take them (per query tile: pass 1's key tiles, then
+// pass 2's) through a ring of `stages` tiles with cp.async, each tile's
+// landing reported to a full mbarrier and its release by the consumers' warps
+// to an empty one. Pass 1: s = q k^T by wgmma (A, the query fragments, from
+// registers; B, K, from shared memory), bias added, the exact row max. Pass 2:
+// s again, e = exp2(s - max), z += e, and the value product by wgmma with e
+// rounded to bf16 as A from registers and V as B. The arithmetic is wattn_bf16's.
+constexpr int kConsumerWarps = 8;                           // two warpgroups
+constexpr int kWgThreads = (kConsumerWarps + 1) * 32;       // and the producer warp
+constexpr int kBiasTileBytes = kBK * kBK * 4;               // one 64 x 64 f32 tile
+
+// Byte offset of bias element (r, c) in a ring stage: two 64 x 32 halves, each
+// row 128 bytes with its 16-byte chunks swizzled by r % 8, as the copy engine
+// writes them; float2 reads in the accumulator layout then meet at most two
+// to a bank.
+__device__ __forceinline__ int bias_offset(int r, int c) {
+  return (c >> 5) * (kBK * 128) + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4;
+}
+
+struct WgLayout {  // byte offsets in the block's 1024-aligned shared memory
+  int kv_bytes;    // one image's K (or V), [n_pad][DP] in the panel layout
+  int q;           // per consumer warp: 16 query rows at stride DP + 8
+  int ring;        // `stages` bias tiles
+  int bars;        // full[stages], then empty[stages]
+  int total;       // with 1024 bytes to align the start
+};
+
+__host__ __device__ inline WgLayout wg_layout(int dp, int n_pad, int images, int stages) {
+  WgLayout l;
+  l.kv_bytes = n_pad * dp * 2;
+  l.q = images * 2 * l.kv_bytes;
+  l.ring = (l.q + images * 4 * 16 * (dp + 8) * 2 + 1023) / 1024 * 1024;
+  l.bars = l.ring + stages * kBiasTileBytes;
+  l.total = l.bars + 2 * stages * 8 + 1024;
+  return l;
+}
+
+template <int DP, int MODE>
+__global__ void __launch_bounds__(kWgThreads, 1) wattn_bf16_wg(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
+    const __grid_constant__ CUtensorMap bias_map, const float* __restrict__ scale,
+    __nv_bfloat16* __restrict__ o, int bh, int n, int hd, Groups grp, int images, int stages,
+    int tma) {
+  constexpr int S = DP + 8, VPR = DP / 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = align_1024(smem_raw);
+  const int n_pad = (n + kBK - 1) / kBK * kBK, tiles = n_pad / kBK;
+  const WgLayout lay = wg_layout(DP, n_pad, images, stages);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  uint64_t* const empty = full + stages;
+  unsigned char* const ring = smem + lay.ring;
+
+  // the block's images: consecutive rows of one run of d1 rows (one bias slice)
+  const int per_run = (grp.d1 + images - 1) / images;  // blocks a run takes
+  const int run = blockIdx.x / per_run;
+  const int row0 = run * grp.d1 + (blockIdx.x - run * per_run) * images;
+  const int live_images = min(images, min((run + 1) * grp.d1, bh) - row0);
+  const int group = group_of(grp, row0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if (live_images <= 0) return;  // past the end of a short last run
+
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(full + st, tma ? 1 : 32);       // the producer, once its copies land
+      mbar_init(empty + st, 4 * live_images);   // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {  // the producer: the slice's bias tiles, in the consumers' order
+    if (tma && lane != 0) return;
+    const float* const bias_g = bias + static_cast<size_t>(group) * n * n;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int qt = 0; qt < tiles; ++qt) {
+      for (int pass = 0; pass < 2; ++pass) {
+        for (int kt = 0; kt < tiles; ++kt) {
+          mbar_wait(empty + stage, phase ^ 1);
+          unsigned char* const dst = ring + kBiasTileBytes * stage;
+          if (tma) {  // two 64 x 32 boxes; outside the slice reads as zeros
+            mbar_arrive_expect_tx(full + stage, kBiasTileBytes);
+            tma_load(dst, &bias_map, kt * kBK, qt * kBK, group, full + stage);
+            tma_load(dst + kBK * 128, &bias_map, kt * kBK + 32, qt * kBK, group, full + stage);
+          } else {  // rows not 16-byte aligned: 4-byte copies, zeros outside
+            const int r0 = qt * kBK, c0 = kt * kBK;
+            for (int idx = lane; idx < kBK * kBK; idx += 32) {
+              const int r = idx >> 6, c = idx & 63;
+              const bool live = r0 + r < n && c0 + c < n;
+              cp_async4(dst + bias_offset(r, c),
+                        bias_g + (live ? static_cast<size_t>(r0 + r) * n + c0 + c : 0), live);
+            }
+            mbar_arrive_cp_async(full + stage);
+          }
+          if (++stage == stages) stage = 0, phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, wq = warp & 3;
+  if (wg >= live_images) return;  // a run's odd last image leaves this warpgroup idle
+  const int row = row0 + wg;
+  const size_t base = static_cast<size_t>(row) * n * hd;
+  const int g = lane >> 2, t = lane & 3, wt = tid & 127;
+  const float c = q_factor<MODE>(scale, group, true);
+  unsigned char* const k_s = smem + wg * 2 * lay.kv_bytes;
+  unsigned char* const v_s = k_s + lay.kv_bytes;
+  const uint32_t k_tile = smem_addr(k_s), v_tile = smem_addr(v_s);
+
+  // this image's V (copied) and K (normalised with the cosine), in the panel layout
+  for (int idx = wt; idx < n_pad * VPR; idx += 128) {
+    const int r = idx / VPR, vc = (idx - r * VPR) * 8;
+    const bool live = r < n && vc < hd;
+    cp_async16(v_s + panel_offset<DP>(n_pad, r, vc),
+               v + base + (live ? static_cast<size_t>(r) * hd + vc : 0), live);
+  }
+  cp_async_commit();
+#pragma unroll 2
+  for (int idx = wt; idx < n_pad * VPR; idx += 128) {
+    const int r = idx / VPR, vc = (idx - r * VPR) * 8;
+    *reinterpret_cast<uint4*>(k_s + panel_offset<DP>(n_pad, r, vc)) =
+        load_bf16<DP>(k + base, 0, r, vc, n, hd, MODE == kCosine, false, 1.f);
+  }
+  cp_async_wait<0>();
+  fence_async_smem();
+  named_barrier(1 + wg, 128);
+
+  __nv_bfloat16* const q_w = reinterpret_cast<__nv_bfloat16*>(smem + lay.q) + warp * 16 * S;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int qt = 0; qt < tiles; ++qt) {
+    const int q0 = qt * kBK + 16 * wq;  // this warp's 16 rows
+    __syncwarp();
+    stage_bf16<DP>(q_w, q + base, q0, 16, n, hd, MODE == kCosine, true, c, lane, 32);
+    __syncwarp();
+    uint32_t qf[DP / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      ldmatrix_x4(qf[kk], q_w + (lane & 15) * S + kk * 16 + (lane >> 4) * 8);
+    }
+
+    // s = q k^T of key tile kt plus the ring's next bias tile; dead keys -inf
+    auto scores = [&](int kt, float (&s)[32]) {
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        Wgmma<64>::rs<0>(s, qf[kk], desc_k_major<DP>(k_tile, n_pad, kt * kBK, kk * 16), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      mbar_wait(full + stage, phase);
+      const unsigned char* const bt = ring + stage * kBiasTileBytes;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float2 b = *reinterpret_cast<const float2*>(
+              bt + bias_offset(16 * wq + g + 8 * h, 8 * j + 2 * t));
+          s[4 * j + 2 * h] = add_bias<MODE>(s[4 * j + 2 * h], b.x);
+          s[4 * j + 2 * h + 1] = add_bias<MODE>(s[4 * j + 2 * h + 1], b.y);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + stage);
+      if (++stage == stages) stage = 0, phase ^= 1;
+      if ((kt + 1) * kBK > n) {  // the ragged last tile
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          if (kt * kBK + 8 * (i >> 2) + 2 * t + (i & 1) >= n) s[i] = -INFINITY;
+        }
+      }
+    };
+
+    // pass 1: the exact max of rows g (h = 0) and g + 8 (h = 1)
+    float m[2] = {-INFINITY, -INFINITY};
+    for (int kt = 0; kt < tiles; ++kt) {
+      float s[32];
+      scores(kt, s);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        m[0] = fmaxf(m[0], fmaxf(s[4 * j], s[4 * j + 1]));
+        m[1] = fmaxf(m[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[h] = fmaxf(m[h], __shfl_xor_sync(kFull, m[h], 1));
+      m[h] = fmaxf(m[h], __shfl_xor_sync(kFull, m[h], 2));
+    }
+
+    // pass 2: the weights and the value product
+    float acc[DP / 2], z[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < tiles; ++kt) {
+      float s[32];
+      scores(kt, s);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
+        z[(i >> 1) & 1] += s[i];  // the unrounded e
+      }
+      uint32_t pf[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pf[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        Wgmma<DP>::template rs<1>(acc, pf[kk], desc_mn_major<DP>(v_tile, n_pad, kt * kBK + 16 * kk, 0), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(pf);
+    }
+    fence_regs(qf);
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float div = z[h];
+      div += __shfl_xor_sync(kFull, div, 1);
+      div += __shfl_xor_sync(kFull, div, 2);
+      const int r = q0 + g + 8 * h;
+      if (r >= n) continue;
+      __nv_bfloat16* dst = o + base + static_cast<size_t>(r) * hd;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (col < hd) {
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+              __floats2bfloat162_rn(acc[4 * j + 2 * h] / div, acc[4 * j + 2 * h + 1] / div);
+        }
+      }
+    }
+  }
+}
+
 // f32: 64 query rows at a time; thread (ty, tx) = (tid / 16, tid % 16) owns
 // query rows ty + 16 i (i < 4), score columns tx + 16 j (j < 4) and output
 // columns tx + 16 j (j < DP / 16). The 16 threads of a row are half a warp.
@@ -566,7 +851,7 @@ int launch_one(const Args& a) {
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), a.bias, a.scale, static_cast<float*>(a.o), a.n, a.hd,
         a.grp);
-  } else {
+  } else if constexpr (MODE == kV1) {
     const size_t bytes =
         sizeof(__nv_bfloat16) * (2 * static_cast<size_t>(n_pad) + kWarps * 16) * (DP + 8);
     if (bytes > kSmemLimit) return kTooLarge;
@@ -577,6 +862,38 @@ int launch_one(const Args& a) {
         static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
         static_cast<const __nv_bfloat16*>(a.v), a.bias, a.scale,
         static_cast<__nv_bfloat16*>(a.o), a.n, a.hd, a.grp);
+  } else {
+    // two images a block where their K and V fit, else one; three ring stages, else two
+    if (a.grp.m2 != 1 && a.grp.s2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    int images = 0, stages = 0;
+    for (int im = 2; im >= 1 && !images; --im) {
+      for (int st = 3; st >= 2 && !images; --st) {
+        if (wg_layout(DP, n_pad, im, st).total <= kSmemLimit) images = im, stages = st;
+      }
+    }
+    if (!images) return kTooLarge;
+    const int bytes = wg_layout(DP, n_pad, images, stages).total;
+    err = cudaFuncSetAttribute(wattn_bf16_wg<DP, MODE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int per_run = (a.grp.d1 + images - 1) / images;
+    const long long blocks = static_cast<long long>((a.bh + a.grp.d1 - 1) / a.grp.d1) * per_run;
+    if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+    // the bias as (N columns, N rows, G slices) for the copy engine, where its
+    // rows are 16-byte aligned; else the kernel copies 4 bytes at a time
+    const int tma = a.n % 4 == 0;
+    CUtensorMap map = {};
+    const int slices = (a.grp.m1 - 1) * a.grp.s1 + (a.grp.m2 - 1) * a.grp.s2 + 1;
+    if (tma && make_tensor_map(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, a.bias, a.n, a.n,
+                               static_cast<uint64_t>(slices), static_cast<uint64_t>(a.n) * 4,
+                               static_cast<uint64_t>(a.n) * a.n * 4, 32, kBK,
+                               CU_TENSOR_MAP_SWIZZLE_128B) != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    wattn_bf16_wg<DP, MODE><<<static_cast<unsigned>(blocks), kWgThreads, bytes, a.stream>>>(
+        static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+        static_cast<const __nv_bfloat16*>(a.v), a.bias, map, a.scale,
+        static_cast<__nv_bfloat16*>(a.o), a.bh, a.n, a.hd, a.grp, images, stages, tma);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -55,7 +55,9 @@ _SIGNATURES = {
     "xmir_ln_dense": (_P,) * 5 + (_I,) * 5 + (_P,) * 2,
     # q, k, v, o, stats (or null), dtype, bh, n, hd, scale * log2(e), stream
     "xmir_vit_attn": (_P,) * 5 + (_I,) * 4 + (_F, _P),
-    # q, k, v, o, g, stats, crow, dq, dk, dv, dtype, bh, n, hd, scale * log2(e), scale, stream
+    # dtype, bh, n, hd -> bytes of the backward's scratch (long long pointer)
+    "xmir_vit_attn_bwd_workspace": (_I,) * 4 + (_P,),
+    # q, k, v, o, g, stats, scratch, dq, dk, dv, dtype, bh, n, hd, scale * log2(e), scale, stream
     "xmir_vit_attn_bwd": (_P,) * 10 + (_I,) * 4 + (_F, _F, _P),
     # q, k, v, bias, scale, o, dtype, mode, bh, n, hd, d1, m1, s1, d2, m2, s2, stream
     "xmir_window_attn": (_P,) * 6 + (_I,) * 11 + (_P,),
@@ -121,7 +123,8 @@ def build() -> Path:
         out.unlink()
     tmp = out_dir / f"{_LIB_NAME}.{tag}.tmp"
     if ok:
-        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _, _ in jobs)]
+        # -lcuda: libcuda's cuTensorMapEncodeTiled, which makes the copy engine's tensor maps
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _, _ in jobs), "-lcuda"]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         ok = proc.returncode == 0
         log.append(f"$ {' '.join(cmd)}\n# rc {proc.returncode}\n{proc.stdout}{proc.stderr}")

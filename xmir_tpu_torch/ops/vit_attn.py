@@ -29,6 +29,8 @@ Two plain versions:
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .convnext_block import DTYPE_CODES, agrees  # noqa: F401  (agrees: this module's too)
@@ -250,11 +252,16 @@ def vit_attention_bwd(q, k, v, o, g, stats, sm_scale: float):
             or stats.device != q.device or not stats.is_contiguous()):
         raise ValueError(f"stats must be the forward kernel's ({bh}, {n}, 2) float32 tensor")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    crow = torch.empty((bh, n), dtype=torch.float32, device=q.device)
+    lib = _build.load()
+    nbytes = ctypes.c_longlong()
+    if lib.xmir_vit_attn_bwd_workspace(DTYPE_CODES[q.dtype], bh, n, hd, ctypes.byref(nbytes)):
+        raise ValueError(f"the backward kernel does not take {tuple(q.shape)} {q.dtype}")
+    # f32: c per row; bf16: the scaled operands, the f32 dq sums and the order counters
+    scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=q.device)
     with torch.cuda.device(q.device):
-        err = _build.load().xmir_vit_attn_bwd(
+        err = lib.xmir_vit_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
-            stats.data_ptr(), crow.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            stats.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             DTYPE_CODES[q.dtype], bh, n, hd, scale_constant(sm_scale, q.dtype), sm_scale,
             torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
