@@ -86,10 +86,11 @@ Phases, each of which raises (exit code != 0) on any failure:
  16. rates   K4 and K6 at the six SwinV2-Base shapes at B = 16, bf16 and f32,
              against their plain versions and one
              scaled_dot_product_attention call on pre-normalised inputs (timed
-             here, used nowhere in the port), with the time of the fold and
-             unfold copies around K4; K1' at Q = 1024, N = 100,000, D = 1024,
-             k = 2048 and at Q = 64, k = N, with K1 at k = 10 in the same
-             turns; SwinV2-Base bf16 (weights and input) batch 16 at 384 px
+             here, used nowhere in the port; the SDPA backend the default
+             dispatch picks, pinned and named), with the time of the fold and
+             unfold copies around K4; K1' at Q = 1024, N = 100,000,
+             D = 1024, k = 2048 and at Q = 64, k = N, with K1 at k = 10 in the
+             same turns; SwinV2-Base bf16 (weights and input) batch 16 at 384 px
              with K4, with K6, with the kernels' plain versions and on the
              eager path; CUDA events, in turns
  17. kernel  K3 (csrc/vit_attn_bwd.cu) against its plain version through the
@@ -167,11 +168,14 @@ Phases, each of which raises (exit code != 0) on any failure:
  27. rates   K5 at the six SwinV2-Base shapes at B = 8 (a train step's 24
              calls), bf16 and f32, against its plain version and one
              scaled_dot_product_attention backward with a float mask that
-             needs a gradient (timed here, used nowhere in the port)
+             needs a gradient (timed here, used nowhere in the port; the
+             SDPA backend the default dispatch picks, pinned and named beside
+             its time)
  28. rates   the bf16 SwinV2-Base train step at batch 8, 384 px with the
              kernels, their plain versions and on the eager path: img/s, peak
              memory, forward / backward / optimiser, the host's enqueue time
-             beside the device time by kernel (torch.profiler)
+             beside the device time by kernel (torch.profiler), K4's and K5's
+             shares of it
  29. slice   the other explainers of main-path step 4 through both saliency
              CLIs: SimAtt and SimCAM on DenseNet121 (224 px, f32), attention
              rollout on DINOv2 ViT-B/14 (518 px); cli.debug_insdel on one pair
@@ -291,6 +295,39 @@ def bound(ops, nbytes, dtype_name):
     operations over the peak rate of their type."""
     by_ops, by_bytes = ops / PEAK_OPS[dtype_name] * 1e3, nbytes / PEAK_BYTES * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+
+
+# SDPA backends the library yardsticks try, in order: the one the dispatcher
+# picks by default (its output bit-equal to the default call's) is pinned for
+# every shape, so that each run times the same library kernel
+SDPA_ORDER = ("CUDNN_ATTENTION", "FLASH_ATTENTION", "EFFICIENT_ATTENTION", "MATH")
+
+
+def under_backend(name, fn):
+    """fn() with SDPA restricted to the backend ``name`` (an SDPBackend member)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    with sdpa_kernel([getattr(SDPBackend, name)]):
+        return fn()
+
+
+def sdpa_backend(call):
+    """The backend the dispatcher picks for ``call()`` (a tensor): the first
+    of SDPA_ORDER whose result equals the default call's bit for bit, else
+    (not identified) the first under which it runs."""
+    want, first = call(), None
+    for name in SDPA_ORDER:
+        try:
+            got = under_backend(name, call)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        first = first or name
+        if torch.equal(got, want):
+            return name
+    if first is None:
+        raise RuntimeError("no SDPA backend runs this call")
+    return first
 
 
 def log(*args):
@@ -1616,7 +1653,7 @@ def phase_window_rates():
             name = str(dtype)[6:]
             total = {key: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
                      for key in out}
-            bound_by, fold_ms = set(), 0.0
+            bound_by, backends, fold_ms = set(), set(), 0.0
             for nw, h, n, shifted, count in SWIN_SHAPES:
                 q, k, v, bias, scale, g_size = _swin_inputs(gen, b, nw, h, n, shifted, dtype,
                                                             scale_max=30.0)
@@ -1635,14 +1672,22 @@ def phase_window_rates():
                         bw_qkv.permute(2, 1, 0, 3, 4).reshape(-1, n, SWIN_HD).contiguous()
                     q.reshape(h, nw, b, n, SWIN_HD).permute(2, 1, 3, 0, 4).reshape(b * nw, n, -1)
 
+                def sdpa():
+                    return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask, scale=1.0)
+
+                sdpa_name = sdpa_backend(sdpa)
+
+                def library():
+                    return under_backend(sdpa_name, sdpa)
+
+                backends.add(sdpa_name)
                 fns = {
                     "K4": lambda: va.biased_attention_fused(q, k, v, bias, scale, g_size, True),
                     "K4 plain": lambda: va.biased_attention_plain(q, k, v, bias, scale, g_size,
                                                                   True),
                     "K6": lambda: wa.window_attention_fused(*ops6),
                     "K6 plain": lambda: wa.window_attention_plain(*ops6),
-                    "library": lambda: F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
-                                                                      scale=1.0),
+                    "library": library,
                     "fold": folds,
                 }
                 shape = (f"B={b} windows={nw} H={h} N={n} "
@@ -1669,19 +1714,21 @@ def phase_window_rates():
                     f"({work[0] / ms['K4'] / 1e9:.1f} TFLOP/s; bound {bound_ms:.3f} ms by {by}, "
                     f"{bound_ms / ms['K4']:.1%} of it) vs "
                     f"plain {ms['K4 plain']:.3f} ms; K6 {ms['K6']:.3f} ms vs plain "
-                    f"{ms['K6 plain']:.3f} ms; library call {ms['library']:.3f} ms (max |diff| to "
-                    f"K6 {lib_err:.3g}); K4's fold + unfold copies {ms['fold']:.3f} ms; agreement "
+                    f"{ms['K6 plain']:.3f} ms; library call (SDPA, {sdpa_name}) "
+                    f"{ms['library']:.3f} ms (max |diff| to K6 {lib_err:.3g}); K4's fold + unfold copies {ms['fold']:.3f} ms; agreement "
                     f"K4 {e4}, K6 {e6}")
                 del q, k, v, bias, scale, ops6, lq, lk, lv, mask, bw_qkv, fns, lib
                 torch.cuda.empty_cache()
+            library = f"scaled_dot_product_attention, {'/'.join(sorted(backends))} backend"
             for key in out:
-                out[key][name] = dict(total[key], bound_by="/".join(sorted(bound_by)))
+                out[key][name] = dict(total[key], bound_by="/".join(sorted(bound_by)),
+                                      library=library)
             log(f"[rates] {name:8s} the {SWIN_DEPTH} calls of one SwinV2-Base forward at B={b}: "
                 + "; ".join(f"{key} {total[key]['ms']:.3f} ms (plain {total[key]['plain_ms']:.3f}, "
                             f"library {total[key]['library_ms']:.3f}, bound "
                             f"{total[key]['bound_ms']:.3f}: "
                             f"{total[key]['bound_ms'] / total[key]['ms']:.1%} of it)" for key in out)
-                + f"; K4's fold + unfold copies {fold_ms:.3f} ms")
+                + f"; K4's fold + unfold copies {fold_ms:.3f} ms; library = {library}")
             out["K4"][name]["fold_ms"] = fold_ms
     return out
 
@@ -1708,6 +1755,7 @@ def _swin_bf16_model():
 # the device kernels of K3's and K4's bf16 launches, by name in a profiler trace
 K3_BF16_KERNELS = ("bwd_prep_bf16", "bwd_bf16_wg", "bwd_dq_finish")
 K4_BF16_KERNELS = ("wattn_bf16_wg",)
+K5_BF16_KERNELS = ("window_bwd_prep", "window_bwd_main", "window_bwd_finish")
 
 
 def kernel_share(rows, names):
@@ -2959,7 +3007,7 @@ def phase_window_bwd_rates():
         name = str(dtype)[6:]
         total = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
         bound_by = {"bytes": 0.0, "operations": 0.0}  # ms of the summed bound by what bounds it
-        library = "scaled_dot_product_attention backward (mask gradient)"
+        backend = None
         for nw, h, n, shifted, count in SWIN_SHAPES:
             bh, groups, g_size = swin_fold(b, nw, h, shifted)
             q, k, v, bias, scale, g = _k5_inputs(gen, bh, groups, n, SWIN_HD, dtype, shifted,
@@ -2973,20 +3021,19 @@ def phase_window_bwd_rates():
             leaves = [t.detach().requires_grad_(True)
                       for t in (lq, lk, v[:, None], bias[gidx][:, None].to(dtype))]
             lg = g[:, None]
-            try:
-                lo = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
-                torch.autograd.grad(lo, leaves, lg, retain_graph=True)
 
-                def lib():
-                    return torch.autograd.grad(lo, leaves, lg, retain_graph=True)
-            except RuntimeError as exc:
-                library = ("autograd through biased_attention_reference (no SDPA backend gave a "
-                           f"mask gradient: {str(exc)[:80]})")
-                leaves = [t.detach().requires_grad_(True) for t in (q, k, v, bias, scale)]
-                lo = va.biased_attention_reference(*leaves, g_size, True)
+            def forward_backward():
+                out_ = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=1.0)
+                torch.autograd.grad(out_, leaves, lg, retain_graph=True)
+                return out_
 
-                def lib():
-                    return torch.autograd.grad(lo, leaves, g, retain_graph=True)
+            # the backend the default dispatch picks at the first shape, pinned for all
+            backend = backend or sdpa_backend(forward_backward)
+            lo = under_backend(backend, forward_backward)
+
+            def lib():
+                return under_backend(
+                    backend, lambda: torch.autograd.grad(lo, leaves, lg, retain_graph=True))
             fns = {"K5": lambda: va.biased_attention_bwd(q, k, v, bias, scale, o, g, g_size, True),
                    "plain": lambda: va.biased_attention_bwd_plain(q, k, v, bias, scale, o, g,
                                                                   g_size, True),
@@ -3008,9 +3055,11 @@ def phase_window_bwd_rates():
             total["bound_ms"] += count * bound_ms
             log(f"[rates] K5 {name:8s} {shape}: {ms['K5']:.3f} ms ({ops / ms['K5'] / 1e9:.1f} "
                 f"TFLOP/s of the 10 BH N^2 hd it must do; bound {bound_ms:.3f} ms by {by}) vs "
-                f"plain {ms['plain']:.3f} ms, library {ms['library']:.3f} ms; agreement {e}")
+                f"plain {ms['plain']:.3f} ms, library ({backend}) {ms['library']:.3f} ms; "
+                f"agreement {e}")
             del q, k, v, bias, scale, g, o, qf, kf, lq, lk, leaves, lo, lg, fns
             torch.cuda.empty_cache()
+        library = f"scaled_dot_product_attention backward (mask gradient), {backend} backend"
         out[name] = dict(total, bound_by=max(bound_by, key=bound_by.get), library=library)
         log(f"[rates] K5 {name:8s} the {SWIN_DEPTH} calls of one SwinV2-Base train step at B={b}: "
             f"{total['ms']:.3f} ms (plain {total['plain_ms']:.3f}, library "
@@ -3187,10 +3236,12 @@ def phase_swin_train_rates():
         f"enqueues it in {enqueue:.2f} ms; runs "
         f"{({k: [round(t, 2) for t in v] for k, v in runs.items()})}")
     k4_ms, k4_share = kernel_share(rows, K4_BF16_KERNELS)
-    out["profile"]["k4_ms"], out["profile"]["k4_share"] = k4_ms, k4_share
+    k5_ms, k5_share = kernel_share(rows, K5_BF16_KERNELS)
+    out["profile"].update(k4_ms=k4_ms, k4_share=k4_share, k5_ms=k5_ms, k5_share=k5_share)
     log(f"[profile] SwinV2-Base bf16 train step with K4 + K5: {out['profile']['device_ms']:.2f} "
         f"ms of device time in {out['profile']['kernels']} kernels, K4 {k4_ms:.3f} ms of it "
-        f"({k4_share:.1%}); by kernel:")
+        f"({k4_share:.1%}), K5 {k5_ms:.3f} ms ({k5_share:.1%}; {', '.join(K5_BF16_KERNELS)}); "
+        "by kernel:")
     for name, t, count in rows[:12]:
         log(f"[profile] {t:8.3f} ms  {count:6d} x  {name[:110]}")
     del model, state, step, x
@@ -3524,6 +3575,7 @@ def main():
             max_abs_err=max(e["max_abs_err"] for e in window_errs[key].values()),
             err_by_dtype=window_errs[key], ms=bf16["ms"], plain_ms=bf16["plain_ms"],
             bound_ms=bf16["bound_ms"], bound_by=bf16["bound_by"], library_ms=bf16["library_ms"],
+            library=bf16["library"],
             shape=f"bf16, the {SWIN_DEPTH} calls of one SwinV2-Base forward at B=16, 384 px "
                   "(sum over the six stage shapes by their block counts)",
             ms_by_shape=window_rates[key], launches_by_path=by_path[key]))

@@ -231,3 +231,134 @@ def test_floors_and_agreement():
     assert e["dscale"]["of_bound"] == pytest.approx(plain["of_bound"] / va.DSCALE_BOUND_FACTOR)
     assert not va.grad_agrees(e["dq"]) and va.grad_agrees(
         va.biased_grad_agreement(grads, grads, floors)["dbias"])
+
+
+def _k5_blocked_model(q, k, v, bias, scale, o, g, g_size, cosine, unit_keys=128, q_tile=64):
+    """csrc/window_attn_bwd.cu's bf16 design written out in plain PyTorch. The
+    prep pass: qh, kh; s2 once per (query tile, 64-key tile), each row's
+    exact max m and its z along the running max of the key tiles; c, qz, gz.
+    The main pass, per (folded row, unit of 128 keys) and query tile of 64:
+    s^T and dp^T formed once and shared by dk / dv (summed in f32 over the
+    tiles), the unit's dq part t kh (added to an f32 sum in key-unit order,
+    the first unit's part stored) and its dbias part t / z (added to dbias in
+    the group's row order, the first row's part stored). The finishing pass:
+    dqh = (the sum) scale / z, alpha, the cosine chain, one rounding."""
+    dt = q.dtype
+    bh, n, hd = q.shape
+    groups = bias.shape[0]
+    gidx = va.group_index(bh, groups, g_size, q.device)
+    sc = scale.reshape(-1).float()[gidx][:, None, None]
+    qf, kf = q.float(), k.float()
+    if cosine:
+        qinv, kinv = va.inv_norm(qf), va.inv_norm(kf)
+        qh32, kh32 = qf * qinv, kf * kinv
+        qh, kh = qh32.to(dt).float(), kh32.to(dt).float()
+    else:
+        qh32, kh32, qh, kh = qf, kf, qf, kf
+    b2 = (bias.float() * va.LOG2E)[gidx]
+    m = torch.full((bh, n, 1), float("-inf"))
+    z = torch.zeros((bh, n, 1))
+    for k0 in range(0, n, 64):  # the prep: z along the running max
+        s2 = torch.matmul(qh, kh[:, k0:k0 + 64].transpose(-1, -2)) * (sc * va.LOG2E) + b2[
+            :, :, k0:k0 + 64]
+        m_new = torch.maximum(m, s2.amax(dim=-1, keepdim=True))
+        z = z * torch.exp2(m - m_new) + torch.exp2(s2 - m_new).sum(dim=-1, keepdim=True)
+        m = m_new
+    zinv = 1.0 / z
+    c = (g.float() * o.float()).sum(dim=-1, keepdim=True)
+    qz = (qh32 * (sc * zinv)).to(dt).float()
+    gz = (g.float() * zinv).to(dt).float()
+    dq_sum = torch.zeros((bh, n, hd))
+    dbias = torch.zeros((groups, n, n))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    for row in range(bh):  # (level, group) order changes no sum: each chain has its own order
+        grp, level = row // g_size, row % g_size
+        for k0 in range(0, n, unit_keys):
+            keys = slice(k0, k0 + unit_keys)
+            khu, vu = kh[row, keys], v[row, keys].float()
+            dk_u, dv_u = torch.zeros_like(khu), torch.zeros_like(vu)
+            for q0 in range(0, n, q_tile):
+                rows = slice(q0, q0 + q_tile)
+                st = torch.matmul(khu, qh[row, rows].T) * (sc[row] * va.LOG2E) + b2[row, rows,
+                                                                                    keys].T
+                dpt = torch.matmul(vu, g[row, rows].float().T)
+                e = torch.exp2(st - m[row, rows].T)
+                t = e * (dpt - c[row, rows].T)
+                tb = t.to(dt).float()
+                dv_u += torch.matmul(e.to(dt).float(), gz[row, rows])
+                dk_u += torch.matmul(tb, qz[row, rows])
+                part = torch.matmul(tb.T, khu)
+                dq_sum[row, rows] = part if k0 == 0 else dq_sum[row, rows] + part
+                tz = (t * zinv[row, rows].T).T
+                dbias[grp, rows, keys] = tz if level == 0 else dbias[grp, rows, keys] + tz
+            if cosine:
+                dk_u = (dk_u - kh32[row, keys] * (dk_u * kh32[row, keys]).sum(-1, keepdim=True)
+                        ) * kinv[row, keys]
+            dk[row, keys], dv[row, keys] = dk_u.to(dt), dv_u.to(dt)
+    dqh = dq_sum * (sc * zinv)
+    alpha = (dqh * qh32).sum(dim=-1, keepdim=True)
+    dq = ((dqh - qh32 * alpha) * qinv if cosine else dqh).to(dt)
+    dscale = va._group_sums(alpha.sum(dim=(1, 2)), groups) / scale.reshape(-1).float()
+    return dq, dk, dv, dbias, dscale.reshape(scale.shape).to(scale.dtype)
+
+
+# (BH, G, g_size, N, hd): one folded row a group; two; eight over a ragged N
+# (not a multiple of the 64-row tiles or of the 128-key units)
+K5_BLOCKED_CASES = [(4, 4, 1, 64, 32), (8, 4, 2, 136, 32), (16, 2, 8, 72, 16)]
+
+
+@pytest.mark.parametrize("bh,G,gs,n,d", K5_BLOCKED_CASES)
+@pytest.mark.parametrize("cosine", [True, False], ids=["cosine", "scaled"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_blocking_matches_plain_and_pallas(dtype, cosine, bh, G, gs, n, d):
+    """The bf16 kernel's blocking (``_k5_blocked_model``) against
+    ``biased_attention_bwd_plain`` within ``biased_grad_agreement``'s bounds
+    (they round at the same points; only the order of the f32 sums and z's
+    running rescale differ), and at this file's tolerances against
+    ``_biased_bwd_pallas`` in interpret mode (f32) or the TPU kernel's
+    arithmetic in numpy (bf16, as the plain version is held)."""
+    q, k, v, bias, scale, g = _inputs(bh, G, n, d, 60.0 if cosine else 4.0, seed=bh + n)
+    bias = bias + np.where(np.random.default_rng(n).random((G, n, n)) < 0.3, -100.0,
+                           0.0).astype(np.float32)
+    if dtype == torch.bfloat16:
+        q, k, v, g = (_bf16(t) for t in (q, k, v, g))
+    tq, tk, tv, tg = (_t(a).to(dtype) for a in (q, k, v, g))
+    tb, ts = _t(bias), _t(scale)
+    o = va.biased_attention_plain(tq, tk, tv, tb, ts, gs, cosine)
+    got = _k5_blocked_model(tq, tk, tv, tb, ts, o, tg, gs, cosine)
+    plain = va.biased_attention_bwd_plain(tq, tk, tv, tb, ts, o, tg, gs, cosine)
+    floors = va.biased_grad_floors(tq, tk, tv, tb, ts, tg, gs, cosine)
+    for name, e in va.biased_grad_agreement(got, plain, floors, dtype).items():
+        assert va.grad_agrees(e), (name, e)
+    if dtype == torch.float32:
+        jin = [jnp.asarray(t) for t in (q, k, v, bias, scale)]
+        want = _biased_bwd_pallas(*jin, jnp.asarray(o.numpy()), jnp.asarray(g), gs, cosine,
+                                  interpret=True)
+        tols = TOLS
+    else:
+        want = _tpu_arithmetic_bf16(q, k, v, bias, scale, o.float().numpy(), g, gs, cosine)
+        rtol = va.GRAD_RTOL[torch.bfloat16]
+        tols = {name: rtol * (va.DSCALE_BOUND_FACTOR if name == "dscale" else 1)
+                for name in va.BIASED_GRAD_NAMES}
+    for name, a, w in zip(va.BIASED_GRAD_NAMES, got, want):
+        _close(a.float().numpy(), w, tols[name], name)
+
+
+@pytest.mark.parametrize("dtype,bh,n,hd,groups", [
+    (torch.float32, 512, 576, 32, 4), (torch.bfloat16, 128, 576, 32, 16),
+    (torch.bfloat16, 256, 144, 32, 32), (torch.bfloat16, 6, 72, 8, 3)])
+def test_k5_workspace_holds_every_part(dtype, bh, n, hd, groups):
+    """``biased_bwd_workspace_bytes``: the (BH, N, 4) f32 row statistics the
+    wrapper reads alpha from, and in bf16 qh, qz, gz, the f32 dq sums and
+    the two tables of int32 counters, one a (row, 64-row tile) and one a
+    (group, tile, 128-key unit)."""
+    got = va.biased_bwd_workspace_bytes(dtype, bh, n, hd, groups)
+    stats = bh * n * 4 * 4
+    if dtype == torch.float32:
+        assert got == stats
+        return
+    tiles, units = (n + 63) // 64, (n + 127) // 128
+    operands = 3 * bh * n * hd * 2 + bh * n * hd * 4
+    counters = bh * tiles * 4 + groups * tiles * units * 4
+    assert got == stats + operands + counters
+    assert stats % 16 == 0 and (stats + operands) % 16 == 0  # each part 16-byte aligned

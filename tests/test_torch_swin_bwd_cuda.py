@@ -29,10 +29,21 @@ def _inputs(bh, G, n, hd, dtype, shifted, seed, smax=100.0):
     return q, k, v, bias.cuda(), scale.cuda(), g
 
 
+# Swin-B's six folds at B = 8 (BH, G, g_size, N, hd, shifted): stage 1
+# unshifted (g_size 128) and shifted, stage 2 unshifted and shifted, stage 3,
+# stage 4 (N = 144)
+SWIN_B8 = [(512, 4, 128, 576, 32, False), (512, 64, 8, 576, 32, True),
+           (256, 8, 32, 576, 32, False), (256, 32, 8, 576, 32, True),
+           (128, 16, 8, 576, 32, False), (256, 32, 8, 144, 32, False)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,G,gs,n,hd,shifted", [
     (128, 4, 32, 576, 32, False), (128, 64, 2, 576, 32, True), (64, 32, 2, 144, 32, False),
-    (16, 1, 16, 576, 32, False), (8, 2, 4, 64, 8, True), (12, 3, 4, 96, 64, False)])
+    (16, 1, 16, 576, 32, False), (8, 2, 4, 64, 8, True), (12, 3, 4, 96, 64, False),
+    # groups of three rows: the prep's blocks take two, so a group's rows are
+    # split across blocks, one of them alone; a ragged 72-token window
+    (12, 4, 3, 72, 16, True)] + SWIN_B8)
 @pytest.mark.parametrize("cosine", [True, False])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_kernel_matches_plain_on_card(dtype, cosine, bh, G, gs, n, hd, shifted):
@@ -95,3 +106,21 @@ def test_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         va.biased_attention_bwd(q, k, v, bias, scale, q, g.transpose(1, 2).contiguous()
                                 .transpose(1, 2), 8, True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("bh,n,hd,groups", [(512, 576, 32, 4), (256, 144, 32, 32),
+                                            (12, 72, 16, 4), (6, 64, 64, 3)])
+def test_workspace_size_is_the_kernels(dtype, bh, n, hd, groups):
+    """``biased_bwd_workspace_bytes`` (which the wrapper allocates) equals the
+    scratch the CUDA source lays out (``xmir_window_attn_bwd_workspace``)."""
+    import ctypes
+
+    from xmir_tpu_torch.ops import _build
+
+    _need_card()
+    got = ctypes.c_longlong(0)
+    assert _build.load().xmir_window_attn_bwd_workspace(
+        va.DTYPE_CODES[dtype], bh, n, hd, groups, ctypes.byref(got)) == 0
+    assert got.value == va.biased_bwd_workspace_bytes(dtype, bh, n, hd, groups)

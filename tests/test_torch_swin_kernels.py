@@ -257,3 +257,106 @@ def test_wrappers_count_no_launch_on_the_cpu():
     va.biased_attention_fused(q, k, v, bias, scale, 2, True)
     wa.window_attention_fused(*(_t(a) for a in _window_inputs(0, 2, 1, 2, 16, 32, 1)))
     assert (va.biased_attention_fused.launches, wa.window_attention_fused.launches) == before
+
+
+def _k6_blocked_model(q_scaled, k_norm, v, bias, key_tile=64):
+    """csrc/window_attn.cu's bf16 K6 design written out in plain PyTorch: the
+    rows in (window, head, image) order, two images of one bias slice a
+    block (the second absent for an odd B); per image pass 1 over the 64-key
+    tiles for the exact max m and z along the running max (natural exp),
+    pass 2 for p = e / z (weights below 2^-126 taken as 0, as the kernel's
+    v1_weight_rcp does), rounded to v's dtype, the value product summed
+    in f32 over the key tiles and rounded once."""
+    nw, b, h, n, _ = q_scaled.shape
+    nwb = bias.shape[0]
+    out = torch.empty_like(v)
+    for w in range(nw):
+        for head in range(h):
+            slice_bias = bias[w if nwb > 1 else 0, head].float()
+            for b0 in range(0, b, 2):  # a block: images b0 and b0 + 1 of the slice
+                for img in range(b0, min(b0 + 2, b)):
+                    qi = q_scaled[w, img, head].float()
+                    ki, vi = k_norm[w, img, head].float(), v[w, img, head]
+                    m = torch.full((n, 1), float("-inf"))
+                    z = torch.zeros((n, 1))
+                    for k0 in range(0, n, key_tile):
+                        s = qi @ ki[k0:k0 + key_tile].T + slice_bias[:, k0:k0 + key_tile]
+                        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+                        z = z * torch.exp(m - m_new) + torch.exp(s - m_new).sum(-1, keepdim=True)
+                        m = m_new
+                    acc = torch.zeros((n, vi.shape[-1]))
+                    for k0 in range(0, n, key_tile):
+                        d = qi @ ki[k0:k0 + key_tile].T + slice_bias[:, k0:k0 + key_tile] - m
+                        p = torch.exp(d) / z
+                        p = torch.where(p < 2.0 ** -126, 0.0, p)
+                        acc += p.to(v.dtype).float() @ vi[k0:k0 + key_tile].float()
+                    out[w, img, head] = acc.to(v.dtype)
+    return out
+
+
+@pytest.mark.parametrize("nw,b,h,n,nwb", [(2, 3, 2, 64, 2), (3, 1, 2, 140, 1), (1, 2, 4, 77, 1),
+                                          (2, 2, 1, 130, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k6_blocking_matches_plain_and_pallas(dtype, nw, b, h, n, nwb):
+    """The bf16 kernel's two-image pass structure (``_k6_blocked_model``)
+    against ``window_attention_plain`` within ``window_agreement``'s bounds
+    (the same rounding points; the order of the f32 sums and z's running
+    rescale differ), and against the JAX kernel in interpret mode at this
+    file's bounds: an odd B, B = 1, NWB = NW and 1, ragged N."""
+    q, k, v, bias = _window_inputs(n + b, nw, b, h, n, 32, nwb)
+    tq, tk, tv = (_t(a, dtype) for a in (q, k, v))
+    got = _k6_blocked_model(tq, tk, tv, _t(bias))
+    assert va.agrees(va.window_agreement(got, wa.window_attention_plain(tq, tk, tv, _t(bias))))
+    jd = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    ref = jwa.window_attention_fused(_j(q, jd), _j(k, jd), _j(v, jd), _j(bias), interpret=True)
+    if dtype == torch.float32:
+        _close_f32(got.numpy(), ref)
+    else:
+        _close_bf16(got.float(), _t(np.asarray(ref, np.float32)))
+
+
+def _rn32(x):
+    """A rational rounded to the nearest float32 (ties to even)."""
+    from fractions import Fraction
+
+    c = np.float32(float(x))
+    near = (np.nextafter(c, np.float32(-np.inf)), c, np.nextafter(c, np.float32(np.inf)))
+    return min(near, key=lambda y: (abs(Fraction(float(y)) - x),
+                                    int(np.float32(y).view(np.uint32)) & 1))
+
+
+def test_k6_reciprocal_quotient_is_ieee_division():
+    """csrc/window_attn.cu::v1_weight_rcp, written out in exact rational
+    arithmetic with one rounding to float32 a step: e 2^64 times the
+    correctly rounded 1 / z, one FMA correction, 2^-64, quotients below
+    2^-126 taken as 0. It is e / z rounded once, which is the correctly
+    rounded e / z (IEEE division) wherever that is at least 2^-126, over the
+    kernel's range: weights of shifts d in [-87, 0] (mostly the tail), z in
+    [1, 576] and z with every kind of mantissa."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(0)
+    d = -rng.uniform(0, 87, 3000)
+    d[:1200] = -rng.uniform(75, 87, 1200)
+    es = np.exp(d).astype(np.float32)
+    zs = rng.uniform(1, 576, 3000).astype(np.float32)
+    zs[:600] = (1 + rng.integers(0, 2 ** 23, 600) * 2.0 ** -23).astype(np.float32)
+    up, down = Fraction(2) ** 64, Fraction(1, 2 ** 64)
+    checked = 0
+    for e32, z32 in zip(es, zs):
+        e, z = Fraction(float(e32)), Fraction(float(z32))
+        zr = Fraction(float(_rn32(1 / z)))
+        es_ = e * up
+        q = Fraction(float(_rn32(es_ * zr)))
+        r = Fraction(float(_rn32(es_ - q * z)))
+        p = Fraction(float(_rn32(r * zr + q))) * down
+        p = 0 if p < Fraction(1, 2 ** 126) else p
+        # the quotient rounded once to 24 bits (in the scaled range, so never
+        # to a denormal), then taken as 0 below 2^-126
+        want = Fraction(float(_rn32(e / z * up))) * down
+        want = 0 if want < Fraction(1, 2 ** 126) else want
+        assert p == want, (e32, z32)
+        if want:  # a normal quotient: that rounding is IEEE division's
+            assert want == Fraction(float(_rn32(e / z))), (e32, z32)
+            checked += 1
+    assert checked > 2000

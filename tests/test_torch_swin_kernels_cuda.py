@@ -72,7 +72,12 @@ def test_biased_attention_matches_plain_on_card(dtype, bh, n, hd, groups, g_size
 @pytest.mark.cuda
 @pytest.mark.parametrize("nw,b,h,n,d,nwb", [(16, 2, 4, 576, 32, 16), (4, 2, 8, 576, 32, 1),
                                             (1, 3, 32, 144, 32, 1), (3, 2, 2, 140, 16, 3),
-                                            (2, 1, 2, 77, 64, 1)])
+                                            (2, 1, 2, 77, 64, 1),
+                                            # a block takes two images of one slice:
+                                            # an odd B and B = 1 with a slice per
+                                            # window, an odd B with one per head
+                                            (4, 3, 8, 576, 32, 4), (16, 1, 4, 576, 32, 16),
+                                            (1, 5, 16, 576, 32, 1), (2, 3, 2, 66, 64, 2)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_window_attention_matches_plain_on_card(dtype, nw, b, h, n, d, nwb):
     _need_card()

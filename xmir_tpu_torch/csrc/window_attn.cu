@@ -24,8 +24,9 @@
 // reach device memory. Ragged N is masked with -inf and predicated: nothing
 // is padded in device memory.
 //
-// K4 in bf16 (modes 0 and 1: every SwinV2 block, serving and training),
-// wattn_bf16_wg. What bounds it on this card: at hd = 32 a score costs 128
+// K4 in bf16 (modes 0 and 1: every SwinV2 block, serving and training) and
+// K6 in bf16 (mode 2: the serving path under XMIR_SWIN_KERNEL=v1) share one
+// body, wattn_bf16_wg. What bounds K4 on this card: at hd = 32 a score costs 128
 // FLOP on the tensor cores, one exp2 and, in each pass, 4 bytes of f32 bias,
 // which is the largest stream: 2 x N^2 x 4 B = 2.65 MB per window at N = 576
 // from L2, against 147 KB of q, k, v and out. The design: a block owns two
@@ -50,12 +51,21 @@
 // exponentials, the products' latency); the copies are off its path
 // (PERF.md).
 //
-// K6 and f32 K4 keep one block per (image, window, head), K and V staged
+// K6 keeps its v1 arithmetic exactly in the same body: natural exp; pass 1
+// sums z along the running max of each row's four lanes (one exp a score and
+// a rescale a tile, each lane's share summed, then the four shares); pass 2
+// forms p = e / z (v1_weight_rcp: the correctly rounded quotient without a
+// division), rounds p to bf16 for the value product and rounds the product
+// once. Its rows lie in (window, image, head) order, so a block
+// takes two images of one (window, head) slice, H rows apart (row_of_block,
+// run_length). One exp a score in each pass: the exponentials bound it
+// sooner than K4's exp2 (PERF.md).
+//
+// f32 K4 and K6 keep one block per (image, window, head), K and V staged
 // once, and read their rows' f32 bias straight from L2 in both passes;
-// blocks run in group order (row_of_block) so a slice stays in L2. K6's bf16
-// body (wattn_bf16) runs on mma.sync m16n8k16, eight warps each owning 16-row
-// strips; f32 on IEEE f32 FMAs (no TF32), 64 query rows at a time. The
-// launcher picks the body by mode and dtype alone.
+// blocks run in group order (row_of_block) so a slice stays in L2; IEEE f32
+// FMAs (no TF32), 64 query rows at a time. The launcher picks the body by
+// dtype alone.
 //
 // hd is a multiple of 8 up to 64, zero-padded in shared memory to 16, 32 or
 // 64. Launches go on the caller's stream and allocate nothing.
@@ -73,8 +83,7 @@ namespace {
 
 constexpr int kBK = 64;         // keys per tile of a pass
 constexpr int kBQ = 64;         // f32: query rows per tile
-constexpr int kThreads = 256;   // 8 warps
-constexpr int kWarps = kThreads / 32;
+constexpr int kThreads = 256;   // f32: 8 warps
 constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -102,6 +111,13 @@ __device__ __forceinline__ int row_of_block(const Groups& g, int j) {
   const int per_window = g.d1, heads = g.m2, images = per_window / heads;
   const int w = j / per_window, r = j - w * per_window;
   return w * per_window + (r % images) * heads + r / images;
+}
+
+// Rows of one bias slice that follow each other in row_of_block's order: K4
+// the d1 folded rows of a group; K6 the B images of a (window, head).
+template <int MODE>
+__host__ __device__ __forceinline__ int run_length(const Groups& g) {
+  return MODE == kV1 ? g.d1 / g.m2 : g.d1;
 }
 
 // 1 / max(||x||, 1e-12), as the TPU kernel clamps it
@@ -212,6 +228,19 @@ __device__ __forceinline__ float v1_weight(float d, float z) {
   return d < -87.f ? 0.f : expf(d) / z;
 }
 
+// The same weight in the bf16 body, without a division a score: zr is the
+// correctly rounded 1 / z of the row; e 2^64 times zr and one FMA correction
+// (Markstein's) give the correctly rounded quotient, scaled back by 2^-64
+// (powers of two: exact). It equals IEEE e / z wherever that is at least
+// 2^-126 (normal), and below that it is taken as 0, as above (with e scaled,
+// no step of the correction meets a denormal).
+__device__ __forceinline__ float v1_weight_rcp(float d, float z, float zr) {
+  const float e = __fmul_rn(expf(d), 0x1p64f);
+  const float q = __fmul_rn(e, zr);
+  const float p = __fmul_rn(fmaf(fmaf(-q, z, e), zr, q), 0x1p-64f);
+  return p < 0x1p-126f ? 0.f : p;
+}
+
 // score + bias: K4 works in exp2 space, so its bias is scaled by log2(e)
 // first (one rounding, as the TPU wrapper scales the table); never an FMA.
 template <int MODE>
@@ -228,207 +257,26 @@ __device__ __forceinline__ float q_factor(const float* scale, int g, bool bf16) 
   return (MODE == kScaled && bf16) ? __bfloat162float(__float2bfloat16(c)) : c;
 }
 
-// bf16: warp w owns the 16-row strips w, w + 8, ... of the window. In the
-// m16n8 fragments a thread holds rows g = lane / 4 and g + 8, columns
-// 2 (lane % 4) and + 1 of every 8-column tile.
-template <int DP, int MODE>
-__global__ void __launch_bounds__(kThreads, 2) wattn_bf16(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const float* __restrict__ bias,
-    const float* __restrict__ scale, __nv_bfloat16* __restrict__ o, int n, int hd, Groups grp) {
-  constexpr int S = DP + 8;  // row stride: 16-byte aligned, ldmatrix conflict-free
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int n_pad = (n + kBK - 1) / kBK * kBK;
-  __nv_bfloat16* const k_s = reinterpret_cast<__nv_bfloat16*>(smem);  // [n_pad][S]
-  __nv_bfloat16* const v_s = k_s + n_pad * S;                         // [n_pad][S]
-  __nv_bfloat16* const q_s = v_s + n_pad * S;                         // [kWarps][16][S]
-
-  const int bh = row_of_block<MODE>(grp, blockIdx.x);
-  const size_t base = static_cast<size_t>(bh) * n * hd;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int group = group_of(grp, bh);
-  const float* const bias_g = bias + static_cast<size_t>(group) * n * n;
-  const float c = q_factor<MODE>(scale, group, true);
-
-  stage_bf16<DP>(k_s, k + base, 0, n_pad, n, hd, MODE == kCosine, false, 1.f, tid, kThreads);
-  stage_bf16<DP>(v_s, v + base, 0, n_pad, n, hd, false, false, 1.f, tid, kThreads);
-  __syncthreads();
-
-  const int tiles = n_pad / kBK, strips = (n + 15) / 16;
-  const bool even = (n & 1) == 0;  // then a row's column pairs are 8-byte aligned
-  __nv_bfloat16* const q_w = q_s + warp * 16 * S;
-  for (int strip = warp; strip < strips; strip += kWarps) {
-    const int row0 = strip * 16;
-    __syncwarp();  // the last strip's fragments are read
-    stage_bf16<DP>(q_w, q + base, row0, 16, n, hd, MODE == kCosine, MODE != kV1, c, lane, 32);
-    __syncwarp();
-    uint32_t qf[DP / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk) {
-      ldmatrix_x4(qf[kk], q_w + (lane & 15) * S + kk * 16 + (lane >> 4) * 8);
-    }
-    // dead rows of a ragged strip read the last row's bias and store nothing
-    const float* const b_lo = bias_g + static_cast<size_t>(min(row0 + g, n - 1)) * n;
-    const float* const b_hi = bias_g + static_cast<size_t>(min(row0 + g + 8, n - 1)) * n;
-
-    // scores of the strip against key tile `tile`, bias added, dead keys -inf
-    auto scores = [&](int tile, float (&s)[kBK / 8][4]) {
-      const __nv_bfloat16* ks = k_s + tile * kBK * S;
-#pragma unroll
-      for (int nt = 0; nt < kBK / 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < DP / 16; ++kk) {
-#pragma unroll
-        for (int np = 0; np < kBK / 16; ++np) {
-          uint32_t r[4];
-          ldmatrix_x4(r, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * S + kk * 16 +
-                             ((lane >> 3) & 1) * 8);
-          mma_bf16(s[2 * np], qf[kk], r[0], r[1]);
-          mma_bf16(s[2 * np + 1], qf[kk], r[2], r[3]);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < kBK / 8; ++nt) {
-        const int col = tile * kBK + nt * 8 + 2 * t;
-        float2 lo = make_float2(0.f, 0.f), hi = make_float2(0.f, 0.f);
-        if (even) {
-          if (col < n) {
-            lo = __ldg(reinterpret_cast<const float2*>(b_lo + col));
-            hi = __ldg(reinterpret_cast<const float2*>(b_hi + col));
-          }
-        } else {
-          if (col < n) {
-            lo.x = __ldg(b_lo + col);
-            hi.x = __ldg(b_hi + col);
-          }
-          if (col + 1 < n) {
-            lo.y = __ldg(b_lo + col + 1);
-            hi.y = __ldg(b_hi + col + 1);
-          }
-        }
-        s[nt][0] = col < n ? add_bias<MODE>(s[nt][0], lo.x) : -INFINITY;
-        s[nt][1] = col + 1 < n ? add_bias<MODE>(s[nt][1], lo.y) : -INFINITY;
-        s[nt][2] = col < n ? add_bias<MODE>(s[nt][2], hi.x) : -INFINITY;
-        s[nt][3] = col + 1 < n ? add_bias<MODE>(s[nt][3], hi.y) : -INFINITY;
-      }
-    };
-
-    // pass 1: the exact max of rows g (h = 0) and g + 8 (h = 1); for K6 also
-    // the sum z of exp(s - max), carried along a running max
-    float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.f, 0.f};
-    for (int tile = 0; tile < tiles; ++tile) {
-      float s[kBK / 8][4];
-      scores(tile, s);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int nt = 0; nt < kBK / 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-        const float m_new = fmaxf(m[h], mx);
-        if (MODE == kV1) {
-          float sum = 0.f;
-#pragma unroll
-          for (int nt = 0; nt < kBK / 8; ++nt) {
-            sum += expf(s[nt][2 * h] - m_new) + expf(s[nt][2 * h + 1] - m_new);
-          }
-          z[h] = z[h] * expf(m[h] - m_new) + sum;  // this thread's share of the row's z
-        }
-        m[h] = m_new;
-      }
-    }
-    if (MODE == kV1) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        z[h] += __shfl_xor_sync(kFull, z[h], 1);
-        z[h] += __shfl_xor_sync(kFull, z[h], 2);
-      }
-    }
-
-    // pass 2: the weights and the value product
-    float acc[DP / 8][4];
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[dt][e] = 0.f;
-    for (int tile = 0; tile < tiles; ++tile) {
-      float s[kBK / 8][4];
-      scores(tile, s);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int nt = 0; nt < kBK / 8; ++nt) {
-#pragma unroll
-          for (int e = 2 * h; e < 2 * h + 2; ++e) {
-            if (MODE == kV1) {
-              s[nt][e] = v1_weight(s[nt][e] - m[h], z[h]);
-            } else {
-              s[nt][e] = exp2f(s[nt][e] - m[h]);
-              z[h] += s[nt][e];  // the unrounded e
-            }
-          }
-        }
-      }
-      const __nv_bfloat16* vs = v_s + tile * kBK * S;
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-        for (int dp = 0; dp < DP / 16; ++dp) {
-          uint32_t r[4];
-          ldmatrix_x4_trans(r, vs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * S + dp * 16 +
-                                   (lane >> 4) * 8);
-          mma_bf16(acc[2 * dp], pa, r[0], r[1]);
-          mma_bf16(acc[2 * dp + 1], pa, r[2], r[3]);
-        }
-      }
-    }
-
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float div = 1.f;  // K6's weights are already normalised
-      if (MODE != kV1) {
-        div = z[h];
-        div += __shfl_xor_sync(kFull, div, 1);
-        div += __shfl_xor_sync(kFull, div, 2);
-      }
-      const int row = row0 + g + 8 * h;
-      if (row >= n) continue;
-      __nv_bfloat16* dst = o + base + static_cast<size_t>(row) * hd;
-#pragma unroll
-      for (int dt = 0; dt < DP / 8; ++dt) {
-        const int col = dt * 8 + 2 * t;
-        if (col < hd) {
-          *reinterpret_cast<__nv_bfloat162*>(dst + col) =
-              __floats2bfloat162_rn(acc[dt][2 * h] / div, acc[dt][2 * h + 1] / div);
-        }
-      }
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// K4 in bf16 (modes kScaled and kCosine): one block owns `images` (2, or 1
-// where two windows' K and V do not fit) consecutive rows of one run of d1
-// folded rows, which share one bias slice. Warpgroup w (warps 4 w .. 4 w + 3)
-// owns image w: its K (normalised) and V stay in shared memory in the panel
-// layout of wgmma.cuh, and it walks the window's 64-row query tiles, each
-// warp staging its 16 query rows (normalised, scaled, rounded) for ldmatrix.
-// Warp 8, the producer, streams the slice's 64 x 64 f32 bias tiles in the
-// order both warpgroups take them (per query tile: pass 1's key tiles, then
-// pass 2's) through a ring of `stages` tiles with cp.async, each tile's
-// landing reported to a full mbarrier and its release by the consumers' warps
-// to an empty one. Pass 1: s = q k^T by wgmma (A, the query fragments, from
-// registers; B, K, from shared memory), bias added, the exact row max. Pass 2:
-// s again, e = exp2(s - max), z += e, and the value product by wgmma with e
-// rounded to bf16 as A from registers and V as B. The arithmetic is wattn_bf16's.
+// bf16, K4 (modes kScaled and kCosine) and K6 (kV1): one block owns `images`
+// (2, or 1 where two windows' K and V do not fit) consecutive rows of one run
+// of rows that share one bias slice: K4's d1 folded rows; K6's B images of a
+// (window, head) slice (or of a head, where the windows share it), taken in
+// row_of_block's (window, head, image) order, so that a block's two rows lie H
+// apart. Warpgroup w (warps 4 w .. 4 w + 3) owns image w: its K (normalised
+// for the cosine) and V stay in shared memory in the panel layout of
+// wgmma.cuh, and it walks the window's 64-row query tiles, each warp staging
+// its 16 query rows (K4: normalised, scaled, rounded) for ldmatrix. Warp 8,
+// the producer, streams the slice's 64 x 64 f32 bias tiles in the order both
+// warpgroups take them (per query tile: pass 1's key tiles, then pass 2's)
+// through a ring of `stages` tiles, each tile's landing reported to a full
+// mbarrier and its release by the consumers' warps to an empty one. Pass 1:
+// s = q k^T by wgmma (A, the query fragments, from registers; B, K, from
+// shared memory), bias added, the exact row max; K6 also z along the running
+// max of the row's four lanes (expf). Pass
+// 2: s again; K4 e = exp2(s - max), z += e; K6 p = e / z (v1_weight); the
+// value product by wgmma with e (p) rounded to bf16 as A from registers and V
+// as B; K4 divides by z, K6 rounds the product as it is.
 constexpr int kConsumerWarps = 8;                           // two warpgroups
 constexpr int kWgThreads = (kConsumerWarps + 1) * 32;       // and the producer warp
 constexpr int kBiasTileBytes = kBK * kBK * 4;               // one 64 x 64 f32 tile
@@ -475,12 +323,14 @@ __global__ void __launch_bounds__(kWgThreads, 1) wattn_bf16_wg(
   uint64_t* const empty = full + stages;
   unsigned char* const ring = smem + lay.ring;
 
-  // the block's images: consecutive rows of one run of d1 rows (one bias slice)
-  const int per_run = (grp.d1 + images - 1) / images;  // blocks a run takes
+  // the block's images: consecutive rows of one run of rows (one bias slice),
+  // in row_of_block's order
+  const int run_rows = run_length<MODE>(grp);
+  const int per_run = (run_rows + images - 1) / images;  // blocks a run takes
   const int run = blockIdx.x / per_run;
-  const int row0 = run * grp.d1 + (blockIdx.x - run * per_run) * images;
-  const int live_images = min(images, min((run + 1) * grp.d1, bh) - row0);
-  const int group = group_of(grp, row0);
+  const int row0 = run * run_rows + (blockIdx.x - run * per_run) * images;
+  const int live_images = min(images, min((run + 1) * run_rows, bh) - row0);
+  const int group = group_of(grp, row_of_block<MODE>(grp, row0));
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if (live_images <= 0) return;  // past the end of a short last run
 
@@ -526,7 +376,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wattn_bf16_wg(
 
   const int wg = warp >> 2, wq = warp & 3;
   if (wg >= live_images) return;  // a run's odd last image leaves this warpgroup idle
-  const int row = row0 + wg;
+  const int row = row_of_block<MODE>(grp, row0 + wg);
   const size_t base = static_cast<size_t>(row) * n * hd;
   const int g = lane >> 2, t = lane & 3, wt = tid & 127;
   const float c = q_factor<MODE>(scale, group, true);
@@ -558,7 +408,7 @@ __global__ void __launch_bounds__(kWgThreads, 1) wattn_bf16_wg(
   for (int qt = 0; qt < tiles; ++qt) {
     const int q0 = qt * kBK + 16 * wq;  // this warp's 16 rows
     __syncwarp();
-    stage_bf16<DP>(q_w, q + base, q0, 16, n, hd, MODE == kCosine, true, c, lane, 32);
+    stage_bf16<DP>(q_w, q + base, q0, 16, n, hd, MODE == kCosine, MODE != kV1, c, lane, 32);
     __syncwarp();
     uint32_t qf[DP / 16][4];
 #pragma unroll
@@ -599,25 +449,49 @@ __global__ void __launch_bounds__(kWgThreads, 1) wattn_bf16_wg(
       }
     };
 
-    // pass 1: the exact max of rows g (h = 0) and g + 8 (h = 1)
-    float m[2] = {-INFINITY, -INFINITY};
+    // pass 1: the exact max of rows g (h = 0) and g + 8 (h = 1); K6 also z
+    float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.f, 0.f}, zr[2];
     for (int kt = 0; kt < tiles; ++kt) {
       float s[32];
       scores(kt, s);
+      if constexpr (MODE == kV1) {  // the quad's running max of the row, this lane's share of z
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        m[0] = fmaxf(m[0], fmaxf(s[4 * j], s[4 * j + 1]));
-        m[1] = fmaxf(m[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        for (int h = 0; h < 2; ++h) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+          const float m_new = fmaxf(m[h], mx);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            sum += expf(s[4 * j + 2 * h] - m_new) + expf(s[4 * j + 2 * h + 1] - m_new);
+          }
+          z[h] = z[h] * expf(m[h] - m_new) + sum;
+          m[h] = m_new;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          m[0] = fmaxf(m[0], fmaxf(s[4 * j], s[4 * j + 1]));
+          m[1] = fmaxf(m[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+        }
       }
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       m[h] = fmaxf(m[h], __shfl_xor_sync(kFull, m[h], 1));
       m[h] = fmaxf(m[h], __shfl_xor_sync(kFull, m[h], 2));
+      if constexpr (MODE == kV1) {
+        z[h] += __shfl_xor_sync(kFull, z[h], 1);
+        z[h] += __shfl_xor_sync(kFull, z[h], 2);
+        zr[h] = 1.f / z[h];
+      }
     }
 
     // pass 2: the weights and the value product
-    float acc[DP / 2], z[2] = {0.f, 0.f};
+    float acc[DP / 2];
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
     for (int kt = 0; kt < tiles; ++kt) {
@@ -625,8 +499,12 @@ __global__ void __launch_bounds__(kWgThreads, 1) wattn_bf16_wg(
       scores(kt, s);
 #pragma unroll
       for (int i = 0; i < 32; ++i) {
-        s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
-        z[(i >> 1) & 1] += s[i];  // the unrounded e
+        if constexpr (MODE == kV1) {
+          s[i] = v1_weight_rcp(s[i] - m[(i >> 1) & 1], z[(i >> 1) & 1], zr[(i >> 1) & 1]);
+        } else {
+          s[i] = exp2f(s[i] - m[(i >> 1) & 1]);
+          z[(i >> 1) & 1] += s[i];  // the unrounded e
+        }
       }
       uint32_t pf[4][4];
 #pragma unroll
@@ -648,9 +526,12 @@ __global__ void __launch_bounds__(kWgThreads, 1) wattn_bf16_wg(
 
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      float div = z[h];
-      div += __shfl_xor_sync(kFull, div, 1);
-      div += __shfl_xor_sync(kFull, div, 2);
+      float div = 1.f;  // K6's weights are already normalised
+      if constexpr (MODE != kV1) {
+        div = z[h];
+        div += __shfl_xor_sync(kFull, div, 1);
+        div += __shfl_xor_sync(kFull, div, 2);
+      }
       const int r = q0 + g + 8 * h;
       if (r >= n) continue;
       __nv_bfloat16* dst = o + base + static_cast<size_t>(r) * hd;
@@ -851,20 +732,16 @@ int launch_one(const Args& a) {
         static_cast<const float*>(a.q), static_cast<const float*>(a.k),
         static_cast<const float*>(a.v), a.bias, a.scale, static_cast<float*>(a.o), a.n, a.hd,
         a.grp);
-  } else if constexpr (MODE == kV1) {
-    const size_t bytes =
-        sizeof(__nv_bfloat16) * (2 * static_cast<size_t>(n_pad) + kWarps * 16) * (DP + 8);
-    if (bytes > kSmemLimit) return kTooLarge;
-    err = cudaFuncSetAttribute(wattn_bf16<DP, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    wattn_bf16<DP, MODE><<<a.bh, kThreads, bytes, a.stream>>>(
-        static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
-        static_cast<const __nv_bfloat16*>(a.v), a.bias, a.scale,
-        static_cast<__nv_bfloat16*>(a.o), a.n, a.hd, a.grp);
   } else {
-    // two images a block where their K and V fit, else one; three ring stages, else two
-    if (a.grp.m2 != 1 && a.grp.s2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    // two images a block where their K and V fit, else one; three ring stages, else two.
+    // K4's rows run through the groups in order; K6's are (window, image, head)
+    if (MODE != kV1 && a.grp.m2 != 1 && a.grp.s2 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (MODE == kV1 && (a.grp.d2 != 1 || a.grp.s2 != 1 || a.grp.s1 != a.grp.m2 ||
+                        a.grp.d1 % a.grp.m2 != 0 || a.bh % a.grp.d1 != 0)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
     int images = 0, stages = 0;
     for (int im = 2; im >= 1 && !images; --im) {
       for (int st = 3; st >= 2 && !images; --st) {
@@ -876,8 +753,9 @@ int launch_one(const Args& a) {
     err = cudaFuncSetAttribute(wattn_bf16_wg<DP, MODE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int per_run = (a.grp.d1 + images - 1) / images;
-    const long long blocks = static_cast<long long>((a.bh + a.grp.d1 - 1) / a.grp.d1) * per_run;
+    const int run_rows = run_length<MODE>(a.grp);
+    const int per_run = (run_rows + images - 1) / images;
+    const long long blocks = static_cast<long long>((a.bh + run_rows - 1) / run_rows) * per_run;
     if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
     // the bias as (N columns, N rows, G slices) for the copy engine, where its
     // rows are 16-byte aligned; else the kernel copies 4 bytes at a time

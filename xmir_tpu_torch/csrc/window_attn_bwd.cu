@@ -22,9 +22,62 @@
 //
 // What does not carry over from the TPU: there a (1, N, N) f32 dbias block
 // stays resident across a group's contiguous grid steps and is added to in
-// order. Blocks on the card run in no order, so the work is split in three
-// kernels that each own their output; nothing is added up with atomics and
-// two runs are bit-equal:
+// order. Blocks on the card run in no order; nothing here is added up with
+// atomics in an order that changes, and two runs are bit-equal.
+//
+// bf16 (every SwinV2 block's backward in training: 24 calls a Swin-B step),
+// three launches and a memset of counters. What bounds it on the H100: 10 BH
+// N^2 hd operations (five products) against eight (BH, N, hd) tensors and the
+// bias and dbias tables moved once, by bytes at Swin-B's shapes (0.673 ms a
+// step at B = 8). The main pass moves most through L2: each row reads its
+// bias tile and adds its dbias part, 12 B a score (PERF.md: by arithmetic,
+// not a counter). The design:
+//   window_bwd_prep    a block per (four rows of a group, run of query
+//                      tiles), kh resident, the group's bias tiles by TMA
+//                      once for all four: s = qh kh^T once by wgmma, each
+//                      row's exact max m and z along running maxima (z
+//                      differs from the sum at the exact max by rounding
+//                      only); then c = rowsum(g o) and qh, qz, gz for the
+//                      main pass, and (m, 1 / z, c) into `stats`;
+//   window_bwd_main    a persistent block per SM takes (row, 128-key) units:
+//                      per (query tile, 64-key half) s^T and dp^T are formed
+//                      once on wgmma and feed all outputs: dk and dv
+//                      (registers, the whole unit), the unit's dq part (t kh,
+//                      ordered adds across the row's key units) and its dbias
+//                      part (t / z written over the bias tile it came from,
+//                      ordered adds across the group's rows). 12 BH N^2 hd
+//                      operations with the prep's scores, against 20 in the
+//                      f32 kernels below;
+//   window_bwd_finish  dq = (the sum) (scale / z), alpha into `stats`, the
+//                      cosine chain, one rounding.
+// dbias: each row's t / z (BH N^2 4 B in all, 680 MB at stage 1) must be
+// summed over g_size rows in a fixed order. Of the two ways: (a) ordered adds
+// of each unit's 64 x 128 tile behind a counter per (group, query tile, key
+// unit), as K3 orders dq; (b) per-(group, query tile) partials over a block's
+// run of rows, summed in a fixed order afterwards. (b) needs a block to keep
+// a partial across rows: one unit's partials for all query tiles (9 x 32 KB at
+// N = 576) do not fit beside the ring, and holding a run's rows at once
+// (their K, V and dk / dv accumulators) spills past the 232 registers the
+// consumers have; partials in device memory per run of R rows cost BH / R N^2
+// 4 B written and read again (170 MB at stage 1 for R = 4). (a) moves each
+// row's part once through L2 by the copy engine (BH N^2 4 B of reductions, 1.3
+// GB over a step's 24 calls at B = 8), and its cost is the chain: each link is
+// one reduction's round trip (a few us). Units run level-major ((level,
+// group, key unit), unit_of), so a link's predecessor is G U units earlier:
+// at most ceil(132 / (G U)) links of one chain fall in one wave of 132 units,
+// 7 at stage 1 unshifted (G U = 4 x 5), 2 at stage 3 (16 x 5), 1 elsewhere,
+// against 9 query tiles of work a unit. So (a).
+// Registers (-Xptxas -v, sm_90a): the main kernel 168 at its 384 threads,
+// of which the third warpgroup (producer and reducers) gives its own up
+// (setmaxnreg 40) and the consumers take 232; 68 bytes of spill stores. The
+// prep 96 at its 544 threads, with 42-86 bytes of spills at hd 16-32 (four
+// rows a block still beat two of 105 registers and no spills in development
+// runs). Shared memory: the main kernel 201 KB at hd 32 (three ring stages of
+// 49 KB: bias 32 KB, four operand tiles, the stats; kh and v of the unit,
+// t^T), 200 KB at hd 64 (two stages); the prep 218 KB at N = 576, hd 32.
+//
+// f32 (only under XMIR_FUSED_ATTN=1 f32 training), three kernels that each
+// own their output:
 //   dq     one block per (folded row, 64-query tile) streams the window's
 //          64-key tiles twice: the exact row max, then z, dp, t and dq. It
 //          writes each query row's (m, 1 / z, c, alpha) to `stats`.
@@ -32,23 +85,14 @@
 //          with those statistics and keeps dk and dv in f32 registers.
 //   dbias  one block per (group, 64-query tile, 64-key tile) walks the
 //          group's g_size folded rows in order, recomputing s and dp for its
-//          tile, and keeps the tile's dbias in f32 registers: a fixed-order
-//          reduction with no scratch beyond `stats` (BH N 16 bytes).
-// Scores are computed four times and dp three times: 20 BH N^2 hd
-// operations against the minimum of 10. The (N, N) tiles never reach device
-// memory.
-//
-// What bounds it on the H100: 10 BH N^2 hd operations against eight
-// (BH, N, hd) tensors (q, k, v, o, g in; dq, dk, dv out) and the bias and
-// dbias tables moved once: bytes in
-// bf16 at Swin-B's shapes, operations in f32. bf16 runs on mma.sync m16n8k16
-// (four warps a block), f32 on IEEE f32 FMAs (no TF32), 256 threads with a
-// 4 x 4 block each. wgmma, TMA, one pass that shares the scores between the
-// three outputs, and sharing the bias tile's loads are later work.
+//          tile, and keeps the tile's dbias in f32 registers.
+// Scores four times and dp three times (20 BH N^2 hd operations); IEEE f32
+// FMAs (no TF32), 256 threads with a 4 x 4 block each.
 //
 // hd is a multiple of 8 up to 64, zero-padded in shared memory to 16, 32 or
-// 64; N a multiple of 8 (ragged tiles are masked); BH == G g_size. Launches
-// go on the caller's stream and allocate nothing.
+// 64; N a multiple of 8 (ragged tiles are masked, or read as zeros by the
+// copy engine); BH == G g_size. Launches go on the caller's stream and
+// allocate nothing: the wrapper hands over the scratch.
 
 #include <cmath>
 #include <cstdint>
@@ -57,6 +101,7 @@
 #include <cuda_runtime.h>
 
 #include "attn_mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -206,397 +251,796 @@ __device__ __forceinline__ int group_of(const Params& p, int bh) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16: four warps; warp w owns tile rows 16 w .. 16 w + 15. In the m16n8
-// fragments a thread holds rows g = lane / 4 and g + 8, columns 2 (lane % 4)
-// and + 1 of every 8-column tile.
+// bf16: a prep pass, one main pass, a finishing pass (the file's header).
 
-// s (+)= A B^T for 16 rows of A (fragments af) against the 64 rows of b_s
+constexpr int kSmemLimit = 232448;  // bytes a block may use on sm_90
+constexpr int kUnitKeys = 128;      // keys of one unit of the main pass
+constexpr int kBiasTile = kT * kT * 4;  // a 64 x 64 f32 bias tile
+
+// Byte offset of f32 element (r, c) of a bias (or dbias) tile of 64 rows in
+// shared memory: boxes of 64 rows x 32 columns side by side, each row 128
+// bytes with its 16-byte chunks swizzled by r % 8, as the copy engine's
+// 128-byte swizzle writes and reads them.
+__device__ __forceinline__ int bias_offset(int r, int c) {
+  return (c >> 5) * (kT * 128) + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4;
+}
+
+// Rows [r0, r0 + rows) of an (n, hd) bf16 matrix into rows t0 .. of a
+// panel-layout tile of `tile_rows` rows (wgmma.cuh); with `normalise` each
+// row times its inverse norm in f32, rounded once (load_rows' arithmetic).
+// Zeros past n and in the head's padding. The DP / 8 lanes of a row are
+// neighbours and rows * DP / 8 is a multiple of n_threads (whole warps).
 template <int DP>
-__device__ __forceinline__ void mma_tile(float (&s)[kT / 8][4], const uint32_t (&af)[DP / 16][4],
-                                         const bf16* b_s, int lane) {
+__device__ __forceinline__ void load_panel(unsigned char* dst, int tile_rows, int t0,
+                                           const bf16* src, int r0, int rows, int n, int hd,
+                                           bool normalise, int tid, int n_threads) {
+  constexpr int VPR = DP / 8;
+#pragma unroll 4
+  for (int idx = tid; idx < rows * VPR; idx += n_threads) {
+    const int r = idx / VPR, vc = (idx - r * VPR) * 8;
+    uint4 raw = make_uint4(0, 0, 0, 0);
+    if (r0 + r < n && vc < hd) {
+      raw = __ldg(reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * hd + vc));
+    }
+    if (normalise) {
+      float ss = sumsq8(raw);
+#pragma unroll
+      for (int off = 1; off < VPR; off <<= 1) ss += __shfl_xor_sync(kFull, ss, off);
+      const float rn = inv_norm(ss);
+      __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 t = __bfloat1622float2(p[i]);
+        p[i] = __floats2bfloat162_rn(__fmul_rn(t.x, rn), __fmul_rn(t.y, rn));
+      }
+    }
+    *reinterpret_cast<uint4*>(dst + panel_offset<DP>(tile_rows, t0 + r, vc)) = raw;
+  }
+}
+
+// Eight bf16 values as f32.
+__device__ __forceinline__ void unpack8(uint4 raw, float (&f)[8]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(p[i]);
+    f[2 * i] = t.x;
+    f[2 * i + 1] = t.y;
+  }
+}
+__device__ __forceinline__ uint4 pack8(const float (&f)[8]) {
+  uint4 raw;
+  uint32_t* p = reinterpret_cast<uint32_t*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) p[i] = pack_bf16(f[2 * i], f[2 * i + 1]);
+  return raw;
+}
+
+// 2^x by the special-function unit (ex2.approx, 2 ulp; results below 2^-126
+// flush to zero: e only weighs a bf16 product and an f32 sum of order 1).
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// --- the prep pass ---------------------------------------------------------
+// A block owns `images` (4, 2 or 1: as many as whose K fit) rows of one group
+// and a run of q_per_block query tiles; warpgroup w owns row w with its kh
+// resident (panel layout), warp 16 streams the group's 64 x 64 bias tiles
+// once for all rows through a TMA ring (K4's producer, one pass). Per query
+// tile each warp stages its 16 rows of qh for ldmatrix; per pair of key
+// tiles s = qh kh^T by wgmma (both products in flight at once), s2, and each
+// lane's running max and z of its share of a row (exp2_fast, no shuffles); the
+// row's four lanes then agree on m and add their z rescaled to it. Then per
+// row: c = rowsum(g o), 1 / z, and qh, qz = qh32 (scale / z), gz = g / z
+// rounded to bf16 for the main pass; stats = (m, 1 / z, c, 0).
+constexpr int kPrepConsumers = 16;                     // warps: four warpgroups
+constexpr int kPrepThreads = (kPrepConsumers + 1) * 32;  // and the producer warp
+
+struct PrepLayout {  // byte offsets in the block's 1024-aligned shared memory
+  int k_bytes;       // one row's kh, [n_pad][DP] in the panel layout
+  int q;             // per consumer warp: 16 query rows at stride DP + 8
+  int ring;          // `stages` bias tiles
+  int bars;          // full[stages], then empty[stages]
+  int total;         // with 1024 bytes to align the start
+};
+
+__host__ __device__ inline PrepLayout prep_layout(int dp, int n_pad, int images, int stages) {
+  PrepLayout l;
+  l.k_bytes = n_pad * dp * 2;
+  l.q = images * l.k_bytes;
+  l.ring = (l.q + images * 4 * 16 * (dp + 8) * 2 + 1023) / 1024 * 1024;
+  l.bars = l.ring + stages * kBiasTile;
+  l.total = l.bars + 2 * stages * 8 + 1024;
+  return l;
+}
+
+template <int DP, bool COS>
+__global__ void __launch_bounds__(kPrepThreads, 1) window_bwd_prep(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ o,
+    const bf16* __restrict__ go, const __grid_constant__ CUtensorMap bias_map,
+    const float* __restrict__ scale, float4* __restrict__ stats, bf16* __restrict__ qh_out,
+    bf16* __restrict__ qz_out, bf16* __restrict__ gz_out, int n, int hd, int g_size, int images,
+    int stages, int q_per_block) {
   constexpr int S = DP + 8;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = align_1024(smem_raw);
+  const int n_pad = (n + kT - 1) / kT * kT, tiles = n_pad / kT;
+  const PrepLayout lay = prep_layout(DP, n_pad, images, stages);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem + lay.bars);
+  uint64_t* const empty = full + stages;
+  unsigned char* const ring = smem + lay.ring;
+
+  // the block: (group, its rows row0 .., a run of query tiles)
+  const int chunks = (tiles + q_per_block - 1) / q_per_block;
+  const int per_group = (g_size + images - 1) / images;
+  const int rest = blockIdx.x / chunks, chunk = blockIdx.x - rest * chunks;
+  const int group = rest / per_group;
+  const int row0 = group * g_size + (rest - group * per_group) * images;
+  const int live_images = min(images, (group + 1) * g_size - row0);
+  const int qt0 = chunk * q_per_block, qt1 = min(tiles, qt0 + q_per_block);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  if (tid == 0) {
+    for (int st = 0; st < stages; ++st) {
+      mbar_init(full + st, 1);                  // the producer, once its copies land
+      mbar_init(empty + st, 4 * live_images);   // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kPrepConsumers) {  // the producer: the group's bias tiles, in the consumers' order
+    if (lane != 0) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int qt = qt0; qt < qt1; ++qt) {
+      for (int kt = 0; kt < tiles; ++kt) {
+        mbar_wait(empty + stage, phase ^ 1);
+        unsigned char* const dst = ring + kBiasTile * stage;
+        mbar_arrive_expect_tx(full + stage, kBiasTile);  // two 64 x 32 boxes, zeros outside
+        tma_load(dst, &bias_map, kt * kT, qt * kT, group, full + stage);
+        tma_load(dst + kT * 128, &bias_map, kt * kT + 32, qt * kT, group, full + stage);
+        if (++stage == stages) stage = 0, phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3, wt = tid & 127;
+  if (wg >= live_images) return;  // a group's odd last row leaves this warpgroup idle
+  const int row = row0 + wg;
+  const size_t base = static_cast<size_t>(row) * n * hd;
+  const float sc = scale[group], csc = __fmul_rn(sc, kLog2e);
+  unsigned char* const k_s = smem + wg * lay.k_bytes;
+  const uint32_t k_tile = smem_addr(k_s);
+  load_panel<DP>(k_s, n_pad, 0, k + base, 0, n_pad, n, hd, COS, wt, 128);
+  fence_async_smem();
+  named_barrier(1 + wg, 128);
+
+  bf16* const q_w = reinterpret_cast<bf16*>(smem + lay.q) + warp * 16 * S;
+  auto one = [](int) { return 1.f; };
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int q0 = qt * kT + 16 * wq;  // this warp's 16 rows
+    __syncwarp();
+    load_rows<DP>(q_w, q + base, q0, 16, n, hd, COS, one, lane, 32);
+    __syncwarp();
+    uint32_t qf[DP / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      ldmatrix_x4(qf[kk], q_w + (lane & 15) * S + kk * 16 + (lane >> 4) * 8);
+    }
+    // s2 of key tiles kt, kt + 1 (two products in flight, then the two
+    // tiles' bias and the running max and z of each lane's share of its rows)
+    float m[2] = {-INFINITY, -INFINITY}, z[2] = {0.f, 0.f};
+    for (int kt = 0; kt < tiles; kt += 2) {
+      float s[2][32];
+      const int pair = min(2, tiles - kt);
+      wgmma_fence();
 #pragma unroll
-    for (int np = 0; np < kT / 16; ++np) {
-      uint32_t r[4];
-      ldmatrix_x4(r, b_s + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * S + kk * 16 +
-                         ((lane >> 3) & 1) * 8);
-      mma_bf16(s[2 * np], af[kk], r[0], r[1]);
-      mma_bf16(s[2 * np + 1], af[kk], r[2], r[3]);
+      for (int p2 = 0; p2 < 2; ++p2) {
+        if (p2 < pair) {
+#pragma unroll
+          for (int kk = 0; kk < DP / 16; ++kk) {
+            Wgmma<64>::rs<0>(s[p2], qf[kk],
+                             desc_k_major<DP>(k_tile, n_pad, (kt + p2) * kT, kk * 16), kk);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s[0]);
+      fence_regs(s[1]);
+#pragma unroll
+      for (int p2 = 0; p2 < 2; ++p2) {
+        if (p2 == pair) break;
+        float (&sp)[32] = s[p2];
+        const int k0 = (kt + p2) * kT;
+        mbar_wait(full + stage, phase);
+        const unsigned char* const bt = ring + stage * kBiasTile;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float2 b = *reinterpret_cast<const float2*>(
+                bt + bias_offset(16 * wq + g + 8 * h, 8 * j + 2 * t));
+            sp[4 * j + 2 * h] = logit2(sp[4 * j + 2 * h], csc, __fmul_rn(b.x, kLog2e));
+            sp[4 * j + 2 * h + 1] = logit2(sp[4 * j + 2 * h + 1], csc, __fmul_rn(b.y, kLog2e));
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + stage);
+        if (++stage == stages) stage = 0, phase ^= 1;
+        if (k0 + kT > n) {  // the ragged last tile
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            if (k0 + 8 * (i >> 2) + 2 * t + (i & 1) >= n) sp[i] = -INFINITY;
+          }
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {  // every lane holds a live key of the first tile
+          float mx = m[h];
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            mx = fmaxf(mx, fmaxf(sp[4 * j + 2 * h], sp[4 * j + 2 * h + 1]));
+          }
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            sum += exp2_fast(sp[4 * j + 2 * h] - mx) + exp2_fast(sp[4 * j + 2 * h + 1] - mx);
+          }
+          z[h] = z[h] * exp2_fast(m[h] - mx) + sum;
+          m[h] = mx;
+        }
+      }
+    }
+    fence_regs(qf);
+
+    // rows q0 + g (h = 0) and q0 + g + 8: the row's max over the quad's four
+    // lanes, each lane's z moved to it, summed; the lanes take columns 8 t + 32 i
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = fmaxf(m[h], __shfl_xor_sync(kFull, m[h], 1));
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
+      z[h] *= exp2_fast(m[h] - mx);
+      m[h] = mx;
+      z[h] += __shfl_xor_sync(kFull, z[h], 1);
+      z[h] += __shfl_xor_sync(kFull, z[h], 2);
+      const int r = q0 + g + 8 * h;
+      const bool live = r < n;
+      const size_t off = base + static_cast<size_t>(min(r, n - 1)) * hd;
+      constexpr int VL = (DP + 31) / 32;  // the lane's vectors of the row: columns 8 t + 32 i
+      uint4 rq[VL], rg[VL], ro[VL];       // every load of the row in flight at once
+#pragma unroll
+      for (int i = 0; i < VL; ++i) {
+        const int vc = 8 * t + 32 * i;
+        rq[i] = rg[i] = ro[i] = make_uint4(0, 0, 0, 0);
+        if (vc < hd) {
+          rq[i] = __ldg(reinterpret_cast<const uint4*>(q + off + vc));
+          rg[i] = __ldg(reinterpret_cast<const uint4*>(go + off + vc));
+          ro[i] = __ldg(reinterpret_cast<const uint4*>(o + off + vc));
+        }
+      }
+      // c = rowsum(g o); the sum of squares of q in row_inv_norm's pairwise tree
+      // (each vector's over the quad's butterfly, then the two halves of hd 64)
+      float c = 0.f, qss = 0.f;
+#pragma unroll
+      for (int i = 0; i < VL; ++i) {
+        float gv[8], ov[8];
+        unpack8(rg[i], gv);
+        unpack8(ro[i], ov);
+#pragma unroll
+        for (int k2 = 0; k2 < 8; ++k2) c = fmaf(gv[k2], ov[k2], c);
+        float ss = sumsq8(rq[i]);
+        ss += __shfl_xor_sync(kFull, ss, 1);
+        ss += __shfl_xor_sync(kFull, ss, 2);
+        qss = i == 0 ? ss : qss + ss;
+      }
+      c += __shfl_xor_sync(kFull, c, 1);
+      c += __shfl_xor_sync(kFull, c, 2);
+      if (!live) continue;
+      const float zinv = 1.f / z[h], szr = __fmul_rn(sc, zinv);
+      const float qinv = COS ? inv_norm(qss) : 1.f;
+#pragma unroll
+      for (int i = 0; i < VL; ++i) {
+        const int vc = 8 * t + 32 * i;
+        if (vc >= hd) continue;
+        float x[8], gv[8], qz[8];
+        unpack8(rq[i], x);
+        unpack8(rg[i], gv);
+#pragma unroll
+        for (int k2 = 0; k2 < 8; ++k2) {
+          if (COS) x[k2] = __fmul_rn(x[k2], qinv);  // qh32
+          qz[k2] = __fmul_rn(x[k2], szr);
+          gv[k2] = __fmul_rn(gv[k2], zinv);
+        }
+        *reinterpret_cast<uint4*>(qh_out + off + vc) = pack8(x);
+        *reinterpret_cast<uint4*>(qz_out + off + vc) = pack8(qz);
+        *reinterpret_cast<uint4*>(gz_out + off + vc) = pack8(gv);
+      }
+      if (t == 0) stats[static_cast<size_t>(row) * n + r] = make_float4(m[h], zinv, c, 0.f);
     }
   }
 }
 
-// acc += P (64 columns, rounded to bf16) . b_s (64 rows x DP)
+// The bulk groups this thread committed before its last one are complete.
+__device__ __forceinline__ void bulk_wait_older() {
+  asm volatile("cp.async.bulk.wait_group 1;\n" ::: "memory");
+}
+
+// --- the main pass ---------------------------------------------------------
+// A block per SM takes units of (folded row, 128 keys) in the order that
+// unit_of and next_unit give. Warpgroup w holds keys 64 w .. 64 w + 63 of the unit (kh
+// normalised, v) in the panel layout; warp 8 streams per query tile the
+// unit's 64 x 128 bias tile (four TMA boxes), the row's qh, g, qz, gz tiles
+// (a box a panel) and its (m, 1 / z, c) through a ring, counted in bytes on a
+// full mbarrier. Per query tile each warpgroup forms s^T = kh qh^T and dp^T =
+// v g^T once (wgmma, both operands from shared memory), then per score s2, e,
+// t = e (dp - c) and t / z, which it writes over the bias value it read: the
+// stage's bias tile becomes the unit's dbias part. dv += e^T gz and dk += t^T
+// qz (wgmma, e and t rounded to bf16 as A from registers); t^T goes to shared
+// memory, and the warpgroup's dq part t kh over its own 64 keys (run under the
+// next tile's s^T and dp^T) is staged in f32 over two of the stage's operand
+// tiles once both warpgroups are done with the stage (a `consumed` mbarrier
+// per stage): so the warpgroups share no barrier inside a tile and drift
+// apart, one's exponentials under the other's products. Warp 9 + s adds the
+// two parts (warpgroup 0's plus 1's) and takes ring stage s's parts into
+// device memory with the copy engine, in a fixed order: the dq part into
+// an f32 sum after the row's earlier key units (a counter per (row, query
+// tile)), the dbias part into dbias after the group's earlier rows (a counter
+// per (group, query tile, key unit)); the first part of each is stored, the
+// later ones added by cp.reduce.async.bulk.tensor, in two bulk groups so that
+// each counter moves on once its own add is done in device memory. Every wait
+// is for a unit of lower index, which a resident block holds or has done, so
+// the order cannot deadlock.
+constexpr int kBwdThreads = 12 * 32;  // two consumer warpgroups; the producer and reducers
+
 template <int DP>
-__device__ __forceinline__ void mma_acc(float (&acc)[DP / 8][4], const float (&p)[kT / 8][4],
-                                        const bf16* b_s, int lane) {
-  constexpr int S = DP + 8;
+struct BwdLayout {  // byte offsets in the block's 1024-aligned shared memory
+  static constexpr int kStages = DP <= 32 ? 3 : 2;
+  static constexpr int kTile = kT * DP * 2;            // one query tile of one operand
+  static constexpr int kKV = kUnitKeys * DP * 2;       // the unit's kh (or v)
+  static constexpr int kBias = kT * kUnitKeys * 4;     // the unit's bias, then dbias, tile
+  static constexpr int kStage = kBias + 4 * kTile + kT * 16;  // bias, qh, g, qz, gz, stats
+  static constexpr int kK = 0, kV = kKV, kRing = 2 * kKV;
+  static constexpr int kTT = kRing + kStages * kStage;  // t^T: [2 parities][2 warpgroups]
+  static constexpr int kTBytes = kT * kT * 2;
+  static constexpr int kBars = kTT + 4 * kTBytes;
+  static constexpr int kTotal = kBars + 4 * kStages * 8 + 1024;
+};
+
+// Units in (level, group, key unit) order, the folded row group g_size + level:
+// the rows of one level follow each other group by group, so that the unit a
+// dbias add waits for (the level before, G U units earlier) is mostly done
+// in the wave before; a row's key units are neighbours (its dq chain).
+struct Unit {
+  int row, group, level, u;
+};
+__device__ __forceinline__ Unit unit_of(long long x, int units, int groups, int g_size) {
+  const long long per_level = static_cast<long long>(groups) * units;
+  const int level = static_cast<int>(x / per_level);
+  const int rest = static_cast<int>(x - level * per_level);
+  const int group = rest / units, u = rest - group * units;
+  return {group * g_size + level, group, level, u};
+}
+
+// The units a block takes, in increasing order: every gridDim-th unit, or
+// (`rowwise`) all key units of every gridDim-th row, so that a row's dq parts
+// come from one block in order and only the dbias chain runs across blocks.
+// The launcher takes rows where a wave's rows spread over many groups (its
+// dbias chains then have few links a wave).
+__device__ __forceinline__ long long first_unit(bool rowwise, int units) {
+  return rowwise ? static_cast<long long>(blockIdx.x) * units : blockIdx.x;
+}
+__device__ __forceinline__ long long next_unit(long long x, bool rowwise, int units) {
+  if (!rowwise) return x + gridDim.x;
+  return (x + 1) % units ? x + 1 : x + 1 + static_cast<long long>(gridDim.x - 1) * units;
+}
+
+// Warpgroup wg's dq part of one query tile: t kh over its own 64 keys (its
+// t^T from shared memory as the MN-major A, kh rows k0 .. k0 + 63), all DP
+// columns, issued asynchronously.
+template <int DP>
+__device__ __forceinline__ void dq_issue(float (&acc)[DP / 2], uint32_t t_tile, uint32_t k_tile,
+                                         int k0) {
+  wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < kT / 16; ++kk) {
-    const uint32_t pa[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                            pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-#pragma unroll
-    for (int dd = 0; dd < DP / 16; ++dd) {
-      uint32_t r[4];
-      ldmatrix_x4_trans(r, b_s + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * S + dd * 16 +
-                               (lane >> 4) * 8);
-      mma_bf16(acc[2 * dd], pa, r[0], r[1]);
-      mma_bf16(acc[2 * dd + 1], pa, r[2], r[3]);
-    }
+    Wgmma<DP>::template ss<1, 1>(acc, make_desc(t_tile + kk * 16 * 128, 8192, 1024, 1),
+                                 desc_mn_major<DP>(k_tile, kUnitKeys, k0 + 16 * kk, 0), kk);
   }
+  wgmma_commit();
 }
 
+// Byte offset of dq element (r, c) in the f32 staging tile: boxes of 64 rows
+// x 16 columns, each row 64 bytes with its 16-byte chunks swizzled by
+// (r / 2) % 4, as the copy engine reads them.
+__device__ __forceinline__ int staging_offset(int r, int c) {
+  return (c >> 4) * (kT * 64) + r * 64 + ((((c & 15) >> 2) ^ ((r >> 1) & 3)) << 4) + (c & 3) * 4;
+}
+
+// The landed dq part into the warpgroup's staging tile, then the stage (with
+// its t / z tile) handed to its reducer on `ready`.
 template <int DP>
-__device__ __forceinline__ void load_frags(uint32_t (&f)[DP / 16][4], const bf16* a_s, int warp,
-                                           int lane) {
-  constexpr int S = DP + 8;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    ldmatrix_x4(f[kk], a_s + (warp * 16 + (lane & 15)) * S + kk * 16 + (lane >> 4) * 8);
-  }
-}
-
-template <int DP>
-__device__ __forceinline__ void zero(float (&a)[DP][4]) {
-#pragma unroll
-  for (int i = 0; i < DP; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) a[i][e] = 0.f;
-}
-
-// dq and the row statistics
-template <int DP, bool COS>
-__global__ void __launch_bounds__(128) dq_bf16(Params p) {
-  constexpr int S = DP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* const q_s = reinterpret_cast<bf16*>(smem);  // [kT][S] qh
-  bf16* const g_s = q_s + kT * S;                    // [kT][S]
-  bf16* const k_s = g_s + kT * S;                    // [kT][S] kh of a key tile
-  bf16* const v_s = k_s + kT * S;                    // [kT][S]
-  const bf16 *q = static_cast<const bf16*>(p.q), *k = static_cast<const bf16*>(p.k),
-             *v = static_cast<const bf16*>(p.v), *o = static_cast<const bf16*>(p.o),
-             *go = static_cast<const bf16*>(p.g);
-  const int n = p.n, hd = p.hd;
-  const int bh = blockIdx.x / p.tiles, q0 = (blockIdx.x - bh * p.tiles) * kT;
-  const size_t base = static_cast<size_t>(bh) * n * hd;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  const int group = group_of(p, bh);
-  const float sc = p.scale[group], csc = __fmul_rn(sc, kLog2e);
-  const float* const bias_g = p.bias + static_cast<size_t>(group) * n * n;
-  auto one = [](int) { return 1.f; };
-
-  load_rows<DP>(q_s, q + base, q0, kT, n, hd, COS, one, tid, 128);
-  load_rows<DP>(g_s, go + base, q0, kT, n, hd, false, one, tid, 128);
-  int row[2];
-  const float* b_row[2];
-  float c_row[2];
+__device__ __forceinline__ void dq_hand_over(const float (&acc)[DP / 2], unsigned char* staging,
+                                             uint64_t* ready, int wq, int lane) {
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    row[h] = q0 + warp * 16 + g + 8 * h;
-    b_row[h] = bias_g + static_cast<size_t>(min(row[h], n - 1)) * n;
-    float sum = 0.f;  // c = rowsum(g o), the quad's four lanes sharing the row
-    if (row[h] < n) {
-      const size_t off = base + static_cast<size_t>(row[h]) * hd;
-      for (int d = t; d < hd; d += 4) sum = fmaf(bf(go[off + d]), bf(o[off + d]), sum);
-    }
-    sum += __shfl_xor_sync(kFull, sum, 1);
-    sum += __shfl_xor_sync(kFull, sum, 2);
-    c_row[h] = sum;
-  }
-  __syncthreads();
-  uint32_t qf[DP / 16][4], gf[DP / 16][4];
-  load_frags<DP>(qf, q_s, warp, lane);
-  load_frags<DP>(gf, g_s, warp, lane);
-
-  // the strip's logits against key tile `tile` (staged in k_s), dead keys -inf
-  auto logits = [&](int tile, float (&s)[kT / 8][4]) {
-    zero<kT / 8>(s);
-    mma_tile<DP>(s, qf, k_s, lane);
 #pragma unroll
-    for (int nt = 0; nt < kT / 8; ++nt) {
-      const int col = tile * kT + nt * 8 + 2 * t;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float2 b = make_float2(0.f, 0.f);
-        if (col < n) b = __ldg(reinterpret_cast<const float2*>(b_row[h] + col));
-        s[nt][2 * h] = col < n ? logit2(s[nt][2 * h], csc, __fmul_rn(b.x, kLog2e)) : -INFINITY;
-        s[nt][2 * h + 1] =
-            col + 1 < n ? logit2(s[nt][2 * h + 1], csc, __fmul_rn(b.y, kLog2e)) : -INFINITY;
-      }
-    }
-  };
-
-  const int tiles = p.tiles;
-  float m[2] = {-INFINITY, -INFINITY};
-  for (int tile = 0; tile < tiles; ++tile) {  // pass 1: the exact row max
-    __syncthreads();
-    load_rows<DP>(k_s, k + base, tile * kT, kT, n, hd, COS, one, tid, 128);
-    __syncthreads();
-    float s[kT / 8][4];
-    logits(tile, s);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int nt = 0; nt < kT / 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      m[h] = fmaxf(m[h], mx);
+    for (int j = 0; j < DP / 8; ++j) {
+      *reinterpret_cast<float2*>(staging + staging_offset(16 * wq + g + 8 * h, 8 * j + 2 * t)) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
   }
-
-  float z[2] = {0.f, 0.f};
-  float acc[DP / 8][4];
-  zero<DP / 8>(acc);
-  for (int tile = 0; tile < tiles; ++tile) {  // pass 2: z, t and t kh
-    __syncthreads();
-    load_rows<DP>(k_s, k + base, tile * kT, kT, n, hd, COS, one, tid, 128);
-    load_rows<DP>(v_s, v + base, tile * kT, kT, n, hd, false, one, tid, 128);
-    __syncthreads();
-    float s[kT / 8][4], dp[kT / 8][4];
-    logits(tile, s);
-    zero<kT / 8>(dp);
-    mma_tile<DP>(dp, gf, v_s, lane);
-#pragma unroll
-    for (int nt = 0; nt < kT / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int h = e >> 1;
-        const float ev = exp2f(s[nt][e] - m[h]);  // 0 on dead keys
-        z[h] += ev;
-        s[nt][e] = ev * (dp[nt][e] - c_row[h]);
-      }
-    mma_acc<DP>(acc, s, k_s, lane);
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    z[h] += __shfl_xor_sync(kFull, z[h], 1);
-    z[h] += __shfl_xor_sync(kFull, z[h], 2);
-    const bool live = row[h] < n;
-    const float zinv = 1.f / z[h], szr = __fmul_rn(sc, zinv);
-    const size_t off = base + static_cast<size_t>(min(row[h], n - 1)) * hd;
-    const float qinv = COS && live ? row_inv_norm<DP>(q + off, hd) : 1.f;
-    float qh[DP / 8][2], dqh[DP / 8][2], a = 0.f;
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int col = dt * 8 + 2 * t + u;
-        const float x = live && col < hd ? bf(q[off + col]) : 0.f;
-        qh[dt][u] = COS ? __fmul_rn(x, qinv) : x;
-        dqh[dt][u] = __fmul_rn(acc[dt][2 * h + u], szr);
-        a = __fadd_rn(a, __fmul_rn(dqh[dt][u], qh[dt][u]));
-      }
-    a += __shfl_xor_sync(kFull, a, 1);
-    a += __shfl_xor_sync(kFull, a, 2);
-    if (!live) continue;
-    bf16* dst = static_cast<bf16*>(p.dq) + off;
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt) {
-      const int col = dt * 8 + 2 * t;
-      if (col >= hd) continue;
-      float r2[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        r2[u] = COS ? __fmul_rn(__fsub_rn(dqh[dt][u], __fmul_rn(qh[dt][u], a)), qinv)
-                    : dqh[dt][u];
-      }
-      *reinterpret_cast<__nv_bfloat162*>(dst + col) = __floats2bfloat162_rn(r2[0], r2[1]);
-    }
-    if (t == 0) p.stats[static_cast<size_t>(bh) * n + row[h]] = make_float4(m[h], zinv, c_row[h], a);
-  }
+  fence_async_smem();  // the copy engine reads the stage through the asynchronous proxy
+  __syncwarp();
+  if (lane == 0) mbar_arrive(ready);
 }
 
-// dk and dv: warp w owns key rows 16 w .. 16 w + 15 of the block's key tile
-// and computes the transposed tiles s^T = kh qh^T and dp^T = v g^T, so that
-// t^T and e^T come out as the left operands of dkh += t^T qz, dv += e^T gz.
+struct MainMaps {  // the copy engine's tensor maps, passed by value
+  CUtensorMap qh, g, qz, gz, stats, bias, dq, dbias;
+};
+
 template <int DP, bool COS>
-__global__ void __launch_bounds__(128) dkv_bf16(Params p) {
-  constexpr int S = DP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* const k_s = reinterpret_cast<bf16*>(smem);  // [kT][S] kh
-  bf16* const v_s = k_s + kT * S;                    // [kT][S]
-  bf16* const qh_s = v_s + kT * S;                   // [kT][S] qh
-  bf16* const qz_s = qh_s + kT * S;                  // [kT][S] qh32 scale / z
-  bf16* const g_s = qz_s + kT * S;                   // [kT][S]
-  bf16* const gz_s = g_s + kT * S;                   // [kT][S] g / z
-  float* const m_s = reinterpret_cast<float*>(gz_s + kT * S);  // [kT]
-  float* const c_s = m_s + kT;                                 // [kT]
-  const bf16 *q = static_cast<const bf16*>(p.q), *k = static_cast<const bf16*>(p.k),
-             *v = static_cast<const bf16*>(p.v), *go = static_cast<const bf16*>(p.g);
-  const int n = p.n, hd = p.hd;
-  const int bh = blockIdx.x / p.tiles, k0 = (blockIdx.x - bh * p.tiles) * kT;
-  const size_t base = static_cast<size_t>(bh) * n * hd;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  const int group = group_of(p, bh);
-  const float sc = p.scale[group], csc = __fmul_rn(sc, kLog2e);
-  const float* const bias_g = p.bias + static_cast<size_t>(group) * n * n;
-  const float4* const st = p.stats + static_cast<size_t>(bh) * n;
-  auto one = [](int) { return 1.f; };
-  auto zinv = [&](int r) { return st[r].y; };
-  auto szinv = [&](int r) { return __fmul_rn(sc, st[r].y); };
+__global__ void __launch_bounds__(kBwdThreads, 1) window_bwd_main(
+    const bf16* __restrict__ k, const bf16* __restrict__ v, const __grid_constant__ MainMaps maps,
+    const float* __restrict__ scale, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    int* __restrict__ dq_count, int* __restrict__ db_count, int n, int hd, int groups,
+    int g_size, int rowwise) {
+  using L = BwdLayout<DP>;
+  constexpr int kS = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = align_1024(smem_raw);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* const empty = full + kS;
+  uint64_t* const dq_ready = empty + kS;
+  uint64_t* const consumed = dq_ready + kS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int units = (n + kUnitKeys - 1) / kUnitKeys, q_tiles = (n + kT - 1) / kT;
+  const long long total = static_cast<long long>(groups) * g_size * units;
 
-  load_rows<DP>(k_s, k + base, k0, kT, n, hd, COS, one, tid, 128);
-  load_rows<DP>(v_s, v + base, k0, kT, n, hd, false, one, tid, 128);
-  const int key[2] = {k0 + warp * 16 + g, k0 + warp * 16 + g + 8};
-  float acc_k[DP / 8][4], acc_v[DP / 8][4];
-  zero<DP / 8>(acc_k);
-  zero<DP / 8>(acc_v);
-  __syncthreads();
-  uint32_t kf[DP / 16][4], vf[DP / 16][4];
-  load_frags<DP>(kf, k_s, warp, lane);
-  load_frags<DP>(vf, v_s, warp, lane);
-
-  for (int tile = 0; tile < p.tiles; ++tile) {
-    const int q0 = tile * kT;
-    __syncthreads();  // the last tile's reads are done
-    load_rows<DP>(qh_s, q + base, q0, kT, n, hd, COS, one, tid, 128);
-    load_rows<DP>(qz_s, q + base, q0, kT, n, hd, COS, szinv, tid, 128);
-    load_rows<DP>(g_s, go + base, q0, kT, n, hd, false, one, tid, 128);
-    load_rows<DP>(gz_s, go + base, q0, kT, n, hd, false, zinv, tid, 128);
-    if (tid < kT) {  // a dead query row: shift 0, c 0
-      const bool live = q0 + tid < n;
-      m_s[tid] = live ? st[q0 + tid].x : 0.f;
-      c_s[tid] = live ? st[q0 + tid].z : 0.f;
+  if (tid == 0) {
+    for (int st = 0; st < kS; ++st) {
+      mbar_init(full + st, 1);      // the producer, once its copies land
+      mbar_init(empty + st, 1);     // its reducer, once the copy engine has read the stage
+      mbar_init(dq_ready + st, 8);  // one arrival per consumer warp
+      mbar_init(consumed + st, 8);  // one per consumer warp, once it is done reading the stage
     }
-    __syncthreads();
-    float s[kT / 8][4], dp[kT / 8][4];
-    zero<kT / 8>(s);
-    zero<kT / 8>(dp);
-    mma_tile<DP>(s, kf, qh_s, lane);
-    mma_tile<DP>(dp, vf, g_s, lane);
-#pragma unroll
-    for (int nt = 0; nt < kT / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = nt * 8 + 2 * t + (e & 1), kr = key[e >> 1];
-        float ev = 0.f;
-        if (kr < n && q0 + col < n) {
-          const float b2 = __fmul_rn(__ldg(bias_g + static_cast<size_t>(q0 + col) * n + kr), kLog2e);
-          ev = exp2f(logit2(s[nt][e], csc, b2) - m_s[col]);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the third warpgroup gives (168 - 40) x 128 registers to the consumers
+    regs_shrink<40>();
+    if (warp - 9 >= kS) return;
+    if (warp >= 9) {  // reducer 9 + s: ring stage s's dq and dbias parts, in their fixed orders
+      const int stage = warp - 9;
+      int it = 0;
+      for (long long x = first_unit(rowwise, units); x < total; x = next_unit(x, rowwise, units)) {
+        const Unit un = unit_of(x, units, groups, g_size);
+        for (int i = 0; i < q_tiles; ++i, ++it) {
+          if (it % kS != stage) continue;
+          mbar_wait(dq_ready + stage, (it / kS) & 1);
+          unsigned char* const src = smem + L::kRing + stage * L::kStage;
+          {  // the unit's dq part: warpgroup 0's plus warpgroup 1's, into the first
+            float4* const p0 = reinterpret_cast<float4*>(src + L::kBias);
+            const float4* const p1 = reinterpret_cast<const float4*>(src + L::kBias + 2 * L::kTile);
+            for (int vi = lane; vi < kT * DP / 4; vi += 32) {
+              float4 a = p0[vi];
+              const float4 b = p1[vi];
+              a.x += b.x;
+              a.y += b.y;
+              a.z += b.z;
+              a.w += b.w;
+              p0[vi] = a;
+            }
+            fence_async_smem();  // the copy engine reads it through the asynchronous proxy
+            __syncwarp();
+          }
+          if (lane != 0) continue;
+          int* const cq = dq_count + static_cast<size_t>(un.row) * q_tiles + i;
+          int* const cb = db_count + (static_cast<size_t>(un.group) * q_tiles + i) * units + un.u;
+          while (ld_acquire_gpu(cq) != un.u) {
+          }
+          fence_async_global();
+          for (int c0 = 0; c0 < hd; c0 += 16) {  // a box of 16 columns; rows past N not written
+            const unsigned char* const part = src + L::kBias + c0 * (kT * 4);
+            if (un.u == 0) {  // the first key unit's part is the sum so far
+              tma_store(&maps.dq, c0, i * kT, un.row, part);
+            } else {
+              tma_reduce_add(&maps.dq, c0, i * kT, un.row, part);
+            }
+          }
+          bulk_commit();
+          while (ld_acquire_gpu(cb) != un.level) {
+          }
+          fence_async_global();
+          for (int kb = 0; kb < 4; ++kb) {  // boxes of 32 keys; columns past N not written
+            const int kc = un.u * kUnitKeys + 32 * kb;
+            if (kc >= n) break;
+            if (un.level == 0) {  // the group's first row's part is the sum so far
+              tma_store(&maps.dbias, kc, i * kT, un.group, src + kb * (kT * 128));
+            } else {
+              tma_reduce_add(&maps.dbias, kc, i * kT, un.group, src + kb * (kT * 128));
+            }
+          }
+          bulk_commit();
+          bulk_wait_read();
+          mbar_arrive(empty + stage);
+          // each part added in device memory: the next unit in its order may add
+          bulk_wait_older();  // the dq group (the dbias group may be in flight)
+          fence_async_global();
+          __threadfence();
+          st_release_gpu(cq, un.u + 1);
+          bulk_wait();
+          fence_async_global();
+          __threadfence();
+          st_release_gpu(cb, un.level + 1);
         }
-        s[nt][e] = ev * (dp[nt][e] - c_s[col]);
-        dp[nt][e] = ev;
       }
-    mma_acc<DP>(acc_k, s, qz_s, lane);
-    mma_acc<DP>(acc_v, dp, gz_s, lane);
+      return;
+    }
+    // warp 8, the producer: every unit's query tiles, in the consumers' order
+    if (lane != 0) return;
+    using P = Panels<DP>;
+    const CUtensorMap* const ops[4] = {&maps.qh, &maps.g, &maps.qz, &maps.gz};
+    int it = 0;
+    for (long long x = first_unit(rowwise, units); x < total; x = next_unit(x, rowwise, units)) {
+      const Unit un = unit_of(x, units, groups, g_size);
+      for (int i = 0; i < q_tiles; ++i, ++it) {
+        const int stage = it % kS;
+        mbar_wait(empty + stage, ((it / kS) & 1) ^ 1);
+        unsigned char* const dst = smem + L::kRing + stage * L::kStage;
+        // every box reads zeros outside its tensor (rows past N, columns past
+        // N or hd), so the stage's bytes are always the whole stage
+        mbar_arrive_expect_tx(full + stage, L::kStage);
+#pragma unroll
+        for (int kb = 0; kb < 4; ++kb) {
+          tma_load(dst + kb * (kT * 128), &maps.bias, un.u * kUnitKeys + 32 * kb, i * kT, un.group,
+                   full + stage);
+        }
+#pragma unroll
+        for (int op = 0; op < 4; ++op) {
+#pragma unroll
+          for (int pn = 0; pn < P::kCount; ++pn) {
+            tma_load(dst + L::kBias + op * L::kTile + pn * kT * P::kRowBytes, ops[op],
+                     pn * P::kWidth, i * kT, un.row, full + stage);
+          }
+        }
+        tma_load(dst + L::kBias + 4 * L::kTile, &maps.stats, 0, i * kT, un.row, full + stage);
+      }
+    }
+    return;
   }
+  regs_grow<232>();
 
+  const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3, wt = tid & 127;
+  unsigned char* const k_s = smem + L::kK;
+  unsigned char* const v_s = smem + L::kV;
+  const uint32_t k_tile = smem_addr(k_s), v_tile = smem_addr(v_s);
+  const uint32_t ring = smem_addr(smem + L::kRing);
+  auto ops = [&](int stage) { return smem + L::kRing + stage * L::kStage + L::kBias; };
+  // the operand tiles of stage st are free once both warpgroups are done with
+  // it: then this warpgroup's dq part goes over two of them (qh, g or qz, gz)
+  auto hand_over = [&](const float (&part)[DP / 2], int step) {
+    const int st = step % kS;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(consumed + st);
+    mbar_wait(consumed + st, (step / kS) & 1);
+    dq_hand_over<DP>(part, ops(st) + wg * 2 * L::kTile, dq_ready + st, wq, lane);
+  };
+  int it = 0;
+  for (long long x = first_unit(rowwise, units); x < total; x = next_unit(x, rowwise, units)) {
+    const Unit un = unit_of(x, units, groups, g_size);
+    const int k0 = un.u * kUnitKeys;
+    const size_t row0 = static_cast<size_t>(un.row) * n;
+    const float csc = __fmul_rn(scale[un.group], kLog2e);
+    // this warpgroup's 64 keys of kh (normalised with the cosine) and v; only
+    // its own products read them, and those of the last unit are done
+    load_panel<DP>(k_s, kUnitKeys, kT * wg, k + row0 * hd, k0 + kT * wg, kT, n, hd, COS, wt, 128);
+    load_panel<DP>(v_s, kUnitKeys, kT * wg, v + row0 * hd, k0 + kT * wg, kT, n, hd, false, wt,
+                   128);
+    fence_async_smem();
+    named_barrier(2 + wg, 128);
+
+    const int key = k0 + kT * wg + 16 * wq + g;  // this thread's key rows: key, key + 8
+    const bool live_key[2] = {key < n, key + 8 < n};
+
+    // Per query tile: s^T, dp^T (issued at the end of the tile before); e, t
+    // and t / z over the bias; dv, dk; t^T shared within the warpgroup; its dq
+    // part issued, and the next tile's s^T, dp^T after it, so that the dq
+    // product runs under them; the dq part handed over at the start of the
+    // next tile. The two warpgroups meet only where a stage's tiles are reused.
+    float dk_acc[DP / 2], dv_acc[DP / 2], s[32], dp[32], dq_part[DP / 2];
+    uint32_t ef[4][4], tf[4][4];  // e^T and t^T rounded to bf16, as A fragments
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const bool live = key[h] < n;
-    const size_t off = base + static_cast<size_t>(min(key[h], n - 1)) * hd;
-    const float kinv = COS && live ? row_inv_norm<DP>(k + off, hd) : 1.f;
-    float kh[DP / 8][2], b = 0.f;
+    for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    auto issue_scores = [&](int step) {  // s^T = kh qh^T, dp^T = v g^T: 64 keys x 64 queries
+      const int stage = step % kS;
+      mbar_wait(full + stage, (step / kS) & 1);
+      const uint32_t tiles = ring + stage * L::kStage + L::kBias;
+      wgmma_fence();
 #pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt)
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int col = dt * 8 + 2 * t + u;
-        const float x = live && col < hd ? bf(k[off + col]) : 0.f;
-        kh[dt][u] = COS ? __fmul_rn(x, kinv) : x;
-        b = __fadd_rn(b, __fmul_rn(acc_k[dt][2 * h + u], kh[dt][u]));
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        Wgmma<64>::ss<0, 0>(s, desc_k_major<DP>(k_tile, kUnitKeys, kT * wg, 16 * kk),
+                            desc_k_major<DP>(tiles, kT, 0, 16 * kk), kk);
       }
-    b += __shfl_xor_sync(kFull, b, 1);
-    b += __shfl_xor_sync(kFull, b, 2);
-    if (!live) continue;
 #pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt) {
-      const int col = dt * 8 + 2 * t;
-      if (col >= hd) continue;
-      float r2[2];
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float dkh = acc_k[dt][2 * h + u];
-        r2[u] = COS ? __fmul_rn(__fsub_rn(dkh, __fmul_rn(kh[dt][u], b)), kinv) : dkh;
+      for (int kk = 0; kk < DP / 16; ++kk) {
+        Wgmma<64>::ss<0, 0>(dp, desc_k_major<DP>(v_tile, kUnitKeys, kT * wg, 16 * kk),
+                            desc_k_major<DP>(tiles + L::kTile, kT, 0, 16 * kk), kk);
       }
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dk) + off + col) =
-          __floats2bfloat162_rn(r2[0], r2[1]);
-      *reinterpret_cast<__nv_bfloat162*>(static_cast<bf16*>(p.dv) + off + col) =
-          __floats2bfloat162_rn(acc_v[dt][2 * h], acc_v[dt][2 * h + 1]);
+      wgmma_commit();
+    };
+
+    issue_scores(it);
+    for (int i = 0; i < q_tiles; ++i, ++it) {
+      const int stage = it % kS;
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(ef);
+      fence_regs(tf);
+      if (i > 0) {
+        fence_regs(dq_part);
+        hand_over(dq_part, it - 1);
+      }
+      const uint32_t tiles = ring + stage * L::kStage + L::kBias;
+
+      // per score: s2, e = exp2(s2 - m) (0 on dead keys), t = e (dp - c), and
+      // t / z written over the bias value it was formed from
+      unsigned char* const bt = smem + L::kRing + stage * L::kStage;
+      const float4* const mzc = reinterpret_cast<const float4*>(ops(stage) + 4 * L::kTile);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float4 rq[2] = {mzc[8 * j + 2 * t], mzc[8 * j + 2 * t + 1]};  // (m, 1 / z, c, 0)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 r = rq[e & 1];
+          float* const slot = reinterpret_cast<float*>(
+              bt + bias_offset(8 * j + 2 * t + (e & 1), kT * wg + 16 * wq + g + 8 * (e >> 1)));
+          const float s2 = logit2(s[4 * j + e], csc, __fmul_rn(*slot, kLog2e));
+          const float ev = live_key[e >> 1] ? exp2_fast(s2 - r.x) : 0.f;
+          const float tv = ev * (dp[4 * j + e] - r.z);
+          *slot = __fmul_rn(tv, r.y);
+          dp[4 * j + e] = tv;
+          s[4 * j + e] = ev;
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          ef[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+          tf[kk][r] = pack_bf16(dp[8 * kk + 2 * r], dp[8 * kk + 2 * r + 1]);
+        }
+      }
+      // t^T into this warpgroup's [key][query] tile of the parity, 128-byte swizzled
+      unsigned char* const tb = smem + L::kTT + ((it & 1) * 2 + wg) * L::kTBytes;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = 16 * wq + g + 8 * h;
+          *reinterpret_cast<uint32_t*>(tb + r * 128 + ((j ^ (r & 7)) << 4) + 4 * t) =
+              tf[j >> 1][2 * (j & 1) + h];
+        }
+      }
+
+      // dv += e^T gz, dk += t^T qz
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        Wgmma<DP>::template rs<1>(dv_acc, ef[kk],
+                                  desc_mn_major<DP>(tiles + 3 * L::kTile, kT, 16 * kk, 0), 1);
+        Wgmma<DP>::template rs<1>(dk_acc, tf[kk],
+                                  desc_mn_major<DP>(tiles + 2 * L::kTile, kT, 16 * kk, 0), 1);
+      }
+      wgmma_commit();
+      fence_async_smem();           // t^T written through the generic proxy
+      named_barrier(2 + wg, 128);   // the warpgroup's t^T is in
+      dq_issue<DP>(dq_part, smem_addr(tb), k_tile, kT * wg);
+      if (i + 1 < q_tiles) issue_scores(it + 1);
+    }
+    wgmma_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    fence_regs(ef);
+    fence_regs(tf);
+    fence_regs(dq_part);
+    hand_over(dq_part, it - 1);
+
+    // dk = (dkh - kh32 beta) / |k| with the cosine (beta = rowsum(dkh kh32)), dv
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool live = live_key[h];
+      const size_t off = (row0 + min(key + 8 * h, n - 1)) * hd;
+      const float kinv = COS && live ? row_inv_norm<DP>(k + off, hd) : 1.f;
+      float kh[DP / 8][2], b = 0.f;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int col = 8 * j + 2 * t + u;
+          const float x = live && col < hd ? bf(k[off + col]) : 0.f;
+          kh[j][u] = COS ? __fmul_rn(x, kinv) : x;
+          b = __fadd_rn(b, __fmul_rn(dk_acc[4 * j + 2 * h + u], kh[j][u]));
+        }
+      b += __shfl_xor_sync(kFull, b, 1);
+      b += __shfl_xor_sync(kFull, b, 2);
+      if (!live) continue;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (col >= hd) continue;
+        float r2[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float dkh = dk_acc[4 * j + 2 * h + u];
+          r2[u] = COS ? __fmul_rn(__fsub_rn(dkh, __fmul_rn(kh[j][u], b)), kinv) : dkh;
+        }
+        *reinterpret_cast<__nv_bfloat162*>(dk + off + col) = __floats2bfloat162_rn(r2[0], r2[1]);
+        *reinterpret_cast<__nv_bfloat162*>(dv + off + col) =
+            __floats2bfloat162_rn(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+      }
     }
   }
 }
 
-// dbias: one (group, query tile, key tile) block walks the group's folded
-// rows in order; the tile's sum stays in registers
+// --- the finishing pass ----------------------------------------------------
+// Per query row, L = DP / 8 neighbouring lanes of eight columns each: dqh =
+// (the summed t kh) (scale_g / z); alpha = rowsum(dqh qh32) into stats;
+// dq = (dqh - qh32 alpha) / |q| with the cosine, rounded once.
 template <int DP, bool COS>
-__global__ void __launch_bounds__(128) dbias_bf16(Params p) {
-  constexpr int S = DP + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* const q_s = reinterpret_cast<bf16*>(smem);
-  bf16* const g_s = q_s + kT * S;
-  bf16* const k_s = g_s + kT * S;
-  bf16* const v_s = k_s + kT * S;
-  const bf16 *q = static_cast<const bf16*>(p.q), *k = static_cast<const bf16*>(p.k),
-             *v = static_cast<const bf16*>(p.v), *go = static_cast<const bf16*>(p.g);
-  const int n = p.n, hd = p.hd, tiles = p.tiles;
-  const int group = blockIdx.x / (tiles * tiles), rest = blockIdx.x - group * tiles * tiles;
-  const int q0 = rest / tiles * kT, k0 = (rest % tiles) * kT;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-  const float csc = __fmul_rn(p.scale[group], kLog2e);
-  const size_t tab = static_cast<size_t>(group) * n * n;
-  auto one = [](int) { return 1.f; };
-  const int row[2] = {q0 + warp * 16 + g, q0 + warp * 16 + g + 8};
-  float b2[kT / 8][4], acc[kT / 8][4];
+__global__ void __launch_bounds__(256) window_bwd_finish(const bf16* __restrict__ q,
+                                                     const float* __restrict__ acc,
+                                                     const float* __restrict__ scale,
+                                                     float4* __restrict__ stats,
+                                                     bf16* __restrict__ dq, long long rows, int n,
+                                                     int hd, int g_size) {
+  constexpr int L = DP / 8;
+  const int lane = threadIdx.x & 31;
+  const long long row = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / L;
+  const int vc = (lane % L) * 8;
+  if (row >= rows) return;  // a row's L lanes leave together
+  const unsigned mask = (L == 32 ? kFull : ((1u << L) - 1u) << (lane & ~(L - 1)));
+  const bool live = vc < hd;
+  const size_t off = static_cast<size_t>(row) * hd + vc;
+  float qh[8], dqh[8];
+  uint4 raw = make_uint4(0, 0, 0, 0);
+  if (live) raw = __ldg(reinterpret_cast<const uint4*>(q + off));
+  unpack8(raw, qh);
+  float qinv = 1.f;
+  if (COS) {
+    float ss = sumsq8(raw);
 #pragma unroll
-  for (int nt = 0; nt < kT / 8; ++nt)
+    for (int o2 = 1; o2 < L; o2 <<= 1) ss += __shfl_xor_sync(mask, ss, o2);
+    qinv = inv_norm(ss);
+  }
+  const float szr = __fmul_rn(scale[row / n / g_size], stats[row].y);
+  float a = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = k0 + nt * 8 + 2 * t + (e & 1), r = row[e >> 1];
-      b2[nt][e] = r < n && col < n ? __fmul_rn(__ldg(p.bias + tab + static_cast<size_t>(r) * n + col),
-                                              kLog2e)
-                                   : 0.f;
-      acc[nt][e] = 0.f;
-    }
-  for (int j = 0; j < p.g_size; ++j) {
-    const int bh = group * p.g_size + j;
-    const size_t base = static_cast<size_t>(bh) * n * hd;
-    __syncthreads();
-    load_rows<DP>(q_s, q + base, q0, kT, n, hd, COS, one, tid, 128);
-    load_rows<DP>(g_s, go + base, q0, kT, n, hd, false, one, tid, 128);
-    load_rows<DP>(k_s, k + base, k0, kT, n, hd, COS, one, tid, 128);
-    load_rows<DP>(v_s, v + base, k0, kT, n, hd, false, one, tid, 128);
-    __syncthreads();
-    uint32_t af[DP / 16][4];
-    float s[kT / 8][4], dp[kT / 8][4];
-    zero<kT / 8>(s);
-    zero<kT / 8>(dp);
-    load_frags<DP>(af, q_s, warp, lane);
-    mma_tile<DP>(s, af, k_s, lane);
-    load_frags<DP>(af, g_s, warp, lane);
-    mma_tile<DP>(dp, af, v_s, lane);
-    float4 rs[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      rs[h] = row[h] < n ? p.stats[static_cast<size_t>(bh) * n + row[h]]
-                         : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-#pragma unroll
-    for (int nt = 0; nt < kT / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float4 r = rs[e >> 1];
-        const bool live = row[e >> 1] < n && k0 + nt * 8 + 2 * t + (e & 1) < n;
-        const float ev = live ? exp2f(logit2(s[nt][e], csc, b2[nt][e]) - r.x) : 0.f;
-        acc[nt][e] = __fadd_rn(acc[nt][e], __fmul_rn(ev * (dp[nt][e] - r.z), r.y));
-      }
+  for (int i = 0; i < 8; ++i) {
+    if (COS) qh[i] = __fmul_rn(qh[i], qinv);  // qh32
+    dqh[i] = live ? __fmul_rn(__ldg(acc + off + i), szr) : 0.f;
+    a = __fadd_rn(a, __fmul_rn(dqh[i], qh[i]));
   }
 #pragma unroll
-  for (int nt = 0; nt < kT / 8; ++nt)
+  for (int o2 = 1; o2 < L; o2 <<= 1) a += __shfl_xor_sync(mask, a, o2);
+  if (vc == 0) stats[row].w = a;
+  if (!live) return;
+  float r[8];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int col = k0 + nt * 8 + 2 * t;
-      if (row[h] < n && col < n) {
-        *reinterpret_cast<float2*>(p.dbias + tab + static_cast<size_t>(row[h]) * n + col) =
-            make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
-      }
-    }
+  for (int i = 0; i < 8; ++i) {
+    r[i] = COS ? __fmul_rn(__fsub_rn(dqh[i], __fmul_rn(qh[i], a)), qinv) : dqh[i];
+  }
+  *reinterpret_cast<uint4*>(dq + off) = pack8(r);
 }
 
 // ---------------------------------------------------------------------------
@@ -946,21 +1390,172 @@ cudaError_t launch(K kernel, int blocks, int threads, int smem, cudaStream_t str
   return cudaGetLastError();
 }
 
+// The scratch xmir_window_attn_bwd takes as `stats`: each query row's (m,
+// 1 / z, c, alpha) as (bh, n, 4) f32 first; in bf16 then qh, qz, gz (bh, n,
+// hd) bf16, the dq sums (bh, n, hd) f32, a counter per (row, query tile) and
+// one per (group, query tile, key unit). ops/vit_attn.py::
+// biased_bwd_workspace_bytes gives the same total.
+struct Workspace {
+  size_t qh, qz, gz, dq, dq_count, db_count, bytes;
+};
+
+Workspace workspace(int dtype, int bh, int n, int hd, int groups) {
+  const size_t rows = static_cast<size_t>(bh) * n, elems = rows * hd;
+  const size_t q_tiles = (n + kT - 1) / kT, units = (n + kUnitKeys - 1) / kUnitKeys;
+  Workspace w{};
+  w.qh = rows * 16;
+  w.bytes = w.qh;
+  if (dtype == 0) return w;
+  w.qz = w.qh + elems * 2;
+  w.gz = w.qz + elems * 2;
+  w.dq = w.gz + elems * 2;
+  w.dq_count = w.dq + elems * 4;
+  w.db_count = w.dq_count + static_cast<size_t>(bh) * q_tiles * 4;
+  w.bytes = w.db_count + static_cast<size_t>(groups) * q_tiles * units * 4;
+  return w;
+}
+
+// q_per_block for the prep pass: the run of query tiles a block takes, the
+// one with the fewest tiles on the longest SM's path (ties: the longer run).
+int prep_run(long long row_blocks, int tiles, int sms) {
+  int best = tiles;
+  long long best_cost = -1;
+  for (int qpb = tiles; qpb >= 1; --qpb) {
+    const long long blocks = row_blocks * ((tiles + qpb - 1) / qpb);
+    const long long cost = (blocks + sms - 1) / sms * qpb;
+    if (best_cost < 0 || cost < best_cost) best = qpb, best_cost = cost;
+  }
+  return best;
+}
+
+// Once per device and instantiation (the launches' host time counts at the
+// small shapes): the SM count, and each bf16 kernel's shared-memory limit
+// raised to what any launch may ask.
+template <int DP, bool COS>
+cudaError_t prepare_bf16(int* sms) {
+  constexpr int kDevices = 64;
+  static int counts[kDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kDevices) return cudaErrorInvalidDevice;
+  int& count = counts[device];
+  if (count == 0) {
+    int c = 0;
+    err = cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, device);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(window_bwd_prep<DP, COS>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemLimit);
+    }
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(window_bwd_main<DP, COS>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 BwdLayout<DP>::kTotal);
+    }
+    if (err != cudaSuccess) return err;
+    count = c;
+  }
+  *sms = count;
+  return cudaSuccess;
+}
+
+template <int DP, bool COS>
+cudaError_t launch_bf16(const Params& p, int bh, cudaStream_t stream) {
+  using T = bf16;
+  const int n = p.n, hd = p.hd, groups = p.n_groups;
+  int sms = 0;
+  cudaError_t err = prepare_bf16<DP, COS>(&sms);
+  if (err != cudaSuccess) return err;
+  const Workspace w = workspace(1, bh, n, hd, groups);
+  unsigned char* const ws = reinterpret_cast<unsigned char*>(p.stats);
+  err = cudaMemsetAsync(ws + w.dq_count, 0, w.bytes - w.dq_count, stream);  // the counters
+  if (err != cudaSuccess) return err;
+
+  // the bias (and dbias) as (N columns, N rows, G slices), boxes of 32 x 64
+  CUtensorMap bias_map, dbias_map;
+  if (make_tensor_map(&bias_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, p.bias, n, n, groups,
+                      static_cast<uint64_t>(n) * 4, static_cast<uint64_t>(n) * n * 4, 32, kT,
+                      CU_TENSOR_MAP_SWIZZLE_128B) != 0 ||
+      make_tensor_map(&dbias_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, p.dbias, n, n, groups,
+                      static_cast<uint64_t>(n) * 4, static_cast<uint64_t>(n) * n * 4, 32, kT,
+                      CU_TENSOR_MAP_SWIZZLE_128B) != 0) {
+    return cudaErrorInvalidValue;
+  }
+
+  // prep: four rows a block where their kh fit, else two or one; three ring
+  // stages, else two
+  const int n_pad = (n + kT - 1) / kT * kT, tiles = n_pad / kT;
+  int images = 0, stages = 0;
+  for (int im = 4; im >= 1 && !images; im /= 2) {
+    for (int st = 3; st >= 2 && !images; --st) {
+      if (prep_layout(DP, n_pad, im, st).total <= kSmemLimit) images = im, stages = st;
+    }
+  }
+  if (!images) return cudaErrorInvalidValue;
+  const int prep_bytes = prep_layout(DP, n_pad, images, stages).total;
+  const long long row_blocks = static_cast<long long>(groups) * ((p.g_size + images - 1) / images);
+  const int qpb = prep_run(row_blocks, tiles, sms);
+  const long long prep_blocks = row_blocks * ((tiles + qpb - 1) / qpb);
+  if (prep_blocks > 2147483647LL) return cudaErrorInvalidValue;
+  window_bwd_prep<DP, COS>
+      <<<static_cast<unsigned>(prep_blocks), kPrepThreads, prep_bytes, stream>>>(
+      static_cast<const T*>(p.q), static_cast<const T*>(p.k), static_cast<const T*>(p.o),
+      static_cast<const T*>(p.g), bias_map, p.scale, p.stats, reinterpret_cast<T*>(ws + w.qh),
+      reinterpret_cast<T*>(ws + w.qz), reinterpret_cast<T*>(ws + w.gz), n, hd, p.g_size, images,
+      stages, qpb);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // main: the streamed operands as (hd, N, BH), a box a panel; the stats as
+  // (4, N, BH); the f32 dq sums as (hd, N, BH), boxes of 16 columns, 64-byte swizzled
+  MainMaps maps;
+  const void* const bases[4] = {ws + w.qh, p.g, ws + w.qz, ws + w.gz};
+  CUtensorMap* const ops[4] = {&maps.qh, &maps.g, &maps.qz, &maps.gz};
+  for (int op = 0; op < 4; ++op) {
+    if (make_tensor_map(ops[op], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, bases[op], hd, n, bh,
+                        static_cast<uint64_t>(hd) * 2, static_cast<uint64_t>(n) * hd * 2,
+                        Panels<DP>::kWidth, kT, panel_swizzle<DP>()) != 0) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (make_tensor_map(&maps.stats, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, p.stats, 4, n, bh, 16,
+                      static_cast<uint64_t>(n) * 16, 4, kT, CU_TENSOR_MAP_SWIZZLE_NONE) != 0 ||
+      make_tensor_map(&maps.dq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ws + w.dq, hd, n, bh,
+                      static_cast<uint64_t>(hd) * 4, static_cast<uint64_t>(n) * hd * 4, 16, kT,
+                      CU_TENSOR_MAP_SWIZZLE_64B) != 0) {
+    return cudaErrorInvalidValue;
+  }
+  maps.bias = bias_map;
+  maps.dbias = dbias_map;
+  constexpr int kMainBytes = BwdLayout<DP>::kTotal;
+  // persistent: one block per SM (or per unit, where there are fewer); by rows
+  // where a wave of rows meets at most about eight of a group's
+  const int rowwise = groups >= 16;
+  const long long units =
+      rowwise ? bh : static_cast<long long>(bh) * ((n + kUnitKeys - 1) / kUnitKeys);
+  const int grid = static_cast<int>(units < sms ? units : sms);
+  window_bwd_main<DP, COS><<<grid, kBwdThreads, kMainBytes, stream>>>(
+      static_cast<const T*>(p.k), static_cast<const T*>(p.v), maps, p.scale,
+      static_cast<T*>(p.dk), static_cast<T*>(p.dv), reinterpret_cast<int*>(ws + w.dq_count),
+      reinterpret_cast<int*>(ws + w.db_count), n, hd, groups, p.g_size, rowwise);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const long long rows = static_cast<long long>(bh) * n;
+  const long long threads = rows * (DP / 8);
+  window_bwd_finish<DP, COS><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
+      static_cast<const T*>(p.q), reinterpret_cast<const float*>(ws + w.dq), p.scale, p.stats,
+      static_cast<T*>(p.dq), rows, n, hd, p.g_size);
+  return cudaGetLastError();
+}
+
 template <int DP, bool COS>
 cudaError_t launch_all(int dtype, int bh, const Params& p, cudaStream_t stream) {
+  if (dtype == 1) return launch_bf16<DP, COS>(p, bh, stream);
   const int rows = bh * p.tiles, tables = p.n_groups * p.tiles * p.tiles;
-  cudaError_t err;
-  if (dtype == 1) {
-    constexpr int kTile = kT * (DP + 8) * (int)sizeof(bf16);
-    err = launch(dq_bf16<DP, COS>, rows, 128, 4 * kTile, stream, p);
-    if (err != cudaSuccess) return err;
-    err = launch(dkv_bf16<DP, COS>, rows, 128, 6 * kTile + 2 * kT * (int)sizeof(float), stream, p);
-    if (err != cudaSuccess) return err;
-    return launch(dbias_bf16<DP, COS>, tables, 128, 4 * kTile, stream, p);
-  }
   constexpr int kTile = kT * (DP + 1) * (int)sizeof(float);
   constexpr int kP = kT * (kT + 1) * (int)sizeof(float);
-  err = launch(dq_f32<DP, COS>, rows, 256, 4 * kTile + kP, stream, p);
+  cudaError_t err = launch(dq_f32<DP, COS>, rows, 256, 4 * kTile + kP, stream, p);
   if (err != cudaSuccess) return err;
   err = launch(dkv_f32<DP, COS>, rows, 256, 6 * kTile + 2 * kP + 2 * kT * (int)sizeof(float),
                stream, p);
@@ -976,12 +1571,26 @@ cudaError_t launch_width(int dtype, int cosine, int bh, const Params& p, cudaStr
 
 }  // namespace
 
+// Bytes of the scratch xmir_window_attn_bwd takes as `stats` (Workspace).
+extern "C" int xmir_window_attn_bwd_workspace(int dtype, int bh, int n, int hd, int groups,
+                                              long long* bytes) {
+  if ((dtype != 0 && dtype != 1) || bh < 1 || n < 1 || hd < 8 || hd > 64 || hd % 8 != 0 ||
+      groups < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  *bytes = static_cast<long long>(workspace(dtype, bh, n, hd, groups).bytes);
+  return 0;
+}
+
 // C entry point bound with ctypes; returns a cudaError_t code. q, k, v, o, g
 // and the outputs dq, dk, dv are (bh, n, hd), contiguous, 16-byte aligned, of
 // one dtype (0 = float32, 1 = bfloat16); bias and the output dbias (groups, n,
-// n) float32; scale (groups,) float32; stats (bh, n, 4) float32, written with
-// each query row's (m, 1 / z, c, alpha). hd a multiple of 8 up to 64, n a
-// multiple of 8, bh == groups * g_size. Three kernels, in order.
+// n) float32; scale (groups,) float32; stats is scratch of
+// xmir_window_attn_bwd_workspace's bytes, 16-byte aligned, and comes back
+// with each query row's (m, 1 / z, c, alpha) as (bh, n, 4) float32 at its
+// start. hd a multiple of 8 up to 64, n a multiple of 8, bh == groups *
+// g_size. f32: three kernels, in order; bf16: a prep, a main and a finishing
+// kernel.
 extern "C" int xmir_window_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                                     const void* g, const float* bias, const float* scale,
                                     void* stats, void* dq, void* dk, void* dv, float* dbias,

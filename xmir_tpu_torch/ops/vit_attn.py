@@ -487,6 +487,19 @@ def biased_bwd_eligible(n: int, bh: int, n_groups: int, g_size: int) -> bool:
     return n <= MAX_BWD_WINDOW and n % 8 == 0 and bh == n_groups * g_size
 
 
+def biased_bwd_workspace_bytes(dtype, bh: int, n: int, hd: int, n_groups: int) -> int:
+    """Bytes of the scratch K5 takes (csrc/window_attn_bwd.cu, ``Workspace``;
+    ``xmir_window_attn_bwd_workspace`` gives the same): each query row's
+    (m, 1 / z, c, alpha) as (BH, N, 4) f32, and in bf16 then qh, qz, gz
+    (BH, N, hd) bf16, the dq sums (BH, N, hd) f32, an int32 counter per
+    (row, 64-row query tile) and one per (group, query tile, 128-key unit)."""
+    rows = bh * n
+    if dtype == torch.float32:
+        return rows * 16
+    q_tiles, units = -(-n // 64), -(-n // 128)
+    return rows * 16 + rows * hd * (3 * 2 + 4) + 4 * q_tiles * (bh + n_groups * units)
+
+
 def biased_attention_bwd_reference(q, k, v, bias, scale, o_unused, g, g_size: int = 1,
                                    cosine: bool = False):
     """(dq, dk, dv, dbias, dscale): ``torch.autograd.grad`` of
@@ -651,11 +664,13 @@ def biased_attention_bwd(q, k, v, bias, scale, o, g, g_size: int = 1, cosine: bo
                              "copied here")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty_like(bias)
-    stats = torch.empty((bh, n, 4), dtype=torch.float32, device=q.device)
+    scratch = torch.empty(biased_bwd_workspace_bytes(q.dtype, bh, n, hd, n_groups),
+                          dtype=torch.uint8, device=q.device)
+    stats = scratch[:bh * n * 16].view(torch.float32).view(bh, n, 4)
     with torch.cuda.device(q.device):
         err = _build.load().xmir_window_attn_bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), g.data_ptr(),
-            bias.data_ptr(), scale.data_ptr(), stats.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            bias.data_ptr(), scale.data_ptr(), scratch.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dbias.data_ptr(), DTYPE_CODES[q.dtype], int(cosine), bh, n, hd,
             n_groups, g_size, torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
