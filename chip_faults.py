@@ -1,11 +1,12 @@
 """Plants one fault at a time in the ViT kernels (K2, K3, K7, K8), the Swin
-attention kernels (K4, K6) and K4's backward (K5), the large-k top-k (K1') and
-the ConvNeXtV2 tail backward (K10) on an NVIDIA card and prints how far each faulty kernel lies
-from its plain PyTorch version, beside the real kernels' readings: the
-evidence the bounds in xmir_tpu_torch/ops/vit_attn.py (``agreement``,
-``grad_agreement``, ``window_agreement``) and ops/convnext_block.py
-(``agreement``) were set from, K10's by ``grad_agreement`` too. K1' is held to
-bit-equal ids and values on integer inputs.
+attention kernels (K4, K6) and K4's backward (K5), the large-k top-k (K1'),
+the ConvNeXtV2 block tail (K9, K11) and its backward (K10) on an NVIDIA card
+and prints how far each faulty kernel lies from its plain PyTorch version,
+beside the real kernels' readings: the evidence the bounds in
+xmir_tpu_torch/ops/vit_attn.py (``agreement``, ``grad_agreement``,
+``window_agreement``) and ops/convnext_block.py (``agreement``) were set
+from, K10's by ``grad_agreement`` too. K1' is held to bit-equal ids and
+values on integer inputs.
 
     python3 chip_faults.py
 
@@ -39,12 +40,20 @@ ROUND_BF16 = "__bfloat162float(__float2bfloat16({}))"
 # name -> (file, old text, new text, ...): substitutions in a copy of the sources
 SOURCE_FAULTS = {
     "K2: e rounded before the sum z": (
-        "vit_attn.cu", "sum += e0 + e1;",
-        f"sum += {ROUND_BF16.format('e0')} + {ROUND_BF16.format('e1')};"),
+        "vit_attn.cu",
+        "sm[j & 3] += s[4 * j + 2 * h] + s[4 * j + 2 * h + 1];",
+        f"sm[j & 3] += {ROUND_BF16.format('s[4 * j + 2 * h]')} + "
+        f"{ROUND_BF16.format('s[4 * j + 2 * h + 1]')};"),
     "K2: running max not rounded up (rescales no power of two)": (
-        "vit_attn.cu", "const float m_new = fmaxf(m_run[h], ceilf(mx));\n      alpha[h] = pow2i("
+        "vit_attn.cu", "const float m_new = fmaxf(m_run[h], ceilf(m));\n          alpha[h] = pow2i("
         "m_run[h] - m_new);",
-        "const float m_new = fmaxf(m_run[h], mx);\n      alpha[h] = exp2f(m_run[h] - m_new);"),
+        "const float m_new = fmaxf(m_run[h], m);\n          alpha[h] = exp2f(m_run[h] - m_new);"),
+    "K2 bf16 kernel: a K ring stage read one step stale": (
+        "vit_attn.cu", "const uint32_t k_tile = smem_addr(smem + stage * 2 * L::kTile);",
+        "const uint32_t k_tile = smem_addr(smem + prev * 2 * L::kTile);"),
+    "K2 bf16 kernel: the ragged last key tile unmasked": (
+        "vit_attn.cu", "if (k0 + BK > n) {  // the ragged last tile",
+        "if (false) {  // the ragged last tile"),
     "K3: dk rounded to bf16 after every query tile": (
         "vit_attn_bwd.cu", "      fence_regs(dk_acc);\n",
         "      fence_regs(dk_acc);\n      for (int i2 = 0; i2 < DP / 2; ++i2)\n"
@@ -152,6 +161,27 @@ SOURCE_FAULTS = {
     "K5 bf16 kernel: a ring stage's bias read one step stale": (
         "window_attn_bwd.cu", "unsigned char* const bt = smem + L::kRing + stage * L::kStage;",
         "unsigned char* const bt = smem + L::kRing + (stage + kS - 1) % kS * L::kStage;"),
+    "K9, K11 bf16 kernel: h's squares taken before its rounding to bf16": (
+        "convnext_block.cu", "sq0 += v0 * v0;\n          sq1 += v1 * v1;",
+        "const float u0 = gelu_sigmoid(acc[4 * j + 2 * h] + b.x);\n"
+        "          const float u1 = gelu_sigmoid(acc[4 * j + 2 * h + 1] + b.y);\n"
+        "          sq0 += u0 * u0;\n          sq1 += u1 * u1;"),
+    "K9, K11: one row tile's GRN partial dropped": (
+        "convnext_block.cu", "for (int t = 0; t < row_tiles; ++t) s += p[(size_t)t * c4 + c];",
+        "for (int t = 0; t < row_tiles; ++t) s += t == 1 ? 0.f : p[(size_t)t * c4 + c];"),
+    "K9, K11 bf16 kernel: the residual added after acc + b2 is rounded": (
+        "convnext_block.cu",
+        "x.x + (acc[4 * j + 2 * h] + b.x), x.y + (acc[4 * j + 2 * h + 1] + b.y));",
+        f"x.x + {ROUND_BF16.format('acc[4 * j + 2 * h] + b.x')}, "
+        f"x.y + {ROUND_BF16.format('acc[4 * j + 2 * h + 1] + b.y')});"),
+    "K9 bf16 kernel: the LayerNorm without its eps": (
+        "convnext_block.cu", "rsqrtf(fmaxf(ss / C - mean * mean, 0.f) + kLnEps);",
+        "rsqrtf(fmaxf(ss / C - mean * mean, 0.f));"),
+    "K9, K11 bf16 kernel: a pw1 ring stage read one step stale": (
+        "convnext_block.cu",
+        "wg * kWA);\n      const uint32_t b_tile = smem_addr(smem + stage * kWStage + 2 * kWA);",
+        "wg * kWA);\n      const uint32_t b_tile = smem_addr(smem + (stage + kWStages - 1) % "
+        "kWStages * kWStage + 2 * kWA);"),
     "K10: the GRN term ab dgx / gx dropped from dab": (
         "convnext_block_bwd.cu", "const float d = (dz[at] * ca + a * cb) * gelu_grad(x, t);",
         "const float d = (dz[at] * ca) * gelu_grad(x, t);"),
@@ -206,6 +236,38 @@ def read_attention(scale_constant=None):
                 va.scale_constant = real
             readings.append(va.agreement(out, va.attention_plain(q, k, v, sc)))
     return worst(readings)
+
+
+def tail_cases(gen, dtype):
+    """K9's operands (h, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta):
+    ConvNeXtV2-Base's stage 3 and 4 shapes at B = 2 (576 rows are nine
+    64-row units, 144 rows three with a ragged last), 49 rows at B = 3, and
+    rows of small spread (std 0.02), where the LayerNorm's eps matters."""
+    for b, rows, c, std in ((2, 576, 512, 1.0), (2, 144, 1024, 1.0), (3, 49, 128, 1.0),
+                            (2, 576, 256, 0.02)):
+        c4 = 4 * c
+
+        def r(*shape, sc=1.0):
+            return (torch.randn(shape, generator=gen) * sc).cuda()
+
+        yield ((r(b, rows, c) * std).to(dtype), r(b, rows, c).to(dtype), 1 + r(c, sc=0.2),
+               r(c, sc=0.1), r(c4, c, sc=c ** -0.5).to(dtype), r(c4, sc=0.1),
+               r(c, c4, sc=c4 ** -0.5).to(dtype), r(c, sc=0.1), r(c4, sc=0.5), r(c4, sc=0.1))
+
+
+def read_tail(dtype):
+    """(K9's, K11's) worst ``cb.agreement`` reading over ``tail_cases``: K9
+    on the tail's input h, K11 on its plain LayerNorm."""
+    gen = torch.Generator().manual_seed(7)
+    r9, r11 = [], []
+    with torch.inference_mode():
+        for h, x, lns, lnb, *tail in tail_cases(gen, dtype):
+            r9.append(cb.agreement(cb._launch(h, x, lns, lnb, *tail),
+                                   cb.block_tail_reference(h, x, lns, lnb, *tail)))
+            y = cb.layer_norm(h, lns, lnb).to(dtype)
+            r11.append(cb.agreement(cb.convnext_mlp_grn_fused(y, x, *tail),
+                                    cb.mlp_grn_reference(y, x, *tail)))
+    return worst(r9), worst(r11)
 
 
 def backward_cases(gen, dtype):
@@ -575,6 +637,10 @@ def main():
         report("the kernel", f"K6 {str(dtype)[6:]}", e6, True)
     report("the kernel", "K1'", read_select(), True)
     for dtype in (torch.bfloat16, torch.float32):
+        e9, e11 = read_tail(dtype)
+        report("the kernel", f"K9 {str(dtype)[6:]}", e9, True)
+        report("the kernel", f"K11 {str(dtype)[6:]}", e11, True)
+    for dtype in (torch.bfloat16, torch.float32):
         report("the kernel", f"K3 {str(dtype)[6:]}", read_backward(dtype), True, va.grad_agrees)
     for dtype in (torch.bfloat16, torch.float32):
         report("the kernel", f"K10 {str(dtype)[6:]}", read_tail_bwd(dtype), True,
@@ -653,6 +719,17 @@ def main():
                           else (torch.bfloat16, torch.float32))
                 for dtype in dtypes:
                     report(name, f"K5 {str(dtype)[6:]}", read_k5(dtype), False, va.grad_agrees)
+                continue
+            if name.startswith("K9"):
+                # faults of the bf16 kernels alone do not show in f32; the
+                # LayerNorm is K9's alone
+                dtypes = ((torch.bfloat16,) if "bf16 kernel" in name
+                          else (torch.bfloat16, torch.float32))
+                for dtype in dtypes:
+                    e9, e11 = read_tail(dtype)
+                    report(name, f"K9 {str(dtype)[6:]}", e9, False)
+                    if "K11" in name:
+                        report(name, f"K11 {str(dtype)[6:]}", e11, False)
                 continue
             if name.startswith("K10"):
                 for dtype in (torch.bfloat16, torch.float32):

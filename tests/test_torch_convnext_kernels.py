@@ -12,7 +12,8 @@ import torch
 from xmir_tpu_torch.ops import convnext_block as cb
 
 
-def _inputs(b, hw, c, dtype, seed):
+def _inputs(b, hw, c, dtype, seed, w=None):
+    """A block input (b, hw, w or hw, c) and random nonzero parameters."""
     gen = torch.Generator().manual_seed(seed)
     c4 = 4 * c
 
@@ -23,7 +24,7 @@ def _inputs(b, hw, c, dtype, seed):
              ln_bias=r(c, sc=0.1), w1=r(c4, c, sc=c ** -0.5).to(dtype), b1=r(c4, sc=0.1),
              w2=r(c, c4, sc=c4 ** -0.5).to(dtype), b2=r(c, sc=0.1), gamma=r(c4, sc=0.5),
              beta=r(c4, sc=0.1))
-    return r(b, hw, hw, c).to(dtype), a
+    return r(b, hw, w or hw, c).to(dtype), a
 
 
 def _assert_close(out, ref):
@@ -59,6 +60,35 @@ def test_kernels_match_plain_on_card(dtype, b, hw, c):
     torch.cuda.synchronize()
     assert cb.convnext_mlp_grn_fused.launches == before + 1
     _assert_close(out11, cb.mlp_grn_reference(y, xr, *tail))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hh,ww,c", [(1, 8, 8, 128), (3, 5, 13, 256), (2, 12, 12, 1024),
+                                       (3, 24, 24, 512), (2, 48, 48, 256), (1, 96, 96, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_at_unit_edges_on_card(dtype, b, hh, ww, c):
+    """R = 64, 65, 144, 576, 2304 and 9216 rows: one bf16 unit of 64 rows, a
+    unit and one live row, 144 rows ending in a ragged unit, ConvNeXtV2-Base's
+    stage shapes at 384 px; B = 1 to 3 (an odd number of units leaves a
+    block's second warpgroup idle). K9 and K11 within cb.agreement, K9
+    twice bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    x, a = _inputs(b, hh, c, dtype, seed=hh * ww + c, w=ww)
+    rows = hh * ww
+    before = (cb.convnext_block_fused.launches, cb.convnext_mlp_grn_fused.launches)
+    out = cb.convnext_block_fused(x, **a)
+    h = cb.dwconv(x, a["dw_weight"], a["dw_bias"]).reshape(b, rows, c)
+    xr = x.reshape(b, rows, c)
+    tail = (a["w1"], a["b1"], a["w2"], a["b2"], a["gamma"], a["beta"])
+    _assert_close(out.reshape(b, rows, c),
+                  cb.block_tail_reference(h, xr, a["ln_scale"], a["ln_bias"], *tail))
+    assert torch.equal(out, cb.convnext_block_fused(x, **a))
+    y = cb.layer_norm(h, a["ln_scale"], a["ln_bias"]).to(dtype)
+    _assert_close(cb.convnext_mlp_grn_fused(y, xr, *tail), cb.mlp_grn_reference(y, xr, *tail))
+    torch.cuda.synchronize()
+    assert (cb.convnext_block_fused.launches, cb.convnext_mlp_grn_fused.launches) == (
+        before[0] + 2, before[1] + 1)
 
 
 @pytest.mark.cuda

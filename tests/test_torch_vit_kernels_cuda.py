@@ -26,7 +26,9 @@ def _r(gen, *shape, sc=1.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bh,n,hd", [(24, 1370, 64), (3, 1, 64), (2, 7, 16), (2, 197, 32),
-                                     (2, 257, 72), (2, 729, 128), (2, 1024, 64), (3, 65, 8)])
+                                     (2, 257, 72), (2, 729, 128), (2, 1024, 64), (3, 65, 8),
+                                     (2, 127, 64), (2, 128, 64), (2, 129, 64), (2, 255, 64),
+                                     (2, 1370, 128)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_attention_matches_plain_on_card(dtype, bh, n, hd):
     _need_card()
@@ -42,6 +44,36 @@ def test_attention_matches_plain_on_card(dtype, bh, n, hd):
         assert torch.equal(out, va.vit_attention_fused(q, k, v, hd ** -0.5))
         loose = (out.float() - va.attention_reference(q, k, v, hd ** -0.5).float()).abs().max()
     assert loose <= (2e-5 if dtype == torch.float32 else 2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 129, 255, 1370])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_attention_row_statistics_on_card(dtype, n):
+    """K2's (m, z) per row, which K3 reads, against a float64 reckoning of
+    the same shift: m = ceil(row max) of the scaled scores exactly (except
+    where the max lies within f32 reach of an integer), z = the sum of
+    exp2(s - m) within 1e-5; the output is the same with and without them.
+    Rows of 128-row tiles and ragged key tiles (n = 127 ... 255) included."""
+    _need_card()
+    gen = torch.Generator().manual_seed(n)
+    q, k, v = (_r(gen, 4, n, 64).to(dtype) for _ in range(3))
+    sc = 0.125
+    with torch.inference_mode():
+        out, stats = va.launch_attention_forward(q, k, v, sc, True)
+        plain_out, none = va.launch_attention_forward(q, k, v, sc, False)
+    assert none is None and torch.equal(out, plain_out)
+    assert stats.shape == (4, n, 2) and stats.dtype == torch.float32
+    qs = (q * torch.tensor(va.scale_constant(sc, dtype), dtype=dtype, device=q.device)).double()
+    s = qs @ k.double().transpose(-1, -2)
+    top = s.amax(dim=-1)
+    m_k, z_k = stats[..., 0].double(), stats[..., 1].double()
+    clear = (top - torch.round(top)).abs() > 1e-4
+    assert clear.float().mean() > 0.99
+    assert torch.equal(m_k[clear], torch.ceil(top)[clear])
+    assert torch.equal(m_k, torch.round(m_k))  # integer-valued everywhere
+    z = torch.exp2(s - m_k[..., None]).sum(dim=-1)
+    assert ((z_k - z).abs() / z).max().item() <= 1e-5
 
 
 @pytest.mark.cuda

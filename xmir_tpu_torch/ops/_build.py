@@ -39,11 +39,11 @@ _SIGNATURES = {
     "xmir_topk": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     # q, g, bias, dtype, Q, N, D, k, k_pad, keys, buf, out_v, out_i, stream
     "xmir_topk_select": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    # rows -> row tiles per image (int pointer)
-    "xmir_convnext_plan": (_I, _P),
+    # rows, dtype -> row tiles per image (int pointer)
+    "xmir_convnext_plan": (_I, _I, _P),
     # a, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta, dtype, batch, rows,
-    # c, c4, h, part, nx, out, stream
-    "xmir_convnext_tail": (_P,) * 10 + (_I,) * 5 + (_P,) * 5,
+    # c, c4, h, y, part, nx, out, stream
+    "xmir_convnext_tail": (_P,) * 10 + (_I,) * 5 + (_P,) * 6,
     # batch, rows, c, c4, dtype -> workspace bytes (long long pointer)
     "xmir_convnext_bwd_plan": (_I,) * 5 + (_P,),
     # h, dy, lns, lnb, w1, b1, w1t, w2t, gamma, beta, dtype, batch, rows, c, c4,

@@ -280,10 +280,12 @@ def _launch(a, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta):
                              "(a permuted channels_last tensor is; nothing is copied here)")
     lib = _build.load()
     tiles = ctypes.c_int()
-    err = lib.xmir_convnext_plan(rows, ctypes.addressof(tiles))
+    err = lib.xmir_convnext_plan(rows, DTYPE_CODES[a.dtype], ctypes.addressof(tiles))
     if err != 0:
         raise ValueError(f"no ConvNeXt tail plan for {rows} rows: cudaError_t {err}")
     h = torch.empty((bsz, rows, c4), dtype=a.dtype, device=a.device)
+    # bf16 K9 normalises each row once into y, which its first product reads
+    y = (torch.empty_like(a) if a.dtype == torch.bfloat16 and ln_scale is not None else None)
     part = torch.empty((bsz, tiles.value, c4), dtype=torch.float32, device=a.device)
     nx = torch.empty((bsz, c4), dtype=torch.float32, device=a.device)
     out = torch.empty_like(x)
@@ -294,8 +296,8 @@ def _launch(a, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta):
         err = lib.xmir_convnext_tail(
             a.data_ptr(), x.data_ptr(), ptr(lns), ptr(lnb), w1.data_ptr(), b1f.data_ptr(),
             w2.data_ptr(), b2f.data_ptr(), gf.data_ptr(), bef.data_ptr(), DTYPE_CODES[a.dtype],
-            bsz, rows, c, c4, h.data_ptr(), part.data_ptr(), nx.data_ptr(), out.data_ptr(),
-            stream,
+            bsz, rows, c, c4, h.data_ptr(), ptr(y), part.data_ptr(), nx.data_ptr(),
+            out.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"ConvNeXt block tail kernel launch failed: cudaError_t {err}")
