@@ -5,10 +5,16 @@ and prints how far each faulty kernel lies from its plain PyTorch version,
 beside the real kernels' readings: the evidence the bounds in
 xmir_tpu_torch/ops/vit_attn.py (``agreement``, ``grad_agreement``,
 ``window_agreement``) and ops/convnext_block.py (``agreement``) were set
-from, K10's by ``grad_agreement`` too. K1' is held to bit-equal ids and
-values on integer inputs.
+from, K10's by ``grad_agreement`` too (in bf16 also pass 2's ab bit-equal
+to pass 1's, ``convnext_block.tail_bwd_recomputes_ab``), K2's with its flip
+allowance (``vit_attn.flip_allowance``). K1' is held to bit-equal ids and
+values on integer inputs. Each line prints how far the reading goes toward
+its bounds (above 1: past one of them).
 
-    python3 chip_faults.py
+    python3 chip_faults.py [--only K2 K7 ...]
+
+``--only`` takes the real kernels' readings and plants the faults of the
+named kernels alone.
 
 A fault in a CUDA source is a text substitution in a copy of
 xmir_tpu_torch/csrc under a temporary directory, built by ops/_build.py like
@@ -20,6 +26,8 @@ if a real kernel is outside its bounds or a planted fault inside them.
 """
 from __future__ import annotations
 
+import argparse
+import re
 import shutil
 import sys
 import tempfile
@@ -85,7 +93,17 @@ SOURCE_FAULTS = {
         "ln_dense.cu",
         "if (n < N) emit(m, n, acc[i][j] + bias[j], acc[i][j + 1] + bias[j + 1], true);",
         "if (n < N) emit(m, n, round_to(acc[i][j], T()) + bias[j], "
-        "round_to(acc[i][j + 1], T()) + bias[j + 1], true);"),
+        "round_to(acc[i][j + 1], T()) + bias[j + 1], true);",
+        "acc[4 * j + 2 * h] + b.x, acc[4 * j + 2 * h + 1] + b.y);",
+        f"{ROUND_BF16.format('acc[4 * j + 2 * h]')} + b.x, "
+        f"{ROUND_BF16.format('acc[4 * j + 2 * h + 1]')} + b.y);"),
+    "K7 bf16 kernel: the ragged tail's last row dropped": (
+        "ln_dense.cu", "const bool live_row[2] = {row_a < rows, row_a + 8 < rows};",
+        "const bool live_row[2] = {row_a < rows - 1, row_a + 8 < rows - 1};"),
+    "K7 bf16 kernel: each item stored at the block's first column tile": (
+        "ln_dense.cu",
+        "const int n0 = (item - pair * args.n_tiles) * kQkvBN;\n    const bool mine",
+        "const int n0 = (blockIdx.x % args.n_tiles) * kQkvBN;\n    const bool mine"),
     "K4: bias not scaled by log2(e)": (
         "window_attn.cu", "return __fadd_rn(s, MODE == kV1 ? b : __fmul_rn(b, kLog2e));",
         "return __fadd_rn(s, b);"),
@@ -174,8 +192,9 @@ SOURCE_FAULTS = {
         "x.x + (acc[4 * j + 2 * h] + b.x), x.y + (acc[4 * j + 2 * h + 1] + b.y));",
         f"x.x + {ROUND_BF16.format('acc[4 * j + 2 * h] + b.x')}, "
         f"x.y + {ROUND_BF16.format('acc[4 * j + 2 * h + 1] + b.y')});"),
+    # the LayerNorm pre-pass is K9's, K7's (bf16) and K10's
     "K9 bf16 kernel: the LayerNorm without its eps": (
-        "convnext_block.cu", "rsqrtf(fmaxf(ss / C - mean * mean, 0.f) + kLnEps);",
+        "gemm_tile.cuh", "rsqrtf(fmaxf(ss / C - mean * mean, 0.f) + kLnEps);",
         "rsqrtf(fmaxf(ss / C - mean * mean, 0.f));"),
     "K9, K11 bf16 kernel: a pw1 ring stage read one step stale": (
         "convnext_block.cu",
@@ -184,16 +203,28 @@ SOURCE_FAULTS = {
         "kWStages * kWStage + 2 * kWA);"),
     "K10: the GRN term ab dgx / gx dropped from dab": (
         "convnext_block_bwd.cu", "const float d = (dz[at] * ca + a * cb) * gelu_grad(x, t);",
-        "const float d = (dz[at] * ca) * gelu_grad(x, t);"),
+        "const float d = (dz[at] * ca) * gelu_grad(x, t);",
+        "const float d = (dz_v * ca_v + a * cb_v) * gelu_grad(x, tt);",
+        "const float d = (dz_v * ca_v) * gelu_grad(x, tt);"),
     "K10: the GELU derivative's 3 K1 written as K1": (
         "convnext_block_bwd.cu", "constexpr float kGelu3K1 = 0.134145f;",
         "constexpr float kGelu3K1 = 0.044715f;"),
     "K10: the LN backward's xhat mean(dyh xhat) term dropped": (
         "convnext_block_bwd.cu", "store(out + c, st.y * (dyh - m1 - xhat * m2));",
-        "store(out + c, st.y * (dyh - m1));"),
+        "store(out + c, st.y * (dyh - m1));",
+        "return rstd[h] * (dyh - m1[h] - xhat * m2[h]);", "return rstd[h] * (dyh - m1[h]);"),
     "K10: dW1 summed over the first image only": (
         "convnext_block_bwd.cu", "TnArgs t1{dh1, y, br, ws.chunk, c4, c, part_w1};",
-        "TnArgs t1{dh1, y, rows, ws.chunk, c4, c, part_w1};"),
+        "TnArgs t1{dh1, y, rows, ws.chunk, c4, c, part_w1};",
+        "launch_wgrad(dh1_rows, y_rows, c4, c, br,", "launch_wgrad(dh1_rows, y_rows, c4, c, rows,"),
+    "K10 bf16 kernel: pass 2's h1 recomputed in another k order": (
+        "convnext_block_bwd.cu",
+        "const int k16 = 16 * kk;  // the same k order in both passes: ab bit-equal",
+        "const int k16 = kP2 ? 16 * (3 - kk) : 16 * kk;"),
+    "K10 bf16 kernel: a weight product's B operand read K-major": (
+        "convnext_block_bwd.cu",
+        "Wgmma<128>::template ss<TA, 1>(acc, da, desc_mn_major<128>(b_tile, 64, 16 * kk, 0),",
+        "Wgmma<128>::template ss<TA, 0>(acc, da, desc_k_major<64>(b_tile, 128, 0, 16 * kk),"),
 }
 
 
@@ -234,7 +265,8 @@ def read_attention(scale_constant=None):
                 out = va.vit_attention_fused(q, k, v, sc)
             finally:
                 va.scale_constant = real
-            readings.append(va.agreement(out, va.attention_plain(q, k, v, sc)))
+            readings.append(va.agreement(out, va.attention_plain(q, k, v, sc),
+                                         va.flip_allowance(q, k, v, sc)))
     return worst(readings)
 
 
@@ -391,14 +423,25 @@ def tail_plain_dh1_unrounded(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta):
 
 def read_tail_bwd(dtype, plain=cb.tail_backward_reference):
     """K10's worst ``va.grad_agreement`` reading over its eight outputs
-    and ``tail_bwd_cases``."""
+    and ``tail_bwd_cases``; in bf16 also whether pass 2 formed ab bit for bit
+    as pass 1 did in every case (``ab_recomputed``)."""
     gen = torch.Generator().manual_seed(5)
-    readings = []
+    readings, recomputed = [], True
     for args in tail_bwd_cases(gen, dtype):
         for out, ref, floor in zip(cb.convnext_tail_bwd(*args), plain(*args),
                                    cb.tail_grad_floors(*args)):
             readings.append(va.grad_agreement(out, ref, floor, dtype))
-    return worst(readings)
+        if dtype == torch.bfloat16:
+            recomputed &= cb.tail_bwd_recomputes_ab(*args)
+    reading = worst(readings)
+    if dtype == torch.bfloat16:
+        reading["ab_recomputed"] = recomputed
+    return reading
+
+
+def tail_bwd_agrees(reading) -> bool:
+    """K10's bounds, and in bf16 pass 2's ab bit-equal to pass 1's."""
+    return va.grad_agrees(reading) and reading.get("ab_recomputed", True)
 
 
 def k5_cases(gen, dtype):
@@ -611,6 +654,14 @@ def read_select():
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--only", nargs="+", metavar="KERNEL",
+                        help="the kernels to read and plant faults in (K1' K2 ... K11)")
+    only = parser.parse_args().only
+
+    def want(*kernels):
+        return only is None or any(k in only for k in kernels)
+
     if not torch.cuda.is_available():
         raise SystemExit("chip_faults: torch.cuda.is_available() is False; this script needs a "
                          "CUDA card")
@@ -622,38 +673,50 @@ def main():
         nonlocal ok
         inside = agrees(reading)
         ok &= inside == want_inside
+        # how far the reading goes toward its bounds (above 1: past one of them)
+        if "mean_of_bound" in reading:
+            share = max(reading["of_bound"], reading["mean_of_bound"])
+        elif "mean_steps" in reading:
+            share = max(reading["of_bound"], reading["mean_steps"] / cb.BF16_MEAN_STEPS)
+        else:
+            share = float("nan")
         print(f"[faults] {name:60s} {kernel:9s} {'inside' if inside else 'OUTSIDE'} "
-              f"(expected {'inside' if want_inside else 'outside'}): {reading}", flush=True)
+              f"(expected {'inside' if want_inside else 'outside'}; {share:.3g} of the bounds): "
+              f"{reading}", flush=True)
 
     use_sources(REAL_CSRC)
-    report("the kernel", "K2 bf16", read_attention(), True)
-    for dtype in (torch.bfloat16, torch.float32):
+    if want("K2"):
+        report("the kernel", "K2 bf16", read_attention(), True)
+    for dtype in (torch.bfloat16, torch.float32) if want("K7", "K8") else ():
         e7, e8 = read_ln(dtype)
         report("the kernel", f"K7 {str(dtype)[6:]}", e7, True)
         report("the kernel", f"K8 {str(dtype)[6:]}", e8, True)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32) if want("K4", "K6") else ():
         e4, e6 = read_window(dtype)
         report("the kernel", f"K4 {str(dtype)[6:]}", e4, True)
         report("the kernel", f"K6 {str(dtype)[6:]}", e6, True)
-    report("the kernel", "K1'", read_select(), True)
-    for dtype in (torch.bfloat16, torch.float32):
+    if want("K1'"):
+        report("the kernel", "K1'", read_select(), True)
+    for dtype in (torch.bfloat16, torch.float32) if want("K9", "K11") else ():
         e9, e11 = read_tail(dtype)
         report("the kernel", f"K9 {str(dtype)[6:]}", e9, True)
         report("the kernel", f"K11 {str(dtype)[6:]}", e11, True)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32) if want("K3") else ():
         report("the kernel", f"K3 {str(dtype)[6:]}", read_backward(dtype), True, va.grad_agrees)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32) if want("K10") else ():
         report("the kernel", f"K10 {str(dtype)[6:]}", read_tail_bwd(dtype), True,
-               va.grad_agrees)
-    for dtype in (torch.bfloat16, torch.float32):
-        report("the kernel", f"K5 {str(dtype)[6:]}", read_k5(dtype), True, va.grad_agrees)
-    report("K5's plain version with t left unrounded before its products", "K5 bf16",
-           read_k5(torch.bfloat16, plain=k5_plain_t_unrounded), False, va.grad_agrees)
-    for dtype in (torch.bfloat16, torch.float32):
-        report("K5: dscale not divided by scale_g", f"K5 {str(dtype)[6:]}",
-               read_k5(dtype, kernel=k5_dscale_undivided), False, va.grad_agrees)
-    report("K10's plain version with dh1 left unrounded before its products", "K10 bf16",
-           read_tail_bwd(torch.bfloat16, tail_plain_dh1_unrounded), False, va.grad_agrees)
+               tail_bwd_agrees)
+    if want("K5"):
+        for dtype in (torch.bfloat16, torch.float32):
+            report("the kernel", f"K5 {str(dtype)[6:]}", read_k5(dtype), True, va.grad_agrees)
+        report("K5's plain version with t left unrounded before its products", "K5 bf16",
+               read_k5(torch.bfloat16, plain=k5_plain_t_unrounded), False, va.grad_agrees)
+        for dtype in (torch.bfloat16, torch.float32):
+            report("K5: dscale not divided by scale_g", f"K5 {str(dtype)[6:]}",
+                   read_k5(dtype, kernel=k5_dscale_undivided), False, va.grad_agrees)
+    if want("K10"):
+        report("K10's plain version with dh1 left unrounded before its products", "K10 bf16",
+               read_tail_bwd(torch.bfloat16, tail_plain_dh1_unrounded), False, va.grad_agrees)
     import chip_smoke as cs
 
     def report_slice(name, want_inside):
@@ -664,19 +727,26 @@ def main():
         print(f"[faults] {name:60s} f32 slice {'inside' if inside else 'OUTSIDE'} (expected "
               f"{'inside' if want_inside else 'outside'}): {reading}", flush=True)
 
-    report_slice("the kernel: cli.train dinov2 f32 against the plain versions", True)
-    for name, fault in (("t left in f32", "t"), ("1 / z applied to the score tile", "z"),
-                        ("c taken from p and dp rounded to bf16", "c")):
-        report(f"K3's plain version with {name}", "K3 bf16",
-               read_backward(torch.bfloat16, backward_plain_with(fault)), False, va.grad_agrees)
-    report("K4's plain version with the normalised k left unrounded", "K4 bf16",
-           read_window(torch.bfloat16, plain_k_unrounded)[0], False)
-    report("K2: q-scale constant not rounded to bf16", "K2 bf16",
-           read_attention(lambda s, dtype: s * va.LOG2E), False)
-    report("K8's plain version with the LN output left unrounded", "K8 bf16",
-           read_ln(torch.bfloat16, plain_unrounded=True)[1], False)
+    if want("K3"):
+        report_slice("the kernel: cli.train dinov2 f32 against the plain versions", True)
+        for name, fault in (("t left in f32", "t"), ("1 / z applied to the score tile", "z"),
+                            ("c taken from p and dp rounded to bf16", "c")):
+            report(f"K3's plain version with {name}", "K3 bf16",
+                   read_backward(torch.bfloat16, backward_plain_with(fault)), False,
+                   va.grad_agrees)
+    if want("K4"):
+        report("K4's plain version with the normalised k left unrounded", "K4 bf16",
+               read_window(torch.bfloat16, plain_k_unrounded)[0], False)
+    if want("K2"):
+        report("K2: q-scale constant not rounded to bf16", "K2 bf16",
+               read_attention(lambda s, dtype: s * va.LOG2E), False)
+    if want("K8"):
+        report("K8's plain version with the LN output left unrounded", "K8 bf16",
+               read_ln(torch.bfloat16, plain_unrounded=True)[1], False)
     with tempfile.TemporaryDirectory() as tmp:
         for i, (name, (file, *subs)) in enumerate(SOURCE_FAULTS.items()):
+            if not want(*re.findall(r"K\d+'?", name.split(":")[0])):
+                continue
             directory = Path(tmp) / f"fault{i}"
             shutil.copytree(REAL_CSRC, directory)
             text = (directory / file).read_text()
@@ -732,9 +802,15 @@ def main():
                         report(name, f"K11 {str(dtype)[6:]}", e11, False)
                 continue
             if name.startswith("K10"):
-                for dtype in (torch.bfloat16, torch.float32):
+                # faults of the bf16 kernel alone do not show in f32
+                dtypes = ((torch.bfloat16,) if "bf16 kernel" in name
+                          else (torch.bfloat16, torch.float32))
+                for dtype in dtypes:
                     report(name, f"K10 {str(dtype)[6:]}", read_tail_bwd(dtype), False,
-                           va.grad_agrees)
+                           tail_bwd_agrees)
+                continue
+            if name.startswith("K7 bf16 kernel"):
+                report(name, "K7 bf16", read_ln(torch.bfloat16)[0], False)
                 continue
             if name.startswith(("K4", "K6")):
                 b4, b6 = read_window(torch.bfloat16)

@@ -45,12 +45,14 @@ Phases, each of which raises (exit code != 0) on any failure:
   9. kernel  K2 (csrc/vit_attn.cu), K7 and K8 (csrc/ln_dense.cu) against their
              plain versions, f32 and bf16: the DINOv2 shape (N = 1370, hd = 64,
              C = 768, 12 heads) at B = 2; ragged and tiny N (1, 7, 197, 257,
-             729, 1024); the edges of K2's 128-row tiles (127, 128, 129, 255:
-             bf16 at 255 within the bound or as K2_BLIND_SPOT says); hd in {16, 32, 64, 72, 128} for K2 and {32, 64, 128}
-             for K7; K8 with and without GELU and bias; rows
-             whose every score is very negative and rows with one dominant
-             score; within the bounds of ops/vit_attn.py::agreement and
-             ops/convnext_block.py::agreement; two runs bit-equal
+             729, 1024); the edges of K2's 128-row tiles (127, 128, 129,
+             255); hd in {16, 32, 64, 72, 128} for K2 and {32, 64, 128} for
+             K7 (C = 128, 256, 384, 768); K8 with and without GELU and bias;
+             rows whose every score is very negative and rows with one
+             dominant score; within the bounds of ops/vit_attn.py::agreement
+             (K2: with the flip allowance of each row's dominant term,
+             flip_allowance) and ops/convnext_block.py::agreement; two runs
+             bit-equal
  10. slice   the ingest -> query CLIs with DINOv2 ViT-B/14 at full width (518
              px bicubic decode, 1370 tokens, 12 blocks, 768-d) under
              XMIR_FLASH_ATTN=1 XMIR_FUSED_LN=1 and --resume of a timm-layout
@@ -66,7 +68,9 @@ Phases, each of which raises (exit code != 0) on any failure:
              pinned once outside the timed windows and named; CUDA events over
              windows of 20 calls and the kernels' device time from
              torch.profiler); K2 also at B = 8, with the row statistics, and
-             the host's enqueue time of a K2 and a library call; DINOv2
+             the host's enqueue time of a K2 and a library call; K7's device
+             time beside its product alone (torch.matmul on the normalised
+             rows, a yardstick used nowhere in the port); DINOv2
              ViT-B/14 bf16 (weights and input) batch 16 at 518 px with the
              kernels, with K8 too, with the kernels' plain versions, and on
              the eager path, the kernels' embeddings held to the last two;
@@ -98,8 +102,10 @@ Phases, each of which raises (exit code != 0) on any failure:
              against their plain versions and one
              scaled_dot_product_attention call on pre-normalised inputs (timed
              here, used nowhere in the port; the SDPA backend the default
-             dispatch picks, pinned and named), with the time of the fold and
-             unfold copies around K4; K1' at Q = 1024, N = 100,000,
+             dispatch picks, named and pinned once outside the timed windows;
+             CUDA events over windows of 20 calls and the device time of K4,
+             K6 and the library call from torch.profiler), with the time of
+             the fold and unfold copies around K4; K1' at Q = 1024, N = 100,000,
              D = 1024, k = 2048 and at Q = 64, k = N, with K1 at k = 10 in the
              same turns; SwinV2-Base bf16 (weights and input) batch 16 at 384 px
              with K4, with K6, with the kernels' plain versions and on the
@@ -128,7 +134,9 @@ Phases, each of which raises (exit code != 0) on any failure:
  20. rates   K3 at B = 8 and B = 16 (BH = 96 / 192, N = 1370, hd = 64), bf16
              and f32, against its plain version and the backward of one
              scaled_dot_product_attention call (timed here, used nowhere in
-             the port); the bf16 DINOv2 train step at batch 8 with the
+             the port; its backend, the one the default dispatch picks for the
+             forward, named and pinned once outside the timed windows; CUDA
+             events and device time); the bf16 DINOv2 train step at batch 8 with the
              kernels, with their plain versions and on the eager path: img/s,
              peak memory, forward / backward / optimiser shares, and the
              device time by kernel (torch.profiler), K3's share of it
@@ -137,7 +145,9 @@ Phases, each of which raises (exit code != 0) on any failure:
              (B = 2), 49 rows and 1 row at C = 96, 144 rows at B = 3; within
              ops/vit_attn.py::grad_agreement's bounds (the run's dtype, the
              floors of ops/convnext_block.py::tail_grad_floors); two runs
-             bit-equal; the fused block's eleven gradients (K9 forward, K10
+             bit-equal; bf16 pass 2's ab bit-equal to pass 1's
+             (tail_bwd_recomputes_ab); the wrapper's workspace equal to the C
+             plan's; the fused block's eleven gradients (K9 forward, K10
              backward) against autograd through the plain forward in f32
  22. slice   cli.train with ConvNeXtV2-Base at full width (432 decode, 384
              crop, 36 blocks, --bf16 -p 2 -k 4) and a timm-layout --resume
@@ -150,9 +160,10 @@ Phases, each of which raises (exit code != 0) on any failure:
  23. rates   K10 at the four stage shapes at B = 16, bf16 and f32, against
              its plain version and autograd through a plain tail, beside one
              block's forward + backward fused (K9 + K10) and plain: the
-             training gate's table; the bf16 ConvNeXtV2-Base train step at
-             batch 16, 384 px with the kernels, their plain versions and on
-             the eager path
+             training gate's table, by CUDA events and by device time; the
+             bf16 ConvNeXtV2-Base train step at batch 16, 384 px with the
+             kernels, their plain versions and on the eager path, and a
+             torch.profiler breakdown of the step (K10's share)
  24. slice   main-path step 4 on DenseNet121 at full width (224 px, f32):
              cli.test --save-dir, cli.compute_saliency --results (2 queries,
              top 5, 2401 masks), cli.evaluate_saliency --saliency-dir (K1
@@ -180,8 +191,10 @@ Phases, each of which raises (exit code != 0) on any failure:
              calls), bf16 and f32, against its plain version and one
              scaled_dot_product_attention backward with a float mask that
              needs a gradient (timed here, used nowhere in the port; the
-             SDPA backend the default dispatch picks, pinned and named beside
-             its time)
+             SDPA backend the default dispatch picks, named and pinned once
+             outside the timed windows; CUDA events, and the device time of
+             both from CUDA events around calls enqueued behind a device-side
+             spin, spun_ms)
  28. rates   the bf16 SwinV2-Base train step at batch 8, 384 px with the
              kernels, their plain versions and on the eager path: img/s, peak
              memory, forward / backward / optimiser, the host's enqueue time
@@ -208,7 +221,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
-import hashlib
 import json
 import os
 import statistics
@@ -948,40 +960,14 @@ def vit_err(out, ref, agreement, what):
     return e
 
 
-# On phase 9's seed the bf16 case at N = 255, an edge of K2's 128-row tiles,
-# reads 1.33 times va.agreement's per-output bound, for the kernel before
-# the Hopper redesign and the present one alike (PERF.md, section 7): where a
-# row's sum z is small, its dominant e rounds to bf16 the other way in the
-# plain version, whose f32 score sum runs in another order. Until the bound
-# takes that flip in, the case passes within the bound or bit-equal to the
-# earlier kernel's output: the sha256 of its bf16 bytes, which
-# ``--k2-blind-spot`` prints when this script is run in that kernel's checkout
-# (the commit before the redesign; the present kernel prints the same)
-K2_BLIND_SPOT = {"case": ("bfloat16", 255),
-                 "sha256": "c4828a34f65452b24c3467c04a16b02c247077f4f249c0911ea6bc1e6f7cffc3"}
+def k2_agreement(q, k, v, sc):
+    """K2's bound on these inputs: ``va.agreement`` with the flip allowance
+    of each row's dominant term."""
+    allowance = va.flip_allowance(q, k, v, sc)
+    return lambda out, ref: va.agreement(out, ref, allowance)
 
 
-def k2_blind_spot(out, ref, label, record=None):
-    """K2's reading at K2_BLIND_SPOT's case, checked as it says; ``record``
-    (a dict), when given, takes the reading and the output's sha256 in place
-    of the check."""
-    e = va.agreement(out, ref)
-    digest = hashlib.sha256(out.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
-    if record is not None:
-        record.update(e, sha256=digest)
-        return e
-    if not cb.agrees(e):
-        check(digest == K2_BLIND_SPOT["sha256"],
-              f"{label}: the kernel differs from its plain version past the bounds ({e}) and "
-              "from the earlier kernel's output")
-        log(f"[kernel] {label}: past the per-output bound ({e}) and bit-equal to the earlier "
-            "kernel's output, as K2_BLIND_SPOT records")
-    return e
-
-
-def phase_kernel_vit(record=None):
-    """Phase 9; ``record`` (a dict), when given, takes K2_BLIND_SPOT's
-    reading and sha256 in place of its check."""
+def phase_kernel_vit():
     gen = torch.Generator().manual_seed(8)
     err = {key: {} for key in ("K2", "K7", "K8")}
     attn_cases = [(2 * VIT["heads"], VIT["n"], 64, "DINOv2, B 2")] + [
@@ -1001,11 +987,8 @@ def phase_kernel_vit(record=None):
                 torch.cuda.synchronize()
                 check(torch.equal(out, again), f"K2 {name} {what}: two runs differ")
                 ref = va.attention_plain(q, k, v, hd ** -0.5)
-                label = f"K2 {name} BH={bh} N={n} hd={hd}"
-                if (name, n) == K2_BLIND_SPOT["case"]:
-                    e = k2_blind_spot(out, ref, label, record)
-                else:
-                    e = vit_err(out, ref, va.agreement, label)
+                e = vit_err(out, ref, k2_agreement(q, k, v, hd ** -0.5),
+                            f"K2 {name} BH={bh} N={n} hd={hd}")
                 _worst(err["K2"].setdefault(name, {}), e)
                 log(f"[kernel] K2 {name:8s} BH={bh:2d} N={n:4d} hd={hd:3d} ({what}): {e}; "
                     "twice bit-equal")
@@ -1017,7 +1000,7 @@ def phase_kernel_vit(record=None):
             q, k, v = (t.to(dtype) for t in (q, k, v))
             out = va.vit_attention_fused(q, k, v, 0.125)
             check(torch.isfinite(out.float()).all(), "K2: non-finite output on negative rows")
-            e = vit_err(out, va.attention_plain(q, k, v, 0.125), va.agreement,
+            e = vit_err(out, va.attention_plain(q, k, v, 0.125), k2_agreement(q, k, v, 0.125),
                         f"K2 {name} negative rows with one dominant score")
             _worst(err["K2"][name], e)
             log(f"[kernel] K2 {name:8s} negative scores, one dominant key: {e}")
@@ -1233,6 +1216,33 @@ def device_ms(fn, reps=20):
                if str(e.device_type).endswith("CUDA")) / reps / 1e3
 
 
+def spun_ms(fn, reps=10):
+    """Device time of one fn() call by CUDA events around ``reps`` calls that
+    the host enqueues while the device spins (``torch.cuda._sleep``), so the
+    device runs them back to back and the host's enqueue time does not count.
+    The spin doubles until it outlasts the enqueue. For calls whose kernels
+    torch.profiler does not attribute (the backward of SDPA with a mask
+    gradient, launched from autograd's device thread, read 0 there)."""
+    fn()
+    torch.cuda.synchronize()
+    spin = 10 ** 8  # cycles, ~60 ms at the H100's clock
+    for _ in range(6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        spun = start.elapsed_time(end)
+        if host_ms < 0.5 * spin / 1.98e6:  # the enqueue ended well within the spin
+            return spun / reps
+        spin *= 2
+    raise RuntimeError("the host could not enqueue the calls within the device's spin")
+
+
 def enqueue_us(fn, reps=50):
     """Host microseconds to enqueue one fn() call."""
     torch.cuda.synchronize()
@@ -1301,6 +1311,9 @@ def phase_vit_rates():
             _, _, _, w1, b1 = _ln_inputs(gen, 1, 1, c, 4 * c, dtype)
             rows, sc = x.reshape(b * n, c), (c // h) ** -0.5
             q4, k4, v4 = (t.reshape(b, h, n, c // h) for t in (q, k, v))
+            # K7's product alone, a yardstick used nowhere in the port: torch.matmul
+            # on the normalised rows, (B N, C) . (C, 3C)
+            y_rows, w_t = ld._ln_rows(rows, lns, lnb, 1e-6), w.t().contiguous()
             # the library yardstick on the backend the default dispatch picks, pinned
             backend = sdpa_backend(lambda: F.scaled_dot_product_attention(q4, k4, v4))
             fns = {
@@ -1310,6 +1323,7 @@ def phase_vit_rates():
                 "K2 with statistics": lambda: va.launch_attention_forward(q, k, v, sc, True),
                 "K7": lambda: ld.ln_qkv_fused(x, lns, lnb, w, bias, h),
                 "K7 plain": lambda: ld.ln_qkv_reference(x, lns, lnb, w, bias, h),
+                "K7 product": lambda: torch.matmul(y_rows, w_t),
                 "K8": lambda: ld.ln_dense_fused(rows, lns, lnb, w1, b1, 1e-6, "gelu"),
                 "K8 plain": lambda: ld.ln_dense_reference(rows, lns, lnb, w1, b1, 1e-6, "gelu"),
             }
@@ -1321,6 +1335,8 @@ def phase_vit_rates():
             lib_err = (fns["K2"]().float() - under_backend(backend, fns["K2 library"]).reshape(
                 q.shape).float()).abs().max().item()
             ms, dev = k2_against_library(fns, backend)
+            dev["K7"] = device_ms(fns["K7"])
+            dev["K7 product"] = device_ms(fns["K7 product"])
             bounds = _kernel_bounds(b, dtype)
             for key in out:
                 ops, nbytes = bounds[key]
@@ -1331,16 +1347,21 @@ def phase_vit_rates():
                 lib = (f", with statistics {ms['K2 with statistics']:.3f} ms, library call "
                        f"{ms['K2 library']:.3f} ms (SDPA, {backend}); device time "
                        f"{dev['K2']:.4f} ms, with statistics {dev['K2 with statistics']:.4f} ms, "
-                       f"library call {dev['K2 library']:.4f} ms" if key == "K2" else "")
+                       f"library call {dev['K2 library']:.4f} ms" if key == "K2" else
+                       f"; device time {dev['K7']:.4f} ms; the product alone (torch.matmul on the "
+                       f"normalised rows) {ms['K7 product']:.3f} ms, device time "
+                       f"{dev['K7 product']:.4f} ms" if key == "K7" else "")
                 log(f"[rates] {key} {name:8s} B=16 N={n} C={c}: {ms[key]:.3f} ms "
                     f"({ops / ms[key] / 1e9:.1f} TFLOP/s; bound {bound_ms:.3f} ms by {bound_by}) "
                     f"vs plain {ms[f'{key} plain']:.3f} ms{lib}; agreement {errs[key]}")
             log(f"[rates] K2 {name} vs scaled_dot_product_attention: max |diff| {lib_err:.3g}")
+            out["K7"][name].update(device_ms=dev["K7"], product_ms=ms["K7 product"],
+                                   product_device_ms=dev["K7 product"])
             out["K2"][name].update(library=backend, stats_ms=ms["K2 with statistics"],
                                    device_ms=dev["K2"], stats_device_ms=dev["K2 with statistics"],
                                    library_device_ms=dev["K2 library"],
                                    b8=k2_at_b8(q, k, v, sc, name))
-            del q, k, v, x, w, w1, rows, q4, k4, v4, fns
+            del q, k, v, x, w, w1, rows, q4, k4, v4, fns, y_rows, w_t
             torch.cuda.empty_cache()
     # the whole model in tools/bench_towers.py's configuration: bf16 weights
     # and input, batch 16, 518 px; the default rule sends bf16 blocks to K7 + K2
@@ -1802,8 +1823,8 @@ def phase_window_rates():
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype)[6:]
-            total = {key: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
-                     for key in out}
+            total = {key: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                                         "library_device_ms"), 0.0) for key in out}
             bound_by, backends, fold_ms = set(), set(), 0.0
             for nw, h, n, shifted, count in SWIN_SHAPES:
                 q, k, v, bias, scale, g_size = _swin_inputs(gen, b, nw, h, n, shifted, dtype,
@@ -1826,11 +1847,9 @@ def phase_window_rates():
                 def sdpa():
                     return F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask, scale=1.0)
 
+                # the backend the default dispatch picks, named and pinned once
+                # outside every timed region
                 sdpa_name = sdpa_backend(sdpa)
-
-                def library():
-                    return under_backend(sdpa_name, sdpa)
-
                 backends.add(sdpa_name)
                 fns = {
                     "K4": lambda: va.biased_attention_fused(q, k, v, bias, scale, g_size, True),
@@ -1838,18 +1857,22 @@ def phase_window_rates():
                                                                   True),
                     "K6": lambda: wa.window_attention_fused(*ops6),
                     "K6 plain": lambda: wa.window_attention_plain(*ops6),
-                    "library": library,
+                    "library": sdpa,
                     "fold": folds,
                 }
                 shape = (f"B={b} windows={nw} H={h} N={n} "
                          f"{'shifted' if shifted else 'unshifted'} x{count}")
                 e4 = window_err(fns["K4"](), fns["K4 plain"](), f"K4 {name} {shape}")
                 e6 = window_err(fns["K6"](), fns["K6 plain"](), f"K6 {name} {shape}")
-                lib = fns["library"]()
+                lib = under_backend(sdpa_name, sdpa)
                 lib = (lib.reshape(b, nw, h, n, SWIN_HD).permute(1, 0, 2, 3, 4) if shifted
                        else lib.reshape(nw, b, h, n, SWIN_HD))
                 lib_err = (lib.float() - fns["K6"]().float()).abs().max().item()
-                ms, _ = _in_turns(fns)
+                fast = ("K4", "K6", "library", "fold")
+                with sdpa_pinned(sdpa_name):
+                    ms, _ = _in_turns({key: fns[key] for key in fast}, reps=20)
+                    dev = {key: device_ms(fns[key]) for key in ("K4", "K6", "library")}
+                ms.update(_in_turns({key: fns[key] for key in fns if key not in fast})[0])
                 work = _window_work(b, nw, h, n, shifted, dtype)
                 bound_ms, by = bound(*work, name)
                 bound_by.add(by)
@@ -1857,17 +1880,21 @@ def phase_window_rates():
                 for key in out:
                     out[key][f"{name} {shape}"] = {
                         "ms": ms[key], "plain_ms": ms[f"{key} plain"], "library_ms": ms["library"],
-                        "bound_ms": bound_ms, "bound_by": by}
+                        "bound_ms": bound_ms, "bound_by": by, "device_ms": dev[key],
+                        "library_device_ms": dev["library"]}
                     for field, value in (("ms", ms[key]), ("plain_ms", ms[f"{key} plain"]),
-                                         ("library_ms", ms["library"]), ("bound_ms", bound_ms)):
+                                         ("library_ms", ms["library"]), ("bound_ms", bound_ms),
+                                         ("device_ms", dev[key]),
+                                         ("library_device_ms", dev["library"])):
                         total[key][field] += count * value
                 log(f"[rates] {name:8s} {shape}: K4 {ms['K4']:.3f} ms "
                     f"({work[0] / ms['K4'] / 1e9:.1f} TFLOP/s; bound {bound_ms:.3f} ms by {by}, "
                     f"{bound_ms / ms['K4']:.1%} of it) vs "
                     f"plain {ms['K4 plain']:.3f} ms; K6 {ms['K6']:.3f} ms vs plain "
                     f"{ms['K6 plain']:.3f} ms; library call (SDPA, {sdpa_name}) "
-                    f"{ms['library']:.3f} ms (max |diff| to K6 {lib_err:.3g}); K4's fold + unfold copies {ms['fold']:.3f} ms; agreement "
-                    f"K4 {e4}, K6 {e6}")
+                    f"{ms['library']:.3f} ms (max |diff| to K6 {lib_err:.3g}); device time K4 "
+                    f"{dev['K4']:.4f} ms, K6 {dev['K6']:.4f} ms, library {dev['library']:.4f} ms; "
+                    f"K4's fold + unfold copies {ms['fold']:.3f} ms; agreement K4 {e4}, K6 {e6}")
                 del q, k, v, bias, scale, ops6, lq, lk, lv, mask, bw_qkv, fns, lib
                 torch.cuda.empty_cache()
             library = f"scaled_dot_product_attention, {'/'.join(sorted(backends))} backend"
@@ -1878,7 +1905,9 @@ def phase_window_rates():
                 + "; ".join(f"{key} {total[key]['ms']:.3f} ms (plain {total[key]['plain_ms']:.3f}, "
                             f"library {total[key]['library_ms']:.3f}, bound "
                             f"{total[key]['bound_ms']:.3f}: "
-                            f"{total[key]['bound_ms'] / total[key]['ms']:.1%} of it)" for key in out)
+                            f"{total[key]['bound_ms'] / total[key]['ms']:.1%} of it; device time "
+                            f"{total[key]['device_ms']:.4f} against the library's "
+                            f"{total[key]['library_device_ms']:.4f})" for key in out)
                 + f"; K4's fold + unfold copies {fold_ms:.3f} ms; library = {library}")
             out["K4"][name]["fold_ms"] = fold_ms
     return out
@@ -1909,8 +1938,11 @@ K4_BF16_KERNELS = ("wattn_bf16_wg",)
 K5_BF16_KERNELS = ("window_bwd_prep", "window_bwd_main", "window_bwd_finish")
 # ... and of K2's, K7's and K9's (K11's) in the bf16 forwards
 K2_BF16_KERNELS = ("attn_bf16_wg",)
-K7_KERNELS = ("ln_qkv",)
-K9_BF16_KERNELS = ("ln_rows_bf16", "tail_gemm_wg", "grn_scale")
+K7_KERNELS = ("ln_qkv", "ln_rows")  # bf16: ln_rows and ln_qkv_wg
+K9_BF16_KERNELS = ("ln_rows", "tail_gemm_wg", "grn_scale")
+# ... and of K10's in the bf16 ConvNeXtV2-Base train step
+# (its LayerNorm pre-pass, ln_rows, is also K9's there, and is read apart)
+K10_BF16_KERNELS = ("tail_bwd_pass", "grn_bwd", "tail_bwd_gemm", "sum_jobs", "ln_bwd_rows")
 
 
 def kernel_share(rows, names):
@@ -1921,10 +1953,10 @@ def kernel_share(rows, names):
     return ms, (ms / total if total else 0.0)
 
 
-def profile_forward(label, embed, x, shares):
-    """Where one forward's time goes: the host's wall time per forward (and
-    the time to enqueue it) beside the device time by kernel name, from
-    torch.profiler over three forwards. ``shares`` {name: kernel names}
+def profile_forward(label, embed, x, shares, what="forward"):
+    """Where one forward's (``what``'s) time goes: the host's wall time per
+    call (and the time to enqueue it) beside the device time by kernel name,
+    from torch.profiler over three calls. ``shares`` {name: kernel names}
     picks the kernels whose share of the device time is reported."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -1949,13 +1981,13 @@ def profile_forward(label, embed, x, shares):
     out = {"wall_ms": wall * 1e3, "enqueue_ms": enqueued * 1e3, "device_ms": device_ms,
            "kernels": sum(r[2] for r in rows),
            "idle_share": max(0.0, 1 - device_ms / (wall * 1e3))}
-    log(f"[profile] {label}: {out['wall_ms']:.2f} ms a forward on the host's clock "
+    log(f"[profile] {label}: {out['wall_ms']:.2f} ms a {what} on the host's clock "
         f"({out['enqueue_ms']:.2f} ms to enqueue it), {device_ms:.2f} ms of device time in "
-        f"{out['kernels']:.0f} kernels: the device is idle {out['idle_share']:.0%} of a forward")
+        f"{out['kernels']:.0f} kernels: the device is idle {out['idle_share']:.0%} of a {what}")
     for name, names in shares.items():
         ms, share = kernel_share(rows, names)
         out[name] = {"ms": ms, "share": share}
-        log(f"[profile] {name} ({', '.join(names)}) {ms:.3f} ms a forward = {share:.1%} of the "
+        log(f"[profile] {name} ({', '.join(names)}) {ms:.3f} ms a {what} = {share:.1%} of the "
             "device time")
     for name, ms, count in rows[:20]:
         log(f"[profile] {ms:8.3f} ms  {count:6.0f} x  {name[:110]}")
@@ -2375,9 +2407,12 @@ def phase_bwd_rates():
             q, k, v = _attn_inputs(gen, bh, n, hd, dtype)
             g = _attn_inputs(gen, bh, n, hd, dtype)[0]
             o, stats = va.launch_attention_forward(q, k, v, sc, want_stats=True)
-            # the library call: one SDPA forward, its graph kept, its backward timed alone
+            # the library call: one SDPA forward on the backend the default
+            # dispatch picks (named, and pinned for the forward, which fixes
+            # the backward's kernel), its graph kept, its backward timed alone
             lq, lk, lv = (t.reshape(b, h, n, hd).detach().requires_grad_(True) for t in (q, k, v))
-            lo = F.scaled_dot_product_attention(lq, lk, lv)
+            backend = sdpa_backend(lambda: F.scaled_dot_product_attention(lq, lk, lv))
+            lo = under_backend(backend, lambda: F.scaled_dot_product_attention(lq, lk, lv))
             lg = g.reshape(b, h, n, hd)
             fns = {
                 "K3": lambda: va.vit_attention_bwd(q, k, v, o, g, stats, sc),
@@ -2391,19 +2426,25 @@ def phase_bwd_rates():
             lib_rel = max(((a.float() - r.reshape(a.shape).float()).abs().max()
                            / a.float().abs().max()).item()
                           for a, r in zip(fns["K3"](), fns["K3 library"]()))
-            ms, _ = _in_turns(fns)
+            fast = ("K3", "K3 library", "K2")
+            with sdpa_pinned(backend):
+                ms, _ = _in_turns({key: fns[key] for key in fast}, reps=20)
+                dev = {key: device_ms(fns[key]) for key in ("K3", "K3 library")}
+            ms.update(_in_turns({"K3 plain": fns["K3 plain"]})[0])
             ops, nbytes = _bwd_work(bh, n, hd, dtype)
             bound_ms, bound_by = bound(ops, nbytes, name)
             out[f"{name} B={b}"] = {"ms": ms["K3"], "plain_ms": ms["K3 plain"],
                                     "library_ms": ms["K3 library"], "forward_ms": ms["K2"],
-                                    "bound_ms": bound_ms, "bound_by": bound_by, "agreement": e}
+                                    "bound_ms": bound_ms, "bound_by": bound_by, "agreement": e,
+                                    "device_ms": dev["K3"], "library_device_ms": dev["K3 library"],
+                                    "library": f"scaled_dot_product_attention backward, {backend}"}
             log(f"[rates] K3 {name:8s} B={b} BH={bh} N={n} hd={hd}: {ms['K3']:.3f} ms "
                 f"({ops / ms['K3'] / 1e9:.1f} TFLOP/s of the 10 BH N^2 hd it must do; bound "
                 f"{bound_ms:.3f} ms by {bound_by}, {bound_ms / ms['K3']:.1%} of it) vs plain "
-                f"{ms['K3 plain']:.3f} ms, library "
-                f"backward {ms['K3 library']:.3f} ms, K2 with statistics {ms['K2']:.3f} ms; "
-                f"agreement {e}; within {lib_rel:.3g} of the library's gradients' largest "
-                "magnitude")
+                f"{ms['K3 plain']:.3f} ms, library backward ({backend}) {ms['K3 library']:.3f} ms, "
+                f"K2 with statistics {ms['K2']:.3f} ms; device time K3 {dev['K3']:.4f} ms, library "
+                f"backward {dev['K3 library']:.4f} ms; agreement {e}; within {lib_rel:.3g} of the "
+                "library's gradients' largest magnitude")
             del q, k, v, g, o, stats, lq, lk, lv, lo, lg, fns
             torch.cuda.empty_cache()
     return out
@@ -2572,8 +2613,13 @@ def phase_kernel_tail_bwd():
                              cb.tail_grad_floors(h, dy, *p), dtype,
                              f"K10 {name} B={b} {hw}x{hw} C={c}")
             _worst(err["K10"].setdefault(name, {}), e)
+            extra = ""
+            if dtype == torch.bfloat16:  # pass 2 forms h1 and ab bit for bit as pass 1 did
+                check(cb.tail_bwd_recomputes_ab(h, dy, *p),
+                      f"K10 {name} {what}: pass 2's ab differs from pass 1's")
+                extra = "; pass 2's ab^2 sums bit-equal to pass 1's"
             log(f"[kernel] K10 {name:8s} B={b} {hw:2d}x{hw:2d} C={c:4d} ({what}): {e}; twice "
-                "bit-equal")
+                f"bit-equal{extra}")
         # the Function's eleven gradients against autograd through the plain
         # forward in f32
         for b, hw, c, what in (TAIL_BWD_CASES[1], TAIL_BWD_CASES[4]):
@@ -2665,24 +2711,33 @@ def phase_tail_bwd_rates():
                    "autograd": lambda: torch.autograd.grad(tail, [hl, *pl], dy, retain_graph=True),
                    "fused block": fused_block, "plain block": plain_block_step}
             ms, _ = _in_turns(fns)
-            ws = ctypes.c_longlong()
-            _build.load().xmir_convnext_bwd_plan(b, r, c, 4 * c, cb.DTYPE_CODES[dtype],
-                                                 ctypes.addressof(ws))
+            # device time of the kernel and of the gate's two blocks: the plain
+            # block's many small launches follow the host in CUDA-event readings
+            dev = {key: device_ms(fns[key], reps=10) for key in ("K10", "fused block",
+                                                                  "plain block")}
+            nbytes = ctypes.c_longlong()
+            check(_build.load().xmir_convnext_bwd_plan(b, r, c, 4 * c, cb.DTYPE_CODES[dtype],
+                                                       ctypes.addressof(nbytes)) == 0,
+                  f"K10 {name} {what}: no workspace plan")
+            ws = nbytes.value
             ops, nbytes = _tail_bwd_work(b, r, c, dtype)
             bound_ms, bound_by = bound(ops, nbytes, name)
             gate = "fused" if cb.fused_train_wins(r, c, 4 * c) else "plain"
             out[f"{name} {what}"] = {
                 "ms": ms["K10"], "plain_ms": ms["K10 plain"], "autograd_ms": ms["autograd"],
                 "fused_block_ms": ms["fused block"], "plain_block_ms": ms["plain block"],
-                "bound_ms": bound_ms, "bound_by": bound_by, "workspace_mib": ws.value / 2 ** 20,
-                "agreement": e, "gate": gate}
+                "bound_ms": bound_ms, "bound_by": bound_by, "workspace_mib": ws / 2 ** 20,
+                "agreement": e, "gate": gate, "device_ms": dev["K10"],
+                "fused_block_device_ms": dev["fused block"],
+                "plain_block_device_ms": dev["plain block"]}
             log(f"[rates] K10 {name:8s} B=16 {hw}x{hw} C={c} ({what}): {ms['K10']:.3f} ms "
                 f"({ops / ms['K10'] / 1e9:.1f} TFLOP/s; bound {bound_ms:.3f} ms by {bound_by}) vs "
                 f"plain {ms['K10 plain']:.3f} ms, autograd through the plain tail "
-                f"{ms['autograd']:.3f} ms; workspace {ws.value / 2 ** 20:.0f} MiB; one block "
-                f"forward + backward: fused (K9 + K10) {ms['fused block']:.3f} ms, plain block "
-                f"{ms['plain block']:.3f} ms (gate: {gate}); "
-                f"agreement {e}")
+                f"{ms['autograd']:.3f} ms; device time {dev['K10']:.4f} ms; workspace "
+                f"{ws / 2 ** 20:.1f} MiB; one block forward + backward: fused (K9 + K10) "
+                f"{ms['fused block']:.3f} ms, plain block {ms['plain block']:.3f} ms, by device "
+                f"time {dev['fused block']:.4f} against {dev['plain block']:.4f} ms (gate: "
+                f"{gate}); agreement {e}")
             del x, a, h, dy, p, hl, pl, tail, g, blk, xg, ag, fns
             torch.cuda.empty_cache()
     return out
@@ -2863,6 +2918,11 @@ def phase_convnext_train_rates():
             with_kernels()
         enqueue = (time.perf_counter() - t0) / 3 * 1e3
         torch.cuda.synchronize()
+        out["profile"] = profile_forward(
+            "ConvNeXtV2-Base bf16 train step, batch 16 @384, with K9 + K10",
+            lambda _: with_kernels(), None,
+            {"K10": K10_BF16_KERNELS, "ln_rows (K9 and K10)": ("ln_rows",),
+             "K9": ("tail_gemm_wg", "grn_scale")}, what="step")
     for name in paths:
         out[name] = {"ms": ms[name], "img_per_s": 16 / ms[name] * 1e3, "peak_gib": peak[name]}
     shares = {"forward": ms["forward"], "backward": ms["forward + backward"] - ms["forward"],
@@ -3174,7 +3234,8 @@ def phase_window_bwd_rates():
     b, out = 8, {}
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype)[6:]
-        total = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+        total = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                               "library_device_ms"), 0.0)
         bound_by = {"bytes": 0.0, "operations": 0.0}  # ms of the summed bound by what bounds it
         backend = None
         for nw, h, n, shifted, count in SWIN_SHAPES:
@@ -3196,21 +3257,22 @@ def phase_window_bwd_rates():
                 torch.autograd.grad(out_, leaves, lg, retain_graph=True)
                 return out_
 
-            # the backend the default dispatch picks at the first shape, pinned for all
+            # the backend the default dispatch picks at the first shape, pinned for
+            # all: for the forward, which fixes the backward's kernel, and once
+            # outside the timed regions
             backend = backend or sdpa_backend(forward_backward)
             lo = under_backend(backend, forward_backward)
-
-            def lib():
-                return under_backend(
-                    backend, lambda: torch.autograd.grad(lo, leaves, lg, retain_graph=True))
             fns = {"K5": lambda: va.biased_attention_bwd(q, k, v, bias, scale, o, g, g_size, True),
                    "plain": lambda: va.biased_attention_bwd_plain(q, k, v, bias, scale, o, g,
                                                                   g_size, True),
-                   "library": lib}
+                   "library": lambda: torch.autograd.grad(lo, leaves, lg, retain_graph=True)}
             e, _ = k5_err(fns["K5"](), fns["plain"](),
                           va.biased_grad_floors(q, k, v, bias, scale, g, g_size, True), dtype,
                           f"K5 {name} B={b}")
-            ms, _ = _in_turns(fns, rounds=3, reps=2)
+            with sdpa_pinned(backend):
+                ms, _ = _in_turns({"K5": fns["K5"], "library": fns["library"]}, reps=10)
+                dev = {key: spun_ms(fns[key]) for key in ("K5", "library")}
+            ms.update(_in_turns({"plain": fns["plain"]}, reps=2)[0])
             ops, nbytes = _k5_work(bh, groups, n, SWIN_HD, dtype)
             bound_ms, by = bound(ops, nbytes, name)
             bound_by[by] += count * bound_ms
@@ -3218,14 +3280,17 @@ def phase_window_bwd_rates():
                      f"{'shifted' if shifted else 'unshifted'} x{count}")
             out[f"{name} {shape}"] = {"ms": ms["K5"], "plain_ms": ms["plain"],
                                       "library_ms": ms["library"], "bound_ms": bound_ms,
-                                      "bound_by": by, "agreement": e}
+                                      "bound_by": by, "agreement": e, "device_ms": dev["K5"],
+                                      "library_device_ms": dev["library"]}
             for field, key in (("ms", "K5"), ("plain_ms", "plain"), ("library_ms", "library")):
                 total[field] += count * ms[key]
+            total["device_ms"] += count * dev["K5"]
+            total["library_device_ms"] += count * dev["library"]
             total["bound_ms"] += count * bound_ms
             log(f"[rates] K5 {name:8s} {shape}: {ms['K5']:.3f} ms ({ops / ms['K5'] / 1e9:.1f} "
                 f"TFLOP/s of the 10 BH N^2 hd it must do; bound {bound_ms:.3f} ms by {by}) vs "
-                f"plain {ms['plain']:.3f} ms, library ({backend}) {ms['library']:.3f} ms; "
-                f"agreement {e}")
+                f"plain {ms['plain']:.3f} ms, library ({backend}) {ms['library']:.3f} ms; device "
+                f"time K5 {dev['K5']:.4f} ms, library {dev['library']:.4f} ms; agreement {e}")
             del q, k, v, bias, scale, g, o, qf, kf, lq, lk, leaves, lo, lg, fns
             torch.cuda.empty_cache()
         library = f"scaled_dot_product_attention backward (mask gradient), {backend} backend"
@@ -3233,7 +3298,8 @@ def phase_window_bwd_rates():
         log(f"[rates] K5 {name:8s} the {SWIN_DEPTH} calls of one SwinV2-Base train step at B={b}: "
             f"{total['ms']:.3f} ms (plain {total['plain_ms']:.3f}, library "
             f"{total['library_ms']:.3f}, bound {total['bound_ms']:.3f} by "
-            f"{out[name]['bound_by']}); library = {library}")
+            f"{out[name]['bound_by']}); device time K5 {total['device_ms']:.4f} ms, library "
+            f"{total['library_device_ms']:.4f} ms; library = {library}")
     return out
 
 
@@ -3621,17 +3687,8 @@ def main():
     parser.add_argument("--train-only", action="store_true",
                         help="only build, then the training phases (17 to 23, 25 to 28); prints "
                              "no result")
-    parser.add_argument("--k2-blind-spot", action="store_true",
-                        help="only phase 9, then print K2's reading and output sha256 at "
-                             "K2_BLIND_SPOT's case; prints no result")
     opts = parser.parse_args()
     smi = phase_device()
-    if opts.k2_blind_spot:
-        record = {}
-        phase_kernel_vit(record)
-        print(json.dumps(record))
-        print(smi)
-        return
     phase_build()
     if opts.profile_swin:
         profile_swin()
@@ -3736,7 +3793,8 @@ def main():
             max_abs_err=max(e["max_abs_err"] for e in vit_errs[key].values()),
             err_by_dtype=vit_errs[key], ms=bf16["ms"], plain_ms=bf16["plain_ms"],
             bound_ms=bf16["bound_ms"], bound_by=bf16["bound_by"], library_ms=bf16["library_ms"],
-            library=bf16.get("library"),
+            library=bf16.get("library"), device_ms=bf16.get("device_ms"),
+            library_device_ms=bf16.get("library_device_ms"),
             shape="bf16, one DINOv2 ViT-B/14 block's call at B=16, 518 px",
             by_dtype=vit_rates[key], launches_by_path=by_path[key]))
     k3 = bwd_rates["bfloat16 B=16"]
@@ -3745,6 +3803,8 @@ def main():
         max_abs_err=max(e["max_abs_err"] for e in bwd_errs["K3"].values()),
         err_by_dtype=bwd_errs["K3"], ms=k3["ms"], plain_ms=k3["plain_ms"],
         bound_ms=k3["bound_ms"], bound_by=k3["bound_by"], library_ms=k3["library_ms"],
+        library=k3["library"], device_ms=k3["device_ms"],
+        library_device_ms=k3["library_device_ms"],
         shape="bf16, one DINOv2 ViT-B/14 block's backward call at B=16, 518 px",
         by_shape=bwd_rates, launches_by_path=by_path["K3"]))
     for key in ("K4", "K6"):
@@ -3754,7 +3814,8 @@ def main():
             max_abs_err=max(e["max_abs_err"] for e in window_errs[key].values()),
             err_by_dtype=window_errs[key], ms=bf16["ms"], plain_ms=bf16["plain_ms"],
             bound_ms=bf16["bound_ms"], bound_by=bf16["bound_by"], library_ms=bf16["library_ms"],
-            library=bf16["library"],
+            library=bf16["library"], device_ms=bf16["device_ms"],
+            library_device_ms=bf16["library_device_ms"],
             shape=f"bf16, the {SWIN_DEPTH} calls of one SwinV2-Base forward at B=16, 384 px "
                   "(sum over the six stage shapes by their block counts)",
             ms_by_shape=window_rates[key], launches_by_path=by_path[key]))
@@ -3764,8 +3825,10 @@ def main():
         max_abs_err=max(e["max_abs_err"] for e in k5_errs["K5"].values()),
         err_by_dtype=k5_errs["K5"], ms=k5["ms"], plain_ms=k5["plain_ms"],
         bound_ms=k5["bound_ms"], bound_by=k5["bound_by"], library_ms=k5["library_ms"],
-        library=k5["library"], f32_sum={key: k5_rates["float32"][key] for key in
-                                        ("ms", "plain_ms", "library_ms", "bound_ms")},
+        library=k5["library"], device_ms=k5["device_ms"],
+        library_device_ms=k5["library_device_ms"],
+        f32_sum={key: k5_rates["float32"][key] for key in
+                 ("ms", "plain_ms", "library_ms", "bound_ms")},
         shape=f"bf16, the {SWIN_DEPTH} calls of one SwinV2-Base train step's backward at B=8, "
               "384 px (sum over the six stage shapes by their block counts)",
         ms_by_shape=k5_rates, function_grad_rel_err=k5_errs["function"],
@@ -3798,6 +3861,7 @@ def main():
         else "mixed: see ms_by_shape", library_ms=None,
         library="none: 5 products + LN / GELU / GRN backward",
         autograd_ms=sum(v["autograd_ms"] for v in bf16),
+        device_ms=sum(v["device_ms"] for v in bf16),
         shape="bf16, one block of each ConvNeXtV2-Base stage at B=16, 384 px (sum)",
         f32_sum={"ms": sum(v["ms"] for v in f32s), "plain_ms": sum(v["plain_ms"] for v in f32s),
                  "bound_ms": sum(v["bound_ms"] for v in f32s)},

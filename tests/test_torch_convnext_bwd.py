@@ -314,3 +314,14 @@ def test_tail_bwd_wrapper_checks_and_counts_no_cpu_call():
     meta = [t.to("meta") for t in args]
     with pytest.raises(ValueError, match="device"):
         cb.convnext_tail_bwd(h.to("meta"), h.to("meta"), *meta)
+
+
+def test_tail_bwd_recompute_check_needs_the_card():
+    """The check that pass 2 forms ab bit for bit as pass 1 did reads the
+    bf16 kernel's two passes: on the CPU it raises and launches nothing."""
+    p = _port(_params(8, seed=13))
+    h = torch.zeros((1, 16, 8), dtype=torch.bfloat16)
+    before = cb.convnext_tail_bwd.launches
+    with pytest.raises(ValueError, match="on the card"):
+        cb.tail_bwd_recomputes_ab(h, h, *[p[k] for k in TAIL_KEYS])
+    assert cb.convnext_tail_bwd.launches == before

@@ -52,7 +52,8 @@ def _plain_block(x, dw_weight, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,hw,c", [(2, 7, 96), (2, 1, 96), (2, 48, 256), (3, 12, 128),
-                                    (1, 24, 512), (2, 12, 1024)])
+                                    (1, 24, 512), (2, 12, 1024), (2, 7, 128), (2, 12, 256),
+                                    (2, 24, 512), (2, 7, 1024), (3, 24, 128)])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_tail_backward_matches_plain_on_card(dtype, b, hw, c):
     """K10's eight outputs within va.grad_agreement's bounds (the run's
@@ -143,3 +144,23 @@ def test_mlp_grn_kernel_refuses_autograd_on_card():
     with torch.no_grad():
         out = cb.convnext_mlp_grn_fused(y, x.reshape(2, 64, 64), w1, *args[1:])
     assert out.shape == (2, 64, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hw,c", [(2, 7, 96), (2, 96, 128), (2, 48, 256), (2, 24, 512),
+                                    (3, 12, 1024)])
+def test_tail_bwd_pass2_forms_ab_as_pass1_on_card(b, hw, c):
+    """bf16 K10's pass 2 forms h1 and ab again where pass 1 formed them for
+    GRN's norm: by the same instructions in the same order, so its own
+    per-unit sums of ab^2 equal pass 1's bit for bit (fused pass 2 at C <=
+    256, the split one above). One launch, counted."""
+    _need_card()
+    x, a = _inputs(b, hw, c, torch.bfloat16, seed=b + hw + c)
+    h = cb.dwconv(x, a["dw_weight"], a["dw_bias"]).reshape(b, hw * hw, c)
+    dy = torch.randn(h.shape, generator=torch.Generator().manual_seed(2)).to("cuda",
+                                                                          torch.bfloat16)
+    before = cb.convnext_tail_bwd.launches
+    assert cb.tail_bwd_recomputes_ab(h, dy, *[a[k] for k in TAIL_KEYS])
+    assert cb.convnext_tail_bwd.launches == before + 1
+    with pytest.raises(ValueError, match="bf16"):
+        cb.tail_bwd_recomputes_ab(h.float(), dy.float(), *[a[k] for k in TAIL_KEYS])

@@ -163,6 +163,48 @@ def test_attention_wrapper_on_cpu_checks_and_does_not_count():
         va.vit_attention_fused(*(t.to("meta") for t in (q, k, v)), 0.25)
 
 
+def test_flip_allowance_is_the_rows_dominant_term():
+    """flip_allowance: one bf16 step of e_max (2^-8 below 1, 2^-7 at 1)
+    times |v_dom| / z for every output, v_dom the value row of the row's
+    largest score, e and z as attention_plain forms them, against a float64
+    reckoning of the same quantities."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv((3, 40, 16), seed=5))
+    q = q * 4  # some rows with one dominant score
+    got = va.flip_allowance(q, k, v, 0.25)
+    qs = (q * torch.tensor(va.scale_constant(0.25, q.dtype), dtype=q.dtype)).double()
+    s = qs @ k.double().transpose(-1, -2)
+    e = torch.exp2(s - torch.ceil(s.amax(dim=-1, keepdim=True)))
+    dom = e.argmax(dim=-1)
+    v_dom = torch.stack([v[i].double()[dom[i]] for i in range(3)])
+    e_max = e.amax(dim=-1, keepdim=True)
+    step = torch.where(e_max < 1, 2.0 ** -8, 2.0 ** -7).double()
+    want = step * v_dom.abs() / e.sum(dim=-1, keepdim=True)
+    assert got.shape == v.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.double().numpy(), want.numpy(), rtol=1e-5, atol=0)
+    assert got.max() > va.BF16_ATOL  # the allowance governs somewhere on these rows
+
+
+@pytest.mark.parametrize("factor,agrees", [(0.9, True), (1.1, False)])
+def test_k2_agreement_takes_the_larger_absolute_term(factor, agrees):
+    """In bf16 each output's bound is 2 bf16 steps plus the larger of
+    BF16_ATOL and its flip allowance: an error of 0.9 of that bound agrees,
+    1.1 of it does not; without the allowance the absolute term is
+    BF16_ATOL."""
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in _qkv((2, 30, 16), seed=6))
+    q = q * 4
+    ref = va.attention_plain(q, k, v, 0.25)
+    allowance = va.flip_allowance(q, k, v, 0.25)
+    bound = cb.BF16_STEPS * cb.bf16_step(ref.float()) + torch.clamp(allowance, min=va.BF16_ATOL)
+    i = torch.argmax(allowance)  # one output, where the allowance is largest
+    out = ref.float().flatten().clone()
+    out[i] += factor * bound.flatten()[i]
+    e = va.agreement(out.reshape(ref.shape), ref, allowance)
+    assert (e["of_bound"] <= 1) == agrees, e
+    plain_bound = (cb.BF16_STEPS * cb.bf16_step(ref.float()) + va.BF16_ATOL).flatten()[i]
+    assert va.agreement(out.reshape(ref.shape), ref)["of_bound"] == pytest.approx(
+        factor * bound.flatten()[i].item() / plain_bound.item(), rel=1e-3)
+
+
 # -- K7 / K8 --------------------------------------------------------------------
 
 def _ln_inputs(rows_shape, c, m, seed):

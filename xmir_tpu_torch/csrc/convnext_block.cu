@@ -26,9 +26,10 @@
 //
 // bf16 (every ConvNeXtV2 block in inference, and the forward of the blocks
 // training fuses), four launches:
-//   ln_rows_bf16   K9 only: each row normalised once (a warp a row: f32
-//       statistics with the fast variance max(E[x^2] - mean^2, 0), eps 1e-6),
-//       y rounded to bf16 into a (B, R, C) scratch. A pre-pass and not a
+//   ln_rows   K9 only (gemm_tile.cuh, shared with K7 and K10): each row
+//       normalised once (a warp a row: f32 statistics with the fast variance
+//       max(E[x^2] - mean^2, 0), eps 1e-6), y rounded to bf16 into a
+//       (B, R, C) scratch. A pre-pass and not a
 //       block that keeps its normalised rows in shared memory and walks every
 //       column tile of 4C: at C = 1024 a 64-row tile of y is 128 KB, and the
 //       pre-pass moves 2 B R C bytes (11 us at stage 3, 45 us at stage 1,
@@ -240,46 +241,6 @@ __device__ __forceinline__ float gelu_sigmoid(float v) {
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(-2.8853900817779268f * u));  // e^(-2u)
   asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + e));
   return v * r;
-}
-
-// y = LN(a) per row, rounded to bf16: a warp a row, 16-byte vectors, the
-// statistics as gemm_tile.cuh's kLayerNorm prologue takes them.
-__global__ void __launch_bounds__(kThreads) ln_rows_bf16(const __nv_bfloat16* __restrict__ a,
-                                                         const float* __restrict__ ln_scale,
-                                                         const float* __restrict__ ln_bias,
-                                                         __nv_bfloat16* __restrict__ y,
-                                                         long long rows, int C) {
-  const long long row = static_cast<long long>(blockIdx.x) * (kThreads / 32) + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (row >= rows) return;
-  const __nv_bfloat16* src = a + row * C;
-  float s = 0.f, ss = 0.f;
-  for (int k = lane * 8; k < C; k += 32 * 8) {
-    float f[8];
-    unpack(ldg16(src + k), f);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      s += f[e];
-      ss += f[e] * f[e];
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  }
-  const float mean = s / C;
-  const float rstd = rsqrtf(fmaxf(ss / C - mean * mean, 0.f) + kLnEps);
-  __nv_bfloat16* dst = y + row * C;
-  for (int k = lane * 8; k < C; k += 32 * 8) {
-    float f[8], sc[8], bi[8];
-    unpack(ldg16(src + k), f);
-    load_floats(sc, ln_scale + k);
-    load_floats(bi, ln_bias + k);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) f[e] = (f[e] - mean) * rstd * sc[e] + bi[e];
-    stash_vec(dst + k, f);
-  }
 }
 
 struct WgArgs {
@@ -528,14 +489,6 @@ cudaError_t launch_tail_f32(const void* a, const void* x, const float* ln_scale,
   return cudaGetLastError();
 }
 
-// A bf16 (cols, rows, images) tensor as boxes of (64 columns, box_rows, 1),
-// 128-byte swizzled: the panel layout of wgmma.cuh at 64 columns.
-int rows_map(CUtensorMap* map, const void* base, int cols, int rows, int images, int box_rows) {
-  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, cols, rows, images,
-                         static_cast<uint64_t>(cols) * 2, static_cast<uint64_t>(rows) * cols * 2,
-                         kWK, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 // One product: its weight as (K, N) boxes of (64, BN), blocks of unit pairs
 // by BN columns.
 template <int E, int BN>
@@ -566,12 +519,9 @@ cudaError_t launch_tail_bf16(const void* a, const void* x, const float* ln_scale
   cudaError_t err;
   const void* a_in = a;
   if (ln_scale != nullptr) {
-    const long long all = static_cast<long long>(batch) * rows;
-    const int per_block = kThreads / 32;
-    ln_rows_bf16<<<static_cast<unsigned>((all + per_block - 1) / per_block), kThreads, 0,
-                   stream>>>(static_cast<const T*>(a), ln_scale, ln_bias, static_cast<T*>(y),
-                             all, c);
-    err = cudaGetLastError();
+    err = launch_ln_rows<T>(static_cast<const T*>(a), ln_scale, ln_bias,
+                            static_cast<long long>(batch) * rows, c, static_cast<T*>(y), nullptr,
+                            stream);
     if (err != cudaSuccess) return err;
     a_in = y;
   }

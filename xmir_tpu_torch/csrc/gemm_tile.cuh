@@ -1,7 +1,10 @@
 // A 128 x 128 output tile of act(A) . W^T for Hopper (sm_90a), shared by the
 // kernels whose body is "rows transformed on their way into shared memory, a
 // GEMM against a torch Linear weight (out, in), an epilogue":
-// convnext_block.cu (K9, K11) and ln_dense.cu (K7, K8).
+// the f32 bodies of convnext_block.cu (K9, K11), convnext_block_bwd.cu
+// (K10) and ln_dense.cu (K7), and K8 in both dtypes. Also the LayerNorm
+// pre-pass ``ln_rows`` whose output the wgmma bodies of K7, K9 and K10 read
+// through the copy engine.
 //
 // gemm_tile<T, P> leaves the tile's f32 sums in acc[8][8] per thread; the
 // including source adds its epilogue (Layout<T>::row_of / col_of place an
@@ -228,6 +231,62 @@ struct Layout<__nv_bfloat16> {
 
 __device__ __forceinline__ float gelu_tanh(float v) {
   return v * (0.5f * (1.f + tanhf(kGeluK0 * (v + kGeluK1 * v * v * v))));
+}
+
+// y = LayerNorm(a) per row, rounded to T, and (when stats is not null) the
+// row's (mean, rstd): a warp a row, 16-byte vectors, f32 statistics with the
+// fast variance max(E[x^2] - mean^2, 0) and eps 1e-6, as the kLayerNorm
+// prologue below takes them. K7 and K9 (bf16) and K10 normalise each row once
+// here and feed the normalised rows to their products.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ln_rows(const T* __restrict__ a,
+                                                    const float* __restrict__ ln_scale,
+                                                    const float* __restrict__ ln_bias,
+                                                    long long n_rows, int C, T* __restrict__ y,
+                                                    float2* __restrict__ stats) {
+  constexpr int kVec = Tile<T>::kVec;
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (kThreads / 32) + (threadIdx.x >> 5);
+  if (row >= n_rows) return;
+  const T* src = a + row * C;
+  float s = 0.f, ss = 0.f;
+  for (int k = lane * kVec; k < C; k += 32 * kVec) {
+    float f[kVec];
+    unpack(ldg16(src + k), f);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) {
+      s += f[e];
+      ss += f[e] * f[e];
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, off);
+    ss += __shfl_xor_sync(0xffffffffu, ss, off);
+  }
+  const float mean = s / C;
+  const float rstd = rsqrtf(fmaxf(ss / C - mean * mean, 0.f) + kLnEps);
+  if (stats != nullptr && lane == 0) stats[row] = make_float2(mean, rstd);
+  T* dst = y + row * C;
+  for (int k = lane * kVec; k < C; k += 32 * kVec) {
+    float f[kVec], sc[kVec], bi[kVec];
+    unpack(ldg16(src + k), f);
+    load_floats(sc, ln_scale + k);
+    load_floats(bi, ln_bias + k);
+#pragma unroll
+    for (int e = 0; e < kVec; ++e) f[e] = round_to((f[e] - mean) * rstd * sc[e] + bi[e], T());
+    stash_vec(dst + k, f);
+  }
+}
+
+// Launches ln_rows over n_rows rows of width C (a multiple of 8).
+template <typename T>
+cudaError_t launch_ln_rows(const T* a, const float* ln_scale, const float* ln_bias,
+                           long long n_rows, int C, T* y, float2* stats, cudaStream_t stream) {
+  constexpr int per_block = kThreads / 32;
+  ln_rows<T><<<static_cast<unsigned>((n_rows + per_block - 1) / per_block), kThreads, 0,
+               stream>>>(a, ln_scale, ln_bias, n_rows, C, y, stats);
+  return cudaGetLastError();
 }
 
 // The tile loop's shared memory: two stages of each operand, and the row

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks of the bf16 kernels K2 (vit_attn.cu), K3
 // (vit_attn_bwd.cu), K4 / K6 (window_attn.cu), K5 (window_attn_bwd.cu) and
-// K9 / K11 (convnext_block.cu): warpgroup matrix products
+// K9 / K11 (convnext_block.cu), K7 (ln_dense.cu) and K10
+// (convnext_block_bwd.cu): warpgroup matrix products
 // (wgmma) with f32 accumulation on bf16 operands, their shared-memory matrix
 // descriptors and swizzled tile layouts, the copy engine (TMA tensor maps,
 // bulk copies and reductions), mbarriers for rings of asynchronous copies,
@@ -208,6 +209,16 @@ inline CUtensorMapSwizzle panel_swizzle() {
   return Panels<DP>::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
          : Panels<DP>::kRowBytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
                                         : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// A bf16 (cols, rows, images) tensor, rows contiguous, as boxes of (64
+// columns, box_rows, 1), 128-byte swizzled: the panel layout above at 64
+// columns. Rows past `rows` and columns past `cols` read as zeros.
+inline int rows_map(CUtensorMap* map, const void* base, int cols, int rows, int images,
+                    int box_rows) {
+  return make_tensor_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, cols, rows, images,
+                         static_cast<uint64_t>(cols) * 2, static_cast<uint64_t>(rows) * cols * 2,
+                         64, box_rows, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Box (c0, c1, c2) of a tensor map into shared memory, its bytes counted on bar.

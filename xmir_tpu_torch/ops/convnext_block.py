@@ -223,7 +223,8 @@ def agreement(out, ref, atol: float = BF16_ATOL, floor: float = 2 ** -4,
     |ref| >= ``floor`` (``mean_steps``). They agree when of_bound <= 1 and
     mean_steps <= BF16_MEAN_STEPS; NaN agrees with nothing. ``atol`` and
     ``floor`` (bf16) and ``rtol`` (f32) default to K9 / K11's; a kernel whose
-    outputs are smaller, or whose scores are larger, states its own."""
+    outputs are smaller, or whose scores are larger, states its own (``atol``
+    may be a tensor of the outputs' shape: a term for each output)."""
     r = ref.float()
     d = (out.float() - r).abs()
     if ref.dtype == torch.float32:
@@ -322,22 +323,23 @@ def convnext_mlp_grn_fused(y, x, w1, b1, w2, b2, gamma, beta):
     return out
 
 
-def convnext_tail_bwd(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta):
-    """K10: the backward of the block tail at cotangent dy, as
-    ``tail_backward_reference`` (which the CPU takes): h the dwconv output
-    and dy, (B, R, C) of one dtype (float32 or bfloat16); w1 (4C, C), w2
-    (C, 4C) in it; ln_scale, ln_bias (C,), b1, gamma, beta (4C,). Returns
-    (dacc in h's dtype, dln_scale, dln_bias, dw1 (4C, C), db1, dw2 (C, 4C),
-    dgamma, dbeta), the parameter gradients f32. On CUDA: h and dy
-    contiguous and 16-byte aligned, C and 4C multiples of 8."""
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _check_tail_bwd(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta):
     if h.dim() != 3 or dy.shape != h.shape or dy.dtype != h.dtype:
         raise ValueError(f"need h and dy of one (B, R, C) shape and dtype, got "
                          f"{tuple(h.shape)} {h.dtype} and {tuple(dy.shape)} {dy.dtype}")
     _check_tail(h, dy, w1, b1, w2, ln_bias, gamma, beta)  # ln_bias in b2's (C,) place
     if ln_scale.shape != ln_bias.shape or ln_scale.device != h.device:
         raise ValueError(f"ln_scale and ln_bias must be ({h.shape[2]},) on {h.device}")
-    if h.device.type == "cpu":
-        return tail_backward_reference(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta)
+
+
+def _launch_tail_bwd(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta, check=None):
+    """K10 on CUDA operands; ``check`` (bf16 only), when given, a float32
+    (2, units, 4C) buffer that takes pass 1's and pass 2's per-unit column
+    sums of ab^2."""
     from . import _build
 
     if h.dtype not in DTYPE_CODES or w1.dtype != h.dtype or w2.dtype != h.dtype:
@@ -349,9 +351,9 @@ def convnext_tail_bwd(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta):
         raise ValueError(f"the kernel needs C and 4C to be multiples of 8, got {c} and {c4}")
     for t in (h, dy):
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("h and dy must be contiguous and 16-byte aligned; nothing is "
-                             "copied here")
-    # the weights' transposes, C- and 4C-contiguous, as the kernel's products take them
+            raise ValueError("h and dy must be contiguous and 16-byte aligned (the copy engine "
+                             "reads them by 16-byte boxes); nothing is copied here")
+    # w1 and the weights' transposes, C- and 4C-contiguous, as the kernel's products take them
     w1, w1t, w2t = w1.contiguous(), w1.t().contiguous(), w2.t().contiguous()
     lns, lnb, b1f, gf, bef = (t.float().contiguous() for t in (ln_scale, ln_bias, b1, gamma, beta))
     lib = _build.load()
@@ -370,14 +372,43 @@ def convnext_tail_bwd(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta):
     with torch.cuda.device(h.device):
         err = lib.xmir_convnext_bwd(
             h.data_ptr(), dy.data_ptr(), lns.data_ptr(), lnb.data_ptr(), w1.data_ptr(),
-            b1f.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), gf.data_ptr(), bef.data_ptr(), code,
-            bsz, rows, c, c4, workspace.data_ptr(), dacc.data_ptr(), dw1.data_ptr(),
-            dw2.data_ptr(), db1.data_ptr(), dg.data_ptr(), dbe.data_ptr(), dlns.data_ptr(),
-            dlnb.data_ptr(), torch.cuda.current_stream(h.device).cuda_stream)
+            b1f.data_ptr(), w1t.data_ptr(), w2t.data_ptr(), gf.data_ptr(), bef.data_ptr(),
+            code, bsz, rows, c, c4, workspace.data_ptr(), dacc.data_ptr(),
+            dw1.data_ptr(), dw2.data_ptr(), db1.data_ptr(), dg.data_ptr(), dbe.data_ptr(),
+            dlns.data_ptr(), dlnb.data_ptr(), None if check is None else check.data_ptr(),
+            torch.cuda.current_stream(h.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ConvNeXt block tail backward kernel launch failed: cudaError_t {err}")
     convnext_tail_bwd.launches += 1
     return dacc, dlns, dlnb, dw1, db1, dw2, dg, dbe
+
+
+def convnext_tail_bwd(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta):
+    """K10: the backward of the block tail at cotangent dy, as
+    ``tail_backward_reference`` (which the CPU takes): h the dwconv output
+    and dy, (B, R, C) of one dtype (float32 or bfloat16); w1 (4C, C), w2
+    (C, 4C) in it; ln_scale, ln_bias (C,), b1, gamma, beta (4C,). Returns
+    (dacc in h's dtype, dln_scale, dln_bias, dw1 (4C, C), db1, dw2 (C, 4C),
+    dgamma, dbeta), the parameter gradients f32. On CUDA: h and dy
+    contiguous and 16-byte aligned, C and 4C multiples of 8."""
+    _check_tail_bwd(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta)
+    if h.device.type == "cpu":
+        return tail_backward_reference(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta)
+    return _launch_tail_bwd(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta)
+
+
+def tail_bwd_recomputes_ab(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta) -> bool:
+    """Whether bf16 K10's pass 2, which forms h1 and ab again where pass 1
+    formed them for GRN's norm gx, forms them bit for bit as pass 1 did: one
+    launch (counted) whose pass 2 also sums ab^2 per 64-row unit and column
+    as pass 1 does, the two sums held equal. CUDA and bfloat16 only."""
+    _check_tail_bwd(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta)
+    if h.device.type != "cuda" or h.dtype != torch.bfloat16:
+        raise ValueError("the recompute check reads bf16 K10's two passes on the card")
+    units = h.shape[0] * _cdiv(h.shape[1], 64)
+    check = torch.empty((2, units, w1.shape[0]), dtype=torch.float32, device=h.device)
+    _launch_tail_bwd(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta, check)
+    return torch.equal(check[0], check[1])
 
 
 def _block_forward(x, dw_weight, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta):

@@ -2,10 +2,11 @@
 K8: LN -> dense with an optional tanh-GELU): the CUDA kernels' wrappers and
 their plain PyTorch versions.
 
-Port of ``xmir_tpu/ops/ln_dense_pallas.py``. Both kernels read
-a tile of the residual stream once, normalise it on its way into shared
-memory and feed the product from there, with the TPU kernels' rounding
-points: LayerNorm in f32 with the fast variance, rounded to x's dtype before
+Port of ``xmir_tpu/ops/ln_dense_pallas.py``. K8 and f32 K7 read a tile of
+the residual stream once, normalise it on its way into shared memory and
+feed the product from there; bf16 K7 normalises each row once into a
+scratch its wgmma product reads (csrc/ln_dense.cu). Both keep the TPU
+kernels' rounding points: LayerNorm in f32 with the fast variance, rounded to x's dtype before
 the product; the weight in x's dtype; f32 accumulation; the bias added in
 f32; tanh-GELU in f32; one rounding to the output dtype.
 
@@ -116,8 +117,9 @@ def _cuda_operands(x, lns, lnb, w, b):
     vecs = [None if t is None else t.detach().float().contiguous() for t in (lns, lnb, b)]
     for t in (x, w, *(v for v in vecs if v is not None)):
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("the kernel's operands must be contiguous and 16-byte aligned; "
-                             "nothing is copied here")
+            raise ValueError("the kernel's operands must be contiguous and 16-byte aligned "
+                             "(the copy engine reads x's rows and w by 16-byte boxes); nothing "
+                             "is copied here")
     return vecs
 
 
@@ -134,12 +136,14 @@ def _launch_ln_qkv(x, lns, lnb, w, b, num_heads: int, eps: float):
     lns32, lnb32, b32 = _cuda_operands(x, lns, lnb, w, b)
     q, k, v = (torch.empty((bsz, num_heads, n, head_dim), dtype=x.dtype, device=x.device)
                for _ in range(3))
+    # bf16 normalises each row once into y, which the product reads by the copy engine
+    y = torch.empty_like(x) if x.dtype == torch.bfloat16 else None
     with torch.cuda.device(x.device):
         err = _build.load().xmir_ln_qkv(
             x.data_ptr(), lns32.data_ptr(), lnb32.data_ptr(), w.data_ptr(),
             None if b32 is None else b32.data_ptr(), DTYPE_CODES[x.dtype], bsz, n, c,
-            num_heads, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            torch.cuda.current_stream(x.device).cuda_stream)
+            num_heads, None if y is None else y.data_ptr(), q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"LN -> qkv kernel launch failed: cudaError_t {err}")
     ln_qkv_fused.launches += 1

@@ -34,6 +34,7 @@ import ctypes
 import torch
 
 from .convnext_block import DTYPE_CODES, agrees  # noqa: F401  (agrees: this module's too)
+from .convnext_block import bf16_step
 from .convnext_block import agreement as _agreement
 
 LOG2E = 1.4426950408889634
@@ -75,14 +76,36 @@ def attention_plain(q, k, v, sm_scale: float):
 # the floor and the absolute term are K9's divided by 16. A q-scale constant
 # left unrounded, or e rounded before the sum z, moves the average past its
 # bound on rows with few dominant scores (PERF.md).
+#
+# One flip is not small beside an output: in a row whose sum z is small, the
+# row's largest e (in (1/2, 1], the shift being ceil(row max)) rounding to
+# bf16 the other way moves every output of the row by one bf16 step of e_max
+# (2^-8 below 1, 2^-7 at 1) times |v| / z. So the absolute term of a bf16
+# output is the larger of BF16_ATOL and that step times |v_dom| / z
+# (``flip_allowance``), v_dom the value row of the largest score; it
+# governs only in rows that one score dominates.
 BF16_ATOL, BF16_FLOOR = 2 ** -11, 2 ** -8
 
 
-def agreement(out, ref):
+def flip_allowance(q, k, v, sm_scale: float):
+    """bf16_step(e_max) |v_dom| / z for each output of K2 on (BH, N, hd), by
+    ``attention_plain``'s arithmetic: the most that one flip of the row's
+    largest e moves an output."""
+    qs = q * torch.tensor(scale_constant(sm_scale, q.dtype), dtype=q.dtype, device=q.device)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    e = torch.exp2(s - torch.ceil(s.amax(dim=-1, keepdim=True)))
+    e_max, dom = e.max(dim=-1, keepdim=True)
+    v_dom = torch.gather(v.float(), 1, dom.expand(-1, -1, v.shape[-1]))
+    return bf16_step(e_max) * v_dom.abs() / e.sum(dim=-1, keepdim=True)
+
+
+def agreement(out, ref, allowance=None):
     """K2's ``out`` against ``attention_plain``'s ``ref``: see
     ops/convnext_block.py::agreement, with this module's BF16_ATOL and
-    BF16_FLOOR."""
-    return _agreement(out, ref, atol=BF16_ATOL, floor=BF16_FLOOR)
+    BF16_FLOOR; in bf16, with ``allowance`` (``flip_allowance`` of the
+    inputs), the absolute term of each output is the larger of the two."""
+    atol = BF16_ATOL if allowance is None else torch.clamp(allowance, min=BF16_ATOL)
+    return _agreement(out, ref, atol=atol, floor=BF16_FLOOR)
 
 
 def _check_qkv(q, k, v):
