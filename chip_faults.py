@@ -1,5 +1,5 @@
 """Plants one fault at a time in the ViT kernels (K2, K3, K7, K8), the Swin
-attention kernels (K4, K6) and K4's backward (K5), the large-k top-k (K1'),
+attention kernels (K4, K6) and K4's backward (K5), the top-k (K1, K1'),
 the ConvNeXtV2 block tail (K9, K11) and its backward (K10) on an NVIDIA card
 and prints how far each faulty kernel lies from its plain PyTorch version,
 beside the real kernels' readings: the evidence the bounds in
@@ -7,9 +7,11 @@ xmir_tpu_torch/ops/vit_attn.py (``agreement``, ``grad_agreement``,
 ``window_agreement``) and ops/convnext_block.py (``agreement``) were set
 from, K10's by ``grad_agreement`` too (in bf16 also pass 2's ab bit-equal
 to pass 1's, ``convnext_block.tail_bwd_recomputes_ab``), K2's with its flip
-allowance (``vit_attn.flip_allowance``). K1' is held to bit-equal ids and
-values on integer inputs. Each line prints how far the reading goes toward
-its bounds (above 1: past one of them).
+allowance (``vit_attn.flip_allowance``). K1 and K1' are held to bit-equal
+ids and values on integer inputs, K1's f32 scores also to
+``topk_kernels.f32_score_error``'s bound (3xTF32) on full-mantissa rows.
+Each line prints how far the reading goes toward its bounds (above 1: past
+one of them).
 
     python3 chip_faults.py [--only K2 K7 ...]
 
@@ -40,7 +42,11 @@ from xmir_tpu_torch.ops import convnext_block as cb
 from xmir_tpu_torch.ops import ln_dense as ld
 from xmir_tpu_torch.ops import vit_attn as va
 from xmir_tpu_torch.ops import window_attn as wa
-from xmir_tpu_torch.ops.topk_kernels import fused_topk_scores, topk_scores_reference
+from xmir_tpu_torch.ops.topk_kernels import (
+    f32_score_error,
+    fused_topk_scores,
+    topk_scores_reference,
+)
 
 REAL_CSRC = _build.CSRC_DIR
 ROUND_BF16 = "__bfloat162float(__float2bfloat16({}))"
@@ -139,14 +145,41 @@ SOURCE_FAULTS = {
     "K6 bf16 kernel: the second image on the neighbouring slice's bias": (
         "window_attn.cu", "return MODE == kV1 ? g.d1 / g.m2 : g.d1;",
         "return MODE == kV1 ? g.d1 / g.m2 + 1 : g.d1;"),
-    "K1': ties to the higher row": (
-        "topk_select.cu", "static_cast<unsigned>(~row);", "static_cast<unsigned>(row);",
-        "return static_cast<int>(~static_cast<unsigned>(key & 0xffffffffu));",
-        "return static_cast<int>(static_cast<unsigned>(key & 0xffffffffu));"),
+    "K1: a tie inside a tile given to the higher row": (
+        "topk.cu", "return v > w || (v == w && i < j);", "return v > w || (v == w && i > j);"),
+    # >= in the stash's test would re-admit the k-th entry's ties every round
+    # and never finish; planted where the order places an entry, it misplaces
+    # ties without a hang
+    "K1: pruning with >= in place of the strict (value, row) order": (
+        "topk.cu", "if (ahead(v, i, bv[mid], bi[mid])) {", "if (v >= bv[mid]) {"),
+    "K1 f32: 2xTF32 (small . big dropped)": (
+        "topk_scores.cuh", "WgmmaTf32x128::ss(acc, da_s, db, 1);     // small . big", ""),
+    "K1 f32: 1xTF32 (both small products dropped)": (
+        "topk_scores.cuh", "WgmmaTf32x128::ss(acc, da_s, db, 1);     // small . big", "",
+        "WgmmaTf32x128::ss(acc, da, db_s, 1);     // big . small", ""),
+    "K1: a ring stage read one step stale": (
+        "topk_scores.cuh", "const uint32_t a_tile = smem_addr(smem + st * kStage);",
+        "const uint32_t a_tile = smem_addr(smem + (it + stages - 1) % stages * kStage);"),
+    "K1: the gallery's ragged last tile unmasked": (
+        "topk.cu",
+        "acc[4 * j + 2 * h + e] = live ? acc[4 * j + 2 * h + e] + b : -CUDART_INF_F;",
+        "acc[4 * j + 2 * h + e] = live ? acc[4 * j + 2 * h + e] + b : acc[4 * j + 2 * h + e];"),
+    "K1: the merge giving equal values to the higher split": (
+        "topk.cu", "if (ov > best || (ov == best && os < src)) {",
+        "if (ov > best || (ov == best && os > src)) {",
+        "if (hv[h] > best) {", "if (hv[h] >= best) {"),
+    "K1': ties to the higher row (equal digits ranked from the last lane)": (
+        "topk_select.cu", "const unsigned rank = __popc(peers & lt);",
+        "const unsigned rank = __popc(peers) - 1 - __popc(peers & lt);"),
     "K1': the k-th key left out of the gather": (
-        "topk_select.cu", "take = key >= prefix;", "take = key > prefix;"),
-    "K1': -0 ranked below +0": (
-        "topk_select.cu", "__float_as_uint(__fadd_rn(score, 0.f))", "__float_as_uint(score)"),
+        "topk_select.cu", "const bool all_ties = remaining == ties;", "const bool all_ties = false;",
+        "take = gt || (eq && eq_rank < remaining);", "take = gt || (eq && eq_rank + 1 < remaining);"),
+    # (-0 ranked below +0 cannot show on the tensor-core producer: its sums
+    # return +0 for every zero, +0 plus a -0 bias is +0, so no score is -0;
+    # the fault below plants in the same map)
+    "K1': negative scores' words not inverted (their order reversed)": (
+        "topk_scores.cuh", "return (u & 0x80000000u) ? ~u : (u | 0x80000000u);",
+        "return (u & 0x80000000u) ? (u & 0x7fffffffu) : (u | 0x80000000u);"),
     "K5: dbias summed over the group's first folded row only": (
         "window_attn_bwd.cu",
         "tma_reduce_add(&maps.dbias, kc, i * kT, un.group, src + kb * (kT * 128));",
@@ -640,23 +673,57 @@ def read_select():
             torch.cuda.synchronize()
             rv, ri = topk_scores_reference(q, g, bias, k)
             equal &= torch.equal(v, rv) and torch.equal(i, ri)
-        # a last product that underflows to -0 on some rows, plus a bias of
-        # -0, gives scores of -0 there and +0 on the rest: all equal, so the
-        # ranking is the row order
+        # products that all underflow to -0 on some rows (a query of -1e-30
+        # against rows of 1e-30), to +0 on the rest, plus a bias of -0: scores
+        # of -0 and +0, all equal, so the ranking is the row order
         q = torch.zeros((2, 64))
         g = torch.zeros((2100, 64))
-        q[0, 63], q[1, 63] = -1e-30, 1e-30
-        g[10:900:7, 63] = 1e-30
+        q[0], q[1] = -1e-30, 1e-30
+        g[10:900:7] = 1e-30
+        g[900:1500:5] = -1e-30
         i = fused_topk_scores(q.to("cuda", dtype), g.to("cuda", dtype),
                               torch.full((2100,), -0.0, device="cuda"), 2100)[1]
         equal &= torch.equal(i, torch.arange(2100, device="cuda", dtype=torch.int32).expand(2, -1))
     return {"max_abs_err": 0.0, "of_bound": 0.0 if equal else float("inf"), "mean_steps": 0.0}
 
 
+def read_k1():
+    """K1 against its plain version: integer inputs bit-equal (ties inside a
+    tile, across tile edges, split edges and the merge's lane wrap, masked
+    rows, ragged ends) at both routes, and f32 rows of full mantissas within
+    topk_kernels.f32_score_error's bound. of_bound: the worst score reading,
+    inf where an integer case differs."""
+    import chip_smoke as cs
+
+    gen = torch.Generator().manual_seed(5)
+    worst, worst_abs = 0.0, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for q_n, n, d, k in ((70, 4099, 96, 10), (300, 4099, 64, 32), (16, 100_000, 64, 10),
+                             (70, 4099, 96, 100), (1, 4099, 96, 10), (70, 4099, 97, 200)):
+            # rows masked at the end, and every score below zero: the zeros
+            # the copy engine reads past row N would rank first if unmasked
+            for low in (0.0, -1000.0):
+                bias = torch.full((n,), low, device="cuda")
+                bias[n - 37:] = float("-inf")
+                q, g = cs._int_inputs(gen, q_n, n, d, k, dtype)
+                v, i = fused_topk_scores(q, g, bias, k)
+                torch.cuda.synchronize()
+                rv, ri = topk_scores_reference(q, g, bias, k)
+                if not (torch.equal(v, rv) and torch.equal(i, ri)):
+                    worst = float("inf")
+    for q_n, n, d, k in cs.FULL_MANTISSA_SHAPES:
+        q = torch.randn((q_n, d), generator=gen).cuda()
+        g = torch.randn((n, d), generator=gen).cuda()
+        bias = torch.randn(n, generator=gen).cuda()
+        reading = f32_score_error(q, g, bias, *fused_topk_scores(q, g, bias, k))
+        worst, worst_abs = max(worst, reading["of_bound"]), max(worst_abs, reading["max_abs_err"])
+    return {"max_abs_err": worst_abs, "of_bound": worst, "mean_steps": 0.0}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", nargs="+", metavar="KERNEL",
-                        help="the kernels to read and plant faults in (K1' K2 ... K11)")
+                        help="the kernels to read and plant faults in (K1 K1' K2 ... K11)")
     only = parser.parse_args().only
 
     def want(*kernels):
@@ -695,6 +762,8 @@ def main():
         e4, e6 = read_window(dtype)
         report("the kernel", f"K4 {str(dtype)[6:]}", e4, True)
         report("the kernel", f"K6 {str(dtype)[6:]}", e6, True)
+    if want("K1"):
+        report("the kernel", "K1", read_k1(), True)
     if want("K1'"):
         report("the kernel", "K1'", read_select(), True)
     for dtype in (torch.bfloat16, torch.float32) if want("K9", "K11") else ():
@@ -776,6 +845,9 @@ def main():
                 continue
             if name.startswith("K1'"):
                 report(name, "K1'", read_select(), False)
+                continue
+            if re.match(r"K1[ :]", name):
+                report(name, "K1", read_k1(), False)
                 continue
             if name.startswith("K5"):
                 if "out of the fixed order" in name:  # refused if outside or not repeatable

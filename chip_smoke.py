@@ -6,18 +6,38 @@ Phases, each of which raises (exit code != 0) on any failure:
   1. device  the card's name and power limit (nvidia-smi)
   2. build   the CUDA kernels, from the sources in this checkout (one nvcc per
              source, all started together)
-  3. kernel  K1 (csrc/topk.cu) against its plain PyTorch version on the card:
-             f32 and bf16, the slice's own shape (64 x 256 x 1024, k 10) and
-             k in {1, 10, 128, 129, 1024}, ragged N, D in {32, 96, 1024},
-             valid rows < k; bit-equal on small-integer inputs, within 1e-5
-             (f32) / 1e-2 (bf16) on random ones; all four metrics through
-             fused_topk
+  3. kernel  K1 (csrc/topk.cu, the score producer csrc/topk_scores.cuh) and,
+             above k = 32, K1' (its select route, csrc/topk_select.cu)
+             through fused_topk_scores against their plain
+             PyTorch version on the card: f32 and bf16, the slice's own shape
+             (64 x 256 x 1024, k 10) and k in {1, 10, 32, 33, 128, 129, 1024},
+             Q in {1, 5, 16, 17, ..., 300}, ragged N, N = 100,000 at Q = 16
+             (131 splits: the merge's lane wrap), D in {8, 32, 64, 96, 1024}
+             and D the copy engine cannot take (97, 100: padded), valid rows
+             < k; bit-equal on small-integer inputs with ties inside a tile,
+             across tile, split and lane-wrap edges; within 1e-5 (f32) / 1e-2
+             (bf16) on random ones; two runs bit-equal; f32 rows of full
+             mantissas within topk_kernels.f32_score_error's 3xTF32 bound;
+             all four metrics through fused_topk
   4. slice   the ingest -> query CLIs with DenseNet121 at full width (224
              crop, 1024-d) on COVIDx-format PNGs, through K1; its hits
              against the plain top-k on the same device embeddings, and the
              built gallery against queries whose scores spread
-  5. serving exact top-10 of 1024 queries over 100,000 x 1024, f32 and bf16:
-             kernel and plain version timed with CUDA events, in turns
+  5. serving K1 over 100,000 x 1024 unit rows at Q = 1024 with k in {10,
+             100, 1000} (k = 100 and 1000 take the select route, K1') and at
+             Q in {1, 16} with k = 10 (a single query's and a small batch's
+             latency), f32 and bf16: kernel and plain version by CUDA events
+             in turns, the device time (device_ms: CUDA events around calls
+             enqueued behind a device-side spin) and its split by kernel
+             (torch.profiler, reported only where the trace's records hold
+             90% of the device time), the yardsticks torch.mm alone and
+             torch.mm + torch.topk by device time (timed here, used nowhere
+             in the port), the wall time of one call with the host at Q <=
+             16; then K1' at Q = 1024, k = 2048 and at Q = 64, k = N, f32 and
+             bf16, with K1 at k = 10 in the same turns, the same readings
+             (the split: the score producer, the select and sort), one
+             call's memory, and the yardsticks torch.mm, torch.mm +
+             torch.topk and torch.sort of the scores by device time
   6. kernel  K9 and K11 (csrc/convnext_block.cu) against their plain versions,
              f32 and bf16, random LN / GRN / biases: ConvNeXtV2-Base's four
              stage shapes at 384 px (B = 2), ragged rows (7x7, 25x25), and 64
@@ -66,8 +86,8 @@ Phases, each of which raises (exit code != 0) on any failure:
              for K2, one scaled_dot_product_attention call (timed here, used
              nowhere in the port; the SDPA backend the default dispatch picks,
              pinned once outside the timed windows and named; CUDA events over
-             windows of 20 calls and the kernels' device time from
-             torch.profiler); K2 also at B = 8, with the row statistics, and
+             windows of 20 calls and the device time, device_ms, beside the
+             share of it torch.profiler's records hold); K2 also at B = 8, with the row statistics, and
              the host's enqueue time of a K2 and a library call; K7's device
              time beside its product alone (torch.matmul on the normalised
              rows, a yardstick used nowhere in the port); DINOv2
@@ -85,7 +105,10 @@ Phases, each of which raises (exit code != 0) on any failure:
              of ops/vit_attn.py::window_agreement; two runs bit-equal
  13. kernel  K1' (csrc/topk_select.cu) against the plain top-k: bit-equal on
              integer inputs for k in {1025, 2048, 4096, N} at N in {4096,
-             100,000}, f32 and bf16, and its first 1024 entries against K1's
+             100,000}, f32 and bf16, and its first 1024 entries against a
+             call at k = 1024; on random rows its first 10, 128 and 1024
+             entries equal to the calls at those k (K1's fused route and its
+             own) bit for bit
  14. slice   the ingest -> query CLIs with SwinV2-Base at full width (432
              decode, 384 crop, 24 blocks, 1024-d) under XMIR_FUSED_ATTN=1 and
              --resume of a timm-layout .pt with random nonzero LN / logit_scale
@@ -104,10 +127,9 @@ Phases, each of which raises (exit code != 0) on any failure:
              here, used nowhere in the port; the SDPA backend the default
              dispatch picks, named and pinned once outside the timed windows;
              CUDA events over windows of 20 calls and the device time of K4,
-             K6 and the library call from torch.profiler), with the time of
-             the fold and unfold copies around K4; K1' at Q = 1024, N = 100,000,
-             D = 1024, k = 2048 and at Q = 64, k = N, with K1 at k = 10 in the
-             same turns; SwinV2-Base bf16 (weights and input) batch 16 at 384 px
+             K6 and the library call, device_ms), with the time of the fold
+             and unfold copies around K4; SwinV2-Base bf16 (weights and
+             input) batch 16 at 384 px
              with K4, with K6, with the kernels' plain versions and on the
              eager path; CUDA events, in turns
  17. kernel  K3 (csrc/vit_attn_bwd.cu) against its plain version through the
@@ -136,7 +158,8 @@ Phases, each of which raises (exit code != 0) on any failure:
              scaled_dot_product_attention call (timed here, used nowhere in
              the port; its backend, the one the default dispatch picks for the
              forward, named and pinned once outside the timed windows; CUDA
-             events and device time); the bf16 DINOv2 train step at batch 8 with the
+             events and device time, with torch.profiler's share of K3's);
+             the bf16 DINOv2 train step at batch 8 with the
              kernels, with their plain versions and on the eager path: img/s,
              peak memory, forward / backward / optimiser shares, and the
              device time by kernel (torch.profiler), K3's share of it
@@ -160,7 +183,8 @@ Phases, each of which raises (exit code != 0) on any failure:
  23. rates   K10 at the four stage shapes at B = 16, bf16 and f32, against
              its plain version and autograd through a plain tail, beside one
              block's forward + backward fused (K9 + K10) and plain: the
-             training gate's table, by CUDA events and by device time; the
+             training gate's table, by CUDA events and by device time (with
+             torch.profiler's share of K10's); the
              bf16 ConvNeXtV2-Base train step at batch 16, 384 px with the
              kernels, their plain versions and on the eager path, and a
              torch.profiler breakdown of the step (K10's share)
@@ -193,8 +217,7 @@ Phases, each of which raises (exit code != 0) on any failure:
              needs a gradient (timed here, used nowhere in the port; the
              SDPA backend the default dispatch picks, named and pinned once
              outside the timed windows; CUDA events, and the device time of
-             both from CUDA events around calls enqueued behind a device-side
-             spin, spun_ms)
+             both, device_ms)
  28. rates   the bf16 SwinV2-Base train step at batch 8, 384 px with the
              kernels, their plain versions and on the eager path: img/s, peak
              memory, forward / backward / optimiser, the host's enqueue time
@@ -253,6 +276,9 @@ from xmir_tpu_torch.ops import window_attn as wa
 from xmir_tpu_torch.ops.distance import l2_normalize
 from xmir_tpu_torch.ops.topk_fused import fused_topk
 from xmir_tpu_torch.ops.topk_kernels import (
+    F32_SCORE_C,
+    ROUTE_FUSED,
+    f32_score_error,
     fused_topk_scores,
     launch_plan,
     select_topk_scores,
@@ -270,9 +296,18 @@ REPO = Path(__file__).resolve().parent
 KERNELS = {
     "K1": {"name": "fused_topk_scores", "route": "cuda",
            "source": "xmir_tpu_torch/csrc/topk.cu",
+           "sources": ["xmir_tpu_torch/csrc/topk.cu", "xmir_tpu_torch/csrc/topk_scores.cuh"],
+           "bodies": "the fused route, k <= 32: score_tiles<T, wgs, false> (wgmma: bf16, or f32 "
+                     "as 3xTF32; selection from the accumulators) + topk_merge",
            "replaces": "xmir_tpu/ops/topk_pallas.py:243"},
     "K1'": {"name": "select_topk_scores", "route": "cuda",
             "source": "xmir_tpu_torch/csrc/topk_select.cu",
+            "sources": ["xmir_tpu_torch/csrc/topk_select.cu",
+                        "xmir_tpu_torch/csrc/topk_scores.cuh"],
+            "bodies": "the select route, k > 32: score_tiles<T, wgs, true> (K1's score "
+                      "producer, words) + select_sort (radix select, stable LSD sort); k = N: "
+                      "rank_counts, rank_offsets, rank_scatter (a stable LSD sort over many "
+                      "blocks a query)",
             "replaces": "xmir_tpu/ops/topk_pallas.py:81"},
     "K2": {"name": "vit_attention_fused", "route": "cuda",
            "source": "xmir_tpu_torch/csrc/vit_attn.cu",
@@ -308,8 +343,9 @@ KERNELS = {
 METRICS = ("cosine", "ip", "l2", "hamming")
 TIE_GAP = 1e-5  # ids may differ only where the exact ranking's gap is below this
 # the H100's published peaks (SXM, dense): operations per second by operand
-# type (f32 outside the tensor cores) and bytes per second of device memory
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+# type (f32 outside the tensor cores; TF32 on them) and bytes per second of
+# device memory
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tfloat32": 495e12}
 PEAK_BYTES = 3.35e12
 
 
@@ -420,12 +456,19 @@ def phase_build():
 def _int_inputs(gen, q_n, n, d, k, dtype):
     q = torch.randint(-3, 4, (q_n, d), generator=gen).float()
     g = torch.randint(-3, 4, (n, d), generator=gen).float()
-    rows = launch_plan(q_n, n, k, torch.cuda.get_device_properties(0).multi_processor_count)[2]
-    # duplicates of one row inside a split, on both sides of split
-    # boundaries and at the ragged end: ties the kernel must order by row
-    dup = [r for r in (3, 5, rows - 1, rows, 2 * rows - 1, 2 * rows, n - 1) if r < n]
-    g[dup] = g[3].clone()
-    q[0] = g[3]
+    plan = launch_plan(q_n, n, k, torch.cuda.get_device_properties(0).multi_processor_count, d,
+                       dtype)
+    rows, nt = plan.rows_per_split, plan.tile_rows
+    # duplicates of one row inside a tile, across a tile edge inside a split,
+    # on both sides of split boundaries, across the merge's lane wrap (split
+    # 31 | 32, the first split a lane holds as its second head), across the
+    # full ranking's first chunk edge (4096 entries) and at the ragged end:
+    # ties the kernels must order by row
+    dup = [r for r in (3, 5, nt - 1, nt, rows - 1, rows, 2 * rows - 1, 2 * rows, 32 * rows - 1,
+                       32 * rows, 4095, 4096, n - 1) if r < n]
+    src = min(3, n - 1)
+    g[dup] = g[src].clone()
+    q[0] = g[src]
     return q.to("cuda", dtype), g.to("cuda", dtype)
 
 
@@ -438,17 +481,31 @@ def _random_inputs(gen, q_n, n, d, dtype):
 SLICE_SHAPE = (64, 256, 1024, 10)  # what the slice's query hands K1: Q, N, D, k
 
 
+# f32 rows of full mantissas (random normal, not unit): scores against the
+# float64 score within topk_kernels.f32_score_error's bound, which 3xTF32
+# meets and 2xTF32 / 1xTF32 do not (chip_faults.py)
+FULL_MANTISSA_SHAPES = ((64, 4099, 1024, 10), (256, 20_000, 1024, 10), (16, 20_000, 96, 128),
+                        (70, 4099, 97, 10))
+
+
 def phase_kernel():
     gen = torch.Generator().manual_seed(0)
+    # the slice's shape; tiny and ragged N; k at 1, the fused route's edge
+    # (32, 33) and the select route (128, 129, 1024);
+    # Q of 1 and 16 (up to a split per SM: 131 splits, the merge's lane wrap)
+    # and above 64; D of 32, 96, 1024 and D the copy engine cannot take (97,
+    # 100: padded)
     shapes = [SLICE_SHAPE, (70, 4099, 32, 1), (70, 4099, 96, 10), (33, 4099, 1024, 128),
-              (17, 4099, 96, 129), (20, 4099, 32, 1024), (129, 4099, 1024, 10)]
+              (17, 4099, 96, 129), (20, 4099, 32, 1024), (129, 4099, 1024, 10),
+              (1, 4099, 1024, 10), (16, 100_000, 1024, 10), (200, 4099, 97, 10),
+              (300, 4099, 64, 32), (70, 4099, 100, 33), (5, 1, 8, 1)]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    log(f"[kernel] the slice's shape {SLICE_SHAPE} runs the plan (block queries, "
-        f"splits, rows per split) = {launch_plan(*SLICE_SHAPE[:2], SLICE_SHAPE[3], sms)}")
+    log(f"[kernel] the slice's shape {SLICE_SHAPE} runs the plan "
+        f"{launch_plan(*SLICE_SHAPE[:2], SLICE_SHAPE[3], sms, SLICE_SHAPE[2], torch.float32)}")
     max_err = 0.0
     for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
         for q_n, n, d, k in shapes:
-            for valid in (n, k // 2 + 1):
+            for valid in sorted({n, k // 2 + 1}):
                 bias = torch.zeros(n, device="cuda")
                 bias[valid:] = float("-inf")
                 q, g = _int_inputs(gen, q_n, n, d, k, dtype)
@@ -459,12 +516,30 @@ def phase_kernel():
                       f"integer inputs not bit-equal: {dtype} Q={q_n} N={n} D={d} k={k} valid={valid}")
                 q, g = _random_inputs(gen, q_n, n, d, dtype)
                 v, i = fused_topk_scores(q, g, bias, k)
+                v2, i2 = fused_topk_scores(q, g, bias, k)
                 torch.cuda.synchronize()
+                check(torch.equal(v, v2) and torch.equal(i, i2),
+                      f"two runs differ: {dtype} Q={q_n} N={n} D={d} k={k}")
                 rv, ri = topk_scores_reference(q, g, bias, min(k + 1, n))
                 err, _, _ = compare(v, i, rv[:, :k], ri[:, :k], atol, rv)
                 max_err = max(max_err, err)
+            plan = launch_plan(q_n, n, k, sms, d, dtype)
             log(f"[kernel] {str(dtype)[6:]:8s} Q={q_n:4d} N={n} D={d:4d} k={k:4d}: "
-                f"integer bit-equal, random within {atol} (max err so far {max_err:.3g})")
+                f"integer bit-equal, random within {atol}, two runs bit-equal (max err so far "
+                f"{max_err:.3g}); route {'fused' if plan.route == ROUTE_FUSED else 'select'}, "
+                f"{plan.wgs} consumer warpgroup(s), {plan.n_splits} splits of "
+                f"{plan.rows_per_split} rows, depth {plan.depth}")
+    for q_n, n, d, k in FULL_MANTISSA_SHAPES:
+        q = torch.randn((q_n, d), generator=gen).cuda()
+        g = torch.randn((n, d), generator=gen).cuda()
+        bias = torch.randn(n, generator=gen).cuda()
+        v, i = fused_topk_scores(q, g, bias, k)
+        reading = f32_score_error(q, g, bias, v, i)
+        check(reading["of_bound"] <= 1, f"f32 scores outside the 3xTF32 bound at Q={q_n} N={n} "
+                                        f"D={d} k={k}: {reading}")
+        log(f"[kernel] float32 full-mantissa rows Q={q_n} N={n} D={d} k={k}: "
+            f"{reading['of_bound']:.3g} of the score bound (F32_SCORE_C = {F32_SCORE_C:g}), "
+            f"max abs err {reading['max_abs_err']:.3g}")
     for metric in METRICS:  # the metric transforms around K1, against the CPU plain path
         for kind in ("int", "random"):
             if kind == "int":
@@ -620,37 +695,85 @@ def phase_embed_rate():
     return rates
 
 
+# the serving gallery (the JAX bench.py shape): N rows of D, unit rows
+SERVING_N, SERVING_D = 100_000, 1024
+# (Q, k) of the serving phase: a batch of 1024 at k = 10, 100 and 1000, and a
+# single query and a small batch at k = 10 (a clinician's query is one image)
+SERVING_SHAPES = ((1024, 10), (1024, 100), (1024, 1000), (1, 10), (16, 10))
+
+
+def k1_bound(q_n, n, d, k, dtype):
+    """K1 / K1''s bound under its arithmetic, beside the FMA bound: bytes are
+    q and g once, the bias and the (Q, k) result; operations 2 Q N D, on the
+    tensor cores in bf16, as 3 TF32 products (3xTF32) in f32."""
+    size = torch.empty((), dtype=dtype).element_size()
+    nbytes = (q_n + n) * d * size + n * 4 + q_n * k * 8
+    if dtype == torch.bfloat16:
+        ms, by = bound(2 * q_n * n * d, nbytes, "bfloat16")
+        return {"bound_ms": ms, "bound_by": by, "arithmetic": "bf16 wgmma"}
+    ms, by = bound(3 * 2 * q_n * n * d, nbytes, "tfloat32")
+    fma_ms, fma_by = bound(2 * q_n * n * d, nbytes, "float32")
+    return {"bound_ms": ms, "bound_by": by, "arithmetic": "3xTF32 wgmma",
+            "fma_bound_ms": fma_ms, "fma_bound_by": fma_by}
+
+
 def phase_serving():
-    q_n, n, d, k = 1024, 100_000, 1024, 10
+    """K1 at every (Q, k) of SERVING_SHAPES over the serving gallery, f32 and
+    bf16: checked against the plain version, then CUDA events in turns with
+    it, device time by kernel (torch.profiler), the yardsticks' device time
+    (the product alone, torch.mm, and torch.topk of it; used nowhere in the
+    port) and, for Q <= 16, the wall time of one call with the host."""
+    n, d = SERVING_N, SERVING_D
     gen = torch.Generator().manual_seed(2)
-    q = l2_normalize(torch.randn((q_n, d), generator=gen)).cuda()
+    q = l2_normalize(torch.randn((1024, d), generator=gen)).cuda()
     g = l2_normalize(torch.randn((n, d), generator=gen)).cuda()
     bias = torch.zeros(n, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = {}
     for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-        qq, gg = q.to(dtype), g.to(dtype)
-        v, i = fused_topk_scores(qq, gg, bias, k)
-        rv, ri = topk_scores_reference(qq, gg, bias, k + 1)
-        torch.cuda.synchronize()
-        err, checked, total = compare(v, i, rv[:, :k], ri[:, :k], atol, rv)
-        kern, plain = [], []
-        for _ in range(5):  # in turns: plain, kernel, kernel, plain, ...
-            plain.append(_time_ms(lambda: topk_scores_reference(qq, gg, bias, k), 3))
-            kern.append(_time_ms(lambda: fused_topk_scores(qq, gg, bias, k), 3))
-            kern.append(_time_ms(lambda: fused_topk_scores(qq, gg, bias, k), 3))
-            plain.append(_time_ms(lambda: topk_scores_reference(qq, gg, bias, k), 3))
-        ms, plain_ms = statistics.median(kern), statistics.median(plain)
-        name = str(dtype)[6:]
-        size = qq.element_size()
-        bound_ms, bound_by = bound(2 * q_n * n * d,
-                                   (q_n + n) * d * size + n * 4 + q_n * k * 8, name)
-        out[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": bound_ms,
-                     "bound_by": bound_by}
-        log(f"[serving] {name:8s} Q={q_n} N={n} D={d} k={k}: kernel {ms:.3f} ms "
-            f"({q_n / ms * 1e3:.0f} QPS, {2 * q_n * n * d / ms / 1e9:.1f} TFLOP/s), plain "
-            f"{plain_ms:.3f} ms ({q_n / plain_ms * 1e3:.0f} QPS); max err {err:.3g}, "
-            f"{checked}/{total} ids checked equal; kernel runs {[round(t, 3) for t in kern]}, "
-            f"plain runs {[round(t, 3) for t in plain]}")
+        name, gg = str(dtype)[6:], g.to(dtype)
+        for q_n, k in SERVING_SHAPES:
+            qq = q[:q_n].to(dtype)
+
+            def kern():
+                return fused_topk_scores(qq, gg, bias, k)
+
+            def plain():
+                return topk_scores_reference(qq, gg, bias, k)
+
+            v, i = kern()
+            rv, ri = topk_scores_reference(qq, gg, bias, k + 1)
+            torch.cuda.synchronize()
+            err, checked, total = compare(v, i, rv[:, :k], ri[:, :k], atol, rv)
+            del v, i, rv, ri
+            ms, runs = _in_turns({"kernel": kern, "plain": plain}, rounds=4, reps=3)
+            dev_ms = device_ms(kern)
+            split = kernel_split(kern, dev_ms)
+            yard = {"mm": device_ms(lambda: torch.mm(qq, gg.T)),
+                    "mm+topk": device_ms(lambda: torch.topk(torch.mm(qq, gg.T) + bias, k,
+                                                            dim=1).values)}
+            key = f"{name} Q={q_n} k={k}"
+            plan = launch_plan(q_n, n, k, sms, d, dtype)
+            out[key] = dict(k1_bound(q_n, n, d, k, dtype), ms=ms["kernel"],
+                            plain_ms=ms["plain"], device_ms=dev_ms, device_by_kernel=split,
+                            yardstick_device_ms=yard, max_abs_err=err,
+                            route="fused (K1)" if plan.route == ROUTE_FUSED else "select (K1')",
+                            plan=plan._asdict())
+            if q_n <= 16:
+                out[key]["wall_ms"] = wall_ms(kern)
+            log(f"[serving] {key} N={n} D={d}, {out[key]['route']} route: device "
+                f"{dev_ms:.4f} ms ({2 * q_n * n * d / dev_ms / 1e9:.1f} TFLOP/s; bound "
+                f"{out[key]['bound_ms']:.4f} ms by {out[key]['bound_by']}"
+                + (f", FMA bound {out[key]['fma_bound_ms']:.4f}" if "fma_bound_ms" in out[key]
+                   else "") + f"), by kernel {split_text(split)}; "
+                f"events {ms['kernel']:.4f} ms ({q_n / ms['kernel'] * 1e3:.0f} QPS), plain "
+                f"{ms['plain']:.3f} ms; yardsticks by device time: torch.mm "
+                f"{yard['mm']:.4f} ms, torch.mm + torch.topk {yard['mm+topk']:.4f} ms"
+                + (f"; wall per call with the host {out[key]['wall_ms']:.4f} ms"
+                   if "wall_ms" in out[key] else "")
+                + f"; max err {err:.3g}, {checked}/{total} ids checked equal; plan "
+                f"{out[key]['plan']}; kernel runs {[round(t, 4) for t in runs['kernel']]}, "
+                f"plain runs {[round(t, 3) for t in runs['plain']]}")
     return out
 
 
@@ -1200,10 +1323,21 @@ def _kernel_bounds(b, dtype):
     }
 
 
-def device_ms(fn, reps=20):
-    """Device time of one fn() call: its CUDA kernels' own time in a
-    torch.profiler trace over ``reps`` calls, so that neither the host's
-    enqueue time nor a gap between launches counts."""
+class TraceIncomplete(RuntimeError):
+    """A torch.profiler trace whose kernel records miss part of the device
+    time that CUDA events read for the same calls."""
+
+
+# the least share of device_ms a trace's kernel records must hold: the rest is
+# the device's gaps between back-to-back launches, a few microseconds each.
+# torch.profiler drops kernel records once a process has run many traces (on
+# an NVIDIA H100 a full run's late traces held ~60% of the events' time)
+TRACE_MIN_SHARE = 0.9
+
+
+def profiled_split(fn, reps=10):
+    """{short kernel name: ms} of one fn() call: the kernels' own time in a
+    torch.profiler trace over ``reps`` calls. Unchecked: see device_split."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -1212,21 +1346,59 @@ def device_ms(fn, reps=20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")) / reps / 1e3
+    out = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0:
+            # "void (anonymous namespace)::name<args>(params)" -> "name<args>"
+            short = e.key.removeprefix("void ").replace("(anonymous namespace)::", "")
+            short = short.split("(")[0]
+            out[short] = out.get(short, 0.0) + e.self_device_time_total / reps / 1e3
+    return out
 
 
-def spun_ms(fn, reps=10):
-    """Device time of one fn() call by CUDA events around ``reps`` calls that
+def device_split(fn, ms, reps=10):
+    """One fn() call's device time by CUDA kernel, {short name: ms}, from
+    torch.profiler, held against ``ms``, fn's device_ms: raises
+    TraceIncomplete when the records hold less than TRACE_MIN_SHARE of it."""
+    split = profiled_split(fn, reps)
+    held = sum(split.values())
+    if held < TRACE_MIN_SHARE * ms:
+        raise TraceIncomplete(f"the trace's kernel records hold {held:.4f} of {ms:.4f} ms "
+                              f"({held / ms:.0%})")
+    return split
+
+
+def wall_ms(fn, reps=50):
+    """Median wall time of one fn() call with the host included: what a
+    caller waits for, from the call to its result on the device."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+class SpinTooShort(RuntimeError):
+    """The host could not enqueue the calls within the device's spin."""
+
+
+def device_ms(fn, reps=20):
+    """Device time of one fn() call: CUDA events around ``reps`` calls that
     the host enqueues while the device spins (``torch.cuda._sleep``), so the
-    device runs them back to back and the host's enqueue time does not count.
-    The spin doubles until it outlasts the enqueue. For calls whose kernels
-    torch.profiler does not attribute (the backward of SDPA with a mask
-    gradient, launched from autograd's device thread, read 0 there)."""
+    device runs them back to back and neither the host's enqueue time nor
+    its gaps count. The spin doubles until it outlasts the enqueue, and the
+    calls halve where a full launch queue held the host back. Unlike a
+    torch.profiler trace it sees every kernel: the backward of SDPA with a
+    mask gradient, launched from autograd's device thread, and kernels a
+    long process's traces drop (TRACE_MIN_SHARE)."""
     fn()
     torch.cuda.synchronize()
     spin = 10 ** 8  # cycles, ~60 ms at the H100's clock
-    for _ in range(6):
+    for _ in range(8):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(spin)
         t0 = time.perf_counter()
@@ -1239,8 +1411,30 @@ def spun_ms(fn, reps=10):
         spun = start.elapsed_time(end)
         if host_ms < 0.5 * spin / 1.98e6:  # the enqueue ended well within the spin
             return spun / reps
-        spin *= 2
-    raise RuntimeError("the host could not enqueue the calls within the device's spin")
+        spin, reps = spin * 2, max(1, reps // 2)
+    raise SpinTooShort(f"the host could not enqueue {reps} call(s) within a spin of {spin} "
+                       "cycles")
+
+
+def profiler_share(fn, ms, reps=10):
+    """The share of ``ms`` (fn's device_ms) that torch.profiler's kernel
+    records hold for the same calls at this point of the run."""
+    return sum(profiled_split(fn, reps).values()) / ms
+
+
+def kernel_split(fn, ms, reps=10):
+    """device_split, or None where the trace is incomplete (logged): a split
+    is reported only where its records hold the events' time."""
+    try:
+        return device_split(fn, ms, reps)
+    except TraceIncomplete as e:
+        log(f"[trace] no split by kernel: {e}")
+        return None
+
+
+def split_text(split):
+    return ("not measured (the trace is incomplete)" if split is None
+            else str({k: round(v, 4) for k, v in split.items()}))
 
 
 def enqueue_us(fn, reps=50):
@@ -1335,6 +1529,7 @@ def phase_vit_rates():
             lib_err = (fns["K2"]().float() - under_backend(backend, fns["K2 library"]).reshape(
                 q.shape).float()).abs().max().item()
             ms, dev = k2_against_library(fns, backend)
+            k2_share = profiler_share(fns["K2"], dev["K2"])
             dev["K7"] = device_ms(fns["K7"])
             dev["K7 product"] = device_ms(fns["K7 product"])
             bounds = _kernel_bounds(b, dtype)
@@ -1347,7 +1542,8 @@ def phase_vit_rates():
                 lib = (f", with statistics {ms['K2 with statistics']:.3f} ms, library call "
                        f"{ms['K2 library']:.3f} ms (SDPA, {backend}); device time "
                        f"{dev['K2']:.4f} ms, with statistics {dev['K2 with statistics']:.4f} ms, "
-                       f"library call {dev['K2 library']:.4f} ms" if key == "K2" else
+                       f"library call {dev['K2 library']:.4f} ms (torch.profiler's records hold "
+                       f"{k2_share:.1%} of K2's)" if key == "K2" else
                        f"; device time {dev['K7']:.4f} ms; the product alone (torch.matmul on the "
                        f"normalised rows) {ms['K7 product']:.3f} ms, device time "
                        f"{dev['K7 product']:.4f} ms" if key == "K7" else "")
@@ -1359,7 +1555,7 @@ def phase_vit_rates():
                                    product_device_ms=dev["K7 product"])
             out["K2"][name].update(library=backend, stats_ms=ms["K2 with statistics"],
                                    device_ms=dev["K2"], stats_device_ms=dev["K2 with statistics"],
-                                   library_device_ms=dev["K2 library"],
+                                   library_device_ms=dev["K2 library"], profiler_share=k2_share,
                                    b8=k2_at_b8(q, k, v, sc, name))
             del q, k, v, x, w, w1, rows, q4, k4, v4, fns, y_rows, w_t
             torch.cuda.empty_cache()
@@ -1548,6 +1744,19 @@ def phase_kernel_select():
     err, checked, total = compare(v, i, rv[:, :2048], ri[:, :2048], 1e-5, rv)
     log(f"[kernel] K1' random inputs k=2048: max err {err:.3g}, {checked}/{total} ids outside "
         "near-ties equal")
+    # one score producer: on random rows K1''s first entries equal K1's at
+    # every route (fused at k = 10, select at 128 and 1024) bit for bit
+    for dtype in (torch.float32, torch.bfloat16):
+        for q_n, n, d in ((70, 4099, 96), (300, 20_000, 1024), (16, 20_000, 1024)):
+            q, g = _random_inputs(gen, q_n, n, d, dtype)
+            bias = torch.randn(n, generator=gen).cuda() * 0.01
+            v, i = fused_topk_scores(q, g, bias, 2048)
+            for k in (10, 128, 1024):
+                v1, i1 = fused_topk_scores(q, g, bias, k)
+                check(torch.equal(v1, v[:, :k]) and torch.equal(i1, i[:, :k]),
+                      f"K1' and K1 at k={k} disagree on random rows: {dtype} Q={q_n} N={n} D={d}")
+        log(f"[kernel] K1' {str(dtype)[6:]} random rows: first 10, 128 and 1024 entries equal "
+            "to K1's at those k, bit for bit")
     return err
 
 
@@ -1977,13 +2186,26 @@ def profile_forward(label, embed, x, shares, what="forward"):
     rows = [(e.key, e.self_device_time_total / 3e3, e.count / 3) for e in prof.key_averages()
             if str(e.device_type).endswith("CUDA")]
     rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
-    device_ms = sum(r[1] for r in rows)
-    out = {"wall_ms": wall * 1e3, "enqueue_ms": enqueued * 1e3, "device_ms": device_ms,
-           "kernels": sum(r[2] for r in rows),
-           "idle_share": max(0.0, 1 - device_ms / (wall * 1e3))}
+    traced = sum(r[1] for r in rows)
+    try:
+        events = device_ms(lambda: embed(x), reps=3)
+    except SpinTooShort:  # more launches than the launch queue holds: the trace alone
+        events = None
+    device = traced if events is None else events
+    out = {"wall_ms": wall * 1e3, "enqueue_ms": enqueued * 1e3, "device_ms": events,
+           "traced_ms": traced, "kernels": sum(r[2] for r in rows),
+           "idle_share": max(0.0, 1 - device / (wall * 1e3))}
     log(f"[profile] {label}: {out['wall_ms']:.2f} ms a {what} on the host's clock "
-        f"({out['enqueue_ms']:.2f} ms to enqueue it), {device_ms:.2f} ms of device time in "
-        f"{out['kernels']:.0f} kernels: the device is idle {out['idle_share']:.0%} of a {what}")
+        f"({out['enqueue_ms']:.2f} ms to enqueue it), "
+        + (f"{traced:.2f} ms of device time in the trace, unchecked (a {what}'s launches "
+           "outrun the launch queue, so device_ms cannot read it)" if events is None else
+           f"{events:.2f} ms of device time (device_ms), {traced:.2f} ms "
+           f"({traced / events:.0%}) of it in the trace")
+        + f" in {out['kernels']:.0f} kernels: the device is idle {out['idle_share']:.0%} of a "
+        f"{what}")
+    if events is not None and traced < TRACE_MIN_SHARE * events:
+        log(f"[profile] {label}: the trace is incomplete; its shares below are not measured")
+        return out
     for name, names in shares.items():
         ms, share = kernel_share(rows, names)
         out[name] = {"ms": ms, "share": share}
@@ -2050,51 +2272,75 @@ def phase_swin_model_rates():
 
 
 def phase_select_rates():
-    """K1' at the serving gallery with k = 2048 and as a full ranking of 64
-    queries, with K1 at k = 10 in the same turns."""
-    n, d = 100_000, 1024
+    """K1' over the serving gallery at Q = 1024, k = 2048 and as a full
+    ranking of 64 queries, f32 and bf16, with K1 at k = 10 in the same turns:
+    CUDA events, device time by kernel, one call's memory, and the yardsticks
+    by device time (torch.mm alone; torch.topk of it at k = 2048, values
+    only, since its tie order is not the kernel's; torch.sort of the scores,
+    stable, for the full ranking; used nowhere in the port)."""
+    n, d = SERVING_N, SERVING_D
     gen = torch.Generator().manual_seed(20)
     q = l2_normalize(torch.randn((1024, d), generator=gen)).cuda()
     g = l2_normalize(torch.randn((n, d), generator=gen)).cuda()
     bias = torch.zeros(n, device="cuda")
     out = {}
-    for label, q_n, k in (("Q=1024 k=2048", 1024, 2048), ("Q=64 k=N", 64, n)):
-        qq = q[:q_n].contiguous()
-        v, i = fused_topk_scores(qq, g, bias, k)
-        rv, ri = topk_scores_reference(qq[:64], g, bias, min(k + 1, n))
-        torch.cuda.synchronize()
-        sorted_ref = rv if k < n else torch.cat([rv, rv[:, -1:] - 1], dim=1)
-        err, checked, total = compare(v[:64], i[:64], rv[:, :k], ri[:, :k], 1e-5, sorted_ref)
-        # what one K1' call allocates: its result and its scratch, the plain
-        # version's Q x N scores and sort left out of the reading
-        del v, i, rv, ri, sorted_ref
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        held = fused_topk_scores(qq, g, bias, k)
-        torch.cuda.synchronize()
-        peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-        result_mib = sum(t.numel() * t.element_size() for t in held) / 2 ** 20
-        del held
-        ms, runs = _in_turns({
-            "K1'": lambda: fused_topk_scores(qq, g, bias, k),
-            "plain": lambda: topk_scores_reference(qq, g, bias, k),
-            "K1 k=10": lambda: fused_topk_scores(q, g, bias, 10)}, rounds=3, reps=2)
-        bound_ms, bound_by = bound(2 * q_n * n * d, (q_n + n) * d * 4 + n * 4 + q_n * k * 8,
-                                   "float32")
-        out[label] = {"ms": ms["K1'"], "plain_ms": ms["plain"], "bound_ms": bound_ms,
-                      "bound_by": bound_by, "max_abs_err": err, "k1_k10_ms": ms["K1 k=10"],
-                      "peak_mib": peak_mib, "result_mib": result_mib}
-        sel_ms = ms["K1'"]
-        log(f"[rates] K1' float32 {label} N={n} D={d}: {sel_ms:.3f} ms "
-            f"({2 * q_n * n * d / sel_ms / 1e9:.1f} TFLOP/s; bound "
-            f"{bound_ms:.3f} ms by {bound_by}) vs plain {ms['plain']:.3f} ms; K1 at k=10 in the "
-            f"same turns {ms['K1 k=10']:.3f} ms; max err {err:.3g}, {checked}/{total} ids of the "
-            f"first 64 queries checked equal; one K1' call alone peaks {peak_mib:.0f} MiB above "
-            f"its inputs, {result_mib:.0f} MiB of it the result; runs "
-            f"{({k_: [round(t, 2) for t in v_] for k_, v_ in runs.items()})}")
-        torch.cuda.empty_cache()
+    for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        name, gg = str(dtype)[6:], g.to(dtype)
+        q10 = q.to(dtype)
+        for label, q_n, k in (("Q=1024 k=2048", 1024, 2048), ("Q=64 k=N", 64, n)):
+            qq = q10[:q_n].contiguous()
+            v, i = fused_topk_scores(qq, gg, bias, k)
+            rv, ri = topk_scores_reference(qq[:64], gg, bias, min(k + 1, n))
+            torch.cuda.synchronize()
+            sorted_ref = rv if k < n else torch.cat([rv, rv[:, -1:] - 1], dim=1)
+            err, checked, total = compare(v[:64], i[:64], rv[:, :k], ri[:, :k], atol,
+                                          sorted_ref)
+            # what one K1' call allocates: its result and its scratch, the plain
+            # version's Q x N scores and sort left out of the reading
+            del v, i, rv, ri, sorted_ref
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            held = fused_topk_scores(qq, gg, bias, k)
+            torch.cuda.synchronize()
+            peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            result_mib = sum(t.numel() * t.element_size() for t in held) / 2 ** 20
+            del held
+            ms, runs = _in_turns({
+                "K1'": lambda: fused_topk_scores(qq, gg, bias, k),
+                "plain": lambda: topk_scores_reference(qq, gg, bias, k),
+                "K1 k=10": lambda: fused_topk_scores(q10, gg, bias, 10)}, rounds=3, reps=2)
+            dev_ms = device_ms(lambda: fused_topk_scores(qq, gg, bias, k), reps=5)
+            split = kernel_split(lambda: fused_topk_scores(qq, gg, bias, k), dev_ms, reps=5)
+            yard = {"mm": device_ms(lambda: torch.mm(qq, gg.T), reps=5)}
+            if k < n:
+                yard["mm+topk"] = device_ms(
+                    lambda: torch.topk(torch.mm(qq, gg.T) + bias, k, dim=1).values, reps=5)
+            else:
+                scores = torch.mm(qq, gg.T) + bias
+                yard["sort"] = device_ms(
+                    lambda: torch.sort(scores, dim=1, descending=True, stable=True), reps=5)
+                del scores
+            key = f"{name} {label}"
+            out[key] = dict(k1_bound(q_n, n, d, k, dtype), ms=ms["K1'"], plain_ms=ms["plain"],
+                            device_ms=dev_ms, device_by_kernel=split,
+                            yardstick_device_ms=yard, max_abs_err=err,
+                            k1_k10_ms=ms["K1 k=10"], peak_mib=peak_mib, result_mib=result_mib)
+            r = out[key]
+            log(f"[rates] K1' {key} N={n} D={d}: device {r['device_ms']:.4f} ms "
+                f"({2 * q_n * n * d / r['device_ms'] / 1e9:.1f} TFLOP/s; bound "
+                f"{r['bound_ms']:.4f} ms by {r['bound_by']}"
+                + (f", FMA bound {r['fma_bound_ms']:.4f}" if "fma_bound_ms" in r else "")
+                + f"), by kernel {split_text(split)}; events "
+                f"{r['ms']:.4f} ms vs plain {ms['plain']:.3f} ms; K1 at k=10 in the same "
+                f"turns {ms['K1 k=10']:.4f} ms; yardsticks by device time "
+                f"{({k_: round(v_, 4) for k_, v_ in yard.items()})}; max err {err:.3g}, "
+                f"{checked}/{total} ids of the first 64 queries checked equal; one K1' call "
+                f"alone peaks {peak_mib:.0f} MiB above its inputs, {result_mib:.0f} MiB of it "
+                f"the result; runs {({k_: [round(t, 3) for t in v_] for k_, v_ in runs.items()})}")
+            torch.cuda.empty_cache()
     return out
+
 
 def grad_err(outs, refs, floors, what):
     """The worst ``va.grad_agreement`` reading over (dq, dk, dv), each with
@@ -2430,6 +2676,7 @@ def phase_bwd_rates():
             with sdpa_pinned(backend):
                 ms, _ = _in_turns({key: fns[key] for key in fast}, reps=20)
                 dev = {key: device_ms(fns[key]) for key in ("K3", "K3 library")}
+                k3_share = profiler_share(fns["K3"], dev["K3"])
             ms.update(_in_turns({"K3 plain": fns["K3 plain"]})[0])
             ops, nbytes = _bwd_work(bh, n, hd, dtype)
             bound_ms, bound_by = bound(ops, nbytes, name)
@@ -2437,12 +2684,14 @@ def phase_bwd_rates():
                                     "library_ms": ms["K3 library"], "forward_ms": ms["K2"],
                                     "bound_ms": bound_ms, "bound_by": bound_by, "agreement": e,
                                     "device_ms": dev["K3"], "library_device_ms": dev["K3 library"],
+                                    "profiler_share": k3_share,
                                     "library": f"scaled_dot_product_attention backward, {backend}"}
             log(f"[rates] K3 {name:8s} B={b} BH={bh} N={n} hd={hd}: {ms['K3']:.3f} ms "
                 f"({ops / ms['K3'] / 1e9:.1f} TFLOP/s of the 10 BH N^2 hd it must do; bound "
                 f"{bound_ms:.3f} ms by {bound_by}, {bound_ms / ms['K3']:.1%} of it) vs plain "
                 f"{ms['K3 plain']:.3f} ms, library backward ({backend}) {ms['K3 library']:.3f} ms, "
-                f"K2 with statistics {ms['K2']:.3f} ms; device time K3 {dev['K3']:.4f} ms, library "
+                f"K2 with statistics {ms['K2']:.3f} ms; device time K3 {dev['K3']:.4f} ms "
+                f"(torch.profiler's records hold {k3_share:.1%} of it), library "
                 f"backward {dev['K3 library']:.4f} ms; agreement {e}; within {lib_rel:.3g} of the "
                 "library's gradients' largest magnitude")
             del q, k, v, g, o, stats, lq, lk, lv, lo, lg, fns
@@ -2715,6 +2964,7 @@ def phase_tail_bwd_rates():
             # block's many small launches follow the host in CUDA-event readings
             dev = {key: device_ms(fns[key], reps=10) for key in ("K10", "fused block",
                                                                   "plain block")}
+            k10_share = profiler_share(fns["K10"], dev["K10"])
             nbytes = ctypes.c_longlong()
             check(_build.load().xmir_convnext_bwd_plan(b, r, c, 4 * c, cb.DTYPE_CODES[dtype],
                                                        ctypes.addressof(nbytes)) == 0,
@@ -2727,13 +2977,14 @@ def phase_tail_bwd_rates():
                 "ms": ms["K10"], "plain_ms": ms["K10 plain"], "autograd_ms": ms["autograd"],
                 "fused_block_ms": ms["fused block"], "plain_block_ms": ms["plain block"],
                 "bound_ms": bound_ms, "bound_by": bound_by, "workspace_mib": ws / 2 ** 20,
-                "agreement": e, "gate": gate, "device_ms": dev["K10"],
+                "agreement": e, "gate": gate, "device_ms": dev["K10"], "profiler_share": k10_share,
                 "fused_block_device_ms": dev["fused block"],
                 "plain_block_device_ms": dev["plain block"]}
             log(f"[rates] K10 {name:8s} B=16 {hw}x{hw} C={c} ({what}): {ms['K10']:.3f} ms "
                 f"({ops / ms['K10'] / 1e9:.1f} TFLOP/s; bound {bound_ms:.3f} ms by {bound_by}) vs "
                 f"plain {ms['K10 plain']:.3f} ms, autograd through the plain tail "
-                f"{ms['autograd']:.3f} ms; device time {dev['K10']:.4f} ms; workspace "
+                f"{ms['autograd']:.3f} ms; device time {dev['K10']:.4f} ms (torch.profiler's "
+                f"records hold {k10_share:.1%} of it); workspace "
                 f"{ws / 2 ** 20:.1f} MiB; one block forward + backward: fused (K9 + K10) "
                 f"{ms['fused block']:.3f} ms, plain block {ms['plain block']:.3f} ms, by device "
                 f"time {dev['fused block']:.4f} against {dev['plain block']:.4f} ms (gate: "
@@ -3271,7 +3522,7 @@ def phase_window_bwd_rates():
                           f"K5 {name} B={b}")
             with sdpa_pinned(backend):
                 ms, _ = _in_turns({"K5": fns["K5"], "library": fns["library"]}, reps=10)
-                dev = {key: spun_ms(fns[key]) for key in ("K5", "library")}
+                dev = {key: device_ms(fns[key], reps=10) for key in ("K5", "library")}
             ms.update(_in_turns({"plain": fns["plain"]}, reps=2)[0])
             ops, nbytes = _k5_work(bh, groups, n, SWIN_HD, dtype)
             bound_ms, by = bound(ops, nbytes, name)
@@ -3719,6 +3970,7 @@ def main():
         d_launches, slice_err = phase_slice(Path(tmp))
     phase_embed_rate()
     serving = phase_serving()
+    select_rates = phase_select_rates()
     tail_errs = phase_kernel_convnext()
     with tempfile.TemporaryDirectory() as tmp:
         c_launches, c_slice_err, emb_err = phase_slice_convnext(Path(tmp))
@@ -3735,7 +3987,6 @@ def main():
         r_launches, r_err = phase_slice_full_ranking(Path(tmp))
     window_rates = phase_window_rates()
     swin_rates = phase_swin_model_rates()
-    select_rates = phase_select_rates()
     bwd_errs = phase_kernel_bwd()
     with tempfile.TemporaryDirectory() as tmp:
         t_slice = phase_train_dinov2(Path(tmp))
@@ -3772,18 +4023,23 @@ def main():
                for key in WRAPPERS}
     slice_errs = [slice_err, c_slice_err] + [v["err"] for v in v_slices.values()] + [
         v["err"] for v in s_slices.values()]
-    f32 = serving["float32"]
+    f32 = serving["float32 Q=1024 k=10"]
     k1 = dict(KERNELS["K1"], launches=sum(by_path["K1"].values()),
-              max_abs_err=max(max_err, f32["max_abs_err"], *slice_errs),
+              max_abs_err=max(max_err, *(v["max_abs_err"] for v in serving.values()),
+                              *slice_errs),
               ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
-              bound_by=f32["bound_by"], library_ms=None, by_dtype=serving,
+              bound_by=f32["bound_by"], library_ms=None,
+              library="none: torch.mm + torch.topk are two calls (yardstick_device_ms)",
+              device_ms=f32["device_ms"], by_shape=serving,
               shape="Q=1024 N=100000 D=1024 k=10, f32", launches_by_path=by_path["K1"])
-    big = select_rates["Q=1024 k=2048"]
+    big = select_rates["float32 Q=1024 k=2048"]
     k1s = dict(KERNELS["K1'"], launches=sum(by_path["K1'"].values()),
                max_abs_err=max(select_err, r_err, *(v["max_abs_err"] for v in
                                                     select_rates.values())),
                ms=big["ms"], plain_ms=big["plain_ms"], bound_ms=big["bound_ms"],
-               bound_by=big["bound_by"], library_ms=None, by_shape=select_rates,
+               bound_by=big["bound_by"], library_ms=None,
+               library="none: torch.mm + torch.topk / torch.sort are two calls",
+               device_ms=big["device_ms"], by_shape=select_rates,
                shape="Q=1024 N=100000 D=1024 k=2048, f32", launches_by_path=by_path["K1'"])
     kernels = [k1, k1s]
     for key in ("K2", "K7", "K8"):

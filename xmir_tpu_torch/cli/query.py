@@ -5,9 +5,9 @@ JSON results.
     python -m xmir_tpu_torch.cli.query --dataset synthetic --device cuda \
         --index gallery.npz --top-k 10 --output hits.json
 
-``--top-k 0`` asks for the whole gallery ranked (k = ntotal): up to 1024 rows
-through the buffered kernel, above that through the select kernel
-(ops/topk_kernels.py), in the same order.
+``--top-k 0`` asks for the whole gallery ranked (k = ntotal): through the
+select route of the top-k kernels (ops/topk_kernels.py) above 32 rows, in the
+same order as any k.
 """
 from __future__ import annotations
 

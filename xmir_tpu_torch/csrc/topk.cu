@@ -1,90 +1,52 @@
-// Exact fused similarity + top-k for Hopper (sm_90a).
+// Exact fused similarity + top-k for Hopper (sm_90a), k <= 32.
 //
 // Replaces xmir_tpu/ops/topk_pallas.py::fused_topk_scores (its two TPU bodies,
 // _topk_kernel_pruned for k <= 128 and _topk_kernel + _merge_candidates above
 // that). It computes the exact top-k of q . g^T + bias[row] per query without
 // materialising the (Q, N) score matrix: ties go to the lower gallery row and
-// unfilled slots are (-inf, 0).
+// unfilled slots are (-inf, 0). Above k = 32 the plan takes the select route
+// (topk_select.cu: the same scores as ordered words, then an exact select),
+// and the wrapper (xmir_tpu_torch/ops/topk_kernels.py) launches that.
 //
-// What bounds it: at the serving shape (Q = 1024, N = 100,000, D = 1024) the
-// scores cost 2.Q.N.D ~ 215 GFLOP of f32 FMAs, while each 64-query block
-// reads the gallery once (~0.4 GB in f32, half that in bf16, mostly from L2
-// since the blocks of one split walk it together). So the kernel is bound by
-// f32 FMA issue and by the shared-memory loads that feed the FMAs; the
-// design keeps 3 shared loads per 16 FMAs, stages the next depth chunk while
-// computing this one, and sizes the grid to one full wave of blocks. This
-// first version keeps to plain FMAs in f32 (IEEE products for f32 inputs;
-// bf16 inputs are loaded as bf16 and accumulated in f32). Tensor cores
-// (wgmma fed by TMA, for bf16 and 3xTF32) are later work.
+// What bounds it: 2 Q N D operations, on the tensor cores (topk_scores.cuh:
+// bf16 wgmma, or 3xTF32 in f32, three TF32 products per f32 product), 215
+// GFLOP at the serving shape (Q = 1024, N = 100,000, D = 1024): 0.212 ms in
+// bf16 at 989 TFLOP/s, 1.271 ms in f32 at 495 TFLOP/s; at Q = 1 the gallery's
+// bytes (0.061 / 0.122 ms). The selection works on the accumulators in
+// registers, so no score reaches device memory; what it costs a tile (the
+// two warpgroups select at the same time, so the tensor cores wait) is the
+// rest of K1's time at k = 10 (PERF.md).
 //
 // Design:
-//   topk_partial  grid (query blocks x gallery splits). A block owns TQ
-//                 queries and one contiguous gallery range, walked in
-//                 ascending row order in tiles of 128 rows, 32 depth values
-//                 at a time staged through double-buffered shared memory
-//                 (the next chunk is loaded into registers while this one
-//                 computes). Each warp owns RQ queries: it computes their
-//                 scores for the tile in registers (lane l holds rows l,
-//                 l+32, l+64, l+96; the queries arrive transposed, so a
-//                 warp reads its RQ query values as one broadcast vector
-//                 load) and keeps a sorted buffer of k (value, row) pairs per
-//                 query in shared memory, ordered by (value desc, row asc). Only a score that
-//                 ranks ahead of the current k-th entry is inserted; since
-//                 rows arrive in ascending order this is the strict
-//                 ">" pruning of the TPU kernel, and the full (value, row)
-//                 comparison keeps it exact inside a tile too. The split axis
-//                 gives the card enough blocks: 1024 queries in 64-query
-//                 blocks are only 16 blocks for 132 SMs; 8 splits make 128.
-//   topk_merge    one warp per query; lane s holds the head of split s's
-//                 sorted list and a warp arg-max picks the next entry, the
-//                 lower split winning equal values (the rule of
-//                 xmir_tpu/index/gallery.py::merge_shard_candidates).
-//
-// The launch plan (queries per block, number of splits, rows per split) is
-// made here only, by make_plan; the wrapper
-// (xmir_tpu_torch/ops/topk_kernels.py) asks xmir_topk_plan for it to size the
-// (Q, S, k) partial buffers. The launches go on the caller's stream and
-// allocate nothing: the wrapper passes the partial buffers and the (Q, k)
-// outputs.
+//   score_tiles<T, WGS, false>  (topk_scores.cuh) a block of 64 WGS queries
+//                 against one split of the gallery, tile by tile. The
+//                 epilogue below keeps a sorted buffer of k (value, row)
+//                 pairs per query in shared memory, ordered by (value desc,
+//                 row asc), and each thread keeps its two queries' k-th
+//                 entries in registers. A score joins only if it ranks ahead
+//                 of the k-th entry by the full (value, row) comparison
+//                 (rows do not reach a thread in ascending order within a
+//                 tile). A thread tests its scores eight at a time by value
+//                 first, stashes up to kStash that rank ahead, and the four
+//                 threads sharing a query (a quad) insert theirs in turn by
+//                 a binary search; a thread with more goes on in another
+//                 round. After the first tiles candidates are rare; in the
+//                 first tile a floor (the quad's ceil(k / 4)-th scores) keeps
+//                 the inserts near k.
+//   topk_merge    one warp per query; lane l holds the heads of splits l,
+//                 l + 32, ... (up to kMaxSplits) and a warp arg-max picks the
+//                 next entry, the lower split winning equal values (the rule
+//                 of xmir_tpu/index/gallery.py::merge_shard_candidates). With
+//                 one split the block writes the result and no merge runs.
+// The plan (make_plan in topk_scores.cuh, exported as xmir_topk_plan) fills
+// the card at every Q: at Q <= 64 one query block and up to 132 splits (one
+// a SM); at Q = 1024 and k <= 32, 8 blocks of 128 queries x 16 splits.
+// Deterministic: fixed orders everywhere, no atomics; two runs are bit-equal.
+// The launches go on the caller's stream and allocate nothing.
 
-#include <algorithm>
-
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "topk_scores.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;  // 8 warps per block
-constexpr int kWarps = kThreads / 32;
-constexpr int kTileRows = 128;  // gallery rows per tile: 4 per lane
-constexpr int kDepth = 32;      // depth chunk staged through shared memory
-constexpr int kStride = kDepth + 1;  // padded row stride: conflict-free reads
-constexpr int kMaxK = 1024;     // per-query buffer in shared memory
-constexpr int kWideK = 128;     // above this k, blocks of 2 queries per warp
-constexpr int kMaxSplits = 32;  // topk_merge holds one split per lane
-constexpr unsigned kFull = 0xffffffffu;
-
-struct Plan {
-  int block_queries;   // queries per block of topk_partial: 8 or 2 per warp
-  int n_splits;        // gallery splits, none of them empty
-  int rows_per_split;  // a multiple of kTileRows
-};
-
-// At most one block per SM in all (topk_partial fits one block on an SM), so
-// the grid runs as one full wave rather than a full wave plus a nearly empty
-// one; at most kMaxSplits splits. Needs n_queries, n_rows >= 1.
-Plan make_plan(int n_queries, int n_rows, int k, int n_sms) {
-  const int block_queries = (k <= kWideK ? 8 : 2) * kWarps;
-  const int q_blocks = (n_queries + block_queries - 1) / block_queries;
-  const int tiles = (n_rows + kTileRows - 1) / kTileRows;
-  const int splits = std::max(1, std::min({kMaxSplits, tiles, n_sms / q_blocks}));
-  const int rows = (tiles + splits - 1) / splits * kTileRows;
-  return {block_queries, (n_rows + rows - 1) / rows, rows};
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 // (v, i) ranks ahead of (w, j): the larger value first, then the lower row.
 __device__ __forceinline__ bool ahead(float v, int i, float w, int j) {
@@ -92,320 +54,310 @@ __device__ __forceinline__ bool ahead(float v, int i, float w, int j) {
 }
 
 // Inserts (v, i) into the sorted k-entry buffer (bv, bi), dropping the last
-// entry. The caller has checked that (v, i) ranks ahead of entry k - 1.
-// Called by a whole warp with warp-uniform arguments.
-__device__ void insert_sorted(float* bv, int* bi, int k, float v, int i, int lane) {
-  // p = number of entries ranking ahead of (v, i); they form a prefix.
-  int p = 0;
-  for (int c0 = 0; c0 < k; c0 += 32) {
-    const int e = c0 + lane;
-    const bool a = e < k && ahead(bv[e], bi[e], v, i);
-    const unsigned m = __ballot_sync(kFull, a);
-    p += __popc(m);
-    if (m != kFull) break;
-  }
-  // Shift entries [p, k - 1) down by one, from the top chunk back to p's.
-  for (int c0 = ((k - 1) / 32) * 32; c0 >= (p / 32) * 32; c0 -= 32) {
-    const int e = c0 + lane;
-    const bool moves = e < k && e > p;
-    float pv = 0.f;
-    int pi = 0;
-    if (moves) {
-      pv = bv[e - 1];
-      pi = bi[e - 1];
+// entry; the caller has checked that (v, i) ranks ahead of entry k - 1.
+__device__ __forceinline__ void insert_sorted(float* bv, int* bi, int k, float v, int i) {
+  int p = 0, hi = k - 1;  // p: the first entry (v, i) ranks ahead of
+  while (p < hi) {
+    const int mid = (p + hi) >> 1;
+    if (ahead(v, i, bv[mid], bi[mid])) {
+      hi = mid;
+    } else {
+      p = mid + 1;
     }
-    __syncwarp();
-    if (moves) {
-      bv[e] = pv;
-      bi[e] = pi;
-    } else if (e == p) {
-      bv[e] = v;
-      bi[e] = i;
-    }
-    __syncwarp();
   }
+#pragma unroll 4
+  for (int e = k - 1; e > p; --e) {
+    bv[e] = bv[e - 1];
+    bi[e] = bi[e - 1];
+  }
+  bv[p] = v;
+  bi[p] = i;
 }
 
-// Loads RQ consecutive floats (RQ = 8 or 2) from an aligned shared address.
-template <int RQ>
-__device__ __forceinline__ void load_queries(float (&qv)[RQ], const float* p) {
-  if constexpr (RQ == 8) {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    const float4 b = reinterpret_cast<const float4*>(p)[1];
-    qv[0] = a.x; qv[1] = a.y; qv[2] = a.z; qv[3] = a.w;
-    qv[4] = b.x; qv[5] = b.y; qv[6] = b.z; qv[7] = b.w;
-  } else {
-    static_assert(RQ == 2, "RQ is 8 or 2");
-    const float2 a = reinterpret_cast<const float2*>(p)[0];
-    qv[0] = a.x; qv[1] = a.y;
-  }
-}
+template <typename T, int WGS>
+struct Epilogue<T, WGS, false> {
+  static constexpr int NT = Arith<T>::kNT, ACC = NT / 2, kThreads = 128 * WGS;
+  float* bv;  // [64 WGS][k] values, then rows
+  int* bi;
+  float* sv;  // [kStash][kThreads] each thread's candidates of a tile: values
+  int* sc;    // ... and their columns | h << 16
+  int r[2];   // the thread's two query rows in the block
+  float kth_v[2];
+  int kth_i[2];
 
-// qt is the query block transposed, (depth, n_queries), so that a warp reads
-// the depth-c values of its RQ queries as one broadcast vector load.
-template <typename T, int RQ>
-__global__ void __launch_bounds__(kThreads, 1) topk_partial(
-    const T* __restrict__ qt, const T* __restrict__ g, const float* __restrict__ bias,
-    int n_queries, int n_rows, int depth, int k, int rows_per_split, int n_splits,
-    float* __restrict__ part_v, int* __restrict__ part_i) {
-  constexpr int TQ = RQ * kWarps;
-  constexpr int QV = TQ * kDepth / kThreads;         // staged q values per thread
-  constexpr int GV = kTileRows * kDepth / kThreads;  // staged g values per thread
-  extern __shared__ float smem[];
-  const int kpad = (k + 31) & ~31;
-  float* qs = smem;                             // [2][kDepth][TQ]
-  float* gs = qs + 2 * kDepth * TQ;             // [2][kTileRows][kStride]
-  float* buf_v = gs + 2 * kTileRows * kStride;  // [TQ][kpad]
-  int* buf_i = reinterpret_cast<int*>(buf_v + TQ * kpad);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int q0 = blockIdx.x * TQ;
-  const int split = blockIdx.y;
-  const int row_begin = split * rows_per_split;
-  const int row_end = min(n_rows, row_begin + rows_per_split);
-  const int chunks = (depth + kDepth - 1) / kDepth;
-  const int steps = max(0, (row_end - row_begin + kTileRows - 1) / kTileRows) * chunks;
-
-  for (int e = threadIdx.x; e < TQ * kpad; e += kThreads) {
-    buf_v[e] = -CUDART_INF_F;
-    buf_i[e] = 0;
+  __device__ void init(unsigned char* extra, const ScoreArgs& a, int) {
+    bv = reinterpret_cast<float*>(extra);
+    bi = reinterpret_cast<int*>(bv + 64 * WGS * a.k);
+    sv = reinterpret_cast<float*>(bi + 64 * WGS * a.k);
+    sc = reinterpret_cast<int*>(sv + kStash * kThreads);
+    const int tid = threadIdx.x, lane = tid & 31;
+    for (int e = lane; e < 16 * a.k; e += 32) {  // the warp's 16 queries' buffers
+      bv[16 * (tid >> 5) * a.k + e] = -CUDART_INF_F;
+      bi[16 * (tid >> 5) * a.k + e] = 0;
+    }
+    __syncwarp();
+    const int base = 16 * (tid >> 5) + (lane >> 2);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      r[h] = base + 8 * h;
+      kth_v[h] = -CUDART_INF_F;
+      kth_i[h] = 0;
+    }
   }
 
-  // Step s covers gallery tile s / chunks at depth chunk s % chunks. The next
-  // step's inputs are fetched into registers (in their own type: a bf16 load
-  // is not waited on until it is stored) while this step computes, then
-  // stored as f32 into the other half of the double-buffered staging memory.
-  T qr[QV], gr[GV];
-  const T zero = T(0.f);
-  auto fetch = [&](int s) {
-    const int base = row_begin + (s / chunks) * kTileRows;
-    const int d0 = (s % chunks) * kDepth;
+  __device__ void tile(float (&acc)[ACC], const ScoreArgs& a, int q0, int row0, int row_end) {
+    const int tid = threadIdx.x, t = tid & 3;
+    const int live_cols = row_end - row0;
+    const bool live_q[2] = {q0 + r[0] < a.n_queries, q0 + r[1] < a.n_queries};
+    if (!__any_sync(kFull, live_q[0])) return;  // the warp's queries are all past Q
 #pragma unroll
-    for (int v = 0; v < QV; ++v) {
-      const int e = threadIdx.x + v * kThreads;
-      const int d = d0 + e / TQ, qi = q0 + e % TQ;
-      qr[v] = (d < depth && qi < n_queries) ? qt[(size_t)d * n_queries + qi] : zero;
-    }
+    for (int j = 0; j < NT / 8; ++j) {
 #pragma unroll
-    for (int v = 0; v < GV; ++v) {
-      const int e = threadIdx.x + v * kThreads;
-      const int d = d0 + e % kDepth, gi = base + e / kDepth;
-      gr[v] = (d < depth && gi < row_end) ? g[(size_t)gi * depth + d] : zero;
-    }
-  };
-  auto stash = [&](int half) {
-    float* q_dst = qs + half * kDepth * TQ;
-    float* g_dst = gs + half * kTileRows * kStride;
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * j + 2 * t + e;
+        const bool live = col < live_cols;  // the ragged tile: rows past the split
+        const float b = live ? __ldg(a.bias + row0 + col) : 0.f;
 #pragma unroll
-    for (int v = 0; v < QV; ++v) q_dst[threadIdx.x + v * kThreads] = to_f32(qr[v]);
-#pragma unroll
-    for (int v = 0; v < GV; ++v) {
-      const int e = threadIdx.x + v * kThreads;
-      g_dst[(e / kDepth) * kStride + e % kDepth] = to_f32(gr[v]);
-    }
-  };
-
-  if (steps > 0) {
-    fetch(0);
-    stash(0);
-  }
-  __syncthreads();
-
-  float acc[RQ][4];
-#pragma unroll
-  for (int r = 0; r < RQ; ++r)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[r][j] = 0.f;
-
-  for (int s = 0; s < steps; ++s) {
-    const int half = s & 1;
-    if (s + 1 < steps) fetch(s + 1);
-    const float* qb = qs + half * kDepth * TQ + warp * RQ;
-    const float* gb = gs + half * kTileRows * kStride + lane * kStride;
-#pragma unroll
-    for (int c = 0; c < kDepth; ++c) {
-      float gv[4], qv[RQ];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) gv[j] = gb[32 * j * kStride + c];
-      load_queries<RQ>(qv, qb + c * TQ);
-#pragma unroll
-      for (int r = 0; r < RQ; ++r)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[r][j] = fmaf(qv[r], gv[j], acc[r][j]);
-    }
-
-    if (s % chunks == chunks - 1) {  // the tile's scores are complete: select
-      const int base = row_begin + (s / chunks) * kTileRows;
-      float b[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = base + lane + 32 * j;
-        b[j] = row < row_end ? bias[row] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < RQ; ++r) {
-        float* bv = buf_v + (warp * RQ + r) * kpad;
-        int* bi = buf_i + (warp * RQ + r) * kpad;
-        float kth_v = bv[k - 1];  // the buffer's k-th entry (warp-uniform)
-        int kth_i = bi[k - 1];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int row = base + lane + 32 * j;
-          const float sc = row < row_end ? acc[r][j] + b[j] : -CUDART_INF_F;
-          acc[r][j] = 0.f;
-          unsigned mask = __ballot_sync(kFull, ahead(sc, row, kth_v, kth_i));
-          while (mask) {
-            const int src = __ffs(mask) - 1;
-            mask &= mask - 1;
-            const float cv = __shfl_sync(kFull, sc, src);
-            const int ci = base + src + 32 * j;
-            if (!ahead(cv, ci, kth_v, kth_i)) continue;
-            insert_sorted(bv, bi, k, cv, ci, lane);
-            kth_v = bv[k - 1];
-            kth_i = bi[k - 1];
-          }
+        for (int h = 0; h < 2; ++h) {
+          acc[4 * j + 2 * h + e] = live ? acc[4 * j + 2 * h + e] + b : -CUDART_INF_F;
         }
       }
     }
-
-    if (s + 1 < steps) stash(half ^ 1);
-    __syncthreads();
-  }
-
+    // While a query's buffer is not full (its first tile), a floor for its
+    // candidates: each thread's ceil(k / 4)-th largest distinct score of
+    // the query in this tile, the least of the quad's four. The quad holds
+    // k scores at or above it, so no score below it can be in the top k,
+    // and the first tile inserts about k entries where it would insert
+    // many times that.
+    float floor_v[2] = {-CUDART_INF_F, -CUDART_INF_F};
+    const bool warm = (live_q[0] && kth_v[0] == -CUDART_INF_F) ||
+                      (live_q[1] && kth_v[1] == -CUDART_INF_F);
+    if (__any_sync(kFull, warm)) {
+      const int levels = (a.k + 3) / 4;
 #pragma unroll
-  for (int r = 0; r < RQ; ++r) {
-    const int qi = q0 + warp * RQ + r;
-    if (qi >= n_queries) continue;
-    const float* bv = buf_v + (warp * RQ + r) * kpad;
-    const int* bi = buf_i + (warp * RQ + r) * kpad;
-    const size_t out = ((size_t)qi * n_splits + split) * k;
-    for (int e = lane; e < k; e += 32) {
-      part_v[out + e] = bv[e];
-      part_i[out + e] = bi[e];
+      for (int h = 0; h < 2; ++h) {
+        float above = CUDART_INF_F;
+        for (int l = 0; l < levels; ++l) {
+          float m = -CUDART_INF_F;
+#pragma unroll
+          for (int i = 2 * h; i < ACC; i += 4) {
+            m = fmaxf(m, acc[i] < above ? acc[i] : -CUDART_INF_F);
+            m = fmaxf(m, acc[i + 1] < above ? acc[i + 1] : -CUDART_INF_F);
+          }
+          above = m;
+        }
+        above = fminf(above, __shfl_xor_sync(kFull, above, 1));
+        floor_v[h] = fminf(above, __shfl_xor_sync(kFull, above, 2));
+      }
+    }
+    // rounds, until every candidate of the tile found room in the stash; a
+    // round takes the thread's scores after the last one it stashed before
+    for (int done = -1;;) {
+      // the thread's scores that rank ahead of its queries' k-th entries, to
+      // its stash: a branch-free value test over eight scores at a time
+      // first (after the first tiles it fails), then the exact test
+      const float thr[2] = {live_q[0] ? fmaxf(kth_v[0], floor_v[0]) : CUDART_INF_F,
+                            live_q[1] ? fmaxf(kth_v[1], floor_v[1]) : CUDART_INF_F};
+      int n = 0, last = done;
+#pragma unroll
+      for (int i8 = 0; i8 < ACC; i8 += 8) {
+        bool hit = false;
+#pragma unroll
+        for (int i = i8; i < i8 + 8; ++i) hit |= acc[i] >= thr[(i >> 1) & 1];
+        if (!hit || i8 + 7 <= done) continue;
+#pragma unroll
+        for (int i = i8; i < i8 + 8; ++i) {
+          const int h = (i >> 1) & 1, col = 8 * (i >> 2) + 2 * t + (i & 1);
+          if (i > done && acc[i] >= thr[h] && ahead(acc[i], row0 + col, kth_v[h], kth_i[h])) {
+            if (n < kStash) {
+              sv[n * kThreads + tid] = acc[i];
+              sc[n * kThreads + tid] = col | (h << 16);
+              last = i;
+            }
+            ++n;
+          }
+        }
+      }
+      if (!__any_sync(kFull, n > 0)) return;
+      // the quad's threads insert in turn (a turn no thread of the warp
+      // needs is skipped), each against its buffer's k-th entry as the
+      // others' inserts left it
+      for (int turn = 0; turn < 4; ++turn) {
+        if (!__any_sync(kFull, t == turn && n > 0)) continue;
+        if (t == turn) {
+          for (int c = 0; c < min(n, kStash); ++c) {
+            const float v = sv[c * kThreads + tid];
+            const int packed = sc[c * kThreads + tid], h = packed >> 16;
+            const int row = row0 + (packed & 0xffff);
+            // h picked by a select: an index into r would put r, and the
+            // object with it, in local memory
+            const int qr = h ? r[1] : r[0];
+            float* const bq = bv + qr * a.k;
+            int* const iq = bi + qr * a.k;
+            if (ahead(v, row, bq[a.k - 1], iq[a.k - 1])) insert_sorted(bq, iq, a.k, v, row);
+          }
+        }
+        __syncwarp();
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        kth_v[h] = bv[r[h] * a.k + a.k - 1];
+        kth_i[h] = bi[r[h] * a.k + a.k - 1];
+      }
+      if (!__any_sync(kFull, n > kStash)) return;
+      done = last;
     }
   }
-}
 
-__global__ void __launch_bounds__(kThreads) topk_merge(
-    const float* __restrict__ part_v, const int* __restrict__ part_i,
-    int n_queries, int n_splits, int k, float* __restrict__ out_v,
-    int* __restrict__ out_i) {
-  const int qi = (blockIdx.x * kThreads + threadIdx.x) >> 5;
+  // the warp's 16 queries' buffers to (n_queries, n_splits, k)
+  __device__ void finish(const ScoreArgs& a, int q0, int split) {
+    __syncwarp();
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    for (int rr = 0; rr < 16; ++rr) {
+      const int row = 16 * warp + rr, qi = q0 + row;
+      if (qi >= a.n_queries) break;
+      const size_t out = (static_cast<size_t>(qi) * a.n_splits + split) * a.k;
+      for (int e = lane; e < a.k; e += 32) {
+        a.part_v[out + e] = bv[row * a.k + e];
+        a.part_i[out + e] = bi[row * a.k + e];
+      }
+    }
+  }
+};
+
+constexpr int kMergeThreads = 256;
+constexpr int kHeads = kMaxSplits / 32;  // split heads a lane
+
+__global__ void __launch_bounds__(kMergeThreads) topk_merge(
+    const float* __restrict__ part_v, const int* __restrict__ part_i, int n_queries,
+    int n_splits, int k, float* __restrict__ out_v, int* __restrict__ out_i) {
+  const int qi = (blockIdx.x * kMergeThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (qi >= n_queries) return;  // uniform over the warp
-  const float* pv = part_v + ((size_t)qi * n_splits + lane) * k;
-  const int* pi = part_i + ((size_t)qi * n_splits + lane) * k;
-  int pos = 0;
-  float hv = -CUDART_INF_F;
-  int hi = 0;
-  if (lane < n_splits) {
-    hv = pv[0];
-    hi = pi[0];
+  const size_t base = static_cast<size_t>(qi) * n_splits * k;
+  int pos[kHeads];
+  float hv[kHeads];
+  int hi[kHeads];
+#pragma unroll
+  for (int h = 0; h < kHeads; ++h) {
+    const int s = lane + 32 * h;
+    pos[h] = 0;
+    hv[h] = s < n_splits ? part_v[base + static_cast<size_t>(s) * k] : -CUDART_INF_F;
+    hi[h] = s < n_splits ? part_i[base + static_cast<size_t>(s) * k] : 0;
   }
   for (int j = 0; j < k; ++j) {
-    float best = hv;
-    int src = lane;
+    // this lane's best head, its lower split first on equal values
+    float best = hv[0];
+    int bh = 0, row = hi[0];
+#pragma unroll
+    for (int h = 1; h < kHeads; ++h) {
+      if (hv[h] > best) {
+        best = hv[h];
+        bh = h;
+        row = hi[h];
+      }
+    }
+    int src = lane + 32 * bh;
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       const float ov = __shfl_xor_sync(kFull, best, off);
       const int os = __shfl_xor_sync(kFull, src, off);
+      const int orow = __shfl_xor_sync(kFull, row, off);
       if (ov > best || (ov == best && os < src)) {
         best = ov;
         src = os;
+        row = orow;
       }
     }
-    const int row = __shfl_sync(kFull, hi, src);
     if (lane == 0) {
-      out_v[(size_t)qi * k + j] = best;
-      out_i[(size_t)qi * k + j] = best == -CUDART_INF_F ? 0 : row;
+      out_v[static_cast<size_t>(qi) * k + j] = best;
+      out_i[static_cast<size_t>(qi) * k + j] = best == -CUDART_INF_F ? 0 : row;
     }
-    if (lane == src) {
-      ++pos;
-      const bool more = lane < n_splits && pos < k;
-      hv = more ? pv[pos] : -CUDART_INF_F;
-      hi = more ? pi[pos] : 0;
+    if (lane == (src & 31)) {  // advance the winning head
+#pragma unroll
+      for (int h = 0; h < kHeads; ++h) {
+        if (h == src >> 5) {
+          ++pos[h];
+          const bool more = pos[h] < k && src < n_splits;
+          const size_t at = base + static_cast<size_t>(src) * k + pos[h];
+          hv[h] = more ? part_v[at] : -CUDART_INF_F;
+          hi[h] = more ? part_i[at] : 0;
+        }
+      }
     }
   }
 }
 
-template <typename T, int RQ>
-cudaError_t launch_partial(const void* qt, const void* g, const float* bias,
-                           int n_queries, int n_rows, int depth, int k,
-                           int rows_per_split, int n_splits, float* part_v,
-                           int* part_i, cudaStream_t stream) {
-  constexpr int TQ = RQ * kWarps;
-  const int kpad = (k + 31) & ~31;
-  const size_t smem = sizeof(float) * (size_t)(2 * kDepth * TQ + 2 * kTileRows * kStride) +
-                      (sizeof(float) + sizeof(int)) * (size_t)TQ * kpad;
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_partial<T, RQ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n_queries + TQ - 1) / TQ, n_splits);
-  topk_partial<T, RQ><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(qt), static_cast<const T*>(g), bias, n_queries, n_rows,
-      depth, k, rows_per_split, n_splits, part_v, part_i);
-  return cudaGetLastError();
-}
-
 template <typename T>
-cudaError_t launch(const void* qt, const void* g, const float* bias, int n_queries,
-                   int n_rows, int depth, int k, const Plan& plan, float* part_v,
-                   int* part_i, float* out_v, int* out_i, cudaStream_t stream) {
-  const cudaError_t err =
-      plan.block_queries == 8 * kWarps
-          ? launch_partial<T, 8>(qt, g, bias, n_queries, n_rows, depth, k,
-                                 plan.rows_per_split, plan.n_splits, part_v, part_i, stream)
-          : launch_partial<T, 2>(qt, g, bias, n_queries, n_rows, depth, k,
-                                 plan.rows_per_split, plan.n_splits, part_v, part_i, stream);
-  if (err != cudaSuccess) return err;
-  const int blocks = (n_queries * 32 + kThreads - 1) / kThreads;
-  topk_merge<<<blocks, kThreads, 0, stream>>>(part_v, part_i, n_queries, plan.n_splits,
-                                              k, out_v, out_i);
+cudaError_t launch(const void* q, const void* g, const float* bias, int n_queries, int n_rows,
+                   int depth, int k, const Plan& p, void* scratch, float* part_v, int* part_i,
+                   float* out_v, int* out_i, cudaStream_t stream) {
+  ScoreArgs args{};
+  args.bias = bias;
+  args.n_queries = n_queries;
+  args.n_rows = n_rows;
+  args.depth = depth;
+  args.k = k;
+  const bool merge = p.n_splits > 1;  // one split: the block writes the result
+  args.part_v = merge ? part_v : out_v;
+  args.part_i = merge ? part_i : out_i;
+  cudaError_t err = launch_scores<T, false>(q, g, p, args, scratch, stream);
+  if (err != cudaSuccess || !merge) return err;
+  const int blocks = (n_queries * 32 + kMergeThreads - 1) / kMergeThreads;
+  topk_merge<<<blocks, kMergeThreads, 0, stream>>>(part_v, part_i, n_queries, p.n_splits, k,
+                                                   out_v, out_i);
   return cudaGetLastError();
 }
 
-bool valid_sizes(int n_queries, int n_rows, int k, int n_sms) {
-  return n_queries >= 1 && n_rows >= 1 && k >= 1 && k <= kMaxK && k <= n_rows && n_sms >= 1;
+bool valid_sizes(int n_queries, int n_rows, int depth, int k, int dtype, int n_sms) {
+  return n_queries >= 1 && n_rows >= 1 && depth >= 1 && k >= 1 && k <= n_rows && n_sms >= 1 &&
+         (dtype == 0 || dtype == 1);
+}
+
+Plan plan_for(int n_queries, int n_rows, int depth, int k, int dtype, int n_sms) {
+  return dtype == 0 ? make_plan<float>(n_queries, n_rows, depth, k, n_sms, false)
+                    : make_plan<__nv_bfloat16>(n_queries, n_rows, depth, k, n_sms, false);
 }
 
 }  // namespace
 
 // C entry points bound with ctypes; each returns a cudaError_t code.
 //
-// xmir_topk_plan writes the launch plan xmir_topk makes for these sizes on a
-// card with n_sms SMs: the caller sizes the partial buffers (n_queries,
-// n_splits, k) from it.
-extern "C" int xmir_topk_plan(int n_queries, int n_rows, int k, int n_sms,
-                              int* block_queries, int* n_splits, int* rows_per_split) {
-  if (!valid_sizes(n_queries, n_rows, k, n_sms)) return (int)cudaErrorInvalidValue;
-  const Plan plan = make_plan(n_queries, n_rows, k, n_sms);
-  *block_queries = plan.block_queries;
-  *n_splits = plan.n_splits;
-  *rows_per_split = plan.rows_per_split;
+// xmir_topk_plan writes the plan K1 takes for these sizes (dtype 0 = float32,
+// 1 = bfloat16) on a card with n_sms SMs, as 9 ints: block_queries,
+// n_splits, rows_per_split, route (0 fused, k <= 32; 1 select: the wrapper
+// launches xmir_topk_select), tile_rows, stages, depth (padded for the copy
+// engine where D's rows are not a multiple of 16 bytes), smem, wgs. The
+// caller sizes the partial buffers (n_queries, n_splits, k) and the scratch
+// (xmir_topk) from it.
+extern "C" int xmir_topk_plan(int n_queries, int n_rows, int depth, int k, int dtype, int n_sms,
+                              int* out) {
+  if (!valid_sizes(n_queries, n_rows, depth, k, dtype, n_sms)) return (int)cudaErrorInvalidValue;
+  const Plan p = plan_for(n_queries, n_rows, depth, k, dtype, n_sms);
+  const int fields[9] = {64 * p.wgs, p.n_splits, p.rows_per_split, p.route, p.tile_rows,
+                         p.stages, p.depth, p.smem, p.wgs};
+  for (int i = 0; i < 9; ++i) out[i] = fields[i];
   return (int)cudaSuccess;
 }
 
-// qt is the queries transposed, (depth, n_queries) contiguous; g is (n_rows,
-// depth) contiguous; both of one dtype: 0 = float32, 1 = bfloat16. part_v and
-// part_i hold (n_queries, n_splits, k) of xmir_topk_plan's plan for the same
-// sizes and n_sms.
-extern "C" int xmir_topk(const void* qt, const void* g, const float* bias, int dtype,
-                         int n_queries, int n_rows, int depth, int k, int n_sms,
-                         float* part_v, int* part_i, float* out_v, int* out_i,
-                         void* stream) {
-  if (!valid_sizes(n_queries, n_rows, k, n_sms) || depth < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const Plan plan = make_plan(n_queries, n_rows, k, n_sms);
+// q (n_queries, depth) and g (n_rows, depth) contiguous, of one dtype; bias
+// (n_rows,) float32; scratch holds q and g with padded rows where the plan
+// pads D, then in f32 the queries' small parts: (n_queries + n_rows) x plan
+// depth elements if padded, plus n_queries x plan depth floats in f32 (the
+// wrapper's topk_kernels._scratch); part_v / part_i hold (n_queries,
+// n_splits, k) of the plan where it has more than one split; out_v, out_i
+// (n_queries, k). k <= 32: the plan's fused route.
+extern "C" int xmir_topk(const void* q, const void* g, const float* bias, int dtype,
+                         int n_queries, int n_rows, int depth, int k, int n_sms, void* scratch,
+                         float* part_v, int* part_i, float* out_v, int* out_i, void* stream) {
+  if (!valid_sizes(n_queries, n_rows, depth, k, dtype, n_sms)) return (int)cudaErrorInvalidValue;
+  const Plan p = plan_for(n_queries, n_rows, depth, k, dtype, n_sms);
+  if (p.route != kRouteFused) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return (int)launch<float>(qt, g, bias, n_queries, n_rows, depth, k, plan, part_v,
-                              part_i, out_v, out_i, s);
+    return (int)launch<float>(q, g, bias, n_queries, n_rows, depth, k, p, scratch, part_v, part_i,
+                              out_v, out_i, s);
   }
-  if (dtype == 1) {
-    return (int)launch<__nv_bfloat16>(qt, g, bias, n_queries, n_rows, depth, k, plan,
-                                      part_v, part_i, out_v, out_i, s);
-  }
-  return (int)cudaErrorInvalidValue;
+  return (int)launch<__nv_bfloat16>(q, g, bias, n_queries, n_rows, depth, k, p, scratch, part_v,
+                                    part_i, out_v, out_i, s);
 }

@@ -33,12 +33,12 @@ _LIB_NAME = "libxmir_kernels.so"
 # c_void_p, or ctypes would pass them as 32-bit ints and cut them.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # Q, N, k, n_sms -> block_queries, n_splits, rows_per_split (int pointers)
-    "xmir_topk_plan": (_I, _I, _I, _I, _P, _P, _P),
-    # q transposed, g, bias, dtype, Q, N, D, k, n_sms, part_v, part_i, out_v, out_i, stream
-    "xmir_topk": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
-    # q, g, bias, dtype, Q, N, D, k, k_pad, keys, buf, out_v, out_i, stream
-    "xmir_topk_select": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P),
+    # Q, N, D, k, dtype, n_sms -> the plan, 9 ints (int pointer)
+    "xmir_topk_plan": (_I,) * 6 + (_P,),
+    # q, g, bias, dtype, Q, N, D, k, n_sms, scratch, part_v, part_i, out_v, out_i, stream
+    "xmir_topk": (_P, _P, _P) + (_I,) * 6 + (_P,) * 6,
+    # q, g, bias, dtype, Q, N, D, k, n_sms, scratch, words, lists, out_v, out_i, stream
+    "xmir_topk_select": (_P, _P, _P) + (_I,) * 6 + (_P,) * 6,
     # rows, dtype -> row tiles per image (int pointer)
     "xmir_convnext_plan": (_I, _I, _P),
     # a, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta, dtype, batch, rows,
