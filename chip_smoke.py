@@ -67,12 +67,14 @@ Phases, each of which raises (exit code != 0) on any failure:
              C = 768, 12 heads) at B = 2; ragged and tiny N (1, 7, 197, 257,
              729, 1024); the edges of K2's 128-row tiles (127, 128, 129,
              255); hd in {16, 32, 64, 72, 128} for K2 and {32, 64, 128} for
-             K7 (C = 128, 256, 384, 768); K8 with and without GELU and bias;
-             rows whose every score is very negative and rows with one
-             dominant score; within the bounds of ops/vit_attn.py::agreement
-             (K2: with the flip allowance of each row's dominant term,
-             flip_allowance) and ops/convnext_block.py::agreement; two runs
-             bit-equal
+             K7 (C = 128, 256, 384, 768); K8 with and without GELU and bias,
+             also at the edges of bf16 K8's 64-row units (R = 1, 63, 64, 65)
+             and at M with a partial 256-column tile (130, 514), and over a
+             GELU tail of pre-activations from -12 to 12; rows whose every
+             score is very negative and rows with one dominant score; within
+             the bounds of ops/vit_attn.py::agreement (K2: with the flip
+             allowance of each row's dominant term, flip_allowance) and
+             ops/convnext_block.py::agreement; two runs bit-equal
  10. slice   the ingest -> query CLIs with DINOv2 ViT-B/14 at full width (518
              px bicubic decode, 1370 tokens, 12 blocks, 768-d) under
              XMIR_FLASH_ATTN=1 XMIR_FUSED_LN=1 and --resume of a timm-layout
@@ -88,13 +90,19 @@ Phases, each of which raises (exit code != 0) on any failure:
              pinned once outside the timed windows and named; CUDA events over
              windows of 20 calls and the device time, device_ms, beside the
              share of it torch.profiler's records hold); K2 also at B = 8, with the row statistics, and
-             the host's enqueue time of a K2 and a library call; K7's device
-             time beside its product alone (torch.matmul on the normalised
-             rows, a yardstick used nowhere in the port); DINOv2
-             ViT-B/14 bf16 (weights and input) batch 16 at 518 px with the
-             kernels, with K8 too, with the kernels' plain versions, and on
-             the eager path, the kernels' embeddings held to the last two;
-             CUDA events, in turns; a torch.profiler breakdown of the bf16
+             the host's enqueue time of a K2 and a library call; K7's and
+             K8's device time beside their products alone (torch.matmul on the
+             normalised rows) and, for K8, the unfused sequence a block runs
+             without it (the port's LayerNorm, fc1 through _dense,
+             adaptive_gelu), yardsticks used nowhere in the port, and K8's
+             split by kernel (ln_rows, ln_gemm_wg) where torch.profiler's
+             records hold 90% of its device time; DINOv2 ViT-B/14 bf16
+             (weights and input) batch 16 at 518 px with the kernels, with K8
+             too (XMIR_FUSED_LN_MLP=1: bf16 K8 is ln_rows and the wgmma
+             product whose warpgroups take turns), with the kernels' plain
+             versions, and on the eager path, the kernels' embeddings held to
+             the last two; CUDA events, in turns, and the first two by device
+             time (device_ms) in turns; a torch.profiler breakdown of the bf16
              forward (K2's and K7's shares)
  12. kernel  K4 and K6 (csrc/window_attn.cu) against their plain versions, f32
              and bf16: every SwinV2-Base shape at 384 px (stages 1-4, shifted
@@ -265,6 +273,7 @@ from xmir_tpu_torch.index import ShardedGalleryIndex
 from xmir_tpu_torch.models import convnext as convnext_model
 from xmir_tpu_torch.models import swin as swin_model
 from xmir_tpu_torch.models import vit as vit_model
+from xmir_tpu_torch.models.activations import adaptive_gelu
 from xmir_tpu_torch.models.convert import load_torch_checkpoint
 from xmir_tpu_torch.models.registry import create_model
 from xmir_tpu_torch.ops import _build
@@ -1141,18 +1150,49 @@ def phase_kernel_vit():
                     _worst(e7, vit_err(o, r, ld.agreement, f"K7 {name} B={b} N={n} C={c}"))
                 _worst(err["K7"].setdefault(name, {}), e7)
                 _, _, _, w1, b1 = _ln_inputs(gen, 1, 1, c, 4 * c, dtype)
-                rows, e8 = x.reshape(b * n, c), {}
-                for act in ("gelu", ""):
-                    for bb in (b1, None):
-                        o = ld.ln_dense_fused(rows, lns, lnb, w1, bb, 1e-6, act)
-                        r = ld.ln_dense_reference(rows, lns, lnb, w1, bb, 1e-6, act)
-                        _worst(e8, vit_err(o, r, ld.agreement,
-                                           f"K8 {name} R={b * n} C={c} act={act!r} "
-                                           f"bias={bb is not None}"))
+                e8 = k8_err(x.reshape(b * n, c), lns, lnb, w1, b1, name)
                 _worst(err["K8"].setdefault(name, {}), e8)
                 log(f"[kernel] K7/K8 {name:8s} B={b} N={n:4d} C={c:3d} H={heads:2d} ({what}): "
-                    f"K7 {e7}; K8 (GELU and bias on / off) {e8}; K7 twice bit-equal")
+                    f"K7 {e7}; K8 (GELU and bias on / off) {e8}; both twice bit-equal")
+            for r_, m, what in K8_CASES:
+                x, lns, lnb, w1, b1 = _ln_inputs(gen, 1, r_, VIT["c"], m, dtype)
+                e8 = k8_err(x[0], lns, lnb, w1, b1, name)
+                _worst(err["K8"][name], e8)
+                log(f"[kernel] K8 {name:8s} R={r_:5d} C={VIT['c']} M={m:4d} ({what}): {e8}; "
+                    "twice bit-equal")
+            # the GELU's tail: pre-activations over [-12, 12] (the bias), finite
+            x, lns, lnb, w1, _ = _ln_inputs(gen, 1, 300, VIT["c"], 4 * VIT["c"], dtype)
+            w1 = w1 * 0.02
+            tail = torch.linspace(-12, 12, 4 * VIT["c"], device="cuda")
+            o = ld.ln_dense_fused(x[0], lns, lnb, w1, tail, 1e-6, "gelu")
+            check(torch.isfinite(o.float()).all(), f"K8 {name}: non-finite GELU tail")
+            e8 = vit_err(o, ld.ln_dense_reference(x[0], lns, lnb, w1, tail, 1e-6, "gelu"),
+                         ld.agreement, f"K8 {name} GELU tail")
+            _worst(err["K8"][name], e8)
+            log(f"[kernel] K8 {name:8s} GELU tail, pre-activations over [-12, 12]: {e8}")
     return err
+
+
+# K8 alone: the edges of its 64-row units and M that are not multiples of its
+# 256-column tiles (130: one partial tile; 514: two whole and one of 2)
+K8_CASES = [(r_, 4 * VIT["c"], "64-row unit edges") for r_ in (1, 63, 64, 65)] + [
+    (300, m, "partial column tile") for m in (130, 514)]
+
+
+def k8_err(rows, lns, lnb, w1, b1, name):
+    """K8 on (R, C) rows against ln_dense_reference, with GELU and bias each
+    on and off, every call twice bit-equal: the worst agreement reading."""
+    e8 = {}
+    for act in ("gelu", ""):
+        for bb in (b1, None):
+            o = ld.ln_dense_fused(rows, lns, lnb, w1, bb, 1e-6, act)
+            what = (f"K8 {name} R={rows.shape[0]} C={rows.shape[1]} M={w1.shape[0]} "
+                    f"act={act!r} bias={bb is not None}")
+            check(torch.equal(o, ld.ln_dense_fused(rows, lns, lnb, w1, bb, 1e-6, act)),
+                  f"{what}: two runs differ")
+            r = ld.ln_dense_reference(rows, lns, lnb, w1, bb, 1e-6, act)
+            _worst(e8, vit_err(o, r, ld.agreement, what))
+    return e8
 
 
 @contextlib.contextmanager
@@ -1493,6 +1533,20 @@ def k2_at_b8(q, k, v, sc, name):
 VIT_EMBED_BF16_TOL = {"plain versions": 4e-3, "eager": 5e-3}
 
 
+def unfused_mlp_head(lns, lnb, w1, b1, dtype):
+    """The port's LayerNorm and fc1 modules holding K8's operands, on the
+    card in ``dtype`` as a block's parameters are."""
+    c = w1.shape[1]
+    norm = convnext_model.LayerNorm(c)
+    fc1 = torch.nn.Linear(c, w1.shape[0])
+    with torch.no_grad():
+        norm.weight.copy_(lns)
+        norm.bias.copy_(lnb)
+        fc1.weight.copy_(w1)
+        fc1.bias.copy_(b1)
+    return norm.to("cuda", dtype), fc1.to("cuda", dtype)
+
+
 def phase_vit_rates():
     gen = torch.Generator().manual_seed(10)
     b, n, c, h = 16, VIT["n"], VIT["c"], VIT["heads"]
@@ -1505,9 +1559,14 @@ def phase_vit_rates():
             _, _, _, w1, b1 = _ln_inputs(gen, 1, 1, c, 4 * c, dtype)
             rows, sc = x.reshape(b * n, c), (c // h) ** -0.5
             q4, k4, v4 = (t.reshape(b, h, n, c // h) for t in (q, k, v))
-            # K7's product alone, a yardstick used nowhere in the port: torch.matmul
-            # on the normalised rows, (B N, C) . (C, 3C)
+            # K7's and K8's products alone, yardsticks used nowhere in the port:
+            # torch.matmul on the normalised rows, (B N, C) . (C, 3C) and (C, 4C)
             y_rows, w_t = ld._ln_rows(rows, lns, lnb, 1e-6), w.t().contiguous()
+            w1_t = w1.t().contiguous()
+            # K8 unfused: what a block runs in its place (Mlp.forward without
+            # XMIR_FUSED_LN_MLP): the port's LayerNorm, fc1 through _dense and
+            # adaptive_gelu, on parameters in the model's dtype
+            norm2, fc1 = unfused_mlp_head(lns, lnb, w1, b1, dtype)
             # the library yardstick on the backend the default dispatch picks, pinned
             backend = sdpa_backend(lambda: F.scaled_dot_product_attention(q4, k4, v4))
             fns = {
@@ -1520,6 +1579,8 @@ def phase_vit_rates():
                 "K7 product": lambda: torch.matmul(y_rows, w_t),
                 "K8": lambda: ld.ln_dense_fused(rows, lns, lnb, w1, b1, 1e-6, "gelu"),
                 "K8 plain": lambda: ld.ln_dense_reference(rows, lns, lnb, w1, b1, 1e-6, "gelu"),
+                "K8 product": lambda: torch.matmul(y_rows, w1_t),
+                "K8 unfused": lambda: adaptive_gelu(vit_model._dense(norm2(rows), fc1)),
             }
             errs = {"K2": vit_err(fns["K2"](), fns["K2 plain"](), va.agreement, f"K2 {name} B=16"),
                     "K8": vit_err(fns["K8"](), fns["K8 plain"](), ld.agreement, f"K8 {name} B=16")}
@@ -1530,8 +1591,9 @@ def phase_vit_rates():
                 q.shape).float()).abs().max().item()
             ms, dev = k2_against_library(fns, backend)
             k2_share = profiler_share(fns["K2"], dev["K2"])
-            dev["K7"] = device_ms(fns["K7"])
-            dev["K7 product"] = device_ms(fns["K7 product"])
+            for key in ("K7", "K7 product", "K8", "K8 product", "K8 unfused"):
+                dev[key] = device_ms(fns[key])
+            k8_split = kernel_split(fns["K8"], dev["K8"])
             bounds = _kernel_bounds(b, dtype)
             for key in out:
                 ops, nbytes = bounds[key]
@@ -1546,18 +1608,28 @@ def phase_vit_rates():
                        f"{k2_share:.1%} of K2's)" if key == "K2" else
                        f"; device time {dev['K7']:.4f} ms; the product alone (torch.matmul on the "
                        f"normalised rows) {ms['K7 product']:.3f} ms, device time "
-                       f"{dev['K7 product']:.4f} ms" if key == "K7" else "")
+                       f"{dev['K7 product']:.4f} ms" if key == "K7" else
+                       f"; device time {dev['K8']:.4f} ms (by kernel: {split_text(k8_split)}); "
+                       f"the product alone (torch.matmul on the normalised rows) "
+                       f"{ms['K8 product']:.3f} ms, device time {dev['K8 product']:.4f} ms; "
+                       f"the unfused sequence (LayerNorm, fc1, adaptive_gelu) "
+                       f"{ms['K8 unfused']:.3f} ms, device time {dev['K8 unfused']:.4f} ms")
                 log(f"[rates] {key} {name:8s} B=16 N={n} C={c}: {ms[key]:.3f} ms "
                     f"({ops / ms[key] / 1e9:.1f} TFLOP/s; bound {bound_ms:.3f} ms by {bound_by}) "
                     f"vs plain {ms[f'{key} plain']:.3f} ms{lib}; agreement {errs[key]}")
             log(f"[rates] K2 {name} vs scaled_dot_product_attention: max |diff| {lib_err:.3g}")
             out["K7"][name].update(device_ms=dev["K7"], product_ms=ms["K7 product"],
                                    product_device_ms=dev["K7 product"])
+            out["K8"][name].update(device_ms=dev["K8"], split=k8_split,
+                                   product_ms=ms["K8 product"],
+                                   product_device_ms=dev["K8 product"],
+                                   unfused_ms=ms["K8 unfused"],
+                                   unfused_device_ms=dev["K8 unfused"])
             out["K2"][name].update(library=backend, stats_ms=ms["K2 with statistics"],
                                    device_ms=dev["K2"], stats_device_ms=dev["K2 with statistics"],
                                    library_device_ms=dev["K2 library"], profiler_share=k2_share,
                                    b8=k2_at_b8(q, k, v, sc, name))
-            del q, k, v, x, w, w1, rows, q4, k4, v4, fns, y_rows, w_t
+            del q, k, v, x, w, w1, rows, q4, k4, v4, fns, y_rows, w_t, w1_t, norm2, fc1
             torch.cuda.empty_cache()
     # the whole model in tools/bench_towers.py's configuration: bf16 weights
     # and input, batch 16, 518 px; the default rule sends bf16 blocks to K7 + K2
@@ -1605,6 +1677,12 @@ def phase_vit_rates():
                                                        f"the eager path's by {mlp_diff}")
         ms, runs = _in_turns({"kernels": lambda: embed(x), "kernels + K8": with_fused_mlp,
                               "plain versions": with_plain_versions, "eager": eager_path})
+        # the same two paths by device time, in turns
+        dev = {"kernels": [], "kernels + K8": []}
+        for path in ("kernels", "kernels + K8", "kernels + K8", "kernels"):
+            dev[path].append(device_ms(with_fused_mlp if path == "kernels + K8"
+                                       else lambda: embed(x), reps=3))
+        dev = {path: statistics.median(v) for path, v in dev.items()}
         out["profile"] = profile_forward("DINOv2 ViT-B/14 bf16 batch 16 @518 with K7 + K2", embed,
                                          x, {"K2": K2_BF16_KERNELS, "K7": K7_KERNELS})
     rates = {k: 16 / v * 1e3 for k, v in ms.items()}
@@ -1613,7 +1691,11 @@ def phase_vit_rates():
         + f"; the kernels' embeddings within {diff} of those paths' (bounds "
         f"{VIT_EMBED_BF16_TOL}), with K8 within {mlp_diff:.3g} of the eager path's; runs "
         f"{({k: [round(t, 2) for t in v] for k, v in runs.items()})}")
+    log(f"[rates] DINOv2 ViT-B/14 bf16 batch 16 @518 by device time (device_ms, in turns): "
+        f"kernels {dev['kernels']:.4f} ms, kernels + K8 {dev['kernels + K8']:.4f} ms "
+        f"(K8 on: {dev['kernels'] - dev['kernels + K8']:+.4f} ms a forward)")
     out["embed_rate"] = rates
+    out["embed_device_ms"] = dev
     return out
 
 
@@ -2147,7 +2229,9 @@ K4_BF16_KERNELS = ("wattn_bf16_wg",)
 K5_BF16_KERNELS = ("window_bwd_prep", "window_bwd_main", "window_bwd_finish")
 # ... and of K2's, K7's and K9's (K11's) in the bf16 forwards
 K2_BF16_KERNELS = ("attn_bf16_wg",)
-K7_KERNELS = ("ln_qkv", "ln_rows")  # bf16: ln_rows and ln_qkv_wg
+# bf16 K7: ln_rows and ln_gemm_wg<kHeads, false> (K8 is off in the profiled
+# forward); f32: ln_qkv_f32
+K7_KERNELS = ("ln_gemm_wg<0, false>", "ln_qkv", "ln_rows")
 K9_BF16_KERNELS = ("ln_rows", "tail_gemm_wg", "grn_scale")
 # ... and of K10's in the bf16 ConvNeXtV2-Base train step
 # (its LayerNorm pre-pass, ln_rows, is also K9's there, and is read apart)
@@ -4130,6 +4214,7 @@ def main():
     print(smi)
     print(json.dumps({"kernels": kernels, "convnextv2_embed_img_per_s": rates["embed_rate"],
                       "dinov2_embed_img_per_s": vit_rates["embed_rate"],
+                      "dinov2_embed_device_ms": vit_rates["embed_device_ms"],
                       "dinov2_train_step": train_rates,
                       "dinov2_train_f32_vs_plain": t_slice["f32_vs_plain"],
                       "convnextv2_train_step": convnext_train_rates,

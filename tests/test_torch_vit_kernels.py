@@ -247,7 +247,9 @@ def test_ln_qkv_plain_matches_jax(kind, b, n, c, heads, bias):
 
 @pytest.mark.parametrize("kind", ["f32", "bf16"])
 @pytest.mark.parametrize("act", ["", "gelu"])
-@pytest.mark.parametrize("rows,c,m,bias", [(70, 128, 256, True), (33, 256, 384, False)])
+@pytest.mark.parametrize("rows,c,m,bias", [(70, 128, 256, True), (33, 256, 384, False),
+                                         (1, 128, 512, True), (65, 128, 130, True),
+                                         (129, 256, 130, False)])
 def test_ln_dense_plain_matches_jax(kind, act, rows, c, m, bias):
     x, lns, lnb, w, bv = _ln_inputs((rows,), c, m, seed=rows + c + m)
     (tx, jx), (tw, jw) = _pair(x, kind), _pair(w, kind)

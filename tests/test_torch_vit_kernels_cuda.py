@@ -196,6 +196,48 @@ def test_ln_qkv_matches_plain_on_card(dtype, c, heads, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 63, 64, 65, 2 * 1370, 16 * 1370])
+@pytest.mark.parametrize("c,m", [(768, 3072), (768, 130), (768, 514), (256, 1024)])
+def test_ln_dense_bf16_matches_plain_on_card(c, m, rows):
+    """bf16 K8 (the LayerNorm pre-pass and the wgmma product whose warpgroups
+    take its 64-row by 256-column items in turns) against ln_dense_reference:
+    R at the edges of a 64-row unit and the DINOv2 batches of 2 and 16, M =
+    4C and M that leave a partial last column tile (130, 514; 4-byte stores),
+    GELU and bias each on and off; two runs bit-equal."""
+    _need_card()
+    gen = torch.Generator().manual_seed(rows + c + m)
+    x = (_r(gen, rows, c) * 2 + 0.5).to(torch.bfloat16)
+    lns, lnb = 1 + _r(gen, c, sc=0.2), _r(gen, c, sc=0.1)
+    w, bias = _r(gen, m, c, sc=c ** -0.5).to(torch.bfloat16), _r(gen, m, sc=0.1)
+    with torch.inference_mode():
+        for act in ("gelu", ""):
+            for b in (bias, None):
+                out = ld.ln_dense_fused(x, lns, lnb, w, b, 1e-6, act)
+                assert out.shape == (rows, m) and out.dtype == torch.bfloat16
+                e = ld.agreement(out, ld.ln_dense_reference(x, lns, lnb, w, b, 1e-6, act))
+                assert ld.agrees(e), (act, b is None, e)
+                assert torch.equal(out, ld.ln_dense_fused(x, lns, lnb, w, b, 1e-6, act))
+
+
+@pytest.mark.cuda
+def test_ln_dense_gelu_tail_on_card():
+    """bf16 K8's GELU over pre-activations from -12 to 12 (the bias, under a
+    tiny product): finite, and within the bounds of the tanh form."""
+    _need_card()
+    gen = torch.Generator().manual_seed(12)
+    rows, c, m = 500, 768, 3072
+    x = (_r(gen, rows, c) * 2 + 0.5).to(torch.bfloat16)
+    lns, lnb = 1 + _r(gen, c, sc=0.2), _r(gen, c, sc=0.1)
+    w = _r(gen, m, c, sc=0.02 * c ** -0.5).to(torch.bfloat16)
+    b = torch.linspace(-12, 12, m, device="cuda")
+    with torch.inference_mode():
+        out = ld.ln_dense_fused(x, lns, lnb, w, b, 1e-6, "gelu")
+        assert torch.isfinite(out.float()).all()
+        e = ld.agreement(out, ld.ln_dense_reference(x, lns, lnb, w, b, 1e-6, "gelu"))
+    assert ld.agrees(e), e
+
+
+@pytest.mark.cuda
 def test_ln_wrappers_raise_on_card():
     _need_card()
     x = torch.zeros((2, 8, 64), device="cuda")

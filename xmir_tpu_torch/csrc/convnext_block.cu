@@ -26,7 +26,7 @@
 //
 // bf16 (every ConvNeXtV2 block in inference, and the forward of the blocks
 // training fuses), four launches:
-//   ln_rows   K9 only (gemm_tile.cuh, shared with K7 and K10): each row
+//   ln_rows   K9 only (gemm_tile.cuh, shared with K7, K8 and K10): each row
 //       normalised once (a warp a row: f32 statistics with the fast variance
 //       max(E[x^2] - mean^2, 0), eps 1e-6), y rounded to bf16 into a
 //       (B, R, C) scratch. A pre-pass and not a
@@ -229,19 +229,6 @@ struct WgCfg {
   static constexpr int kBars = kRed + 2 * 4 * BN * 4;
   static constexpr int kSmem = kBars + 2 * kStages * 8 + 1024;
 };
-
-// tanh-GELU as v sigma(2 u), u = k0 (v + k1 v^3): the same function as
-// 0.5 v (1 + tanh(u)) (gemm_tile.cuh), with one exp2 and one reciprocal on
-// the special-function units in place of tanhf, and no cancellation in 1 +
-// tanh(u) (where that form rounds 1 + tanh(u) to a multiple of 2^-24, below
-// |GELU| ~ 1e-6, this one keeps the tail)
-__device__ __forceinline__ float gelu_sigmoid(float v) {
-  const float u = kGeluK0 * (v + kGeluK1 * v * v * v);
-  float e, r;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(-2.8853900817779268f * u));  // e^(-2u)
-  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + e));
-  return v * r;
-}
 
 struct WgArgs {
   int rows, k, n;     // rows of an image, depth, output columns

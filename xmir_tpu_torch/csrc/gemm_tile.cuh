@@ -2,16 +2,15 @@
 // kernels whose body is "rows transformed on their way into shared memory, a
 // GEMM against a torch Linear weight (out, in), an epilogue":
 // the f32 bodies of convnext_block.cu (K9, K11), convnext_block_bwd.cu
-// (K10) and ln_dense.cu (K7), and K8 in both dtypes. Also the LayerNorm
-// pre-pass ``ln_rows`` whose output the wgmma bodies of K7, K9 and K10 read
-// through the copy engine.
+// (K10) and ln_dense.cu (K7, K8). Also the LayerNorm pre-pass ``ln_rows``
+// whose output the bf16 wgmma bodies of K7, K8, K9 and K10 read through the
+// copy engine, and the tanh-GELU in both forms (gelu_tanh, gelu_sigmoid).
 //
 // gemm_tile<T, P> leaves the tile's f32 sums in acc[8][8] per thread; the
 // including source adds its epilogue (Layout<T>::row_of / col_of place an
-// entry in the tile). T is float (IEEE f32 FMAs, no TF32) or __nv_bfloat16
-// (mma.sync m16n8k16, f32 accumulation, operands through ldmatrix). The
-// prologue P transforms A's rows in f32 and rounds them to T before the
-// product:
+// entry in the tile). T is float (IEEE f32 FMAs, no TF32); every bf16 body
+// is on wgmma (wgmma.cuh). The prologue P transforms A's rows in f32 before
+// the product:
 //   kNone       A as it is
 //   kLayerNorm  (a - mean) * rstd * p0 + p1 over the K axis: f32 statistics
 //               of the tile's rows with the fast variance
@@ -22,9 +21,8 @@
 // and double-buffered: the next depth chunk is loaded into registers while
 // this one computes, then transformed and stored to the other shared buffer.
 //
-// Operands: A (rows, K) row-major and W (N, K) row-major, both K-contiguous,
-// which is the row.col layout mma.sync takes; K a multiple of 8, pointers
-// 16-byte aligned. Everything here has internal linkage: each source that
+// Operands: A (rows, K) row-major and W (N, K) row-major, both K-contiguous;
+// K a multiple of 8, pointers 16-byte aligned. Everything here has internal linkage: each source that
 // includes the header compiles its own copy.
 #pragma once
 
@@ -38,15 +36,16 @@ namespace {
 constexpr int kThreads = 256;  // 8 warps per block
 constexpr int kBM = 128;       // rows of one image per block
 constexpr int kBN = 128;       // output columns per block
-constexpr int kGroups = 16;    // threads sharing an output column (both layouts)
+constexpr int kGroups = 16;    // threads sharing an output column
 constexpr float kLnEps = 1e-6f;
 constexpr float kGeluK0 = 0.7978845608028654f;  // sqrt(2 / pi)
 constexpr float kGeluK1 = 0.044715f;
 
 enum Prologue { kNone = 0, kLayerNorm = 1, kGrn = 2 };
 
-// Shared-memory tile geometry per element type. Each thread loads two rows
-// of one 16-byte vector per operand per stage, so a stage is 4 vectors deep.
+// Shared-memory tile geometry. Each thread loads two rows of one 16-byte
+// vector per operand per stage, so a stage is 4 vectors deep. kVec: the
+// elements of a 16-byte vector (ln_rows reads bf16 rows by it too).
 template <typename T>
 struct Tile;
 template <>
@@ -59,9 +58,6 @@ struct Tile<float> {
 template <>
 struct Tile<__nv_bfloat16> {
   static constexpr int kVec = 8;
-  static constexpr int kBK = 32;
-  static constexpr int kStride = kBK + 8;  // 80-byte rows: 16-byte aligned, ldmatrix conflict-free
-  static constexpr int kStage = kBM * kStride;
 };
 
 __device__ __forceinline__ void unpack(const uint4& v, float (&f)[4]) {
@@ -109,9 +105,6 @@ __device__ __forceinline__ void stash_raw(float* dst, const uint4& v) {
   unpack(v, f);
   stash_vec(dst, f);
 }
-__device__ __forceinline__ void stash_raw(__nv_bfloat16* dst, const uint4& v) {
-  *reinterpret_cast<uint4*>(dst) = v;
-}
 
 __device__ __forceinline__ uint4 ldg16(const void* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
@@ -129,30 +122,10 @@ __device__ __forceinline__ void load_floats(float (&f)[N], const float* p) {
   }
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_bf16(float& c0, float& c1, float& c2, float& c3,
-                                         const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c0), "+f"(c1), "+f"(c2), "+f"(c3)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The block's 128 x 128 output tile is held as acc[8][8] per thread in both
-// layouts; row_of / col_of give an entry's place in the tile, and group_of
-// the thread's place among the kGroups threads that share its columns.
-//
-// f32: thread (ty, tx) = (t / 16, t % 16) owns rows ty + 16 i, cols tx + 16 j.
-// bf16: warp (wm, wn) = (warp / 4, warp % 4) owns a 64 x 32 sub-tile as 4 x 4
-// mma.sync m16n8 tiles; acc[2 mt + h][2 nt + c] is the fragment entry of
-// m-tile mt, n-tile nt at row lane / 4 + 8 h, col 2 (lane % 4) + c.
+// The block's 128 x 128 output tile is held as acc[8][8] per thread;
+// row_of / col_of give an entry's place in the tile, and group_of the
+// thread's place among the kGroups threads that share its columns: thread
+// (ty, tx) = (t / 16, t % 16) owns rows ty + 16 i, cols tx + 16 j.
 template <typename T>
 struct Layout;
 
@@ -183,61 +156,29 @@ struct Layout<float> {
   }
 };
 
-template <>
-struct Layout<__nv_bfloat16> {
-  static __device__ __forceinline__ int lane() { return threadIdx.x & 31; }
-  static __device__ __forceinline__ int warp() { return threadIdx.x >> 5; }
-  static __device__ __forceinline__ int row_of(int i) {
-    return (warp() >> 2) * 64 + (i >> 1) * 16 + (i & 1) * 8 + (lane() >> 2);
-  }
-  static __device__ __forceinline__ int col_of(int j) {
-    return (warp() & 3) * 32 + (j >> 1) * 8 + (lane() & 3) * 2 + (j & 1);
-  }
-  static __device__ __forceinline__ int group_of() { return (warp() >> 2) * 8 + (lane() >> 2); }
-
-  static __device__ __forceinline__ void compute(const __nv_bfloat16* as,
-                                                 const __nv_bfloat16* bs,
-                                                 float (&acc)[8][8]) {
-    constexpr int S = Tile<__nv_bfloat16>::kStride;
-    const int l = lane();
-    // ldmatrix.x4 addresses: A, 16 rows x (k, k + 8) of one m-tile; B, two
-    // n-tiles of 8 rows x (k, k + 8), giving (b0, b1) of each
-    const __nv_bfloat16* a = as + ((warp() >> 2) * 64 + (l & 15)) * S + (l >> 4) * 8;
-    const __nv_bfloat16* b =
-        bs + ((warp() & 3) * 32 + (l & 7) + ((l >> 4) << 3)) * S + ((l >> 3) & 1) * 8;
-#pragma unroll
-    for (int kk = 0; kk < Tile<__nv_bfloat16>::kBK; kk += 16) {
-      uint32_t af[4][4], bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) ldmatrix_x4(af[mt], a + mt * 16 * S + kk);
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4(r, b + np * 16 * S + kk);
-        bf[2 * np][0] = r[0];
-        bf[2 * np][1] = r[1];
-        bf[2 * np + 1][0] = r[2];
-        bf[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-          mma_bf16(acc[2 * mt][2 * nt], acc[2 * mt][2 * nt + 1], acc[2 * mt + 1][2 * nt],
-                   acc[2 * mt + 1][2 * nt + 1], af[mt], bf[nt][0], bf[nt][1]);
-    }
-  }
-};
-
 __device__ __forceinline__ float gelu_tanh(float v) {
   return v * (0.5f * (1.f + tanhf(kGeluK0 * (v + kGeluK1 * v * v * v))));
+}
+
+// tanh-GELU as v sigma(2 u), u = k0 (v + k1 v^3): the same function as
+// gelu_tanh, with one exp2 and one reciprocal on the special-function units
+// in place of tanhf, and no cancellation in 1 + tanh(u) (where that form
+// rounds 1 + tanh(u) to a multiple of 2^-24, below |GELU| ~ 1e-6, this one
+// keeps the tail). The bf16 epilogues of K8 (ln_dense.cu) and K9
+// (convnext_block.cu) take it.
+__device__ __forceinline__ float gelu_sigmoid(float v) {
+  const float u = kGeluK0 * (v + kGeluK1 * v * v * v);
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(-2.8853900817779268f * u));  // e^(-2u)
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + e));
+  return v * r;
 }
 
 // y = LayerNorm(a) per row, rounded to T, and (when stats is not null) the
 // row's (mean, rstd): a warp a row, 16-byte vectors, f32 statistics with the
 // fast variance max(E[x^2] - mean^2, 0) and eps 1e-6, as the kLayerNorm
-// prologue below takes them. K7 and K9 (bf16) and K10 normalise each row once
-// here and feed the normalised rows to their products.
+// prologue below takes them. K7, K8 and K9 (bf16) and K10 normalise each row
+// once here and feed the normalised rows to their products.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ln_rows(const T* __restrict__ a,
                                                     const float* __restrict__ ln_scale,

@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks of the top-k score producer K1 / K1'
 // (topk_scores.cuh: bf16, and f32 as 3xTF32) and of the bf16 kernels K2 (vit_attn.cu), K3
 // (vit_attn_bwd.cu), K4 / K6 (window_attn.cu), K5 (window_attn_bwd.cu) and
-// K9 / K11 (convnext_block.cu), K7 (ln_dense.cu) and K10
+// K9 / K11 (convnext_block.cu), K7 and K8 (ln_dense.cu) and K10
 // (convnext_block_bwd.cu): warpgroup matrix products
 // (wgmma) with f32 accumulation on bf16 operands, their shared-memory matrix
 // descriptors and swizzled tile layouts, the copy engine (TMA tensor maps,

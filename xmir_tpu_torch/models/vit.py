@@ -14,7 +14,9 @@ passes ``fused_ln_enabled`` and ``plain_flash_enabled`` (bf16 on CUDA, or the
 ``XMIR_FUSED_LN`` / ``XMIR_FLASH_ATTN`` switches) at an eligible width folds
 norm1 into the qkv projection (K7, unless ``XMIR_FUSED_LN_QKV=0``) and runs
 the fused attention (K2); with ``XMIR_FUSED_LN_MLP=1`` it also folds norm2
-into fc1 with the tanh-GELU (K8; off by default, as in the JAX package).
+into fc1 with the tanh-GELU (K8; in bf16 the LayerNorm pre-pass and a
+persistent wgmma product whose two warpgroups take turns, one's GELU
+epilogue under the other's products; off by default, as in the JAX package).
 Otherwise attention alone takes K2 when its compute dtype (the input's
 promoted with the qkv weight's) passes ``plain_flash_enabled``; else the
 eager path, which is also the only one that returns attention weights.

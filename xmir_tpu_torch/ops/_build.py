@@ -51,8 +51,8 @@ _SIGNATURES = {
     "xmir_convnext_bwd": (_P,) * 10 + (_I,) * 5 + (_P,) * 11,
     # x, lns, lnb, w, bias, dtype, batch, n_tok, c, heads, y, q, k, v, stream
     "xmir_ln_qkv": (_P,) * 5 + (_I,) * 5 + (_P,) * 5,
-    # x, lns, lnb, w, bias, dtype, rows, c, m, gelu, out, stream
-    "xmir_ln_dense": (_P,) * 5 + (_I,) * 5 + (_P,) * 2,
+    # x, lns, lnb, w, bias, dtype, rows, c, m, gelu, y, out, stream
+    "xmir_ln_dense": (_P,) * 5 + (_I,) * 5 + (_P,) * 3,
     # q, k, v, o, stats (or null), dtype, bh, n, hd, scale * log2(e), stream
     "xmir_vit_attn": (_P,) * 5 + (_I,) * 4 + (_F, _P),
     # dtype, bh, n, hd -> bytes of the backward's scratch (long long pointer)

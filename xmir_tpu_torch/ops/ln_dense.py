@@ -2,13 +2,17 @@
 K8: LN -> dense with an optional tanh-GELU): the CUDA kernels' wrappers and
 their plain PyTorch versions.
 
-Port of ``xmir_tpu/ops/ln_dense_pallas.py``. K8 and f32 K7 read a tile of
+Port of ``xmir_tpu/ops/ln_dense_pallas.py``. In bf16 both normalise each
+row once into a scratch y (``ln_rows``) that a persistent wgmma product
+reads by the copy engine (csrc/ln_dense.cu): K7 with both warpgroups on a
+pair of 64-row units and stores straight into the heads, K8 with the two
+warpgroups taking its items in turns, so that one's GELU epilogue and
+row-major stores run under the other's products. In f32 both read a tile of
 the residual stream once, normalise it on its way into shared memory and
-feed the product from there; bf16 K7 normalises each row once into a
-scratch its wgmma product reads (csrc/ln_dense.cu). Both keep the TPU
-kernels' rounding points: LayerNorm in f32 with the fast variance, rounded to x's dtype before
-the product; the weight in x's dtype; f32 accumulation; the bias added in
-f32; tanh-GELU in f32; one rounding to the output dtype.
+feed a tile loop from there. Both keep the TPU kernels' rounding points:
+LayerNorm in f32 with the fast variance, rounded to x's dtype before the
+product; the weight in x's dtype; f32 accumulation; the bias added in f32;
+tanh-GELU in f32; one rounding to the output dtype.
 
 ``ln_qkv_fused`` (K7) and ``ln_dense_fused`` (K8) launch
 ``csrc/ln_dense.cu`` for CUDA tensors and count each call in their
@@ -221,11 +225,14 @@ def _launch_ln_dense(x, lns, lnb, w, b, eps: float, act: str):
         raise ValueError(f"the kernel needs an even output width, got {m}")
     lns32, lnb32, b32 = _cuda_operands(x, lns, lnb, w, b)
     out = torch.empty((rows, m), dtype=x.dtype, device=x.device)
+    # bf16 normalises each row once into y, which the product reads by the copy engine
+    y = torch.empty_like(x) if x.dtype == torch.bfloat16 else None
     with torch.cuda.device(x.device):
         err = _build.load().xmir_ln_dense(
             x.data_ptr(), lns32.data_ptr(), lnb32.data_ptr(), w.data_ptr(),
             None if b32 is None else b32.data_ptr(), DTYPE_CODES[x.dtype], rows, c, m,
-            int(act == "gelu"), out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream)
+            int(act == "gelu"), None if y is None else y.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"LN -> dense kernel launch failed: cudaError_t {err}")
     ln_dense_fused.launches += 1
