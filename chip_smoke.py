@@ -239,8 +239,39 @@ Phases, each of which raises (exit code != 0) on any failure:
              the CPU; maps/s
  30. slice   python -m xmir_tpu_torch.demo_end_to_end --device cuda: train ->
              test -> ingest -> query -> evaluate_saliency; its summary.json
-``--train-only`` builds and runs phases 17 to 23 and 25 to 28 alone (no
-result line).
+ 31. slice   NIH ChestX-ray14 on a generated tree (24 + 16 .npy files named
+             Chest_X-ray_<URL-encoded A|B|C>_<i>.npy: three pathologies a
+             file, each of the 14 in 4 to 6 training files, the alias
+             "pleural_thickening" in every other one): cli.train --model
+             nih_dinov2 --dataset nih --loss-name dual_branch --bf16 -p 2 -k 4
+             at full width (518 px, 12 blocks, 1370 tokens; the multi-label
+             sampler) from a timm-layout --resume: K7 = K2 = 12 x (steps +
+             evaluation batches), K3 = 12 x steps; contrastive and asl in the
+             metrics log; every tensor moved; --resume bit-exact; three f32
+             steps with the kernels against their plain versions; cli.test
+             --save-dir (the multi-label metrics against numpy's from the
+             artifact), cli.ingest -> cli.query on the trained checkpoint (a
+             256-d gallery: K1 at D = 256, bit-equal to its plain version on
+             integer inputs); cli.train --model nih_convnextv2 for one epoch
+             (K9 + K10 in the blocks the training gate fuses)
+ 32. slice   convnextv2_dino_distill at full width (ConvNeXtV2-Base student
+             at 384 px, ViT-B/14 teacher at 518, seeded weights): three bf16
+             make_distill_train_step steps at batch 16 (K9 + K10 as in
+             ConvNeXtV2 training, K7 = K2 = 12 a step, K3 = 0; the teacher's
+             tensors bit-equal, the student's all moved, distill in [0, 2]);
+             one step of convnextv2_raddino_distill; cli.train --model
+             convnextv2_dino_distill --bf16 for one epoch (the embedding step:
+             K7 = K2 = 0, the teacher's tensors at their init); cli.ingest ->
+             cli.query with the student (K9, K1)
+ 33. rates   the bf16 dual-branch step (nih_dinov2, batch 8, 518 px) and the
+             bf16 distillation step (batch 16): CUDA events and device time
+             (device_ms, where the host can enqueue a step within its spin),
+             the host's enqueue time, peak memory; the distillation step split
+             into the teacher's forward, the student's forward + backward and
+             the optimiser (by events, and by torch.profiler's records where
+             they hold 90% of the step)
+``--train-only`` builds and runs phases 17 to 23, 25 to 28 and 31 to 33
+alone (no result line).
 The launch counts are set to 0 before each slice and read after it. Each
 kernel's bound (the least time the card could take: bytes moved once over
 3.35 TB/s, or operations over the peak of their type) is reckoned from the
@@ -259,6 +290,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+from urllib.parse import quote
 
 import numpy as np
 import torch
@@ -267,6 +299,7 @@ import torch.nn.functional as F
 from xmir_tpu_torch.cli import common, ingest, query
 from xmir_tpu_torch.cli import test as test_cli
 from xmir_tpu_torch.cli import train as train_cli
+from xmir_tpu_torch.data.datasets import NIH_RETRIEVAL_PATHOLOGIES
 from xmir_tpu_torch.data.pipeline import embed_dataset
 from xmir_tpu_torch.data.synthetic import write_synthetic_covidx
 from xmir_tpu_torch.index import ShardedGalleryIndex
@@ -296,6 +329,8 @@ from xmir_tpu_torch.ops.topk_kernels import (
 from xmir_tpu_torch.train import (
     TrainState,
     build_optimizer,
+    make_distill_train_step,
+    make_dual_branch_train_step,
     make_embed_fn,
     make_embedding_train_step,
 )
@@ -1431,13 +1466,17 @@ def device_ms(fn, reps=20):
     the host enqueues while the device spins (``torch.cuda._sleep``), so the
     device runs them back to back and neither the host's enqueue time nor
     its gaps count. The spin doubles until it outlasts the enqueue, and the
-    calls halve where a full launch queue held the host back. Unlike a
+    calls halve where a full launch queue held the host back; a single call
+    whose enqueue outlasts the spin twice running holds more launches than
+    the queue (the host waits for the spin to end, however long): it raises
+    SpinTooShort at once. Unlike a
     torch.profiler trace it sees every kernel: the backward of SDPA with a
     mask gradient, launched from autograd's device thread, and kernels a
     long process's traces drop (TRACE_MIN_SHARE)."""
     fn()
     torch.cuda.synchronize()
     spin = 10 ** 8  # cycles, ~60 ms at the H100's clock
+    outlasted = 0  # single calls in a row whose enqueue outlasted the spin
     for _ in range(8):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(spin)
@@ -1451,6 +1490,9 @@ def device_ms(fn, reps=20):
         spun = start.elapsed_time(end)
         if host_ms < 0.5 * spin / 1.98e6:  # the enqueue ended well within the spin
             return spun / reps
+        outlasted = outlasted + 1 if reps == 1 and host_ms >= spin / 1.98e6 else 0
+        if outlasted == 2:
+            break
         spin, reps = spin * 2, max(1, reps // 2)
     raise SpinTooShort(f"the host could not enqueue {reps} call(s) within a spin of {spin} "
                        "cycles")
@@ -2518,8 +2560,9 @@ def phase_kernel_bwd():
     return err
 
 
-def _train_args(img_dir, manifest, val_dir, val_manifest, model, save_dir, log_path, *extra):
-    return ["--dataset", "covid", "--dataset-dir", img_dir, "--train-image-list", manifest,
+def _train_args(img_dir, manifest, val_dir, val_manifest, model, save_dir, log_path, *extra,
+                dataset="covid"):
+    return ["--dataset", dataset, "--dataset-dir", img_dir, "--train-image-list", manifest,
             "--val-dataset-dir", val_dir, "--val-image-list", val_manifest, "--model", model,
             "--device", "cuda", "--seed", "0", "-k", "4", "-j", "8", "--print-freq", "1",
             # on unit embeddings a margin of 2 keeps every triplet active: every
@@ -2533,21 +2576,25 @@ def _option(extra, flag, default=None):
     return extra[extra.index(flag) + 1] if flag in extra else default
 
 
-def make_trainer(workdir, model, data, *common_args):
+def make_trainer(workdir, model, data, *common_args, dataset="covid"):
     """run(name, *extra) -> (losses [(epoch, step, loss)], the last epoch's
-    checkpoint path): cli.train.main on ``data`` into ``workdir / name``."""
+    checkpoint path): cli.train.main on ``data`` into ``workdir / name``.
+    The dual-branch step's terms, where logged, stand beside each loss:
+    (epoch, step, loss, contrastive, asl)."""
     def run(name, *extra):
         extra = (*common_args, *extra)
         save, log_path = str(workdir / name), str(workdir / f"{name}.jsonl")
-        train_cli.main(_train_args(*data, model, save, log_path, *extra))
+        train_cli.main(_train_args(*data, model, save, log_path, *extra, dataset=dataset))
         dim = _option(extra, "--embedding-dim")
         path = os.path.join(save, checkpoint_name(
-            "covid", model, embedding_dim=dim and int(dim), rand_resize="--rand-resize" in extra,
+            dataset, model, embedding_dim=dim and int(dim), rand_resize="--rand-resize" in extra,
             seed=0, epoch=int(_option(extra, "--epochs"))))
         check(os.path.isfile(path) and os.path.isfile(path + ".json"), f"no checkpoint {path}")
         records = [json.loads(line) for line in Path(log_path).read_text().splitlines()]
-        losses = [(r["epoch"], r["step"], r["loss"]) for r in records if r["kind"] == "train"]
-        check(losses and all(np.isfinite(v) for _, _, v in losses),
+        losses = [(r["epoch"], r["step"], r["loss"],
+                   *(r[k] for k in ("contrastive", "asl") if k in r))
+                  for r in records if r["kind"] == "train"]
+        check(losses and all(np.isfinite(v).all() for v in (np.array(r[2:]) for r in losses)),
               f"{name}: non-finite or no losses: {losses}")
         check(all(np.isfinite(r["mAP"]) for r in records if r["kind"] == "eval"),
               f"{name}: non-finite evaluation")
@@ -2567,12 +2614,14 @@ def pk_steps(manifest, p, k, epoch, seed=0):
     return len(list(PKSampler(labels, p, k, seed=seed + epoch))) // (p * k)
 
 
-def check_resume(run, steps, what, *first_args):
+def check_resume(run, steps, what, *first_args, first_run=None):
     """One epoch (started with ``first_args``), then --resume of its
     checkpoint for a second, against two epochs in one run: the second
     epoch's losses and the final tensors are bit-equal. ``steps``: the train
-    steps of epochs 1 and 2. Returns the first epoch's checkpoint."""
-    first, ckpt1 = run("first", *first_args, "--epochs", "1")
+    steps of epochs 1 and 2; ``first_run``: the (losses, checkpoint) of an
+    epoch already run with ``first_args``, in place of running it again.
+    Returns the first epoch's checkpoint."""
+    first, ckpt1 = first_run or run("first", *first_args, "--epochs", "1")
     whole, ckpt_w = run("whole", *first_args, "--epochs", "2")
     second, ckpt_2 = run("second", "--epochs", "2", "--resume", ckpt1)
     check([len(first), len(whole)] == [steps[0], sum(steps)],
@@ -2592,7 +2641,7 @@ def check_resume(run, steps, what, *first_args):
           f"{what}: the resumed run's Adam moments differ")
     log(f"[slice] {what}: --resume continues at epoch 2; its {len(second)} losses and the final "
         f"parameters, buffers and Adam moments equal the uninterrupted run's bit for bit "
-        f"(losses {[round(v, 4) for _, _, v in whole]})")
+        f"(losses {[round(r[2], 4) for r in whole]})")
     return ckpt1
 
 
@@ -4015,13 +4064,475 @@ def phase_demo(workdir: Path):
     return {"launches": launches, "wall_s": wall, "eval_mAP_by_epoch": maps}
 
 
+# --- NIH dual-head models and distillation -------------------------------------
+
+NIH_TRAIN, NIH_VAL = 24, 16  # -p 2 -k 4: 3 train steps an epoch, 2 evaluation batches of 8
+
+
+def nih_label_set(i: int):
+    """The pathologies of the i-th generated NIH file: three at fixed
+    offsets along the 14, so 24 files give each pathology 4 to 6 images
+    (the multi-label sampler draws 4 a pathology); "Pleural Thickening" is
+    written as its alias "pleural_thickening" in every other file."""
+    names = [NIH_RETRIEVAL_PATHOLOGIES[(i + shift) % 14] for shift in (0, 5, 9)]
+    if i % 2:
+        names = ["pleural_thickening" if n == "Pleural Thickening" else n for n in names]
+    return names
+
+
+def write_nih_tree(root: Path, n: int, seed: int, size: int = 256):
+    """``n`` NIH-format files, ``Chest_X-ray_<URL-encoded A|B|C>_<i>.npy``
+    (grey float32 size x size: 8 x 8 blocks of noise plus fine noise),
+    labelled by nih_label_set from ``seed`` on. Returns (the directory, ""
+    for the manifest: the dataset walks the directory)."""
+    rng = np.random.default_rng(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        img = np.kron(rng.standard_normal((size // 8, size // 8)), np.ones((8, 8)))
+        img += 0.1 * rng.standard_normal((size, size))
+        name = quote("|".join(nih_label_set(i + seed)))
+        np.save(root / f"Chest_X-ray_{name}_{i}.npy", img.astype(np.float32))
+    return str(root), ""
+
+
+def check_multilabel_evaluation(save_dir, metrics, n, dim):
+    """cli.test's multi-label artifact: shapes, finite values, and the
+    metrics equal to what numpy makes of the artifact's own embeddings and
+    labels (float64 cosine, diagonal -inf), wherever no two scores of a row
+    lie within 1e-6 of each other (where they do, the two rankings may
+    differ)."""
+    art = np.load(os.path.join(save_dir, "evaluation_results.npz"))
+    embeds, labels = art["embeds"], art["labels"]
+    check(embeds.shape == (n, dim) and labels.shape == (n, 14) and "dists" not in art.files,
+          f"artifact shapes {embeds.shape}, {labels.shape}, files {art.files}")
+    check(np.isfinite(embeds).all() and set(np.unique(labels)) <= {0.0, 1.0}, "bad artifact")
+    stored = json.loads(str(art["metrics"]))
+    check(stored == json.loads(json.dumps(metrics, default=float)), "artifact metrics != returned")
+    e = embeds.astype(np.float64)
+    e /= np.linalg.norm(e, axis=1, keepdims=True)
+    sims = e @ e.T
+    np.fill_diagonal(sims, -np.inf)
+    again = test_cli.multilabel_metrics(sims, labels)
+    off = np.sort(sims[~np.eye(n, dtype=bool)].reshape(n, n - 1), axis=1)
+    gap = np.diff(off, axis=1).min()
+    diff = max(abs(stored[k] - v) for k, v in again.items())
+    check(set(again) == set(stored) and all(np.isfinite(list(stored.values()))),
+          "missing or non-finite metrics")
+    check(gap <= 1e-6 or diff <= 1e-9, f"the metrics lie {diff} from numpy's")
+    log(f"[slice] cli.test nih: evaluation_results.npz holds {len(stored)} finite multi-label "
+        f"metrics (mAP@jaccard>0.25 {stored['mAP@jaccard>0.25']:.2f}, P@1 {stored['P@1']:.2f}) "
+        f"{'equal to' if gap > 1e-6 else f'within {diff:.3g} of'} numpy's (least score gap "
+        f"{gap:.3g})")
+    return stored
+
+
+def k1_bit_equal_at(q_n, n, d, k):
+    """K1 (fused_topk_scores) against its plain version on integer inputs
+    with ties at every edge of its plan, f32 and bf16: ids and values bit
+    for bit."""
+    gen = torch.Generator().manual_seed(q_n + n + d)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, g = _int_inputs(gen, q_n, n, d, k, dtype)
+        bias = torch.zeros(n, device="cuda")
+        v, i = fused_topk_scores(q, g, bias, k)
+        rv, ri = topk_scores_reference(q, g, bias, k)
+        check(torch.equal(v, rv) and torch.equal(i, ri),
+              f"K1 at D = {d}: not bit-equal to its plain version ({dtype}, Q={q_n} N={n} k={k})")
+
+
+def phase_train_nih(workdir: Path):
+    p = 2
+    t0 = time.perf_counter()
+    data = (*write_nih_tree(workdir / "n_train", NIH_TRAIN, seed=40),
+            *write_nih_tree(workdir / "n_val", NIH_VAL, seed=41))
+    pt = str(workdir / "nih_vit_timm.pt")
+    write_vit_checkpoint(pt, seed=31)
+    steps, eval_batches = [NIH_TRAIN // (p * 4)] * 2, -(-NIH_VAL // 8)
+    train_ds = common.build_dataset(argparse.Namespace(
+        dataset="nih", dataset_dir=data[0], train_image_list=""), "train")
+    counts = train_ds.labels.sum(0)
+    aliased = sum("pleural_thickening" in name for name in train_ds.image_names)
+    log(f"[slice] NIH: wrote {NIH_TRAIN} + {NIH_VAL} .npy files ({int(counts.min())} to "
+        f"{int(counts.max())} training images a pathology, {aliased} naming the alias "
+        f"pleural_thickening) and a timm-layout .pt in {time.perf_counter() - t0:.1f} s")
+    check(counts.min() >= 4 and aliased > 0, f"pathology counts {counts}, {aliased} aliases")
+    start, _ = create_model("nih_dinov2", generator=torch.Generator().manual_seed(0))
+    start = load_torch_checkpoint(start, pt).state_dict()
+    dual = ("-p", str(p), "--loss-name", "dual_branch")
+    run = make_trainer(workdir, "nih_dinov2", data, *dual, dataset="nih")
+    out, paths = {}, {}
+    # as phase_train_dinov2: the bf16 step takes K7 + K2 + K3 by the default
+    # rule, the f32 evaluation K7 + K2 under the switches
+    with env_flags(XMIR_FUSED_LN_MLP=None, **FUSED_VIT):
+        reset_launches()
+        t0 = time.perf_counter()
+        main_run = run("main", "--bf16", "--epochs", "1", "--resume", pt)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        want = dict.fromkeys(WRAPPERS, 0)
+        forwards = steps[0] + eval_batches
+        want.update({"K2": VIT["depth"] * forwards, "K7": VIT["depth"] * forwards,
+                     "K3": VIT["depth"] * steps[0]})
+        check(launches == want, f"cli.train nih_dinov2: launches {launches}, expected {want}")
+        losses, ckpt = main_run
+        check(len(losses) == steps[0] and all(len(r) == 5 for r in losses),
+              f"{len(losses)} losses for {steps[0]} steps, or no contrastive / asl logged")
+        check(all(abs(r[2] - r[3] - r[4]) <= 1e-5 * (1 + abs(r[2])) for r in losses),
+              f"loss != contrastive + asl (--dual-asl-alpha 1): {losses}")
+        log(f"[slice] cli.train nih_dinov2 --dataset nih --loss-name dual_branch --bf16: launches "
+            f"{launches} ({VIT['depth']} blocks x ({steps[0]} train steps + {eval_batches} "
+            f"evaluation batches) forwards, x {steps[0]} backwards); (loss, contrastive, asl) "
+            f"{[tuple(round(v, 4) for v in r[2:]) for r in losses]}; {wall:.1f} s wall")
+        paths["nih_dinov2_train"] = launches
+        trained = load_checkpoint(ckpt)
+        still = [key for key, v in trained.items() if torch.equal(v, start[key])]
+        check(not still, f"parameters that did not move: {still}")
+        check(all(torch.isfinite(v).all() for v in trained.values()), "non-finite parameters")
+        log(f"[slice] cli.train nih_dinov2: all {len(trained)} tensors moved, the backbone's and "
+            "the head's")
+        check_resume(make_trainer(workdir, "nih_dinov2", data, *dual, "--bf16", dataset="nih"),
+                     steps, "cli.train nih_dinov2 --bf16 dual_branch", "--resume", pt,
+                     first_run=main_run)
+        reading = f32_kernels_against_plain(run, pt, start, steps[0])
+        check(reading["mean_apart_of_mean_moved"] <= TRAIN_F32_MEAN_TOL,
+              f"nih_dinov2 f32 parameters with the kernels differ from the plain versions' past "
+              f"the bound {TRAIN_F32_MEAN_TOL}: {reading}")
+        log(f"[slice] cli.train nih_dinov2 f32 dual_branch, {steps[0]} steps, kernels against "
+            f"their plain versions: {reading} (bound on the first {TRAIN_F32_MEAN_TOL})")
+        out["f32_vs_plain"] = reading
+        # serving the trained checkpoint: cli.test, then ingest -> query (a
+        # 256-d gallery: K1 at D = 256), f32 with K7 + K2 under the switches
+        serve = ["--dataset", "nih", "--model", "nih_dinov2", "--device", "cuda", "--resume",
+                 ckpt, "-j", "8"]
+        reset_launches()
+        save = str(workdir / "n_test")
+        metrics = test_cli.main(serve + ["--dataset-dir", data[2], "--test-image-list", "",
+                                         "--eval-batch-size", "8", "--save-dir", save])
+        paths["nih_dinov2_test"] = read_launches()
+        check(paths["nih_dinov2_test"]["K2"] == VIT["depth"] * eval_batches,
+              f"cli.test nih_dinov2: launches {paths['nih_dinov2_test']}")
+        out["metrics"] = check_multilabel_evaluation(save, metrics, NIH_VAL, 256)
+        gal, hits = str(workdir / "n_gallery.npz"), str(workdir / "n_hits.json")
+        calls = []
+        reset_launches()
+        with record_searches(calls):
+            ingest.main(serve + ["--dataset-dir", data[0], "--train-image-list", "", "--split",
+                                 "train", "--batch-size", "64", "--output", gal])
+            results = query.main(serve + ["--dataset-dir", data[2], "--test-image-list", "",
+                                          "--split", "test", "--batch-size", "64", "--index", gal,
+                                          "--top-k", "10", "--output", hits])
+        serving = read_launches()
+    check(serving["K1"] == 1 and serving["K7"] == serving["K2"] == 2 * VIT["depth"],
+          f"nih_dinov2 ingest -> query: launches {serving}")
+    check(all(len(r["query_label"]) == 14 and len(r["results"][0]["label"]) == 14
+              for r in results), "the hits do not carry the multi-hot labels")
+    out["hits_err"] = check_hits(calls, results, NIH_TRAIN, NIH_VAL, 256)
+    paths["nih_dinov2_serving"] = serving
+    k1_bit_equal_at(NIH_VAL, NIH_TRAIN, 256, 10)
+    k1_bit_equal_at(64, 4099, 256, 10)
+    log(f"[slice] nih_dinov2 ingest -> query: launches {serving}; K1 at D = 256 bit-equal to its "
+        "plain version on integer inputs (Q=16 N=24 and Q=64 N=4099, k=10, f32 and bf16)")
+    # nih_convnextv2: K9 + K10 in the blocks the training gate fuses
+    with env_flags(XMIR_FUSED_MLP=None):
+        reset_launches()
+        t0 = time.perf_counter()
+        losses, ckpt_c = make_trainer(workdir, "nih_convnextv2", data, *dual, dataset="nih")(
+            "nih_convnextv2", "--bf16", "--epochs", "1")
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update({"K9": FUSED_TRAIN_BLOCKS * steps[0], "K10": FUSED_TRAIN_BLOCKS * steps[0]})
+    check(launches == want, f"cli.train nih_convnextv2: launches {launches}, expected {want}")
+    trained = load_checkpoint(ckpt_c)
+    fresh, _ = create_model("nih_convnextv2", generator=torch.Generator().manual_seed(0))
+    still = [k for k, v in fresh.state_dict().items() if torch.equal(v, trained[k])]
+    check(not still and len(losses) == steps[0], f"nih_convnextv2: tensors that did not move "
+                                                 f"{still}, {len(losses)} losses")
+    log(f"[slice] cli.train nih_convnextv2 --dataset nih --loss-name dual_branch --bf16: "
+        f"launches {launches} ({FUSED_TRAIN_BLOCKS} fused blocks x {steps[0]} steps); (loss, "
+        f"contrastive, asl) {[tuple(round(v, 4) for v in r[2:]) for r in losses]}; every tensor "
+        f"moved; {wall:.1f} s wall")
+    paths["nih_convnextv2_train"] = launches
+    out["launches"] = paths
+    return out
+
+
+DISTILL_BATCH = 16  # PK 4 x 4: the ConvNeXtV2 train step's batch (convnext_block_pallas.py:285)
+
+
+def distill_model(name, seed):
+    """``name`` (convnextv2_*_distill) at full width on the card in training
+    mode: seeded weights, the student's embedding as wide as the teacher's
+    CLS (768: the distillation term is their inner product), the teacher's
+    LayerScale at 0.5 (at its 1e-5 init the blocks all but vanish)."""
+    model, _ = create_model(name, embedding_dim=768, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        for key, p in model.teacher.named_parameters():
+            if key.endswith(".gamma"):
+                p.fill_(0.5)
+    return model.to("cuda", memory_format=torch.channels_last).train()
+
+
+def distill_batch(seed):
+    x = torch.randn((DISTILL_BATCH, 384, 384, 3), generator=torch.Generator().manual_seed(seed))
+    return x.cuda(), torch.arange(4, device="cuda").repeat_interleave(4)
+
+
+def distill_steps(name, seed, steps):
+    """``steps`` bf16 distillation steps (triplet, margin 2, distill weight 1)
+    of ``name`` from seeded weights. Returns (metrics, launches, peak GiB,
+    moved student tensors of all, teacher tensors that moved)."""
+    model = distill_model(name, seed)
+    state = TrainState(model, build_optimizer(model, lr=1e-4,
+                                              backbone_prefixes=train_cli.BACKBONE_PREFIXES))
+    step = make_distill_train_step(model, "triplet", 1.0, {"margin": 2.0},
+                                   compute_dtype=torch.bfloat16)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    metrics = [step(state, *distill_batch(seed + i)) for i in range(steps)]
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    metrics = [{k: v.item() for k, v in m.items()} for m in metrics]
+    after = model.state_dict()
+    student = [k for k in after if k.startswith("student.")]
+    moved = sum(not torch.equal(after[k], before[k]) for k in student)
+    teacher_moved = [k for k in after if k.startswith("teacher.")
+                     and not torch.equal(after[k], before[k])]
+    del model, state, step
+    torch.cuda.empty_cache()
+    return metrics, launches, peak, (moved, len(student)), teacher_moved
+
+
+def phase_distill(workdir: Path):
+    out, paths = {}, {}
+    with env_flags(XMIR_FUSED_MLP=None, XMIR_FLASH_ATTN=None, XMIR_FUSED_LN=None,
+                   XMIR_FUSED_LN_QKV=None, XMIR_FUSED_LN_MLP=None):
+        t0 = time.perf_counter()
+        metrics, launches, peak, moved, teacher_moved = distill_steps(
+            "convnextv2_dino_distill", 60, 3)
+        wall = time.perf_counter() - t0
+        want = dict.fromkeys(WRAPPERS, 0)
+        want.update({"K9": FUSED_TRAIN_BLOCKS * 3, "K10": FUSED_TRAIN_BLOCKS * 3,
+                     "K7": VIT["depth"] * 3, "K2": VIT["depth"] * 3})
+        check(launches == want, f"distill steps: launches {launches}, expected {want} (the "
+                                "frozen teacher: K7 + K2 forward, no K3)")
+        check(all(np.isfinite(list(m.values())).all() and 0.0 <= m["distill"] <= 2.0
+                  for m in metrics), f"distill metrics {metrics}")
+        check(not teacher_moved and moved[0] == moved[1],
+              f"teacher tensors that moved {teacher_moved}; student moved {moved}")
+        log(f"[slice] convnextv2_dino_distill (ConvNeXtV2-Base student @384, ViT-B/14 teacher "
+            f"@518), 3 bf16 distillation steps at batch {DISTILL_BATCH}: launches {launches} "
+            f"({FUSED_TRAIN_BLOCKS} fused student blocks x 3 forward and backward, "
+            f"{VIT['depth']} teacher blocks x 3 forward, no K3); (loss, aux, distill) "
+            f"{[tuple(round(v, 4) for v in m.values()) for m in metrics]}; the teacher's "
+            f"tensors bit-equal, all {moved[1]} of the student's moved; peak {peak:.2f} GiB; "
+            f"{wall:.1f} s wall")
+        paths["distill_steps"] = launches
+        out["steps"] = {"metrics": metrics, "peak_gib": peak}
+        metrics, launches, peak, moved, teacher_moved = distill_steps(
+            "convnextv2_raddino_distill", 70, 1)
+        # the RAD-DINO conversion's f32 constants promote the teacher's input
+        # to f32 (as in the JAX module), so its blocks keep the f32 eager path
+        want = dict.fromkeys(WRAPPERS, 0)
+        want.update({"K9": FUSED_TRAIN_BLOCKS, "K10": FUSED_TRAIN_BLOCKS})
+        check(launches == want, f"raddino distill step: launches {launches}, expected {want}")
+        check(np.isfinite(list(metrics[0].values())).all() and 0 <= metrics[0]["distill"] <= 2
+              and not teacher_moved and moved[0] == moved[1],
+              f"raddino distill step: {metrics}, teacher moved {teacher_moved}, student {moved}")
+        log(f"[slice] convnextv2_raddino_distill, one bf16 step: launches {launches} (the "
+            f"teacher in f32 on the eager path: its input is f32 after the RAD-DINO "
+            f"conversion); (loss, aux, distill) {tuple(round(v, 4) for v in metrics[0].values())};"
+            f" teacher bit-equal; peak {peak:.2f} GiB")
+        paths["raddino_distill_step"] = launches
+    # cli.train as the JAX CLI runs a distillation model: the embedding step,
+    # the student alone (K9 + K10), no teacher; the f32 evaluation plain
+    p, n_train, n_val = 2, 16, 8
+    data = (*write_synthetic_covidx(str(workdir / "ds_train"), n=n_train, size=256, seed=16),
+            *write_synthetic_covidx(str(workdir / "ds_val"), n=n_val, size=256, seed=17))
+    steps = pk_steps(data[1], p, 4, 1)
+    with env_flags(XMIR_FUSED_MLP=None):
+        reset_launches()
+        t0 = time.perf_counter()
+        losses, ckpt = make_trainer(workdir, "convnextv2_dino_distill", data, "-p", str(p))(
+            "distill", "--bf16", "--epochs", "1")
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update({"K9": FUSED_TRAIN_BLOCKS * steps, "K10": FUSED_TRAIN_BLOCKS * steps})
+    check(launches == want and len(losses) == steps,
+          f"cli.train convnextv2_dino_distill: launches {launches}, expected {want}")
+    trained = load_checkpoint(ckpt)
+    fresh, _ = create_model("convnextv2_dino_distill", generator=torch.Generator().manual_seed(0))
+    for key, v in fresh.state_dict().items():
+        check(torch.equal(v, trained[key]) == key.startswith("teacher."),
+              f"cli.train convnextv2_dino_distill: {key} "
+              + ("moved" if key.startswith("teacher.") else "did not move"))
+    log(f"[slice] cli.train convnextv2_dino_distill --bf16: launches {launches} (K7 = K2 = 0: no "
+        f"teacher in the embedding step), losses {[round(r[2], 4) for r in losses]}; the "
+        f"teacher's tensors kept their init, every student tensor moved; {wall:.1f} s wall")
+    paths["distill_cli_train"] = launches
+    # the student serves: ingest -> query under XMIR_FUSED_MLP=1 (K9 in f32)
+    gal, hits = str(workdir / "ds_gallery.npz"), str(workdir / "ds_hits.json")
+    serve = ["--dataset", "covid", "--model", "convnextv2_dino_distill", "--device", "cuda",
+             "--resume", ckpt, "-j", "8", "--batch-size", "16"]
+    calls = []
+    with env_flags(XMIR_FUSED_MLP="1"):
+        reset_launches()
+        with record_searches(calls):
+            ingest.main(serve + ["--dataset-dir", data[0], "--train-image-list", data[1],
+                                 "--split", "train", "--output", gal])
+            results = query.main(serve + ["--dataset-dir", data[2], "--test-image-list", data[3],
+                                          "--split", "test", "--index", gal, "--top-k", "5",
+                                          "--output", hits])
+        serving = read_launches()
+    batches = -(-n_train // 16) + -(-n_val // 16)
+    check(serving["K9"] == DEPTH * batches and serving["K1"] == 1
+          and serving["K7"] == serving["K2"] == 0, f"distill ingest -> query: launches {serving}")
+    out["hits_err"] = check_hits(calls, results, n_train, n_val, 1024)
+    log(f"[slice] convnextv2_dino_distill ingest -> query with the student: launches {serving}")
+    paths["distill_serving"] = serving
+    out["launches"] = paths
+    return out
+
+
+def step_reading(label, fns, batch):
+    """A train step's readings: CUDA events in turns with its parts (fns
+    {"step": fn, part: fn, ...}), its device time (device_ms, where the host
+    can enqueue a step within the spin), the host's enqueue time of three
+    steps a step, its peak memory; and, where torch.profiler's records hold
+    TRACE_MIN_SHARE of the step's device time (its events time where
+    device_ms cannot read it), the device time of each part by its
+    records."""
+    step = fns["step"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms, runs = _in_turns(fns, rounds=3, reps=2)
+    try:
+        dev = device_ms(step, reps=2)
+    except SpinTooShort as e:
+        dev = None
+        log(f"[rates] {label}: device_ms not measured ({e})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step()
+    enqueue = (time.perf_counter() - t0) / 3 * 1e3
+    torch.cuda.synchronize()
+    held = sum(profiled_split(step, reps=2).values())
+    whole = dev if dev is not None else ms["step"]
+    parts = None
+    if held >= TRACE_MIN_SHARE * whole:
+        parts = {name: sum(profiled_split(fn, reps=2).values())
+                 for name, fn in fns.items() if name != "step"}
+    out = {"ms": ms["step"], "img_per_s": batch / ms["step"] * 1e3, "device_ms": dev,
+           "enqueue_ms": enqueue, "peak_gib": peak, "traced_ms": held,
+           "parts_ms_events": {k: v for k, v in ms.items() if k != "step"},
+           "parts_ms_device": parts}
+    log(f"[rates] {label}: {ms['step']:.2f} ms a step by CUDA events = "
+        f"{out['img_per_s']:.1f} img/s; device_ms "
+        + ("not measured" if dev is None else f"{dev:.2f}")
+        + f"; the host enqueues a step in {enqueue:.2f} ms; peak {peak:.2f} GiB; parts by events "
+        f"{({k: round(v, 2) for k, v in out['parts_ms_events'].items()})}; the profiler's records "
+        f"hold {held:.2f} ms ({held / whole:.0%} of the step's "
+        f"{'device time' if dev is not None else 'events time'}): parts by device time "
+        + ("not measured (the trace is incomplete)" if parts is None
+           else str({k: round(v, 2) for k, v in parts.items()}))
+        + f"; runs {({k: [round(t, 2) for t in v] for k, v in runs.items()})}")
+    return out
+
+
+def phase_nih_distill_rates():
+    """The bf16 dual-branch step (nih_dinov2, batch 8, 518 px) and the bf16
+    distillation step (convnextv2_dino_distill, batch 16: the student at
+    384 px, the teacher at 518) by step_reading; the distillation step split
+    into the teacher's forward, the student's forward + backward and the
+    optimiser."""
+    from torch.func import functional_call
+
+    from xmir_tpu_torch.losses import triplet_margin_loss
+    from xmir_tpu_torch.models.embedders import teacher_input
+
+    out = {}
+    with env_flags(XMIR_FUSED_MLP=None, XMIR_FLASH_ATTN=None, XMIR_FUSED_LN=None,
+                   XMIR_FUSED_LN_QKV=None, XMIR_FUSED_LN_MLP=None):
+        model, _ = create_model("nih_dinov2", generator=torch.Generator().manual_seed(80))
+        with torch.no_grad():
+            for key, p in model.named_parameters():
+                if key.endswith(".gamma"):
+                    p.fill_(0.5)
+        model = model.to("cuda").train()
+        state = TrainState(model, build_optimizer(model, lr=1e-5,
+                                                  backbone_prefixes=train_cli.BACKBONE_PREFIXES))
+        step = make_dual_branch_train_step(model, compute_dtype=torch.bfloat16)
+        x = torch.randn((8, 518, 518, 3), generator=torch.Generator().manual_seed(81)).cuda()
+        y = torch.zeros((8, 14), device="cuda")
+        y[torch.arange(8), torch.tensor([0, 0, 1, 1, 2, 2, 3, 3])] = 1.0
+        y[::3, 12] = 1.0
+
+        def forward_backward():
+            state.optimizer.zero_grad(set_to_none=True)
+            step.losses(x, y)[0].backward()
+
+        reset_launches()
+        step(state, x, y)
+        launches = read_launches()
+        check(launches["K7"] == launches["K2"] == launches["K3"] == VIT["depth"],
+              f"the dual-branch step did not take K7, K2 and K3 in every block: {launches}")
+        out["dual_branch"] = step_reading(
+            "nih_dinov2 bf16 dual-branch step, batch 8 @518",
+            {"step": lambda: step(state, x, y), "forward": lambda: step.losses(x, y),
+             "forward + backward": forward_backward,
+             "optimiser": lambda: state.optimizer.step()}, 8)
+        del model, state, step, x
+        torch.cuda.empty_cache()
+
+        model = distill_model("convnextv2_dino_distill", 82)
+        state = TrainState(model, build_optimizer(model, lr=1e-5,
+                                                  backbone_prefixes=train_cli.BACKBONE_PREFIXES))
+        step = make_distill_train_step(model, "triplet", 1.0, {"margin": 2.0},
+                                       compute_dtype=torch.bfloat16)
+        x, labels = distill_batch(83)
+        xb = x.to(torch.bfloat16)
+        teacher16 = {k: v.to(torch.bfloat16) for k, v in model.teacher.named_parameters()}
+        with torch.no_grad():
+            t = l2_normalize(functional_call(model.teacher, teacher16,
+                                             (teacher_input(xb, 518),))["cls"]).float()
+
+        def teacher_forward():
+            with torch.no_grad():
+                functional_call(model.teacher, teacher16, (teacher_input(xb, 518),))
+
+        def student_forward_backward():
+            state.optimizer.zero_grad(set_to_none=True)
+            tensors = {k: v.to(torch.bfloat16) for k, v in model.student.named_parameters()}
+            e = functional_call(model.student, tensors, (xb,))["embedding"].float()
+            loss, _ = triplet_margin_loss(e, labels, margin=2.0)
+            (loss + torch.mean(1.0 - torch.sum(e * t, dim=1))).backward()
+
+        out["distill"] = step_reading(
+            f"convnextv2_dino_distill bf16 distillation step, batch {DISTILL_BATCH} (student "
+            "@384, teacher @518)",
+            {"step": lambda: step(state, x, labels), "teacher forward": teacher_forward,
+             "student forward + backward": student_forward_backward,
+             "optimiser": lambda: state.optimizer.step()}, DISTILL_BATCH)
+        del model, state, step, x, xb, teacher16
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-swin", action="store_true",
                         help="only build, then print where a bf16 SwinV2-Base batch's time goes")
     parser.add_argument("--train-only", action="store_true",
-                        help="only build, then the training phases (17 to 23, 25 to 28); prints "
-                             "no result")
+                        help="only build, then the training phases (17 to 23, 25 to 28, 31 to "
+                             "33); prints no result")
     opts = parser.parse_args()
     smi = phase_device()
     phase_build()
@@ -4047,6 +4558,11 @@ def main():
             phase_train_swinv2(Path(tmp))
         phase_window_bwd_rates()
         phase_swin_train_rates()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_train_nih(Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_distill(Path(tmp))
+        phase_nih_distill_rates()
         print(smi)
         return
     max_err = phase_kernel()
@@ -4094,6 +4610,11 @@ def main():
         ex = phase_explainers(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         demo = phase_demo(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        nih = phase_train_nih(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        distill = phase_distill(Path(tmp))
+    nd_rates = phase_nih_distill_rates()
     by_path = {key: {"densenet121": d_launches[key], "convnextv2": c_launches[key],
                      **{path: v["launches"][key] for path, v in v_slices.items()},
                      **{path: v["launches"][key] for path, v in s_slices.items()},
@@ -4103,10 +4624,12 @@ def main():
                      "convnextv2_train": ct_slice["launches"][key],
                      "densenet121_saliency": sal["launches"][key],
                      "swinv2_train": sw_slice["launches"][key],
-                     "explainers": ex["launches"][key], "demo": demo["launches"][key]}
+                     "explainers": ex["launches"][key], "demo": demo["launches"][key],
+                     **{path: v[key] for path, v in nih["launches"].items()},
+                     **{path: v[key] for path, v in distill["launches"].items()}}
                for key in WRAPPERS}
-    slice_errs = [slice_err, c_slice_err] + [v["err"] for v in v_slices.values()] + [
-        v["err"] for v in s_slices.values()]
+    slice_errs = [slice_err, c_slice_err, nih["hits_err"], distill["hits_err"]] + [
+        v["err"] for v in v_slices.values()] + [v["err"] for v in s_slices.values()]
     f32 = serving["float32 Q=1024 k=10"]
     k1 = dict(KERNELS["K1"], launches=sum(by_path["K1"].values()),
               max_abs_err=max(max_err, *(v["max_abs_err"] for v in serving.values()),
@@ -4225,6 +4748,11 @@ def main():
                       "explainers": {k: v for k, v in ex.items() if k != "launches"},
                       "demo": {k: v for k, v in demo.items() if k != "launches"},
                       "k7_backward_rel_err": bwd_errs["K7 backward"],
+                      "nih_dual_branch_train_step": nd_rates["dual_branch"],
+                      "distill_train_step": nd_rates["distill"],
+                      "distill_steps": distill["steps"],
+                      "nih_train_f32_vs_plain": nih["f32_vs_plain"],
+                      "nih_eval_metrics": nih["metrics"],
                       "swinv2_embed_img_per_s": swin_rates,
                       "swinv2_eval_metrics": s_slices["swinv2_test"]["metrics"],
                       "dinov2_embedding_max_abs_err": {

@@ -248,9 +248,17 @@ def test_cli_train_sets_tf32_off(tmp_path, narrow_convnext_models):
 
 
 def test_cli_train_names_the_roadmap_items_of_what_waits():
-    """No model waits for its kernel (swinv2's, K5, landed); dual_branch
-    names the NIH dual-head item."""
+    """No model waits for its kernel (swinv2's, K5, landed), and dual_branch
+    waits for nothing any more (the NIH dual-head item landed): the CLI
+    takes the JAX CLI's dual-branch flags with its defaults, and names only
+    what is still to port."""
+    import xmir_tpu.cli.train as jax_train_cli
+
     assert not hasattr(train_cli, "WAITING_FOR_KERNEL")
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md, section 1 item 5"):
-        train_cli.main(["--dataset", "synthetic", "--device", "cpu", "--loss-name",
-                        "dual_branch"])
+    ours, theirs = train_cli.parse_args([]), jax_train_cli.parse_args([])
+    for flag in ("dual_asl_alpha", "asl_gamma_pos", "asl_gamma_neg", "asl_clip",
+                 "supcon_temperature"):
+        assert getattr(ours, flag) == getattr(theirs, flag), flag
+    assert "dual_branch" in train_cli.parse_args(["--loss-name", "dual_branch"]).loss_name
+    waiting = train_cli.__doc__.split("Not ported yet")[1]
+    assert "dual_branch" not in waiting and "--cache-dir" in waiting

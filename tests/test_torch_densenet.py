@@ -138,11 +138,12 @@ def test_registry_spec_matches_jax():
         assert getattr(spec, field) == getattr(ref, field), field
     model, spec = registry.create_model("densenet121", embedding_dim=16)
     assert isinstance(model, DenseNet121Embedder) and model.fc.out_features == 16
-    assert registry.list_models() == ["convnextv2", "convnextv2_pcam", "convnextv2_sra",
-                                      "densenet121", "dinov2", "swinv2"]
+    assert registry.list_models() == [
+        "convnextv2", "convnextv2_dino_distill", "convnextv2_pcam", "convnextv2_raddino_distill",
+        "convnextv2_sra", "densenet121", "dinov2", "nih_convnextv2", "nih_dinov2", "swinv2"]
 
 
-@pytest.mark.parametrize("name", ["nih_convnextv2", "nih_dinov2", "medsiglip", "resnet50", "nope"])
+@pytest.mark.parametrize("name", ["biomedclip", "conceptclip", "medsiglip", "resnet50", "nope"])
 def test_registry_other_models_are_not_ported(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         registry.get_spec(name)

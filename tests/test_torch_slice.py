@@ -214,8 +214,10 @@ def test_cuda_device_without_card_raises(monkeypatch):
 
 
 def test_unported_dataset_raises():
-    args = common.argparse.Namespace(dataset="nih", dataset_dir=".", train_image_list=None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every dataset of the JAX package is ported; an unknown name raises as
+    the JAX package's build_dataset does."""
+    args = common.argparse.Namespace(dataset="nope", dataset_dir=".", train_image_list=None)
+    with pytest.raises(ValueError, match="unknown dataset 'nope'"):
         common.build_dataset(args, "train")
 
 
@@ -231,7 +233,7 @@ def test_score_precision_sets_both_tf32_switches():
 
 
 def test_port_imports_no_jax():
-    """Every module of the port imports without jax or xmir_tpu."""
+    """Every module of the port imports without jax, flax, optax, pandas or xmir_tpu."""
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in (REPO / "xmir_tpu_torch").rglob("*.py")
@@ -247,7 +249,8 @@ def test_port_imports_no_jax():
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'xmir_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'optax', 'pandas', 'xmir_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(" + repr(modules) + "))\n"
     )

@@ -508,7 +508,7 @@ def test_cli_test_multilabel_and_biomedclip(tmp_path, clean_flags, narrow_swinv2
     assert set(art.files) == {"embeds", "labels", "metrics"} and art["labels"].ndim == 2
     assert {"mAP@jaccard>0.25", "mAP@jaccard>0.5", "P@1", "R@20"} <= set(metrics)
     assert all(np.isfinite(v) for v in metrics.values())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 8"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 6"):
         test_cli.main(["--model", "biomedclip", "--device", "cpu"])
     clean_flags.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):

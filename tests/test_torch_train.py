@@ -675,9 +675,12 @@ def test_cli_train_refuses_models_whose_kernel_waits(tmp_path, monkeypatch, mode
 
 
 def test_cli_train_refusals_and_halt(tmp_path, narrow_models):
-    with pytest.raises(NotImplementedError, match="dual_branch.*ROADMAP.md"):
-        train_cli.main(["--dataset", "synthetic", "--device", "cpu", "--loss-name",
-                        "dual_branch"])
+    """dual_branch trains a model with a classification head: one without
+    ("logits" missing) fails in its first step, as in the JAX package."""
+    with pytest.raises(KeyError, match="logits"):
+        train_cli.main(["--dataset", "synthetic_ml", "--device", "cpu", "--model", "dinov2",
+                        "--embedding-dim", "16", "--batch-size", "8", "-j", "2", "--epochs",
+                        "1", "--loss-name", "dual_branch", "--save-dir", str(tmp_path / "d")])
     with pytest.raises(RuntimeError, match="asked for CUDA"):
         train_cli.main(["--dataset", "synthetic", "--model", "densenet121"])
     with pytest.raises(ValueError, match="non-finite loss"):

@@ -10,8 +10,7 @@ import torch
 
 def add_dataset_args(p: argparse.ArgumentParser):
     p.add_argument("--dataset", default="covid",
-                   help="Dataset (covid, synthetic, synthetic_ml; the rest are "
-                        "still to port)")
+                   help="Dataset (covid, isic, tbx11k, vindr, nih, synthetic, synthetic_ml)")
     p.add_argument("--dataset-dir", default="./data", help="Dataset directory path")
     p.add_argument("--train-image-list", default="./train_split.txt")
     p.add_argument("--val-image-list", default="./val.txt")
@@ -75,6 +74,28 @@ def build_dataset(args, split: str = "train"):
             use_covid=not (split == "train" and getattr(args, "anomaly", False)),
             mask_dir=getattr(args, "mask_dir", None),
         )
+    if name == "isic":
+        from ..data.datasets import ISICDataset
+
+        return ISICDataset(
+            data_dir, manifest,
+            use_melanoma=not (split == "train" and getattr(args, "anomaly", False)),
+        )
+    if name == "tbx11k":
+        from ..data.datasets import TBX11kDataset
+
+        return TBX11kDataset(data_dir, manifest)
+    if name == "vindr":
+        from ..data.datasets import VinDrDataset
+
+        return VinDrDataset(data_dir, manifest)
+    if name == "nih":
+        from ..data.datasets import NIHChestXrayRetrievalDataset
+
+        return NIHChestXrayRetrievalDataset(
+            data_dir=data_dir,
+            image_list_file=manifest if manifest and os.path.isfile(manifest) else None,
+        )
     if name == "synthetic":
         return SyntheticImageDataset(
             n=64 if split == "train" else 32, size=64, seed=0 if split == "train" else 1
@@ -83,30 +104,32 @@ def build_dataset(args, split: str = "train"):
         return SyntheticMultiLabelDataset(
             n=64 if split == "train" else 32, size=64, seed=0 if split == "train" else 1
         )
-    raise NotImplementedError(
-        f"dataset {name!r} is not ported to xmir_tpu_torch yet (ported: covid, "
-        "synthetic, synthetic_ml); see ROADMAP.md"
-    )
+    raise ValueError(f"unknown dataset {args.dataset!r}")
 
 
 def is_multilabel(dataset_name: str) -> bool:
     return dataset_name in ("vindr", "nih", "synthetic_ml")
 
 
+# models whose output width --embedding-dim does not change
+FIXED_WIDTH_MODELS = ("convnextv2_sra", "nih_dinov2", "nih_convnextv2")
+
+
 def build_model(args, device, train: bool = False):
     """(model on ``device``, spec), in eval mode unless ``train``. Weights
     are drawn from a torch.Generator seeded with --seed, then --resume (a
     torch .pt/.pth state dict) replaces them with a strict load: the whole
-    DenseNet121 embedder, or a ConvNeXtV2, SwinV2 or DINOv2 embedder's
-    backbone (its fc / SRA / PCAM head keeps its init, as the JAX package's
-    strict=False merge does), or the whole model from a checkpoint of the
-    train CLI."""
+    DenseNet121 embedder, or a ConvNeXtV2, SwinV2, DINOv2 or ``nih_dinov2``
+    model's backbone (its fc / SRA / PCAM / projection head keeps its init, as
+    the JAX package's strict=False merge does), or the whole model from a
+    checkpoint of the train CLI (models/convert.py::load_torch_checkpoint)."""
     from ..models.convert import load_torch_checkpoint
     from ..models.registry import create_model
 
     overrides = {"generator": torch.Generator().manual_seed(args.seed)}
-    # the SRA embedder's output width is fixed, as in the reference
-    if getattr(args, "embedding_dim", None) and args.model != "convnextv2_sra":
+    # the SRA and NIH dual-head models' output widths are fixed, as in the
+    # reference; a distillation model takes --embedding-dim into its student
+    if getattr(args, "embedding_dim", None) and args.model not in FIXED_WIDTH_MODELS:
         overrides["embedding_dim"] = args.embedding_dim
     if getattr(args, "num_labels", None) and args.model == "densenet121":
         overrides["num_labels"] = args.num_labels

@@ -9,7 +9,7 @@ the device (negative L2, diagonal -inf), compute R@K + trapezoid mAP/mP@K +
 majority-vote classification metrics, save an .npz artifact with
 embeds/labels/dists/metrics. Multi-label datasets use the Jaccard-threshold
 evaluation (test.py:941-1062). The zero-shot branch (``--model biomedclip``)
-waits for the BiomedCLIP towers (ROADMAP item 8).
+waits for the BiomedCLIP towers (ROADMAP item 6).
 """
 from __future__ import annotations
 
@@ -137,7 +137,7 @@ def main(argv=None):
     if args.model == "biomedclip":
         raise NotImplementedError(
             "the zero-shot evaluation needs the BiomedCLIP towers, which are not ported to "
-            "xmir_tpu_torch yet (ROADMAP.md item 8)")
+            "xmir_tpu_torch yet (ROADMAP.md item 6)")
 
     from ..data.pipeline import embed_dataset
     from ..train import make_embed_fn

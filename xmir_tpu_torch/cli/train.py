@@ -14,8 +14,13 @@ sets PyTorch's two TF32 switches off (IEEE f32 matmuls and convolutions), as
 ``cli.test`` and ``cli.ingest`` do by default: a model is trained, and its
 best checkpoint picked, in the arithmetic it is then evaluated in.
 
+``--loss-name dual_branch`` trains an NIH dual-head model (``nih_dinov2``,
+``nih_convnextv2``) with the contrastive + asymmetric loss and logs both terms
+to ``--metrics-log``; a distillation model (``convnextv2_*_distill``) trains
+through the embedding step, as in the JAX CLI, on its student alone.
+
 Not ported yet (ROADMAP.md): ``--use-mesh`` / ``--fsdp`` (the multi-card
-slice), ``--cache-dir`` (data/cache.py), ``--loss-name dual_branch``.
+slice), ``--cache-dir`` (data/cache.py).
 """
 from __future__ import annotations
 
@@ -38,7 +43,10 @@ from .common import (
     set_tf32,
 )
 
-# the first component of each ported embedder's backbone parameters
+# the first component of each ported embedder's backbone parameters. The JAX
+# package labels by the path prefix "backbone", so a distillation model's
+# student (student.convnext.*) and teacher (teacher.*) are "head" there and
+# here, and --freeze-backbone freezes nothing on it
 BACKBONE_PREFIXES = ("backbone.", "densenet121.", "convnext.")
 
 
@@ -62,6 +70,10 @@ def parse_args(argv=None):
                  "jaccard_supcon", "supcon", "dual_branch"],
     )
     p.add_argument("--supcon-temperature", default=0.07, type=float)
+    p.add_argument("--dual-asl-alpha", default=1.0, type=float)
+    p.add_argument("--asl-gamma-pos", default=1.0, type=float)
+    p.add_argument("--asl-gamma-neg", default=4.0, type=float)
+    p.add_argument("--asl-clip", default=0.05, type=float)
     p.add_argument("--print-freq", default=5, type=int)
     p.add_argument("--save-dir", default="./checkpoints")
     p.add_argument("--use-random-sampler", action="store_true")
@@ -103,13 +115,44 @@ def epoch_generator(seed: int, epoch: int) -> torch.Generator:
     return torch.Generator().manual_seed(seed * 1_000_003 + epoch)
 
 
+def build_train_optimizer(model, args):
+    """The CLI's optimiser: Adam(W) with the backbone at --backbone-lr-scale
+    and, under --freeze-backbone, the backbone's parameters frozen; a
+    parameter is the backbone's when its name starts with one of
+    BACKBONE_PREFIXES."""
+    from ..train import build_optimizer
+
+    return build_optimizer(
+        model, lr=args.lr, backbone_lr_scale=args.backbone_lr_scale,
+        weight_decay=args.weight_decay, backbone_prefixes=BACKBONE_PREFIXES,
+        frozen_predicate=(lambda name: name.startswith(BACKBONE_PREFIXES))
+        if args.freeze_backbone else None,
+    )
+
+
+def build_train_step(model, loss_name, args):
+    """The step cli.train runs: the dual-branch step for ``dual_branch``,
+    else the embedding step with the loss's margin or temperature."""
+    from ..train import make_dual_branch_train_step, make_embedding_train_step
+
+    compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
+    if loss_name == "dual_branch":
+        return make_dual_branch_train_step(
+            model, asl_alpha=args.dual_asl_alpha, temperature=args.supcon_temperature,
+            gamma_pos=args.asl_gamma_pos, gamma_neg=args.asl_gamma_neg, clip=args.asl_clip,
+            compute_dtype=compute_dtype)
+    kwargs = {}
+    if loss_name in ("triplet", "triplet_hard", "weighted_multilabel_triplet"):
+        kwargs["margin"] = args.margin
+    elif loss_name in ("supcon", "jaccard_supcon"):
+        kwargs["temperature"] = args.supcon_temperature
+    return make_embedding_train_step(model, loss_name, kwargs, compute_dtype=compute_dtype,
+                                     remat=args.remat)
+
+
 def main(argv=None):
     args = parse_args(argv)
     loss_name = select_loss(args)
-    if loss_name == "dual_branch":
-        raise NotImplementedError(
-            "--loss-name dual_branch waits for make_dual_branch_train_step and the NIH "
-            "dual-head models (ROADMAP.md, section 1 item 5)")
     device = resolve_device(args)
     np.random.seed(args.seed)
     # cuDNN's default backward-filter algorithms add up with atomics, so two
@@ -132,23 +175,11 @@ def main(argv=None):
     from ..data.samplers import MultiLabelBalancedBatchSampler, PKSampler
     from ..data.transforms import preprocess_for_spec
     from ..metrics import train_eval_multilabel, train_eval_single_label
-    from ..train import (
-        TrainState,
-        build_optimizer,
-        make_embed_fn,
-        make_embedding_train_step,
-        with_grad_accumulation,
-    )
+    from ..train import TrainState, make_embed_fn, with_grad_accumulation
     from ..utils import BestCheckpointPolicy, checkpoint_name, load_checkpoint, save_checkpoint
     from ..utils.checkpoint import is_train_checkpoint
 
-    optimizer = build_optimizer(
-        model, lr=args.lr, backbone_lr_scale=args.backbone_lr_scale,
-        weight_decay=args.weight_decay, backbone_prefixes=BACKBONE_PREFIXES,
-        frozen_predicate=(lambda name: name.startswith(BACKBONE_PREFIXES))
-        if args.freeze_backbone else None,
-    )
-    state = TrainState(model, optimizer)
+    state = TrainState(model, build_train_optimizer(model, args))
     if args.accum_steps > 1:
         state = with_grad_accumulation(state, args.accum_steps)
         print(f">> gradient accumulation over {args.accum_steps} microbatches")
@@ -172,14 +203,7 @@ def main(argv=None):
                 print(f">> resumed optimizer state at step {state.step}; continuing from "
                       f"epoch {start_epoch}")
 
-    kwargs = {}
-    if loss_name in ("triplet", "triplet_hard", "weighted_multilabel_triplet"):
-        kwargs["margin"] = args.margin
-    elif loss_name in ("supcon", "jaccard_supcon"):
-        kwargs["temperature"] = args.supcon_temperature
-    step = make_embedding_train_step(
-        model, loss_name, kwargs,
-        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32, remat=args.remat)
+    step = build_train_step(model, loss_name, args)
 
     batch_size = args.batch_size or args.labels_per_batch * args.samples_per_label
     multilabel = is_multilabel(args.dataset)
@@ -239,8 +263,10 @@ def main(argv=None):
                     raise ValueError("Training diverged: non-finite loss detected")
                 print(f"epoch {epoch} step {i}: loss {loss:.4f}")
                 if args.metrics_log:
+                    # the dual-branch step's two terms beside the loss
+                    terms = {k: float(metrics[k]) for k in ("contrastive", "asl") if k in metrics}
                     _log_jsonl(args.metrics_log, {"kind": "train", "epoch": epoch, "step": i,
-                                                  "loss": loss, "time": time.time()})
+                                                  "loss": loss, **terms, "time": time.time()})
         print(f">> epoch {epoch} done in {time.time() - t0:.1f}s")
 
         ckpt_tree = dict(state.state_dict(), epoch=epoch)

@@ -163,7 +163,9 @@ class ShardedGalleryIndex:
                 hits.append({
                     "id": int(i),
                     "image_path": self._paths[int(i)],
-                    "label": label.item() if hasattr(label, "item") else label,
+                    # a multi-hot row (NIH, VinDr) as a list: the JAX package's
+                    # .item() raises on it
+                    "label": label.tolist() if hasattr(label, "tolist") else label,
                     "distance": dist,
                     "similarity": sim,
                 })

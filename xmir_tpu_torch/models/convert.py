@@ -1,6 +1,6 @@
-"""Weights into the port's DenseNet, ConvNeXtV2, SwinV2 and ViT embedders: from the JAX
-package's variable tree, and from a reference CheXNet / torchvision or timm
-``.pt``.
+"""Weights into the port's DenseNet, ConvNeXtV2, SwinV2 and ViT embedders, the
+distillation models and the NIH dual-head models: from the JAX package's
+variable tree, and from a reference CheXNet / torchvision or timm ``.pt``.
 
 Conventions (the inverse of xmir_tpu/models/convert.py):
   conv   flax (kh, kw, I, O)  -> torch (O, I, kh, kw)
@@ -321,19 +321,52 @@ def swinv2_backbone_state_dict_from_torch(
     return out
 
 
+def nih_dual_head_state_dict_from_jax(variables, backbone: str) -> Dict[str, torch.Tensor]:
+    """The JAX package's NIHDualHeadModel tree (numpy leaves: params
+    ["backbone"], a ViTBackbone or ConvNeXtV2Backbone by ``backbone``, and
+    params["head"]) -> the port's NIHDualHeadModel state dict."""
+    params = variables["params"]
+    to_timm = {"dinov2": _vit_backbone_state_dict,
+               "convnextv2": _convnext_backbone_state_dict}[backbone]
+    sd = {f"backbone.{k}": v for k, v in to_timm(params["backbone"]).items()}
+    for name in ("proj_fc1", "proj_fc2", "classifier"):
+        _dense(sd, f"head.{name}", params["head"][name])
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+
+
+def distill_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX package's DistillEmbedder tree (numpy leaves: params
+    ["student"], a ConvNeXtV2Embedder tree, and params["teacher"], a bare
+    ViTBackbone tree) -> the port's DistillEmbedder state dict."""
+    params = variables["params"]
+    sd = {f"student.{k}": v
+          for k, v in convnextv2_state_dict_from_jax({"params": params["student"]}).items()}
+    sd.update({f"teacher.{k}": torch.from_numpy(np.array(v, dtype=np.float32))
+               for k, v in _vit_backbone_state_dict(params["teacher"]).items()})
+    return sd
+
+
 def load_torch_checkpoint(model: torch.nn.Module, path: str):
     """Load a ``.pt``/``.pth`` into ``model``, dispatched by its type (as
-    xmir_tpu/cli/common.py::_convert_torch_checkpoint does by name): a
+    xmir_tpu/cli/common.py::_convert_torch_checkpoint does by name). A
+    checkpoint that the train CLI wrote (a state dict beside its
+    optimiser's) loads whole, strictly, into any model. Otherwise: a
     DenseNet121Embedder takes the whole state dict with strict=True; a
-    ConvNeXtV2, SwinV2 or DINOv2 embedder takes its backbone with strict=True
-    and keeps its head (fc, SRA, PCAM) as initialised. A checkpoint that the
-    train CLI wrote (a state dict beside its optimiser's) loads whole, strictly."""
+    ConvNeXtV2, SwinV2 or DINOv2 embedder and a DINOv2 NIH dual-head model
+    take a timm backbone with strict=True and keep their head (fc, SRA, PCAM,
+    projection) as initialised. No timm layout is wired for a ConvNeXtV2 NIH
+    dual-head model (the JAX package raises too) or for a distillation model:
+    the JAX package merges a timm backbone into params["backbone"], a key
+    that model lacks (it has "student" and "teacher"), so it loads nothing;
+    this loader raises instead."""
     from .embedders import (
         ConvNeXtV2Embedder,
         ConvNeXtV2PCAMEmbedder,
         ConvNeXtV2SRAEmbedder,
         DenseNet121Embedder,
         DinoV2Embedder,
+        DistillEmbedder,
+        NIHDualHeadModel,
         SwinV2Embedder,
     )
 
@@ -351,7 +384,8 @@ def load_torch_checkpoint(model: torch.nn.Module, path: str):
         model.convnext.load_state_dict(backbone, strict=True)
         print(f">> loaded the ConvNeXtV2 backbone ({len(backbone)} tensors, strict); "
               "the head keeps its init")
-    elif isinstance(model, DinoV2Embedder):
+    elif isinstance(model, DinoV2Embedder) or (
+            isinstance(model, NIHDualHeadModel) and model.kind == "dinov2"):
         backbone = vit_backbone_state_dict_from_torch(sd)
         model.backbone.load_state_dict(backbone, strict=True)
         print(f">> loaded the ViT backbone ({len(backbone)} tensors, strict); "
@@ -361,6 +395,14 @@ def load_torch_checkpoint(model: torch.nn.Module, path: str):
         model.backbone.load_state_dict(backbone, strict=True)
         print(f">> loaded the SwinV2 backbone ({len(backbone)} tensors, strict); "
               "the head keeps its init")
+    elif isinstance(model, DistillEmbedder):
+        raise ValueError(
+            f"{path} is not a checkpoint of the train CLI, and no timm layout is wired for a "
+            "distillation model: its tensors are student.convnext.*, student.fc.* and "
+            "teacher.* (the JAX package merges a timm backbone into params['backbone'], "
+            "which this model lacks, and so loads nothing)")
     else:
-        raise ValueError(f"no torch-checkpoint loader for {type(model).__name__}")
+        raise ValueError(f"no torch-checkpoint loader for {type(model).__name__}"
+                         + (f" with backbone {model.kind!r}"
+                            if isinstance(model, NIHDualHeadModel) else ""))
     return model

@@ -1,21 +1,26 @@
 """Embedding models (port of DenseNet121Embedder, the ConvNeXtV2 embedders,
-SwinV2Embedder and DinoV2Embedder in xmir_tpu/models/embedders.py).
+SwinV2Embedder, DinoV2Embedder, DistillEmbedder and NIHDualHeadModel in
+xmir_tpu/models/embedders.py).
 
 A convolutional or Swin embedder maps NHWC images to {"embedding": (B, D)
 L2-normalised, "features": NHWC map, "logits": ... when a classification
-head is set}; the ViT embedder to {"embedding", "tokens", "attentions"}.
+head is set}; the ViT embedder to {"embedding", "tokens", "attentions"}; the
+NIH dual-head model to {"cls_embedding" or "backbone_embedding",
+"projection", "embedding", "logits"}.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.distance import l2_normalize
 from . import convnext, swin, vit
 from .densenet import DenseNetBackbone, init_weights_
-from .heads import PCAMPool, SRA
+from .heads import NIHProjectionHead, PCAMPool, SRA
 
 
 class DenseNet121Embedder(nn.Module):
@@ -201,3 +206,119 @@ class DinoV2Embedder(nn.Module):
             feat = vit._dense(feat, self.fc)
         return {"embedding": l2_normalize(feat, dim=1), "tokens": out["tokens"],
                 "attentions": out["attentions"]}
+
+
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+RAD_DINO_MEAN, RAD_DINO_STD = 0.5307, 0.2583
+
+
+def teacher_input(x, size: int, rad_dino_norm: bool = False):
+    """The teacher's view of the student's NHWC input: resized bilinearly to
+    ``size`` (``jax.image.resize``'s "bilinear": half-pixel centres,
+    antialiased when shrinking, no effect when growing). With
+    ``rad_dino_norm`` the ImageNet normalisation is undone first and the
+    image clipped to [0, 1], and RAD-DINO's applied after the resize
+    (reference model.py:371-380). The ImageNet constants are f32 tensors, as
+    the JAX module's are, so a bf16 input leaves that path in f32."""
+    if rad_dino_norm:
+        mean = torch.tensor(IMAGENET_MEAN, device=x.device)
+        std = torch.tensor(IMAGENET_STD, device=x.device)
+        x = torch.clamp(x * std + mean, 0.0, 1.0)
+    shrink = size < x.shape[1] or size < x.shape[2]
+    # PyTorch's antialiased resize takes f32 (not bf16) on the CPU: a shrink
+    # runs in f32 and rounds once to x's dtype
+    dt = torch.float32 if shrink else x.dtype
+    y = F.interpolate(x.permute(0, 3, 1, 2).to(dt), size=(size, size), mode="bilinear",
+                      align_corners=False, antialias=shrink).permute(0, 2, 3, 1).to(x.dtype)
+    if rad_dino_norm:
+        y = (y - RAD_DINO_MEAN) / RAD_DINO_STD
+    return y
+
+
+class DistillEmbedder(nn.Module):
+    """ConvNeXtV2 student + ViT teacher (DINOv2 or RAD-DINO style), reference
+    model.py:281-415. Keys: ``student.<ConvNeXtV2Embedder>`` (``convnext.*``,
+    ``fc.*``) and ``teacher.<timm ViT>``. The student's widths default to
+    ConvNeXtV2-Base's and the teacher's to ViT-B/14's; narrower ones are for
+    tests.
+
+    forward(x) returns the student's {"embedding", "features"}. In training,
+    ``with_teacher=True`` adds "teacher_embedding": the teacher's
+    L2-normalised CLS on ``teacher_input(x)``, under ``torch.no_grad()``
+    unless ``teacher_trainable``. The JAX module computes the teacher in every
+    training call and the embedding step discards it (XLA drops the dead
+    work); here only the distillation step asks for it."""
+
+    def __init__(self, embedding_dim: Optional[int] = None, teacher_img_size: int = 518,
+                 teacher_trainable: bool = False, rad_dino_norm: bool = False, *,
+                 depths: Sequence[int] = CONVNEXTV2_BASE["depths"],
+                 dims: Sequence[int] = CONVNEXTV2_BASE["dims"], teacher_patch_size: int = 14,
+                 teacher_dim: int = 768, teacher_depth: int = 12, teacher_num_heads: int = 12,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.teacher_img_size = teacher_img_size
+        self.teacher_trainable = teacher_trainable
+        self.rad_dino_norm = rad_dino_norm
+        self.student = ConvNeXtV2Embedder(embedding_dim, depths=depths, dims=dims,
+                                          generator=generator)
+        self.teacher = vit.ViTBackbone(teacher_img_size, teacher_patch_size, teacher_dim,
+                                       teacher_depth, teacher_num_heads)
+        if generator is not None:
+            vit.init_weights_(self.teacher, generator)
+
+    def teacher_embedding(self, x):
+        tx = teacher_input(x, self.teacher_img_size, self.rad_dino_norm)
+        grad = contextlib.nullcontext() if self.teacher_trainable else torch.no_grad()
+        with grad:
+            return l2_normalize(self.teacher(tx)["cls"], dim=1)
+
+    def forward(self, x, with_teacher: bool = False):
+        out = self.student(x)
+        result = {"embedding": out["embedding"], "features": out["features"]}
+        if self.training and with_teacher:
+            result["teacher_embedding"] = self.teacher_embedding(x)
+        return result
+
+
+class NIHDualHeadModel(nn.Module):
+    """NIH multi-label dual-head retrieval model (reference
+    nih_multilabel_retrieval.py:170-257): ``backbone`` "dinov2" (a ViT-B/14
+    at 518, its CLS) or "convnextv2" (ConvNeXtV2-Base, its head-normed
+    pooled features), then NIHProjectionHead. Keys: ``backbone.<timm ViT or
+    ConvNeXtV2>`` and ``head.{proj_fc1,proj_fc2,classifier}.*``, the JAX
+    tree's first components. The backbone widths default to the reference's;
+    narrower ones are for tests."""
+
+    def __init__(self, backbone: str = "dinov2", num_labels: int = 14, *, img_size: int = 518,
+                 patch_size: int = 14, dim: int = 768, depth: int = 12, num_heads: int = 12,
+                 depths: Sequence[int] = CONVNEXTV2_BASE["depths"],
+                 dims: Sequence[int] = CONVNEXTV2_BASE["dims"],
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kind = backbone
+        if backbone == "dinov2":
+            self.backbone = vit.ViTBackbone(img_size, patch_size, dim, depth, num_heads)
+            width, init = dim, vit.init_weights_
+        elif backbone == "convnextv2":
+            self.backbone = convnext.ConvNeXtV2Backbone(depths, dims)
+            width, init = dims[-1], convnext.init_weights_
+        else:
+            raise ValueError(f"unknown NIH backbone {backbone!r}")
+        self.head = NIHProjectionHead(width, num_labels)
+        if generator is not None:
+            init(self.backbone, generator)
+            for linear in (self.head.proj_fc1, self.head.proj_fc2, self.head.classifier):
+                _init_head_linear_(linear, generator)
+
+    def forward(self, x):
+        out = self.backbone(x)
+        if self.kind == "dinov2":
+            feat = out["cls"]
+            extra = {"cls_embedding": feat}
+        else:
+            feat = out["pooled_norm"]
+            extra = {"backbone_embedding": feat}
+        projection, logits = self.head(feat)
+        return {**extra, "projection": projection,
+                "embedding": l2_normalize(projection, dim=1), "logits": logits}

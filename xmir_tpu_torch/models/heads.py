@@ -1,14 +1,16 @@
-"""Retrieval heads of the ConvNeXtV2 variants (port of SRA and PCAMPool in
-xmir_tpu/models/heads.py; reference model.py:120-163 and :199-247). NHWC in,
-plain tensor code."""
+"""Retrieval heads (port of SRA, PCAMPool and NIHProjectionHead in
+xmir_tpu/models/heads.py; reference model.py:120-163 and :199-247,
+nih_multilabel_retrieval.py:170-257). NHWC in, plain tensor code."""
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.distance import l2_normalize
+from .vit import _dense
 
 
 def _channel_layernorm(v, scale, bias, eps: float = 1e-6):
@@ -75,3 +77,20 @@ class PCAMPool(nn.Module):
         if self.fc is not None:
             feat = self.fc(feat)
         return l2_normalize(feat, dim=1), class_logits, pcam_probs.reshape(b, h, w, -1)
+
+
+class NIHProjectionHead(nn.Module):
+    """Linear(in_dim -> 512) -> exact (erf) GELU -> Linear(512 -> proj_dim),
+    and a ``num_labels``-logit classifier on the projection. Returns
+    (projection, logits), each in the features' dtype promoted with the
+    weights' (flax's ``nn.Dense``)."""
+
+    def __init__(self, in_dim: int, num_labels: int = 14, proj_dim: int = 256):
+        super().__init__()
+        self.proj_fc1 = nn.Linear(in_dim, 512)
+        self.proj_fc2 = nn.Linear(512, proj_dim)
+        self.classifier = nn.Linear(proj_dim, num_labels)
+
+    def forward(self, feats):
+        projection = _dense(F.gelu(_dense(feats, self.proj_fc1)), self.proj_fc2)
+        return projection, _dense(projection, self.classifier)

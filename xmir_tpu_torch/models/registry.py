@@ -1,23 +1,25 @@
 """Model registry (port of xmir_tpu/models/registry.py): one spec per
 backbone with its input size, resize size, embedding width and
 normalisation. Ported so far: DenseNet121, the three ConvNeXtV2 embedders,
-the SwinV2-Base embedder and the DINOv2 ViT-B/14 embedder."""
+the SwinV2-Base embedder, the DINOv2 ViT-B/14 embedder, the two
+ConvNeXtV2-student distillation models and the two NIH dual-head models."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Tuple
 
 from .embedders import (
+    IMAGENET_MEAN,
+    IMAGENET_STD,
     ConvNeXtV2Embedder,
     ConvNeXtV2PCAMEmbedder,
     ConvNeXtV2SRAEmbedder,
     DenseNet121Embedder,
     DinoV2Embedder,
+    DistillEmbedder,
+    NIHDualHeadModel,
     SwinV2Embedder,
 )
-
-IMAGENET_MEAN = (0.485, 0.456, 0.406)
-IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +43,14 @@ _SPECS = {
     "convnextv2_pcam": ModelSpec("convnextv2_pcam", ConvNeXtV2PCAMEmbedder, 384, 432, 1024),
     "swinv2": ModelSpec("swinv2", SwinV2Embedder, 384, 432, 1024),
     "dinov2": ModelSpec("dinov2", DinoV2Embedder, 518, 518, 768, interpolation="bicubic"),
+    "convnextv2_dino_distill": ModelSpec("convnextv2_dino_distill", DistillEmbedder, 384, 432,
+                                         1024),
+    "convnextv2_raddino_distill": ModelSpec("convnextv2_raddino_distill", DistillEmbedder, 384,
+                                            432, 1024, kwargs=(("rad_dino_norm", True),)),
+    "nih_dinov2": ModelSpec("nih_dinov2", NIHDualHeadModel, 518, 518, 256,
+                            kwargs=(("backbone", "dinov2"),)),
+    "nih_convnextv2": ModelSpec("nih_convnextv2", NIHDualHeadModel, 384, 432, 256,
+                                kwargs=(("backbone", "convnextv2"),)),
 }
 
 
