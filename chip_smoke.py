@@ -270,6 +270,47 @@ Phases, each of which raises (exit code != 0) on any failure:
              into the teacher's forward, the student's forward + backward and
              the optimiser (by events, and by torch.profiler's records where
              they hold 90% of the step)
+ 34. kernel  K7 at SigLIP SO400M's C = 1152, 16 heads of 72 (3C = 3456
+             columns: a half-full last 256-column tile, tiles straddling q / k
+             / v and heads): N = 1024 at B = 16, N = 729 at B = 4, N = 64 at
+             B = 8 (the text tower), ragged N in {1, 63, 65, 197}, and at
+             BiomedCLIP's C = 768, N = 197; the last tile's columns and each
+             head's boundary lanes on their own; K2 at (BH, N, hd) = (256,
+             1024, 72), (64, 729, 72), (128, 64, 72); f32 and bf16, within
+             ld.agreement / k2_agreement, two runs bit-equal; build.log holds
+             no C75xx (a serialised wgmma product) for ln_dense.cu or
+             vit_attn.cu, and every other source's C75xx lines are printed
+ 35. slice   cli.ingest -> cli.query --top-k 10 with MedSigLIP-448 at full
+             width (448 px, 1024 tokens, 27 layers, C = 1152, a 512-d
+             projection; --resume of a seeded HF SiglipVisionModel .pt with
+             random nonzero LN / biases) and ConceptCLIP-384 (729 tokens,
+             seeded, 1152-d) under XMIR_FLASH_ATTN=1 XMIR_FUSED_LN=1, with
+             XMIR_FUSED_LN_QKV72 unset (K2 = 27 x batches, K7 = 0) and set to 1
+             (K7 = K2 = 27 x batches), K1 once; the hits against the plain
+             top-k, the query embeddings against the same model with the
+             kernels' plain versions and on the eager path; K1 bit-equal to
+             its plain version at D = 512 and 1152 on integer inputs
+ 36. slice   cli.test --model biomedclip --save-dir at full width (224 px,
+             12 + 12 layers, 768-d) from a seeded open_clip-layout .pt and a
+             generated vocab.txt under the same flags (K7 = K2 = 12 x image
+             batches, the text tower none): the zero-shot accuracy, macro P /
+             R, R@1 and mAP recomputed with numpy from the artifact;
+             cli.zeroshot --model medsiglip --embedding-dim 1152
+             --dual-checkpoint (a seeded text tower, 27 layers, C = 1152,
+             seq-len 64, its vocabulary as large as the generated vocab.txt)
+             with XMIR_FUSED_LN_QKV72 unset and set: K2 = 27 x (image
+             batches + 1), K7 = 0 / the same; accuracy and confusion matrix
+             recomputed from the printed predictions
+ 37. rates   K7 at the SigLIP shape (B = 16, N = 1024, C = 1152, H = 16)
+             against its plain version and its product alone (torch.matmul,
+             (16384 x 1152) . (1152 x 3456)); K2 at (256, 1024, 72) against
+             its plain version and SDPA (the default dispatch's backend,
+             pinned once outside the timed windows); bf16, CUDA events in
+             turns and device_ms; the bf16 MedSigLIP-448 embed at batch 16
+             with K2, with K7 + K2 (XMIR_FUSED_LN_QKV72=1) and eager, and
+             BiomedCLIP's image tower at batch 64 (224 px) with K7 + K2 and
+             eager: events in turns, device_ms where a forward's launches
+             fit the launch queue, peak memory, a torch.profiler breakdown
 ``--train-only`` builds and runs phases 17 to 23, 25 to 28 and 31 to 33
 alone (no result line).
 The launch counts are set to 0 before each slice and read after it. Each
@@ -283,6 +324,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import io
 import json
 import os
 import statistics
@@ -299,11 +341,13 @@ import torch.nn.functional as F
 from xmir_tpu_torch.cli import common, ingest, query
 from xmir_tpu_torch.cli import test as test_cli
 from xmir_tpu_torch.cli import train as train_cli
+from xmir_tpu_torch.cli import zeroshot as zeroshot_cli
 from xmir_tpu_torch.data.datasets import NIH_RETRIEVAL_PATHOLOGIES
 from xmir_tpu_torch.data.pipeline import embed_dataset
 from xmir_tpu_torch.data.synthetic import write_synthetic_covidx
 from xmir_tpu_torch.index import ShardedGalleryIndex
 from xmir_tpu_torch.models import convnext as convnext_model
+from xmir_tpu_torch.models import siglip as siglip_model
 from xmir_tpu_torch.models import swin as swin_model
 from xmir_tpu_torch.models import vit as vit_model
 from xmir_tpu_torch.models.activations import adaptive_gelu
@@ -1279,16 +1323,18 @@ class PlainLnQkv(torch.autograd.Function):
 
 @contextlib.contextmanager
 def vit_plain_versions():
-    """The ViT's kernel calls pointed at the kernels' plain versions, the
-    forward's and the backward's."""
-    saved = (vit_model.ln_qkv_fused, vit_model.ln_dense_fused, plain_attn.vit_attention_fused)
-    vit_model.ln_qkv_fused = PlainLnQkv.apply
+    """The ViT's and the SigLIP towers' kernel calls pointed at the kernels'
+    plain versions, the forward's and the backward's."""
+    saved = (vit_model.ln_qkv_fused, siglip_model.ln_qkv_fused, vit_model.ln_dense_fused,
+             plain_attn.vit_attention_fused)
+    vit_model.ln_qkv_fused = siglip_model.ln_qkv_fused = PlainLnQkv.apply
     vit_model.ln_dense_fused = ld.ln_dense_reference
     plain_attn.vit_attention_fused = PlainAttention.apply
     try:
         yield
     finally:
-        vit_model.ln_qkv_fused, vit_model.ln_dense_fused, plain_attn.vit_attention_fused = saved
+        (vit_model.ln_qkv_fused, siglip_model.ln_qkv_fused, vit_model.ln_dense_fused,
+         plain_attn.vit_attention_fused) = saved
 
 
 def write_vit_checkpoint(path, seed):
@@ -4526,6 +4572,491 @@ def phase_nih_distill_rates():
     return out
 
 
+# SigLIP SO400M (xmir_tpu/models/siglip.py:248-261): 1152 wide, 27 layers, 16
+# heads of 72; MedSigLIP at 448 px (1024 tokens), ConceptCLIP at 384 (729), the
+# text tower's 64 tokens. BiomedCLIP's image tower (biomedclip.py:27-34): a
+# ViT-B/16 at 224 px, 197 tokens, 12 blocks, 12 heads of 64
+SIGLIP = dict(c=1152, heads=16, depth=27)
+BIOMEDCLIP_DEPTH = 12
+
+
+def phase_kernel_siglip():
+    """K7 at SigLIP's C = 1152 (3C = 3456 columns: the last 256-column tile
+    half full, tiles straddling q / k / v and 72-lane heads) and at
+    BiomedCLIP's C = 768, N = 197; K2 at head width 72 at the towers' shapes;
+    and ptxas's report of the build: no product serialised (C75xx)."""
+    gen = torch.Generator().manual_seed(34)
+    c, h = SIGLIP["c"], SIGLIP["heads"]
+    hd = c // h
+    ln_cases = [(16, 1024, c, h, "MedSigLIP-448, B 16"), (4, 729, c, h, "ConceptCLIP-384, B 4"),
+                (8, 64, c, h, "SigLIP text, B 8")] + [
+        (2, n, c, h, "ragged N") for n in (1, 63, 65, 197)] + [
+        (4, 197, 768, 12, "BiomedCLIP ViT-B/16, B 4")]
+    attn_cases = [(256, 1024, hd, "MedSigLIP-448, B 16"), (64, 729, hd, "ConceptCLIP-384, B 4"),
+                  (128, 64, hd, "SigLIP text, B 8")]
+    err = {"K2": {}, "K7": {}, "K7 last tile and head edges": {}}
+    # v's heads 14 and 15 hold the last tile's columns 3328..3455; lanes 0, 1,
+    # 70 and 71 of every head sit on a head boundary
+    lanes = [0, 1, hd - 2, hd - 1]
+    with torch.inference_mode():
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype)[6:]
+            for b, n, cc, heads, what in ln_cases:
+                x, lns, lnb, w, bias = _ln_inputs(gen, b, n, cc, 3 * cc, dtype)
+                out = ld.ln_qkv_fused(x, lns, lnb, w, bias, heads)
+                check(all(torch.equal(o, a) for o, a in
+                          zip(out, ld.ln_qkv_fused(x, lns, lnb, w, bias, heads))),
+                      f"K7 {name} {what}: two runs differ")
+                ref = ld.ln_qkv_reference(x, lns, lnb, w, bias, heads)
+                label = f"K7 {name} B={b} N={n} C={cc} H={heads}"
+                e7 = {}
+                for o, r in zip(out, ref):
+                    _worst(e7, vit_err(o, r, ld.agreement, label))
+                _worst(err["K7"].setdefault(name, {}), e7)
+                edge = ""
+                if cc == c:
+                    e_edge = vit_err(out[2][:, 14:], ref[2][:, 14:], ld.agreement,
+                                     f"{label}: the last column tile")
+                    for o, r in zip(out, ref):
+                        _worst(e_edge, vit_err(o[..., lanes], r[..., lanes], ld.agreement,
+                                               f"{label}: head boundary lanes"))
+                    _worst(err["K7 last tile and head edges"].setdefault(name, {}), e_edge)
+                    edge = f"; the last tile and head boundary lanes {e_edge}"
+                log(f"[kernel] K7 {name:8s} B={b:2d} N={n:4d} C={cc} H={heads} ({what}): "
+                    f"{e7}{edge}; twice bit-equal")
+                del x, w, out, ref
+            for bh, n, hd_, what in attn_cases:
+                q, k, v = _attn_inputs(gen, bh, n, hd_, dtype)
+                sc = hd_ ** -0.5
+                out = va.vit_attention_fused(q, k, v, sc)
+                check(torch.equal(out, va.vit_attention_fused(q, k, v, sc)),
+                      f"K2 {name} {what}: two runs differ")
+                e = vit_err(out, va.attention_plain(q, k, v, sc), k2_agreement(q, k, v, sc),
+                            f"K2 {name} BH={bh} N={n} hd={hd_}")
+                _worst(err["K2"].setdefault(name, {}), e)
+                log(f"[kernel] K2 {name:8s} BH={bh:3d} N={n:4d} hd={hd_} ({what}): {e}; "
+                    "twice bit-equal")
+                del q, k, v, out
+            torch.cuda.empty_cache()
+    err["ptxas C75xx"] = found = ptxas_serialisations()
+    for src, lines in found.items():
+        log(f"[kernel] build.log: ptxas reports {len(lines)} C75xx line(s) for {src}: "
+            + " | ".join(lines))
+    mine = {src: lines for src, lines in found.items() if src in ("ln_dense.cu", "vit_attn.cu")}
+    check(not mine, f"ptxas serialised K7 / K8 or K2 wgmma products: {mine}")
+    log("[kernel] build.log: no C75xx for ln_dense.cu (K7, K8) or vit_attn.cu (K2)")
+    return err
+
+
+def ptxas_serialisations():
+    """{source file: its C75xx lines} in this build's build.log: where ptxas
+    serialised wgmma products (C7518 ...) or injected a warpgroup wait
+    (C7517). The log holds each source's ptxas report after its nvcc
+    command."""
+    text = (_build.BUILD_ROOT / _build._source_hash() / "build.log").read_text()
+    found, src = {}, None
+    for line in text.splitlines():
+        if line.startswith("$ "):
+            src = Path(line.split()[-1]).name
+        elif "C75" in line:
+            found.setdefault(src, []).append(line.strip())
+    return found
+
+
+def randomize_norms_(module, seed):
+    """Random nonzero LayerNorm and bias tensors (at init they are 1 and 0,
+    which would leave those terms of the kernels unchecked)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=gen))
+            elif "norm" in name.lower():
+                p.copy_(1 + 0.2 * torch.randn(p.shape, generator=gen))
+    return module
+
+
+def write_siglip_checkpoint(path, seed):
+    """google/medsiglip-448's vision tower in HF SiglipVisionModel's layout
+    (``vision_model.`` keys, the position_ids buffer some HF versions save)
+    with random nonzero LayerNorm and bias tensors."""
+    tower = randomize_norms_(siglip_model.medsiglip_448_vision(
+        torch.Generator().manual_seed(seed)), seed + 1)
+    sd = {f"vision_model.{k}": v for k, v in tower.state_dict().items()}
+    sd["vision_model.embeddings.position_ids"] = torch.arange(1024)[None]
+    torch.save(sd, path)
+
+
+def write_vocab(path, texts):
+    """A BERT vocab.txt of the special tokens and every basic token of
+    ``texts``: WordPiece then keeps each word whole."""
+    from xmir_tpu_torch.data.wordpiece import BasicTokenizer
+
+    words = sorted({t for text in texts for t in BasicTokenizer().tokenize(text)})
+    tokens = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + words
+    Path(path).write_text("\n".join(tokens) + "\n")
+    return len(tokens)
+
+
+# f32 unit embeddings of the CLIP slices' queries: the kernels against the same
+# model with their plain versions and on the eager path (PERF.md)
+# (PERF.md): <= 7.5e-8 seen, 5e-6 allowed (DINOv2's bound)
+SIGLIP_EMBED_TOL = {"plain versions": 5e-6, "eager": 5e-6}
+
+
+def _slice_args(img_dir, manifest, split, model_args):
+    key = "--train-image-list" if split == "train" else "--test-image-list"
+    return ["--dataset", "covid", "--dataset-dir", img_dir, key, manifest, "--split",
+            split] + model_args
+
+
+def phase_slice_clip(workdir: Path):
+    """cli.ingest -> cli.query --top-k 10 with MedSigLIP-448 (HF-layout
+    --resume, 512-d) and ConceptCLIP-384 (seeded, 1152-d) at full width under
+    FUSED_VIT, with XMIR_FUSED_LN_QKV72 unset (K2 alone) and set to 1 (K7 +
+    K2); then K1 bit-equal at D = 512 and 1152 on integer inputs."""
+    t0 = time.perf_counter()
+    n_g, n_q, batch = 32, 16, 16
+    img_dir, g_manifest = write_synthetic_covidx(str(workdir / "c_gallery"), n=n_g, size=256,
+                                                 seed=14)
+    q_dir, q_manifest = write_synthetic_covidx(str(workdir / "c_queries"), n=n_q, size=256,
+                                               seed=15)
+    pt = str(workdir / "medsiglip_hf.pt")
+    write_siglip_checkpoint(pt, seed=16)
+    log(f"[slice] CLIP: wrote {n_g} + {n_q} PNGs and an HF-layout SigLIP .pt in "
+        f"{time.perf_counter() - t0:.1f} s")
+    batches = -(-n_g // batch) + -(-n_q // batch)
+    per_path = SIGLIP["depth"] * batches
+    out = {}
+    for model_name, dim, resume in (("medsiglip", 512, pt), ("conceptclip", 1152, "")):
+        model_args = ["--model", model_name, "--device", "cuda", "--seed", "0",
+                      "--batch-size", str(batch), "-j", "8"] + (
+            ["--resume", resume] if resume else [])
+        q_args = _slice_args(q_dir, q_manifest, "test", model_args)
+        gal, hits_path = str(workdir / f"{model_name}.npz"), str(workdir / f"{model_name}.json")
+        p = argparse.ArgumentParser()
+        common.add_dataset_args(p)
+        common.add_model_args(p)
+        args, _ = p.parse_known_args(q_args)
+        model, spec = common.build_model(args, torch.device("cuda"))
+
+        def reembed():
+            ref, _ = embed_dataset(common.build_dataset(args, "test"), make_embed_fn(model), spec,
+                                   device="cuda", batch_size=batch, num_workers=8)
+            return ref
+
+        with env_flags(XMIR_FLASH_ATTN="0", XMIR_FUSED_LN="0"):
+            eager = reembed()
+        for path, qkv72 in ((model_name, None), (f"{model_name}_fused_ln_qkv72", "1")):
+            calls = []
+            with env_flags(XMIR_FUSED_LN_QKV72=qkv72, **FUSED_VIT):
+                reset_launches()
+                with record_searches(calls):
+                    t0 = time.perf_counter()
+                    ingest.main(_slice_args(img_dir, g_manifest, "train", model_args)
+                                + ["--output", gal])
+                    results = query.main(q_args + ["--index", gal, "--top-k", "10",
+                                                   "--output", hits_path])
+                    wall = time.perf_counter() - t0
+                launches = read_launches()
+                want = dict.fromkeys(WRAPPERS, 0)
+                want.update({"K1": 1, "K2": per_path, "K7": per_path if qkv72 else 0})
+                check(launches == want, f"{path}: launches {launches}, expected {want} "
+                                        f"({SIGLIP['depth']} layers x {batches} batches)")
+                log(f"[slice] {path}: launches {launches} ({SIGLIP['depth']} layers x {batches} "
+                    f"batches of {batch}); ingest + query {wall:.1f} s wall")
+                err = check_hits(calls, results, n_g, n_q, dim)
+                with vit_plain_versions():
+                    plain = reembed()
+            emb = calls[0][1]
+            diff = {"plain versions": (emb - plain).abs().max().item(),
+                    "eager": (emb - eager).abs().max().item()}
+            for k, v in diff.items():
+                check(v <= SIGLIP_EMBED_TOL[k], f"{path}: query embeddings differ from the "
+                                                f"{k}'s by {v} > {SIGLIP_EMBED_TOL[k]}")
+            log(f"[slice] {path}: query embeddings vs the same model's {diff} (bounds "
+                f"{SIGLIP_EMBED_TOL})")
+            out[path] = {"launches": launches, "err": err, "embedding_max_abs_err": diff}
+        del model
+        torch.cuda.empty_cache()
+        k1_bit_equal_at(n_q, n_g, dim, 10)
+        k1_bit_equal_at(64, 4099, dim, 10)
+        log(f"[slice] K1 at D = {dim}: bit-equal to its plain version on integer inputs "
+            f"(f32 and bf16; Q = {n_q}, N = {n_g} and Q = 64, N = 4099)")
+    return out, pt, (q_dir, q_manifest)
+
+
+def zeroshot_from_artifact(save_dir, metrics, n):
+    """cli.test --model biomedclip's artifact: shapes, unit embeddings, and
+    the zero-shot accuracy, macro P/R/F1, R@1 and mAP recomputed with numpy
+    from its embeddings, labels and predictions equal to the CLI's."""
+    art = np.load(os.path.join(save_dir, "biomedclip_zeroshot.npz"))
+    embeds, labels, preds, dists = art["embeds"], art["labels"], art["predictions"], art["dists"]
+    check(embeds.shape == (n, 512) and preds.shape == labels.shape == (n,)
+          and dists.shape == (n, n), f"artifact shapes {embeds.shape} {preds.shape}")
+    check(np.abs(np.linalg.norm(embeds, axis=1) - 1).max() < 1e-5, "embeddings not unit")
+    check(np.isposinf(np.diag(dists)).all(), "the diagonal is not excluded")
+    stored = json.loads(str(art["metrics"]))
+    check(stored == json.loads(json.dumps(metrics, default=float)), "artifact metrics != returned")
+    acc = 100.0 * np.mean(preds == labels)
+    check(abs(stored["zero_shot_accuracy"] - acc) <= 1e-9, "zero-shot accuracy != numpy's")
+    ps, rs = [], []
+    for cls in np.unique(np.concatenate([labels, preds])):
+        tp = np.sum((preds == cls) & (labels == cls))
+        ps.append(tp / max(np.sum(preds == cls), 1))
+        rs.append(tp / max(np.sum(labels == cls), 1))
+    check(abs(stored["zero_shot_precision_macro"] - 100 * np.mean(ps)) <= 1e-9
+          and abs(stored["zero_shot_recall_macro"] - 100 * np.mean(rs)) <= 1e-9,
+          "zero-shot macro P / R != numpy's")
+    e = embeds.astype(np.float64)
+    sims = e @ e.T
+    off = ~np.eye(n, dtype=bool)
+    d_err = np.abs(-dists[off] - sims[off]).max()
+    check(d_err <= 2e-6, f"the artifact's cosines lie {d_err} from numpy's")
+    order = np.argsort(dists, axis=1, kind="stable")  # dists = -cosine: ascending
+    r1 = 100.0 * np.mean(labels[order[:, 0]] == labels)
+    check(abs(stored["R@1"] - r1) <= 1e-9, "R@1 != numpy's")
+    again = test_cli.single_label_metrics(-dists, labels)
+    check(abs(stored["mAP"] - again["mAP"]) <= 1e-9, "mAP != numpy's")
+    log(f"[slice] biomedclip_zeroshot.npz: zero-shot accuracy {acc:.2f}%, macro P / R, R@1 "
+        f"{r1:.2f} and mAP {stored['mAP']:.2f} equal to numpy's from the artifact; its cosines "
+        f"within {d_err:.2g} of numpy's")
+    return {k: stored[k] for k in ("zero_shot_accuracy", "zero_shot_f1_macro", "R@1", "mAP")}
+
+
+def phase_clip_zeroshot(workdir: Path, siglip_pt, queries):
+    """cli.test --model biomedclip at full width (224 px, 12 + 12 layers) from
+    a seeded open_clip-layout .pt and a generated vocab.txt, under FUSED_VIT;
+    then cli.zeroshot --model medsiglip --dual-checkpoint at full width (27
+    layers, C = 1152, seq-len 64; the text vocabulary only as large as the
+    generated vocab.txt), with XMIR_FUSED_LN_QKV72 unset and set."""
+    from xmir_tpu_torch.models.siglip_text import COVIDX_LABEL_TO_TEXT, SiglipTextBackbone
+
+    out = {"launches": {}}
+    n = 96  # two batches of cli.test's 64
+    t_dir, t_manifest = write_synthetic_covidx(str(workdir / "b_test"), n=n, size=256, seed=17)
+    names = test_cli.DATASET_LABEL_NAMES["covid"]
+    vocab = str(workdir / "biomedclip_vocab.txt")
+    write_vocab(vocab, [f"this is a medical image of {c}" for c in names])
+    model, _ = create_model("biomedclip", generator=torch.Generator().manual_seed(18))
+    sd = randomize_norms_(model, 19).state_dict()
+    sd["text.transformer.embeddings.position_ids"] = torch.arange(512)[None]
+    pt = str(workdir / "biomedclip_open_clip.pt")
+    torch.save(sd, pt)
+    del model, sd
+    save_dir = str(workdir / "b_res")
+    with env_flags(**FUSED_VIT):
+        reset_launches()
+        t0 = time.perf_counter()
+        metrics = test_cli.main(["--dataset", "covid", "--dataset-dir", t_dir,
+                                 "--test-image-list", t_manifest, "--model", "biomedclip",
+                                 "--device", "cuda", "--vocab", vocab, "--resume", pt,
+                                 "--save-dir", save_dir, "-j", "8"])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update({"K2": BIOMEDCLIP_DEPTH * 2, "K7": BIOMEDCLIP_DEPTH * 2})
+    check(launches == want, f"biomedclip zero-shot: launches {launches}, expected {want}")
+    log(f"[slice] cli.test --model biomedclip: launches {launches} (12 blocks x 2 image "
+        f"batches; the text tower none); {wall:.1f} s wall")
+    out["launches"]["biomedclip_zeroshot"] = launches
+    out["biomedclip"] = zeroshot_from_artifact(save_dir, metrics, n)
+
+    q_dir, q_manifest = queries
+    prompts = [COVIDX_LABEL_TO_TEXT[i] for i in range(3)]
+    vocab = str(workdir / "siglip_vocab.txt")
+    n_vocab = write_vocab(vocab, prompts)
+    text = SiglipTextBackbone(vocab_size=n_vocab)
+    siglip_model.init_weights_(text, torch.Generator().manual_seed(20))
+    # the dual encoder's text tower and logits in HF SiglipModel's layout; the
+    # CLI reads no vision_model. tensor, so the file leaves them out
+    sd = {f"text_model.{k}": v for k, v in randomize_norms_(text, 21).state_dict().items()}
+    sd.update(logit_scale=torch.full((1,), float(np.log(10.0))), logit_bias=torch.full((1,), -10.0))
+    dual = str(workdir / "medsiglip_dual.pt")
+    torch.save(sd, dual)
+    del text, sd
+    labels = np.asarray(common.build_dataset(argparse.Namespace(
+        dataset="covid", dataset_dir=q_dir, test_image_list=q_manifest), "test").labels)
+    n_q = len(labels)
+    for path, qkv72 in (("medsiglip_zeroshot", None), ("medsiglip_zeroshot_fused_ln_qkv72", "1")):
+        buf = io.StringIO()
+        with env_flags(XMIR_FUSED_LN_QKV72=qkv72, **FUSED_VIT), contextlib.redirect_stdout(buf):
+            reset_launches()
+            t0 = time.perf_counter()
+            result = zeroshot_cli.main([
+                "--dataset", "covid", "--dataset-dir", q_dir, "--test-image-list", q_manifest,
+                "--model", "medsiglip", "--embedding-dim", "1152", "--resume", siglip_pt,
+                "--device", "cuda", "--dual-checkpoint", dual, "--vocab", vocab,
+                "--text-vocab-size", str(n_vocab), "--output", str(workdir / f"{path}.json")])
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        printed = buf.getvalue()
+        log(printed.rstrip())
+        image_batches = -(-n_q // 32)
+        want = dict.fromkeys(WRAPPERS, 0)
+        want["K2"] = SIGLIP["depth"] * (image_batches + 1)
+        want["K7"] = want["K2"] if qkv72 else 0
+        check(launches == want, f"{path}: launches {launches}, expected {want} (27 layers x "
+                                f"({image_batches} image batches + the prompts))")
+        preds = np.asarray(json.loads(printed.split(">> predictions: ")[1].splitlines()[0]))
+        check(preds.shape == labels.shape and ((preds >= 0) & (preds < 3)).all(),
+              "bad predictions")
+        confusion = np.zeros((3, 3), int)
+        np.add.at(confusion, (labels, preds), 1)
+        check(abs(result["accuracy"] - np.mean(preds == labels)) <= 1e-12
+              and result["confusion"] == confusion.tolist(),
+              f"{path}: accuracy / confusion differ from those of the printed predictions")
+        check(json.load(open(workdir / f"{path}.json")) == result, "--output != the result")
+        log(f"[slice] cli.zeroshot --model medsiglip ({path}): launches {launches} (27 layers x "
+            f"({image_batches} image batch + the 3 prompts at 64 tokens)); accuracy "
+            f"{result['accuracy']:.4f} and the confusion matrix equal to numpy's from the printed "
+            f"predictions; {wall:.1f} s wall")
+        out["launches"][path] = launches
+        out[path] = {"accuracy": result["accuracy"], "confusion": result["confusion"]}
+    return out
+
+
+# bf16 unit embeddings of the timed MedSigLIP (K2, or K7 + K2) and BiomedCLIP
+# (K7 + K2) against the same model on the eager path: 2^-10 and 2^-9 seen
+# (PERF.md); twice the larger is allowed
+SIGLIP_EMBED_BF16_TOL = 4e-3
+
+
+def phase_clip_rates():
+    """K7 at the SigLIP shape (B = 16, N = 1024, C = 1152, H = 16) against its
+    plain version and its product alone; K2 at (256, 1024, 72) against its
+    plain version and SDPA (the default dispatch's backend, pinned once
+    outside the timed windows); the bf16 MedSigLIP-448 embed at batch 16 with
+    K2, with K7 + K2 and eager, and BiomedCLIP's image tower at batch 64:
+    CUDA events in turns and device_ms, the peak memory."""
+    gen = torch.Generator().manual_seed(38)
+    c, h, n, b = SIGLIP["c"], SIGLIP["heads"], 1024, 16
+    hd, dtype = c // h, torch.bfloat16
+    out = {}
+    with torch.inference_mode():
+        x, lns, lnb, w, bias = _ln_inputs(gen, b, n, c, 3 * c, dtype)
+        y_rows, w_t = ld._ln_rows(x.reshape(b * n, c), lns, lnb, 1e-6), w.t().contiguous()
+        q, k, v = _attn_inputs(gen, b * h, n, hd, dtype)
+        q4, k4, v4 = (t.reshape(b, h, n, hd) for t in (q, k, v))
+        sc = hd ** -0.5
+        backend = sdpa_backend(lambda: F.scaled_dot_product_attention(q4, k4, v4))
+        fns = {
+            "K2": lambda: va.vit_attention_fused(q, k, v, sc),
+            "K2 plain": lambda: va.attention_plain(q, k, v, sc),
+            "K2 library": lambda: F.scaled_dot_product_attention(q4, k4, v4),
+            "K2 with statistics": lambda: va.launch_attention_forward(q, k, v, sc, True),
+            "K7": lambda: ld.ln_qkv_fused(x, lns, lnb, w, bias, h),
+            "K7 plain": lambda: ld.ln_qkv_reference(x, lns, lnb, w, bias, h),
+            "K7 product": lambda: torch.matmul(y_rows, w_t),
+        }
+        errs = {"K2": vit_err(fns["K2"](), fns["K2 plain"](), k2_agreement(q, k, v, sc),
+                              "K2 at the SigLIP shape"), "K7": {}}
+        for o, r in zip(fns["K7"](), fns["K7 plain"]()):
+            _worst(errs["K7"], vit_err(o, r, ld.agreement, "K7 at the SigLIP shape"))
+        ms, dev = k2_against_library(fns, backend)
+        for key in ("K7", "K7 product"):
+            dev[key] = device_ms(fns[key])
+        bounds = {"K2": (4 * b * h * n * n * hd, 4 * b * n * c * 2),
+                  "K7": (2 * b * n * c * 3 * c, (4 * b * n * c + 3 * c * c) * 2 + 5 * c * 4)}
+        for key, (ops, nbytes) in bounds.items():
+            bound_ms, bound_by = bound(ops, nbytes, "bfloat16")
+            out[key] = {"ms": ms[key], "plain_ms": ms[f"{key} plain"], "device_ms": dev[key],
+                        "bound_ms": bound_ms, "bound_by": bound_by, "agreement": errs[key]}
+            log(f"[rates] {key} bfloat16 at the SigLIP shape: {ms[key]:.3f} ms by events, "
+                f"device time {dev[key]:.4f} ms ({ops / dev[key] / 1e9:.1f} TFLOP/s; bound "
+                f"{bound_ms:.4f} ms by {bound_by}) vs plain {ms[f'{key} plain']:.3f} ms; "
+                f"agreement {errs[key]}")
+        out["K2"].update(library=backend, library_ms=ms["K2 library"],
+                         library_device_ms=dev["K2 library"],
+                         stats_device_ms=dev["K2 with statistics"],
+                         shape="bf16, BH=256 N=1024 hd=72 (MedSigLIP-448 at B=16)")
+        out["K7"].update(library_ms=None, product_ms=ms["K7 product"],
+                         product_device_ms=dev["K7 product"],
+                         shape="bf16, B=16 N=1024 C=1152 H=16 (MedSigLIP-448 at B=16)")
+        log(f"[rates] K2 at the SigLIP shape: library call (SDPA, {backend}) "
+            f"{ms['K2 library']:.3f} ms by events, device time {dev['K2 library']:.4f} ms; "
+            f"K7's product alone (torch.matmul, (16384 x 1152) . (1152 x 3456)) "
+            f"{ms['K7 product']:.3f} ms, device time {dev['K7 product']:.4f} ms")
+        del x, w, y_rows, w_t, q, k, v, q4, k4, v4, fns
+        torch.cuda.empty_cache()
+    out["medsiglip_embed"] = _clip_embed_rate(
+        "medsiglip", 16, 448, SIGLIP["depth"], seed=39,
+        paths={"kernels": {}, "kernels + K7": {"XMIR_FUSED_LN_QKV72": "1"},
+               "eager": {"XMIR_FLASH_ATTN": "0", "XMIR_FUSED_LN": "0"}})
+    out["biomedclip_embed"] = _clip_embed_rate(
+        "biomedclip", 64, 224, BIOMEDCLIP_DEPTH, seed=40,
+        paths={"kernels": {}, "eager": {"XMIR_FLASH_ATTN": "0", "XMIR_FUSED_LN": "0"}})
+    return out
+
+
+def _clip_embed_rate(name, batch, size, depth, seed, paths):
+    """A registry model's bf16 embed (weights and input) on the card, device
+    only: the launches of each path ("kernels": K2 in every layer, K7 too
+    where the gate takes it; "kernels + K7": XMIR_FUSED_LN_QKV72=1), the
+    unit embeddings of every path within SIGLIP_EMBED_BF16_TOL of the eager
+    path's, CUDA events in turns, device_ms (or "not measured" where a
+    forward's launches outrun the launch queue), the peak memory and a
+    torch.profiler breakdown of the default path."""
+    model, _ = create_model(name, generator=torch.Generator().manual_seed(seed))
+    model = randomize_norms_(model, seed).to("cuda", torch.bfloat16).eval()
+    x = torch.randn((batch, size, size, 3), generator=torch.Generator().manual_seed(seed)).to(
+        "cuda", torch.bfloat16)
+    embed = make_embed_fn(model)
+
+    def run(flags):
+        def fn():
+            with env_flags(**flags):
+                return embed(x)
+        return fn
+
+    fns = {path: run(flags) for path, flags in paths.items()}
+    out = {"launches": {}, "embedding_max_abs_err_vs_eager": {}}
+    with env_flags(XMIR_FLASH_ATTN=None, XMIR_FUSED_LN=None, XMIR_FUSED_LN_QKV=None,
+                   XMIR_FUSED_LN_QKV72=None, XMIR_FUSED_LN_MLP=None):
+        ref = fns["eager"]()
+        for path, fn in fns.items():
+            reset_launches()
+            e = fn()
+            launches = read_launches()
+            k7 = depth if (path != "eager" and (name == "biomedclip" or "K7" in path)) else 0
+            k2 = depth if path != "eager" else 0
+            check(launches["K2"] == k2 and launches["K7"] == k7,
+                  f"{name} bf16 {path}: launches {launches}, expected K2 {k2} and K7 {k7}")
+            diff = (e - ref).abs().max().item()
+            check(e.shape[0] == batch and torch.isfinite(e).all() and
+                  diff <= SIGLIP_EMBED_BF16_TOL, f"{name} bf16 {path}: embeddings {diff} from "
+                                                 f"the eager path's")
+            out["launches"][path] = {"K2": launches["K2"], "K7": launches["K7"]}
+            out["embedding_max_abs_err_vs_eager"][path] = diff
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fns["kernels"]()
+        torch.cuda.synchronize()
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms, runs = _in_turns(fns)
+        dev = {path: [] for path in fns}
+        for path in list(fns) + list(fns)[::-1]:  # in turns
+            try:
+                dev[path].append(device_ms(fns[path], reps=3))
+            except SpinTooShort:  # a forward's launches outrun the launch queue
+                pass
+        dev = {p: (statistics.median(v) if v else None) for p, v in dev.items()}
+        out["profile"] = profile_forward(f"{name} bf16 batch {batch} @{size} with the kernels",
+                                         embed, x, {"K2": K2_BF16_KERNELS, "K7": K7_KERNELS})
+    out.update(ms=ms, device_ms=dev, img_per_s={p: batch / t * 1e3 for p, t in ms.items()})
+    log(f"[rates] {name} bf16 batch {batch} @{size} (device only): "
+        + "; ".join(f"{p} {ms[p]:.2f} ms = {batch / ms[p] * 1e3:.0f} img/s by events, "
+                    + (f"{dev[p]:.4f} ms by device_ms" if dev[p] else "device_ms not measured")
+                    for p in ms)
+        + f"; launches {out['launches']}; embeddings vs the eager path's "
+        f"{out['embedding_max_abs_err_vs_eager']} (bound {SIGLIP_EMBED_BF16_TOL}); peak "
+        f"{out['peak_gib']:.2f} GiB; runs "
+        f"{({p: [round(t, 2) for t in v] for p, v in runs.items()})}")
+    del model, x
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-swin", action="store_true",
@@ -4615,6 +5146,11 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         distill = phase_distill(Path(tmp))
     nd_rates = phase_nih_distill_rates()
+    clip_errs = phase_kernel_siglip()
+    with tempfile.TemporaryDirectory() as tmp:
+        c_slices, siglip_pt, queries = phase_slice_clip(Path(tmp))
+        zs = phase_clip_zeroshot(Path(tmp), siglip_pt, queries)
+    clip_rates = phase_clip_rates()
     by_path = {key: {"densenet121": d_launches[key], "convnextv2": c_launches[key],
                      **{path: v["launches"][key] for path, v in v_slices.items()},
                      **{path: v["launches"][key] for path, v in s_slices.items()},
@@ -4626,10 +5162,13 @@ def main():
                      "swinv2_train": sw_slice["launches"][key],
                      "explainers": ex["launches"][key], "demo": demo["launches"][key],
                      **{path: v[key] for path, v in nih["launches"].items()},
-                     **{path: v[key] for path, v in distill["launches"].items()}}
+                     **{path: v[key] for path, v in distill["launches"].items()},
+                     **{path: v["launches"][key] for path, v in c_slices.items()},
+                     **{path: v[key] for path, v in zs["launches"].items()}}
                for key in WRAPPERS}
     slice_errs = [slice_err, c_slice_err, nih["hits_err"], distill["hits_err"]] + [
-        v["err"] for v in v_slices.values()] + [v["err"] for v in s_slices.values()]
+        v["err"] for v in v_slices.values()] + [v["err"] for v in s_slices.values()] + [
+        v["err"] for v in c_slices.values()]
     f32 = serving["float32 Q=1024 k=10"]
     k1 = dict(KERNELS["K1"], launches=sum(by_path["K1"].values()),
               max_abs_err=max(max_err, *(v["max_abs_err"] for v in serving.values()),
@@ -4651,9 +5190,10 @@ def main():
     kernels = [k1, k1s]
     for key in ("K2", "K7", "K8"):
         bf16 = vit_rates[key]["bfloat16"]
+        errs = [vit_errs[key]] + ([clip_errs[key]] if key in clip_errs else [])
         kernels.append(dict(
             KERNELS[key], launches=sum(by_path[key].values()),
-            max_abs_err=max(e["max_abs_err"] for e in vit_errs[key].values()),
+            max_abs_err=max(e["max_abs_err"] for d in errs for e in d.values()),
             err_by_dtype=vit_errs[key], ms=bf16["ms"], plain_ms=bf16["plain_ms"],
             bound_ms=bf16["bound_ms"], bound_by=bf16["bound_by"], library_ms=bf16["library_ms"],
             library=bf16.get("library"), device_ms=bf16.get("device_ms"),
@@ -4731,6 +5271,11 @@ def main():
         ms_by_shape=tail_bwd_rates, function_grad_rel_err=tail_bwd_errs["block"],
         launches_by_path=by_path["K10"]))
     by_name = {k["name"]: k for k in kernels}
+    for key in ("K2", "K7"):
+        by_name[KERNELS[key]["name"]].update(siglip=clip_rates[key],
+                                             siglip_err_by_dtype=clip_errs[key])
+    by_name["ln_qkv_fused"]["siglip_last_tile_and_head_edges"] = clip_errs[
+        "K7 last tile and head edges"]
     by_name["convnext_block_fused"]["embedding_max_abs_err_vs_plain_tail"] = emb_err
     by_name["convnext_mlp_grn_fused"]["main_path"] = (
         "none: the JAX package reaches it only from its tests")
@@ -4759,7 +5304,13 @@ def main():
                           path: v["embedding_max_abs_err"] for path, v in v_slices.items()},
                       "swinv2_embedding_max_abs_err": {
                           path: v["embedding_max_abs_err"] for path, v in s_slices.items()
-                          if "embedding_max_abs_err" in v}}))
+                          if "embedding_max_abs_err" in v},
+                      "clip_embedding_max_abs_err": {
+                          path: v["embedding_max_abs_err"] for path, v in c_slices.items()},
+                      "clip_zeroshot": {k: v for k, v in zs.items() if k != "launches"},
+                      "ptxas_c75xx": clip_errs["ptxas C75xx"],
+                      "medsiglip_embed": clip_rates["medsiglip_embed"],
+                      "biomedclip_embed": clip_rates["biomedclip_embed"]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -139,14 +139,23 @@ def test_registry_spec_matches_jax():
     model, spec = registry.create_model("densenet121", embedding_dim=16)
     assert isinstance(model, DenseNet121Embedder) and model.fc.out_features == 16
     assert registry.list_models() == [
-        "convnextv2", "convnextv2_dino_distill", "convnextv2_pcam", "convnextv2_raddino_distill",
-        "convnextv2_sra", "densenet121", "dinov2", "nih_convnextv2", "nih_dinov2", "swinv2"]
+        "biomedclip", "conceptclip", "convnextv2", "convnextv2_dino_distill", "convnextv2_pcam",
+        "convnextv2_raddino_distill", "convnextv2_sra", "densenet121", "dinov2", "medsiglip",
+        "nih_convnextv2", "nih_dinov2", "swinv2"]
 
 
 @pytest.mark.parametrize("name", ["biomedclip", "conceptclip", "medsiglip", "resnet50", "nope"])
 def test_registry_other_models_are_not_ported(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        registry.get_spec(name)
+    """The CLIP-family specs equal the JAX package's; a model not yet
+    ported, or unknown, raises."""
+    if name in ("resnet50", "nope"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            registry.get_spec(name)
+        return
+    spec, ref = registry.get_spec(name), jax_registry.get_spec(name)
+    for field in ("name", "input_size", "resize_size", "embed_dim", "mean", "std", "interpolation"):
+        assert getattr(spec, field) == getattr(ref, field), field
+    assert spec.builder.__name__ == ref.builder.__name__
 
 
 def test_embed_fn_returns_f32_without_grad():

@@ -500,16 +500,21 @@ def test_cli_slice_matches_the_jax_clis(tmp_path, clean_flags, narrow_swinv2,
 
 def test_cli_test_multilabel_and_biomedclip(tmp_path, clean_flags, narrow_swinv2):
     """The multi-label branch writes its artifact without a dists matrix; the
-    zero-shot branch names the ROADMAP item it waits for; --device defaults to
-    cuda and raises without a card."""
+    zero-shot branch runs (a narrow BiomedCLIP) and writes its own artifact;
+    --device defaults to cuda and raises without a card."""
     args = ["--dataset", "synthetic_ml", "--model", "swinv2", "-j", "2"]
     metrics = test_cli.main(args + ["--device", "cpu", "--save-dir", str(tmp_path)])
     art = np.load(str(tmp_path / "evaluation_results.npz"))
     assert set(art.files) == {"embeds", "labels", "metrics"} and art["labels"].ndim == 2
     assert {"mAP@jaccard>0.25", "mAP@jaccard>0.5", "P@1", "R@20"} <= set(metrics)
     assert all(np.isfinite(v) for v in metrics.values())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 6"):
-        test_cli.main(["--model", "biomedclip", "--device", "cpu"])
+    zs = test_cli.main(["--dataset", "synthetic", "--model", "biomedclip", "--device", "cpu",
+                        "--clip-dim", "32", "--clip-depth", "1", "--clip-image-size", "64",
+                        "-j", "2", "--save-dir", str(tmp_path / "zs")])
+    art = np.load(str(tmp_path / "zs" / "biomedclip_zeroshot.npz"))
+    assert set(art.files) == {"embeds", "labels", "dists", "predictions", "class_names",
+                              "text_prompts", "metrics"} and art["embeds"].shape == (32, 512)
+    assert 0 <= zs["zero_shot_accuracy"] <= 100 and np.isfinite(zs["mAP"])
     clean_flags.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         test_cli.main(args)

@@ -119,10 +119,13 @@ def build_model(args, device, train: bool = False):
     """(model on ``device``, spec), in eval mode unless ``train``. Weights
     are drawn from a torch.Generator seeded with --seed, then --resume (a
     torch .pt/.pth state dict) replaces them with a strict load: the whole
-    DenseNet121 embedder, or a ConvNeXtV2, SwinV2, DINOv2 or ``nih_dinov2``
-    model's backbone (its fc / SRA / PCAM / projection head keeps its init, as
-    the JAX package's strict=False merge does), or the whole model from a
-    checkpoint of the train CLI (models/convert.py::load_torch_checkpoint)."""
+    DenseNet121 embedder or open_clip BiomedCLIP model, or a ConvNeXtV2,
+    SwinV2, DINOv2, ``nih_dinov2`` or MedSigLIP model's backbone (its fc / SRA
+    / PCAM / projection head keeps its init, as the JAX package's
+    strict=False merge does), or the whole model from a checkpoint of the
+    train CLI (models/convert.py::load_torch_checkpoint). --embedding-dim
+    goes to a MedSigLIP model's ``embed_dim``, to every other model's
+    ``embedding_dim``."""
     from ..models.convert import load_torch_checkpoint
     from ..models.registry import create_model
 
@@ -130,7 +133,8 @@ def build_model(args, device, train: bool = False):
     # the SRA and NIH dual-head models' output widths are fixed, as in the
     # reference; a distillation model takes --embedding-dim into its student
     if getattr(args, "embedding_dim", None) and args.model not in FIXED_WIDTH_MODELS:
-        overrides["embedding_dim"] = args.embedding_dim
+        overrides["embed_dim" if args.model == "medsiglip" else "embedding_dim"] = (
+            args.embedding_dim)
     if getattr(args, "num_labels", None) and args.model == "densenet121":
         overrides["num_labels"] = args.num_labels
     if args.model == "convnextv2_sra":

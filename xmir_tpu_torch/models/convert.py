@@ -1,6 +1,8 @@
 """Weights into the port's DenseNet, ConvNeXtV2, SwinV2 and ViT embedders, the
-distillation models and the NIH dual-head models: from the JAX package's
-variable tree, and from a reference CheXNet / torchvision or timm ``.pt``.
+distillation models, the NIH dual-head models and the CLIP-family models
+(SigLIP / MedSigLIP, ConceptCLIP, BiomedCLIP and their text towers): from the
+JAX package's variable tree, and from a reference CheXNet / torchvision,
+timm, HF or open_clip ``.pt``.
 
 Conventions (the inverse of xmir_tpu/models/convert.py):
   conv   flax (kh, kw, I, O)  -> torch (O, I, kh, kw)
@@ -10,6 +12,9 @@ Conventions (the inverse of xmir_tpu/models/convert.py):
   layernorm scale/bias        -> weight/bias
   ViT qkv   flax (C, 3C), columns q | k | v with the heads inside each ->
   torch (3C, C), rows in the same order (timm's ``qkv.weight``)
+  embed     flax {"embedding": (V, D)} -> torch ``weight`` (V, D)
+  SigLIP pooling head  flax attn_q / attn_k / attn_v -> torch
+  ``attention.in_proj_weight`` (3D, D) rows q | k | v (nn.MultiheadAttention)
 """
 from __future__ import annotations
 
@@ -30,6 +35,10 @@ _SWIN_BUFFERS = ("relative_coords_table", "relative_position_index", "attn_mask"
 _TORCH_PREFIXES = ("densenet121.0.", "densenet121.features.", "features.")
 # wrappers around a timm backbone in checkpoints (xmir_tpu/cli/common.py:154-165)
 _TIMM_PREFIXES = ("convnext.", "swinv2.", "backbone.", "model.")
+
+
+def _to_torch(sd) -> Dict[str, torch.Tensor]:
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
 
 
 def _conv(k):
@@ -90,7 +99,7 @@ def densenet_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
         for head in ("fc", "classification_head"):
             if head in params:
                 _dense(sd, head, params[head])
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    return _to_torch(sd)
 
 
 def embedder_state_dict_from_torch(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -169,7 +178,7 @@ def convnextv2_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
         sd["pcam.classifier.bias"] = np.asarray(pcam["classifier_bias"])
         if "fc" in pcam:
             _dense(sd, "pcam.fc", pcam["fc"])
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    return _to_torch(sd)
 
 
 def convnextv2_backbone_state_dict_from_torch(
@@ -231,7 +240,7 @@ def vit_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
         sd = {VIT_PREFIX + k: v for k, v in _vit_backbone_state_dict(params["backbone"]).items()}
         if "fc" in params:
             _dense(sd, "fc", params["fc"])
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    return _to_torch(sd)
 
 
 def vit_backbone_state_dict_from_torch(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -295,7 +304,7 @@ def swinv2_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
               for k, v in _swin_backbone_state_dict(params["backbone"]).items()}
         if "fc" in params:
             _dense(sd, "fc", params["fc"])
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    return _to_torch(sd)
 
 
 def swinv2_backbone_state_dict_from_torch(
@@ -331,7 +340,7 @@ def nih_dual_head_state_dict_from_jax(variables, backbone: str) -> Dict[str, tor
     sd = {f"backbone.{k}": v for k, v in to_timm(params["backbone"]).items()}
     for name in ("proj_fc1", "proj_fc2", "classifier"):
         _dense(sd, f"head.{name}", params["head"][name])
-    return {k: torch.from_numpy(np.array(v, dtype=np.float32)) for k, v in sd.items()}
+    return _to_torch(sd)
 
 
 def distill_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
@@ -341,9 +350,169 @@ def distill_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     params = variables["params"]
     sd = {f"student.{k}": v
           for k, v in convnextv2_state_dict_from_jax({"params": params["student"]}).items()}
-    sd.update({f"teacher.{k}": torch.from_numpy(np.array(v, dtype=np.float32))
-               for k, v in _vit_backbone_state_dict(params["teacher"]).items()})
+    sd.update(_to_torch({f"teacher.{k}": v
+                         for k, v in _vit_backbone_state_dict(params["teacher"]).items()}))
     return sd
+
+
+def _siglip_layers(sd, prefix, params):
+    for i in _numbered(params, "layer"):
+        pre, lp = f"{prefix}encoder.layers.{i}", params[f"layer{i}"]
+        _ln(sd, f"{pre}.layer_norm1", lp["layer_norm1"])
+        _ln(sd, f"{pre}.layer_norm2", lp["layer_norm2"])
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _dense(sd, f"{pre}.self_attn.{proj}", lp["self_attn"][proj])
+        _dense(sd, f"{pre}.mlp.fc1", lp["mlp"]["fc1"])
+        _dense(sd, f"{pre}.mlp.fc2", lp["mlp"]["fc2"])
+
+
+def _siglip_vision_state_dict(params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A SiglipVisionBackbone tree -> HF SiglipVisionTransformer keys (the
+    inverse of xmir_tpu/models/convert.py::convert_siglip_vision), any depth."""
+    sd = {f"{prefix}embeddings.patch_embedding.weight": _conv(params["patch_embedding"]["kernel"]),
+          f"{prefix}embeddings.patch_embedding.bias": np.asarray(params["patch_embedding"]["bias"]),
+          f"{prefix}embeddings.position_embedding.weight": np.asarray(
+              params["position_embedding"])}
+    _siglip_layers(sd, prefix, params)
+    _ln(sd, f"{prefix}post_layernorm", params["post_layernorm"])
+    if "head" in params:
+        head = params["head"]
+        sd[f"{prefix}head.probe"] = np.asarray(head["probe"])
+        qkv = [head[f"attn_{t}"] for t in "qkv"]
+        sd[f"{prefix}head.attention.in_proj_weight"] = np.concatenate(
+            [np.transpose(np.asarray(p["kernel"])) for p in qkv])
+        sd[f"{prefix}head.attention.in_proj_bias"] = np.concatenate(
+            [np.asarray(p["bias"]) for p in qkv])
+        _dense(sd, f"{prefix}head.attention.out_proj", head["attn_out"])
+        _ln(sd, f"{prefix}head.layernorm", head["layernorm"])
+        _dense(sd, f"{prefix}head.mlp.fc1", head["mlp"]["fc1"])
+        _dense(sd, f"{prefix}head.mlp.fc2", head["mlp"]["fc2"])
+    return sd
+
+
+def _siglip_text_state_dict(params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A SiglipTextBackbone tree -> HF SiglipTextTransformer keys."""
+    sd = {f"{prefix}embeddings.token_embedding.weight": np.asarray(
+              params["token_embedding"]["embedding"]),
+          f"{prefix}embeddings.position_embedding.weight": np.asarray(
+              params["position_embedding"])}
+    _siglip_layers(sd, prefix, params)
+    _ln(sd, f"{prefix}final_layer_norm", params["final_layer_norm"])
+    _dense(sd, f"{prefix}head", params["head"])
+    return sd
+
+
+def _bert_state_dict(params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A BertTextBackbone tree -> HF BertModel keys (the inverse of
+    xmir_tpu/models/convert.py::convert_bert), any depth."""
+    sd = {f"{prefix}embeddings.{name}.weight": np.asarray(params[name]["embedding"])
+          for name in ("word_embeddings", "position_embeddings", "token_type_embeddings")}
+    _ln(sd, f"{prefix}embeddings.LayerNorm", params["embeddings_norm"])
+    for i in _numbered(params, "layer"):
+        pre, lp = f"{prefix}encoder.layer.{i}", params[f"layer{i}"]
+        for name in ("query", "key", "value"):
+            _dense(sd, f"{pre}.attention.self.{name}", lp["attention"][name])
+        _dense(sd, f"{pre}.attention.output.dense", lp["attention_output"])
+        _ln(sd, f"{pre}.attention.output.LayerNorm", lp["attention_norm"])
+        _dense(sd, f"{pre}.intermediate.dense", lp["intermediate"])
+        _dense(sd, f"{pre}.output.dense", lp["output"])
+        _ln(sd, f"{pre}.output.LayerNorm", lp["output_norm"])
+    return sd
+
+
+def siglip_vision_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX package's SiglipVisionBackbone tree (numpy leaves) -> the
+    port's SiglipVisionBackbone state dict (HF layout)."""
+    return _to_torch(_siglip_vision_state_dict(variables["params"]))
+
+
+def medsiglip_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX package's MedSigLIPEmbedder tree (params["backbone"],
+    params["projection"]) -> the port's MedSigLIPEmbedder state dict."""
+    params = variables["params"]
+    sd = _siglip_vision_state_dict(params["backbone"], "backbone.")
+    proj = params["projection"]
+    _dense(sd, "projection.fc1", proj["fc1"])
+    _ln(sd, "projection.ln", proj["ln"])
+    _dense(sd, "projection.fc2", proj["fc2"])
+    return _to_torch(sd)
+
+
+def medsiglip_dual_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX package's MedSigLIPDualEncoder tree (params["vision"],
+    params["text"], logit_scale, logit_bias) -> the port's
+    MedSigLIPDualEncoder state dict (HF SiglipModel layout)."""
+    params = variables["params"]
+    sd = _siglip_vision_state_dict(params["vision"], "vision_model.")
+    sd.update(_siglip_text_state_dict(params["text"], "text_model."))
+    for name in ("logit_scale", "logit_bias"):
+        sd[name] = np.asarray(params[name]).reshape(1)
+    return _to_torch(sd)
+
+
+def bert_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX package's BertTextBackbone tree -> the port's
+    BertTextBackbone state dict (HF BertModel layout)."""
+    return _to_torch(_bert_state_dict(variables["params"]))
+
+
+def conceptclip_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX package's ConceptCLIPModel tree (params["visual"],
+    params["text"], text_projection, logit_scale, logit_bias, optional fc) ->
+    the port's ConceptCLIPModel state dict."""
+    params = variables["params"]
+    sd = _siglip_vision_state_dict(params["visual"], "visual.")
+    sd.update(_bert_state_dict(params["text"], "text."))
+    _dense(sd, "text_projection", params["text_projection"])
+    for name in ("logit_scale", "logit_bias"):
+        sd[name] = np.asarray(params[name]).reshape(())
+    if "fc" in params:
+        _dense(sd, "fc", params["fc"])
+    return _to_torch(sd)
+
+
+def biomedclip_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX package's BiomedCLIPModel tree (params["visual"], visual_proj,
+    params["text"], text_proj1, text_proj2, logit_scale) -> the port's
+    BiomedCLIPModel state dict (open_clip's layout)."""
+    params = variables["params"]
+    sd = {f"visual.trunk.{k}": v for k, v in _vit_backbone_state_dict(params["visual"]).items()}
+    _dense(sd, "visual.head.proj", params["visual_proj"])
+    sd.update(_bert_state_dict(params["text"], "text.transformer."))
+    _dense(sd, "text.proj.0", params["text_proj1"])
+    _dense(sd, "text.proj.2", params["text_proj2"])
+    sd["logit_scale"] = np.asarray(params["logit_scale"]).reshape(())
+    return _to_torch(sd)
+
+
+def siglip_vision_state_dict_from_torch(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An HF ``SiglipVisionModel`` state dict -> SiglipVisionBackbone keys.
+    Strips a ``module.`` DataParallel prefix, one of the wrappers
+    ``convnext.``/``swinv2.``/``backbone.``/``model.`` and ``vision_model.``
+    (xmir_tpu/cli/common.py:157-174), drops the ``embeddings.position_ids``
+    buffer some HF versions save (the port counts positions itself) and
+    keeps the tower's keys."""
+    out = {}
+    for key, value in sd.items():
+        key = key.replace("module.", "")
+        for prefix in _TIMM_PREFIXES:
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+                break
+        key = key.removeprefix("vision_model.")
+        if key.startswith(("embeddings.", "encoder.", "post_layernorm.", "head.")) and (
+                key != "embeddings.position_ids"):
+            out[key] = value
+    return out
+
+
+def biomedclip_state_dict_from_open_clip(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An open_clip BiomedCLIP state dict -> BiomedCLIPModel keys: the same
+    names, a ``module.`` DataParallel prefix stripped and the HF text
+    tower's ``embeddings.position_ids`` buffer dropped (older transformers
+    save it; the port counts positions itself)."""
+    return {k.replace("module.", ""): v for k, v in sd.items()
+            if not k.endswith("text.transformer.embeddings.position_ids")}
 
 
 def load_torch_checkpoint(model: torch.nn.Module, path: str):
@@ -353,19 +522,25 @@ def load_torch_checkpoint(model: torch.nn.Module, path: str):
     optimiser's) loads whole, strictly, into any model. Otherwise: a
     DenseNet121Embedder takes the whole state dict with strict=True; a
     ConvNeXtV2, SwinV2 or DINOv2 embedder and a DINOv2 NIH dual-head model
-    take a timm backbone with strict=True and keep their head (fc, SRA, PCAM,
-    projection) as initialised. No timm layout is wired for a ConvNeXtV2 NIH
-    dual-head model (the JAX package raises too) or for a distillation model:
-    the JAX package merges a timm backbone into params["backbone"], a key
-    that model lacks (it has "student" and "teacher"), so it loads nothing;
-    this loader raises instead."""
+    take a timm backbone with strict=True, and a MedSigLIP embedder an HF
+    ``SiglipVisionModel``, each keeping its head (fc, SRA, PCAM, projection)
+    as initialised; a BiomedCLIP model takes an open_clip state dict whole
+    with strict=True (the counterpart of the JAX CLI's merge of a BiomedCLIP
+    checkpoint). No layout is wired for a ConvNeXtV2 NIH dual-head model or
+    a ConceptCLIP model (the JAX package raises too) or for a distillation
+    model: the JAX package merges a timm backbone into params["backbone"], a
+    key that model lacks (it has "student" and "teacher"), so it loads
+    nothing; this loader raises instead."""
+    from .biomedclip import BiomedCLIPModel
     from .embedders import (
+        ConceptCLIPModel,
         ConvNeXtV2Embedder,
         ConvNeXtV2PCAMEmbedder,
         ConvNeXtV2SRAEmbedder,
         DenseNet121Embedder,
         DinoV2Embedder,
         DistillEmbedder,
+        MedSigLIPEmbedder,
         NIHDualHeadModel,
         SwinV2Embedder,
     )
@@ -395,6 +570,19 @@ def load_torch_checkpoint(model: torch.nn.Module, path: str):
         model.backbone.load_state_dict(backbone, strict=True)
         print(f">> loaded the SwinV2 backbone ({len(backbone)} tensors, strict); "
               "the head keeps its init")
+    elif isinstance(model, MedSigLIPEmbedder):
+        backbone = siglip_vision_state_dict_from_torch(sd)
+        model.backbone.load_state_dict(backbone, strict=True)
+        print(f">> loaded the SigLIP vision tower ({len(backbone)} tensors, strict); "
+              "the projection keeps its init")
+    elif isinstance(model, BiomedCLIPModel):
+        whole = biomedclip_state_dict_from_open_clip(sd)
+        model.load_state_dict(whole, strict=True)
+        print(f">> loaded the open_clip BiomedCLIP model ({len(whole)} tensors, strict)")
+    elif isinstance(model, ConceptCLIPModel):
+        raise ValueError(
+            f"{path} is not a checkpoint of the train CLI, and no torch-checkpoint converter is "
+            "wired for a ConceptCLIP model (the JAX package raises too)")
     elif isinstance(model, DistillEmbedder):
         raise ValueError(
             f"{path} is not a checkpoint of the train CLI, and no timm layout is wired for a "

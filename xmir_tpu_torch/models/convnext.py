@@ -37,15 +37,17 @@ from .activations import adaptive_gelu
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last (channel) axis, eps 1e-6, flax's fast variance."""
+    """LayerNorm over the last (channel) axis with flax's fast variance, eps
+    1e-6 unless given (BERT's 1e-12, the MedSigLIP projection's 1e-5)."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim))
         self.bias = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x):
-        return layer_norm(x, self.weight, self.bias)
+        return layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class GlobalResponseNorm(nn.Module):

@@ -1,16 +1,19 @@
 """Embedding models (port of DenseNet121Embedder, the ConvNeXtV2 embedders,
-SwinV2Embedder, DinoV2Embedder, DistillEmbedder and NIHDualHeadModel in
-xmir_tpu/models/embedders.py).
+SwinV2Embedder, DinoV2Embedder, MedSigLIPEmbedder, DistillEmbedder,
+NIHDualHeadModel and ConceptCLIPModel in xmir_tpu/models/embedders.py).
 
 A convolutional or Swin embedder maps NHWC images to {"embedding": (B, D)
 L2-normalised, "features": NHWC map, "logits": ... when a classification
 head is set}; the ViT embedder to {"embedding", "tokens", "attentions"}; the
 NIH dual-head model to {"cls_embedding" or "backbone_embedding",
-"projection", "embedding", "logits"}.
+"projection", "embedding", "logits"}; the MedSigLIP embedder to {"embedding",
+"tokens", "encoder_tokens", "attentions"} and ConceptCLIP to {"embedding",
+"tokens"}.
 """
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -18,9 +21,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.distance import l2_normalize
-from . import convnext, swin, vit
+from . import convnext, siglip, swin, vit
+from .bert import BertTextBackbone
 from .densenet import DenseNetBackbone, init_weights_
-from .heads import NIHProjectionHead, PCAMPool, SRA
+from .heads import MedSigLIPProjection, NIHProjectionHead, PCAMPool, SRA
 
 
 class DenseNet121Embedder(nn.Module):
@@ -322,3 +326,78 @@ class NIHDualHeadModel(nn.Module):
         projection, logits = self.head(feat)
         return {**extra, "projection": projection,
                 "embedding": l2_normalize(projection, dim=1), "logits": logits}
+
+
+class MedSigLIPEmbedder(nn.Module):
+    """SigLIP vision tower + trainable projection head (reference
+    model.py:536-634). Keys: ``backbone.<HF SiglipVisionTransformer>`` and
+    ``projection.{fc1,ln,fc2}.*``. forward(x, output_attentions, token_delta)
+    returns {"embedding": (B, embed_dim) L2-normalised, "tokens",
+    "encoder_tokens", "attentions"}. The backbone widths default to
+    google/medsiglip-448's; narrower ones are for tests."""
+
+    def __init__(self, embed_dim: int = 512, *, img_size: int = 448, patch_size: int = 14,
+                 dim: int = 1152, depth: int = 27, num_heads: int = 16,
+                 intermediate: int = 4304, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.backbone = siglip.SiglipVisionBackbone(img_size, patch_size, dim, depth, num_heads,
+                                                    intermediate)
+        self.projection = MedSigLIPProjection(dim, embed_dim)
+        if generator is not None:
+            siglip.init_weights_(self, generator)
+
+    def forward(self, x, output_attentions: bool = False, token_delta=None):
+        out = self.backbone(x, output_attentions, token_delta)
+        emb = self.projection(out["pooled"])
+        return {"embedding": l2_normalize(emb, dim=1), "tokens": out["tokens"],
+                "encoder_tokens": out["encoder_tokens"], "attentions": out["attentions"]}
+
+
+class ConceptCLIPModel(nn.Module):
+    """Dual-encoder ConceptCLIP-style model (reference model.py:636-761): a
+    SigLIP SO400M image tower (``visual.``), a BERT text tower (``text.``),
+    ``text_projection`` to the image width, a learned ``logit_scale`` (ln 10)
+    and ``logit_bias`` (-10), and an optional ``fc`` (``embedding_dim``).
+    The widths follow the JAX module's rules: 16 heads (or the largest of 8,
+    4, 2, 1 dividing ``dim``), intermediate 4304 at dim 1152 (else
+    max(4 dim, 64)), a 768-wide text tower at dim 1152 (else ``dim`` wide)
+    with 12 heads (or fewer, dividing it)."""
+
+    def __init__(self, embedding_dim: Optional[int] = None, img_size: int = 384,
+                 dim: int = 1152, depth: int = 27, text_depth: int = 12,
+                 text_vocab: int = 30522, *, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        num_heads = next(h for h in (16, 8, 4, 2, 1) if dim % h == 0)
+        self.visual = siglip.SiglipVisionBackbone(
+            img_size=img_size, patch_size=14, dim=dim, depth=depth, num_heads=num_heads,
+            intermediate=4304 if dim == 1152 else max(4 * dim, 64))
+        text_dim = 768 if dim == 1152 else dim
+        text_heads = next(h for h in (12, 8, 4, 2, 1) if text_dim % h == 0)
+        self.text = BertTextBackbone(vocab_size=text_vocab, dim=text_dim, depth=text_depth,
+                                     num_heads=text_heads, intermediate=4 * text_dim)
+        self.text_projection = nn.Linear(text_dim, dim)
+        self.logit_scale = nn.Parameter(torch.tensor(math.log(10.0)))
+        self.logit_bias = nn.Parameter(torch.tensor(-10.0))
+        self.fc = nn.Linear(dim, embedding_dim) if embedding_dim else None
+        if generator is not None:
+            siglip.init_weights_(self, generator)
+
+    def encode_image(self, pixel_values):
+        out = self.visual(pixel_values)
+        return out["pooled"], out["tokens"]
+
+    def encode_text(self, input_ids, attention_mask=None):
+        return vit._dense(self.text(input_ids, attention_mask)["cls"], self.text_projection)
+
+    def forward_clip(self, pixel_values, input_ids, attention_mask=None):
+        img_feat, img_tokens = self.encode_image(pixel_values)
+        return {"image_features": img_feat,
+                "text_features": self.encode_text(input_ids, attention_mask),
+                "image_token_features": img_tokens, "logit_scale": self.logit_scale,
+                "logit_bias": self.logit_bias}
+
+    def forward(self, pixel_values):
+        img_feat, img_tokens = self.encode_image(pixel_values)
+        if self.fc is not None:
+            img_feat = vit._dense(img_feat, self.fc)
+        return {"embedding": l2_normalize(img_feat, dim=1), "tokens": img_tokens}

@@ -1,6 +1,7 @@
-"""Retrieval heads (port of SRA, PCAMPool and NIHProjectionHead in
-xmir_tpu/models/heads.py; reference model.py:120-163 and :199-247,
-nih_multilabel_retrieval.py:170-257). NHWC in, plain tensor code."""
+"""Retrieval heads (port of SRA, PCAMPool, NIHProjectionHead and
+MedSigLIPProjection in xmir_tpu/models/heads.py; reference model.py:120-163,
+:199-247 and :536-634, nih_multilabel_retrieval.py:170-257). NHWC in, plain
+tensor code."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,6 +11,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.distance import l2_normalize
+from .convnext import LayerNorm
 from .vit import _dense
 
 
@@ -94,3 +96,18 @@ class NIHProjectionHead(nn.Module):
     def forward(self, feats):
         projection = _dense(F.gelu(_dense(feats, self.proj_fc1)), self.proj_fc2)
         return projection, _dense(projection, self.classifier)
+
+
+class MedSigLIPProjection(nn.Module):
+    """Linear(in_dim -> 512) -> LayerNorm (eps 1e-5, flax's fast variance) ->
+    ReLU -> Linear(512 -> embed_dim), in the features' dtype promoted with the
+    weights'."""
+
+    def __init__(self, in_dim: int, embed_dim: int = 512):
+        super().__init__()
+        self.fc1 = nn.Linear(in_dim, 512)
+        self.ln = LayerNorm(512, eps=1e-5)
+        self.fc2 = nn.Linear(512, embed_dim)
+
+    def forward(self, x):
+        return _dense(F.relu(self.ln(_dense(x, self.fc1))), self.fc2)

@@ -2,24 +2,31 @@
 backbone with its input size, resize size, embedding width and
 normalisation. Ported so far: DenseNet121, the three ConvNeXtV2 embedders,
 the SwinV2-Base embedder, the DINOv2 ViT-B/14 embedder, the two
-ConvNeXtV2-student distillation models and the two NIH dual-head models."""
+ConvNeXtV2-student distillation models, the two NIH dual-head models and the
+three CLIP-family models (MedSigLIP, ConceptCLIP, BiomedCLIP)."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Tuple
 
+from .biomedclip import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD, BiomedCLIPModel
 from .embedders import (
     IMAGENET_MEAN,
     IMAGENET_STD,
+    ConceptCLIPModel,
     ConvNeXtV2Embedder,
     ConvNeXtV2PCAMEmbedder,
     ConvNeXtV2SRAEmbedder,
     DenseNet121Embedder,
     DinoV2Embedder,
     DistillEmbedder,
+    MedSigLIPEmbedder,
     NIHDualHeadModel,
     SwinV2Embedder,
 )
+
+SIGLIP_MEAN = (0.5, 0.5, 0.5)
+SIGLIP_STD = (0.5, 0.5, 0.5)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +50,10 @@ _SPECS = {
     "convnextv2_pcam": ModelSpec("convnextv2_pcam", ConvNeXtV2PCAMEmbedder, 384, 432, 1024),
     "swinv2": ModelSpec("swinv2", SwinV2Embedder, 384, 432, 1024),
     "dinov2": ModelSpec("dinov2", DinoV2Embedder, 518, 518, 768, interpolation="bicubic"),
+    "medsiglip": ModelSpec("medsiglip", MedSigLIPEmbedder, 448, 512, 512, SIGLIP_MEAN,
+                           SIGLIP_STD),
+    "conceptclip": ModelSpec("conceptclip", ConceptCLIPModel, 384, 432, 1152, SIGLIP_MEAN,
+                             SIGLIP_STD),
     "convnextv2_dino_distill": ModelSpec("convnextv2_dino_distill", DistillEmbedder, 384, 432,
                                          1024),
     "convnextv2_raddino_distill": ModelSpec("convnextv2_raddino_distill", DistillEmbedder, 384,
@@ -51,6 +62,9 @@ _SPECS = {
                             kwargs=(("backbone", "dinov2"),)),
     "nih_convnextv2": ModelSpec("nih_convnextv2", NIHDualHeadModel, 384, 432, 256,
                                 kwargs=(("backbone", "convnextv2"),)),
+    # open_clip BiomedCLIP (reference test.py:1218-1240): CLIP normalisation, 224 px
+    "biomedclip": ModelSpec("biomedclip", BiomedCLIPModel, 224, 224, 512, OPENAI_CLIP_MEAN,
+                            OPENAI_CLIP_STD),
 }
 
 

@@ -156,20 +156,37 @@ class ViTBlock(nn.Module):
         return x + self.ls2(h), attn
 
 
-def interpolate_pos_embed(pos_embed, num_patches_new: int, num_prefix_tokens: int = 1):
-    """Bilinear-resample the grid position embeddings (1, P + G^2, C) to a
-    new patch count, antialiased when shrinking (``jax.image.resize``'s
-    "bilinear")."""
-    prefix, grid = pos_embed[:, :num_prefix_tokens], pos_embed[:, num_prefix_tokens:]
-    g_old = int(round(grid.shape[1] ** 0.5))
-    g_new = int(round(num_patches_new ** 0.5))
-    if g_old == g_new:
-        return pos_embed
-    grid = grid.reshape(1, g_old, g_old, -1).permute(0, 3, 1, 2)
-    grid = F.interpolate(grid, size=(g_new, g_new), mode="bilinear", antialias=True,
+def resize_positions(pos, gh: int, gw: int):
+    """(P, C) square-grid position embeddings at a (gh, gw) grid: unchanged
+    where P = gh gw, else resampled bilinearly with half-pixel centres,
+    antialiased when shrinking (``jax.image.resize``'s "bilinear")."""
+    if pos.shape[0] == gh * gw:
+        return pos
+    g_old = int(round(pos.shape[0] ** 0.5))
+    grid = pos.reshape(1, g_old, g_old, -1).permute(0, 3, 1, 2)
+    grid = F.interpolate(grid, size=(gh, gw), mode="bilinear", antialias=True,
                          align_corners=False)
-    grid = grid.permute(0, 2, 3, 1).reshape(1, g_new * g_new, -1)
-    return torch.cat([prefix, grid], dim=1)
+    return grid.permute(0, 2, 3, 1).reshape(gh * gw, -1)
+
+
+def interpolate_pos_embed(pos_embed, num_patches_new: int, num_prefix_tokens: int = 1):
+    """The grid position embeddings of (1, P + G^2, C) resized to a new
+    square patch count (``resize_positions``); the prefix tokens' kept."""
+    g_new = int(round(num_patches_new ** 0.5))
+    if pos_embed.shape[1] - num_prefix_tokens == g_new * g_new:
+        return pos_embed
+    grid = resize_positions(pos_embed[0, num_prefix_tokens:], g_new, g_new)
+    return torch.cat([pos_embed[:, :num_prefix_tokens], grid[None]], dim=1)
+
+
+def holder(**children) -> nn.Module:
+    """A module that only holds ``children`` under their names: a
+    checkpoint's nesting (HF's ``attention.output.dense``, open_clip's
+    ``visual.head.proj``) without a class for each level."""
+    module = nn.Module()
+    for name, child in children.items():
+        module.add_module(name, child)
+    return module
 
 
 class PatchEmbed(nn.Module):

@@ -52,9 +52,13 @@ def fused_ln_enabled(dtype, device) -> bool:
 
 
 def ln_qkv_eligible(c: int, head_dim: int) -> bool:
-    """The widths the model sends to K7, the JAX package's without its
-    head_dim = 72 switch: a channel width that is a multiple of 128 and a
-    head of 32, 64 or 128 (the DINOv2 / ViT family)."""
+    """The widths the model sends to K7, the JAX package's rule: a channel
+    width that is a multiple of 128 and a head of 32, 64 or 128 (the DINOv2 /
+    ViT family); a head of 72 (SigLIP SO400M, C = 1152) only under
+    ``XMIR_FUSED_LN_QKV72=1``, off by default as in the JAX package, where the
+    fusion lost to the unfused path on the TPU."""
+    if head_dim == 72:
+        return c % 128 == 0 and os.environ.get("XMIR_FUSED_LN_QKV72") == "1"
     return c % 128 == 0 and head_dim in (32, 64, 128)
 
 
