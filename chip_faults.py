@@ -1,4 +1,6 @@
-"""Plants one fault at a time in the ViT kernels (K2, K3, K7, K8), the Swin
+"""Plants one fault at a time in the ViT kernels (K2, K3, K7, K8; K3 also at
+head width 72, against chip_smoke.py phase 38's check, and ConceptGather's
+backward made atomic, against phase 40's), the Swin
 attention kernels (K4, K6) and K4's backward (K5), the top-k (K1, K1'),
 the ConvNeXtV2 block tail (K9, K11) and its backward (K10) on an NVIDIA card
 and prints how far each faulty kernel lies from its plain PyTorch version,
@@ -81,6 +83,11 @@ SOURCE_FAULTS = {
         "const float ev = exp2_fast(s[4 * j + e] - r.x);",
         "const float ev = k0 + tx + 16 * j < n ? exp2f(s[i][j] - m_row[i]) : 0.f;",
         "const float ev = exp2f(s[i][j] - m_row[i]);"),
+    "K3 f32 kernel, hd 72: each head's padding lanes 72-79 hold the row's index, not zeros": (
+        "vit_attn_bwd.cu",
+        "    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);\n    if (row0 + r < n && vc < hd) {",
+        "    const float pad = vc < hd ? 0.f : 1e-2f * (row0 + r);\n"
+        "    float4 f = make_float4(pad, pad, pad, pad);\n    if (row0 + r < n && vc < hd) {"),
     "K3 bf16 kernel: one key unit's dq part skipped": (
         "vit_attn_bwd.cu", "tma_reduce_add(&dq_map, c0, i * kBQ, head, src + c0 * (kBQ * 4));",
         "if (u != 1) tma_reduce_add(&dq_map, c0, i * kBQ, head, src + c0 * (kBQ * 4));"),
@@ -426,6 +433,15 @@ def backward_repeatable(dtype):
         if not all(torch.equal(a, b) for a, b in zip(*runs)):
             return False
     return True
+
+
+def gather_backward_atomic(ctx, g):
+    """ConceptGather's backward as indexing's own: index_add_, atomic adds in
+    the cotangent's dtype in no fixed order on the card."""
+    (inverse,) = ctx.saved_tensors
+    flat = inverse.reshape(-1).long()
+    rows = torch.zeros((ctx.rows, g.shape[-1]), dtype=g.dtype, device=g.device)
+    return rows.index_add_(0, flat, g.reshape(flat.shape[0], -1)), None
 
 
 def read_train_slice():
@@ -796,7 +812,9 @@ def main():
         inside = agrees(reading)
         ok &= inside == want_inside
         # how far the reading goes toward its bounds (above 1: past one of them)
-        if "mean_of_bound" in reading:
+        if "ulps" in reading:
+            share = reading["ulps"] / cs.CONCEPT_GATHER_ULPS
+        elif "mean_of_bound" in reading:
             share = max(reading["of_bound"], reading["mean_of_bound"])
         elif "mean_steps" in reading:
             share = max(reading["of_bound"], reading["mean_steps"] / cb.BF16_MEAN_STEPS)
@@ -852,6 +870,20 @@ def main():
               f"{'inside' if want_inside else 'outside'}): {reading}", flush=True)
 
     if want("K3"):
+        for dtype in (torch.bfloat16, torch.float32):
+            report("the kernel at head width 72 (chip_smoke.py phase 38's shapes)",
+                   f"K3 {str(dtype)[6:]}", cs.k3_hd72_reading(dtype), True, cs.k3_hd72_agrees)
+        from xmir_tpu_torch.train import ConceptGather
+
+        report("ConceptGather's backward (a fixed-order sum)", "gather", cs.concept_gather_check(),
+               True, cs.concept_gather_agrees)
+        fixed = ConceptGather.backward
+        ConceptGather.backward = staticmethod(gather_backward_atomic)
+        try:
+            report("ConceptGather's backward by index_add_ (atomic adds in bf16)", "gather",
+                   cs.concept_gather_check(), False, cs.concept_gather_agrees)
+        finally:
+            ConceptGather.backward = fixed
         report_slice("the kernel: cli.train dinov2 f32 against the plain versions", True)
         for name, fault in (("t left in f32", "t"), ("1 / z applied to the score tile", "z"),
                             ("c taken from p and dp rounded to bf16", "c")):
@@ -882,6 +914,10 @@ def main():
             use_sources(directory)
             if name.startswith("K2"):
                 report(name, "K2 bf16", read_attention(), False)
+                continue
+            if name.startswith("K3") and "hd 72" in name:  # phase 38's check must refuse it
+                report(name, "K3 f32", cs.k3_hd72_reading(torch.float32), False,
+                       cs.k3_hd72_agrees)
                 continue
             if name.startswith("K3"):
                 if "unordered" in name:  # refused if outside the bounds or not repeatable

@@ -311,8 +311,46 @@ Phases, each of which raises (exit code != 0) on any failure:
              BiomedCLIP's image tower at batch 64 (224 px) with K7 + K2 and
              eager: events in turns, device_ms where a forward's launches
              fit the launch queue, peak memory, a torch.profiler breakdown
-``--train-only`` builds and runs phases 17 to 23, 25 to 28 and 31 to 33
-alone (no result line).
+ 38. kernel  K2 (with its row statistics) and K3 at head width 72 (K3 pads it
+             to 80) at the SigLIP train steps' shapes: bf16 (BH, N) = (128,
+             729) (ConceptCLIP-384 at B = 8), f32 (256, 1024) and (256, 64)
+             (MedSigLIP-448's towers at B = 16); K3 through the Function
+             within ops/vit_attn.py::grad_agreement's bounds, every head's
+             last real lanes 64-71 (beside the padding 72-79) on their own
+             too, two runs bit-equal, f32 within 3e-5 of the exact gradient;
+             K2 within k2_agreement; K3 timed beside SDPA's backward (the
+             default dispatch's backend, pinned once outside the timed
+             windows), CUDA events in turns and device_ms; build.log's C75xx
+             lines for vit_attn_bwd.cu
+ 39. slice   cli.train_medsiglip at google/medsiglip-448's widths (448 px,
+             27 + 27 layers, C = 1152, 16 heads of 72, a 256,000-token
+             table, seq-len 64), --bf16 --batch-size 16 on 60 generated
+             COVIDx PNGs and a generated vocab.txt, one epoch of 3 steps under
+             XMIR_FLASH_ATTN=1 (--bf16 casts the pixels only: f32 towers, K2
+             = 54 and K3 = 4 a step); the first step's loss bit-equal to the
+             same seeded model's and within 1e-4 of the kernels' plain
+             versions'; frozen tensors bit-equal, trained ones moved; the step
+             by step_reading; cli.zeroshot --dual-checkpoint reads the saved
+             encoder strictly (K2 = 27 x (image batches + 1))
+ 40. slice   cli.train_conceptclip at ConceptCLIP's widths (SO400M at 384 px,
+             729 tokens, 27 layers; a 12-layer 768-wide BERT) with --bf16
+             --batch-size 8 --max-concepts 8 --concept-len 16 on a generated
+             VinDr CSV and PNGs, one epoch of 3 steps, deduped twice (losses
+             and every tensor bit-equal) and with --no-dedupe-concepts (the
+             first step's IT-Align bit-equal, RC-Align within 5e-3); K2 = 27
+             and K3 = 4 a step; ConceptGather's backward bit-equal over 10
+             runs and within a bf16 step of the exact slot sums; the deduped
+             and every-slot steps by step_reading
+ 41. slice   --explainer gradcam_sim through cli.compute_saliency and
+             cli.evaluate_saliency on MedSigLIP-448 (f32, XMIR_FLASH_ATTN=1:
+             K2 in every layer, K3 never), maps in [0, 1], AUCs in [0, 1],
+             Grad-CAM maps/s; sbsm_feature_saliency and fsal_grad_saliency (a
+             seeded probe) on a full-width MedSigLIP tower at 224 px against
+             the CPU's plain path, they and sim_score_cam against the card's
+             eager path, within 1e-3 of each map's scale; cli.xai_conceptclip
+             on phase 40's checkpoint and data (K2 = 27 x gallery batches)
+``--train-only`` builds and runs phases 17 to 23, 25 to 28, 31 to 33 and 38
+to 40 alone, ``--siglip-only`` phases 38 to 41 (no result line).
 The launch counts are set to 0 before each slice and read after it. Each
 kernel's bound (the least time the card could take: bytes moved once over
 3.35 TB/s, or operations over the peak of their type) is reckoned from the
@@ -326,6 +364,7 @@ import contextlib
 import ctypes
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -373,10 +412,12 @@ from xmir_tpu_torch.ops.topk_kernels import (
 from xmir_tpu_torch.train import (
     TrainState,
     build_optimizer,
+    make_conceptclip_train_step,
     make_distill_train_step,
     make_dual_branch_train_step,
     make_embed_fn,
     make_embedding_train_step,
+    make_it_align_train_step,
 )
 from xmir_tpu_torch.utils.checkpoint import checkpoint_name, load_checkpoint
 
@@ -487,8 +528,13 @@ def sdpa_backend(call):
     return first
 
 
+_START = time.perf_counter()
+
+
 def log(*args):
-    print(*args, flush=True)
+    """A line of the run's report, after the seconds since the script
+    started (where the 1,200 s of a run go)."""
+    print(f"[{time.perf_counter() - _START:5.0f} s]", *args, flush=True)
 
 
 def check(cond, msg):
@@ -5057,18 +5103,706 @@ def _clip_embed_rate(name, batch, size, depth, seed, paths):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 38-41: the SigLIP family's training and its XAI
+
+
+# K3 at head width 72 (padded to 80 inside the kernel) at the shapes the
+# SigLIP train steps hand it: (dtype, BH, N, what)
+SIGLIP_BWD_CASES = (
+    (torch.bfloat16, 128, 729, "ConceptCLIP-384 train step, B 8"),
+    (torch.float32, 256, 1024, "MedSigLIP-448 train step (vision), B 16"),
+    (torch.float32, 256, 64, "MedSigLIP-448 train step (text), B 16"))
+SIGLIP_HD = 72
+
+
+def k3_hd72_check(q, k, v, g, sc):
+    """K2 forward + K3 backward through the Function at head width 72: (the
+    worst ``va.grad_agreement`` over dq, dk, dv, the same over each head's
+    last 8 real lanes 64-71 beside the padding 72-79 on their own, whether
+    two runs were bit-equal, whether every gradient is finite, the forward's
+    output and the gradients)."""
+    out, grads = attention_grads(q, k, v, g, sc)
+    _, again = attention_grads(q, k, v, g, sc)
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for a, b in zip(grads, again))
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in grads)
+    refs = va.attention_bwd_plain(q, k, v, out, g, sc)
+    whole, lanes = {}, {}
+    for a, r, floor in zip(grads, refs, va.grad_floors(q, k, v, g, sc)):
+        _worst(whole, va.grad_agreement(a, r, floor))
+        _worst(lanes, va.grad_agreement(a[..., 64:], r[..., 64:], floor))
+    return whole, lanes, equal, finite, out, grads
+
+
+def k3_hd72_reading(dtype):
+    """K3's worst readings over phase 38's shapes of ``dtype`` (chip_faults.py
+    plants faults against it): {"of_bound", "mean_of_bound", ...,
+    "lanes_64_71": ..., "runs_bit_equal", "finite"}."""
+    gen = torch.Generator().manual_seed(38)
+    worst, lanes_worst, equal, finite = {}, {}, True, True
+    for dt, bh, n, _ in SIGLIP_BWD_CASES:
+        if dt != dtype:
+            continue
+        q, k, v = _attn_inputs(gen, bh, n, SIGLIP_HD, dtype)
+        g = _attn_inputs(gen, bh, n, SIGLIP_HD, dtype)[0]
+        whole, lanes, eq, fin, *_ = k3_hd72_check(q, k, v, g, SIGLIP_HD ** -0.5)
+        _worst(worst, whole)
+        _worst(lanes_worst, lanes)
+        equal, finite = equal and eq, finite and fin
+        del q, k, v, g
+        torch.cuda.empty_cache()
+    return dict(worst, lanes_64_71=lanes_worst, runs_bit_equal=equal, finite=finite)
+
+
+def k3_hd72_agrees(reading) -> bool:
+    return (va.grad_agrees(reading) and va.grad_agrees(reading["lanes_64_71"])
+            and reading["runs_bit_equal"] and reading["finite"])
+
+
+def phase_kernel_siglip_bwd():
+    """K2 (with statistics) and K3 at head width 72 at the SigLIP train
+    steps' shapes: held to their plain versions (va.grad_agreement, each
+    head's lanes 64-71 beside the padding on their own; k2_agreement), two
+    runs bit-equal, f32 also to the exact gradient; then timed beside SDPA's
+    backward (the default dispatch's backend, pinned once outside the timed
+    windows) by CUDA events in turns and device_ms; ptxas's C75xx lines for
+    vit_attn_bwd.cu."""
+    gen = torch.Generator().manual_seed(38)
+    out = {"err": {}, "rates": {}}
+    for dtype, bh, n, what in SIGLIP_BWD_CASES:
+        name, hd, sc = str(dtype)[6:], SIGLIP_HD, SIGLIP_HD ** -0.5
+        label = f"BH={bh} N={n} hd={hd} ({what})"
+        q, k, v = _attn_inputs(gen, bh, n, hd, dtype)
+        g = _attn_inputs(gen, bh, n, hd, dtype)[0]
+        whole, lanes, equal, finite, o, grads = k3_hd72_check(q, k, v, g, sc)
+        check(equal, f"K3 {name} {label}: two runs differ")
+        check(finite, f"K3 {name} {label}: non-finite gradients")
+        for e, part in ((whole, "dq, dk, dv"), (lanes, "lanes 64-71 of every head")):
+            check(va.grad_agrees(e), f"K3 {name} {label}, {part}: past the bounds (GRAD_RTOL, "
+                                     f"GRAD_MEAN_RTOL): {e}")
+        e2 = vit_err(o, va.attention_plain(q, k, v, sc), k2_agreement(q, k, v, sc),
+                     f"K2 {name} {label}")
+        exact = ""
+        if dtype == torch.float32:
+            floors = va.grad_floors(q, k, v, g, sc)
+            rel = max(((a - b).abs().max() / torch.maximum(b.abs().max(), floor)).item()
+                      for a, b, floor in zip(grads, va.attention_bwd_reference(q, k, v, g, sc),
+                                             floors))
+            check(rel <= K3_EXACT_RTOL, f"K3 f32 {label}: {rel} of the largest magnitude from "
+                                        f"the exact gradient > {K3_EXACT_RTOL}")
+            exact = f"; within {rel:.2g} of the exact gradient (bound {K3_EXACT_RTOL})"
+        out["err"][f"{name} {label}"] = {"K3": whole, "K3 lanes 64-71": lanes, "K2": e2}
+        log(f"[kernel] K3 {name:8s} {label}: {whole}; lanes 64-71 {lanes}; twice bit-equal"
+            f"{exact}; K2 with statistics {e2}")
+        del grads, o
+        # times: K3 on the forward's statistics, its plain version, SDPA's backward
+        o, stats = va.launch_attention_forward(q, k, v, sc, want_stats=True)
+        b, h = bh // SIGLIP["heads"], SIGLIP["heads"]
+        lq, lk, lv = (t.reshape(b, h, n, hd).detach().requires_grad_(True) for t in (q, k, v))
+        backend = sdpa_backend(lambda: F.scaled_dot_product_attention(lq, lk, lv))
+        lo = under_backend(backend, lambda: F.scaled_dot_product_attention(lq, lk, lv))
+        lg = g.reshape(b, h, n, hd)
+        fns = {"K3": lambda: va.vit_attention_bwd(q, k, v, o, g, stats, sc),
+               "K3 library": lambda: torch.autograd.grad(lo, (lq, lk, lv), lg, retain_graph=True),
+               "K2 with statistics": lambda: va.launch_attention_forward(q, k, v, sc, True)}
+        reps = 20 if dtype == torch.bfloat16 else 4
+        with sdpa_pinned(backend):
+            ms, _ = _in_turns(fns, reps=reps)
+            dev = {key: device_ms(fns[key], reps=reps) for key in ("K3", "K3 library")}
+        ms.update(_in_turns({"K3 plain": lambda: va.attention_bwd_plain(q, k, v, o, g, sc)},
+                            rounds=1, reps=1)[0])
+        ops, nbytes = _bwd_work(bh, n, hd, dtype)
+        bound_ms, bound_by = bound(ops, nbytes, name)
+        out["rates"][f"{name} BH={bh} N={n}"] = {
+            "ms": ms["K3"], "plain_ms": ms["K3 plain"], "library_ms": ms["K3 library"],
+            "forward_ms": ms["K2 with statistics"], "device_ms": dev["K3"],
+            "library_device_ms": dev["K3 library"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library": f"scaled_dot_product_attention backward, {backend}", "what": what}
+        log(f"[rates] K3 {name:8s} {label}: device time {dev['K3']:.4f} ms "
+            f"({ops / dev['K3'] / 1e9:.1f} TFLOP/s of the 10 BH N^2 hd; bound {bound_ms:.4f} ms "
+            f"by {bound_by}, {bound_ms / dev['K3']:.1%} of it), events {ms['K3']:.3f} ms; plain "
+            f"{ms['K3 plain']:.3f} ms; SDPA's backward ({backend}) device time "
+            f"{dev['K3 library']:.4f} ms, events {ms['K3 library']:.3f} ms (K3 "
+            f"{dev['K3'] / dev['K3 library']:.2f}x it); K2 with statistics "
+            f"{ms['K2 with statistics']:.3f} ms")
+        del q, k, v, g, o, stats, lq, lk, lv, lo, lg, fns
+        torch.cuda.empty_cache()
+    found = ptxas_serialisations().get("vit_attn_bwd.cu", [])
+    out["ptxas_vit_attn_bwd"] = found
+    log(f"[kernel] build.log: ptxas reports {len(found)} C75xx line(s) for vit_attn_bwd.cu: "
+        + " | ".join(found))
+    return out
+
+
+# MedSigLIP's --bf16 casts the pixels only: the f32 tower takes K2 / K3 in
+# f32 under XMIR_FLASH_ATTN=1 (K7 stays off at head width 72 without
+# XMIR_FUSED_LN_QKV72)
+MEDSIGLIP_TRAIN_FLAGS = dict(XMIR_FLASH_ATTN="1", XMIR_FUSED_LN=None, XMIR_FUSED_LN_QKV=None,
+                             XMIR_FUSED_LN_QKV72=None, XMIR_FUSED_LN_MLP=None)
+# the first step's f32 loss with the kernels against their plain versions,
+# of |loss|: the IT-Align loss of 27-layer towers whose f32 sums run in
+# other orders (PERF.md §6)
+SIGLIP_TRAIN_LOSS_RTOL = 1e-4
+MEDSIGLIP_UNFREEZE = 2  # the CLI's --unfreeze-layers default: K3 in 2 layers a tower
+
+
+@contextlib.contextmanager
+def registry_models_drawn_once():
+    """``registry.create_model`` memoised for a phase: the CLIs' calls with
+    the same name, arguments and seed get one model, drawn on the host once
+    (a full-width SigLIP tower takes ~10 s to draw) and shared, as the CLIs
+    of one process would share it; the phase must not train it."""
+    from xmir_tpu_torch.models import registry
+
+    real, drawn = registry.create_model, {}
+
+    def create(name, **overrides):
+        gen = overrides.get("generator")
+        key = (name, tuple(sorted((k, v) for k, v in overrides.items() if k != "generator")),
+               gen.initial_seed() if gen is not None else None)
+        if key not in drawn:
+            drawn[key] = real(name, **overrides)
+        return drawn[key]
+
+    registry.create_model = create
+    try:
+        yield
+    finally:
+        registry.create_model = real
+
+
+@contextlib.contextmanager
+def drawn_once(module, name, model, **want):
+    """The CLI's ``module.name(...)`` (a model class it builds from a seeded
+    generator) handing back ``model``, which the caller drew with the same
+    arguments: the full-width weights are drawn on the host once for a
+    phase (tens of seconds each), not once a run. Raises if the CLI asks for
+    other arguments or another seed."""
+    real = getattr(module, name)
+
+    def build(**kwargs):
+        seed = kwargs.pop("generator").initial_seed()
+        check(kwargs == {k: v for k, v in want.items() if k != "seed"} and seed == want["seed"],
+              f"the CLI built {name}({kwargs}, seed {seed}), not {want}")
+        return model
+
+    setattr(module, name, build)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def phase_train_medsiglip(workdir: Path):
+    """cli.train_medsiglip at google/medsiglip-448's widths (27 + 27 layers,
+    C = 1152, 16 heads of 72, a 256,000-token text table, seq-len 64) with
+    --bf16 --batch-size 16 on a generated COVIDx tree and vocab.txt, one
+    epoch of 3 steps under XMIR_FLASH_ATTN=1: K2 = 54 and K3 = 4 a step
+    exactly; the first step's loss bit-equal to the same seeded model's
+    loss on that batch, which lies within SIGLIP_TRAIN_LOSS_RTOL of the
+    kernels' plain versions'; frozen tensors bit-equal, trained ones moved;
+    the step's readings (step_reading); then cli.zeroshot --dual-checkpoint
+    reads the checkpoint strictly."""
+    from xmir_tpu_torch.cli import train_medsiglip
+    from xmir_tpu_torch.models import siglip_text
+    from xmir_tpu_torch.models.siglip_text import COVIDX_LABEL_TO_TEXT, MedSigLIPDualEncoder
+
+    common.set_tf32(False)  # as the CLI sets it: its first loss is compared bit for bit
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    img_dir, manifest = write_synthetic_covidx(str(workdir / "ms_train"), n=60, size=256,
+                                               seed=39)
+    vocab = str(workdir / "ms_vocab.txt")
+    write_vocab(vocab, [COVIDX_LABEL_TO_TEXT[i] for i in range(3)])
+    ckpt = str(workdir / "medsiglip_dual.pt")
+    cli_args = ["--dataset", "covid", "--dataset-dir", img_dir, "--train-image-list", manifest,
+                "--vocab", vocab, "--bf16", "--batch-size", "16", "--epochs", "1",
+                "--seq-len", "64", "--lr", "1e-4", "--device", "cuda", "--seed", "0",
+                "--save", ckpt]
+    args = train_medsiglip.parse_args(cli_args)
+    ds = common.build_dataset(args, "train")
+    labels = np.asarray(ds.labels)
+    table = train_medsiglip.class_token_table(args, sorted(set(labels.tolist())))
+    batches = list(train_medsiglip.epoch_batches(ds, labels, 16, 448, 1, "cuda"))
+    steps = len(batches)
+    check(steps == 3, f"the generated tree gives {steps} batches of 16, not 3")
+    x, labs = batches[0]
+    ids = train_medsiglip.class_token_ids(table, labs, 64).cuda()
+    del batches
+    model = MedSigLIPDualEncoder(img_size=448, text_vocab=args.vocab_size,
+                                 generator=torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    model = model.cuda().train()
+    frozen = train_medsiglip.frozen_predicate(SIGLIP["depth"], MEDSIGLIP_UNFREEZE)
+    for name, p in model.named_parameters():  # as the CLI's build_optimizer leaves them
+        p.requires_grad_(not frozen(name))
+    log(f"[slice] MedSigLIP training: wrote 60 PNGs and a {args.vocab_size}-token table's "
+        f"vocab.txt, drew the dual encoder in {time.perf_counter() - t0:.1f} s")
+    with env_flags(**MEDSIGLIP_TRAIN_FLAGS):
+        loss_of = make_it_align_train_step(model, torch.bfloat16).losses
+        reset_launches()
+        loss_k = loss_of(x, ids)
+        launches = read_launches()
+        check(launches["K2"] == 2 * SIGLIP["depth"] and launches["K3"] == 0,
+              f"one MedSigLIP forward: launches {launches}, expected K2 = 54")
+        with vit_plain_versions():
+            loss_p = loss_of(x, ids)
+        diff = abs(loss_k.item() - loss_p.item())
+        check(math.isfinite(loss_k.item())
+              and diff <= SIGLIP_TRAIN_LOSS_RTOL * abs(loss_p.item()),
+              f"the first step's loss {loss_k.item()} lies {diff} from the plain versions' "
+              f"{loss_p.item()}")
+        log(f"[slice] MedSigLIP-448 f32 IT-Align loss of the first batch: kernels "
+            f"{loss_k.item():.7f}, plain versions {loss_p.item():.7f} ({diff:.3g} apart, bound "
+            f"{SIGLIP_TRAIN_LOSS_RTOL} of it)")
+        first = loss_k.item()
+        del loss_k, loss_p
+        reset_launches()
+        t0 = time.perf_counter()
+        with drawn_once(siglip_text, "MedSigLIPDualEncoder", model, img_size=448,
+                        text_vocab=args.vocab_size, dim=SIGLIP["c"], depth=SIGLIP["depth"],
+                        seed=0):
+            result = train_medsiglip.main(cli_args)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update(K2=2 * SIGLIP["depth"] * steps, K3=2 * MEDSIGLIP_UNFREEZE * steps)
+    check(launches == want, f"cli.train_medsiglip: launches {launches}, expected {want} (27 + 27 "
+                            f"layers and 2 + 2 unfrozen a step, {steps} steps)")
+    losses = result["losses"]
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(losses[0] == first, f"the CLI's first loss {losses[0]} != the same step's {first}")
+    sd = load_checkpoint(ckpt)
+    check(sorted(sd) == sorted(init), "the checkpoint's names differ from the model's")
+    trained = [n_ for n_ in init if not frozen(n_)]
+    still = [n_ for n_ in trained if torch.equal(sd[n_], init[n_])]
+    moved = [n_ for n_ in init if frozen(n_) and not torch.equal(sd[n_], init[n_])]
+    check(not moved and not still, f"frozen tensors moved: {moved[:4]}; trained ones did not: "
+                                   f"{still[:4]}")
+    log(f"[slice] cli.train_medsiglip --bf16 -b 16 (f32 towers, XMIR_FLASH_ATTN=1): launches "
+        f"{launches} ({steps} steps: K2 27 + 27 a step, K3 in the 2 unfrozen layers of each "
+        f"tower); losses {[round(v, 5) for v in losses]}, the first bit-equal to the seeded "
+        f"model's; {len(trained)} trained tensors moved, {len(init) - len(trained)} frozen ones "
+        f"bit-equal; {wall:.1f} s wall (the weights drawn once, above)")
+    # the step's readings, on the trained model with a fresh optimiser
+    state = TrainState(model, build_optimizer(model, lr=1e-4, backbone_lr_scale=1.0,
+                                              frozen_predicate=frozen))
+    step = make_it_align_train_step(model, torch.bfloat16)
+    with env_flags(**MEDSIGLIP_TRAIN_FLAGS):
+        rates = step_reading("MedSigLIP-448 train step (f32 towers, --bf16 pixels, "
+                             "XMIR_FLASH_ATTN=1) at batch 16",
+                             {"step": lambda: step(state, x, ids),
+                              "forward": lambda: step.losses(x, ids)}, 16)
+    del model, state, step, x, ids
+    torch.cuda.empty_cache()
+    del sd, init
+    buf = io.StringIO()
+    with env_flags(**MEDSIGLIP_TRAIN_FLAGS), contextlib.redirect_stdout(buf):
+        reset_launches()
+        zs = zeroshot_cli.main(["--dataset", "covid", "--dataset-dir", img_dir,
+                                "--test-image-list", manifest, "--model", "medsiglip",
+                                "--embedding-dim", "1152", "--device", "cuda",
+                                "--dual-checkpoint", ckpt, "--vocab", vocab,
+                                "--text-vocab-size", str(args.vocab_size)])
+        zs_launches = read_launches()
+    printed = buf.getvalue()
+    check("(strict)" in printed and 0 <= zs["accuracy"] <= 1, "cli.zeroshot did not read the "
+                                                              "trained checkpoint strictly")
+    image_batches = -(-len(labels) // 32)
+    check(zs_launches["K2"] == SIGLIP["depth"] * (image_batches + 1) and zs_launches["K3"] == 0,
+          f"cli.zeroshot after training: launches {zs_launches}")
+    log(f"[slice] cli.zeroshot --dual-checkpoint on the trained encoder: "
+        f"{printed.strip().splitlines()[0]}; accuracy {zs['accuracy']:.4f}; launches "
+        f"{zs_launches}")
+    return {"launches": {"medsiglip_train": launches, "medsiglip_train_zeroshot": zs_launches},
+            "losses": losses, "first_loss_vs_plain": diff, "step": rates,
+            "zeroshot_accuracy": zs["accuracy"]}
+
+
+def write_vindr_concept_tree(root: Path, n: int, seed: int, size: int = 256):
+    """A VinDr-CXR tree: ``{image_id}.png`` and a CSV of two radiologists'
+    rows a study over the 28 columns (findings at 15%, one study normal)."""
+    from PIL import Image
+
+    from xmir_tpu_torch.data.datasets import VINDR_ALL_COLUMNS
+
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    lines = [",".join(["image_id", "rad_id"] + VINDR_ALL_COLUMNS)]
+    for i in range(n):
+        image_id = f"study{i:03d}"
+        pix = rng.integers(0, 255, (size // 8, size // 8), dtype=np.uint8)
+        Image.fromarray(np.kron(pix, np.ones((8, 8), np.uint8))).convert("RGB").save(
+            root / f"{image_id}.png")
+        for r in range(2):
+            v = (rng.random(len(VINDR_ALL_COLUMNS)) < 0.15).astype(int)
+            if i == 0:
+                v[:] = 0
+                v[VINDR_ALL_COLUMNS.index("No finding")] = 1
+            lines.append(",".join([image_id, f"R{r}"] + [str(x) for x in v]))
+    csv_path = root / "vindr.csv"
+    csv_path.write_text("\n".join(lines) + "\n")
+    return str(root), str(csv_path)
+
+
+CONCEPTCLIP_UNFREEZE = 4  # the CLI's --unfreeze-vision-layers default: K3 in 4 layers
+# the first step's RC-Align term, deduped against every slot: the text tower
+# encodes each concept in a batch of another size, so cuBLAS's bf16 products
+# may round it otherwise (PERF.md §6); IT-Align is bit-equal
+CONCEPT_DEDUPE_RC_RTOL = 5e-3
+
+
+def concept_gather_check(reps: int = 10):
+    """ConceptGather's backward on the card at a ConceptCLIP batch's shape
+    (64 slots of 1152, 24 rows, one row shared by half the slots), bf16:
+    {"runs_bit_equal": ``reps`` runs bit-equal, "ulps": its largest distance
+    from the f32 sum of each row's slots rounded once, in bf16 steps of that
+    sum}. An atomic (index_add_) backward would add in bf16 in no fixed
+    order."""
+    from xmir_tpu_torch.train import ConceptGather
+
+    gen = torch.Generator().manual_seed(40)
+    inverse = torch.randint(0, 24, (8, 8), generator=gen).int()
+    inverse[:, :4] = 3
+    feats = torch.randn((24, 1152), generator=gen).to(torch.bfloat16)
+    g = torch.randn((8, 8, 1152), generator=gen).to(torch.bfloat16)
+    want = torch.zeros((24, 1152), dtype=torch.float64).index_add_(
+        0, inverse.reshape(-1).long(), g.double().reshape(64, 1152))
+    inverse, feats_c, g_c = inverse.cuda(), feats.cuda(), g.cuda()
+    runs = []
+    for _ in range(reps):
+        leaf = feats_c.clone().requires_grad_(True)
+        runs.append(torch.autograd.grad(ConceptGather.apply(leaf, inverse), leaf, g_c)[0])
+    torch.cuda.synchronize()
+    step = cb.bf16_step(want.to(torch.bfloat16).float()).double()
+    ulps = ((runs[0].cpu().double() - want).abs() / step).max().item()
+    return {"runs_bit_equal": all(torch.equal(runs[0], r) for r in runs[1:]), "ulps": ulps}
+
+
+# the f32 slot sums rounded once to bf16: within one bf16 step of the exact sum
+CONCEPT_GATHER_ULPS = 1.0
+
+
+def concept_gather_agrees(reading) -> bool:
+    return reading["runs_bit_equal"] and reading["ulps"] <= CONCEPT_GATHER_ULPS
+
+
+def phase_train_conceptclip(workdir: Path):
+    """cli.train_conceptclip at ConceptCLIP's widths (SO400M at 384 px: 729
+    tokens, 27 layers; a 12-layer 768-wide BERT) with --bf16 --batch-size 8
+    --max-concepts 8 --concept-len 16 on a generated VinDr CSV and PNGs:
+    one epoch of 3 steps deduped, again (bit-equal: losses and every
+    tensor), and with --no-dedupe-concepts (the first step's IT-Align
+    bit-equal, its RC-Align within CONCEPT_DEDUPE_RC_RTOL); K2 = 27 and K3 = 4
+    a step exactly; ConceptGather's backward bit-equal over 10 runs and
+    within a bf16 step of the exact slot sums (concept_gather_check); the
+    deduped and every-slot steps' readings (step_reading)."""
+    from xmir_tpu_torch.cli import train_conceptclip
+    from xmir_tpu_torch.data.datasets import CONCEPT_DESCRIPTIONS, DISEASE_DESCRIPTIONS
+    from xmir_tpu_torch.models import embedders
+    from xmir_tpu_torch.models.embedders import ConceptCLIPModel
+
+    data_dir, csv_path = write_vindr_concept_tree(workdir / "vindr", n=26, seed=40)
+    base = ["--dataset", "vindr", "--dataset-dir", data_dir, "--train-image-list", csv_path,
+            "--bf16", "--batch-size", "8", "--epochs", "1", "--max-concepts", "8",
+            "--concept-len", "16", "--lr", "1e-4", "--device", "cuda", "--seed", "0"]
+    args = train_conceptclip.parse_args(base)
+    ds = train_conceptclip.concept_dataset(args)
+    texts = [t for i in range(len(ds)) for t in [ds.get_text(i)[0], *ds.get_text(i)[1]]]
+    vocab = str(workdir / "cc_vocab.txt")
+    n_vocab = write_vocab(vocab, texts + list(CONCEPT_DESCRIPTIONS.values())
+                          + list(DISEASE_DESCRIPTIONS.values()))
+    base += ["--vocab", vocab]
+    args = train_conceptclip.parse_args(base)
+    steps = len(ds) // 8
+    want = dict.fromkeys(WRAPPERS, 0)
+    want.update(K2=SIGLIP["depth"] * steps, K3=CONCEPTCLIP_UNFREEZE * steps)
+    t0 = time.perf_counter()
+    vocab_size = max(args.vocab_size, n_vocab)  # as the CLI raises it for a bigger vocab.txt
+    model = ConceptCLIPModel(img_size=384, text_vocab=vocab_size,
+                             generator=torch.Generator().manual_seed(0))
+    init = {k: v.clone() for k, v in model.state_dict().items()}
+    model = model.cuda()
+    log(f"[slice] ConceptCLIP training: drew the model in {time.perf_counter() - t0:.1f} s")
+    runs, out = {}, {"launches": {}}
+    for path, extra in (("deduped", []), ("deduped again", []),
+                        ("every slot", ["--no-dedupe-concepts"])):
+        ckpt = str(workdir / f"conceptclip_{path.replace(' ', '_')}.pt")
+        model.load_state_dict(init)  # each run starts from the seeded weights
+        with env_flags(XMIR_FLASH_ATTN=None, XMIR_FUSED_LN=None, XMIR_FUSED_LN_QKV72=None), \
+                drawn_once(embedders, "ConceptCLIPModel", model, img_size=384, dim=SIGLIP["c"],
+                           depth=SIGLIP["depth"], text_depth=12, text_vocab=vocab_size,
+                           seed=0):
+            reset_launches()
+            t0 = time.perf_counter()
+            result = train_conceptclip.main(base + extra + ["--save", ckpt])
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        check(launches == want, f"cli.train_conceptclip ({path}): launches {launches}, expected "
+                                f"{want} (27 layers, K3 in the 4 unfrozen, {steps} steps)")
+        hist = result["history"]
+        check(len(hist) == steps and all(math.isfinite(m[key]) for m in hist for key in m),
+              f"cli.train_conceptclip ({path}): {hist}")
+        runs[path] = (hist, ckpt)
+        out["launches"][f"conceptclip_train_{path.replace(' ', '_')}"] = launches
+        log(f"[slice] cli.train_conceptclip --bf16 -b 8 ({path}): launches {launches}; losses "
+            f"{[round(m['loss'], 5) for m in hist]}; {wall:.1f} s wall")
+    (a, ca), (b, cb_), (c, _) = runs["deduped"], runs["deduped again"], runs["every slot"]
+    sa, sb = load_checkpoint(ca), load_checkpoint(cb_)
+    check(a == b and all(torch.equal(sa[k], sb[k]) for k in sa),
+          "two deduped runs differ (losses or tensors)")
+    del sb
+    check(a[0]["it_loss"] == c[0]["it_loss"], f"the first step's IT-Align: deduped "
+                                              f"{a[0]['it_loss']} != every slot {c[0]['it_loss']}")
+    rc_rel = abs(a[0]["rc_loss"] - c[0]["rc_loss"]) / abs(c[0]["rc_loss"])
+    check(rc_rel <= CONCEPT_DEDUPE_RC_RTOL, f"the first step's RC-Align, deduped against every "
+                                            f"slot: {rc_rel} of it apart")
+    gather = concept_gather_check()
+    check(concept_gather_agrees(gather), f"ConceptGather's backward: {gather} (runs bit-equal, "
+                                         f"within {CONCEPT_GATHER_ULPS} bf16 step of the sum)")
+    log(f"[slice] ConceptCLIP: two deduped runs bit-equal (losses and all {len(sa)} tensors); "
+        f"the first step deduped against every slot: IT-Align bit-equal, RC-Align "
+        f"{rc_rel:.3g} of it apart (bound {CONCEPT_DEDUPE_RC_RTOL}); ConceptGather's backward "
+        f"bit-equal over 10 runs, {gather['ulps']:.3g} bf16 steps from the exact slot sums; a "
+        f"{n_vocab}-token vocab.txt")
+    out.update(losses={k: v[0] for k, v in runs.items()}, first_rc_rel=rc_rel,
+               checkpoint=ca, data=(data_dir, csv_path), vocab=vocab)
+    # the step's readings: the seeded weights, the first batch deduped and not
+    tok = train_conceptclip.text_tokenizer(args)
+    model.load_state_dict(init)
+    del init
+    state = TrainState(model, build_optimizer(
+        model, lr=1e-4, backbone_lr_scale=1.0, weight_decay=0.01, mu_dtype=torch.bfloat16,
+        frozen_predicate=train_conceptclip.frozen_predicate(27, 12, CONCEPTCLIP_UNFREEZE, 2)))
+    deduped = next(train_conceptclip.epoch_batches(ds, tok, args, 1, "cuda", True))
+    slots = next(train_conceptclip.epoch_batches(ds, tok, args, 1, "cuda", False))
+    step = make_conceptclip_train_step(model, compute_dtype=torch.bfloat16, dedupe_concepts=True)
+    step_all = make_conceptclip_train_step(model, compute_dtype=torch.bfloat16)
+    with env_flags(XMIR_FLASH_ATTN=None, XMIR_FUSED_LN=None, XMIR_FUSED_LN_QKV72=None):
+        out["step"] = step_reading("ConceptCLIP-384 bf16 train step (deduped concepts) at batch 8",
+                                   {"step": lambda: step(state, *deduped),
+                                    "step, every slot": lambda: step_all(state, *slots),
+                                    "forward": lambda: step.losses(*deduped)}, 8)
+    del model, state, step, step_all, deduped, slots, sa
+    torch.cuda.empty_cache()
+    return out
+
+
+# full-width MedSigLIP tower at 224 px (256 tokens; the positions resized):
+# the card with the kernels against the CPU's plain path (sbsm_feature_saliency,
+# fsal_grad_saliency) or the card's eager path (sim_score_cam, whose 1,154
+# forwards the CPU cannot run in a smoke run), of each map's scale (PERF.md)
+VARIANT_TOL = 1e-3
+
+
+def phase_siglip_xai(workdir: Path, conceptclip):
+    """--explainer gradcam_sim through cli.compute_saliency and
+    cli.evaluate_saliency on MedSigLIP-448 (f32, XMIR_FLASH_ATTN=1: K2 in
+    every layer, K3 never: the gradient stops at the tap); Grad-CAM maps/s;
+    cli.xai_conceptclip on ConceptCLIP-384 from phase 40's checkpoint and
+    data; sbsm_feature_saliency, fsal_grad_saliency (a seeded probe) and
+    sim_score_cam on a full-width MedSigLIP tower at 224 px against the
+    CPU's plain path or the card's eager path."""
+    import copy
+
+    from xmir_tpu_torch.cli import compute_saliency, evaluate_saliency, xai_conceptclip
+    from xmir_tpu_torch.xai import (
+        generate_masks,
+        make_vit_gradcam_fn,
+        sbsm_feature_saliency,
+        sim_score_cam,
+        vit_gradcam_similarity,
+    )
+    from xmir_tpu_torch.xai.variants import fsal_grad_saliency
+
+    common.set_tf32(False)  # IEEE f32 on the card, as on the CPU it is held to
+    out = {"launches": {}}
+    img_dir, manifest = write_synthetic_covidx(str(workdir / "gc"), n=8, size=256, seed=41)
+    data = ["--dataset", "covid", "--dataset-dir", img_dir, "--test-image-list", manifest,
+            "--model", "medsiglip", "--device", "cuda", "--seed", "0", "-j", "8",
+            "--explainer", "gradcam_sim", "--limit", "2"]
+    flags = dict(MEDSIGLIP_TRAIN_FLAGS)
+    # compute_saliency and evaluate_saliency build one model: drawn once
+    with registry_models_drawn_once(), env_flags(**flags):
+        reset_launches()
+        t0 = time.perf_counter()
+        compute_saliency.main(data + ["--save-dir", str(workdir / "gc_maps")])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        want = dict.fromkeys(WRAPPERS, 0)
+        want["K2"] = 2 * 2 * SIGLIP["depth"]  # a query: its embedding and the map's forward
+        check(launches == want, f"compute_saliency gradcam_sim: launches {launches}, "
+                                f"expected {want}")
+        names = sorted(p.name for p in (workdir / "gc_maps").iterdir())
+        check(names == ["gradcam_q00000_r00001.npy", "gradcam_q00001_r00002.npy"],
+              f"maps {names}")
+        for name in names:
+            m = np.load(workdir / "gc_maps" / name)
+            check(m.shape == (448, 448) and np.isfinite(m).all() and m.min() >= 0
+                  and m.max() <= 1 + 1e-6, f"{name}: shape {m.shape}, range {m.min()}..{m.max()}")
+        out["launches"]["gradcam_compute_saliency"] = launches
+        log(f"[slice] compute_saliency --explainer gradcam_sim (MedSigLIP-448, f32): launches "
+            f"{launches}; {names} in [0, 1]; {wall:.1f} s wall")
+        reset_launches()
+        t0 = time.perf_counter()
+        res = evaluate_saliency.main(data + ["--top-k", "2", "--step", "20000", "--output",
+                                             str(workdir / "gc_insdel.json")])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    aucs = [r[k] for r in res["results"] for k in ("deletion_auc", "insertion_auc")]
+    check(launches["K1"] == 1 and launches["K3"] == 0 and launches["K2"] > 0
+          and launches["K2"] % SIGLIP["depth"] == 0, f"evaluate_saliency gradcam_sim: {launches}")
+    check(len(res["results"]) == 2 and all(0 <= a <= 1 for a in aucs), f"AUCs {aucs}")
+    out["launches"]["gradcam_evaluate_saliency"] = launches
+    log(f"[slice] evaluate_saliency --explainer gradcam_sim (inline maps, top 2, step 20000): "
+        f"launches {launches}; AUCs {[round(a, 4) for a in aucs]}; {wall:.1f} s wall")
+
+    model, _ = create_model("medsiglip", generator=torch.Generator().manual_seed(42))
+    model = randomize_norms_(model, 42).eval()
+    cpu = copy.deepcopy(model)
+    model = model.cuda()
+    gen = torch.Generator().manual_seed(43)
+    xs = (0.5 * torch.randn((6, 448, 448, 3), generator=gen)).cuda()
+    apply_fn, embed = make_vit_gradcam_fn(model), make_embed_fn(model)
+    with env_flags(**flags):
+        q = embed(xs[:1])[0]
+        maps = vit_gradcam_similarity(apply_fn, q, xs[1:])
+        check(maps.shape == (5, 448, 448) and bool(torch.isfinite(maps).all()), "gradcam maps")
+        ms, _ = _in_turns({"gradcam": lambda: vit_gradcam_similarity(apply_fn, q, xs[1:])},
+                          rounds=1, reps=3)
+    out["gradcam_maps_per_s"] = 5 / ms["gradcam"] * 1e3
+    log(f"[rates] Grad-CAM on similarity, MedSigLIP-448 f32 (XMIR_FLASH_ATTN=1), 5 retrieved "
+        f"images a call: {ms['gradcam']:.1f} ms = {out['gradcam_maps_per_s']:.1f} maps/s")
+
+    # the variants at 224 px on the full-width tower
+    size, d = 224, SIGLIP["c"]
+    x224 = (0.5 * torch.randn((2, size, size, 3), generator=gen))
+    masks = torch.from_numpy(generate_masks(size, 48, 24))
+    coef = torch.randn((1, 512), generator=gen).numpy()
+    probe = type("Probe", (), {})()
+    probe.clf = type("Clf", (), {"coef_": coef, "intercept_": np.asarray([0.1])})()
+
+    def fns_of(m):
+        def features(x):
+            with torch.no_grad():
+                t = m.backbone(x)["tokens"]
+            g_ = int(round(t.shape[1] ** 0.5))
+            return t.reshape(t.shape[0], g_, g_, d)
+
+        def head(f):
+            return l2_normalize(m.projection(m.backbone.head(f.reshape(f.shape[0], -1, d))),
+                                dim=1)
+
+        return make_embed_fn(m), features, head
+
+    def run_variants(m, x, mk, with_score_cam):
+        e_fn, f_fn, h_fn = fns_of(m)
+        got = {"sbsm_feature_saliency": sbsm_feature_saliency(e_fn, f_fn, x[:1], x[1:], mk),
+               "fsal_grad_saliency": fsal_grad_saliency(f_fn, h_fn, probe, x)}
+        if with_score_cam:
+            got["sim_score_cam"] = sim_score_cam(e_fn, f_fn, x[:1], x[1:], chunk=64)
+        return {k: v.float().cpu() for k, v in got.items()}
+
+    with env_flags(**flags):
+        reset_launches()
+        t0 = time.perf_counter()
+        card = run_variants(model, x224.cuda(), masks.cuda(), True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    check(launches["K2"] > 0 and launches["K3"] == 0, f"the variants' launches {launches}")
+    with env_flags(XMIR_FLASH_ATTN="0"):
+        eager = run_variants(model, x224.cuda(), masks.cuda(), True)
+    t1 = time.perf_counter()
+    host = run_variants(cpu, x224, masks, False)
+    cpu_wall = time.perf_counter() - t1
+    errs = {}
+    for name, m in card.items():
+        # sim_score_cam weights the activations themselves, which may be negative
+        check(bool(torch.isfinite(m).all()) and (name == "sim_score_cam" or m.min() >= 0),
+              f"{name}: not finite, or negative")
+        refs = {"eager on the card": eager[name]}
+        if name in host:
+            refs["the CPU's plain path"] = host[name]
+        scale = m.abs().max().item() or 1.0
+        if name == "sbsm_feature_saliency":  # of the mean features' size (distances' scale)
+            with torch.no_grad():
+                scale = fns_of(model)[1](x224[:1].cuda()).mean(dim=(1, 2)).norm().item()
+        for what, ref in refs.items():
+            e = (m - ref).abs().max().item() / scale
+            check(e <= VARIANT_TOL, f"{name}: {e} of its scale from {what} > {VARIANT_TOL}")
+            errs[f"{name} vs {what}"] = e
+    out["variants"] = {"err_of_scale": errs, "card_wall_s": wall, "cpu_wall_s": cpu_wall,
+                       "launches": launches}
+    out["launches"]["siglip_variants"] = launches
+    log(f"[slice] saliency variants on a full-width MedSigLIP tower at 224 px (f32, "
+        f"XMIR_FLASH_ATTN=1): launches {launches}; of each map's scale {errs} (bound "
+        f"{VARIANT_TOL}); {wall:.1f} s on the card (sim_score_cam: 1,154 forwards), "
+        f"{cpu_wall:.1f} s for the two others on the CPU")
+    del model, cpu, xs
+    torch.cuda.empty_cache()
+
+    # ConceptXAI on the trained ConceptCLIP-384
+    data_dir, csv_path = conceptclip["data"]
+    n_images = len(load_vindr_ids(csv_path))
+    with env_flags(**flags):
+        reset_launches()
+        t0 = time.perf_counter()
+        results = xai_conceptclip.main(["--dataset", "vindr", "--dataset-dir", data_dir,
+                                        "--test-image-list", csv_path, "--checkpoint",
+                                        conceptclip["checkpoint"], "--vocab",
+                                        conceptclip["vocab"], "--top-k", "3",
+                                        "--num-query-samples", "2", "--device", "cuda",
+                                        "--out-dir", str(workdir / "cxai")])
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    want = dict.fromkeys(WRAPPERS, 0)
+    want["K2"] = SIGLIP["depth"] * -(-n_images // 16)
+    check(launches == want, f"xai_conceptclip: launches {launches}, expected {want}")
+    files = sorted(p.name for p in (workdir / "cxai").iterdir())
+    check(len(results) == 2 and len(files) == 4 and all(
+        len(r["retrieved"]) == 3 and len(r["query_top_concepts"]) == 5 for r in results),
+        f"xai_conceptclip: {files}")
+    out["launches"]["conceptclip_xai"] = launches
+    out["conceptxai"] = {"wall_s": wall, "images_per_s": n_images / wall,
+                         "explanations": len(results)}
+    log(f"[slice] cli.xai_conceptclip (ConceptCLIP-384 from cli.train_conceptclip's "
+        f"checkpoint, f32, XMIR_FLASH_ATTN=1): launches {launches}; {n_images} images encoded "
+        f"and 2 queries explained in {wall:.1f} s ({n_images / wall:.1f} images/s with the "
+        f"model's build); first query's concepts "
+        f"{[c['name'] for c in results[0]['query_top_concepts']]}")
+    return out
+
+
+def load_vindr_ids(csv_path):
+    with open(csv_path) as f:
+        return sorted({line.split(",")[0] for line in f.read().splitlines()[1:] if line})
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-swin", action="store_true",
                         help="only build, then print where a bf16 SwinV2-Base batch's time goes")
     parser.add_argument("--train-only", action="store_true",
                         help="only build, then the training phases (17 to 23, 25 to 28, 31 to "
-                             "33); prints no result")
+                             "33, 38 to 40); prints no result")
+    parser.add_argument("--siglip-only", action="store_true",
+                        help="only build, then the SigLIP family's training and XAI phases "
+                             "(38 to 41); prints no result")
     opts = parser.parse_args()
     smi = phase_device()
     phase_build()
     if opts.profile_swin:
         profile_swin()
+        print(smi)
+        return
+    if opts.siglip_only:
+        phase_kernel_siglip_bwd()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_train_medsiglip(Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_siglip_xai(Path(tmp), phase_train_conceptclip(Path(tmp)))
         print(smi)
         return
     if opts.train_only:
@@ -5094,6 +5828,11 @@ def main():
         with tempfile.TemporaryDirectory() as tmp:
             phase_distill(Path(tmp))
         phase_nih_distill_rates()
+        phase_kernel_siglip_bwd()
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_train_medsiglip(Path(tmp))
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_train_conceptclip(Path(tmp))
         print(smi)
         return
     max_err = phase_kernel()
@@ -5148,9 +5887,17 @@ def main():
     nd_rates = phase_nih_distill_rates()
     clip_errs = phase_kernel_siglip()
     with tempfile.TemporaryDirectory() as tmp:
-        c_slices, siglip_pt, queries = phase_slice_clip(Path(tmp))
-        zs = phase_clip_zeroshot(Path(tmp), siglip_pt, queries)
+        with registry_models_drawn_once():
+            c_slices, siglip_pt, queries = phase_slice_clip(Path(tmp))
+        with registry_models_drawn_once():
+            zs = phase_clip_zeroshot(Path(tmp), siglip_pt, queries)
     clip_rates = phase_clip_rates()
+    siglip_bwd = phase_kernel_siglip_bwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        ms_train = phase_train_medsiglip(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        cc_train = phase_train_conceptclip(Path(tmp))
+        sx = phase_siglip_xai(Path(tmp), cc_train)
     by_path = {key: {"densenet121": d_launches[key], "convnextv2": c_launches[key],
                      **{path: v["launches"][key] for path, v in v_slices.items()},
                      **{path: v["launches"][key] for path, v in s_slices.items()},
@@ -5164,7 +5911,10 @@ def main():
                      **{path: v[key] for path, v in nih["launches"].items()},
                      **{path: v[key] for path, v in distill["launches"].items()},
                      **{path: v["launches"][key] for path, v in c_slices.items()},
-                     **{path: v[key] for path, v in zs["launches"].items()}}
+                     **{path: v[key] for path, v in zs["launches"].items()},
+                     **{path: v[key] for path, v in ms_train["launches"].items()},
+                     **{path: v[key] for path, v in cc_train["launches"].items()},
+                     **{path: v[key] for path, v in sx["launches"].items()}}
                for key in WRAPPERS}
     slice_errs = [slice_err, c_slice_err, nih["hits_err"], distill["hits_err"]] + [
         v["err"] for v in v_slices.values()] + [v["err"] for v in s_slices.values()] + [
@@ -5209,7 +5959,8 @@ def main():
         library=k3["library"], device_ms=k3["device_ms"],
         library_device_ms=k3["library_device_ms"],
         shape="bf16, one DINOv2 ViT-B/14 block's backward call at B=16, 518 px",
-        by_shape=bwd_rates, launches_by_path=by_path["K3"]))
+        by_shape=bwd_rates, siglip_hd72=siglip_bwd["rates"], siglip_hd72_err=siglip_bwd["err"],
+        launches_by_path=by_path["K3"]))
     for key in ("K4", "K6"):
         bf16 = window_rates[key]["bfloat16"]
         kernels.append(dict(
@@ -5310,7 +6061,12 @@ def main():
                       "clip_zeroshot": {k: v for k, v in zs.items() if k != "launches"},
                       "ptxas_c75xx": clip_errs["ptxas C75xx"],
                       "medsiglip_embed": clip_rates["medsiglip_embed"],
-                      "biomedclip_embed": clip_rates["biomedclip_embed"]}))
+                      "biomedclip_embed": clip_rates["biomedclip_embed"],
+                      "ptxas_c75xx_vit_attn_bwd": siglip_bwd["ptxas_vit_attn_bwd"],
+                      "medsiglip_train": {k: v for k, v in ms_train.items() if k != "launches"},
+                      "conceptclip_train": {k: cc_train[k] for k in ("losses", "first_rc_rel",
+                                                                     "step")},
+                      "siglip_xai": {k: v for k, v in sx.items() if k != "launches"}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -330,10 +330,13 @@ def test_saliency_clis_match_the_jax_clis(tmp_path, narrow_densenet):
                                         (["--explainer", "gradcam_sim"], "item 7"),
                                         (["--use-mesh"], "item 11")])
 def test_saliency_clis_refuse_what_waits(flag, match):
-    """gradcam_sim and --use-mesh wait; simatt, simcam and rollout landed
-    (tests/test_torch_xai_explainers.py runs them) and nothing refuses them."""
-    if match is None:
-        for explainer in ("simatt", "simcam", "rollout"):
+    """--use-mesh waits; simatt, simcam and rollout landed
+    (tests/test_torch_xai_explainers.py runs them), and gradcam_sim with
+    ROADMAP.md section 1 item 7 (tests/test_torch_siglip_xai.py runs it):
+    nothing refuses them."""
+    landed = {None: ("simatt", "simcam", "rollout"), "item 7": ("gradcam_sim",)}
+    if match in landed:
+        for explainer in landed[match]:
             compute_saliency.refuse_unported(
                 compute_saliency.argparse.Namespace(explainer=explainer, use_mesh=False))
         return

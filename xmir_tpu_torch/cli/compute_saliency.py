@@ -19,10 +19,12 @@ anchor's stack of maps, [anchor, its top-k of ``--results``] or the anchor
 twice, as ``simatt_q{query:05d}.npy``; ``simcam`` the (2, H, W) query and
 retrieval maps of each image against the next as ``simcam_q{query:05d}.npy``;
 ``rollout`` (a ViT: dinov2) each image's attention rollout as
-``rollout_q{query:05d}.npy``.
+``rollout_q{query:05d}.npy``; ``gradcam_sim`` (a ViT with the ``token_delta``
+tap: medsiglip) the Grad-CAM of cosine(query, retrieved) for each query's
+top-k of ``--results``, or the next image, as
+``gradcam_q{query:05d}_r{retrieved:05d}.npy``.
 
-Not ported yet: ``--explainer gradcam_sim`` (ROADMAP.md section 1 item 7) and
-``--use-mesh`` (item 11).
+Not ported yet: ``--use-mesh`` (ROADMAP.md section 1 item 11).
 """
 from __future__ import annotations
 
@@ -42,16 +44,9 @@ from .common import (
     resolve_device,
 )
 
-# the explainers still to port, by the ROADMAP.md item that brings them
-WAITING_EXPLAINERS = {"gradcam_sim": "section 1 item 7"}
-
-
 def refuse_unported(args):
-    """Raise for an explainer or option of the JAX CLI not ported yet."""
-    if args.explainer in WAITING_EXPLAINERS:
-        raise NotImplementedError(
-            f"--explainer {args.explainer} is not ported to xmir_tpu_torch yet (ROADMAP.md, "
-            f"{WAITING_EXPLAINERS[args.explainer]})")
+    """Raise for an option of the JAX CLI not ported yet (every explainer
+    is)."""
     if args.use_mesh:
         raise NotImplementedError("--use-mesh (the mask fan-out over several cards) is not "
                                   "ported to xmir_tpu_torch yet (ROADMAP.md, section 1 item 11)")
@@ -108,6 +103,12 @@ def pair_explainer(args, model, embed, size: int, device):
         feats = features_fn(model)
         # index 1: the retrieval-side map (of the image that is perturbed)
         return lambda q, r: list(simcam_maps(feats(q)[0], feats(r), out_hw=(size, size))[:, 1])
+    if args.explainer == "gradcam_sim":
+        from ..xai import make_vit_gradcam_fn, vit_gradcam_similarity
+
+        apply_fn = make_vit_gradcam_fn(model)
+        return lambda q, r: list(vit_gradcam_similarity(apply_fn, embed(q)[0], r,
+                                                        out_hw=(size, size)))
     return lambda q, r: list(rollout_maps(model, r, size))
 
 
@@ -146,6 +147,8 @@ def main(argv=None):
     embed = make_embed_fn(model)
     prep = image_preprocessor(spec, device)
     os.makedirs(args.save_dir, exist_ok=True)
+    if args.explainer == "gradcam_sim":
+        return gradcam_maps(args, dataset, model, embed, prep, spec.input_size)
     if args.explainer != "sbsm":
         return other_explainers(args, dataset, model, prep, spec.input_size)
     masks = torch.from_numpy(generate_masks(spec.input_size, args.window_size,
@@ -206,6 +209,32 @@ def other_explainers(args, dataset, model, prep, size: int):
         np.save(os.path.join(args.save_dir, f"{args.explainer}_q{qi:05d}.npy"),
                 maps.cpu().numpy())
     print(f">> saved {args.explainer} maps for {n_q} images to {args.save_dir}")
+    return n_q
+
+
+def gradcam_maps(args, dataset, model, embed, prep, size: int):
+    """Grad-CAM of cosine(query, retrieved) on the ViT tokens (reference
+    medsiglip_saliency.py:51-131) for the first ``--limit`` queries (16 by
+    default): each query's top-k of ``--results``, or the next image, one
+    ``gradcam_q{query:05d}_r{retrieved:05d}.npy`` a pair. Returns the count
+    of queries."""
+    from ..xai import make_vit_gradcam_fn, vit_gradcam_similarity
+
+    apply_fn = make_vit_gradcam_fn(model)
+    dists = np.load(args.results, allow_pickle=True)["dists"] if args.results else None
+    n_q = args.limit or min(len(dataset), 16)
+    for qi in range(n_q):
+        if dists is not None:
+            ranks = np.argsort(-dists[qi], kind="stable")[:args.top_k]
+        else:
+            ranks = np.asarray([(qi + 1) % len(dataset)])
+        q_img = prep(dataset.load_image(qi)[None])
+        r_imgs = prep(np.stack([dataset.load_image(int(r)) for r in ranks]))
+        maps = vit_gradcam_similarity(apply_fn, embed(q_img)[0], r_imgs,
+                                      out_hw=(size, size)).cpu().numpy()
+        for j, r in enumerate(ranks):
+            np.save(os.path.join(args.save_dir, f"gradcam_q{qi:05d}_r{int(r):05d}.npy"), maps[j])
+    print(f">> saved grad-CAM similarity maps for {n_q} queries to {args.save_dir}")
     return n_q
 
 

@@ -15,10 +15,10 @@ resumable with ``--skip-existing`` (reference evaluate_test_dataset_milvus.py:
 428-437 substrates, 577-584 incremental save, 688-700 quality heuristics).
 The blur and the model run in IEEE f32 unless ``--score-precision default``.
 Without ``--saliency-dir`` the maps come from ``--explainer`` inline: sbsm,
-simatt (conv backbones with a feature head), simcam, or rollout (a ViT).
+simatt (conv backbones with a feature head), simcam, rollout (a ViT) or
+gradcam_sim (a ViT with the ``token_delta`` tap: medsiglip).
 
-Not ported yet: ``--explainer gradcam_sim`` (ROADMAP.md section 1 item 7) and
-``--use-mesh`` (item 11).
+Not ported yet: ``--use-mesh`` (ROADMAP.md section 1 item 11).
 """
 from __future__ import annotations
 
@@ -50,8 +50,9 @@ def main(argv=None):
                    help="Precomputed maps (sal_q{q}_r{r}.npy); computed on the fly when empty")
     p.add_argument("--explainer", default="sbsm",
                    choices=["sbsm", "simatt", "simcam", "rollout", "gradcam_sim"],
-                   help="Inline saliency (reference evaluate_test_dataset_milvus.py:368-426); "
-                        "gradcam_sim is not ported yet")
+                   help="Inline saliency (reference evaluate_test_dataset_milvus.py:368-426). "
+                        "simatt / simcam need a conv backbone exposing 'features'; rollout / "
+                        "gradcam_sim a ViT")
     p.add_argument("--window-size", default=24, type=int)
     p.add_argument("--stride", default=5, type=int)
     p.add_argument("--gpu-batch", default=128, type=int)

@@ -1,7 +1,8 @@
 """On-disk datasets (port of xmir_tpu/data/datasets.py, whose package init
 imports jax): the COVIDx manifest, the ISIC-2017 and TBX11K CSVs, the
-multi-label VinDr-CXR CSV and the NIH ChestX-ray14 ``.npy`` retrieval set, and
-the manifest / CSV splitters. Copies, not imports.
+multi-label VinDr-CXR CSV with its ConceptCLIP captions, the NIH ChestX-ray14
+``.npy`` retrieval set, and the manifest / CSV splitters. Copies, not
+imports.
 
 A dataset exposes __len__, load_image(i) -> uint8 HWC RGB array, labels and
 image_names. PIL is imported where an image is opened, not at import time.
@@ -53,6 +54,40 @@ VINDR_DISEASE_COLUMNS = [
     "No finding",
 ]
 VINDR_ALL_COLUMNS = VINDR_CONCEPT_COLUMNS + VINDR_DISEASE_COLUMNS
+
+CONCEPT_DESCRIPTIONS = {
+    "Aortic enlargement": "aortic enlargement with widened mediastinum and dilated aortic contour",
+    "Atelectasis": "atelectasis with lung volume loss and collapsed alveolar tissue",
+    "Calcification": "calcification with calcified deposits visible as dense opacities",
+    "Cardiomegaly": "cardiomegaly with enlarged cardiac silhouette exceeding normal cardiothoracic ratio",
+    "Clavicle fracture": "clavicle fracture with disrupted cortical bone continuity",
+    "Consolidation": "consolidation with airspace opacification replacing normal lung aeration",
+    "Edema": "pulmonary edema with bilateral perihilar haziness and interstitial fluid",
+    "Emphysema": "emphysema with hyperinflated lungs and flattened diaphragm",
+    "Enlarged PA": "enlarged pulmonary artery suggesting pulmonary hypertension",
+    "ILD": "interstitial lung disease with reticular or ground-glass opacities",
+    "Infiltration": "pulmonary infiltration with ill-defined opacity in lung parenchyma",
+    "Lung Opacity": "lung opacity with abnormal density in the pulmonary field",
+    "Lung cavity": "lung cavity with air-filled space surrounded by consolidation or wall",
+    "Lung cyst": "lung cyst with thin-walled air-filled space in the lung parenchyma",
+    "Mediastinal shift": "mediastinal shift with displacement of central structures",
+    "Nodule/Mass": "pulmonary nodule or mass with focal rounded density in the lung",
+    "Pleural effusion": "pleural effusion with fluid accumulation in the pleural space",
+    "Pleural thickening": "pleural thickening with increased density along the pleural surface",
+    "Pneumothorax": "pneumothorax with visible visceral pleural line and absent lung markings",
+    "Pulmonary fibrosis": "pulmonary fibrosis with reticular opacities and honeycombing pattern",
+    "Rib fracture": "rib fracture with cortical disruption or callus formation",
+    "Other lesion": "other lesion with abnormal radiographic finding",
+}
+DISEASE_DESCRIPTIONS = {
+    "COPD": "chronic obstructive pulmonary disease",
+    "Lung tumor": "lung tumor or pulmonary malignancy",
+    "Pneumonia": "pneumonia with infectious consolidation",
+    "Tuberculosis": "tuberculosis with characteristic upper lobe involvement",
+    "Other diseases": "other thoracic disease",
+    "No finding": "normal chest radiograph without significant pathology",
+}
+
 
 
 def _open_rgb(path: str) -> np.ndarray:
@@ -195,6 +230,52 @@ class VinDrDataset(_BaseDataset):
             self.image_ids = ids
         self.image_names = [os.path.join(data_dir, f"{i}.png") for i in self.image_ids]
         self.labels = values.astype(np.float32)
+
+
+class VinDrConceptCLIPDataset(VinDrDataset):
+    """VinDr with concept-rich text generation for ConceptCLIP training
+    (read_data.py:477-637): 22 visual concepts + 6 disease labels."""
+
+    def __init__(self, data_dir, csv_file):
+        super().__init__(data_dir, csv_file, label_columns=VINDR_ALL_COLUMNS)
+        present = self.label_columns
+        # column order follows VINDR_ALL_COLUMNS filtered by presence
+        self.concept_idx = [i for i, c in enumerate(present) if c in VINDR_CONCEPT_COLUMNS]
+        self.disease_idx = [i for i, c in enumerate(present) if c in VINDR_DISEASE_COLUMNS]
+        self.concept_labels = self.labels[:, self.concept_idx]
+        self.disease_labels = self.labels[:, self.disease_idx]
+        self.all_labels = self.labels
+
+    def build_text(self, concept_vec, disease_vec):
+        """Concept-rich caption (read_data.py:556-609). Returns (text,
+        active concept names for RC-Align)."""
+        concept_cols = [self.label_columns[i] for i in self.concept_idx]
+        disease_cols = [self.label_columns[i] for i in self.disease_idx]
+        active_concepts = [concept_cols[i] for i, v in enumerate(concept_vec) if v == 1]
+        active_diseases = [disease_cols[i] for i, v in enumerate(disease_vec) if v == 1]
+        is_normal = ("No finding" in active_diseases) and not active_concepts
+        if is_normal:
+            return "A normal chest X-ray without significant pathological findings.", []
+        if active_diseases and "No finding" not in active_diseases:
+            disease_part = ", ".join(
+                DISEASE_DESCRIPTIONS.get(d, d) for d in active_diseases
+            )
+        else:
+            disease_part = "unspecified condition"
+        if active_concepts:
+            concept_part = ", ".join(
+                CONCEPT_DESCRIPTIONS.get(c, c) for c in active_concepts
+            )
+            text = (
+                f"A chest X-ray showing {disease_part} "
+                f"with findings of {concept_part}."
+            )
+        else:
+            text = f"A chest X-ray showing {disease_part}."
+        return text, active_concepts
+
+    def get_text(self, index):
+        return self.build_text(self.concept_labels[index], self.disease_labels[index])
 
 
 def _resolve_file_list(data_dir=None, image_list_file=None, suffix=".npy"):

@@ -13,6 +13,7 @@ from .metric_losses import (
     dual_branch_multilabel_loss,
     triplet_hash_loss,
 )
+from .align import LOG_SCALE_MAX, conceptclip_loss, it_align_loss, rc_align_loss
 
 
 def auto_select_loss(dataset: str, model: str | None = None) -> str:

@@ -1,7 +1,8 @@
 """Step functions (port of xmir_tpu/train/steps.py): the metric-learning
-train step, the NIH dual-branch and the distillation steps, gradient
-accumulation and the inference embedding step. The ConceptCLIP step waits
-for its model.
+train step, the NIH dual-branch and the distillation steps, the ConceptCLIP
+IT + RC step with its host-side concept dedupe, the MedSigLIP IT-Align step
+(inline in the JAX package's cli/train_medsiglip.py), gradient accumulation
+and the inference embedding step.
 
 Mixed precision (``compute_dtype=bfloat16``) is not ``torch.autocast``, but
 the JAX package's scheme: master parameters stay f32 in the optimiser, a bf16
@@ -16,12 +17,17 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
+import numpy as np
 import torch
+from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
 from ..losses import (
+    LOG_SCALE_MAX,
     asymmetric_loss,
+    conceptclip_loss,
+    it_align_loss,
     jaccard_supcon_loss,
     multilabel_contrastive_loss,
     supcon_loss,
@@ -47,16 +53,35 @@ LOSS_FNS = {
 }
 
 
+class _Bound(nn.Module):
+    """``fn(model, *args)`` as a module's forward, so that
+    ``functional_call`` can run any of ``model``'s methods on swapped
+    tensors."""
+
+    def __init__(self, model, fn):
+        super().__init__()
+        self.model, self.fn = model, fn
+
+    def forward(self, *args):
+        return self.fn(self.model, *args)
+
+
+def _train_call(model, compute_dtype, fn, *args):
+    """fn(model, *args) in training: directly in f32, else on
+    ``compute_dtype`` copies of the floating parameters made inside autograd
+    (buffers uncast), whichever of the model's methods fn calls."""
+    if compute_dtype == torch.float32:
+        return fn(model, *args)
+    tensors = {f"model.{name}": p.to(compute_dtype) if p.is_floating_point() else p
+               for name, p in model.named_parameters()}
+    tensors.update((f"model.{name}", b) for name, b in model.named_buffers())
+    return functional_call(_Bound(model, fn), tensors, args)
+
+
 def _train_forward(model, images, compute_dtype, **kwargs):
     """``model``'s output in training on ``images`` (already in
-    ``compute_dtype``): directly in f32, else on ``compute_dtype`` copies of
-    the floating parameters made inside autograd (buffers uncast)."""
-    if compute_dtype == torch.float32:
-        return model(images, **kwargs)
-    tensors = {name: p.to(compute_dtype) if p.is_floating_point() else p
-               for name, p in model.named_parameters()}
-    tensors.update(model.named_buffers())
-    return functional_call(model, tensors, (images,), kwargs)
+    ``compute_dtype``), by ``_train_call``."""
+    return _train_call(model, compute_dtype, lambda m, x: m(x, **kwargs), images)
 
 
 def _backward_and_apply(state, loss):
@@ -165,6 +190,138 @@ def make_distill_train_step(model, loss_name: str = "triplet", distill_weight: f
         loss, aux, distill = losses(images, labels)
         _backward_and_apply(state, loss)
         return {"loss": loss.detach(), "aux": aux.detach(), "distill": distill.detach()}
+
+    step.losses = losses
+    return step
+
+
+def make_it_align_train_step(model, compute_dtype=torch.float32):
+    """The MedSigLIP fine-tuning step of the JAX package's
+    cli/train_medsiglip.py (there inline): the SigLIP sigmoid loss
+    (IT-Align) of a ``MedSigLIPDualEncoder``'s f32 image and text features,
+    with its learned logit scale and bias. Only the pixels are cast to
+    ``compute_dtype``: the parameters stay f32, so every layer promotes back
+    to f32 (flax's ``nn.Dense`` / ``nn.Conv`` promotion, kept by the port's
+    layers) and the attention takes K2 / K3 in f32, under
+    ``XMIR_FLASH_ATTN=1`` only. No post-step clamp of the logit scale.
+    step(state, pixel_values, input_ids) -> {"loss"} as a device tensor;
+    ``step.losses`` is the differentiated function alone."""
+
+    def losses(pixel_values, input_ids):
+        out = model(pixel_values.to(compute_dtype), input_ids)
+        return it_align_loss(out["image_features"].float(), out["text_features"].float(),
+                             out["logit_scale"], out["logit_bias"])
+
+    def step(state, pixel_values, input_ids):
+        loss = losses(pixel_values, input_ids)
+        _backward_and_apply(state, loss)
+        return {"loss": loss.detach()}
+
+    step.losses = losses
+    return step
+
+
+def dedupe_concept_batch(concept_ids, concept_token_mask=None, bucket: int = 8):
+    """Host-side unique-ing of per-sample concept token rows (a copy of the
+    JAX package's, numpy only).
+
+    The reference encodes every (b, w) concept string through the text tower
+    each step (train.py:175-218), though VinDr's concepts come from a fixed
+    vocabulary of 22 names. Returns (unique_ids (U, Lc), unique_token_mask
+    (U, Lc), inverse (B, W) int32) with U padded up to a multiple of
+    ``bucket``. Padded rows are all [PAD], referenced by no slot of
+    ``inverse``, so their gradient is zero. Feed them to a step made with
+    ``make_conceptclip_train_step(..., dedupe_concepts=True)``."""
+    concept_ids = np.asarray(concept_ids)
+    b, w, lc = concept_ids.shape
+    flat = concept_ids.reshape(b * w, lc)
+    uniq, first, inverse = np.unique(flat, axis=0, return_index=True, return_inverse=True)
+    u = uniq.shape[0]
+    cap = -(-u // bucket) * bucket
+    unique_ids = np.zeros((cap, lc), flat.dtype)
+    unique_ids[:u] = uniq
+    if concept_token_mask is not None:
+        flat_mask = np.asarray(concept_token_mask).reshape(b * w, lc)
+        unique_mask = np.zeros((cap, lc), flat_mask.dtype)
+        unique_mask[:u] = flat_mask[first]
+    else:
+        unique_mask = unique_ids != 0
+    return unique_ids, unique_mask, inverse.reshape(b, w).astype(np.int32)
+
+
+class ConceptGather(torch.autograd.Function):
+    """unique_feats (U, D), inverse (B, W) int -> (B, W, D) rows of
+    unique_feats (``jnp.take(unique_feats, inverse, axis=0)``). The backward
+    adds the cotangents of the slots that share a row as one reduction over
+    a one-hot (U, B W, D) product, in f32, rounded once to the features'
+    dtype: a fixed order, where indexing's own backward adds them with
+    atomics on CUDA and two runs of a step would differ in their last
+    bits."""
+
+    @staticmethod
+    def forward(ctx, unique_feats, inverse):
+        ctx.save_for_backward(inverse)
+        ctx.rows = unique_feats.shape[0]
+        return unique_feats[inverse.long()]
+
+    @staticmethod
+    def backward(ctx, g):
+        (inverse,) = ctx.saved_tensors
+        flat = inverse.reshape(-1).long()
+        onehot = (flat[None, :] == torch.arange(ctx.rows, device=g.device)[:, None]).float()
+        rows = torch.sum(onehot[:, :, None] * g.reshape(flat.shape[0], -1).float()[None], dim=1)
+        return rows.to(g.dtype), None
+
+
+def make_conceptclip_train_step(model, alpha: float = 0.5, compute_dtype=torch.float32,
+                                dedupe_concepts: bool = False):
+    """IT-Align + alpha RC-Align on a ``ConceptCLIPModel`` (reference
+    train.py:221-397): the image and caption features and the image's patch
+    tokens from ``forward_clip``, each concept's features from the text
+    tower (``encode_text``), every floating parameter cast to
+    ``compute_dtype`` inside autograd (``_train_call``), the loss in f32.
+    After the update ``logit_scale`` is clamped to [0, ln 100] in place
+    (train.py:361-367).
+
+    step(state, pixel_values, input_ids, attention_mask, concept_ids,
+    concept_mask, concept_token_mask=None, concept_inverse=None): the
+    concepts are padded (B, W, Lc) token rows, or with
+    ``dedupe_concepts=True`` the (U, Lc) rows of ``dedupe_concept_batch``
+    with its (U, Lc) token mask and (B, W) inverse: the text tower then
+    encodes each distinct concept once and ``ConceptGather`` spreads the
+    features over the slots. Without a token mask a concept's [PAD] tokens
+    (id 0) are masked. Returns {"loss", "it_loss", "rc_loss"} as device
+    tensors; ``step.losses`` is the differentiated function alone."""
+
+    def forward(m, pixel_values, input_ids, attention_mask, concept_ids, concept_token_mask,
+                concept_inverse):
+        out = m.forward_clip(pixel_values, input_ids, attention_mask)
+        if concept_token_mask is None:
+            concept_token_mask = concept_ids != 0
+        if dedupe_concepts:
+            feats = ConceptGather.apply(m.encode_text(concept_ids, concept_token_mask),
+                                        concept_inverse)
+        else:
+            b, w, lc = concept_ids.shape
+            feats = m.encode_text(concept_ids.reshape(b * w, lc),
+                                  concept_token_mask.reshape(b * w, lc)).reshape(b, w, -1)
+        return out, feats
+
+    def losses(pixel_values, input_ids, attention_mask, concept_ids, concept_mask,
+               concept_token_mask=None, concept_inverse=None):
+        out, feats = _train_call(model, compute_dtype, forward, pixel_values.to(compute_dtype),
+                                 input_ids, attention_mask, concept_ids, concept_token_mask,
+                                 concept_inverse)
+        return conceptclip_loss(out["image_features"].float(), out["text_features"].float(),
+                                out["image_token_features"].float(), feats.float(),
+                                concept_mask, out["logit_scale"], out["logit_bias"], alpha=alpha)
+
+    def step(state, *batch):
+        loss, it, rc = losses(*batch)
+        _backward_and_apply(state, loss)
+        with torch.no_grad():
+            model.logit_scale.clamp_(0.0, LOG_SCALE_MAX)
+        return {"loss": loss.detach(), "it_loss": it.detach(), "rc_loss": rc.detach()}
 
     step.losses = losses
     return step

@@ -1,7 +1,8 @@
 """Explanations of a retrieval (port of xmir_tpu/xai): SBSM occlusion
 saliency, the insertion / deletion causal metrics, SimAtt with the feature
-heads, SimCAM and attention rollout. Grad-CAM similarity, the ConceptXAI
-tools and the saliency variants come with ROADMAP.md section 1 item 7."""
+heads, SimCAM, attention rollout, Grad-CAM on a similarity, ConceptCLIP's
+patch-concept explanations and the saliency variants (masked-query and
+feature SBSM, FSal, FSalGrad, SimScoreCAM)."""
 from .causal import (  # noqa: F401
     auto_batch_steps,
     blur_substrate,
@@ -22,4 +23,22 @@ from .simcam import (  # noqa: F401
     simcam_decomposition,
     simcam_maps,
     simcam_vit_maps,
+)
+from .variants import (  # noqa: F401
+    ProbeClassifier,
+    fsal_grad_saliency,
+    fsal_saliency,
+    gaussian_blur_normed,
+    sbsm_feature_saliency,
+    sbsm_masked_query_saliency,
+    sim_score_cam,
+    transform_query,
+)
+from .gradcam_sim import make_vit_gradcam_fn, vit_gradcam_similarity  # noqa: F401
+from .conceptxai import (  # noqa: F401
+    attention_heatmap,
+    detect_patch_grid,
+    explain_retrieval,
+    patch_concept_attention,
+    text_explanation,
 )
