@@ -11,7 +11,12 @@ from, K10's by ``grad_agreement`` too (in bf16 also pass 2's ab bit-equal
 to pass 1's, ``convnext_block.tail_bwd_recomputes_ab``), K2's with its flip
 allowance (``vit_attn.flip_allowance``). K1 and K1' are held to bit-equal
 ids and values on integer inputs, K1's f32 scores also to
-``topk_kernels.f32_score_error``'s bound (3xTF32) on full-mantissa rows.
+``topk_kernels.f32_score_error``'s bound (3xTF32) on full-mantissa rows; K1
+on ATH's +/-1 codes at D = 48 to bit-equal ids and values by chip_smoke.py
+phase 42's check, which a result with two tied ids swapped must fail. The
+ATH train step's checks of phase 44 (its losses against the CPU's, its first
+gradients against float64's) must refuse ATHNet's average pool padded by
+``F.avg_pool2d`` itself, whose CUDA backward on a channels_last map is wrong.
 Each line prints how far the reading goes toward its bounds (above 1: past
 one of them).
 
@@ -791,10 +796,60 @@ def read_k1():
     return {"max_abs_err": worst_abs, "of_bound": worst, "mean_steps": 0.0}
 
 
+def swap_first_tie(v, i):
+    """(v, i) with the ids of the first two tied slots swapped: the lower
+    row no longer first among equal scores."""
+    i = i.clone()
+    qi, s = (v[:, 1:] == v[:, :-1]).nonzero()[0].tolist()
+    i[qi, s], i[qi, s + 1] = i[qi, s + 1].clone(), i[qi, s].clone()
+    return v, i
+
+
+def read_hamming(kernel=fused_topk_scores):
+    """K1 on +/-1 codes at D = 48 over 100,000 rows, Q = 1024, k = 10, f32
+    and bf16, by chip_smoke.py phase 42's check (k1_hamming_reading): of_bound
+    0 where ids and values are bit-equal to the plain version's, else inf."""
+    import chip_smoke as cs
+
+    gen = torch.Generator().manual_seed(6)
+    equal = True
+    for dtype in (torch.float32, torch.bfloat16):
+        q = cs.sign_rows(gen, 1024).to("cuda", dtype)
+        g = cs.sign_rows(gen, cs.SERVING_N).to("cuda", dtype)
+        equal &= cs.k1_hamming_reading(q, g, 10, kernel)["bit_equal"]
+    return {"max_abs_err": 0.0, "of_bound": 0.0 if equal else float("inf"), "mean_steps": 0.0}
+
+
+def read_ath(padded_pool=False):
+    """chip_smoke.py phase 44's checks of cli.train_ath on a generated COVIDx
+    tree: the three steps' losses against the CPU's (``ath_losses_agree``)
+    and the first step's gradients against float64's (``ath_grads_agree``),
+    of_bound the larger share of their bounds. With ``padded_pool``, ATHNet's
+    average pool pads by ``F.avg_pool2d`` itself, whose CUDA backward on a
+    channels_last map is wrong (torch 2.11, CUDA 12.8)."""
+    import chip_smoke as cs
+    from xmir_tpu_torch.models import ath
+
+    fixed = ath.avg_pool_3x3
+    if padded_pool:
+        ath.avg_pool_3x3 = lambda h: torch.nn.functional.avg_pool2d(h, 3, stride=1, padding=1)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tree = cs.covidx_tree(Path(tmp), "f")
+            losses = cs.ath_train_reading(Path(tmp), tree, str(Path(tmp) / "ath.pt"))
+            grads = cs.ath_first_step_grads(tree)
+    finally:
+        ath.avg_pool_3x3 = fixed
+    return {"of_bound": max(losses["of_bound"], grads["of_bound"]),
+            "losses_rel": losses["rel"], "grads_rel": grads["card"],
+            "agree": cs.ath_losses_agree(losses) and cs.ath_grads_agree(grads)}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", nargs="+", metavar="KERNEL",
-                        help="the kernels to read and plant faults in (K1 K1' K2 ... K11)")
+                        help="the kernels to read and plant faults in (K1 K1' K2 ... K11), "
+                             "or ath: the ATH train step's checks")
     only = parser.parse_args().only
 
     def want(*kernels):
@@ -818,6 +873,8 @@ def main():
             share = max(reading["of_bound"], reading["mean_of_bound"])
         elif "mean_steps" in reading:
             share = max(reading["of_bound"], reading["mean_steps"] / cb.BF16_MEAN_STEPS)
+        elif "of_bound" in reading:
+            share = reading["of_bound"]
         else:
             share = float("nan")
         print(f"[faults] {name:60s} {kernel:9s} {'inside' if inside else 'OUTSIDE'} "
@@ -837,8 +894,17 @@ def main():
         report("the kernel", f"K6 {str(dtype)[6:]}", e6, True)
     if want("K1"):
         report("the kernel", "K1", read_k1(), True)
+        report("the kernel on +/-1 codes at D = 48 (chip_smoke.py phase 42)", "K1",
+               read_hamming(), True)
+        report("K1 at D = 48: two tied ids swapped in its result", "K1",
+               read_hamming(lambda *a: swap_first_tie(*fused_topk_scores(*a))), False)
     if want("K1'"):
         report("the kernel", "K1'", read_select(), True)
+    if want("ath"):
+        report("cli.train_ath on the card against the CPU and float64 (phase 44)", "ath",
+               read_ath(), True, lambda r: r["agree"])
+        report("ATHNet's average pool padded by F.avg_pool2d", "ath", read_ath(True), False,
+               lambda r: r["agree"])
     for dtype in (torch.bfloat16, torch.float32) if want("K9", "K11") else ():
         e9, e11 = read_tail(dtype)
         report("the kernel", f"K9 {str(dtype)[6:]}", e9, True)
@@ -939,6 +1005,9 @@ def main():
                 continue
             if re.match(r"K1[ :]", name):
                 report(name, "K1", read_k1(), False)
+                if any(w in name for w in ("tie", "equal values", "order")):  # tie order
+                    # as phase 42 reads it on +/-1 codes
+                    report(name, "K1 +/-1", read_hamming(), False)
                 continue
             if name.startswith("K5"):
                 if "out of the fixed order" in name:  # refused if outside or not repeatable

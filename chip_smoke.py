@@ -349,8 +349,40 @@ Phases, each of which raises (exit code != 0) on any failure:
              the CPU's plain path, they and sim_score_cam against the card's
              eager path, within 1e-3 of each map's scale; cli.xai_conceptclip
              on phase 40's checkpoint and data (K2 = 27 x gallery batches)
+ 42. kernel  K1 at the two depths the slice adds, over 100,000 rows at Q =
+             1024 and Q = 1, k = 10, f32 and bf16: D = 48 on +/-1 codes
+             (ATH's Hamming path: every score an exact integer, thousands of
+             rows tied at each query's k-th score) bit-equal to the plain
+             version, ids and values, and fused_topk(metric="hamming")
+             against the CPU's plain path; D = 2048 on unit rows (ResNet50)
+             within phase 3's agreement, f32 within the 3xTF32 score bound;
+             integer inputs with ties at every plan edge bit-equal at both;
+             the plans; each timed (events in turns with the plain version,
+             device_ms) beside its bound and torch.mm + torch.topk
+ 43. slice   ResNet50 at full width (224 crop, 2048-d) on COVIDx-format PNGs:
+             cli.ingest -> cli.query (K1 at D = 2048 once; the hits against
+             the plain top-k) and cli.test --save-dir (no kernel; the metrics
+             against numpy's)
+ 44. slice   the ATH hashing path (256 px, 48 bits): cli.train_ath, three
+             steps at batch 32 (no kernel; the f32 losses within 1e-5 (1 +
+             |loss|) of the same CLI on the CPU, beyond the CPU's own f32
+             drift from a float64 run, every tensor moved);
+             cli.test_ath --resume with and without --binary-codes;
+             cli.ingest --model ath --metric hamming -> cli.query (K1 once on
+             +/-1 codes: the hits bit-equal to the plain top-k of the
+             recorded search); the card's codes, metrics and hits against
+             the CPU CLIs' on the same .pt (equal where no code's sign
+             differs)
+ 45. slice   cli.anomaly --model resnet50 (no kernel); the query sets of
+             ResNet50 and DenseNet121 through cli.fusion (the card and the
+             CPU) and, against their galleries, cli.compare --html (K1 twice,
+             each search's hits against the plain top-k)
+ 46. rates   the ResNet50 embed at batch 64 (224 px) in f32, TF32 and bf16 by
+             device_ms; the ATH train step at batch 32 (96 images at 256 px)
+             by step_reading
 ``--train-only`` builds and runs phases 17 to 23, 25 to 28, 31 to 33 and 38
-to 40 alone, ``--siglip-only`` phases 38 to 41 (no result line).
+to 40 alone, ``--siglip-only`` phases 38 to 41, ``--resnet-ath-only`` phases
+42 to 46 (no result line).
 The launch counts are set to 0 before each slice and read after it. Each
 kernel's bound (the least time the card could take: bytes moved once over
 3.35 TB/s, or operations over the peak of their type) is reckoned from the
@@ -377,9 +409,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from xmir_tpu_torch.analysis import hash_retrieval_metrics
+from xmir_tpu_torch.cli import anomaly as anomaly_cli
 from xmir_tpu_torch.cli import common, ingest, query
+from xmir_tpu_torch.cli import compare as compare_cli
+from xmir_tpu_torch.cli import fusion as fusion_cli
 from xmir_tpu_torch.cli import test as test_cli
+from xmir_tpu_torch.cli import test_ath as test_ath_cli
 from xmir_tpu_torch.cli import train as train_cli
+from xmir_tpu_torch.cli import train_ath as train_ath_cli
 from xmir_tpu_torch.cli import zeroshot as zeroshot_cli
 from xmir_tpu_torch.data.datasets import NIH_RETRIEVAL_PATHOLOGIES
 from xmir_tpu_torch.data.pipeline import embed_dataset
@@ -391,6 +429,7 @@ from xmir_tpu_torch.models import swin as swin_model
 from xmir_tpu_torch.models import vit as vit_model
 from xmir_tpu_torch.models.activations import adaptive_gelu
 from xmir_tpu_torch.models.convert import load_torch_checkpoint
+from xmir_tpu_torch.models.embedders import ATHEmbedder
 from xmir_tpu_torch.models.registry import create_model
 from xmir_tpu_torch.ops import _build
 from xmir_tpu_torch.ops import convnext_block as cb
@@ -398,7 +437,7 @@ from xmir_tpu_torch.ops import ln_dense as ld
 from xmir_tpu_torch.ops import plain_attn
 from xmir_tpu_torch.ops import vit_attn as va
 from xmir_tpu_torch.ops import window_attn as wa
-from xmir_tpu_torch.ops.distance import l2_normalize
+from xmir_tpu_torch.ops.distance import l2_normalize, sign_codes
 from xmir_tpu_torch.ops.topk_fused import fused_topk
 from xmir_tpu_torch.ops.topk_kernels import (
     F32_SCORE_C,
@@ -410,8 +449,10 @@ from xmir_tpu_torch.ops.topk_kernels import (
     topk_scores_reference,
 )
 from xmir_tpu_torch.train import (
+    GroupedAdam,
     TrainState,
     build_optimizer,
+    make_ath_train_step,
     make_conceptclip_train_step,
     make_distill_train_step,
     make_dual_branch_train_step,
@@ -695,13 +736,17 @@ def phase_kernel():
 
 
 @contextlib.contextmanager
-def record_searches(calls):
-    """Record each ShardedGalleryIndex.search's queries and gallery tensor."""
+def record_searches(calls, returned=None):
+    """Record each ShardedGalleryIndex.search's (index, queries, k) in
+    ``calls`` and, where ``returned`` is a list, the (values, ids) it gave."""
     orig = ShardedGalleryIndex.search
 
     def search(self, queries, k, exclude_ids=None):
         calls.append((self, torch.as_tensor(queries).clone(), k))
-        return orig(self, queries, k, exclude_ids)
+        out = orig(self, queries, k, exclude_ids)
+        if returned is not None:
+            returned.append(tuple(t.clone() for t in out))
+        return out
 
     ShardedGalleryIndex.search = search
     try:
@@ -2126,12 +2171,12 @@ def phase_slice_swinv2(workdir: Path):
     return out
 
 
-def check_evaluation(save_dir, metrics, n):
+def check_evaluation(save_dir, metrics, n, dim=1024):
     """cli.test's artifact: shapes, finite values, and every metric equal to
     what numpy makes of the artifact's own embeddings and labels."""
     art = np.load(os.path.join(save_dir, "evaluation_results.npz"))
     embeds, labels, dists = art["embeds"], art["labels"], art["dists"]
-    check(embeds.shape == (n, 1024) and labels.shape == (n,) and dists.shape == (n, n),
+    check(embeds.shape == (n, dim) and labels.shape == (n,) and dists.shape == (n, n),
           f"artifact shapes {embeds.shape}, {labels.shape}, {dists.shape}")
     check(np.isfinite(embeds).all() and np.isneginf(np.diag(dists)).all(), "bad artifact")
     e = embeds.astype(np.float64)
@@ -5775,6 +5820,577 @@ def phase_siglip_xai(workdir: Path, conceptclip):
     return out
 
 
+HASH_BITS = 48  # ATH's codes (xmir_tpu/models/registry.py:100): K1's depth on its Hamming path
+RESNET_DIM = 2048  # ResNet50's embedding: K1's deepest depth on a main path
+# (Q, k) of K1 at the two depths over SERVING_N rows: a batch and a single query
+K1_DEPTH_SHAPES = ((1024, 10), (1, 10))
+
+
+def sign_rows(gen, rows, bits=HASH_BITS):
+    """Random +/-1 rows: hash codes as the Hamming index stores them."""
+    return sign_codes(torch.randn((rows, bits), generator=gen))
+
+
+def k1_hamming_reading(q, g, k, kernel=fused_topk_scores):
+    """K1 on +/-1 codes against its plain version: every score is an exact
+    integer, so values and ids must be bit-equal, and the order of tied rows
+    (the lower row first) decides most of the top-k. Returns {"bit_equal",
+    "max_abs_err", "ties_at_kth": the mean count of gallery rows whose score
+    equals a query's k-th, "tied_slots": the share of top-k slots tied with
+    the slot before}."""
+    bias = torch.zeros(g.shape[0], device=g.device)
+    v, i = kernel(q, g, bias, k)
+    rv, ri = topk_scores_reference(q, g, bias, k)
+    ties = (torch.matmul(q.float(), g.float().T) == rv[:, -1:]).sum(dim=1).double().mean()
+    torch.cuda.synchronize()
+    return {"bit_equal": bool(torch.equal(v, rv) and torch.equal(i, ri)),
+            "max_abs_err": (v - rv).abs().max().item(), "ties_at_kth": ties.item(),
+            "tied_slots": (rv[:, 1:] == rv[:, :-1]).double().mean().item()}
+
+
+def phase_k1_depths():
+    """K1 at the slice's two new depths over SERVING_N rows, k = 10, at Q =
+    1024 and Q = 1, f32 and bf16: D = 48 on +/-1 codes (bit-equal to the
+    plain version, and through fused_topk(metric="hamming") against the CPU
+    plain path) and D = 2048 on unit rows (within the agreement of phase 3,
+    f32 within the 3xTF32 score bound); integer inputs with ties at every
+    edge of the plan bit-equal at both; each timed (events in turns with
+    the plain version, device_ms) beside its bound and the library's
+    torch.mm + torch.topk (device_ms; timed here, used nowhere in the port)."""
+    n = SERVING_N
+    gen = torch.Generator().manual_seed(48)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for d in (HASH_BITS, RESNET_DIM):
+        for q_n, k in K1_DEPTH_SHAPES:
+            k1_bit_equal_at(q_n, n, d, k)
+            for dtype in (torch.float32, torch.bfloat16):
+                log(f"[k1 depth] D={d} Q={q_n} k={k} {str(dtype)[6:]}: plan "
+                    f"{launch_plan(q_n, n, k, sms, d, dtype)._asdict()}")
+        log(f"[k1 depth] D={d}: integer inputs with ties at every plan edge bit-equal at Q=1024 "
+            f"and Q=1, N={n}, f32 and bf16")
+    # the metric wrapper on raw (real) codes: the sign transform and the
+    # distance map, against the CPU's plain path
+    raw_q, raw_g = torch.randn((64, HASH_BITS), generator=gen), torch.randn((n, HASH_BITS),
+                                                                             generator=gen)
+    v, i = fused_topk(raw_q.cuda(), raw_g.cuda(), 10, "hamming")
+    rv, ri = fused_topk(raw_q, raw_g, 10, "hamming")
+    check(torch.equal(v.cpu(), rv) and torch.equal(i.cpu(), ri),
+          "fused_topk(metric='hamming') at D = 48 differs from the CPU's plain path")
+    rows = {HASH_BITS: (sign_rows(gen, 1024), sign_rows(gen, n)),
+            RESNET_DIM: (l2_normalize(torch.randn((1024, RESNET_DIM), generator=gen)),
+                         l2_normalize(torch.randn((n, RESNET_DIM), generator=gen)))}
+    bias = torch.zeros(n, device="cuda")
+    out = {}
+    for d, (q_all, g_all) in rows.items():
+        for dtype, atol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+            gg = g_all.to("cuda", dtype)
+            for q_n, k in K1_DEPTH_SHAPES:
+                qq = q_all[:q_n].to("cuda", dtype)
+                key = f"D={d} {str(dtype)[6:]} Q={q_n} k={k}"
+                reading = {}
+                if d == HASH_BITS:
+                    reading = k1_hamming_reading(qq, gg, k)
+                    check(reading["bit_equal"], f"K1 {key} on +/-1 codes: not bit-equal to its "
+                                                f"plain version: {reading}")
+                    err = reading.pop("max_abs_err")
+                else:
+                    v, i = fused_topk_scores(qq, gg, bias, k)
+                    rv, ri = topk_scores_reference(qq, gg, bias, k + 1)
+                    err, checked, total = compare(v, i, rv[:, :k], ri[:, :k], atol, rv)
+                    reading = {"ids_checked": f"{checked}/{total}"}
+                    if dtype == torch.float32:
+                        score = f32_score_error(qq, gg, bias, v, i)
+                        check(score["of_bound"] <= 1, f"K1 {key}: f32 scores outside the 3xTF32 "
+                                                      f"bound: {score}")
+                        reading.update(score_of_bound=score["of_bound"],
+                                       score_max_abs_err=score["max_abs_err"])
+                    del v, i, rv, ri
+
+                def kern():
+                    return fused_topk_scores(qq, gg, bias, k)
+
+                def plain():
+                    return topk_scores_reference(qq, gg, bias, k)
+
+                ms, _ = _in_turns({"kernel": kern, "plain": plain}, rounds=2, reps=3)
+                dev = device_ms(kern)
+                lib = device_ms(lambda: torch.topk(torch.mm(qq, gg.T) + bias, k, dim=1).values)
+                out[key] = dict(k1_bound(q_n, n, d, k, dtype), ms=ms["kernel"],
+                                plain_ms=ms["plain"], device_ms=dev, library_ms=lib,
+                                library="torch.mm + torch.topk (device_ms)", max_abs_err=err,
+                                plan=launch_plan(q_n, n, k, sms, d, dtype)._asdict(), **reading)
+                log(f"[k1 depth] {key} N={n}: device {dev:.4f} ms (bound "
+                    f"{out[key]['bound_ms']:.4f} ms by {out[key]['bound_by']}, "
+                    f"{out[key]['bound_ms'] / dev:.1%} of it); events {ms['kernel']:.4f} ms, "
+                    f"plain {ms['plain']:.3f} ms; torch.mm + torch.topk {lib:.4f} ms by device "
+                    f"time; max err {err:.3g}; {reading}")
+            del gg
+    # the same shape on random unit rows at D = 48: few ties, so the time the
+    # ties of +/-1 codes add stands apart from the depth's
+    qq, gg = _random_inputs(gen, 1024, n, HASH_BITS, torch.bfloat16)
+    dev = device_ms(lambda: fused_topk_scores(qq, gg, bias, 10))
+    out[f"D={HASH_BITS} bfloat16 Q=1024 k=10, unit rows"] = {"device_ms": dev}
+    log(f"[k1 depth] D={HASH_BITS} bfloat16 Q=1024 k=10 on random unit rows (no ties): device "
+        f"{dev:.4f} ms")
+    return out
+
+
+TREE = (256, 64)  # the gallery (train) and query (test) images of phases 43-45
+
+
+def covidx_tree(workdir: Path, name: str):
+    """Gallery (train) and query (test) COVIDx PNGs at 256 px: (gallery
+    images dir, its manifest, query images dir, its manifest, a query
+    manifest naming its files from the gallery's directory, for the CLIs
+    that read both splits from one --dataset-dir)."""
+    g_dir, g_manifest = write_synthetic_covidx(str(workdir / f"{name}_gallery"), n=TREE[0],
+                                               size=256, seed=0)
+    q_dir, q_manifest = write_synthetic_covidx(str(workdir / f"{name}_queries"), n=TREE[1],
+                                               size=256, seed=1)
+    rel = os.path.relpath(q_dir, g_dir)
+    both = str(workdir / f"{name}_test_from_gallery.txt")
+    with open(q_manifest) as f, open(both, "w") as g:
+        for line in f:
+            i, fname, label = line.split()
+            g.write(f"{i} {rel}/{fname} {label}\n")
+    return g_dir, g_manifest, q_dir, q_manifest, both
+
+
+def _split_args(tree):
+    """--dataset-dir and both manifests of covidx_tree, one directory."""
+    return ["--dataset", "covid", "--dataset-dir", tree[0], "--train-image-list", tree[1],
+            "--test-image-list", tree[4]]
+
+
+def _no_launches(launches, what):
+    check(all(v == 0 for v in launches.values()), f"{what} launched a kernel: {launches}")
+
+
+def phase_slice_resnet(workdir: Path, tree):
+    """ResNet50 at full width (224 crop, 2048-d): cli.ingest -> cli.query
+    (K1 at D = 2048 once, the hits against the plain top-k) and cli.test
+    --save-dir on the query set (no kernel; the metrics against numpy's)."""
+    g_dir, g_manifest, q_dir, q_manifest, _ = tree
+    gal, hits_path = str(workdir / "resnet_gallery.npz"), str(workdir / "resnet_hits.json")
+    model_args = ["--model", "resnet50", "--device", "cuda", "--seed", "0", "--batch-size", "64",
+                  "-j", "8"]
+    calls = []
+    reset_launches()
+    t0 = time.perf_counter()
+    with record_searches(calls):
+        ingest.main(_slice_args(g_dir, g_manifest, "train", model_args) + ["--output", gal])
+        results = query.main(_slice_args(q_dir, q_manifest, "test", model_args)
+                             + ["--index", gal, "--top-k", "10", "--output", hits_path])
+    launches = read_launches()
+    want = dict.fromkeys(WRAPPERS, 0)
+    want["K1"] = 1
+    check(launches == want, f"resnet50 ingest -> query: launches {launches}, expected {want}")
+    log(f"[slice] resnet50 ingest -> query: launches {launches}; "
+        f"{time.perf_counter() - t0:.1f} s wall")
+    err = check_hits(calls, results, *TREE, RESNET_DIM)
+    reset_launches()
+    save = str(workdir / "resnet_test")
+    metrics = test_cli.main(["--dataset", "covid", "--dataset-dir", q_dir, "--test-image-list",
+                             q_manifest, "--model", "resnet50", "--device", "cuda", "--seed",
+                             "0", "-j", "8", "--eval-batch-size", "64", "--save-dir", save])
+    test_launches = read_launches()
+    _no_launches(test_launches, "cli.test resnet50")
+    metrics = check_evaluation(save, metrics, TREE[1], dim=RESNET_DIM)
+    return {"launches": {"resnet50": launches, "resnet50_test": test_launches}, "err": err,
+            "metrics": metrics, "gallery": gal}
+
+
+ATH_STEPS, ATH_BATCH = 3, 32  # cli.train_ath: three steps of 3 x 32 images at 256 px
+# The card's f32 losses against the CPU's by step, relative to 1 + |loss|.
+# Step 1 is one forward: 1e-5. The later steps carry each device's rounding
+# of the gradients (ath_first_step_grads) through Adam's updates, which
+# divide by each gradient's own size: 1e-4, set from readings (PERF.md
+# section 6: 1.7e-7 and 1.32e-5 on steps 2 and 3 on an H100; the padded
+# average pool's wrong backward, planted by chip_faults.py, 3.1e-2 and
+# 6.1e-2)
+ATH_LOSS_RTOL = (1e-5, 1e-4, 1e-4)
+# the first step's gradients against float64's, per tensor, relative to its
+# largest |gradient| (floored at ATH_GRAD_FLOOR of the model's largest): the
+# CPU's f32 gradients read 1.7e-3 (block1's down_conv: a sum over 96 x 128 x
+# 128 positions)
+ATH_GRAD_RTOL, ATH_GRAD_FLOOR = 1e-2, 1e-3
+# the trained model's hash codes and type logits on the card against the
+# CPU's on the same .pt, relative to the CPU's largest |value|: a sign may
+# differ only where both lie within this of 0
+ATH_CODE_RTOL = 1e-4
+
+
+def ath_train_reading(workdir: Path, tree, pt: str):
+    """cli.train_ath's three steps on the card (saving ``pt``) and on the CPU
+    from the same seeded weights and triplets: {"card", "cpu": the losses by
+    step, "rel": per step the largest |card - cpu| / (1 + |cpu|) of loss, hash
+    and ce, "of_bound": the largest rel over its step's ATH_LOSS_RTOL, "wall":
+    the card's seconds, "launches"}."""
+    train = ["--dataset", "covid", "--dataset-dir", tree[0], "--train-image-list", tree[1],
+             "--batch-size", str(ATH_BATCH), "--epochs", str(ATH_STEPS), "--steps-per-epoch",
+             "1", "-j", "8", "--seed", "0"]
+    reset_launches()
+    t0 = time.perf_counter()
+    run = train_ath_cli.main(train + ["--device", "cuda", "--save", pt])
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    cpu = train_ath_cli.main(train + ["--device", "cpu", "--save", str(workdir / "ath_cpu.pt")])
+    rel = [max(abs(a[key] - b[key]) / (1 + abs(b[key])) for key in a)
+           for a, b in zip(run["losses"], cpu["losses"])]
+    of_bound = max(r / t for r, t in zip(rel, ATH_LOSS_RTOL)) if rel else float("inf")
+    return {"card": run["losses"], "cpu": cpu["losses"], "rel": rel, "of_bound": of_bound,
+            "wall": wall, "launches": launches}
+
+
+def ath_losses_agree(reading) -> bool:
+    return len(reading["rel"]) == ATH_STEPS and reading["of_bound"] <= 1
+
+
+def ath_first_step_grads(tree):
+    """The gradients of cli.train_ath's first loss (its seeded weights, its
+    first triplet batch, cuDNN deterministic, no TF32) on the card and on the
+    CPU in f32, each against float64's on the CPU: {"card", "cpu": the worst
+    tensor's max |g - g64| over its largest |g64| (floored at ATH_GRAD_FLOOR
+    of the model's largest), "of_bound": the card's over ATH_GRAD_RTOL,
+    "opposite": elements whose gradient has the other sign on the card than on
+    the CPU (they take opposite first Adam steps), "opposite_rel": the largest
+    |g64| among them, relative as above, "zero": tensors whose exact gradient
+    is 0}."""
+    ds = common.build_dataset(argparse.Namespace(dataset="covid", dataset_dir=tree[0],
+                                                 train_image_list=tree[1]), "train")
+    x, y = train_ath_cli.triplet_batch(ds, np.asarray(ds.labels), ATH_BATCH, 256,
+                                       np.random.default_rng(0), "cpu")
+    torch.backends.cudnn.deterministic = True
+    common.set_tf32(False)
+    grads = {}
+    for name, device, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                                ("f64", "cpu", torch.float64)):
+        model = ATHEmbedder(HASH_BITS, 3, 256, generator=torch.Generator().manual_seed(0))
+        model = model.to(device=device, dtype=dtype, memory_format=torch.channels_last).train()
+        make_ath_train_step(model, ATH_BATCH).losses(x.to(device, dtype), y.to(device))[0].backward()
+        grads[name] = {n: p.grad.detach().double().cpu() for n, p in model.named_parameters()}
+    top = max(g.abs().max().item() for g in grads["f64"].values())
+    out = {"card": 0.0, "cpu": 0.0, "opposite": 0, "opposite_rel": 0.0, "zero": []}
+    for n, exact in grads["f64"].items():
+        scale = max(exact.abs().max().item(), ATH_GRAD_FLOOR * top)
+        for side in ("card", "cpu"):
+            out[side] = max(out[side], (grads[side][n] - exact).abs().max().item() / scale)
+        opposite = (grads["card"][n] > 0) != (grads["cpu"][n] > 0)
+        out["opposite"] += int(opposite.sum())
+        if opposite.any():
+            out["opposite_rel"] = max(out["opposite_rel"],
+                                      exact[opposite].abs().max().item() / scale)
+        if exact.abs().max().item() < 1e-12 * top:
+            out["zero"].append(n)
+    out["of_bound"] = out["card"] / ATH_GRAD_RTOL
+    return out
+
+
+def ath_grads_agree(reading) -> bool:
+    return reading["of_bound"] <= 1
+
+
+@contextlib.contextmanager
+def record_extracts(out):
+    """Record each cli.test_ath extract's (codes, logits, labels)."""
+    orig = test_ath_cli.extract
+
+    def extract(*args, **kwargs):
+        out.append(orig(*args, **kwargs))
+        return out[-1]
+
+    test_ath_cli.extract = extract
+    try:
+        yield
+    finally:
+        test_ath_cli.extract = orig
+
+
+def check_codes(card, cpu, what):
+    """Card arrays (codes or logits) against the CPU's on the same .pt: within
+    ATH_CODE_RTOL of the CPU's largest |value|, so that a sign differs only
+    where both lie that near 0. Returns (max |card - cpu| over that scale,
+    the signs that differ)."""
+    scale = max(float(np.abs(b).max()) for b in cpu)
+    err = max(float(np.abs(a - b).max()) for a, b in zip(card, cpu)) / scale
+    check(err <= ATH_CODE_RTOL, f"{what} on the card lie {err:.3g} of their scale {scale:.3g} "
+                                f"from the CPU's, past {ATH_CODE_RTOL}")
+    return err, sum(int(((a >= 0) != (b >= 0)).sum()) for a, b in zip(card, cpu))
+
+
+def phase_ath(workdir: Path, tree):
+    """The ATH hashing path at 256 px, 48 bits: cli.train_ath for three steps
+    at batch 32 (no kernel; the f32 losses within ATH_LOSS_RTOL of the same
+    CLI on the CPU, the first step's gradients within ATH_GRAD_RTOL of
+    float64's, every tensor moved); cli.test_ath --resume with and without
+    --binary-codes (the card's codes and logits within ATH_CODE_RTOL of the
+    CPU's; the Hamming metrics equal to the CPU's computation on the card's
+    codes, and to the CPU CLI's where no sign or type prediction differs);
+    cli.ingest --model ath --metric hamming -> cli.query (K1 once on +/-1
+    codes at D = 48: the hits bit-equal to the plain top-k of the recorded
+    search, the codes within ATH_CODE_RTOL of the CPU CLIs', and the hits
+    equal to theirs on every query that neither holds a code whose sign
+    differs nor finds a gallery row that does)."""
+    pt = str(workdir / "ath.pt")
+    train = ath_train_reading(workdir, tree, pt)
+    _no_launches(train["launches"], "cli.train_ath")
+    check(ath_losses_agree(train),
+          f"cli.train_ath: the card's losses {train['card']} lie {train['rel']} (relative to 1 + "
+          f"|loss|, by step) from the CPU's {train['cpu']}, past {ATH_LOSS_RTOL}")
+    grads = ath_first_step_grads(tree)
+    check(ath_grads_agree(grads), f"cli.train_ath's first gradients on the card lie past "
+                                  f"{ATH_GRAD_RTOL} of float64's: {grads}")
+    start = ATHEmbedder(HASH_BITS, 3, 256, generator=torch.Generator().manual_seed(0))
+    trained = load_checkpoint(pt)
+    still = [k for k, v in start.state_dict().items() if torch.equal(v, trained[k])]
+    check(not still and all(torch.isfinite(v).all() for v in trained.values()),
+          f"cli.train_ath: tensors that did not move {still}, or non-finite ones")
+    log(f"[slice] cli.train_ath, {ATH_STEPS} steps at batch {ATH_BATCH} (256 px): (loss, hash, "
+        f"ce) {[tuple(round(r[k], 4) for k in ('loss', 'hash', 'ce')) for r in train['card']]}; "
+        f"the CPU's within {[f'{r:.3g}' for r in train['rel']]} of 1 + |loss| by step (bounds "
+        f"{ATH_LOSS_RTOL}); the first step's gradients within {grads['card']:.3g} of float64's "
+        f"(the CPU's f32 {grads['cpu']:.3g}; bound {ATH_GRAD_RTOL}); {grads['opposite']} "
+        f"element(s) take opposite first Adam steps on the card and the CPU, their exact "
+        f"gradients within {grads['opposite_rel']:.3g} of their tensors' scale (exactly 0: "
+        f"{grads['zero']}); every tensor moved; {train['wall']:.1f} s wall")
+    out = {"losses": train["card"], "losses_vs_cpu_rel": train["rel"],
+           "first_step_grads": grads, "launches": {}}
+    for binary in (True, False):
+        argv = _split_args(tree) + ["--resume", pt, "--batch-size", "64"] + (
+            ["--binary-codes"] if binary else [])
+        card, cpu = [], []
+        reset_launches()
+        with record_extracts(card):
+            res = test_ath_cli.main(argv + ["--device", "cuda"])
+        _no_launches(read_launches(), "cli.test_ath")
+        with record_extracts(cpu):
+            res_cpu = test_ath_cli.main(argv + ["--device", "cpu"])
+        (g_codes, _, g_labels), (q_codes, q_logits, q_labels) = card
+        code_err, flips = check_codes([g_codes, q_codes], [cpu[0][0], cpu[1][0]], "ATH codes")
+        logit_err, _ = check_codes([q_logits], [cpu[1][1]], "ATH type logits")
+        moved = int((q_logits.argmax(1) != cpu[1][1].argmax(1)).sum())
+        flat = [v for m in res["retrieval"].values() for v in m.values()]
+        check(np.isfinite(flat).all() and all(0 <= v <= 1 for v in flat),
+              f"cli.test_ath: metrics {res}")
+        diff = max(abs(res["retrieval"][k][m] - res_cpu["retrieval"][k][m])
+                   for k in res["retrieval"] for m in res["retrieval"][k])
+        if binary:
+            own = hash_retrieval_metrics(q_codes, q_labels, g_codes, g_labels, q_logits,
+                                         topk_values=(1, 5, 10), binary_codes=True, device="cpu")
+            check(res == own, f"cli.test_ath --binary-codes: the card's metrics {res} differ from "
+                              f"the CPU's {own} on the card's codes")
+            if flips == 0 and moved == 0:
+                check(res == res_cpu, f"cli.test_ath --binary-codes: the card's metrics {res} "
+                                      f"differ from the CPU's {res_cpu}")
+            out.update(codes_vs_cpu=code_err, logits_vs_cpu=logit_err, code_sign_flips=flips)
+        out["test_ath_binary" if binary else "test_ath_l2"] = res
+        log(f"[slice] cli.test_ath {'--binary-codes' if binary else '(L2)'}: classification "
+            f"{res['classification_acc']:.4f}, top-10 mAP {res['retrieval'][10]['map']:.4f}; "
+            f"codes within {code_err:.3g} of the CPU's (relative to their largest; {flips} "
+            f"sign(s) differ of "
+            f"{g_codes.size + q_codes.size}), logits within {logit_err:.3g} ({moved} type "
+            f"prediction(s) differ); metrics within {diff:.3g} of the CPU CLI's"
+            + ("; equal to the CPU's on the card's codes" if binary else ""))
+    model_args = ["--model", "ath", "--resume", pt, "--seed", "0", "--batch-size", "64", "-j",
+                  "8"]
+    results, calls, galleries = {}, {}, {}
+    for device in ("cuda", "cpu"):
+        calls[device] = []
+        galleries[device] = str(workdir / f"ath_gallery_{device}.npz")
+        reset_launches()
+        with record_searches(calls[device]):
+            ingest.main(_slice_args(tree[0], tree[1], "train", model_args)
+                        + ["--device", device, "--metric", "hamming", "--output",
+                           galleries[device]])
+            results[device] = query.main(_slice_args(tree[2], tree[3], "test", model_args)
+                                         + ["--device", device, "--index", galleries[device],
+                                            "--top-k", "10", "--output",
+                                            str(workdir / f"ath_hits_{device}.json")])
+        if device == "cuda":
+            launches = read_launches()
+    want = dict.fromkeys(WRAPPERS, 0)
+    want["K1"] = 1
+    check(launches == want, f"ath ingest -> query: launches {launches}, expected {want}")
+    idx, queries, k = calls["cuda"][0]
+    check(idx.metric == "hamming" and idx._device_embeds.is_cuda and queries.shape == (
+        TREE[1], HASH_BITS), "the ATH search did not run on +/-1 codes on the card")
+    bias = torch.zeros(idx.ntotal, device="cuda")
+    rv, ri = topk_scores_reference(sign_codes(queries), idx._device_embeds, bias, k)
+    ids = {d: np.array([[h["id"] for h in r["results"]] for r in results[d]]) for d in results}
+    dist = torch.tensor([[h["distance"] for h in r["results"]] for r in results["cuda"]],
+                        device="cuda")
+    check(torch.equal(torch.from_numpy(ids["cuda"]).to("cuda", torch.int32), ri)
+          and torch.equal(dist, (HASH_BITS - rv) / 2),
+          "the ATH hits differ from the plain top-k of the recorded search")
+    out["launches"]["ath_serving"] = launches
+    # the card's codes against the CPU CLIs'; a query's hits may differ only
+    # where it holds a code whose sign differs, or finds a gallery row that does
+    g_card, g_cpu = (np.load(galleries[d])["embeds"] for d in ("cuda", "cpu"))
+    q_card, q_cpu = (calls[d][0][1].cpu().numpy() for d in ("cuda", "cpu"))
+    code_err, flips = check_codes([g_card, q_card], [g_cpu, q_cpu], "ATH ingest / query codes")
+    g_flip = np.flatnonzero(((g_card >= 0) != (g_cpu >= 0)).any(1))
+    exempt = ((q_card >= 0) != (q_cpu >= 0)).any(1) | np.isin(ids["cuda"], g_flip).any(1) | (
+        np.isin(ids["cpu"], g_flip).any(1))
+    check(np.array_equal(ids["cuda"][~exempt], ids["cpu"][~exempt]),
+          "the ATH hits on the card differ from the CPU CLIs' on queries that no sign flip reaches")
+    out.update(serving_codes_vs_cpu=code_err, serving_code_sign_flips=flips,
+               hits_equal_cpu=bool(np.array_equal(ids["cuda"], ids["cpu"])),
+               hits_compared_with_cpu=int((~exempt).sum()))
+    log(f"[slice] ath ingest --metric hamming -> query: launches {launches}; the hits' ids and "
+        f"distances bit-equal to the plain top-k of the recorded search "
+        f"({(rv[:, 1:] == rv[:, :-1]).double().mean().item():.0%} of the slots tied with the one "
+        f"before); codes within {code_err:.3g} of the CPU CLIs' (relative to their largest; "
+        f"{flips} sign(s) differ); the "
+        f"hits equal to theirs on {int((~exempt).sum())} of {TREE[1]} queries ({int(exempt.sum())} "
+        f"reached by a sign that differs)")
+    return out
+
+
+def phase_analysis(workdir: Path, tree, resnet_gallery):
+    """cli.anomaly --model resnet50 (no kernel; AUROC / AUPR / FPR@95 and the
+    scores finite, in [0, 1]); the query sets embedded by ResNet50 and
+    DenseNet121 (cli.ingest --split test) through cli.fusion (its products on
+    the card; the same CLI on the CPU beside it) and, with a DenseNet121
+    gallery, cli.compare (K1 twice: each search's hits against the plain
+    top-k)."""
+    g_dir, g_manifest, q_dir, q_manifest, _ = tree
+    reset_launches()
+    res = anomaly_cli.main(_split_args(tree) + ["--model", "resnet50", "--device", "cuda",
+                                                "--eval-batch-size", "64", "-j", "8",
+                                                "--save-dir", str(workdir / "anomaly")])
+    anomaly_launches = read_launches()
+    _no_launches(anomaly_launches, "cli.anomaly")
+    scores = np.asarray(res["scores"])
+    check(scores.shape == (TREE[1],) and np.isfinite(scores).all() and scores.min() >= 0
+          and scores.max() == 1.0 and all(0 <= res[k] <= 1 for k in ("auroc", "aupr", "fpr@95")),
+          f"cli.anomaly: {({k: v for k, v in res.items() if k != 'scores'})}")
+    log(f"[slice] cli.anomaly --model resnet50: AUROC {res['auroc']:.4f}, AUPR "
+        f"{res['aupr']:.4f}, FPR@95 {res['fpr@95']:.4f} ({res['n_anomaly']} anomalies of "
+        f"{TREE[1]})")
+    sources = {}
+    for name in ("resnet50", "densenet121"):
+        args = ["--model", name, "--device", "cuda", "--seed", "0", "--batch-size", "64", "-j",
+                "8"]
+        sources[name] = str(workdir / f"q_{name}.npz")
+        ingest.main(_slice_args(q_dir, q_manifest, "test", args) + ["--output", sources[name]])
+    dense_gallery = str(workdir / "densenet_gallery.npz")
+    ingest.main(_slice_args(g_dir, g_manifest, "train", ["--model", "densenet121", "--device",
+                                                         "cuda", "--seed", "0", "-j", "8"])
+                + ["--output", dense_gallery])
+    fusion = {}
+    for device in ("cuda", "cpu"):
+        fusion[device] = fusion_cli.main(["--source-a", sources["resnet50"], "--source-b",
+                                          sources["densenet121"], "--device", device,
+                                          "--output", str(workdir / f"fusion_{device}")])
+    runs = {k: v for k, v in fusion["cuda"].items() if "skipped" not in v}
+    check(len(fusion["cuda"]) == 18 and len(runs) == 11
+          and all(np.isfinite(list(m.values())).all() for m in runs.values()),
+          f"cli.fusion: {fusion['cuda']}")
+    fusion_diff = max(abs(m[key] - fusion["cpu"][name][key]) for name, m in runs.items()
+                      for key in m)
+    log(f"[slice] cli.fusion (ResNet50 x DenseNet121 query embeddings, {TREE[1]} rows): "
+        f"{len(runs)} experiments, 7 weighted sums skipped (2048 vs 1024 wide); baseline mAP "
+        f"{runs['baseline_a']['mAP']:.2f} / {runs['baseline_b']['mAP']:.2f}, concat "
+        f"{runs['concat_fusion']['mAP']:.2f}; the CPU's metrics within {fusion_diff:.3g}")
+    calls, returned = [], []
+    reset_launches()
+    with record_searches(calls, returned):
+        groups = compare_cli.main(["--index-a", resnet_gallery, "--index-b", dense_gallery,
+                                   "--queries-a", sources["resnet50"], "--queries-b",
+                                   sources["densenet121"], "--name-a", "resnet50", "--name-b",
+                                   "densenet121", "--top-k", "5", "--device", "cuda",
+                                   "--out-dir", str(workdir / "comparison"), "--html"])
+    compare_launches = read_launches()
+    want = dict.fromkeys(WRAPPERS, 0)
+    want["K1"] = 2
+    check(compare_launches == want and len(calls) == 2,
+          f"cli.compare: launches {compare_launches}, expected {want}")
+    err = 0.0
+    for (idx, queries, k), (v, i) in zip(calls, returned):
+        bias = torch.zeros(idx.ntotal, device="cuda")
+        queries = queries.to("cuda")  # the CLI hands the index host rows
+        check(v.is_cuda and i.is_cuda, "cli.compare: a search did not run on the card")
+        rv, ri = topk_scores_reference(l2_normalize(queries), idx._device_embeds, bias, k + 1)
+        e, _, _ = compare(v, i, rv[:, :k], ri[:, :k], 1e-5, rv)
+        err = max(err, e)
+    check(sum(len(v) for v in groups.values()) == TREE[1]
+          and (workdir / "comparison" / "mismatches.html").is_file(),
+          "cli.compare: not every query classified, or no report")
+    log(f"[slice] cli.compare resnet50 x densenet121: launches {compare_launches}; groups "
+        f"{({g: len(v) for g, v in groups.items()})}; the hits each search gave the CLI within "
+        f"{err:.3g} of the plain top-k")
+    return {"launches": {"resnet50_anomaly": anomaly_launches, "compare": compare_launches},
+            "err": err, "anomaly": {k: res[k] for k in ("auroc", "aupr", "fpr@95")},
+            "fusion_vs_cpu": fusion_diff}
+
+
+def phase_resnet_ath_rates():
+    """The ResNet50 embed at batch 64, 224 px, in f32, TF32 and bf16 (img/s by
+    device_ms), and the ATH train step at batch 32 (3 x 32 images at 256 px)
+    by step_reading."""
+    model, _ = create_model("resnet50", generator=torch.Generator().manual_seed(0))
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    x = torch.randn((64, 224, 224, 3), generator=torch.Generator().manual_seed(1)).cuda()
+    rates = {}
+    for label, dtype, tf32 in (("f32", torch.float32, False), ("tf32", torch.float32, True),
+                               ("bf16", torch.bfloat16, False)):
+        torch.backends.cudnn.allow_tf32 = tf32
+        embed = make_embed_fn(model, compute_dtype=dtype)
+        out = embed(x)
+        check(out.shape == (64, RESNET_DIM) and torch.isfinite(out).all(), "bad embeddings")
+        ms = device_ms(lambda: embed(x))
+        rates[label] = {"device_ms": ms, "img_per_s": 64 / ms * 1e3}
+        log(f"[rates] ResNet50 embed {label:4s} batch 64 @224: {ms:.3f} ms a batch by device "
+            f"time, {rates[label]['img_per_s']:.0f} img/s")
+    torch.backends.cudnn.allow_tf32 = False
+    del model
+    ath = ATHEmbedder(HASH_BITS, 3, 256, generator=torch.Generator().manual_seed(0))
+    ath = ath.to("cuda", memory_format=torch.channels_last).train()
+    state = TrainState(ath, GroupedAdam({"all": (list(ath.parameters()), 1e-3)}, clip_norm=5.0))
+    step = make_ath_train_step(ath, ATH_BATCH)
+    xs = torch.randn((3 * ATH_BATCH, 256, 256, 3), generator=torch.Generator().manual_seed(2))
+    xs, ys = xs.cuda(), torch.arange(ATH_BATCH, device="cuda") % 3
+    torch.backends.cudnn.deterministic = True  # as cli.train_ath runs it
+
+    def train_step():
+        return step(state, xs, ys)
+
+    reading = step_reading(
+        f"ATH train step (batch {ATH_BATCH}: {3 * ATH_BATCH} images at 256 px, f32)",
+        {"step": train_step, "forward + loss": lambda: step.losses(xs, ys)}, ATH_BATCH)
+    split = kernel_split(train_step, reading["device_ms"] or reading["ms"], reps=3)
+    if split is not None:  # the eight kernels that take the most of it
+        split = dict(sorted(split.items(), key=lambda kv: -kv[1])[:8])
+    reading["top_kernels_ms"] = split
+    log(f"[rates] ATH train step, its eight largest kernels by device time: {split_text(split)}")
+    rates["ath_train_step"] = reading
+    return rates
+
+
+def phases_siglip_train():
+    """Phases 38 to 41: K3 at head width 72, the MedSigLIP and ConceptCLIP
+    trainers, the SigLIP family's XAI."""
+    siglip_bwd = phase_kernel_siglip_bwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        ms_train = phase_train_medsiglip(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        cc_train = phase_train_conceptclip(Path(tmp))
+        sx = phase_siglip_xai(Path(tmp), cc_train)
+    return siglip_bwd, ms_train, cc_train, sx
+
+
+def phases_resnet_ath():
+    """Phases 42 to 46: K1 at D = 48 and 2048, the ResNet50, ATH and analysis
+    paths on one generated COVIDx tree, their rates."""
+    k1_depths = phase_k1_depths()
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = covidx_tree(Path(tmp), "r")
+        resnet = phase_slice_resnet(Path(tmp), tree)
+        ath = phase_ath(Path(tmp), tree)
+        analysis = phase_analysis(Path(tmp), tree, resnet["gallery"])
+    return k1_depths, resnet, ath, analysis, phase_resnet_ath_rates()
+
+
 def load_vindr_ids(csv_path):
     with open(csv_path) as f:
         return sorted({line.split(",")[0] for line in f.read().splitlines()[1:] if line})
@@ -5790,19 +6406,22 @@ def main():
     parser.add_argument("--siglip-only", action="store_true",
                         help="only build, then the SigLIP family's training and XAI phases "
                              "(38 to 41); prints no result")
+    parser.add_argument("--resnet-ath-only", action="store_true",
+                        help="only build, then the ResNet50, ATH and analysis phases (42 to "
+                             "46); prints no result")
     opts = parser.parse_args()
     smi = phase_device()
     phase_build()
+    if opts.resnet_ath_only:
+        phases_resnet_ath()
+        print(smi)
+        return
     if opts.profile_swin:
         profile_swin()
         print(smi)
         return
     if opts.siglip_only:
-        phase_kernel_siglip_bwd()
-        with tempfile.TemporaryDirectory() as tmp:
-            phase_train_medsiglip(Path(tmp))
-        with tempfile.TemporaryDirectory() as tmp:
-            phase_siglip_xai(Path(tmp), phase_train_conceptclip(Path(tmp)))
+        phases_siglip_train()
         print(smi)
         return
     if opts.train_only:
@@ -5892,12 +6511,8 @@ def main():
         with registry_models_drawn_once():
             zs = phase_clip_zeroshot(Path(tmp), siglip_pt, queries)
     clip_rates = phase_clip_rates()
-    siglip_bwd = phase_kernel_siglip_bwd()
-    with tempfile.TemporaryDirectory() as tmp:
-        ms_train = phase_train_medsiglip(Path(tmp))
-    with tempfile.TemporaryDirectory() as tmp:
-        cc_train = phase_train_conceptclip(Path(tmp))
-        sx = phase_siglip_xai(Path(tmp), cc_train)
+    siglip_bwd, ms_train, cc_train, sx = phases_siglip_train()
+    k1_depths, resnet, ath, analysis, ra_rates = phases_resnet_ath()
     by_path = {key: {"densenet121": d_launches[key], "convnextv2": c_launches[key],
                      **{path: v["launches"][key] for path, v in v_slices.items()},
                      **{path: v["launches"][key] for path, v in s_slices.items()},
@@ -5914,19 +6529,24 @@ def main():
                      **{path: v[key] for path, v in zs["launches"].items()},
                      **{path: v[key] for path, v in ms_train["launches"].items()},
                      **{path: v[key] for path, v in cc_train["launches"].items()},
-                     **{path: v[key] for path, v in sx["launches"].items()}}
+                     **{path: v[key] for path, v in sx["launches"].items()},
+                     **{path: v[key] for path, v in resnet["launches"].items()},
+                     **{path: v[key] for path, v in ath["launches"].items()},
+                     **{path: v[key] for path, v in analysis["launches"].items()}}
                for key in WRAPPERS}
-    slice_errs = [slice_err, c_slice_err, nih["hits_err"], distill["hits_err"]] + [
+    slice_errs = [slice_err, c_slice_err, nih["hits_err"], distill["hits_err"], resnet["err"],
+                  analysis["err"]] + [
         v["err"] for v in v_slices.values()] + [v["err"] for v in s_slices.values()] + [
         v["err"] for v in c_slices.values()]
     f32 = serving["float32 Q=1024 k=10"]
     k1 = dict(KERNELS["K1"], launches=sum(by_path["K1"].values()),
               max_abs_err=max(max_err, *(v["max_abs_err"] for v in serving.values()),
+                              *(v.get("max_abs_err", 0.0) for v in k1_depths.values()),
                               *slice_errs),
               ms=f32["ms"], plain_ms=f32["plain_ms"], bound_ms=f32["bound_ms"],
               bound_by=f32["bound_by"], library_ms=None,
               library="none: torch.mm + torch.topk are two calls (yardstick_device_ms)",
-              device_ms=f32["device_ms"], by_shape=serving,
+              device_ms=f32["device_ms"], by_shape=serving, by_depth=k1_depths,
               shape="Q=1024 N=100000 D=1024 k=10, f32", launches_by_path=by_path["K1"])
     big = select_rates["float32 Q=1024 k=2048"]
     k1s = dict(KERNELS["K1'"], launches=sum(by_path["K1'"].values()),
@@ -6066,7 +6686,14 @@ def main():
                       "medsiglip_train": {k: v for k, v in ms_train.items() if k != "launches"},
                       "conceptclip_train": {k: cc_train[k] for k in ("losses", "first_rc_rel",
                                                                      "step")},
-                      "siglip_xai": {k: v for k, v in sx.items() if k != "launches"}}))
+                      "siglip_xai": {k: v for k, v in sx.items() if k != "launches"},
+                      "resnet50_eval_metrics": resnet["metrics"],
+                      "resnet50_embed": {k: v for k, v in ra_rates.items()
+                                         if k != "ath_train_step"},
+                      "ath_train_step": ra_rates["ath_train_step"],
+                      "ath": {k: v for k, v in ath.items() if k != "launches"},
+                      "analysis": {k: v for k, v in analysis.items()
+                                   if k not in ("launches", "err")}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -139,17 +139,18 @@ def test_registry_spec_matches_jax():
     model, spec = registry.create_model("densenet121", embedding_dim=16)
     assert isinstance(model, DenseNet121Embedder) and model.fc.out_features == 16
     assert registry.list_models() == [
-        "biomedclip", "conceptclip", "convnextv2", "convnextv2_dino_distill", "convnextv2_pcam",
-        "convnextv2_raddino_distill", "convnextv2_sra", "densenet121", "dinov2", "medsiglip",
-        "nih_convnextv2", "nih_dinov2", "swinv2"]
+        "ath", "biomedclip", "conceptclip", "convnextv2", "convnextv2_dino_distill",
+        "convnextv2_pcam", "convnextv2_raddino_distill", "convnextv2_sra", "densenet121",
+        "dinov2", "medsiglip", "nih_convnextv2", "nih_dinov2", "resnet50", "swinv2", "tiny"]
 
 
 @pytest.mark.parametrize("name", ["biomedclip", "conceptclip", "medsiglip", "resnet50", "nope"])
 def test_registry_other_models_are_not_ported(name):
-    """The CLIP-family specs equal the JAX package's; a model not yet
-    ported, or unknown, raises."""
-    if name in ("resnet50", "nope"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The CLIP-family and ResNet50 specs equal the JAX package's; every
+    model of the JAX registry is ported now, and an unknown name raises as
+    the JAX package's get_spec does."""
+    if name == "nope":
+        with pytest.raises(ValueError, match="unknown model"):
             registry.get_spec(name)
         return
     spec, ref = registry.get_spec(name), jax_registry.get_spec(name)

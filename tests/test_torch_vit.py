@@ -331,8 +331,9 @@ def test_registry_spec_matches_jax():
     model, _ = registry.create_model("dinov2", embedding_dim=8, img_size=56, **NARROW)
     assert isinstance(model, DinoV2Embedder) and model.fc.out_features == 8
     assert registry.get_spec("medsiglip").mean == jax_registry.get_spec("medsiglip").mean
-    with pytest.raises(NotImplementedError, match="not ported"):
-        registry.get_spec("resnet50")
+    assert registry.get_spec("resnet50").embed_dim == jax_registry.get_spec("resnet50").embed_dim
+    with pytest.raises(ValueError, match="unknown model"):
+        registry.get_spec("resnet18")
 
 
 @pytest.fixture

@@ -88,9 +88,12 @@ def test_feature_heads_match_jax(name):
 
 
 def test_feature_heads_refuse_what_waits():
-    for name in ("resnet50", "tiny"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, section 1 item 8"):
-            feature_heads.get_feature_head(name, None)
+    """Nothing waits since the ResNet50 and tiny heads landed
+    (tests/test_torch_resnet.py holds them to the JAX heads); a model
+    without a feature head raises."""
+    assert not hasattr(feature_heads, "WAITING_HEADS")
+    assert sorted(feature_heads.FEATURE_HEADS) == ["convnextv2", "densenet121", "resnet50",
+                                                   "tiny"]
     with pytest.raises(ValueError, match="no feature head"):
         feature_heads.get_feature_head("swinv2", None)
 

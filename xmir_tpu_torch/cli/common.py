@@ -123,9 +123,12 @@ def build_model(args, device, train: bool = False):
     SwinV2, DINOv2, ``nih_dinov2`` or MedSigLIP model's backbone (its fc / SRA
     / PCAM / projection head keeps its init, as the JAX package's
     strict=False merge does), or the whole model from a checkpoint of the
-    train CLI (models/convert.py::load_torch_checkpoint). --embedding-dim
-    goes to a MedSigLIP model's ``embed_dim``, to every other model's
-    ``embedding_dim``."""
+    train CLI (models/convert.py::load_torch_checkpoint); a ResNet50 model
+    takes its backbone from a torchvision or reference ``.pt``, an ATH or
+    tiny model its own state dict (an ATH model built with the class count
+    of the checkpoint's type head: ath_num_classes). --embedding-dim goes to
+    a MedSigLIP model's ``embed_dim``, to every other model's
+    ``embedding_dim``; --num-labels to a DenseNet121 or ResNet50 model."""
     from ..models.convert import load_torch_checkpoint
     from ..models.registry import create_model
 
@@ -135,18 +138,31 @@ def build_model(args, device, train: bool = False):
     if getattr(args, "embedding_dim", None) and args.model not in FIXED_WIDTH_MODELS:
         overrides["embed_dim" if args.model == "medsiglip" else "embedding_dim"] = (
             args.embedding_dim)
-    if getattr(args, "num_labels", None) and args.model == "densenet121":
+    if getattr(args, "num_labels", None) and args.model in ("densenet121", "resnet50"):
         overrides["num_labels"] = args.num_labels
     if args.model == "convnextv2_sra":
         overrides.update(num_heads=args.sra_num_heads, lam=args.sra_lam)
-    model, spec = create_model(args.model, **overrides)
     resume = getattr(args, "resume", "")
+    if resume and not resume.endswith((".pt", ".pth")):
+        raise ValueError(f"--resume takes a torch .pt/.pth state dict, got {resume!r}")
+    if resume and args.model == "ath":
+        overrides["num_classes"] = ath_num_classes(resume)
+    model, spec = create_model(args.model, **overrides)
     if resume:
-        if not resume.endswith((".pt", ".pth")):
-            raise ValueError(f"--resume takes a torch .pt/.pth state dict, got {resume!r}")
         load_torch_checkpoint(model, resume)
     model = model.to(device=device, memory_format=torch.channels_last)
     return model.train(train), spec
+
+
+def ath_num_classes(path: str) -> int:
+    """The class count of the type head an ATH checkpoint holds.
+    cli.train_ath defaults to 3 classes and the registry's ``ath`` to 5; the
+    JAX package's non-strict merge keeps a ``typelayer`` of another shape
+    from init, and the port's strict load would raise, so the model is built
+    with the checkpoint's count. The hash codes do not depend on it."""
+    from ..utils.checkpoint import load_checkpoint
+
+    return int(load_checkpoint(path)["ath.typelayer.weight"].shape[0])
 
 
 def add_precision_args(p: argparse.ArgumentParser):

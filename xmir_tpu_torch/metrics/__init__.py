@@ -14,3 +14,5 @@ from .retrieval import (  # noqa: F401
     train_eval_multilabel,
     train_eval_single_label,
 )
+from .anomaly import fpr_at_recall, get_measures  # noqa: F401
+from .saliency import auc, clip_scores, saliency_quality  # noqa: F401

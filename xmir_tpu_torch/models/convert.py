@@ -1,8 +1,9 @@
-"""Weights into the port's DenseNet, ConvNeXtV2, SwinV2 and ViT embedders, the
-distillation models, the NIH dual-head models and the CLIP-family models
-(SigLIP / MedSigLIP, ConceptCLIP, BiomedCLIP and their text towers): from the
-JAX package's variable tree, and from a reference CheXNet / torchvision,
-timm, HF or open_clip ``.pt``.
+"""Weights into the port's DenseNet, ResNet50, ConvNeXtV2, SwinV2 and ViT
+embedders, the distillation models, the NIH dual-head models, the
+CLIP-family models (SigLIP / MedSigLIP, ConceptCLIP, BiomedCLIP and their
+text towers), the ATH hashing model and the tiny debug model: from the JAX
+package's variable tree, and from a reference CheXNet / torchvision, timm,
+HF or open_clip ``.pt``.
 
 Conventions (the inverse of xmir_tpu/models/convert.py):
   conv   flax (kh, kw, I, O)  -> torch (O, I, kh, kw)
@@ -126,6 +127,100 @@ def embedder_state_dict_from_torch(sd: Dict[str, torch.Tensor]) -> Dict[str, tor
                 break
         out[BACKBONE_PREFIX + key] = value
     return out
+
+
+def _resnet_backbone_state_dict(params, stats, prefix: str) -> Dict[str, np.ndarray]:
+    sd = {f"{prefix}conv1.weight": _conv(params["conv1"]["kernel"])}
+    _bn(sd, f"{prefix}bn1", params["bn1"], stats["bn1"])
+    for stage in range(1, 5):
+        for b in _numbered(params, f"layer{stage}_"):
+            pre, bp, bs = f"{prefix}layer{stage}.{b}", params[f"layer{stage}_{b}"], stats[
+                f"layer{stage}_{b}"]
+            for ci in (1, 2, 3):
+                sd[f"{pre}.conv{ci}.weight"] = _conv(bp[f"conv{ci}"]["kernel"])
+                _bn(sd, f"{pre}.bn{ci}", bp[f"bn{ci}"], bs[f"bn{ci}"])
+            if "downsample_conv" in bp:
+                sd[f"{pre}.downsample.0.weight"] = _conv(bp["downsample_conv"]["kernel"])
+                _bn(sd, f"{pre}.downsample.1", bp["downsample_bn"], bs["downsample_bn"])
+    return sd
+
+
+def resnet50_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX package's ResNet50Embedder tree (numpy leaves: params
+    ["backbone"], optional "fc" and "classification_head") -> the port's
+    ResNet50Embedder state dict; a bare ResNetBackbone tree gives
+    ResNetBackbone keys. Any number of bottlenecks a stage."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    if "backbone" not in params:
+        return _to_torch(_resnet_backbone_state_dict(params, stats, ""))
+    sd = _resnet_backbone_state_dict(params["backbone"], stats["backbone"], "backbone.")
+    for head in ("fc", "classification_head"):
+        if head in params:
+            _dense(sd, head, params[head])
+    return _to_torch(sd)
+
+
+# the reference's Sequential(*children()[:-1]) index -> torchvision name
+# (model.py:13-15; xmir_tpu/models/convert.py::_SEQ_MAP): 2 ReLU, 3 max
+# pool and 8 the average pool hold no tensor
+_RESNET_SEQ = {"0": "conv1", "1": "bn1", "4": "layer1", "5": "layer2", "6": "layer3",
+               "7": "layer4"}
+
+
+def resnet50_backbone_state_dict_from_torch(
+        sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A torchvision resnet50 state dict, or the reference's ResNet50 module
+    (``resnet50.N.*``: the torchvision children in a Sequential), ->
+    ResNetBackbone keys. A ``module.`` DataParallel prefix is stripped;
+    torchvision's ``num_batches_tracked`` counters and ``fc`` classifier and
+    the reference's ``fc`` / ``classification_head`` go: the JAX package
+    reads the backbone alone from such a file (cli/common.py
+    ::_convert_torch_checkpoint), and the head keeps its init."""
+    out = {}
+    for key, value in sd.items():
+        key = key.replace("module.", "")
+        if key.endswith("num_batches_tracked"):
+            continue
+        m = re.fullmatch(r"resnet50\.(\d+)\.(.*)", key)
+        if m:
+            if m.group(1) not in _RESNET_SEQ:
+                raise ValueError(f"unexpected tensor {key!r} in a reference ResNet50 checkpoint")
+            key = f"{_RESNET_SEQ[m.group(1)]}.{m.group(2)}"
+        elif key.startswith(("fc.", "classification_head.")):
+            continue
+        out[key] = value
+    return out
+
+
+def tiny_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX package's TinyEmbedder tree -> the port's TinyEmbedder state
+    dict (``backbone_conv{0,1,2}``, ``fc``, ``classification_head``)."""
+    params = variables["params"]
+    sd = {}
+    for i in _numbered(params, "backbone_conv"):
+        sd[f"backbone_conv{i}.weight"] = _conv(params[f"backbone_conv{i}"]["kernel"])
+        sd[f"backbone_conv{i}.bias"] = np.asarray(params[f"backbone_conv{i}"]["bias"])
+    for head in ("fc", "classification_head"):
+        if head in params:
+            _dense(sd, head, params[head])
+    return _to_torch(sd)
+
+
+def ath_state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
+    """The JAX package's ATHEmbedder tree (params["ath"], batch_stats["ath"])
+    -> the port's ATHEmbedder state dict (``ath.*``)."""
+    params, stats = variables["params"]["ath"], variables["batch_stats"]["ath"]
+    sd = {"ath.sa.conv.weight": _conv(params["sa"]["conv"]["kernel"])}
+    for block in ("block1", "block2", "dense"):
+        bp, bs = params[block], stats[block]
+        for conv, bn in (("conv1", "bn1"), ("conv2", "bn2"), ("down_conv", "down_bn")):
+            if conv in bp:
+                sd[f"ath.{block}.{conv}.weight"] = _conv(bp[conv]["kernel"])
+                _bn(sd, f"ath.{block}.{bn}", bp[bn], bs[bn])
+    for head in ("hashlayer", "typelayer"):
+        _dense(sd, f"ath.{head}", params[head])
+    return _to_torch(sd)
 
 
 def _ln(sd, name, p):
@@ -526,13 +621,19 @@ def load_torch_checkpoint(model: torch.nn.Module, path: str):
     ``SiglipVisionModel``, each keeping its head (fc, SRA, PCAM, projection)
     as initialised; a BiomedCLIP model takes an open_clip state dict whole
     with strict=True (the counterpart of the JAX CLI's merge of a BiomedCLIP
-    checkpoint). No layout is wired for a ConvNeXtV2 NIH dual-head model or
+    checkpoint). A ResNet50 embedder takes a torchvision or reference
+    (``resnet50.N.*``) backbone with strict=True, its fc and classification
+    head kept as initialised (as the JAX CLI's merge of the converted
+    backbone); an ATH or tiny model takes a state dict in its own keys whole
+    with strict=True (the JAX package has no torch layout for either). No
+    layout is wired for a ConvNeXtV2 NIH dual-head model or
     a ConceptCLIP model (the JAX package raises too) or for a distillation
     model: the JAX package merges a timm backbone into params["backbone"], a
     key that model lacks (it has "student" and "teacher"), so it loads
     nothing; this loader raises instead."""
     from .biomedclip import BiomedCLIPModel
     from .embedders import (
+        ATHEmbedder,
         ConceptCLIPModel,
         ConvNeXtV2Embedder,
         ConvNeXtV2PCAMEmbedder,
@@ -542,7 +643,9 @@ def load_torch_checkpoint(model: torch.nn.Module, path: str):
         DistillEmbedder,
         MedSigLIPEmbedder,
         NIHDualHeadModel,
+        ResNet50Embedder,
         SwinV2Embedder,
+        TinyEmbedder,
     )
 
     from ..utils.checkpoint import is_train_checkpoint, load_checkpoint, unwrap_state_dict
@@ -554,6 +657,15 @@ def load_torch_checkpoint(model: torch.nn.Module, path: str):
         print(f">> loaded the whole model ({len(sd)} tensors, strict)")
     elif isinstance(model, DenseNet121Embedder):
         model.load_state_dict(embedder_state_dict_from_torch(sd), strict=True)
+    elif isinstance(model, ResNet50Embedder):
+        backbone = resnet50_backbone_state_dict_from_torch(sd)
+        model.backbone.load_state_dict(backbone, strict=True)
+        print(f">> loaded the ResNet50 backbone ({len(backbone)} tensors, strict); "
+              "the head keeps its init")
+    elif isinstance(model, (ATHEmbedder, TinyEmbedder)):
+        whole = {k.replace("module.", ""): v for k, v in sd.items()}
+        model.load_state_dict(whole, strict=True)
+        print(f">> loaded the whole model ({len(whole)} tensors, strict)")
     elif isinstance(model, (ConvNeXtV2Embedder, ConvNeXtV2SRAEmbedder, ConvNeXtV2PCAMEmbedder)):
         backbone = convnextv2_backbone_state_dict_from_torch(sd)
         model.convnext.load_state_dict(backbone, strict=True)

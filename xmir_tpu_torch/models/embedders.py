@@ -1,14 +1,16 @@
-"""Embedding models (port of DenseNet121Embedder, the ConvNeXtV2 embedders,
-SwinV2Embedder, DinoV2Embedder, MedSigLIPEmbedder, DistillEmbedder,
-NIHDualHeadModel and ConceptCLIPModel in xmir_tpu/models/embedders.py).
+"""Embedding models (port of DenseNet121Embedder, ResNet50Embedder,
+TinyEmbedder, the ConvNeXtV2 embedders, SwinV2Embedder, DinoV2Embedder,
+MedSigLIPEmbedder, DistillEmbedder, NIHDualHeadModel, ConceptCLIPModel and
+ATHEmbedder in xmir_tpu/models/embedders.py).
 
 A convolutional or Swin embedder maps NHWC images to {"embedding": (B, D)
 L2-normalised, "features": NHWC map, "logits": ... when a classification
 head is set}; the ViT embedder to {"embedding", "tokens", "attentions"}; the
 NIH dual-head model to {"cls_embedding" or "backbone_embedding",
 "projection", "embedding", "logits"}; the MedSigLIP embedder to {"embedding",
-"tokens", "encoder_tokens", "attentions"} and ConceptCLIP to {"embedding",
-"tokens"}.
+"tokens", "encoder_tokens", "attentions"}, ConceptCLIP to {"embedding",
+"tokens"} and the ATH hashing model to {"embedding", "hash_codes",
+"logits"}.
 """
 from __future__ import annotations
 
@@ -22,9 +24,31 @@ from torch import nn
 
 from ..ops.distance import l2_normalize
 from . import convnext, siglip, swin, vit
+from .ath import ATHNet
 from .bert import BertTextBackbone
 from .densenet import DenseNetBackbone, init_weights_
 from .heads import MedSigLIPProjection, NIHProjectionHead, PCAMPool, SRA
+from .resnet import RESNET50_LAYERS, ResNetBackbone
+
+
+def _pooled_heads(module, feat: int, embedding_dim: Optional[int],
+                  num_labels: Optional[int]):
+    """The pooled tail's layers of a convolutional embedder: ``fc`` (feat ->
+    embedding_dim) where embedding_dim is given, ``classification_head`` on
+    its output where num_labels is given; else None."""
+    module.fc = nn.Linear(feat, embedding_dim) if embedding_dim else None
+    module.classification_head = (nn.Linear(embedding_dim or feat, num_labels)
+                                  if num_labels else None)
+
+
+def _pooled_result(module, pooled, features):
+    """pooled (B, C) -> optional fc -> {"embedding": L2-normalised,
+    "features", "logits" where the module has a classification head}."""
+    feat = pooled if module.fc is None else module.fc(pooled)
+    result = {"embedding": l2_normalize(feat, dim=1), "features": features}
+    if module.classification_head is not None:
+        result["logits"] = module.classification_head(feat)
+    return result
 
 
 class DenseNet121Embedder(nn.Module):
@@ -46,23 +70,91 @@ class DenseNet121Embedder(nn.Module):
         super().__init__()
         backbone = DenseNetBackbone(growth_rate, block_config, num_init_features)
         self.densenet121 = nn.Sequential(backbone)
-        feat = backbone.num_features
-        self.fc = nn.Linear(feat, embedding_dim) if embedding_dim else None
-        if embedding_dim:
-            feat = embedding_dim
-        self.classification_head = nn.Linear(feat, num_labels) if num_labels else None
+        _pooled_heads(self, backbone.num_features, embedding_dim, num_labels)
         if generator is not None:
             init_weights_(self, generator)
 
     def forward(self, x):
         out = self.densenet121[0](x)
-        feat = out["pooled"]
-        if self.fc is not None:
-            feat = self.fc(feat)
-        result = {"embedding": l2_normalize(feat, dim=1), "features": out["features"]}
-        if self.classification_head is not None:
-            result["logits"] = self.classification_head(feat)
-        return result
+        return _pooled_result(self, out["pooled"], out["features"])
+
+
+class ResNet50Embedder(nn.Module):
+    """The reference's ResNet50 module (model.py:9-39): torchvision features
+    + global average pooling, an optional ``fc`` projection and an optional
+    ``classification_head``. Keys: ``backbone.<torchvision resnet50>``,
+    ``fc.*``, ``classification_head.*``. ``layers`` defaults to ResNet-50's
+    bottleneck counts; fewer are for tests."""
+
+    def __init__(self, embedding_dim: Optional[int] = None,
+                 num_labels: Optional[int] = None, *,
+                 layers: Sequence[int] = RESNET50_LAYERS,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.backbone = ResNetBackbone(layers)
+        _pooled_heads(self, self.backbone.num_features, embedding_dim, num_labels)
+        if generator is not None:
+            init_weights_(self, generator)
+
+    def forward(self, x):
+        out = self.backbone(x)
+        return _pooled_result(self, out["pooled"], out["features"])
+
+
+def _same_pad(x, kernel: int, stride: int):
+    """flax's SAME padding of an NCHW map: (kernel - stride) or less in all,
+    the odd one after (0 before and 1 after for a 3x3 stride-2 convolution
+    of an even map; ``nn.Conv2d(padding=1)`` would shift the window)."""
+    pads = []
+    for size in (x.shape[3], x.shape[2]):
+        total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+        pads += [total // 2, total - total // 2]
+    return F.pad(x, pads)
+
+
+class TinyEmbedder(nn.Module):
+    """The JAX package's 3-conv debug model (not in the reference): three
+    3x3 stride-2 convolutions with bias and SAME padding (16, 32, 64
+    channels), ReLU, GAP -> optional ``fc`` -> normalise, optional
+    ``classification_head``. ``features`` is the last post-ReLU map, NHWC."""
+
+    def __init__(self, embedding_dim: Optional[int] = None,
+                 num_labels: Optional[int] = None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        cin = 3
+        for i, ch in enumerate((16, 32, 64)):
+            self.add_module(f"backbone_conv{i}", nn.Conv2d(cin, ch, 3, stride=2))
+            cin = ch
+        _pooled_heads(self, cin, embedding_dim, num_labels)
+        if generator is not None:
+            init_weights_(self, generator)
+            with torch.no_grad():
+                for i in range(3):
+                    getattr(self, f"backbone_conv{i}").bias.zero_()
+
+    def forward(self, x):
+        h = x.permute(0, 3, 1, 2)
+        for i in range(3):
+            h = F.relu(getattr(self, f"backbone_conv{i}")(_same_pad(h, 3, 2)))
+        return _pooled_result(self, torch.mean(h, dim=(2, 3)), h.permute(0, 2, 3, 1))
+
+
+class ATHEmbedder(nn.Module):
+    """The ATH hashing model as an embedder: {"embedding": raw hash codes
+    (not normalised; the Hamming index binarises them), "hash_codes": the
+    same, "logits": the type head's}. Keys: ``ath.*``."""
+
+    def __init__(self, hash_size: int = 48, num_classes: int = 5, input_size: int = 256, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.ath = ATHNet(hash_size, num_classes, input_size)
+        if generator is not None:
+            init_weights_(self, generator)
+
+    def forward(self, x):
+        hash_codes, logits = self.ath(x)
+        return {"embedding": hash_codes, "hash_codes": hash_codes, "logits": logits}
 
 
 CONVNEXTV2_BASE = dict(depths=(3, 3, 27, 3), dims=(128, 256, 512, 1024))

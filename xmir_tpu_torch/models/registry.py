@@ -1,9 +1,10 @@
 """Model registry (port of xmir_tpu/models/registry.py): one spec per
 backbone with its input size, resize size, embedding width and
-normalisation. Ported so far: DenseNet121, the three ConvNeXtV2 embedders,
-the SwinV2-Base embedder, the DINOv2 ViT-B/14 embedder, the two
-ConvNeXtV2-student distillation models, the two NIH dual-head models and the
-three CLIP-family models (MedSigLIP, ConceptCLIP, BiomedCLIP)."""
+normalisation, for every model of the JAX package's registry: DenseNet121,
+ResNet50, the three ConvNeXtV2 embedders, the SwinV2-Base embedder, the
+DINOv2 ViT-B/14 embedder, the two ConvNeXtV2-student distillation models,
+the two NIH dual-head models, the three CLIP-family models (MedSigLIP,
+ConceptCLIP, BiomedCLIP), the ATH hashing model and the tiny debug model."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +14,7 @@ from .biomedclip import OPENAI_CLIP_MEAN, OPENAI_CLIP_STD, BiomedCLIPModel
 from .embedders import (
     IMAGENET_MEAN,
     IMAGENET_STD,
+    ATHEmbedder,
     ConceptCLIPModel,
     ConvNeXtV2Embedder,
     ConvNeXtV2PCAMEmbedder,
@@ -22,7 +24,9 @@ from .embedders import (
     DistillEmbedder,
     MedSigLIPEmbedder,
     NIHDualHeadModel,
+    ResNet50Embedder,
     SwinV2Embedder,
+    TinyEmbedder,
 )
 
 SIGLIP_MEAN = (0.5, 0.5, 0.5)
@@ -45,6 +49,7 @@ class ModelSpec:
 # sizes follow the reference transforms (train.py:928-993, test.py:1286-1332)
 _SPECS = {
     "densenet121": ModelSpec("densenet121", DenseNet121Embedder, 224, 256, 1024),
+    "resnet50": ModelSpec("resnet50", ResNet50Embedder, 224, 256, 2048),
     "convnextv2": ModelSpec("convnextv2", ConvNeXtV2Embedder, 384, 432, 1024),
     "convnextv2_sra": ModelSpec("convnextv2_sra", ConvNeXtV2SRAEmbedder, 384, 432, 1024),
     "convnextv2_pcam": ModelSpec("convnextv2_pcam", ConvNeXtV2PCAMEmbedder, 384, 432, 1024),
@@ -65,6 +70,9 @@ _SPECS = {
     # open_clip BiomedCLIP (reference test.py:1218-1240): CLIP normalisation, 224 px
     "biomedclip": ModelSpec("biomedclip", BiomedCLIPModel, 224, 224, 512, OPENAI_CLIP_MEAN,
                             OPENAI_CLIP_STD),
+    "ath": ModelSpec("ath", ATHEmbedder, 256, 256, 48),
+    # the JAX package's debug model (not in the reference)
+    "tiny": ModelSpec("tiny", TinyEmbedder, 64, 64, 64),
 }
 
 
@@ -72,10 +80,7 @@ def get_spec(name: str) -> ModelSpec:
     try:
         return _SPECS[name]
     except KeyError:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to xmir_tpu_torch yet (ported: "
-            f"{sorted(_SPECS)}); ROADMAP.md lists the order the rest follows"
-        ) from None
+        raise ValueError(f"unknown model {name!r}; options: {sorted(_SPECS)}") from None
 
 
 def list_models():

@@ -10,6 +10,7 @@ from .steps import (
     LOSS_FNS,
     ConceptGather,
     dedupe_concept_batch,
+    make_ath_train_step,
     make_conceptclip_train_step,
     make_distill_train_step,
     make_dual_branch_train_step,

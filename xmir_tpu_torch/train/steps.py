@@ -1,8 +1,8 @@
 """Step functions (port of xmir_tpu/train/steps.py): the metric-learning
 train step, the NIH dual-branch and the distillation steps, the ConceptCLIP
-IT + RC step with its host-side concept dedupe, the MedSigLIP IT-Align step
-(inline in the JAX package's cli/train_medsiglip.py), gradient accumulation
-and the inference embedding step.
+IT + RC step with its host-side concept dedupe, the MedSigLIP IT-Align and
+the ATH hashing steps (inline in the JAX package's cli/train_medsiglip.py and
+cli/train_ath.py), gradient accumulation and the inference embedding step.
 
 Mixed precision (``compute_dtype=bfloat16``) is not ``torch.autocast``, but
 the JAX package's scheme: master parameters stay f32 in the optimiser, a bf16
@@ -19,6 +19,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
@@ -31,6 +32,7 @@ from ..losses import (
     jaccard_supcon_loss,
     multilabel_contrastive_loss,
     supcon_loss,
+    triplet_hash_loss,
     triplet_margin_loss,
     weighted_multilabel_triplet_loss,
 )
@@ -216,6 +218,33 @@ def make_it_align_train_step(model, compute_dtype=torch.float32):
         loss = losses(pixel_values, input_ids)
         _backward_and_apply(state, loss)
         return {"loss": loss.detach()}
+
+    step.losses = losses
+    return step
+
+
+def make_ath_train_step(model, batch: int, margin: float = 0.5, ce_weight: float = 1.0):
+    """The ATH hashing step of the JAX package's cli/train_ath.py (there
+    inline): one training forward of an ``ATHEmbedder`` over the 3B images
+    (anchors, positives, negatives), so that the BatchNorm statistics move
+    over all of them; ``triplet_hash_loss`` of the three code blocks plus
+    ``ce_weight`` x the cross entropy of the anchors' type logits.
+    step(state, images (3B, S, S, 3), type_labels (B,)) -> {"loss", "hash",
+    "ce"} as device tensors; ``step.losses`` is the differentiated function
+    alone."""
+
+    def losses(images, type_labels):
+        out = model(images)
+        codes, logits = out["hash_codes"], out["logits"]
+        hash_loss = triplet_hash_loss(codes[:batch], codes[batch:2 * batch],
+                                      codes[2 * batch:], margin)
+        ce = F.cross_entropy(logits[:batch], type_labels)
+        return hash_loss + ce_weight * ce, hash_loss, ce
+
+    def step(state, images, type_labels):
+        loss, hash_loss, ce = losses(images, type_labels)
+        _backward_and_apply(state, loss)
+        return {"loss": loss.detach(), "hash": hash_loss.detach(), "ce": ce.detach()}
 
     step.losses = losses
     return step

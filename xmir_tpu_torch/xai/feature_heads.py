@@ -16,7 +16,13 @@ from ..ops.distance import l2_normalize
 def densenet_head(model, features):
     """DenseNet121Embedder's tail: ReLU -> GAP -> optional fc -> normalise
     (features: the post-norm5, pre-ReLU map, NHWC)."""
-    x = torch.mean(torch.clamp_min(features, 0.0), dim=(1, 2))
+    return resnet_head(model, torch.clamp_min(features, 0.0))
+
+
+def resnet_head(model, features):
+    """ResNet50Embedder's tail: GAP -> optional fc -> normalise (features:
+    the post-ReLU map, NHWC). TinyEmbedder's tail is the same."""
+    x = torch.mean(features, dim=(1, 2))
     if model.fc is not None:
         x = model.fc(x)
     return l2_normalize(x, dim=1)
@@ -31,18 +37,13 @@ def convnext_head(model, features):
     return l2_normalize(x, dim=1)
 
 
-FEATURE_HEADS = {"densenet121": densenet_head, "convnextv2": convnext_head}
-# heads whose backbones are still to port, by the ROADMAP.md item that brings them
-WAITING_HEADS = {"resnet50": "section 1 item 8", "tiny": "section 1 item 8"}
+FEATURE_HEADS = {"densenet121": densenet_head, "resnet50": resnet_head,
+                 "convnextv2": convnext_head, "tiny": resnet_head}
 
 
 def get_feature_head(model_name: str, model):
     """head_fn(features) -> embeddings for ``model`` (an embedder of the
     registry's ``model_name``)."""
-    if model_name in WAITING_HEADS:
-        raise NotImplementedError(
-            f"no feature head for {model_name!r} yet: its backbone is not ported to "
-            f"xmir_tpu_torch (ROADMAP.md, {WAITING_HEADS[model_name]})")
     if model_name not in FEATURE_HEADS:
         raise ValueError(f"no feature head for {model_name!r}; options: "
                          f"{sorted(FEATURE_HEADS)}")
