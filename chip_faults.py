@@ -17,6 +17,10 @@ phase 42's check, which a result with two tied ids swapped must fail. The
 ATH train step's checks of phase 44 (its losses against the CPU's, its first
 gradients against float64's) must refuse ATHNet's average pool padded by
 ``F.avg_pool2d`` itself, whose CUDA backward on a channels_last map is wrong.
+chip_smoke.py phase 47's check of the YOLOv5s detector (the card against
+the CPU and against an ultralytics-semantics oracle) must refuse the
+decode's rows flattened cell-major and SPPF's pool padded with zeros
+(``--only chestmir``).
 Each line prints how far the reading goes toward its bounds (above 1: past
 one of them).
 
@@ -44,6 +48,7 @@ from pathlib import Path
 
 import torch
 
+from xmir_tpu_torch.models import yolo
 from xmir_tpu_torch.ops import _build
 from xmir_tpu_torch.ops import convnext_block as cb
 from xmir_tpu_torch.ops import ln_dense as ld
@@ -845,11 +850,73 @@ def read_ath(padded_pool=False):
             "agree": cs.ath_losses_agree(losses) and cs.ath_grads_agree(grads)}
 
 
+def decode_cell_major(self, maps):
+    """YOLOv5.decode_maps with the rows flattened cell-major, (b, ny, nx, na,
+    no), where ultralytics flattens anchor-major."""
+    na, no = self.detect.na, self.detect.no
+    anchors = self.anchors_px
+    outs = []
+    for i, p in enumerate(maps):
+        b, _, ny, nx = p.shape
+        y = torch.sigmoid(p.float().reshape(b, na, no, ny, nx).permute(0, 3, 4, 1, 2))
+        gy, gx = torch.meshgrid(torch.arange(ny, device=p.device),
+                                torch.arange(nx, device=p.device), indexing="ij")
+        grid = torch.stack([gx, gy], dim=-1).float().view(ny, nx, 1, 2) - 0.5
+        xy = (y[..., 0:2] * 2.0 + grid) * yolo.STRIDES[i]
+        wh = (y[..., 2:4] * 2.0) ** 2 * anchors[i].view(1, 1, 1, na, 2)
+        outs.append(torch.cat([xy, wh, y[..., 4:]], dim=-1).reshape(b, -1, no))
+    return torch.cat(outs, dim=1)
+
+
+def sppf_zero_padded(self, x):
+    """SPPF's max pool padded with zeros, where flax and ultralytics pad
+    with -inf."""
+    pad = self.k // 2
+    return torch.nn.functional.max_pool2d(
+        torch.nn.functional.pad(x, (pad, pad, pad, pad)), self.k, stride=1)
+
+
+YOLO_FAULTS = {
+    "the decode's rows flattened cell-major, not anchor-major": (yolo.YOLOv5, "decode_maps",
+                                                                  decode_cell_major),
+    "SPPF's max pool padded with zeros, not -inf": (yolo.SPPF, "pool", sppf_zero_padded),
+}
+
+
+def read_chestmir():
+    """chip_smoke.py phase 47's check on two 1024^2 films through the first
+    of its seeded YOLOv5s folds: the card's predictions against the CPU's
+    and against the ultralytics oracle (of_bound: the larger worst share of
+    atol 2e-4 + rtol 1e-4), with the port as it is and with each fault of
+    YOLO_FAULTS planted in models/yolo.py for the reading. Yields (name,
+    reading, expected inside)."""
+    import chip_smoke as cs
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tree = cs.write_chest_tree(Path(tmp), n=2)
+        images = [cs._letterboxed(tree[0], i) for i in range(2)]
+        pts, _ = cs.write_yolo_folds(Path(tmp), [x for _, x in images])
+        for name, fault in [("the port's YOLOv5s (chip_smoke.py phase 47)", None)] + list(
+                YOLO_FAULTS.items()):
+            if fault is not None:
+                owner, attr, planted = fault
+                fixed = getattr(owner, attr)
+                setattr(owner, attr, planted)
+            try:
+                reading = cs.yolo_reading(pts[0], images)[0]
+            finally:
+                if fault is not None:
+                    setattr(owner, attr, fixed)
+            yield name, {k: reading[k] for k in ("of_bound", "card_vs_cpu", "card_vs_oracle",
+                                                  "max_abs_err")}, fault is None
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", nargs="+", metavar="KERNEL",
                         help="the kernels to read and plant faults in (K1 K1' K2 ... K11), "
-                             "or ath: the ATH train step's checks")
+                             "ath: the ATH train step's checks, or chestmir: the YOLOv5 "
+                             "detector's")
     only = parser.parse_args().only
 
     def want(*kernels):
@@ -900,6 +967,9 @@ def main():
                read_hamming(lambda *a: swap_first_tie(*fused_topk_scores(*a))), False)
     if want("K1'"):
         report("the kernel", "K1'", read_select(), True)
+    if want("chestmir"):
+        for name, reading, inside in read_chestmir():
+            report(name, "YOLOv5s", reading, inside, lambda r: r["of_bound"] <= 1.0)
     if want("ath"):
         report("cli.train_ath on the card against the CPU and float64 (phase 44)", "ath",
                read_ath(), True, lambda r: r["agree"])

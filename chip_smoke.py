@@ -380,9 +380,30 @@ Phases, each of which raises (exit code != 0) on any failure:
  46. rates   the ResNet50 embed at batch 64 (224 px) in f32, TF32 and bf16 by
              device_ms; the ATH train step at batch 32 (96 images at 256 px)
              by step_reading
+ 47. slice   the ChestMIR lesion detector: five seeded YOLOv5s folds (14
+             classes, depth 0.33, width 0.5) as ultralytics-layout .pt files,
+             the objectness prior offset on the card so that ~40 rows a
+             forward pass run_detector's 0.01 gates; the card's raw (1, 25200,
+             19) predictions at 640 px against the CPU's on the same .pt and
+             against an ultralytics-semantics oracle on the card (atol 2e-4,
+             rtol 1e-4); run_detector's boxes equal on both devices (unless a
+             confidence lies within 1e-5 of a gate); batch-1 latency by CUDA
+             events and device_ms, run_detector's wall time on a 1024^2 film
+ 48. slice   cli.chestmir_ingest --model convnextv2 (f32 under
+             XMIR_FUSED_MLP=1) on 24 generated 1024^2 grayscale films with a
+             --detector-plugin of the five folds, --raw-detector-outputs --tta
+             0,4: K9 = 36 x (global + region batches), no other kernel; again
+             with the tail's plain version: global and region vectors within
+             1e-4, region labels and boxes equal; images/s split into detector
+             forwards, host decode / NMS / WBF, crops + region embeds, global
+             embeds
+ 49. slice   cli.chestmir_eval on phase 48's artifact (adaptive, and the most
+             detected lesion): its JSON equal to two_stage_eval's on the same
+             artifact; reranked and fallback queries (at least one reranked a
+             stage)
 ``--train-only`` builds and runs phases 17 to 23, 25 to 28, 31 to 33 and 38
 to 40 alone, ``--siglip-only`` phases 38 to 41, ``--resnet-ath-only`` phases
-42 to 46 (no result line).
+42 to 46, ``--chestmir-only`` phases 47 to 49 (no result line).
 The launch counts are set to 0 before each slice and read after it. Each
 kernel's bound (the least time the card could take: bytes moved once over
 3.35 TB/s, or operations over the peak of their type) is reckoned from the
@@ -392,6 +413,7 @@ timed shapes. The last two lines are a JSON summary of the kernels and
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import io
@@ -410,7 +432,12 @@ import torch
 import torch.nn.functional as F
 
 from xmir_tpu_torch.analysis import hash_retrieval_metrics
+from xmir_tpu_torch.chestmir import canonical_lesion_name, two_stage_eval
+from xmir_tpu_torch.chestmir import inference as chest_inference
+from xmir_tpu_torch.chestmir import lesions as chest_lesions
 from xmir_tpu_torch.cli import anomaly as anomaly_cli
+from xmir_tpu_torch.cli import chestmir_eval as chestmir_eval_cli
+from xmir_tpu_torch.cli import chestmir_ingest as chestmir_ingest_cli
 from xmir_tpu_torch.cli import common, ingest, query
 from xmir_tpu_torch.cli import compare as compare_cli
 from xmir_tpu_torch.cli import fusion as fusion_cli
@@ -427,8 +454,13 @@ from xmir_tpu_torch.models import convnext as convnext_model
 from xmir_tpu_torch.models import siglip as siglip_model
 from xmir_tpu_torch.models import swin as swin_model
 from xmir_tpu_torch.models import vit as vit_model
+from xmir_tpu_torch.models import yolo as yolo_model
 from xmir_tpu_torch.models.activations import adaptive_gelu
-from xmir_tpu_torch.models.convert import load_torch_checkpoint
+from xmir_tpu_torch.models.convert import (
+    load_torch_checkpoint,
+    load_yolov5_checkpoint,
+    yolov5_state_dict_from_ultralytics,
+)
 from xmir_tpu_torch.models.embedders import ATHEmbedder
 from xmir_tpu_torch.models.registry import create_model
 from xmir_tpu_torch.ops import _build
@@ -6391,6 +6423,486 @@ def phases_resnet_ath():
     return k1_depths, resnet, ath, analysis, phase_resnet_ath_rates()
 
 
+# ---------------------------------------------------------------- ChestMIR
+# the JAX package's detector defaults (xmir_tpu/chestmir/lesions.py:48-53):
+# YOLOv5s, 14 VinDr classes, at 640 px (inference.py::predict_image)
+YOLO_NC, YOLO_DM, YOLO_WM, YOLO_SIZE = 14, 0.33, 0.50, 640
+YOLO_FOLDS = 5
+YOLO_GATE = 0.01  # run_detector's conf_thres: objectness and class score
+YOLO_IOU = 0.4  # run_detector's iou_thres
+YOLO_TOL = dict(atol=2e-4, rtol=1e-4)  # tests/test_yolo.py's, the card against the CPU
+# rows of a forward that pass both gates, set by the objectness prior's
+# offset (calibrated on the card): a few dozen, as a trained fold gives
+YOLO_TARGET_ROWS = 40
+# the Detect convs' weights are scaled by this: a random head's logits lie
+# within a logit of its prior, so that thousands of rows tie to 1e-6 (below
+# the two devices' f32 difference) and NMS orders them by rounding; x 32
+# spreads them as a trained head's are
+YOLO_HEAD_GAIN = 32.0
+YOLO_FOLD_NOISE = 0.02  # each fold: the base's conv weights x (1 + 0.02 N(0, 1))
+CHEST_N, CHEST_SIZE, CHEST_BATCH = 24, 1024, 16  # the ingest's gallery: 1024^2 grayscale films
+CHEST_SCORE = 0.01  # --score-thres: a random fold's boxes fuse below the default 0.1
+CHEST_TTA = "0,4"
+
+
+def chest_like(size, seed):
+    """A grayscale (as RGB) chest-film-like image: a bright mediastinum,
+    two darker lungs, bright blobs, noise (no flat region, so no two cells
+    of the detector's maps see the same pixels)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    img = 60 + 80 * np.exp(-((xx - 0.5) ** 2) / 0.08)
+    for cx in (0.3, 0.7):
+        img -= 50 * np.exp(-(((xx - cx) / 0.15) ** 2 + ((yy - 0.5) / 0.3) ** 2))
+    for _ in range(6):
+        cx, cy, r = rng.random(), rng.random(), 0.02 + 0.06 * rng.random()
+        img += 90 * rng.random() * np.exp(-((xx - cx) ** 2 + (yy - cy) ** 2) / r ** 2)
+    img = np.clip(img + rng.normal(0, 6, img.shape), 0, 255).astype(np.uint8)
+    return np.repeat(img[..., None], 3, axis=2)
+
+
+def write_chest_tree(root: Path, n=CHEST_N, size=CHEST_SIZE, seed=0):
+    """n chest-like PNGs at size^2 in COVIDx's layout (`idx filename label`,
+    three classes in turn). Not VinDr's: its labels are multi-hot, and the
+    two-stage evaluation (both packages) hashes a label per image."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    img_dir = root / "chest_images"
+    img_dir.mkdir(parents=True)
+    manifest = root / "chest_manifest.txt"
+    names = ("normal", "pneumonia", "COVID-19")
+
+    def write(i):
+        Image.fromarray(chest_like(size, seed * 1000 + i)).save(img_dir / f"cxr_{i:03d}.png",
+                                                                compress_level=1)
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(n)))
+    with open(manifest, "w") as f:
+        f.writelines(f"{i} cxr_{i:03d}.png {names[i % 3]}\n" for i in range(n))
+    return str(img_dir), str(manifest)
+
+
+# An ultralytics v6.0 oracle (the modules' own semantics, as
+# tests/test_yolo.py's torch oracle): the yardstick of the port's graph and
+# decode on the card, written apart from models/yolo.py
+class OConv(torch.nn.Module):
+    def __init__(self, c1, c2, k=1, s=1, p=None):
+        super().__init__()
+        self.conv = torch.nn.Conv2d(c1, c2, k, s, k // 2 if p is None else p, bias=False)
+        self.bn = torch.nn.BatchNorm2d(c2, eps=1e-3, momentum=0.03)
+        self.act = torch.nn.SiLU()
+
+    def forward(self, x):
+        return self.act(self.bn(self.conv(x)))
+
+
+class OBottleneck(torch.nn.Module):
+    def __init__(self, c, shortcut):
+        super().__init__()
+        self.cv1, self.cv2, self.add = OConv(c, c, 1), OConv(c, c, 3), shortcut
+
+    def forward(self, x):
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class OC3(torch.nn.Module):
+    def __init__(self, c1, c2, n, shortcut=True):
+        super().__init__()
+        c_ = c2 // 2
+        self.cv1, self.cv2, self.cv3 = OConv(c1, c_), OConv(c1, c_), OConv(2 * c_, c2)
+        self.m = torch.nn.Sequential(*(OBottleneck(c_, shortcut) for _ in range(n)))
+
+    def forward(self, x):
+        return self.cv3(torch.cat((self.m(self.cv1(x)), self.cv2(x)), 1))
+
+
+class OSPPF(torch.nn.Module):
+    def __init__(self, c1, c2):
+        super().__init__()
+        self.cv1, self.cv2 = OConv(c1, c1 // 2), OConv(c1 // 2 * 4, c2)
+        self.m = torch.nn.MaxPool2d(kernel_size=5, stride=1, padding=2)
+
+    def forward(self, x):
+        x = self.cv1(x)
+        y1 = self.m(x)
+        y2 = self.m(y1)
+        return self.cv2(torch.cat((x, y1, y2, self.m(y2)), 1))
+
+
+class ODetect(torch.nn.Module):
+    def __init__(self, nc, ch):
+        super().__init__()
+        self.no, self.na = nc + 5, 3
+        self.m = torch.nn.ModuleList(torch.nn.Conv2d(c, self.na * self.no, 1) for c in ch)
+        self.register_buffer("anchors", torch.zeros(3, 3, 2))
+
+    def forward(self, feats):
+        outs = []
+        for i, x in enumerate(feats):
+            b, _, ny, nx = x.shape
+            y = self.m[i](x).view(b, self.na, self.no, ny, nx).permute(0, 1, 3, 4, 2).sigmoid()
+            yv, xv = torch.meshgrid(torch.arange(ny, device=x.device),
+                                    torch.arange(nx, device=x.device), indexing="ij")
+            grid = torch.stack((xv, yv), 2).view(1, 1, ny, nx, 2).float() - 0.5
+            stride = 8 * 2 ** i
+            anchor_grid = (self.anchors[i] * stride).view(1, self.na, 1, 1, 2)
+            xy = (y[..., 0:2] * 2 + grid) * stride
+            wh = (y[..., 2:4] * 2) ** 2 * anchor_grid
+            outs.append(torch.cat((xy, wh, y[..., 4:]), -1).view(b, -1, self.no))
+        return torch.cat(outs, 1)
+
+
+class OYOLO(torch.nn.Module):
+    """ultralytics' layer list (model.{i}) at YOLOv5s's widths."""
+
+    def __init__(self, nc=YOLO_NC, dm=YOLO_DM, wm=YOLO_WM):
+        super().__init__()
+        w = lambda c: max(8, int(math.ceil(c * wm / 8) * 8))  # noqa: E731
+        d = lambda n: max(round(n * dm), 1)  # noqa: E731
+        up = lambda: torch.nn.Upsample(scale_factor=2, mode="nearest")  # noqa: E731
+        ident = torch.nn.Identity
+        self.model = torch.nn.ModuleList([
+            OConv(3, w(64), 6, 2, 2), OConv(w(64), w(128), 3, 2), OC3(w(128), w(128), d(3)),
+            OConv(w(128), w(256), 3, 2), OC3(w(256), w(256), d(6)), OConv(w(256), w(512), 3, 2),
+            OC3(w(512), w(512), d(9)), OConv(w(512), w(1024), 3, 2), OC3(w(1024), w(1024), d(3)),
+            OSPPF(w(1024), w(1024)), OConv(w(1024), w(512)), up(), ident(),
+            OC3(w(1024), w(512), d(3), False), OConv(w(512), w(256)), up(), ident(),
+            OC3(w(512), w(256), d(3), False), OConv(w(256), w(256), 3, 2), ident(),
+            OC3(w(512), w(512), d(3), False), OConv(w(512), w(512), 3, 2), ident(),
+            OC3(w(1024), w(1024), d(3), False), ODetect(nc, (w(256), w(512), w(1024)))])
+
+    def forward(self, x):
+        m = self.model
+        p3 = m[4](m[3](m[2](m[1](m[0](x)))))
+        p4 = m[6](m[5](p3))
+        t10 = m[10](m[9](m[8](m[7](p4))))
+        t14 = m[14](m[13](torch.cat((m[11](t10), p4), 1)))
+        o17 = m[17](torch.cat((m[15](t14), p3), 1))
+        o20 = m[20](torch.cat((m[18](o17), t14), 1))
+        o23 = m[23](torch.cat((m[21](o20), t10), 1))
+        return m[24]((o17, o20, o23))
+
+
+def seeded_detector(seed, gen=None):
+    """YOLOv5s (models/yolo.py) with seeded weights: Kaiming-normal
+    convolutions, random BatchNorm statistics (as tests/test_yolo.py sets
+    them), ultralytics' Detect priors (init_weights_), the head's weights x
+    YOLO_HEAD_GAIN."""
+    gen = gen or torch.Generator().manual_seed(seed)
+    model = yolo_model.YOLOv5(YOLO_NC, YOLO_DM, YOLO_WM, generator=gen)
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.uniform_(-0.5, 0.5, generator=gen)
+                mod.running_var.uniform_(0.5, 1.5, generator=gen)
+            elif isinstance(mod, torch.nn.Conv2d) and not name.startswith(
+                    f"model.{yolo_model.DETECT}."):
+                mod.weight.normal_(0.0, (2.0 / mod.weight[0].numel()) ** 0.5, generator=gen)
+        for conv in model.detect.m:
+            conv.weight.mul_(YOLO_HEAD_GAIN)
+    return model.eval()
+
+
+def gate_counts(pred):
+    """Rows of raw (1, N, 5 + nc) predictions that pass run_detector's two
+    gates (objectness, then objectness x best class score)."""
+    p = pred[0]
+    return int(((p[:, 4] > YOLO_GATE) & ((p[:, 5:] * p[:, 4:5]).max(1) > YOLO_GATE)).sum())
+
+
+def calibrate_objectness(model, inputs):
+    """The offset of the objectness prior that lets YOLO_TARGET_ROWS rows a
+    forward (on average over ``inputs``) through both gates: bisection on
+    the card's maps, the head's other outputs unchanged."""
+    with torch.inference_mode():
+        preds = [model(torch.from_numpy(x).cuda())["prediction"].cpu().numpy()[0]
+                 for x in inputs]
+    obj = [np.clip(p[:, 4].astype(np.float64), 1e-30, 1 - 1e-7) for p in preds]
+    logit = [np.log(o / (1 - o)) for o in obj]
+    best = [p[:, 5:].max(1) for p in preds]
+
+    def passing(delta):
+        obj = [1 / (1 + np.exp(-(lg + delta))) for lg in logit]
+        return np.mean([((o > YOLO_GATE) & (o * b > YOLO_GATE)).sum() for o, b in zip(obj, best)])
+
+    lo, hi = -20.0, 20.0
+    for _ in range(50):
+        mid = (lo + hi) / 2
+        lo, hi = (mid, hi) if passing(mid) < YOLO_TARGET_ROWS else (lo, mid)
+    return hi
+
+
+def write_yolo_folds(workdir: Path, inputs):
+    """YOLO_FOLDS ultralytics-layout state-dict .pt files: a seeded base
+    detector whose objectness prior is offset on the card
+    (calibrate_objectness), and each fold's conv weights perturbed by its
+    own seed (folds of one training agree on most boxes)."""
+    base = seeded_detector(0).cuda()
+    delta = calibrate_objectness(base, inputs)
+    base = base.cpu()
+    with torch.no_grad():
+        for conv in base.detect.m:
+            conv.bias.view(3, -1)[:, 4] += delta
+    paths = []
+    for k in range(YOLO_FOLDS):
+        gen = torch.Generator().manual_seed(100 + k)
+        sd = {key: v * (1 + YOLO_FOLD_NOISE * torch.randn(v.shape, generator=gen))
+              if v.ndim == 4 else v for key, v in base.state_dict().items()}
+        path = workdir / f"yolov5s_fold{k}.pt"
+        torch.save(sd, path)
+        paths.append(str(path))
+    return paths, float(delta)
+
+
+def _letterboxed(img_dir, i):
+    """(image, its letterboxed (1, 3, 640, 640) input) of the tree's i-th PNG."""
+    from PIL import Image
+
+    img = np.asarray(Image.open(Path(img_dir) / f"cxr_{i:03d}.png").convert("RGB"), np.uint8)
+    return img, chest_inference.prepare_input(img, YOLO_SIZE)[0]
+
+
+def near_gate(pred, eps=1e-5):
+    """Rows whose objectness or objectness x class score lies within eps of
+    run_detector's gate."""
+    p = pred[0]
+    conf = p[:, 5:] * p[:, 4:5]
+    return int((np.abs(p[:, 4] - YOLO_GATE) < eps).sum() + (np.abs(conf - YOLO_GATE) < eps).sum())
+
+
+def yolo_reading(pt, images):
+    """The port's YOLOv5 on the card against the same .pt on the CPU (raw
+    predictions) and against the ultralytics oracle on the card; of_bound
+    the larger worst |a - b| / (atol + rtol |b|) (above 1: outside)."""
+    fn_cuda = chest_lesions.detector_fn_from_checkpoint(pt, YOLO_NC, YOLO_DM, YOLO_WM)
+    fn_cpu = chest_lesions.detector_fn_from_checkpoint(pt, YOLO_NC, YOLO_DM, YOLO_WM,
+                                                       device="cpu")
+    oracle = OYOLO()
+    oracle.load_state_dict(yolov5_state_dict_from_ultralytics(load_checkpoint(pt)), strict=True)
+    oracle = oracle.cuda().eval()
+    out = {"card_vs_cpu": 0.0, "card_vs_oracle": 0.0, "max_abs_err": 0.0, "preds": []}
+    for _, x in images:
+        card, cpu = fn_cuda(x), fn_cpu(x)
+        with torch.inference_mode(), chest_lesions.tf32_off():
+            ref = oracle(torch.from_numpy(x).cuda()).cpu().numpy()
+        check(card.shape == cpu.shape == ref.shape, f"shapes {card.shape} {cpu.shape} {ref.shape}")
+        for key, want in (("card_vs_cpu", cpu), ("card_vs_oracle", ref)):
+            share = np.abs(card - want) / (YOLO_TOL["atol"] + YOLO_TOL["rtol"] * np.abs(want))
+            out[key] = max(out[key], float(share.max()))
+        out["max_abs_err"] = max(out["max_abs_err"], float(np.abs(card - cpu).max()))
+        out["preds"].append((card, cpu))
+    out["of_bound"] = max(out["card_vs_cpu"], out["card_vs_oracle"])
+    return out, fn_cuda, fn_cpu
+
+
+def phase_detector(workdir: Path, tree):
+    """Phase 47: YOLOv5s at 640 px on the card, five seeded folds."""
+    t0 = time.perf_counter()
+    images = [_letterboxed(tree[0], i) for i in range(2)]
+    pts, delta = write_yolo_folds(workdir, [x for _, x in images])
+    reading, fn_cuda, fn_cpu = yolo_reading(pts[0], images)
+    check(reading["of_bound"] <= 1.0,
+          f"YOLOv5s on the card lies {reading['card_vs_cpu']:.3g} of atol 2e-4 + rtol 1e-4 from "
+          f"the CPU and {reading['card_vs_oracle']:.3g} from the ultralytics oracle")
+    passed = [gate_counts(card) for card, _ in reading["preds"]]
+    log(f"[chestmir] YOLOv5s (nc {YOLO_NC}, depth {YOLO_DM}, width {YOLO_WM}) at {YOLO_SIZE} px: "
+        f"the card's raw (1, 25200, {5 + YOLO_NC}) predictions against the CPU's: max abs err "
+        f"{reading['max_abs_err']:.3g}, {reading['card_vs_cpu']:.3g} of the bound (atol 2e-4, "
+        f"rtol 1e-4); against the ultralytics oracle on the card {reading['card_vs_oracle']:.3g}"
+        f"; objectness prior offset {delta:.3f}; rows through the {YOLO_GATE} gates {passed}")
+    kept, near = [], 0
+    for (img, _), (card, cpu) in zip(images, reading["preds"]):
+        # run_detector on the forwards above (the same letterboxed input)
+        got = chest_inference.run_detector(lambda _, p=card: p, img, YOLO_SIZE)
+        want = chest_inference.run_detector(lambda _, p=cpu: p, img, YOLO_SIZE)
+        same = (len(got[0]) == len(want[0]) and np.array_equal(got[0], want[0])
+                and np.array_equal(got[2], want[2])
+                and np.allclose(got[1], want[1], rtol=0, atol=1e-5))
+        if not same:
+            n = near_gate(card) + near_gate(cpu)
+            check(n > 0, f"the card's detections differ from the CPU's ({len(got[0])} against "
+                         f"{len(want[0])} boxes) with no confidence within 1e-5 of a gate")
+            log(f"[chestmir] detections differ between the card and the CPU on an image where "
+                f"{n} rows lie within 1e-5 of a gate")
+            near += n
+        kept.append(len(got[0]))
+    check(all(k > 0 for k in kept), f"a fold kept no box: {kept}")
+    log(f"[chestmir] run_detector (NMS IoU {YOLO_IOU}): {kept} boxes kept an image, equal "
+        f"on the card and the CPU{'' if near == 0 else ' away from the gates'}")
+    # rates: one batch-1 forward by CUDA events and device_ms; run_detector's
+    # wall time with the host's letterbox, copies and decode
+    model = yolo_model.YOLOv5(YOLO_NC, YOLO_DM, YOLO_WM)
+    load_yolov5_checkpoint(model, pts[0])
+    model = model.to("cuda", memory_format=torch.channels_last).eval()
+    x = torch.from_numpy(images[0][1]).cuda().contiguous(memory_format=torch.channels_last)
+
+    def forward():
+        with torch.inference_mode():
+            return model(x)["prediction"]
+
+    rates = {"events_ms": _time_ms(forward, 20), "device_ms": device_ms(forward),
+             "run_detector_wall_ms": wall_ms(
+                 lambda: chest_inference.run_detector(fn_cuda, images[0][0], YOLO_SIZE), 10),
+             "rows_passing": passed, "boxes_kept": kept, "near_gate_rows": near,
+             "max_abs_err": reading["max_abs_err"], "of_bound": reading["of_bound"],
+             "objectness_offset": delta}
+    log(f"[rates] YOLOv5s batch 1 at {YOLO_SIZE} px, f32 (TF32 off): {rates['events_ms']:.3f} ms "
+        f"by CUDA events, {rates['device_ms']:.4f} ms by device_ms; run_detector on a "
+        f"{CHEST_SIZE}^2 film (letterbox, copies, forward, NMS) {rates['run_detector_wall_ms']:.2f}"
+        f" ms wall; phase {time.perf_counter() - t0:.1f} s")
+    return rates, pts
+
+
+PLUGIN = '''"""The five seeded YOLOv5s folds of chip_smoke.py phase 48, each call's
+seconds summed (the detector forwards' share of detection)."""
+import time
+
+from xmir_tpu_torch.chestmir.lesions import detector_fn_from_checkpoint
+
+PATHS = {paths!r}
+FORWARD_SECONDS = [0.0]
+
+
+def _timed(fn):
+    def call(x):
+        t0 = time.perf_counter()
+        out = fn(x)
+        FORWARD_SECONDS[0] += time.perf_counter() - t0
+        return out
+    return call
+
+
+def build_detectors():
+    return [_timed(detector_fn_from_checkpoint(p, {nc}, {dm}, {wm})) for p in PATHS]
+'''
+
+
+def _chest_artifact(path):
+    data = np.load(path, allow_pickle=True)
+    return data["global_vectors"], json.loads(str(data["regions_json"]))
+
+
+def phase_chestmir_ingest(workdir: Path, tree, pts):
+    """Phase 48: cli.chestmir_ingest --model convnextv2 (f32, under
+    XMIR_FUSED_MLP=1: K9 in every block) with the five folds x TTA 0 / 4,
+    then again with the tail's plain version."""
+    import importlib
+    import sys
+
+    (workdir / "chest_folds_plugin.py").write_text(
+        PLUGIN.format(paths=pts, nc=YOLO_NC, dm=YOLO_DM, wm=YOLO_WM))
+    sys.path.insert(0, str(workdir))
+    args = ["--dataset", "covid", "--dataset-dir", tree[0], "--test-image-list", tree[1],
+            "--split", "test", "--model", "convnextv2", "--device", "cuda", "--seed", "0",
+            "--batch-size", str(CHEST_BATCH), "--region-batch-size", str(CHEST_BATCH),
+            "--detector-plugin", "chest_folds_plugin", "--raw-detector-outputs", "--tta",
+            CHEST_TTA, "--score-thres", str(CHEST_SCORE)]
+    runs = {}
+    try:
+        plugin = importlib.import_module("chest_folds_plugin")
+        with env_flags(XMIR_FUSED_MLP="1"):  # the f32 CLIs take K9
+            for name, ctx in (("K9", contextlib.nullcontext()),
+                              ("plain", tail_plain_version())):
+                gal = str(workdir / f"chestmir_{name}.npz")
+                plugin.FORWARD_SECONDS[0] = 0.0
+                reset_launches()
+                t0 = time.perf_counter()
+                with ctx:
+                    summary = chestmir_ingest_cli.main(args + ["--output", gal])
+                runs[name] = dict(summary, wall=time.perf_counter() - t0, gallery=gal,
+                                  launches=read_launches(), forward=plugin.FORWARD_SECONDS[0])
+    finally:
+        sys.path.remove(str(workdir))
+    g, regions = _chest_artifact(runs["K9"]["gallery"])
+    g_plain, regions_plain = _chest_artifact(runs["plain"]["gallery"])
+    n_regions = sum(len(r) for r in regions)
+    check(n_regions > 0, "the ingest found no region")
+    batches = -(-CHEST_N // CHEST_BATCH) + sum(-(-len(r) // CHEST_BATCH) for r in regions)
+    launches = runs["K9"]["launches"]
+    want = dict.fromkeys(WRAPPERS, 0)
+    want["K9"] = DEPTH * batches
+    check(launches == want, f"chestmir ingest: launches {launches}, expected {want} ({DEPTH} x "
+                            f"{batches} global and region batches)")
+    _no_launches(runs["plain"]["launches"], "the ingest with the tail's plain version")
+    check([[(r["label"], r["box"]) for r in rs] for rs in regions] == [
+        [(r["label"], r["box"]) for r in rs] for rs in regions_plain],
+        "region labels or boxes differ between the two runs")
+    g_err = float(np.abs(g - g_plain).max())
+    r_err = max(float(np.abs(np.asarray(a["vector"]) - np.asarray(b["vector"])).max())
+                for rs, ps in zip(regions, regions_plain) for a, b in zip(rs, ps))
+    check(max(g_err, r_err) <= CONVNEXT_EMBED_TOL,
+          f"the ingest's vectors lie {g_err:.3g} (global) / {r_err:.3g} (regions) from the tail's "
+          f"plain version's, above {CONVNEXT_EMBED_TOL}")
+    run = runs["K9"]
+    sec = run["seconds"]
+    total = sum(sec.values())
+    split = {"image_load_s": sec["load"], "detector_forwards_s": run["forward"],
+             "host_decode_nms_wbf_s": sec["detect"] - run["forward"],
+             "crops_and_region_embeds_s": sec["regions"], "global_embeds_s": sec["global"]}
+    rates = {"images": CHEST_N, "regions": n_regions, "img_per_s": CHEST_N / total,
+             "wall_s_with_builds": run["wall"], "split_s": split, "launches": launches,
+             "global_max_abs_err": g_err, "region_max_abs_err": r_err,
+             "plain_img_per_s": CHEST_N / sum(runs["plain"]["seconds"].values())}
+    log(f"[chestmir] cli.chestmir_ingest --model convnextv2 (f32, XMIR_FUSED_MLP=1), "
+        f"{YOLO_FOLDS} folds x TTA {CHEST_TTA}: {CHEST_N} films at {CHEST_SIZE}^2, {n_regions} "
+        f"regions; K9 launches {launches['K9']} ({DEPTH} x {batches} batches); vectors against "
+        f"the tail's plain version: global {g_err:.3g}, regions {r_err:.3g} (<= "
+        f"{CONVNEXT_EMBED_TOL}); labels and boxes equal")
+    log(f"[rates] chestmir ingest: {rates['img_per_s']:.2f} img/s ({total:.2f} s: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+        + f"); {run['wall']:.1f} s wall with the model builds; plain tail "
+          f"{rates['plain_img_per_s']:.2f} img/s")
+    return rates, run["gallery"]
+
+
+def phase_chestmir_eval(workdir: Path, gallery):
+    """Phase 49: cli.chestmir_eval on phase 48's artifact against
+    two_stage_eval on the same artifact, adaptive and one specific lesion."""
+    _, regions = _chest_artifact(gallery)
+    counts = collections.Counter(canonical_lesion_name(r["label"]) for rs in regions for r in rs)
+    specific = counts.most_common(1)[0][0]
+    out = str(workdir / "chestmir_results.json")
+    t0 = time.perf_counter()
+    chestmir_eval_cli.main(["--gallery", gallery, "--specific-lesions", specific,
+                            "--rerank-topk", "10", "--output", out])
+    dt = time.perf_counter() - t0
+    with open(out) as f:
+        got = json.load(f)
+    g, labels, _, maps = chestmir_eval_cli.load_chestmir_npz(gallery)
+    target = ["consolidation", "lung opacity", "infiltration", "atelectasis", "pleural effusion"]
+    want = json.loads(json.dumps(two_stage_eval(g, labels, maps, target, [specific],
+                                                rerank_topk=10), default=float))
+    check(got == want, "cli.chestmir_eval's JSON differs from two_stage_eval's")
+    stats = {stage: {k: payload["stats"].get(k) for k in ("queries_reranked",
+                                                           "queries_fallback_global")}
+             for stage, payload in got.items() if payload["stats"]}
+    check(all(s["queries_reranked"] > 0 for s in stats.values()),
+          f"a stage reranked no query: {stats}")
+    log(f"[chestmir] cli.chestmir_eval ({dt:.2f} s) equals two_stage_eval on the artifact; "
+        f"reranked / fallback queries: {stats}; mAP by stage "
+        f"{ {k: round(v['report']['mAP'], 4) for k, v in got.items()} }")
+    return {"stats": stats, "mAP": {k: v["report"]["mAP"] for k, v in got.items()},
+            "specific_lesion": specific, "seconds": dt}
+
+
+def phases_chestmir():
+    """Phases 47 to 49: the YOLOv5s folds, the ChestMIR ingest and its
+    two-stage evaluation on one generated tree of chest films."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        tree = write_chest_tree(Path(tmp))
+        log(f"[chestmir] wrote {CHEST_N} chest-like PNGs at {CHEST_SIZE}^2 in "
+            f"{time.perf_counter() - t0:.1f} s")
+        detector, pts = phase_detector(Path(tmp), tree)
+        ingest_rates, gallery = phase_chestmir_ingest(Path(tmp), tree, pts)
+        evaluation = phase_chestmir_eval(Path(tmp), gallery)
+    return {"detector": detector, "ingest": ingest_rates, "eval": evaluation}
+
+
 def load_vindr_ids(csv_path):
     with open(csv_path) as f:
         return sorted({line.split(",")[0] for line in f.read().splitlines()[1:] if line})
@@ -6409,11 +6921,18 @@ def main():
     parser.add_argument("--resnet-ath-only", action="store_true",
                         help="only build, then the ResNet50, ATH and analysis phases (42 to "
                              "46); prints no result")
+    parser.add_argument("--chestmir-only", action="store_true",
+                        help="only build, then the ChestMIR phases (47 to 49); prints no "
+                             "result")
     opts = parser.parse_args()
     smi = phase_device()
     phase_build()
     if opts.resnet_ath_only:
         phases_resnet_ath()
+        print(smi)
+        return
+    if opts.chestmir_only:
+        phases_chestmir()
         print(smi)
         return
     if opts.profile_swin:
@@ -6513,6 +7032,7 @@ def main():
     clip_rates = phase_clip_rates()
     siglip_bwd, ms_train, cc_train, sx = phases_siglip_train()
     k1_depths, resnet, ath, analysis, ra_rates = phases_resnet_ath()
+    chest = phases_chestmir()
     by_path = {key: {"densenet121": d_launches[key], "convnextv2": c_launches[key],
                      **{path: v["launches"][key] for path, v in v_slices.items()},
                      **{path: v["launches"][key] for path, v in s_slices.items()},
@@ -6532,7 +7052,8 @@ def main():
                      **{path: v[key] for path, v in sx["launches"].items()},
                      **{path: v[key] for path, v in resnet["launches"].items()},
                      **{path: v[key] for path, v in ath["launches"].items()},
-                     **{path: v[key] for path, v in analysis["launches"].items()}}
+                     **{path: v[key] for path, v in analysis["launches"].items()},
+                     "chestmir_ingest": chest["ingest"]["launches"][key]}
                for key in WRAPPERS}
     slice_errs = [slice_err, c_slice_err, nih["hits_err"], distill["hits_err"], resnet["err"],
                   analysis["err"]] + [
@@ -6693,7 +7214,11 @@ def main():
                       "ath_train_step": ra_rates["ath_train_step"],
                       "ath": {k: v for k, v in ath.items() if k != "launches"},
                       "analysis": {k: v for k, v in analysis.items()
-                                   if k not in ("launches", "err")}}))
+                                   if k not in ("launches", "err")},
+                      "chestmir": {"detector": chest["detector"],
+                                   "ingest": {k: v for k, v in chest["ingest"].items()
+                                              if k != "launches"},
+                                   "eval": chest["eval"]}}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

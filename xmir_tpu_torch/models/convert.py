@@ -1,9 +1,9 @@
 """Weights into the port's DenseNet, ResNet50, ConvNeXtV2, SwinV2 and ViT
 embedders, the distillation models, the NIH dual-head models, the
 CLIP-family models (SigLIP / MedSigLIP, ConceptCLIP, BiomedCLIP and their
-text towers), the ATH hashing model and the tiny debug model: from the JAX
-package's variable tree, and from a reference CheXNet / torchvision, timm,
-HF or open_clip ``.pt``.
+text towers), the ATH hashing model, the tiny debug model and the YOLOv5
+lesion detector: from the JAX package's variable tree, and from a reference
+CheXNet / torchvision, timm, HF, open_clip or ultralytics ``.pt``.
 
 Conventions (the inverse of xmir_tpu/models/convert.py):
   conv   flax (kh, kw, I, O)  -> torch (O, I, kh, kw)
@@ -608,6 +608,77 @@ def biomedclip_state_dict_from_open_clip(sd: Dict[str, torch.Tensor]) -> Dict[st
     save it; the port counts positions itself)."""
     return {k.replace("module.", ""): v for k, v in sd.items()
             if not k.endswith("text.transformer.embeddings.position_ids")}
+
+
+# ultralytics wraps a YOLOv5 state dict's keys in these (as the JAX
+# converter strips them, xmir_tpu/models/convert.py::convert_yolov5)
+_YOLO_PREFIXES = ("model.model.", "model.")
+
+
+def _yolo_tree(sd, prefix, params, stats):
+    """A ConvBnSiLU / C3 / Bottleneck / SPPF subtree of the JAX YOLOv5 into
+    ultralytics' names (Bottleneck ``m{j}`` -> ``m.{j}``)."""
+    for key, sub in params.items():
+        if key == "conv":
+            sd[f"{prefix}.conv.weight"] = _conv(sub["kernel"])
+        elif key == "bn":
+            _bn(sd, f"{prefix}.bn", sub, stats["bn"])
+        else:
+            name = f"m.{key[1:]}" if re.fullmatch(r"m\d+", key) else key
+            _yolo_tree(sd, f"{prefix}.{name}", sub, stats[key])
+
+
+def yolov5_state_dict_from_jax(variables, anchors) -> Dict[str, torch.Tensor]:
+    """The JAX package's YOLOv5 tree (numpy leaves: params and batch_stats
+    of ``layer{i}``, ``detect{k}``) and its anchors in pixels -> the port's
+    YOLOv5 state dict, in ultralytics' layout: the anchors go back to the
+    ``model.24.anchors`` buffer in units of each scale's stride; every
+    BatchNorm's ``num_batches_tracked`` is 0 (inference does not read it)."""
+    from .yolo import DETECT, STRIDES
+
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+    for i in _numbered(params, "layer"):
+        _yolo_tree(sd, f"model.{i}", params[f"layer{i}"], stats[f"layer{i}"])
+    for k in _numbered(params, "detect"):
+        sd[f"model.{DETECT}.m.{k}.weight"] = _conv(params[f"detect{k}"]["kernel"])
+        sd[f"model.{DETECT}.m.{k}.bias"] = np.asarray(params[f"detect{k}"]["bias"])
+    strides = np.asarray(STRIDES, np.float32).reshape(-1, 1, 1)
+    sd[f"model.{DETECT}.anchors"] = np.asarray(anchors, np.float32) / strides
+    out = _to_torch(sd)
+    for key in [k for k in out if k.endswith(".bn.running_var")]:
+        out[key.replace("running_var", "num_batches_tracked")] = torch.zeros((), dtype=torch.long)
+    return out
+
+
+def yolov5_state_dict_from_ultralytics(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """An ultralytics YOLOv5 (v6.0 graph) state dict -> the port's: the
+    ``module.``, ``model.model.`` / ``model.`` wrappers stripped and
+    ``model.`` put back (the port's layers are ``model.{i}``), floating
+    tensors as f32 (ultralytics saves half precision)."""
+    out = {}
+    for key, value in sd.items():
+        key = key.replace("module.", "")
+        for prefix in _YOLO_PREFIXES:
+            if key.startswith(prefix):
+                key = key[len(prefix):]
+                break
+        out[f"model.{key}"] = value.float() if value.is_floating_point() else value
+    return out
+
+
+def load_yolov5_checkpoint(model: torch.nn.Module, path: str) -> np.ndarray:
+    """Load an ultralytics-layout YOLOv5 state-dict ``.pt`` into ``model`` (a
+    models/yolo.py YOLOv5 of the checkpoint's class count and multiples)
+    with strict=True; its ``anchors`` buffer comes from the file. Returns
+    the anchors in pixels, (nl, na, 2), as convert_yolov5 does. A whole
+    pickled ultralytics model is not read (nor is it by the JAX loader,
+    which reads tensors only)."""
+    from ..utils.checkpoint import load_checkpoint
+
+    sd = yolov5_state_dict_from_ultralytics(load_checkpoint(path))
+    model.load_state_dict(sd, strict=True)
+    return model.anchors_px.cpu().numpy()
 
 
 def load_torch_checkpoint(model: torch.nn.Module, path: str):
