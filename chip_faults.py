@@ -20,7 +20,15 @@ gradients against float64's) must refuse ATHNet's average pool padded by
 chip_smoke.py phase 47's check of the YOLOv5s detector (the card against
 the CPU and against an ultralytics-semantics oracle) must refuse the
 decode's rows flattened cell-major and SPPF's pool padded with zeros
-(``--only chestmir``).
+(``--only chestmir``). The mesh checks (``--only mesh``): phase 51's check of
+the sharded search (bit-equal to one unsharded call, ties to the lower id,
+on duplicates planted across the shard boundaries) must refuse a merge that
+breaks ties toward the higher id; the data-parallel training check of
+tests/test_torch_train_dp.py (the first step's loss within 1e-5 and its group
+norms within 1e-5 relative of world 1's, BatchNorm's buffers equal on both
+ranks), run at a world of 2 on the card machine's CPU (gloo; NCCL cannot put
+two ranks on one card), must refuse a gradient ``world`` times too large and
+per-rank BatchNorm statistics.
 Each line prints how far the reading goes toward its bounds (above 1: past
 one of them).
 
@@ -911,12 +919,94 @@ def read_chestmir():
                                                   "max_abs_err")}, fault is None
 
 
+def merge_ties_to_higher_ids(vals, idxs, k):
+    """The fault: the shards' blocks merged last-first, so that equal scores
+    go to the higher gallery id."""
+    from xmir_tpu_torch.index.gallery import merge_shard_candidates
+
+    return merge_shard_candidates(vals.flip(0), idxs.flip(0), k)
+
+
+def read_shard_merge(merge=None):
+    """Phase 51's check on duplicates planted across the boundaries of 4
+    shards (Q = 1024, N = 100,000, D = 1024, f32, k = 10)."""
+    import chip_smoke as cs
+    from xmir_tpu_torch.ops.distance import l2_normalize
+
+    gen = torch.Generator().manual_seed(51)
+    q = l2_normalize(torch.randn((1024, 1024), generator=gen)).cuda()
+    g = l2_normalize(torch.randn((100_000, 1024), generator=gen)).cuda()
+    q, g = cs.planted_shard_inputs(q, g)
+    kwargs = {} if merge is None else {"merge": merge}
+    return cs.shard_reading(q, g, 10, torch.float32, **kwargs)[0]
+
+
+DP_SPECS = {"densenet121": (dict(growth_rate=8, block_config=(2, 2, 2, 2),
+                                 num_init_features=16), 64)}
+DP_FAULTS = ("gradient world times too large", "per-rank BatchNorm statistics")
+
+
+def dp_worker(rank, world, root, fault):
+    """cli.train --use-mesh on a narrow DenseNet121 (a world of ``world``
+    gloo ranks), with ``fault`` planted in this process."""
+    import torch_mesh_workers
+    from xmir_tpu_torch.parallel import data_parallel
+    from xmir_tpu_torch.parallel import mesh as mesh_module
+
+    if fault == DP_FAULTS[0]:  # every rank's identical gradient summed into each rank's rows
+        def backward(ctx, g):
+            g = ctx.mesh.all_reduce_(g.contiguous().clone())
+            lo = ctx.mesh.rank * ctx.rows
+            return g[lo:lo + ctx.rows], None
+
+        mesh_module._GatherRows.backward = staticmethod(backward)
+    elif fault == DP_FAULTS[1]:
+        data_parallel.sync_batch_norm = lambda model, mesh: model
+    argv = ["--dataset", "synthetic", "--device", "cpu", "--model", "densenet121",
+            "--embedding-dim", "16", "-p", "2", "-k", "4", "-j", "1", "--print-freq", "1",
+            "--eval-freq", "1", "--ckpt-every", "1", "--lr", "1e-3", "--margin", "2.0",
+            "--epochs", "1", "--save-dir", f"{root}/ck", "--metrics-log", f"{root}/log.jsonl",
+            "--use-mesh"]
+    return torch_mesh_workers.train_worker(rank, world, [argv], DP_SPECS)[0]
+
+
+def read_dp(fault=None):
+    """The data-parallel training check at a world of 2 (with ``fault``)
+    against a world of 1 (without), on the CPU."""
+    import json
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_mesh_workers
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {}
+        for world, f in ((1, None), (2, fault)):
+            root = Path(tmp) / f"w{world}"
+            root.mkdir()
+            recs = torch_mesh_workers.run_world(dp_worker, world, root, str(root), f)
+            with open(root / "log.jsonl") as fh:
+                losses = [json.loads(line)["loss"] for line in fh if '"train"' in line]
+            out[world] = (recs, losses)
+    (one,), l1 = out[1]
+    (r0, r1), l2 = out[2]
+    return {"first_loss_diff": abs(l1[0] - l2[0]),
+            "norm_rel": max(abs(a - b) / b for a, b in zip(r0["norms"][:2], one["norms"][:2])),
+            "buffers_equal": all(torch.equal(v, r1["buffers"][k])
+                                 for k, v in r0["buffers"].items())}
+
+
+def dp_agrees(reading) -> bool:
+    return (reading["first_loss_diff"] <= 1e-5 and reading["norm_rel"] <= 1e-5
+            and reading["buffers_equal"])
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", nargs="+", metavar="KERNEL",
                         help="the kernels to read and plant faults in (K1 K1' K2 ... K11), "
-                             "ath: the ATH train step's checks, or chestmir: the YOLOv5 "
-                             "detector's")
+                             "ath: the ATH train step's checks, chestmir: the YOLOv5 "
+                             "detector's, or mesh: the sharded search's and the "
+                             "data-parallel step's")
     only = parser.parse_args().only
 
     def want(*kernels):
@@ -970,6 +1060,17 @@ def main():
     if want("chestmir"):
         for name, reading, inside in read_chestmir():
             report(name, "YOLOv5s", reading, inside, lambda r: r["of_bound"] <= 1.0)
+    if want("mesh"):
+        import chip_smoke as cs
+
+        report("the sharded search on planted duplicates (phase 51)", "merge",
+               read_shard_merge(), True, cs.shard_agrees)
+        report("a merge that breaks ties toward the higher id", "merge",
+               read_shard_merge(merge_ties_to_higher_ids), False, cs.shard_agrees)
+        report("cli.train --use-mesh at world 2 against world 1 (CPU, gloo)", "DP",
+               read_dp(), True, dp_agrees)
+        for fault in DP_FAULTS:
+            report(f"DP: {fault}", "DP", read_dp(fault), False, dp_agrees)
     if want("ath"):
         report("cli.train_ath on the card against the CPU and float64 (phase 44)", "ath",
                read_ath(), True, lambda r: r["agree"])

@@ -401,9 +401,54 @@ Phases, each of which raises (exit code != 0) on any failure:
              detected lesion): its JSON equal to two_stage_eval's on the same
              artifact; reranked and fallback queries (at least one reranked a
              stage)
+The mesh phases (--use-mesh on torch.distributed: a world of 1 over NCCL on
+the card, at full width):
+ 50. mesh A  (in phase 4's directory, after it) cli.ingest --use-mesh
+             --upload-originals -> cli.query --use-mesh and cli.test
+             --use-mesh on phase 4's DenseNet121 data: the saved index's
+             vectors, labels and hits bit-equal to phase 4's (the paths are
+             the stored URIs, whose files equal the originals), info()'s
+             sharding {"devices": 1, ...}, K1 once a query batch; cli.test's
+             metrics and artifact equal to the run without the flag; the
+             backend is NCCL and the process group is gone after each CLI
+ 51. mesh B  the sharded search at the serving shape (Q = 1024, N = 100,000,
+             D = 1024, unit rows), split as a world of 4 splits it (25,088
+             rows a shard, 24,736 valid in the last): each shard body on the
+             card, then the merge, against one unsharded call, f32 and bf16,
+             at k = 10 (K1) and k = 100 (K1'), bit-equal, again with
+             duplicate rows planted across every shard boundary (ties to the
+             lower id); the four shard searches plus the merge by device_ms
+             beside the unsharded call
+ 52. mesh C  (in phase 18's directory) cli.train --model dinov2 --bf16 -p 2 -k 4
+             --use-mesh, and with --fsdp, one epoch from phase 18's .pt: the
+             launches of phase 18's run; the data-parallel run's losses,
+             parameters and Adam moments bit-equal to phase 18's, the FSDP
+             run's first loss within 1e-5 and its parameters within 1e-3 by
+             mean distance over mean movement; the FSDP checkpoint resumed
+             under --fsdp for epoch 2 bit-equal to phase 18's two-epoch run;
+             (in phase 19's directory) cli.train --model densenet121
+             --use-mesh --cache-dir, one epoch (the cache complete, its rows
+             byte-equal to fresh decodes), then --resume of it for epoch 2
+             read from the cache: losses and tensors bit-equal to phase 19's
+             two-epoch run without the cache
+ 53. mesh D  (in phase 24's directory) cli.compute_saliency --use-mesh (2
+             queries, top 3, 2401 masks) -> cli.evaluate_saliency --use-mesh:
+             maps and AUCs within 1e-6 of phase 24's, its JSON's use_mesh and
+             mesh_devices, K1 once
+ 54. mesh E  the native NIH reader built with g++ under build/ and a batch of
+             64 generated .npy files through it (the counter: all native)
+             within the JAX tests' bound of the PIL path (median |diff| <= 1,
+             mean < 3); prefetch_to_device's batches equal to the host's, a
+             kernel reading each at once; cli.parity on
+             tests/fixtures/reference_single_label_golden.npz; a span report
+             and a torch.profiler trace file
 ``--train-only`` builds and runs phases 17 to 23, 25 to 28, 31 to 33 and 38
 to 40 alone, ``--siglip-only`` phases 38 to 41, ``--resnet-ath-only`` phases
-42 to 46, ``--chestmir-only`` phases 47 to 49 (no result line).
+42 to 46, ``--chestmir-only`` phases 47 to 49, ``--mesh-only`` phases 4, 18,
+19 and 24 with the mesh phases they hold (50, 52, 53), then 51 and 54 (no
+result line). ``--cards N`` (N cards of one host) runs the mesh CLIs at N
+ranks under torchrun against a world of 1 (``phase_cards``; no result line),
+``--cards-on-cpu N`` the same with gloo and the tiny model, a rehearsal.
 The launch counts are set to 0 before each slice and read after it. Each
 kernel's bound (the least time the card could take: bytes moved once over
 3.35 TB/s, or operations over the peak of their type) is reckoned from the
@@ -416,12 +461,14 @@ import argparse
 import collections
 import contextlib
 import ctypes
+import importlib
 import io
 import json
 import math
 import os
 import statistics
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -450,6 +497,11 @@ from xmir_tpu_torch.data.datasets import NIH_RETRIEVAL_PATHOLOGIES
 from xmir_tpu_torch.data.pipeline import embed_dataset
 from xmir_tpu_torch.data.synthetic import write_synthetic_covidx
 from xmir_tpu_torch.index import ShardedGalleryIndex
+from xmir_tpu_torch.index.gallery import (
+    make_local_shard_search,
+    merge_shard_candidates,
+    shard_layout,
+)
 from xmir_tpu_torch.models import convnext as convnext_model
 from xmir_tpu_torch.models import siglip as siglip_model
 from xmir_tpu_torch.models import swin as swin_model
@@ -872,7 +924,10 @@ def phase_slice(workdir: Path):
     check(all(n == 0 for key, n in launches.items() if key != "K1"),
           f"DenseNet121 launched another model's kernel: {launches}")
     log(f"[slice] DenseNet121: launches {launches}")
-    return launches, check_hits(calls, results, 256, 64, 1024)
+    err = check_hits(calls, results, 256, 64, 1024)
+    mesh = phase_mesh_slice(workdir, (img_dir, g_manifest), (q_dir, q_manifest), model_args,
+                            gal, results)
+    return launches, err, mesh
 
 
 def _time_ms(fn, reps):
@@ -2904,6 +2959,7 @@ def phase_train_dinov2(workdir: Path):
             f"and the head's did (the backward stops at the head: launches {frozen_launches})")
         check_resume(make_trainer(workdir, "dinov2", data, "-p", str(p), "--bf16"), steps,
                      "cli.train dinov2 --bf16", "--resume", pt)
+        out["mesh"] = mesh_train_dinov2(workdir, run, pt, start, losses, ckpt, launches, steps)
         reading = f32_kernels_against_plain(run, pt, start, steps[0])
     check(reading["mean_apart_of_mean_moved"] <= TRAIN_F32_MEAN_TOL,
           f"f32 parameters after {steps[0]} steps with the kernels differ from the plain "
@@ -2934,7 +2990,10 @@ def phase_train_densenet(workdir: Path):
     check(drift > 1e-3, f"the running variances moved by {drift} only")
     log(f"[slice] cli.train densenet121: every parameter and running statistic moved in "
         f"{steps[0]} steps (running variances by up to {drift:.3g}); launches {launches}")
-    return launches
+    reset_launches()
+    cache = mesh_train_cache(workdir, run, data, steps)
+    check(not any(read_launches().values()), "mesh C: DenseNet121 training launched a kernel")
+    return launches, cache
 
 
 def _bwd_work(bh, n, hd, dtype):
@@ -3609,6 +3668,7 @@ def phase_saliency(workdir: Path):
         check(all(0.0 <= a <= 1.0 for a in got), f"AUCs outside [0, 1]: {got}")
         check(np.allclose(got, s["per_pair_del"] + s["per_pair_ins"], atol=1e-6, rtol=0),
               f"the saved maps' AUCs {got} differ from the inline maps' {s}")
+    mesh = mesh_saliency(workdir, common, xai, maps, saved_out)
     log(f"[slice] saliency DenseNet121 @224 f32: {len(saved)} SBSM maps ({n_q} queries x top "
         f"{top_k}, 2401 masks) in {sbsm_wall:.1f} s wall through cli.compute_saliency; "
         f"cli.evaluate_saliency launches {launches}; mean deletion AUC "
@@ -3654,8 +3714,8 @@ def phase_saliency(workdir: Path):
         f"{sbsm_s:.2f} s = {rates['sbsm_img_per_s']:.0f} images/s; insertion + deletion of "
         f"{top_k} pairs (52 reveal slots each, both curves) in {curves_s:.3f} s = "
         f"{rates['insdel_pair_evals_per_s']:.1f} pair-evals/s (wall, one query)")
-    return {"launches": launches, "rates": rates, "card_vs_cpu": {"maps": map_err,
-                                                                 "aucs": auc_err},
+    return {"launches": launches, "rates": rates, "mesh": mesh,
+            "card_vs_cpu": {"maps": map_err, "aucs": auc_err},
             "mean_deletion_auc": saved_out["summary"]["mean_deletion_auc"],
             "mean_insertion_auc": saved_out["summary"]["mean_insertion_auc"], "aucs": aucs}
 
@@ -6908,6 +6968,533 @@ def load_vindr_ids(csv_path):
         return sorted({line.split(",")[0] for line in f.read().splitlines()[1:] if line})
 
 
+# --- the mesh phases (50-54): --use-mesh on torch.distributed ------------------
+
+
+def nccl_world_of_one():
+    """A world of 1 on the card is NCCL's, and leaves no process group."""
+    import torch.distributed as dist
+
+    from xmir_tpu_torch.parallel import make_mesh
+
+    with make_mesh("cuda") as mesh:
+        backend = dist.get_backend()
+        gathered = mesh.all_gather(torch.arange(3, device=mesh.device))
+    check(backend == "nccl" and mesh.world == 1 and not dist.is_initialized(),
+          f"the world of 1: backend {backend}, world {mesh.world}")
+    check(torch.equal(gathered.cpu(), torch.arange(3)[None]), "NCCL's all_gather at world 1")
+    return backend
+
+
+def uploaded_as_stored(paths, uris, store):
+    """The stored URIs of ``paths``: store/original/<path relative to the
+    images' common directory>, each a byte copy of its original."""
+    common_dir = os.path.commonpath(sorted({os.path.dirname(os.path.abspath(p)) for p in paths}))
+    want = [os.path.join(store, "original", os.path.relpath(os.path.abspath(p), common_dir))
+            for p in paths]
+    check(uris == want, f"stored URIs {uris[:2]} ..., expected {want[:2]} ...")
+    check(all(Path(u).read_bytes() == Path(p).read_bytes() for u, p in zip(uris, paths)),
+          "an uploaded original differs from its file")
+
+
+def phase_mesh_slice(workdir: Path, gallery, queries, model_args, gal, results):
+    """Mesh A (phase 50): phase 4's chain again under --use-mesh."""
+    t0 = time.perf_counter()
+    backend = nccl_world_of_one()
+    (img_dir, g_manifest), (q_dir, q_manifest) = gallery, queries
+    mesh_gal, store = str(workdir / "gallery_mesh.npz"), str(workdir / "store")
+    reset_launches()
+    idx = ingest.main(["--dataset", "covid", "--dataset-dir", img_dir, "--train-image-list",
+                       g_manifest, "--split", "train", "--output", mesh_gal, "--use-mesh",
+                       "--upload-originals", store] + model_args)
+    ingest_launches = read_launches()
+    got = query.main(["--dataset", "covid", "--dataset-dir", q_dir, "--test-image-list",
+                      q_manifest, "--split", "test", "--index", mesh_gal, "--top-k", "10",
+                      "--output", str(workdir / "hits_mesh.json"), "--use-mesh"] + model_args)
+    launches = read_launches()
+    want = dict.fromkeys(WRAPPERS, 0)
+    want["K1"] = 1  # one search of the 64 queries, one shard
+    check(not any(ingest_launches.values()) and launches == want,
+          f"mesh A: launches {launches} (ingest {ingest_launches}), expected {want}")
+    check(idx.info()["sharding"] == {"devices": 1, "rows_per_shard": 256},
+          f"mesh A: info {idx.info()}")
+    a, b = np.load(gal), np.load(mesh_gal)
+    check(np.array_equal(a["embeds"], b["embeds"]) and np.array_equal(a["labels"], b["labels"])
+          and str(a["meta"]) == str(b["meta"]),
+          "mesh A: the index saved under --use-mesh differs from phase 4's")
+    uploaded_as_stored([str(p) for p in a["paths"]], [str(p) for p in b["paths"]], store)
+    for r0, r1 in zip(results, got, strict=True):
+        check([(h["id"], h["similarity"], h["distance"], h["label"]) for h in r0["results"]]
+              == [(h["id"], h["similarity"], h["distance"], h["label"]) for h in r1["results"]],
+              f"mesh A: hits of {r0['query_path']} differ")
+    common_args = ["--dataset", "covid", "--dataset-dir", q_dir, "--test-image-list",
+                   q_manifest, "--model", "densenet121", "--device", "cuda", "--seed", "0",
+                   "-j", "8"]
+    plain = test_cli.main(common_args + ["--save-dir", str(workdir / "test_plain")])
+    meshed = test_cli.main(common_args + ["--save-dir", str(workdir / "test_mesh"),
+                                          "--use-mesh"])
+    x, y = (np.load(workdir / d / "evaluation_results.npz") for d in ("test_plain", "test_mesh"))
+    check(meshed == plain and np.array_equal(x["embeds"], y["embeds"])
+          and np.array_equal(x["dists"], y["dists"]),
+          "mesh A: cli.test --use-mesh differs from cli.test")
+    log(f"[mesh A] cli.ingest --use-mesh --upload-originals -> cli.query --use-mesh and "
+        f"cli.test --use-mesh, DenseNet121 at 224 px over a world of 1 ({backend}): the index "
+        f"bit-equal to phase 4's ({a['embeds'].shape[0]} rows, its paths the {len(b['paths'])} "
+        f"stored URIs), hits and cli.test's metrics and artifact equal; info "
+        f"{idx.info()['sharding']}; launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "backend": backend, "sharding": idx.info()["sharding"]}
+
+
+SHARD_WORLD = 4  # the world phase 51 splits the serving gallery for
+
+
+def ties_lower_first(v, i):
+    """Whether every pair of equal neighbouring values holds its ids in
+    ascending order."""
+    same = (v[:, 1:] == v[:, :-1]) & torch.isfinite(v[:, 1:])
+    return bool(((i[:, 1:] > i[:, :-1]) | ~same).all())
+
+
+def shard_reading(q, g, k, dtype, merge=merge_shard_candidates, world=SHARD_WORLD):
+    """The sharded search as a world of ``world`` splits it (every shard
+    body on the card, then ``merge``) against one unsharded call: (reading,
+    the sharded function, the unsharded one)."""
+    n = g.shape[0]
+    rows, pad = shard_layout(n, world)
+    qq = q.to(dtype)
+    gg = g.to(dtype)
+    gp = torch.cat([gg, gg.new_zeros((pad, g.shape[1]))])
+    shards = [gp[r * rows:(r + 1) * rows] for r in range(world)]
+    body = make_local_shard_search(k, rows, n, "ip", dtype)
+
+    def sharded():
+        cands = [body(qq, shard, r) for r, shard in enumerate(shards)]
+        return merge(torch.stack([c[0] for c in cands]), torch.stack([c[1] for c in cands]), k)
+
+    def whole():
+        return fused_topk(qq, gg, k, "ip", compute_dtype=dtype)
+
+    v, i = sharded()
+    wv, wi = whole()
+    torch.cuda.synchronize()
+    bit = torch.equal(v, wv) and torch.equal(i, wi)
+    fin = torch.isfinite(wv)
+    reading = {"bit_equal": bit, "ties_lower_first": ties_lower_first(v, i),
+               "max_abs_err": (v[fin] - wv[fin]).abs().max().item(),
+               "ids_differing": int((i != wi).sum()), "rows_per_shard": rows,
+               "valid_in_last": n - rows * (world - 1)}
+    if not bit:  # K1's near-tie rule: ids equal except where the gap is below TIE_GAP
+        rv, _ = topk_scores_reference(qq, gg, torch.zeros(n, device=q.device), k + 1)
+        try:
+            compare(v, i, wv, wi, 0.0, rv)
+            reading["near_tie_rule"] = True
+        except AssertionError as e:
+            reading["near_tie_rule"] = str(e)
+    return reading, sharded, whole
+
+
+def shard_agrees(reading) -> bool:
+    return reading["bit_equal"] and reading["ties_lower_first"]
+
+
+def planted_shard_inputs(q, g, world=SHARD_WORLD):
+    """Copies of q and g with the last row of each shard copied into the
+    next shard's first, and queries equal to those rows: ties across every
+    shard boundary at the top of their rankings."""
+    g, q = g.clone(), q.clone()
+    rows, _ = shard_layout(g.shape[0], world)
+    for j, b in enumerate(range(rows, g.shape[0], rows)):
+        g[b] = g[b - 1]
+        q[j] = g[b - 1]
+    return q, g
+
+
+def phase_shards():
+    """Mesh B (phase 51)."""
+    n, d = SERVING_N, SERVING_D
+    gen = torch.Generator().manual_seed(51)
+    q = l2_normalize(torch.randn((1024, d), generator=gen)).cuda()
+    g = l2_normalize(torch.randn((n, d), generator=gen)).cuda()
+    pq, pg = planted_shard_inputs(q, g)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for k in (10, 100):
+            key = f"{str(dtype)[6:]} k={k}"
+            reading, sharded, whole = shard_reading(q, g, k, dtype)
+            planted, _, _ = shard_reading(pq, pg, k, dtype)
+            check(planted["bit_equal"] and planted["ties_lower_first"],
+                  f"mesh B {key}, duplicates across the shard boundaries: {planted}")
+            if not reading["bit_equal"]:
+                check(reading.get("near_tie_rule") is True,
+                      f"mesh B {key}: the sharded search is neither bit-equal to the unsharded "
+                      f"call nor within K1's near-tie rule: {reading}")
+            reset_launches()
+            sharded()
+            launches = read_launches()
+            route = "K1" if k <= 32 else "K1'"
+            check(launches[route] == SHARD_WORLD and sum(launches.values()) == SHARD_WORLD,
+                  f"mesh B {key}: launches {launches}")
+            shard_ms, whole_ms = device_ms(sharded), device_ms(whole)
+            out[key] = dict(reading, planted=planted, per_shard_launches=launches[route],
+                            sharded_device_ms=shard_ms, unsharded_device_ms=whole_ms)
+            log(f"[mesh B] {key} Q=1024 N={n} D={d} over {SHARD_WORLD} shards of "
+                f"{reading['rows_per_shard']} rows ({reading['valid_in_last']} valid in the "
+                f"last), {route}: bit-equal to one unsharded call {reading['bit_equal']} (ids "
+                f"differing {reading['ids_differing']}, max err {reading['max_abs_err']:.3g}), "
+                f"planted duplicates bit-equal {planted['bit_equal']}, ties to the lower id "
+                f"{planted['ties_lower_first']}; device {shard_ms:.4f} ms for the {SHARD_WORLD} "
+                f"shard searches and the merge, {whole_ms:.4f} ms unsharded")
+    return out
+
+
+def mesh_train_dinov2(workdir: Path, run, pt, start, losses, ckpt, launches, steps):
+    """Mesh C (phase 52), DINOv2: --use-mesh and --use-mesh --fsdp against
+    phase 18's run (which started from ``start``), then the FSDP checkpoint
+    resumed for epoch 2 against check_resume's two-epoch run."""
+    out = {}
+    ref = load_checkpoint(ckpt, unwrap=False)
+    for name, extra in (("dp", ("--use-mesh",)), ("fsdp", ("--use-mesh", "--fsdp"))):
+        reset_launches()
+        t0 = time.perf_counter()
+        got, path = run(name, "--bf16", "--epochs", "1", "--resume", pt, *extra)
+        wall = time.perf_counter() - t0
+        got_launches = read_launches()
+        check(got_launches == launches,
+              f"mesh C {name}: launches {got_launches}, phase 18's {launches}")
+        tree = load_checkpoint(path, unwrap=False)
+        a, b = tree["state_dict"], ref["state_dict"]
+        bit = got == losses and all(torch.equal(v, b[k]) for k, v in a.items()) and all(
+            torch.equal(v, ref["optimizer"]["state"][i][key])
+            for i, st in tree["optimizer"]["state"].items() for key, v in st.items())
+        moved = torch.cat([(b[k] - start[k]).abs().flatten() for k in b])
+        apart = torch.cat([(a[k] - b[k]).abs().flatten() for k in b])
+        share = (apart.mean() / moved.mean()).item()
+        first = abs(got[0][2] - losses[0][2])
+        if name == "dp":
+            check(bit, f"mesh C dp: the data-parallel run at world 1 is not bit-equal to phase "
+                       f"18's (losses {got} / {losses}, parameters apart {share:.3g})")
+        else:
+            check(first <= 1e-5 and share <= TRAIN_F32_MEAN_TOL,
+                  f"mesh C fsdp: first loss {first} apart, parameters {share:.3g} of the movement")
+        out[name] = {"bit_equal": bit, "first_loss_diff": first, "mean_apart_of_moved": share,
+                     "wall_s": wall, "losses": [r[2] for r in got]}
+        log(f"[mesh C] cli.train dinov2 --bf16 {' '.join(extra)} at world 1: {len(got)} steps, "
+            f"launches {got_launches} (phase 18's), bit-equal to phase 18 {bit}, first loss "
+            f"{first:.3g} apart, parameters {share:.3g} of the movement apart; {wall:.1f} s")
+        if name == "fsdp":
+            fsdp_ckpt = path
+    reset_launches()
+    resumed, path = run("fsdp_resumed", "--bf16", "--epochs", "2", "--resume", fsdp_ckpt,
+                        "--use-mesh", "--fsdp")
+    check(read_launches()["K3"] == VIT["depth"] * steps[1], "mesh C: the resumed epoch's K3")
+    whole = workdir / "whole"
+    a = load_checkpoint(whole / checkpoint_name("covid", "dinov2", seed=0, epoch=2), unwrap=False)
+    b = load_checkpoint(path, unwrap=False)
+    whole_losses = [json.loads(line) for line in (workdir / "whole.jsonl").read_text().splitlines()]
+    whole_losses = [(r["epoch"], r["step"], r["loss"]) for r in whole_losses
+                    if r["kind"] == "train"]
+    check(resumed == whole_losses[steps[0]:] and a["step"] == b["step"] and all(
+        torch.equal(v, b["state_dict"][k]) for k, v in a["state_dict"].items()) and all(
+        torch.equal(v, b["optimizer"]["state"][i][key])
+        for i, st in a["optimizer"]["state"].items() for key, v in st.items()),
+        "mesh C: the FSDP checkpoint resumed under --fsdp does not continue bit-exactly")
+    out["fsdp_resume_bit_exact"] = True
+    log(f"[mesh C] the FSDP checkpoint resumed under --use-mesh --fsdp for epoch 2: losses, "
+        f"parameters and Adam moments bit-equal to the uninterrupted two-epoch run")
+    return out
+
+
+def mesh_train_cache(workdir: Path, run, data, steps):
+    """Mesh C (phase 52), DenseNet121: --use-mesh --cache-dir for epoch 1,
+    then --resume of it for epoch 2 from the filled cache, against phase
+    19's two-epoch run without a cache."""
+    from xmir_tpu_torch.data.datasets import CovidxDataset
+    from xmir_tpu_torch.data.transforms import pil_resize_center_crop
+
+    cache = str(workdir / "cache")
+    first, ckpt1 = run("cached1", "--epochs", "1", "--use-mesh", "--cache-dir", cache)
+    meta = workdir / "cache" / "meta.json"
+    check(meta.is_file(), "mesh C: the decoded-image cache is not complete after epoch 1")
+    size = json.loads(meta.read_text())["size"]
+    images = np.load(workdir / "cache" / "images.npy", mmap_mode="r")
+    dataset = CovidxDataset(data[0], data[1])
+    for i in range(len(dataset)):
+        check(np.array_equal(images[i], pil_resize_center_crop(dataset.load_image(i), size)),
+              f"mesh C: cached row {i} is not its decode")
+    second, ckpt2 = run("cached2", "--epochs", "2", "--resume", ckpt1, "--use-mesh",
+                        "--cache-dir", cache)
+    records = [json.loads(line) for line in (workdir / "whole.jsonl").read_text().splitlines()]
+    whole = [(r["epoch"], r["step"], r["loss"]) for r in records if r["kind"] == "train"]
+    check(first + second == whole, f"mesh C: cached losses {first + second}, uncached {whole}")
+    a = load_checkpoint(workdir / "whole" / Path(ckpt2).name, unwrap=False)
+    b = load_checkpoint(ckpt2, unwrap=False)
+    check(all(torch.equal(v, b["state_dict"][k]) for k, v in a["state_dict"].items()),
+          "mesh C: the run through the cache ends apart from the run without it")
+    log(f"[mesh C] cli.train densenet121 --use-mesh --cache-dir: the cache complete after epoch "
+        f"1 ({len(dataset)} rows at {size} px, each its decode), epoch 2 read from it; losses "
+        f"and tensors bit-equal to the two-epoch run without the cache")
+    return {"cache_rows": len(dataset), "size": size, "bit_equal": True}
+
+
+def mesh_saliency(workdir: Path, common_args, xai, maps, saved_out):
+    """Mesh D (phase 53): compute_saliency / evaluate_saliency --use-mesh
+    against phase 24's runs without it."""
+    from xmir_tpu_torch.cli import compute_saliency, evaluate_saliency
+
+    mesh_maps = workdir / "sal_maps_mesh"
+    top3 = xai[:xai.index("--top-k")] + ["--top-k", "3", "--limit", "2"]
+    t0 = time.perf_counter()
+    compute_saliency.main(common_args + top3 + [
+        "--results", str(workdir / "sal_res" / "evaluation_results.npz"),
+        "--save-dir", str(mesh_maps), "--use-mesh"])
+    sbsm_wall = time.perf_counter() - t0
+    saved = sorted(mesh_maps.iterdir())
+    check(len(saved) == 6, f"mesh D: {len(saved)} maps for 2 queries x top 3")
+    map_err = max(float(np.abs(np.load(p) - np.load(maps / p.name)).max()) for p in saved)
+    check(map_err <= 1e-6, f"mesh D: maps {map_err} apart from phase 24's")
+    reset_launches()
+    ins = ["--step", "1000", "--top-k", "5", "--limit", "2"]
+    got = evaluate_saliency.main(common_args + ins + ["--saliency-dir", str(maps), "--output",
+                                                      str(workdir / "insdel_mesh.json"),
+                                                      "--use-mesh"])
+    launches = read_launches()
+    check(launches["K1"] == 1 and sum(launches.values()) == 1, f"mesh D: launches {launches}")
+    auc_err = max(abs(x - y) for r, s in zip(got["results"], saved_out["results"], strict=True)
+                  for x, y in zip(r["per_pair_del"] + r["per_pair_ins"],
+                                  s["per_pair_del"] + s["per_pair_ins"], strict=True))
+    summary = got["summary"]
+    check(auc_err <= 1e-6 and summary["use_mesh"] is True and summary["mesh_devices"] == 1,
+          f"mesh D: AUCs {auc_err} apart, summary {summary['use_mesh'], summary['mesh_devices']}")
+    log(f"[mesh D] cli.compute_saliency --use-mesh (2 queries x top 3, 2401 masks, "
+        f"{sbsm_wall:.1f} s) maps within {map_err:.3g} of phase 24's; cli.evaluate_saliency "
+        f"--use-mesh AUCs within {auc_err:.3g}, use_mesh {summary['use_mesh']}, mesh_devices "
+        f"{summary['mesh_devices']}, launches {launches}")
+    return {"launches": launches, "map_err": map_err, "auc_err": auc_err,
+            "sbsm_wall_s": sbsm_wall}
+
+
+def phase_host(workdir: Path):
+    """Mesh E (phase 54)."""
+    from xmir_tpu_torch.cli import parity as parity_cli
+    from xmir_tpu_torch.data import native_loader
+    from xmir_tpu_torch.data.datasets import NIHChestXrayRetrievalDataset
+    from xmir_tpu_torch.data.pipeline import batch_iterator, prefetch_to_device
+    from xmir_tpu_torch.utils import profiling
+
+    profiling.reset_spans()
+    with profiling.span("native build"):
+        lib = native_loader.build()
+        native_loader.load()
+    check(lib.is_relative_to(REPO / "build"), f"the native reader built outside build/: {lib}")
+    root, _ = write_nih_tree(workdir / "nih", 64, seed=54)
+    native = NIHChestXrayRetrievalDataset(data_dir=root)
+    pil = NIHChestXrayRetrievalDataset(data_dir=root, use_native=False)
+    before = dict(native_loader.LOADS)
+    with profiling.span("native batches"):
+        batches = list(batch_iterator(native, 16, image_size=224, num_workers=8))
+    counted = {k: native_loader.LOADS[k] - before.get(k, 0) for k in ("native", "fallback")}
+    check(counted == {"native": 64, "fallback": 0}, f"mesh E: the reader's counter {counted}")
+    with profiling.span("PIL batches"):
+        ref = np.concatenate([pil.load_batch_cropped(list(i), 224) for _, _, i in batches])
+    diff = np.abs(np.concatenate([b[0] for b in batches]).astype(int) - ref.astype(int))
+    med, mean = float(np.median(diff)), float(diff.mean())
+    check(med <= 1 and mean < 3, f"mesh E: native against PIL median {med}, mean {mean}")
+    sums, staged = [], []
+    with profiling.span("prefetch"):
+        for x, labels, idxs in prefetch_to_device(iter(batches), "cuda", size=2):
+            sums.append(x.to(torch.int64).sum())  # read at once, on the consumer's stream
+            staged.append(x)
+        torch.cuda.synchronize()
+    check([int(s) for s in sums] == [int(b[0].astype(np.int64).sum()) for b in batches]
+          and all(torch.equal(x.cpu(), torch.from_numpy(b[0])) for x, b in zip(staged, batches)),
+          "mesh E: a prefetched batch differs from the host's")
+    golden = str(REPO / "tests" / "fixtures" / "reference_single_label_golden.npz")
+    res = parity_cli.main(["--results", golden, "--output", str(workdir / "parity.json")])
+    check(res["mismatches"] == [], f"mesh E: cli.parity {res['mismatches']}")
+    gen = torch.Generator().manual_seed(54)
+    qq = l2_normalize(torch.randn((64, 1024), generator=gen)).cuda()
+    gg = l2_normalize(torch.randn((4096, 1024), generator=gen)).cuda()
+    with profiling.trace(str(workdir / "trace")):
+        fused_topk(qq, gg, 10, "ip")
+        torch.cuda.synchronize()
+    events = json.loads((workdir / "trace" / "trace.json").read_text())["traceEvents"]
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    spans = profiling.span_report()
+    check(set(spans) == {"native build", "native batches", "PIL batches", "prefetch"},
+          f"mesh E: spans {spans}")
+    log(f"[mesh E] native NIH reader ({lib.relative_to(REPO)}): 64 images native, against "
+        f"PIL median |diff| {med}, mean {mean:.3f}; prefetch_to_device: {len(staged)} "
+        f"batches equal to the host's; cli.parity on the single-label golden: "
+        f"{len(res['computed'])} metric groups agree; trace: {len(events)} events, {kernels} "
+        f"device kernels; spans {spans}")
+    return {"native_vs_pil": {"median": med, "mean": mean}, "loads": counted,
+            "trace_events": len(events), "trace_kernels": kernels, "spans": spans}
+
+
+def phases_mesh():
+    """The phases --mesh-only runs: 4 (with 50), 18 and 19 (with 52), 24
+    (with 53), 51 and 54."""
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_slice(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_train_dinov2(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_train_densenet(Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_saliency(Path(tmp))
+    phase_shards()
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_host(Path(tmp))
+
+
+def torchrun(n: int, module: str, args, timeout: int = 900):
+    """``python -m module args`` on ``n`` ranks of one host under torchrun
+    (its rendezvous on localhost); fails the phase if a rank fails. Returns
+    (the ranks' standard output, seconds)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={n}", "-m", module, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout, cwd=REPO)
+    check(proc.returncode == 0, f"torchrun {module} at {n} ranks: rc {proc.returncode}\n"
+                                f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return proc.stdout, time.perf_counter() - t0
+
+
+CARD_MODELS = {"cuda": ("densenet121", "dinov2"), "cpu": ("tiny", "tiny")}
+
+
+def phase_cards(workdir: Path, n: int, device: str = "cuda"):
+    """``--cards n`` (not a phase of the default run): the mesh CLIs at a
+    world of ``n`` ranks under torchrun, one card each (gloo on the CPU with
+    ``device="cpu"``, the tiny model: a rehearsal), against the same CLIs at a
+    world of 1 in this process: ingest -> query and cli.test (vectors within
+    1e-5, ids equal away from near-ties), cli.compute_saliency (maps within
+    1e-5, the JAX tests' bound of the fan-out: a rank embeds its masks in
+    chunks of another size, and the sum over masks is reassociated) and
+    cli.evaluate_saliency on the world-1 maps (AUCs within 1e-5; on maps
+    made at another world, pixels of near-equal saliency swap ranks and an
+    AUC moved by 7.4e-5 at 4 ranks on H100s: PERF.md section 6), cli.train
+    --use-mesh --fsdp (f32; the first loss within 1e-5, the parameters within
+    TRAIN_F32_MEAN_TOL of the movement)."""
+    serve_model, train_model = CARD_MODELS[device]
+    out = {"ranks": n, "device": device, "wall_s": {}}
+    gallery = write_synthetic_covidx(str(workdir / "gallery"), n=256, size=256, seed=0)
+    queries = write_synthetic_covidx(str(workdir / "queries"), n=64, size=256, seed=1)
+    model_args = ["--model", serve_model, "--device", device, "--seed", "0", "-j", "4"]
+    if serve_model == "tiny":
+        model_args += ["--embedding-dim", "16"]
+
+    def chain(tag, run):
+        """ingest -> query -> cli.test -> compute_saliency (pair maps of the
+        world-1 artifact) -> evaluate_saliency (on the world-1 maps), each by
+        ``run``: the outputs differ only by the world."""
+        d = workdir / tag
+        d.mkdir()
+        gal = str(d / "g.npz")
+        ref = workdir / "w1"
+        run("ingest", ["--dataset", "covid", "--dataset-dir", gallery[0],
+                       "--train-image-list", gallery[1], "--split", "train", "--output", gal,
+                       "--batch-size", "64"] + model_args)
+        run("query", ["--dataset", "covid", "--dataset-dir", queries[0], "--test-image-list",
+                      queries[1], "--index", gal, "--top-k", "10", "--output",
+                      str(d / "hits.json")] + model_args)
+        run("test", ["--dataset", "covid", "--dataset-dir", queries[0], "--test-image-list",
+                     queries[1], "--save-dir", str(d / "res")] + model_args)
+        xai = ["--dataset", "covid", "--dataset-dir", queries[0], "--test-image-list",
+               queries[1], "--window-size", "24", "--stride", "5", "--top-k", "3", "--limit",
+               "2"] + model_args
+        run("compute_saliency", xai + ["--results", str(ref / "res" / "evaluation_results.npz"),
+                                       "--save-dir", str(d / "maps")])
+        run("evaluate_saliency", xai + ["--saliency-dir", str(ref / "maps"), "--step", "1000",
+                                        "--output", str(d / "insdel.json")])
+        return d
+
+    def in_process(cli, args):
+        t0 = time.perf_counter()
+        importlib.import_module(f"xmir_tpu_torch.cli.{cli}").main(args + ["--use-mesh"])
+        out["wall_s"][f"{cli} 1"] = time.perf_counter() - t0
+
+    def ranks(cli, args):
+        _, out["wall_s"][f"{cli} {n}"] = torchrun(n, f"xmir_tpu_torch.cli.{cli}",
+                                                   args + ["--use-mesh"])
+
+    one, many = chain("w1", in_process), chain(f"w{n}", ranks)
+    a, b = np.load(one / "g.npz"), np.load(many / "g.npz")
+    emb_err = float(np.abs(a["embeds"] - b["embeds"]).max())
+    check(emb_err <= 1e-5 and np.array_equal(a["labels"], b["labels"]),
+          f"cards: the gallery at {n} ranks is {emb_err} from world 1's")
+    h1, hn = (json.loads((d / "hits.json").read_text()) for d in (one, many))
+    sims = torch.tensor([[h["similarity"] for h in r["results"]] for r in h1], dtype=torch.float64)
+    ids1 = torch.tensor([[h["id"] for h in r["results"]] for r in h1])
+    idsn = torch.tensor([[h["id"] for h in r["results"]] for r in hn])
+    simn = torch.tensor([[h["similarity"] for h in r["results"]] for r in hn], dtype=torch.float64)
+    near = ranked_gaps(torch.cat([sims, sims[:, -1:] - 1], dim=1), sims.shape[1]) <= TIE_GAP
+    check(((ids1 == idsn) | near).all() and (sims - simn).abs().max() <= 1e-5,
+          f"cards: hits at {n} ranks differ from world 1's")
+    e1, en = (np.load(d / "res" / "evaluation_results.npz")["embeds"] for d in (one, many))
+    check(np.abs(e1 - en).max() <= 1e-5, "cards: cli.test's embeddings differ")
+    maps = sorted(p.name for p in (one / "maps").iterdir())
+    check(len(maps) == 6 and maps == sorted(p.name for p in (many / "maps").iterdir()),
+          f"cards: SBSM maps {maps}")
+    map_err = max(float(np.abs(np.load(one / "maps" / m) - np.load(many / "maps" / m)).max())
+                  for m in maps)
+    check(map_err <= 1e-5, f"cards: SBSM maps at {n} ranks {map_err} apart")
+    i1, i_n = (json.loads((d / "insdel.json").read_text()) for d in (one, many))
+    auc_err = max(abs(x - y) for r, s in zip(i1["results"], i_n["results"], strict=True)
+                  for x, y in zip(r["per_pair_del"] + r["per_pair_ins"],
+                                  s["per_pair_del"] + s["per_pair_ins"], strict=True))
+    check(auc_err <= 1e-5 and i_n["summary"]["mesh_devices"] == n
+          and i_n["summary"]["index"]["sharding"]["devices"] == n,
+          f"cards: insertion / deletion at {n} ranks: {auc_err}, {i_n['summary']}")
+    # training: f32 (per-rank batches change no row's arithmetic), FSDP
+    data = (*write_synthetic_covidx(str(workdir / "t_train"), n=24, size=256, seed=10),
+            *write_synthetic_covidx(str(workdir / "t_val"), n=16, size=256, seed=11))
+    train = ["--epochs", "1", "-p", "2", "-k", "4", "--use-mesh", "--fsdp"]
+    if train_model == "dinov2":
+        pt = str(workdir / "dinov2_timm.pt")
+        write_vit_checkpoint(pt, seed=25)
+        train += ["--resume", pt]
+    readings = {}
+    for tag in ("1", str(n)):
+        save, log_path = str(workdir / f"train{tag}"), str(workdir / f"train{tag}.jsonl")
+        args = _train_args(*data, train_model, save, log_path, *train)
+        args[args.index("--device") + 1] = device
+        t0 = time.perf_counter()
+        if tag == "1":
+            train_cli.main(args)
+            stdout = ""
+        else:
+            stdout, _ = torchrun(n, "xmir_tpu_torch.cli.train", args)
+        out["wall_s"][f"train {tag}"] = time.perf_counter() - t0
+        records = [json.loads(line) for line in Path(log_path).read_text().splitlines()]
+        ckpt = os.path.join(save, checkpoint_name("covid", train_model, seed=0, epoch=1))
+        readings[tag] = ([r["loss"] for r in records if r["kind"] == "train"],
+                         load_checkpoint(ckpt), stdout)
+    (l1, s1, _), (ln, sn, stdout) = readings["1"], readings[str(n)]
+    start, _ = create_model(train_model, generator=torch.Generator().manual_seed(0))
+    if train_model == "dinov2":
+        start = load_torch_checkpoint(start, pt)
+    start = start.state_dict()
+    moved = torch.cat([(s1[k] - start[k]).abs().flatten() for k in s1 if s1[k].is_floating_point()])
+    apart = torch.cat([(sn[k] - s1[k]).abs().flatten() for k in s1 if s1[k].is_floating_point()])
+    share = (apart.mean() / moved.mean()).item()
+    sharded = [line for line in stdout.splitlines() if "leaves sharded" in line]
+    check(abs(l1[0] - ln[0]) <= 1e-5 and share <= TRAIN_F32_MEAN_TOL and sharded,
+          f"cards: training at {n} ranks: first losses {l1[0]} / {ln[0]}, parameters {share} "
+          f"of the movement apart, {sharded[:1]}")
+    out.update(embedding_max_abs_err=emb_err, map_max_abs_err=map_err, auc_err=auc_err,
+               first_loss_diff=abs(l1[0] - ln[0]),
+               mean_apart_of_moved=share, fsdp=sharded[0].strip())
+    log(f"[cards] {n} ranks under torchrun ({device}): ingest -> query, cli.test and "
+        f"cli.evaluate_saliency --use-mesh against a world of 1: vectors within {emb_err:.3g}, "
+        f"ids equal away from near-ties, SBSM maps within {map_err:.3g}, AUCs "
+        f"within {auc_err:.3g}; cli.train {train_model} "
+        f"--use-mesh --fsdp (f32, {len(ln)} steps): first loss {abs(l1[0] - ln[0]):.3g} apart, "
+        f"parameters {share:.3g} of the movement apart; {sharded[0].strip()}; wall "
+        f"{ {k: round(v, 1) for k, v in out['wall_s'].items()} }")
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-swin", action="store_true",
@@ -6924,9 +7511,31 @@ def main():
     parser.add_argument("--chestmir-only", action="store_true",
                         help="only build, then the ChestMIR phases (47 to 49); prints no "
                              "result")
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="only build, then phases 4, 18, 19 and 24 with the mesh phases "
+                             "they hold (50, 52, 53), 51 and 54; prints no result")
+    parser.add_argument("--cards", type=int, default=0, metavar="N",
+                        help="only build, then the mesh CLIs at N ranks under torchrun, one "
+                             "card each, against a world of 1; prints no result")
+    parser.add_argument("--cards-on-cpu", type=int, default=0, metavar="N",
+                        help="the same on the CPU (gloo, the tiny model): a rehearsal that "
+                             "needs no card")
     opts = parser.parse_args()
+    if opts.cards_on_cpu:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_cards(Path(tmp), opts.cards_on_cpu, "cpu")
+        return
     smi = phase_device()
     phase_build()
+    if opts.cards:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_cards(Path(tmp), opts.cards)
+        print(smi)
+        return
+    if opts.mesh_only:
+        phases_mesh()
+        print(smi)
+        return
     if opts.resnet_ath_only:
         phases_resnet_ath()
         print(smi)
@@ -6975,7 +7584,7 @@ def main():
         return
     max_err = phase_kernel()
     with tempfile.TemporaryDirectory() as tmp:
-        d_launches, slice_err = phase_slice(Path(tmp))
+        d_launches, slice_err, mesh_a = phase_slice(Path(tmp))
     phase_embed_rate()
     serving = phase_serving()
     select_rates = phase_select_rates()
@@ -6999,7 +7608,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         t_slice = phase_train_dinov2(Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        dt_launches = phase_train_densenet(Path(tmp))
+        dt_launches, mesh_cache = phase_train_densenet(Path(tmp))
     bwd_rates = phase_bwd_rates()
     train_rates = phase_train_rates()
     tail_bwd_errs = phase_kernel_tail_bwd()
@@ -7033,7 +7642,12 @@ def main():
     siglip_bwd, ms_train, cc_train, sx = phases_siglip_train()
     k1_depths, resnet, ath, analysis, ra_rates = phases_resnet_ath()
     chest = phases_chestmir()
+    shards = phase_shards()
+    with tempfile.TemporaryDirectory() as tmp:
+        host = phase_host(Path(tmp))
     by_path = {key: {"densenet121": d_launches[key], "convnextv2": c_launches[key],
+                     "densenet121_mesh": mesh_a["launches"][key],
+                     "densenet121_saliency_mesh": sal["mesh"]["launches"][key],
                      **{path: v["launches"][key] for path, v in v_slices.items()},
                      **{path: v["launches"][key] for path, v in s_slices.items()},
                      "densenet121_full_ranking": r_launches[key],
@@ -7068,7 +7682,8 @@ def main():
               bound_by=f32["bound_by"], library_ms=None,
               library="none: torch.mm + torch.topk are two calls (yardstick_device_ms)",
               device_ms=f32["device_ms"], by_shape=serving, by_depth=k1_depths,
-              shape="Q=1024 N=100000 D=1024 k=10, f32", launches_by_path=by_path["K1"])
+              shape="Q=1024 N=100000 D=1024 k=10, f32", launches_by_path=by_path["K1"],
+              sharded={key: v for key, v in shards.items() if key.endswith("k=10")})
     big = select_rates["float32 Q=1024 k=2048"]
     k1s = dict(KERNELS["K1'"], launches=sum(by_path["K1'"].values()),
                max_abs_err=max(select_err, r_err, *(v["max_abs_err"] for v in
@@ -7077,7 +7692,8 @@ def main():
                bound_by=big["bound_by"], library_ms=None,
                library="none: torch.mm + torch.topk / torch.sort are two calls",
                device_ms=big["device_ms"], by_shape=select_rates,
-               shape="Q=1024 N=100000 D=1024 k=2048, f32", launches_by_path=by_path["K1'"])
+               shape="Q=1024 N=100000 D=1024 k=2048, f32", launches_by_path=by_path["K1'"],
+               sharded={key: v for key, v in shards.items() if key.endswith("k=100")})
     kernels = [k1, k1s]
     for key in ("K2", "K7", "K8"):
         bf16 = vit_rates[key]["bfloat16"]
@@ -7215,6 +7831,10 @@ def main():
                       "ath": {k: v for k, v in ath.items() if k != "launches"},
                       "analysis": {k: v for k, v in analysis.items()
                                    if k not in ("launches", "err")},
+                      "mesh": {"slice": mesh_a, "shards": shards,
+                               "train_dinov2": t_slice["mesh"], "train_cache": mesh_cache,
+                               "saliency": {k: v for k, v in sal["mesh"].items()
+                                            if k != "launches"}, "host": host},
                       "chestmir": {"detector": chest["detector"],
                                    "ingest": {k: v for k, v in chest["ingest"].items()
                                               if k != "launches"},

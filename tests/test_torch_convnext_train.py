@@ -248,17 +248,16 @@ def test_cli_train_sets_tf32_off(tmp_path, narrow_convnext_models):
 
 
 def test_cli_train_names_the_roadmap_items_of_what_waits():
-    """No model waits for its kernel (swinv2's, K5, landed), and dual_branch
-    waits for nothing any more (the NIH dual-head item landed): the CLI
-    takes the JAX CLI's dual-branch flags with its defaults, and names only
-    what is still to port."""
+    """Nothing waits any more: no model for its kernel (swinv2's, K5,
+    landed), not dual_branch (the NIH dual-head item landed), not --use-mesh,
+    --fsdp or --cache-dir (ROADMAP.md section 1 items 10 and 11 landed). The
+    CLI takes every flag of the JAX CLI with its default, and --device."""
     import xmir_tpu.cli.train as jax_train_cli
 
     assert not hasattr(train_cli, "WAITING_FOR_KERNEL")
-    ours, theirs = train_cli.parse_args([]), jax_train_cli.parse_args([])
-    for flag in ("dual_asl_alpha", "asl_gamma_pos", "asl_gamma_neg", "asl_clip",
-                 "supcon_temperature"):
-        assert getattr(ours, flag) == getattr(theirs, flag), flag
+    ours, theirs = vars(train_cli.parse_args([])), vars(jax_train_cli.parse_args([]))
+    assert set(ours) == set(theirs) | {"device"}
+    for flag, value in theirs.items():
+        assert ours[flag] == value, flag
     assert "dual_branch" in train_cli.parse_args(["--loss-name", "dual_branch"]).loss_name
-    waiting = train_cli.__doc__.split("Not ported yet")[1]
-    assert "dual_branch" not in waiting and "--cache-dir" in waiting
+    assert "Not ported yet" not in train_cli.__doc__

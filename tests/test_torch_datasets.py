@@ -2,9 +2,9 @@
 package's on generated files: NIH ``.npy`` trees with URL-encoded multi-label
 names and aliases, an ISIC-2017 CSV, a TBX11K CSV with a BOM, VinDr-CXR CSVs
 with and without ``rad_id`` rows; ``build_dataset`` for the four names in
-both packages; ``split_csv``. The JAX NIH set runs with ``use_native=False``
-(the port has the PIL path only). Equality is exact: names, labels and image
-bytes."""
+both packages; ``split_csv``. Both NIH sets run with ``use_native=False``
+(the PIL path; tests/test_torch_data_tools.py holds the native readers to
+each other). Equality is exact: names, labels and image bytes."""
 from __future__ import annotations
 
 import argparse
@@ -60,7 +60,7 @@ def _same(port, ref):
 
 def test_nih_dataset_matches_jax(tmp_path):
     write_nih_tree(tmp_path / "nih")
-    port = ds.NIHChestXrayRetrievalDataset(data_dir=str(tmp_path / "nih"))
+    port = ds.NIHChestXrayRetrievalDataset(data_dir=str(tmp_path / "nih"), use_native=False)
     ref = jax_ds.NIHChestXrayRetrievalDataset(data_dir=str(tmp_path / "nih"), use_native=False)
     _same(port, ref)
     assert port.label_sets == ref.label_sets

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 
@@ -333,7 +334,18 @@ def test_cli_dual_branch_train_test_ingest_query(tmp_path, narrow_nih):
     metrics log, exact --resume), then cli.test on its checkpoint (the
     multi-label suite equals the one recomputed from its artifact), then
     cli.ingest -> cli.query: a 256-d gallery, hits of each query sorted and
-    equal to the exact top-k of the artifact's embeddings."""
+    equal to the exact top-k of the artifact's embeddings.
+
+    The images decode through PIL, as when this test was written: the
+    narrow model's similarities lie within 0.998-1.0, where the float64
+    recomputation meets f32 near-ties on other image bytes. The native
+    reader, the dataset's default, is held to the JAX package's in
+    tests/test_torch_data_tools.py."""
+    from xmir_tpu_torch.data import datasets
+
+    narrow_nih.setattr(datasets.NIHChestXrayRetrievalDataset, "__init__",
+                       functools.partialmethod(datasets.NIHChestXrayRetrievalDataset.__init__,
+                                               use_native=False))
     train_dir, val_dir = write_nih_split(tmp_path / "tr", 36, 1), write_nih_split(
         tmp_path / "va", 18, 7)
     base = ["--dataset", "nih", "--dataset-dir", train_dir, "--val-dataset-dir", val_dir,

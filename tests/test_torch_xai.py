@@ -329,17 +329,20 @@ def test_saliency_clis_match_the_jax_clis(tmp_path, narrow_densenet):
 @pytest.mark.parametrize("flag,match", [(["--explainer", "simatt"], None),
                                         (["--explainer", "gradcam_sim"], "item 7"),
                                         (["--use-mesh"], "item 11")])
-def test_saliency_clis_refuse_what_waits(flag, match):
-    """--use-mesh waits; simatt, simcam and rollout landed
-    (tests/test_torch_xai_explainers.py runs them), and gradcam_sim with
-    ROADMAP.md section 1 item 7 (tests/test_torch_siglip_xai.py runs it):
-    nothing refuses them."""
-    landed = {None: ("simatt", "simcam", "rollout"), "item 7": ("gradcam_sim",)}
-    if match in landed:
-        for explainer in landed[match]:
-            compute_saliency.refuse_unported(
-                compute_saliency.argparse.Namespace(explainer=explainer, use_mesh=False))
+def test_saliency_clis_refuse_what_waits(flag, match, tmp_path):
+    """Nothing waits any more: simatt, simcam and rollout landed
+    (tests/test_torch_xai_explainers.py runs them), gradcam_sim with
+    ROADMAP.md section 1 item 7 (tests/test_torch_siglip_xai.py runs it) and
+    --use-mesh with item 11, so no refusal is left; both CLIs run under
+    --use-mesh (a world of 1 here; tests/test_torch_cli_mesh.py runs 2)."""
+    assert not hasattr(compute_saliency, "refuse_unported")
+    if match != "item 11":
         return
-    for main in (compute_saliency.main, evaluate_saliency.main):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, section 1 {match}"):
-            main(["--dataset", "synthetic", "--device", "cpu", *flag])
+    common = ["--dataset", "synthetic", "--device", "cpu", "--model", "tiny",
+              "--embedding-dim", "16", "--window-size", "32", "--stride", "32",
+              "--limit", "1", "-j", "1", *flag]
+    assert compute_saliency.main(common + ["--eval-batch-size", "2",
+                                           "--save-dir", str(tmp_path / "maps")]) == 2
+    out = evaluate_saliency.main(common + ["--top-k", "2", "--step", "2048",
+                                           "--output", str(tmp_path / "insdel.json")])
+    assert out["summary"]["use_mesh"] is True and out["summary"]["mesh_devices"] == 1

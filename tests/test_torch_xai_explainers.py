@@ -331,5 +331,12 @@ def test_demo_runs_on_the_cpu(tmp_path):
     assert aucs and all(0 <= a <= 1 for a in aucs)
     for name in ("gallery.npz", "hits.json", "evaluation_results.npz", "insdel.json"):
         assert (tmp_path / name).is_file()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, section 1 item 11"):
-        demo_end_to_end.main(["--workdir", str(tmp_path), "--use-mesh"])
+    # --use-mesh (a world of 1 here): the saliency stage through the sharded
+    # index and the fan-outs gives the same evaluation
+    mesh = demo_end_to_end.main(["--workdir", str(tmp_path / "mesh"), "--device", "cpu",
+                                 "--epochs", "1", "--use-mesh"])
+    assert mesh["use_mesh"] is True and mesh["insdel"]["summary"]["mesh_devices"] == 1
+    for r, m in zip(summary["insdel"]["results"], mesh["insdel"]["results"]):
+        assert r["retrieved"] == m["retrieved"]
+        np.testing.assert_allclose(r["per_pair_del"] + r["per_pair_ins"],
+                                   m["per_pair_del"] + m["per_pair_ins"], atol=1e-6, rtol=0)

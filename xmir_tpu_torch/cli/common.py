@@ -1,8 +1,10 @@
 """Shared CLI plumbing (port of xmir_tpu/cli/common.py): dataset and model
-construction, argparse fragments, the device and score-precision switches."""
+construction, argparse fragments, the device, score-precision and mesh
+switches."""
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import torch
@@ -183,3 +185,39 @@ def set_tf32(allow: bool):
 
 def apply_score_precision(args):
     set_tf32(args.score_precision == "default")
+
+
+def add_mesh_arg(p: argparse.ArgumentParser):
+    p.add_argument(
+        "--use-mesh", action="store_true",
+        help="Run the device-side hot loops over a data-parallel world "
+             "(torch.distributed: torchrun's ranks, else a world of 1): "
+             "embedding splits each batch over the ranks, and the index "
+             "shards its rows (a top-k a shard, then a merge).",
+    )
+
+
+@contextlib.contextmanager
+def data_mesh(args, device):
+    """The data-parallel world of ``--use-mesh`` on ``device`` (None
+    without the flag), closed when the block ends: a CLI tears down the
+    process group it set up. A block that ends without an error ends in a
+    barrier, so that no rank goes on before rank 0 has written the
+    artifacts."""
+    if not getattr(args, "use_mesh", False):
+        yield None
+        return
+    from ..parallel import make_mesh
+
+    mesh = make_mesh(device)
+    print(f">> data mesh: rank {mesh.rank} of {mesh.world} on {mesh.device}")
+    try:
+        yield mesh
+        mesh.barrier()
+    finally:
+        mesh.close()
+
+
+def is_writer(mesh) -> bool:
+    """Whether this process writes the artifacts: rank 0, or the only one."""
+    return mesh is None or mesh.rank == 0

@@ -24,7 +24,9 @@ tap: medsiglip) the Grad-CAM of cosine(query, retrieved) for each query's
 top-k of ``--results``, or the next image, as
 ``gradcam_q{query:05d}_r{retrieved:05d}.npy``.
 
-Not ported yet: ``--use-mesh`` (ROADMAP.md section 1 item 11).
+``--use-mesh`` splits SBSM's mask axis over a data-parallel world
+(parallel/mesh.py; the reference's DataParallel over mask batches); rank 0
+writes the maps. The other explainers run on each rank alike.
 """
 from __future__ import annotations
 
@@ -36,20 +38,16 @@ import torch
 
 from .common import (
     add_dataset_args,
+    add_mesh_arg,
     add_model_args,
     add_precision_args,
     apply_score_precision,
     build_dataset,
     build_model,
+    data_mesh,
+    is_writer,
     resolve_device,
 )
-
-def refuse_unported(args):
-    """Raise for an option of the JAX CLI not ported yet (every explainer
-    is)."""
-    if args.use_mesh:
-        raise NotImplementedError("--use-mesh (the mask fan-out over several cards) is not "
-                                  "ported to xmir_tpu_torch yet (ROADMAP.md, section 1 item 11)")
 
 
 def image_preprocessor(spec, device):
@@ -85,15 +83,34 @@ def rollout_maps(model, x, size: int):
     return rollout_saliency(out["attentions"], (size, size), prefix_tokens=prefix)
 
 
-def pair_explainer(args, model, embed, size: int, device):
+def sbsm_fns(embed, masks, chunk: int, mesh):
+    """(self saliency, pair saliency) of SBSM: the mask fan-out over
+    ``mesh`` where there is one."""
+    from ..xai import (
+        sbsm_pair_saliency,
+        sbsm_pair_saliency_mesh,
+        sbsm_self_saliency,
+        sbsm_self_saliency_mesh,
+    )
+
+    if mesh is None:
+        return (lambda x: sbsm_self_saliency(embed, x, masks, chunk=chunk),
+                lambda q, r: sbsm_pair_saliency(embed, q, r, masks, chunk=chunk))
+    return (lambda x: sbsm_self_saliency_mesh(embed, x, masks, mesh, chunk=chunk),
+            lambda q, r: sbsm_pair_saliency_mesh(embed, q, r, masks, mesh, chunk=chunk))
+
+
+def pair_explainer(args, model, embed, size: int, device, mesh=None):
     """(q_img (1, H, W, C), r_imgs (P, H, W, C)) -> P (H, W) maps over the
     retrieved images, by ``args.explainer`` (the JAX evaluate_saliency's
-    inline providers, evaluate_saliency.py:125-153)."""
-    from ..xai import generate_masks, sbsm_pair_saliency, simatt_saliency, simcam_maps
+    inline providers, evaluate_saliency.py:125-153); SBSM's masks fan out
+    over ``mesh``."""
+    from ..xai import generate_masks, simatt_saliency, simcam_maps
 
     if args.explainer == "sbsm":
         masks = torch.from_numpy(generate_masks(size, args.window_size, args.stride)).to(device)
-        return lambda q, r: list(sbsm_pair_saliency(embed, q, r, masks, chunk=args.gpu_batch)[0])
+        pair = sbsm_fns(embed, masks, args.gpu_batch, mesh)[1]
+        return lambda q, r: list(pair(q, r)[0])
     if args.explainer == "simatt":
         from ..xai import get_feature_head
 
@@ -131,17 +148,19 @@ def main(argv=None):
     p.add_argument("--top-k", default=5, type=int)
     p.add_argument("--save-dir", default="./saliency")
     p.add_argument("--limit", default=0, type=int, help="Max queries (0 = all)")
-    p.add_argument("--use-mesh", action="store_true",
-                   help="Fan the SBSM mask axis out over several cards (not ported yet)")
+    add_mesh_arg(p)
     args = p.parse_args(argv)
-    refuse_unported(args)
     apply_score_precision(args)
+    device = resolve_device(args)
+    with data_mesh(args, device) as mesh:
+        return _run(args, mesh.device if mesh else device, mesh)
 
+
+def _run(args, device, mesh):
     from ..data.pipeline import batch_iterator
     from ..train import make_embed_fn
-    from ..xai import generate_masks, sbsm_pair_saliency, sbsm_self_saliency
+    from ..xai import generate_masks
 
-    device = resolve_device(args)
     dataset = build_dataset(args, args.split)
     model, spec = build_model(args, device)
     embed = make_embed_fn(model)
@@ -155,14 +174,16 @@ def main(argv=None):
                                             args.stride)).to(device)
     print(f">> {masks.shape[0]} occlusion masks (window={args.window_size}, "
           f"stride={args.stride})")
+    self_saliency, pair_saliency = sbsm_fns(embed, masks, args.gpu_batch, mesh)
+    write = is_writer(mesh)
     if not args.results:
         count = 0
         for imgs, _, idxs in batch_iterator(dataset, args.eval_batch_size,
                                             image_size=spec.resize_size,
                                             num_workers=args.workers,
                                             interpolation=spec.interpolation):
-            sal = sbsm_self_saliency(embed, prep(imgs), masks, chunk=args.gpu_batch).cpu().numpy()
-            for j, gi in enumerate(np.asarray(idxs)):
+            sal = self_saliency(prep(imgs)).cpu().numpy()
+            for j, gi in enumerate(np.asarray(idxs) if write else ()):
                 np.save(os.path.join(args.save_dir, f"sal_{int(gi):06d}.npy"), sal[j])
             count += imgs.shape[0]
             if args.limit and count >= args.limit:
@@ -175,8 +196,8 @@ def main(argv=None):
     for qi in range(n_q):
         q_img = prep(dataset.load_image(qi)[None])
         r_imgs = prep(np.stack([dataset.load_image(int(r)) for r in ranks[qi]]))
-        sal = sbsm_pair_saliency(embed, q_img, r_imgs, masks, chunk=args.gpu_batch).cpu().numpy()
-        for j, r in enumerate(ranks[qi]):
+        sal = pair_saliency(q_img, r_imgs).cpu().numpy()
+        for j, r in enumerate(ranks[qi] if write else ()):
             np.save(os.path.join(args.save_dir, f"sal_q{qi:05d}_r{int(r):05d}.npy"), sal[0, j])
     print(f">> saved pair saliency for {n_q} queries to {args.save_dir}")
     return n_q

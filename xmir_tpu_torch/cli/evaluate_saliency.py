@@ -18,7 +18,10 @@ Without ``--saliency-dir`` the maps come from ``--explainer`` inline: sbsm,
 simatt (conv backbones with a feature head), simcam, rollout (a ViT) or
 gradcam_sim (a ViT with the ``token_delta`` tap: medsiglip).
 
-Not ported yet: ``--use-mesh`` (ROADMAP.md section 1 item 11).
+``--use-mesh`` runs the gallery embedding, the sharded index, SBSM's mask
+fan-out and the curves' pair fan-out over a data-parallel world
+(parallel/mesh.py); rank 0 writes the JSON, whose summary records
+``use_mesh`` and ``mesh_devices``.
 """
 from __future__ import annotations
 
@@ -30,14 +33,17 @@ import numpy as np
 
 from .common import (
     add_dataset_args,
+    add_mesh_arg,
     add_model_args,
     add_precision_args,
     apply_score_precision,
     build_dataset,
     build_model,
+    data_mesh,
+    is_writer,
     resolve_device,
 )
-from .compute_saliency import image_preprocessor, pair_explainer, refuse_unported
+from .compute_saliency import image_preprocessor, pair_explainer
 
 
 def main(argv=None):
@@ -66,19 +72,21 @@ def main(argv=None):
                         "(reference evaluate_test_dataset_milvus.py:252-299)")
     p.add_argument("-j", "--workers", default=8, type=int)
     p.add_argument("--output", default="insertion_deletion_results.json")
-    p.add_argument("--use-mesh", action="store_true",
-                   help="Fan the XAI work out over several cards (not ported yet)")
+    add_mesh_arg(p)
     args = p.parse_args(argv)
-    refuse_unported(args)
     apply_score_precision(args)
+    device = resolve_device(args)
+    with data_mesh(args, device) as mesh:
+        return _run(args, mesh.device if mesh else device, mesh)
 
+
+def _run(args, device, mesh):
     from ..data.pipeline import embed_dataset
     from ..index import ShardedGalleryIndex
     from ..metrics.saliency import saliency_quality
     from ..train import make_embed_fn
     from ..xai import blur_substrate, run_causal_metric_pairs_both, zeros_substrate
 
-    device = resolve_device(args)
     dataset = build_dataset(args, args.split)
     model, spec = build_model(args, device)
     embed = make_embed_fn(model)
@@ -86,17 +94,18 @@ def main(argv=None):
 
     print(f">> embedding {len(dataset)} gallery images ...")
     embeds, labels = embed_dataset(dataset, embed, spec, device=device,
-                                   num_workers=args.workers)
+                                   num_workers=args.workers, mesh=mesh)
     idx = ShardedGalleryIndex(embeds.shape[1])
     idx.add(embeds.cpu().numpy(), labels, [str(n) for n in dataset.image_names])
-    idx.build(device)
+    idx.build(device, mesh=mesh)
     _, topk_ids = idx.search(embeds, k=args.top_k, exclude_ids=np.arange(len(dataset)))
     topk_ids = topk_ids.cpu().numpy()
 
     blur = blur_substrate()
     n_q = min(args.limit or len(dataset), len(dataset))
     pair_saliency = (None if args.saliency_dir
-                     else pair_explainer(args, model, embed, spec.input_size, device))
+                     else pair_explainer(args, model, embed, spec.input_size, device, mesh))
+    write = is_writer(mesh)
 
     results, done = [], set()
     if args.skip_existing and os.path.exists(args.output):
@@ -119,7 +128,7 @@ def main(argv=None):
         # forward embeds a chunk of both curves' reveal images (2 x top_k
         # pairs; auto_batch_steps sizes the chunks)
         del_res, ins_res = run_causal_metric_pairs_both(
-            embed, q_img[0], r_imgs, sals, zeros_substrate, blur, step=args.step)
+            embed, q_img[0], r_imgs, sals, zeros_substrate, blur, step=args.step, mesh=mesh)
         del_aucs = [a for a, _ in del_res]
         ins_aucs = [a for a, _ in ins_res]
         rec = {
@@ -133,7 +142,7 @@ def main(argv=None):
         }
         rec["good_saliency"] = saliency_quality(rec["deletion_auc"], rec["insertion_auc"])
         results.append(rec)
-        if (qi + 1) % args.save_every == 0 or qi == n_q - 1:
+        if write and ((qi + 1) % args.save_every == 0 or qi == n_q - 1):
             _save(args.output, results)
             print(f">> [{qi + 1}/{n_q}] del={rec['deletion_auc']:.3f} "
                   f"ins={rec['insertion_auc']:.3f}")
@@ -156,8 +165,10 @@ def main(argv=None):
               f"(n={v['n']})")
     summary = {"mean_deletion_auc": mean_del, "mean_insertion_auc": mean_ins,
                "n_queries": len(results), "per_class": per_class_avg,
-               "use_mesh": False, "mesh_devices": None, "index": idx.info()}
-    _save(args.output, results, summary=summary)
+               "use_mesh": mesh is not None,
+               "mesh_devices": None if mesh is None else mesh.world, "index": idx.info()}
+    if write:
+        _save(args.output, results, summary=summary)
     return {"results": results, "summary": summary}
 
 

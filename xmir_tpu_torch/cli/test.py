@@ -15,6 +15,9 @@ similarities, saved as ``biomedclip_zeroshot.npz``.
 
     python -m xmir_tpu_torch.cli.test --dataset covid --model biomedclip \
         --device cuda --vocab vocab.txt --resume biomedclip_open_clip.pt
+
+``--use-mesh`` embeds the test set over a data-parallel world
+(parallel/mesh.py); rank 0 writes the artifact.
 """
 from __future__ import annotations
 
@@ -27,12 +30,15 @@ import torch
 
 from .common import (
     add_dataset_args,
+    add_mesh_arg,
     add_model_args,
     add_precision_args,
     apply_score_precision,
     build_dataset,
     build_model,
+    data_mesh,
     is_multilabel,
+    is_writer,
     resolve_device,
 )
 
@@ -237,6 +243,7 @@ def main(argv=None):
     p.add_argument("--clip-dim", default=768, type=int)
     p.add_argument("--clip-image-size", default=224, type=int)
     add_precision_args(p)
+    add_mesh_arg(p)
     args = p.parse_args(argv)
     apply_score_precision(args)
 
@@ -248,14 +255,19 @@ def main(argv=None):
     if args.model == "biomedclip":
         model, spec = build_biomedclip(args, device)
         return evaluate_clip_zeroshot(model, dataset, spec, args, device)
-    model, spec = build_model(args, device)
-    print(f">> embedding {len(dataset)} images with {args.model} ...")
-    embeds, labels = embed_dataset(dataset, make_embed_fn(model), spec, device=device,
-                                   batch_size=args.eval_batch_size, num_workers=args.workers)
-    embeds, labels = embeds.cpu().numpy(), np.asarray(labels)
-    if is_multilabel(args.dataset):
-        return evaluate_multilabel(embeds, labels, args.save_dir or None, device)
-    return evaluate_single_label(embeds, labels, args.save_dir or None, device)
+    with data_mesh(args, device) as mesh:
+        device = mesh.device if mesh else device
+        model, spec = build_model(args, device)
+        print(f">> embedding {len(dataset)} images with {args.model} ...")
+        embeds, labels = embed_dataset(dataset, make_embed_fn(model), spec, device=device,
+                                       batch_size=args.eval_batch_size,
+                                       num_workers=args.workers, mesh=mesh)
+        embeds, labels = embeds.cpu().numpy(), np.asarray(labels)
+        # every rank holds the whole gathered set and scores it alike; rank 0 writes
+        save_dir = (args.save_dir or None) if is_writer(mesh) else None
+        if is_multilabel(args.dataset):
+            return evaluate_multilabel(embeds, labels, save_dir, device)
+        return evaluate_single_label(embeds, labels, save_dir, device)
 
 
 if __name__ == "__main__":

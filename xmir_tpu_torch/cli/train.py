@@ -19,8 +19,15 @@ best checkpoint picked, in the arithmetic it is then evaluated in.
 to ``--metrics-log``; a distillation model (``convnextv2_*_distill``) trains
 through the embedding step, as in the JAX CLI, on its student alone.
 
-Not ported yet (ROADMAP.md): ``--use-mesh`` / ``--fsdp`` (the multi-card
-slice), ``--cache-dir`` (data/cache.py).
+``--use-mesh`` trains data-parallel over a torch.distributed world
+(parallel/mesh.py: torchrun's ranks, else a world of 1): rank r decodes and
+augments its rows of each global batch with the draws a world of 1 makes for
+them, the loss is taken on the gathered global batch, BatchNorm uses the
+global batch's statistics, and the gradients are summed across ranks
+(parallel/data_parallel.py). ``--fsdp`` also shards the master weights and
+both Adam moments of the large leaves; a checkpoint is written whole, in the
+world-1 layout, by rank 0. ``--cache-dir`` fills a decoded-image cache during
+the first epoch and serves later epochs from it (data/cache.py).
 """
 from __future__ import annotations
 
@@ -35,10 +42,13 @@ import torch
 
 from .common import (
     add_dataset_args,
+    add_mesh_arg,
     add_model_args,
     build_dataset,
     build_model,
+    data_mesh,
     is_multilabel,
+    is_writer,
     resolve_device,
     set_tf32,
 )
@@ -80,8 +90,17 @@ def parse_args(argv=None):
     p.add_argument("--weight-decay", default=0.0, type=float)
     p.add_argument("--backbone-lr-scale", default=0.1, type=float)
     p.add_argument("--freeze-backbone", action="store_true")
+    add_mesh_arg(p)
+    p.add_argument("--fsdp", action="store_true",
+                   help="With --use-mesh: also shard the large leaves' master weights and "
+                        "Adam moments over the ranks (per-rank optimiser state scales "
+                        "1 / world)")
     p.add_argument("--metrics-log", default="",
                    help="Append per-step/eval metrics as JSONL (observability)")
+    p.add_argument("--cache-dir", default="",
+                   help="Write-through decoded-image cache: epoch 1 decodes at pipeline "
+                        "speed while filling the memmap; later epochs read it "
+                        "(data/cache.py WriteThroughCache)")
     p.add_argument("--bf16", action="store_true",
                    help="bf16 mixed precision (AMP equivalent: f32 master params, bf16 compute)")
     p.add_argument("--accum-steps", default=1, type=int,
@@ -130,9 +149,10 @@ def build_train_optimizer(model, args):
     )
 
 
-def build_train_step(model, loss_name, args):
+def build_train_step(model, loss_name, args, mesh=None):
     """The step cli.train runs: the dual-branch step for ``dual_branch``,
-    else the embedding step with the loss's margin or temperature."""
+    else the embedding step with the loss's margin or temperature; the loss
+    on the global batch of ``mesh`` where there is one."""
     from ..train import make_dual_branch_train_step, make_embedding_train_step
 
     compute_dtype = torch.bfloat16 if args.bf16 else torch.float32
@@ -140,26 +160,44 @@ def build_train_step(model, loss_name, args):
         return make_dual_branch_train_step(
             model, asl_alpha=args.dual_asl_alpha, temperature=args.supcon_temperature,
             gamma_pos=args.asl_gamma_pos, gamma_neg=args.asl_gamma_neg, clip=args.asl_clip,
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype, mesh=mesh)
     kwargs = {}
     if loss_name in ("triplet", "triplet_hard", "weighted_multilabel_triplet"):
         kwargs["margin"] = args.margin
     elif loss_name in ("supcon", "jaccard_supcon"):
         kwargs["temperature"] = args.supcon_temperature
     return make_embedding_train_step(model, loss_name, kwargs, compute_dtype=compute_dtype,
-                                     remat=args.remat)
+                                     remat=args.remat, mesh=mesh)
+
+
+def epoch_batches(indices, batch_size: int, mesh=None):
+    """The full batches of one epoch's index stream (a partial last batch
+    is dropped), each cut to this rank's rows under ``mesh``."""
+    world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
+    local = batch_size // world
+    return [indices[i + rank * local:i + (rank + 1) * local]
+            for i in range(0, len(indices) - batch_size + 1, batch_size)]
 
 
 def main(argv=None):
     args = parse_args(argv)
+    if args.fsdp and not args.use_mesh:
+        raise SystemExit("--fsdp shards params over the mesh data axis and requires "
+                         "--use-mesh; asked-for ZeRO-3 would otherwise be silently ignored")
     loss_name = select_loss(args)
     device = resolve_device(args)
+    with data_mesh(args, device) as mesh:
+        return _train(args, loss_name, mesh.device if mesh else device, mesh)
+
+
+def _train(args, loss_name, device, mesh):
     np.random.seed(args.seed)
     # cuDNN's default backward-filter algorithms add up with atomics, so two
     # runs of the same steps differ in their last bits; a resumed run is to
     # continue exactly, so training takes cuDNN's deterministic algorithms
     torch.backends.cudnn.deterministic = True
     set_tf32(False)
+    write = is_writer(mesh)
 
     train_ds = build_dataset(args, "train")
     try:
@@ -171,7 +209,7 @@ def main(argv=None):
     model, spec = build_model(args, device, train=True)
     print(f">> model={args.model} loss={loss_name} dataset={args.dataset} device={device}")
 
-    from ..data.pipeline import batch_iterator, embed_dataset
+    from ..data.pipeline import decode_batches, embed_dataset
     from ..data.samplers import MultiLabelBalancedBatchSampler, PKSampler
     from ..data.transforms import preprocess_for_spec
     from ..metrics import train_eval_multilabel, train_eval_single_label
@@ -179,7 +217,25 @@ def main(argv=None):
     from ..utils import BestCheckpointPolicy, checkpoint_name, load_checkpoint, save_checkpoint
     from ..utils.checkpoint import is_train_checkpoint
 
-    state = TrainState(model, build_train_optimizer(model, args))
+    if args.cache_dir:
+        from ..data.cache import WriteThroughCache
+
+        train_ds = WriteThroughCache(train_ds, args.cache_dir, spec.resize_size,
+                                     interpolation=spec.interpolation, mesh=mesh)
+        print(f">> decoded-image cache at {args.cache_dir}: "
+              + ("complete (memmap reads)" if train_ds.complete
+                 else "filling (write-through during epoch 1)"))
+
+    optimizer = build_train_optimizer(model, args)
+    if mesh is None:
+        state = TrainState(model, optimizer)
+    else:
+        from ..parallel.data_parallel import MeshTrainState, sync_batch_norm
+
+        sync_batch_norm(model, mesh)
+        state = MeshTrainState(model, optimizer, mesh=mesh, fsdp=args.fsdp)
+        print(f">> {'FSDP' if args.fsdp else 'data-parallel'} over a world of {mesh.world}"
+              + (f" ({len(state.sharded())} leaves sharded)" if args.fsdp else ""))
     if args.accum_steps > 1:
         state = with_grad_accumulation(state, args.accum_steps)
         print(f">> gradient accumulation over {args.accum_steps} microbatches")
@@ -193,7 +249,7 @@ def main(argv=None):
         loaded = load_checkpoint(args.resume, unwrap=False)
         if is_train_checkpoint(loaded):
             try:
-                state.optimizer.load_state_dict(loaded["optimizer"])
+                state.load_optimizer_state(loaded["optimizer"])
             except (ValueError, KeyError) as exc:
                 print(f">> the checkpoint's optimiser state does not match the optimiser "
                       f"({exc}); resuming params only")
@@ -203,33 +259,42 @@ def main(argv=None):
                 print(f">> resumed optimizer state at step {state.step}; continuing from "
                       f"epoch {start_epoch}")
 
-    step = build_train_step(model, loss_name, args)
+    step = build_train_step(model, loss_name, args, mesh)
 
     batch_size = args.batch_size or args.labels_per_batch * args.samples_per_label
+    world = 1 if mesh is None else mesh.world
+    if batch_size % world:
+        raise ValueError(f"the batch of {batch_size} does not split over {world} ranks")
     multilabel = is_multilabel(args.dataset)
     name_kwargs = dict(dataset=args.dataset, model=args.model, embedding_dim=args.embedding_dim,
                        anomaly=args.anomaly, rand_resize=args.rand_resize, seed=args.seed)
-    policy = BestCheckpointPolicy(args.save_dir, name_kwargs, periodic_every=args.ckpt_every)
+    policy = BestCheckpointPolicy(args.save_dir, name_kwargs, periodic_every=args.ckpt_every,
+                                  write=write)
     embed = make_embed_fn(model)
 
     def evaluate():
         """The validation metrics of the current weights, in eval mode."""
+        state.gather_params()
         model.eval()
         try:
             embeds, labels = embed_dataset(val_ds, embed, spec, device=device,
                                            batch_size=args.eval_batch_size,
-                                           num_workers=args.workers)
+                                           num_workers=args.workers, mesh=mesh)
             return (train_eval_multilabel(embeds, labels) if multilabel
                     else train_eval_single_label(embeds, labels))
         finally:
             model.train()
 
+    def log_record(record):
+        if args.metrics_log and write:
+            _log_jsonl(args.metrics_log, record)
+
     if args.eval_initial and val_ds is not None and start_epoch == 1:
         m = evaluate()
         print(f">> val (untrained): mAP={m['mAP']:.3f}% R@1={m['R@1']:.3f}%")
-        if args.metrics_log:
-            _log_jsonl(args.metrics_log, {"kind": "eval", "epoch": 0, "time": time.time(), **m})
+        log_record({"kind": "eval", "epoch": 0, "time": time.time(), **m})
 
+    shard = (0, 1) if mesh is None else (mesh.rank, mesh.world)
     for epoch in range(start_epoch, args.epochs + 1):
         generator = epoch_generator(args.seed, epoch)
         if args.use_random_sampler:
@@ -247,11 +312,12 @@ def main(argv=None):
             indices = list(PKSampler(list(train_ds.labels), args.labels_per_batch,
                                      args.samples_per_label, seed=args.seed + epoch))
         t0 = time.time()
-        for i, (imgs, labs, _) in enumerate(batch_iterator(
-                train_ds, batch_size, indices=indices, image_size=spec.resize_size,
-                num_workers=args.workers, drop_last=True, interpolation=spec.interpolation)):
+        for i, (imgs, labs, _) in enumerate(decode_batches(
+                train_ds, epoch_batches(indices, batch_size, mesh), spec.resize_size,
+                num_workers=args.workers, interpolation=spec.interpolation)):
             x = preprocess_for_spec(torch.from_numpy(imgs).to(device), spec, train=True,
-                                    generator=generator, rand_resize=args.rand_resize)
+                                    generator=generator, rand_resize=args.rand_resize,
+                                    shard=shard)
             metrics = step(state, x, torch.from_numpy(np.asarray(labs)).to(device))
             if i % args.print_freq == 0:
                 loss = float(metrics["loss"])
@@ -262,16 +328,17 @@ def main(argv=None):
                     print(f"[ERROR] Non-finite loss at iter {i}, epoch {epoch}: {loss}")
                     raise ValueError("Training diverged: non-finite loss detected")
                 print(f"epoch {epoch} step {i}: loss {loss:.4f}")
-                if args.metrics_log:
-                    # the dual-branch step's two terms beside the loss
-                    terms = {k: float(metrics[k]) for k in ("contrastive", "asl") if k in metrics}
-                    _log_jsonl(args.metrics_log, {"kind": "train", "epoch": epoch, "step": i,
-                                                  "loss": loss, **terms, "time": time.time()})
+                # the dual-branch step's two terms beside the loss
+                terms = {k: float(metrics[k]) for k in ("contrastive", "asl") if k in metrics}
+                log_record({"kind": "train", "epoch": epoch, "step": i, "loss": loss, **terms,
+                            "time": time.time()})
+        if args.cache_dir and mesh is not None:
+            train_ds.sync()
         print(f">> epoch {epoch} done in {time.time() - t0:.1f}s")
 
         ckpt_tree = dict(state.state_dict(), epoch=epoch)
         ran_eval = val_ds is not None and epoch % args.eval_freq == 0
-        if epoch % args.ckpt_every == 0 and not ran_eval:
+        if epoch % args.ckpt_every == 0 and not ran_eval and write:
             save_checkpoint(
                 os.path.join(args.save_dir,
                              checkpoint_name(**name_kwargs, epoch=epoch, is_best=False)),
@@ -280,9 +347,7 @@ def main(argv=None):
             m = evaluate()
             print(f">> val: mAP={m['mAP']:.3f}% R@1={m['R@1']:.3f}% R@5={m['R@5']:.3f}% "
                   f"R@10={m['R@10']:.3f}%")
-            if args.metrics_log:
-                _log_jsonl(args.metrics_log,
-                           {"kind": "eval", "epoch": epoch, "time": time.time(), **m})
+            log_record({"kind": "eval", "epoch": epoch, "time": time.time(), **m})
             saved = policy.update(epoch, m["mAP"], ckpt_tree)
             if saved:
                 print(f">> new best mAP {m['mAP']:.3f}% -> {saved}")

@@ -7,12 +7,13 @@ imports.
 A dataset exposes __len__, load_image(i) -> uint8 HWC RGB array, labels and
 image_names. PIL is imported where an image is opened, not at import time.
 
-Two departures from the JAX module, neither of which changes a result:
-  - ``VinDrDataset`` reads its CSV with the ``csv`` module (no pandas), with
-    pandas' ``groupby("image_id").max()`` semantics: one row per image id in
-    sorted order, each label the largest non-missing value of its rows;
-  - ``NIHChestXrayRetrievalDataset`` has the PIL path only; the native C++
-    loader (native/xmir_loader.cpp) is not ported.
+One departure from the JAX module, which changes no result:
+``VinDrDataset`` reads its CSV with the ``csv`` module (no pandas), with
+pandas' ``groupby("image_id").max()`` semantics: one row per image id in
+sorted order, each label the largest non-missing value of its rows.
+
+``NIHChestXrayRetrievalDataset`` loads through the native C++ reader
+(data/native_loader.py) by default, as the JAX module does.
 """
 from __future__ import annotations
 
@@ -318,9 +319,19 @@ class NIHChestXrayRetrievalDataset(_BaseDataset):
     """NIH .npy retrieval set with URL-encoded multi-label file names
     `Chest_X-ray_A%7CB_123.npy` (read_data.py:93-197): ``labels`` is the
     (N, 14) multi-hot float32 matrix, ``label_sets`` the canonical names of
-    each file. Images load through PIL (grey, then RGB)."""
+    each file. ``load_image`` goes through PIL (grey, then RGB).
 
-    def __init__(self, data_dir=None, image_list_file=None, pathology_names=None):
+    With ``use_native`` (the default, as in the JAX module) the resized and
+    cropped loads, and the pipeline's batch path (``load_batch_cropped``),
+    parse, normalise and resize in the native C++ reader
+    (data/native_loader.py), built at first use; a build that fails raises.
+    A batch the reader refuses (a ValueError: a layout it does not parse)
+    takes the PIL path instead, as in the JAX module, and
+    ``native_loader.LOADS`` counts the images of each path."""
+
+    def __init__(self, data_dir=None, image_list_file=None, pathology_names=None,
+                 use_native: bool = True):
+        self.use_native = use_native
         self.image_names = _resolve_file_list(data_dir, image_list_file, ".npy")
         self.pathology_names = list(pathology_names or NIH_RETRIEVAL_PATHOLOGIES)
         self.pathology_to_index = {n: i for i, n in enumerate(self.pathology_names)}
@@ -371,12 +382,57 @@ class NIHChestXrayRetrievalDataset(_BaseDataset):
         img = Image.fromarray(arr).convert("L").convert("RGB")
         return np.asarray(img, dtype=np.uint8)
 
+    def _native(self, load, pil, n: int = 1):
+        """``load()`` through the native reader, else ``pil()`` where it is
+        off or refuses the files. A refused batch (n > 1) falls back to the
+        per-image loads, which count their own path."""
+        from . import native_loader
+
+        if self.use_native:
+            try:
+                out = load(native_loader)
+            except ValueError:
+                if n == 1:
+                    native_loader.count("fallback", 1)
+            else:
+                native_loader.count("native", n)
+                return out
+        return pil()
+
+    def load_image_resized(self, index, out_h: int, out_w: int):
+        """Load + squash to (out_h, out_w) (bilinear)."""
+        from PIL import Image
+
+        return self._native(
+            lambda nl: nl.load_npy_image(self.image_names[index], out_h, out_w),
+            lambda: np.asarray(Image.fromarray(self.load_image(index)).resize(
+                (out_w, out_h), Image.BILINEAR), np.uint8))
+
+    def load_batch_resized(self, indices, out_h: int, out_w: int, n_threads: int = 0):
+        """A batch of load_image_resized on the C++ worker pool."""
+        return self._native(
+            lambda nl: nl.load_npy_batch([self.image_names[i] for i in indices], out_h, out_w,
+                                         n_threads),
+            lambda: np.stack([self.load_image_resized(i, out_h, out_w) for i in indices]),
+            len(indices))
+
     def load_image_cropped(self, index, size: int):
         """Aspect-preserving Resize(short=size) + CenterCrop(size), the
         reference NIH val transform (nih_multilabel_retrieval.py:48-61)."""
         from .transforms import pil_resize_center_crop
 
-        return pil_resize_center_crop(self.load_image(index), size)
+        return self._native(
+            lambda nl: nl.load_npy_image_crop(self.image_names[index], size),
+            lambda: pil_resize_center_crop(self.load_image(index), size))
+
+    def load_batch_cropped(self, indices, size: int, n_threads: int = 0):
+        """A batch of load_image_cropped on the C++ worker pool (the
+        pipeline's batch path)."""
+        return self._native(
+            lambda nl: nl.load_npy_batch_crop([self.image_names[i] for i in indices], size,
+                                              n_threads),
+            lambda: np.stack([self.load_image_cropped(i, size) for i in indices]),
+            len(indices))
 
 
 # ---------------------------------------------------------------------------

@@ -139,27 +139,37 @@ def apply_train_augment(x, draws, crop_size: int, mean, std, rand_resize: bool =
 
 def train_preprocess(generator: torch.Generator, batch_u8, resize_size: int, crop_size: int,
                      mean, std, rand_resize: bool = False, jitter: bool = True,
-                     method: str = "bilinear"):
+                     method: str = "bilinear", shard=(0, 1)):
     """Training pipeline (reference train.py:952-983): Resize -> (RandomCrop
     pad 4 | CenterCrop) -> RandomHorizontalFlip -> ColorJitter(0.1, 0.1) ->
     Normalize, over the batch with per-sample draws from ``generator``.
-    batch_u8: (B, H, W, 3) uint8 tensor on the device -> float32 NHWC."""
+    batch_u8: (B, H, W, 3) uint8 tensor on the device -> float32 NHWC.
+
+    ``shard`` = (r, n): the batch is the r-th of n equal slices of a global
+    batch (a data-parallel rank's rows); the draws are made for the whole
+    global batch and the slice's are taken, so each row gets the draws a
+    world of 1 gives it."""
     x = resize_short_side(batch_u8.float(), resize_size, method)
     h, w = x.shape[1] + 8, x.shape[2] + 8  # after the pad of 4
-    draws = draw_train_augment(generator, x.shape[0],
+    rank, world = shard
+    b = x.shape[0]
+    draws = draw_train_augment(generator, b * world,
                                h - crop_size if rand_resize else 0,
                                w - crop_size if rand_resize else 0)
+    if world > 1:
+        draws = {k: v[rank * b:(rank + 1) * b] for k, v in draws.items()}
     return apply_train_augment(x, draws, crop_size, mean, std, rand_resize, jitter)
 
 
-def preprocess_for_spec(batch_u8, spec, train: bool = False, generator=None, rand_resize=False):
+def preprocess_for_spec(batch_u8, spec, train: bool = False, generator=None, rand_resize=False,
+                        shard=(0, 1)):
     """Apply the registry ModelSpec's transform (sizes, normalisation,
-    interpolation)."""
+    interpolation); ``shard`` as in train_preprocess."""
     if train:
         if generator is None:
             raise ValueError("train preprocessing needs a torch.Generator")
         return train_preprocess(generator, batch_u8, spec.resize_size, spec.input_size,
                                 spec.mean, spec.std, rand_resize=rand_resize,
-                                method=spec.interpolation)
+                                method=spec.interpolation, shard=shard)
     return eval_preprocess(batch_u8, spec.resize_size, spec.input_size, spec.mean, spec.std,
                            method=spec.interpolation)

@@ -24,12 +24,10 @@ def main(argv=None):
     p.add_argument("--epochs", type=int, default=2,
                    help="more epochs make the metrics log show a longer learning curve")
     p.add_argument("--use-mesh", action="store_true",
-                   help="the saliency stage over several cards (not ported yet)")
+                   help="the saliency stage in the deployment shape: the sharded gallery "
+                        "index and the XAI fan-out over a data-parallel world (a world of 1 "
+                        "on one card)")
     args = p.parse_args(argv)
-    if args.use_mesh:
-        raise NotImplementedError("--use-mesh (the sharded gallery and the XAI fan-out over "
-                                  "several cards) is not ported to xmir_tpu_torch yet "
-                                  "(ROADMAP.md, section 1 item 11)")
 
     from .cli import evaluate_saliency, ingest, query
     from .cli import test as test_cli
@@ -79,7 +77,8 @@ def main(argv=None):
     evaluate_saliency.main(common + [
         "--split", "test", "--test-image-list", f"{args.workdir}/val.txt", "--resume", ckpt,
         "--window-size", "48", "--stride", "24", "--top-k", "2", "--step", "6272",
-        "--limit", "2", "--output", f"{args.workdir}/insdel.json"])
+        "--limit", "2", "--output", f"{args.workdir}/insdel.json"]
+        + (["--use-mesh"] if args.use_mesh else []))
 
     with open(metrics_log) as f:
         records = [json.loads(line) for line in f]

@@ -35,7 +35,15 @@ class BatchNorm2d(nn.Module):
     x's dtype, normalise the batch, and the same biased variance moves
     ``running_var`` (``F.batch_norm(training=True)`` would feed the unbiased
     one, n / (n - 1) larger). The buffers stay f32 and are updated in place,
-    under ``torch.no_grad()``, once per forward."""
+    under ``torch.no_grad()``, once per forward.
+
+    Under a data-parallel world of more than one rank (``mesh``, set by
+    parallel/data_parallel.py::sync_batch_norm) the statistics are those of
+    the global batch, as the JAX package's mesh computes them: the per-rank
+    sums of x and x^2 are summed across ranks (with their gradient), so
+    every rank normalises alike and moves its running buffers alike."""
+
+    mesh = None
 
     def __init__(self, num_features: int):
         super().__init__()
@@ -49,8 +57,15 @@ class BatchNorm2d(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=BN_EPS)
         xs = x.float()
-        mean = xs.mean(dim=(0, 2, 3))
-        var = torch.clamp((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if self.mesh is not None and self.mesh.world > 1:
+            n = xs.shape[0] * xs.shape[2] * xs.shape[3] * self.mesh.world
+            sums = self.mesh.all_reduce_with_grad(
+                torch.stack([xs.sum(dim=(0, 2, 3)), (xs * xs).sum(dim=(0, 2, 3))]))
+            mean = sums[0] / n
+            var = torch.clamp(sums[1] / n - mean * mean, min=0.0)
+        else:
+            mean = xs.mean(dim=(0, 2, 3))
+            var = torch.clamp((xs * xs).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(BN_MOMENTUM).add_(mean.detach(), alpha=1 - BN_MOMENTUM)
             self.running_var.mul_(BN_MOMENTUM).add_(var.detach(), alpha=1 - BN_MOMENTUM)

@@ -19,7 +19,11 @@ transformation as one ``torch.optim.Optimizer``:
   - ``mu_dtype`` keeps the first moment in that dtype (the second stays f32);
   - with ``accum_steps`` = k (``optax.MultiSteps``) every call adds the
     gradients into a running mean and parameters and moments move on the
-    k-th call only.
+    k-th call only;
+  - under FSDP (parallel/data_parallel.py) some of a group's tensors are a
+    rank's shards of a parameter (``sharded``): their squared sums are added
+    across the ranks (``mesh``) before the clip, and a replicated tensor
+    counts once, so the clip is the world-1 group's own global norm.
 """
 from __future__ import annotations
 
@@ -56,6 +60,8 @@ class GroupedAdam(torch.optim.Optimizer):
         self.mu_dtype = mu_dtype
         self.accum_steps = accum_steps
         self.mini_step = 0
+        self.mesh = None
+        self.sharded = set()  # ids of the tensors that are one rank's shard
 
     def _state_lists(self, params):
         """(first moments, second moments) of ``params``, made at first use."""
@@ -99,7 +105,7 @@ class GroupedAdam(torch.optim.Optimizer):
         decay = torch.tensor(b1, dtype=self.mu_dtype or torch.float32).item()
         for group, params in groups:
             grads = [self.state[p]["acc"] if accumulated else p.grad for p in params]
-            norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+            norm = self._global_norm(params, grads)
             clip = group["clip_norm"]
             factor = torch.where(norm < clip, torch.ones_like(norm), clip / norm)
             grads = torch._foreach_mul(grads, factor)
@@ -123,6 +129,16 @@ class GroupedAdam(torch.optim.Optimizer):
                 torch._foreach_copy_(mus, mu32)
             if accumulated:
                 torch._foreach_zero_([self.state[p]["acc"] for p in params])
+
+    def _global_norm(self, params, grads):
+        norms = torch.stack(torch._foreach_norm(grads))
+        shard = [id(p) in self.sharded for p in params]
+        if not any(shard):
+            return torch.linalg.vector_norm(norms)
+        sq = norms * norms
+        mask = torch.tensor(shard, device=sq.device)
+        sharded = self.mesh.all_reduce_(torch.where(mask, sq, 0.0).sum())
+        return torch.sqrt(sharded + torch.where(mask, 0.0, sq).sum())
 
     def state_dict(self):
         out = super().state_dict()

@@ -16,10 +16,18 @@ class TrainState:
     optimizer: GroupedAdam
     step: int = 0  # every call of apply_gradients, micro-batches included
 
+    def gather_params(self):
+        """Make every parameter whole on this device before a forward: a
+        no-op here; an FSDP state (parallel/data_parallel.py) gathers its
+        shards."""
+
     def apply_gradients(self):
         """One optimiser call on the parameters' gradients."""
         self.optimizer.step()
         self.step += 1
+
+    def load_optimizer_state(self, state: dict):
+        self.optimizer.load_state_dict(state)
 
     def state_dict(self) -> dict:
         return {"state_dict": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),

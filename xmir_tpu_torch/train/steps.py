@@ -92,9 +92,21 @@ def _backward_and_apply(state, loss):
     state.apply_gradients()
 
 
+def _gather_batch(mesh, *tensors):
+    """Under a data-parallel ``mesh`` each rank's rows of each tensor joined
+    into the global batch, in rank order (autograd reaches each rank's own
+    rows only: parallel/mesh.py::Mesh.gather_rows); without one, the tensors
+    as they are. A loss on the global batch sees what the world-1 loss sees
+    (triplet mining and PK structure over the whole batch)."""
+    if mesh is None:
+        return tensors
+    return tuple(mesh.gather_rows(t) if t.requires_grad else
+                 mesh.all_gather(t).reshape((-1,) + tuple(t.shape[1:])) for t in tensors)
+
+
 def make_embedding_train_step(model, loss_name: str = "triplet",
                               loss_kwargs: Optional[dict] = None,
-                              compute_dtype=torch.float32, remat: bool = False):
+                              compute_dtype=torch.float32, remat: bool = False, mesh=None):
     """Generic metric-learning step (reference train_epoch, train.py:47-148):
     step(state, images, labels) runs ``model`` in training mode on the
     images, takes the loss of its embeddings, back-propagates and calls
@@ -105,7 +117,11 @@ def make_embedding_train_step(model, loss_name: str = "triplet",
     (``torch.utils.checkpoint``): activation memory drops to the model's
     inputs and outputs at the cost of one more forward. BatchNorm buffers
     move once a step all the same. ``step.loss_and_aux(images, labels)`` is
-    the differentiated function alone (forward and loss), for measurements."""
+    the differentiated function alone (forward and loss), for measurements.
+
+    With a data-parallel ``mesh`` the images and labels are this rank's rows
+    of the global batch; the loss is taken on the gathered global batch
+    (_gather_batch), and the state reduces the gradients across ranks."""
     loss_kwargs = loss_kwargs or {}
     loss_fn = LOSS_FNS[loss_name]
 
@@ -117,9 +133,11 @@ def make_embedding_train_step(model, loss_name: str = "triplet",
     def loss_and_aux(images, labels):
         images = images.to(compute_dtype)
         emb = checkpoint(forward, images, use_reentrant=False) if remat else forward(images)
+        emb, labels = _gather_batch(mesh, emb, labels)
         return loss_fn(emb, labels, **loss_kwargs)
 
     def step(state, images, labels):
+        state.gather_params()
         loss, aux = loss_and_aux(images, labels)
         # under remat the recomputation in the backward moves the buffers again
         buffers = [(b, b.clone()) for b in model.buffers()] if remat else []
@@ -138,21 +156,25 @@ def make_embedding_train_step(model, loss_name: str = "triplet",
 def make_dual_branch_train_step(model, contrastive_weight: float = 1.0, asl_alpha: float = 1.0,
                                 temperature: float = 0.07, gamma_pos: float = 1.0,
                                 gamma_neg: float = 4.0, clip: float = 0.05,
-                                compute_dtype=torch.float32):
+                                compute_dtype=torch.float32, mesh=None):
     """NIH dual-head step (reference nih_multilabel_retrieval.py:308-348):
     the Jaccard-weighted multi-label contrastive loss of the f32 embedding
     plus ``asl_alpha`` times the asymmetric loss of the f32 logits, on a
     model whose output holds "embedding" and "logits". Returns {"loss",
     "contrastive", "asl"} as device tensors. ``step.losses(images, labels)``
-    is the differentiated function alone."""
+    is the differentiated function alone. A ``mesh`` as in
+    make_embedding_train_step: both terms are taken on the global batch."""
 
     def losses(images, labels):
         out = _train_forward(model, images.to(compute_dtype), compute_dtype)
-        contrastive = multilabel_contrastive_loss(out["embedding"].float(), labels, temperature)
-        asl = asymmetric_loss(out["logits"].float(), labels, gamma_pos, gamma_neg, clip)
+        emb, logits, labels = _gather_batch(mesh, out["embedding"].float(),
+                                            out["logits"].float(), labels)
+        contrastive = multilabel_contrastive_loss(emb, labels, temperature)
+        asl = asymmetric_loss(logits, labels, gamma_pos, gamma_neg, clip)
         return contrastive_weight * contrastive + asl_alpha * asl, contrastive, asl
 
     def step(state, images, labels):
+        state.gather_params()
         loss, contrastive, asl = losses(images, labels)
         _backward_and_apply(state, loss)
         return {"loss": loss.detach(), "contrastive": contrastive.detach(), "asl": asl.detach()}

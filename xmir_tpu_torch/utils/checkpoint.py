@@ -70,9 +70,13 @@ def load_checkpoint(path: str, unwrap: bool = True) -> Any:
 
 
 class BestCheckpointPolicy:
-    """best-mAP + every-N-epochs periodic saving (train.py:1227-1244)."""
+    """best-mAP + every-N-epochs periodic saving (train.py:1227-1244). With
+    ``write=False`` (a data-parallel rank other than 0) it keeps the record
+    and returns the paths, but writes nothing."""
 
-    def __init__(self, save_dir: str, name_kwargs: dict, periodic_every: int = 10):
+    def __init__(self, save_dir: str, name_kwargs: dict, periodic_every: int = 10,
+                 write: bool = True):
+        self.write = write
         self.save_dir = save_dir
         self.name_kwargs = name_kwargs
         self.periodic_every = periodic_every
@@ -86,10 +90,11 @@ class BestCheckpointPolicy:
     def update(self, epoch: int, metric: float, tree: Any) -> Optional[str]:
         saved = None
         metadata = {"epoch": epoch, "metric": metric}
+        save = save_checkpoint if self.write else (lambda path, *_: path)
         if metric > self.best_metric:
             self.best_metric = metric
             self.best_epoch = epoch
-            saved = save_checkpoint(self._path(epoch, True), tree, metadata)
+            saved = save(self._path(epoch, True), tree, metadata)
         if epoch % self.periodic_every == 0:
-            save_checkpoint(self._path(epoch, False), tree, metadata)
+            save(self._path(epoch, False), tree, metadata)
         return saved

@@ -8,6 +8,7 @@ from .causal import (  # noqa: F401
     blur_substrate,
     causal_scores,
     causal_scores_batch,
+    causal_scores_batch_mesh,
     run_causal_metric,
     run_causal_metric_pairs,
     run_causal_metric_pairs_both,
@@ -16,7 +17,13 @@ from .causal import (  # noqa: F401
 )
 from .feature_heads import convnext_head, densenet_head, get_feature_head  # noqa: F401
 from .rollout import attention_rollout, rollout_saliency  # noqa: F401
-from .sbsm import generate_masks, sbsm_pair_saliency, sbsm_self_saliency  # noqa: F401
+from .sbsm import (  # noqa: F401
+    generate_masks,
+    sbsm_pair_saliency,
+    sbsm_pair_saliency_mesh,
+    sbsm_self_saliency,
+    sbsm_self_saliency_mesh,
+)
 from .simatt import simatt_saliency  # noqa: F401
 from .simcam import (  # noqa: F401
     point_specific_map,

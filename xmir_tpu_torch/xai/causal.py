@@ -14,8 +14,9 @@ Semantics are the reference's:
   del: start=image, finish=substrate; ins: start=substrate(image), finish=image.
 
 ``embed_fn`` maps (N, H, W, C) images to (N, D) embeddings on their device
-(``train.make_embed_fn``). The pair axis sharded over several cards (the JAX
-``causal_scores_batch_mesh``) is ROADMAP.md section 1 item 11.
+(``train.make_embed_fn``). ``causal_scores_batch_mesh`` and the ``mesh=``
+argument of the pair runs split the pair axis over a data-parallel world
+(parallel/mesh.py).
 """
 from __future__ import annotations
 
@@ -125,13 +126,39 @@ def causal_scores_batch(embed_fn, q_feat, starts, finishes, ranks, step: int,
     return torch.cat(scores)[:n_steps + 1].T
 
 
-def _curves(embed_fn, q_feat, starts, finishes, ranks, step: int, batch_steps: int):
+def causal_scores_batch_mesh(embed_fn, q_feat, starts, finishes, ranks, step: int, mesh,
+                             batch_steps: int = 8):
+    """``causal_scores_batch`` with the PAIR axis split over ``mesh``'s
+    world: the pairs are padded with zero images to a multiple of the world,
+    rank r runs the whole curve of its own pairs, and the curves are gathered
+    in pair order. No sum crosses pairs, so each curve is the one-device
+    path's. Returns (P, n_steps + 1) on every rank."""
+    p_n = starts.shape[0]
+    pad = (-p_n) % mesh.world
+    if pad:
+        zimg = starts.new_zeros((pad,) + tuple(starts.shape[1:]))
+        starts, finishes = torch.cat([starts, zimg]), torch.cat([finishes, zimg])
+        ranks = torch.cat([ranks, ranks.new_zeros((pad,) + tuple(ranks.shape[1:]))])
+    rows = starts.shape[0] // mesh.world
+    mine = slice(mesh.rank * rows, (mesh.rank + 1) * rows)
+    local = causal_scores_batch(embed_fn, q_feat, starts[mine], finishes[mine], ranks[mine],
+                                step, batch_steps)
+    return mesh.all_gather(local.contiguous()).reshape(-1, local.shape[1])[:p_n]
+
+
+def _curves(embed_fn, q_feat, starts, finishes, ranks, step: int, batch_steps: int,
+            mesh=None):
     """(auc, zero_count) of each pair's curve; batch_steps=0 picks
-    auto_batch_steps."""
+    auto_batch_steps (for the pairs of one rank, under a mesh)."""
     if not batch_steps:
-        batch_steps = auto_batch_steps(starts.shape[1] * starts.shape[2], step, starts.shape[0])
-    scores = causal_scores_batch(embed_fn, q_feat, starts, finishes, ranks, step,
-                                 batch_steps).cpu().numpy()
+        p_eff = starts.shape[0] if mesh is None else -(-starts.shape[0] // mesh.world)
+        batch_steps = auto_batch_steps(starts.shape[1] * starts.shape[2], step, p_eff)
+    if mesh is not None:
+        scores = causal_scores_batch_mesh(embed_fn, q_feat, starts, finishes, ranks, step,
+                                          mesh, batch_steps).cpu().numpy()
+    else:
+        scores = causal_scores_batch(embed_fn, q_feat, starts, finishes, ranks, step,
+                                     batch_steps).cpu().numpy()
     return [(_auc_np(np.clip(s, 0.0, 1.0)), int((s < 0).sum())) for s in scores]
 
 
@@ -141,10 +168,11 @@ def _ranks(explanations, device):
 
 def run_causal_metric_pairs(embed_fn, query_image, retrieved_images, explanations,
                             mode: Literal["del", "ins"], substrate_fn: Callable, step: int = 224,
-                            batch_steps: int = 0):
+                            batch_steps: int = 0, mesh=None):
     """Batched multi-pair run for one query. retrieved_images (P, H, W, C),
     explanations (P, H, W). Returns a list of (auc, zero_count) per pair.
-    batch_steps=0 picks the chunking of auto_batch_steps."""
+    batch_steps=0 picks the chunking of auto_batch_steps; with ``mesh`` the
+    pairs fan out over its world (causal_scores_batch_mesh)."""
     q_feat = embed_fn(query_image[None])[0]
     subs = substrate_fn(retrieved_images)
     if mode == "del":
@@ -154,12 +182,12 @@ def run_causal_metric_pairs(embed_fn, query_image, retrieved_images, explanation
     else:
         raise ValueError("mode must be 'del' or 'ins'")
     return _curves(embed_fn, q_feat, starts, finishes,
-                   _ranks(explanations, retrieved_images.device), step, batch_steps)
+                   _ranks(explanations, retrieved_images.device), step, batch_steps, mesh)
 
 
 def run_causal_metric_pairs_both(embed_fn, query_image, retrieved_images, explanations,
                                  del_substrate_fn: Callable, ins_substrate_fn: Callable,
-                                 step: int = 224, batch_steps: int = 0):
+                                 step: int = 224, batch_steps: int = 0, mesh=None):
     """Deletion AND insertion curves for P pairs in one batched computation:
     the two modes stack along the pair axis (2P pairs), so every forward
     embeds twice the images of a single-mode call. Per-pair results are those
@@ -172,7 +200,7 @@ def run_causal_metric_pairs_both(embed_fn, query_image, retrieved_images, explan
     finishes = torch.cat([del_substrate_fn(retrieved_images), retrieved_images])
     ranks = _ranks(explanations, retrieved_images.device)
     out = _curves(embed_fn, q_feat, starts, finishes, torch.cat([ranks, ranks]), step,
-                  batch_steps)
+                  batch_steps, mesh)
     return out[:p_n], out[p_n:]
 
 

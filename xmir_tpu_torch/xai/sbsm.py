@@ -7,8 +7,9 @@ cover it and divided by how many do. The masked copies of an image are
 embedded in chunks of a fixed size on the image's device (the reference fans
 mask batches across GPUs with DataParallel; the JAX package maps chunks of a
 jitted embed function). ``embed_fn`` maps a (N, H, W, C) tensor to (N, D)
-embeddings, as ``train.make_embed_fn``'s function does. The mask axis sharded
-over several cards (the JAX ``_mesh`` forms) is ROADMAP.md section 1 item 11.
+embeddings, as ``train.make_embed_fn``'s function does. The ``_mesh`` forms
+split the mask axis over a data-parallel world (parallel/mesh.py): each rank
+embeds its own masks and the per-pixel sums are all-reduced.
 """
 from __future__ import annotations
 
@@ -94,3 +95,62 @@ def sbsm_pair_saliency(embed_fn, x_q, x, masks, chunk: int = 128):
         excess = torch.clamp(m_dist - o_dist[:, j:j + 1], min=0.0)
         out.append(torch.tensordot(excess, occluded, dims=1) / count)
     return torch.stack(out, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the mask fan-out over a data-parallel world (the reference's one
+# multi-GPU method: DataParallel over mask batches, compute_saliency.py:67,
+# explanations.py:105-152). The mask stack is padded with all-ones masks
+# (nothing occluded: their (1 - mask) factor is 0) to a multiple of the
+# world, rank r embeds the r-th slice in chunks of min(chunk, its masks), the
+# per-pixel numerators are summed across ranks, and the coverage count comes
+# from the real masks.
+# ---------------------------------------------------------------------------
+
+
+def _pad_mask_axis(masks, world: int):
+    pad = (-masks.shape[0]) % world
+    if pad:
+        masks = torch.cat([masks, masks.new_ones((pad,) + tuple(masks.shape[1:]))])
+    return masks
+
+
+def _local_masks(masks, mesh, chunk: int):
+    """(this rank's slice of the padded mask stack, its chunk size)."""
+    masks_p = _pad_mask_axis(masks, mesh.world)
+    rows = masks_p.shape[0] // mesh.world
+    return masks_p[mesh.rank * rows:(mesh.rank + 1) * rows], min(chunk, rows)
+
+
+def sbsm_self_saliency_mesh(embed_fn, x, masks, mesh, chunk: int = 128):
+    """``sbsm_self_saliency`` with the mask axis split over ``mesh``'s
+    world. Equal to the one-device path up to the order of the sum over
+    masks; every rank returns the same (B, H, W) maps."""
+    masks = torch.as_tensor(masks, device=x.device).float()
+    _, count = _coverage(masks)
+    local, local_chunk = _local_masks(masks, mesh, chunk)
+    occluded = 1.0 - local
+    q = embed_fn(x)
+    numer = []
+    for img, q_emb in zip(x, q):
+        me = _masked_embeds(embed_fn, img, local, local_chunk)
+        m_dist = torch.linalg.norm(q_emb[None] - me, dim=1)
+        numer.append(torch.tensordot(m_dist, occluded, dims=1))
+    return mesh.all_reduce_(torch.stack(numer)) / count
+
+
+def sbsm_pair_saliency_mesh(embed_fn, x_q, x, masks, mesh, chunk: int = 128):
+    """``sbsm_pair_saliency`` with the mask axis split over ``mesh``'s
+    world: x_q (Bq, H, W, C), x (B, H, W, C) -> (Bq, B, H, W) on every rank."""
+    masks = torch.as_tensor(masks, device=x.device).float()
+    _, count = _coverage(masks)
+    local, local_chunk = _local_masks(masks, mesh, chunk)
+    occluded = 1.0 - local
+    q = embed_fn(x_q)
+    o_dist = _cdist(q, embed_fn(x))
+    numer = []
+    for j, img in enumerate(x):
+        m_dist = _cdist(q, _masked_embeds(embed_fn, img, local, local_chunk))
+        excess = torch.clamp(m_dist - o_dist[:, j:j + 1], min=0.0)
+        numer.append(torch.tensordot(excess, occluded, dims=1))
+    return mesh.all_reduce_(torch.stack(numer, dim=1)) / count
