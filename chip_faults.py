@@ -28,7 +28,15 @@ tests/test_torch_train_dp.py (the first step's loss within 1e-5 and its group
 norms within 1e-5 relative of world 1's, BatchNorm's buffers equal on both
 ranks), run at a world of 2 on the card machine's CPU (gloo; NCCL cannot put
 two ranks on one card), must refuse a gradient ``world`` times too large and
-per-rank BatchNorm statistics.
+per-rank BatchNorm statistics. The tensor-parallel checks (``--only tp``):
+a narrow ViT split over a (1, 2) mesh of gloo ranks on the card machine's
+CPU (tests/test_torch_tensor_parallel.py's check: outputs within 1e-5,
+every gradient within 1e-5 of world 1's largest magnitude, no qkv / proj /
+fc1 / fc2 weight gathered whole, the ViT-B/14 rule table of chip_smoke.py
+phase 55) must refuse a row-parallel bias added on every rank, a sum whose
+backward sums again, qkv's head slots cut in the wrong rank order (rank r
+computing another rank's heads) and the rule's tie read in the torch
+layout.
 Each line prints how far the reading goes toward its bounds (above 1: past
 one of them).
 
@@ -1000,13 +1008,99 @@ def dp_agrees(reading) -> bool:
             and reading["buffers_equal"])
 
 
+TP_FAULTS = ("the row-parallel bias added on every rank",
+             "the sum's backward summing again (tp times the gradient)",
+             "qkv slots cut in the wrong rank order",
+             "the tie read in the torch layout (proj split by its output)")
+TP_VIT = dict(img_size=56, dim=256, depth=2, num_heads=4)
+
+
+def tp_fault_worker(rank, world, shape, cases, fault):
+    """tests/torch_mesh_workers.py ``tp_worker`` with ``fault`` planted in
+    this process, and the ViT-B/14 rule table it gives."""
+    import chip_smoke as cs
+    import torch_mesh_workers
+    from xmir_tpu_torch.parallel import mesh as mesh_module
+    from xmir_tpu_torch.parallel import tensor_parallel as tpm
+
+    if fault == TP_FAULTS[0]:
+        def row_with_bias(self, fn, bias, dtype, *inputs):
+            return self.row(lambda r, *a: fn(r, *a) + bias.float(), *inputs).to(dtype)
+
+        tpm.ModelAxis.row_with_bias = row_with_bias
+    elif fault == TP_FAULTS[1]:
+        def backward(ctx, g):
+            return ctx.mesh.model_all_reduce_(g.contiguous().clone()), None
+
+        tpm._Sum.backward = staticmethod(backward)
+    elif fault == TP_FAULTS[2]:
+        rows = tpm.head_major_rows
+        tpm.head_major_rows = lambda heads, hd, tp: torch.cat(rows(heads, hd, tp).chunk(tp)[::-1])
+    elif fault == TP_FAULTS[3]:
+        rule = mesh_module.tp_shard_axis
+        mesh_module.tp_shard_axis = (
+            lambda shape, kind, n_model, min_dim=256: rule(shape, "same", n_model, min_dim))
+    out = torch_mesh_workers.tp_worker(rank, world, shape, cases)
+    out["rule"] = cs.vit_b14_rule(2)
+    return out
+
+
+def read_tp(fault=None):
+    """A narrow ViT (dim 256, 4 heads, 2 blocks, 56 px, random nonzero
+    weights) split over a (1, 2) mesh of gloo ranks on the CPU (with
+    ``fault``), eager and on the fused path (K8 / K2's plain versions),
+    against world 1: the outputs' largest difference, the gradients' largest
+    difference relative to world 1's largest magnitude, the model weights
+    gathered whole, and whether the ViT-B/14 rule table is phase 55's."""
+    import chip_smoke as cs
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_mesh_workers
+
+    model = cs.randomized_vit(55, **TP_VIT)
+    gen = torch.Generator().manual_seed(56)
+    x = torch.randn((4, 56, 56, 3), generator=gen)
+    cot = torch.randn((4, 256), generator=gen)
+    envs = ({}, {"XMIR_FUSED_LN": "1", "XMIR_FLASH_ATTN": "1", "XMIR_FUSED_LN_MLP": "1"})
+    cases = [{"model": ("vit", dict(TP_VIT)), "state_dict": model.state_dict(), "x": x,
+              "cotangent": cot, "env": env} for env in envs]
+    reading = {"fwd_err": 0.0, "grad_rel": 0.0, "gathered": [], "rule_ok": True}
+    with tempfile.TemporaryDirectory() as tmp:
+        recs = torch_mesh_workers.run_world(tp_fault_worker, 2, tmp, (1, 2), cases, fault)
+    for i, env in enumerate(envs):
+        with cs.env_flags(**{k: env.get(k) for k in envs[1]}):
+            one = cs.randomized_vit(55, **TP_VIT)
+            y = one(x)["cls"]
+            (y * cot).sum().backward()
+        grads = {k: p.grad for k, p in one.named_parameters()}
+        for rec in recs:
+            case = rec["cases"][i]
+            reading["fwd_err"] = max(reading["fwd_err"], (case["out"] - y).abs().max().item())
+            rel = [((g - grads[k]).abs().max() / grads[k].abs().max()).item()
+                   for k, g in case["grads"].items()]
+            for k, (dim, rows, g) in case["pieces"].items():
+                full = grads[k].index_select(dim, rows)
+                rel.append(((g - full).abs().max() / grads[k].abs().max()).item())
+            reading["grad_rel"] = max(reading["grad_rel"], *rel)
+            reading["gathered"] += sorted({k for k in case["gathers"]
+                                           if any(leaf in k for leaf in cs.TP_MODEL_LEAVES)})
+            reading["rule_ok"] &= rec["rule"] == cs.VIT_B14_RULE[2]
+    reading["gathered"] = sorted(set(reading["gathered"]))
+    return reading
+
+
+def tp_agrees(reading) -> bool:
+    return (reading["fwd_err"] <= 1e-5 and reading["grad_rel"] <= 1e-5
+            and not reading["gathered"] and reading["rule_ok"])
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", nargs="+", metavar="KERNEL",
                         help="the kernels to read and plant faults in (K1 K1' K2 ... K11), "
                              "ath: the ATH train step's checks, chestmir: the YOLOv5 "
-                             "detector's, or mesh: the sharded search's and the "
-                             "data-parallel step's")
+                             "detector's, mesh: the sharded search's and the "
+                             "data-parallel step's, or tp: the tensor-parallel split's")
     only = parser.parse_args().only
 
     def want(*kernels):
@@ -1071,6 +1165,11 @@ def main():
                read_dp(), True, dp_agrees)
         for fault in DP_FAULTS:
             report(f"DP: {fault}", "DP", read_dp(fault), False, dp_agrees)
+    if want("tp"):
+        report("a narrow ViT split over (1, 2) against world 1 (CPU, gloo)", "TP", read_tp(),
+               True, tp_agrees)
+        for fault in TP_FAULTS:
+            report(f"TP: {fault}", "TP", read_tp(fault), False, tp_agrees)
     if want("ath"):
         report("cli.train_ath on the card against the CPU and float64 (phase 44)", "ath",
                read_ath(), True, lambda r: r["agree"])

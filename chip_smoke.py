@@ -442,13 +442,28 @@ the card, at full width):
              kernel reading each at once; cli.parity on
              tests/fixtures/reference_single_label_golden.npz; a span report
              and a torch.profiler trace file
+ 55. tensor  DINOv2 ViT-B/14 (random nonzero weights, 518 px, B = 16) split by
+     parallel  auto_param_shardings (parallel/tensor_parallel.py), bf16 and f32
+             (fused switches on), with and without XMIR_FUSED_LN_MLP: on a
+             (1, 1) NCCL mesh the rule shards nothing and the embeddings are
+             bit-equal to the untransformed model's with equal launches
+             (K7 = K2 = 12, K8 = 12 under the switch); every rank's pieces
+             at tp = 2 and 4 run on this card and combine in-process
+             (an f32 sum): K8 on each rank's head-major qkv rows, K2 on its
+             H / tp heads, K8 on its fc1 columns under the switch, the unit
+             embeddings within 1e-5 (f32) / 5e-3 (bf16) of world 1's, only
+             cls_token and pos_embed gathered whole; K8 against its plain
+             version at the pieces' shapes (B N rows by 3C / tp and 4C / tp
+             columns), timed at the qkv pieces
 ``--train-only`` builds and runs phases 17 to 23, 25 to 28, 31 to 33 and 38
 to 40 alone, ``--siglip-only`` phases 38 to 41, ``--resnet-ath-only`` phases
 42 to 46, ``--chestmir-only`` phases 47 to 49, ``--mesh-only`` phases 4, 18,
 19 and 24 with the mesh phases they hold (50, 52, 53), then 51 and 54 (no
 result line). ``--cards N`` (N cards of one host) runs the mesh CLIs at N
 ranks under torchrun against a world of 1 (``phase_cards``; no result line),
-``--cards-on-cpu N`` the same with gloo and the tiny model, a rehearsal.
+and DINOv2 (bf16, f32) and DenseNet121 (f32, 224 px, B = 64) split over
+(1, N) and (N / 2, 2) meshes (``phase_cards_tp``), ``--cards-on-cpu N`` the
+same with gloo and narrow models, a rehearsal; ``--tp-only`` phase 55.
 The launch counts are set to 0 before each slice and read after it. Each
 kernel's bound (the least time the card could take: bytes moved once over
 3.35 TB/s, or operations over the peak of their type) is reckoned from the
@@ -460,6 +475,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import ctypes
 import importlib
 import io
@@ -1515,11 +1531,13 @@ def vit_plain_versions():
          plain_attn.vit_attention_fused) = saved
 
 
-def write_vit_checkpoint(path, seed):
-    """DINOv2 ViT-B/14 in timm's layout with random nonzero LayerNorm,
-    LayerScale and bias tensors (at init LayerScale is 1e-5 and the blocks
-    all but vanish), plus a classifier, which the port's loader ignores."""
-    backbone = vit_model.vit_base_patch14_dinov2(torch.Generator().manual_seed(seed))
+def randomized_vit(seed, **widths):
+    """DINOv2 ViT-B/14 (or a ViT of ``widths``) with random nonzero
+    LayerNorm, LayerScale and bias tensors (at init LayerScale is 1e-5 and
+    the blocks all but vanish), on the CPU in f32."""
+    gen = torch.Generator().manual_seed(seed)
+    backbone = (vit_model.init_weights_(vit_model.ViTBackbone(**widths), gen) if widths
+                else vit_model.vit_base_patch14_dinov2(gen))
     gen = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for name, p in backbone.named_parameters():
@@ -1529,7 +1547,13 @@ def write_vit_checkpoint(path, seed):
                 p.copy_(0.1 * torch.randn(p.shape, generator=gen))
             elif "norm" in name:
                 p.copy_(1 + 0.2 * torch.randn(p.shape, generator=gen))
-    sd = backbone.state_dict()
+    return backbone
+
+
+def write_vit_checkpoint(path, seed):
+    """``randomized_vit`` in timm's layout, plus a classifier, which the
+    port's loader ignores."""
+    sd = randomized_vit(seed).state_dict()
     sd.update({"head.weight": torch.zeros(1000, 768), "head.bias": torch.zeros(1000)})
     torch.save(sd, path)
 
@@ -7347,6 +7371,364 @@ def phases_mesh():
         phase_host(Path(tmp))
 
 
+# Unit embeddings of DINOv2 split over a model axis against world 1's: f32
+# within the JAX TP test's atol, bf16 within PERF.md section 2's bf16 DINOv2
+# bound. Set before the first chip call; a fault must not pass (LayerScale is
+# random and nonzero: at its 1e-5 init every embedding is nearly the same).
+TP_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-3}
+TP_BATCH = 16
+TP_MODEL_LEAVES = ("attn.qkv.", "attn.proj.", "mlp.fc1.", "mlp.fc2.")
+
+
+# auto_param_shardings of DINOv2 ViT-B/14 in the torch layout (the JAX rule
+# mapped across: tests/test_torch_tensor_parallel.py derives it from the JAX
+# package), block 0 standing for every block: Megatron's split of the block,
+# pos_embed's 1370 tokens at tp = 2 only (1370 % 4 = 2)
+_BLOCK_RULE = {"blocks.0.attn.qkv.weight": 0, "blocks.0.attn.proj.weight": 1,
+               "blocks.0.mlp.fc1.weight": 0, "blocks.0.mlp.fc2.weight": 1}
+VIT_B14_RULE = {2: {"cls_token": 2, "pos_embed": 1, "patch_embed.proj.weight": 0, **_BLOCK_RULE},
+                4: {"cls_token": 2, "patch_embed.proj.weight": 0, **_BLOCK_RULE}}
+
+
+def vit_b14_rule(n_model):
+    """The sharded leaves of DINOv2 ViT-B/14 (built on the meta device) at a
+    model axis of ``n_model``, block 0 standing for every block (which must
+    all agree)."""
+    from xmir_tpu_torch.parallel import Mesh, auto_param_shardings
+
+    with torch.device("meta"):
+        model = vit_model.vit_base_patch14_dinov2()
+    rule = auto_param_shardings(model, Mesh(world=n_model, rank=0, device=torch.device("cpu"),
+                                            shape=(1, n_model)))
+    for key, axis in rule.items():
+        if key.startswith("blocks."):
+            check(axis == rule["blocks.0." + key.split(".", 2)[2]],
+                  f"tp: {key} splits unlike block 0's")
+    return {k: v for k, v in rule.items()
+            if v is not None and (k.startswith("blocks.0.") or not k.startswith("blocks."))}
+
+
+@contextlib.contextmanager
+def vit_piece_shapes():
+    """What the ViT hands K2 and K8, recorded: K2's leading (B heads) size
+    and K8's (output width, activation), from ViTBlock and from the
+    tensor-parallel block alike."""
+    from xmir_tpu_torch.parallel import tensor_parallel as tpm
+
+    seen = {"K2": [], "K8": []}
+    attn, dense = plain_attn.vit_attention_fused, vit_model.ln_dense_fused
+
+    def attn_recorded(q, k, v, sm_scale):
+        seen["K2"].append(q.shape[0])
+        return attn(q, k, v, sm_scale)
+
+    def dense_recorded(x, lns, lnb, w, b, eps=ld.LN_EPS, act=""):
+        seen["K8"].append((w.shape[0], act))
+        return dense(x, lns, lnb, w, b, eps, act)
+
+    plain_attn.vit_attention_fused = attn_recorded
+    vit_model.ln_dense_fused = tpm.ln_dense_fused = dense_recorded
+    try:
+        yield seen
+    finally:
+        plain_attn.vit_attention_fused = attn
+        vit_model.ln_dense_fused = tpm.ln_dense_fused = dense
+
+
+def unit_cls(model, x):
+    with torch.no_grad():
+        return l2_normalize(model(x)["cls"].float(), dim=1)
+
+
+def tp_want(tp, mlp, b=TP_BATCH, heads=VIT["heads"], c=VIT["c"], depth=VIT["depth"]):
+    """(launches, K2's leading sizes, K8's calls) of one DINOv2 forward whose
+    blocks run every rank's pieces of a model axis of ``tp``."""
+    launches = dict.fromkeys(WRAPPERS, 0)
+    launches.update(K2=depth * tp, K8=depth * tp * (2 if mlp == "1" else 1))
+    k8 = [(3 * c // tp, "")] * tp + ([(4 * c // tp, "gelu")] * tp if mlp == "1" else [])
+    return launches, [b * heads // tp] * depth * tp, k8 * depth
+
+
+def phase_tensor_parallel():
+    """Phase 55: DINOv2 ViT-B/14 (random nonzero weights, 518 px, B = 16)
+    split by auto_param_shardings, bf16 on its default path and f32 with
+    the fused switches (K7 / K2 on, so that both dtypes' kernels run), each
+    with and without XMIR_FUSED_LN_MLP. On a (1, 1) NCCL mesh the rule
+    shards nothing and the transformed model is the model: its embeddings
+    bit-equal and its launches equal. Every rank's pieces of a model axis of
+    2 and 4 run on this card, combined in-process (LocalAxis: torch.cat and
+    an f32 sum in rank order): K8 on each rank's qkv rows (head-major), K2
+    on its H / tp heads, K8 with the GELU on its fc1 columns under the
+    switch; the unit
+    embeddings within TP_TOL of world 1's and nothing but cls_token and
+    pos_embed gathered whole. Then K8 at the pieces' shapes (the B N rows,
+    3C / tp and 4C / tp columns) held against ln_dense_reference
+    (``k8_err``: with and without the GELU and the bias) and timed at the
+    qkv pieces."""
+    from xmir_tpu_torch.parallel import auto_param_shardings, make_mesh
+    from xmir_tpu_torch.parallel import tensor_parallel as tpm
+
+    t0 = time.perf_counter()
+    base = randomized_vit(55)
+    gen = torch.Generator().manual_seed(56)
+    x = torch.randn((TP_BATCH, 518, 518, 3), generator=gen).cuda()
+    out = {"errs": {}, "launches": {}}
+    path_launches = dict.fromkeys(WRAPPERS, 0)
+    for tp in (2, 4):
+        rule = vit_b14_rule(tp)
+        check(rule == VIT_B14_RULE[tp], f"tp: the rule at {tp}: {rule}, want {VIT_B14_RULE[tp]}")
+    with make_mesh("cuda", (1, 1)) as mesh:
+        check(all(v is None for v in auto_param_shardings(base, mesh).values()),
+              "tp: the rule shards a leaf on a (1, 1) mesh")
+        for dtype, flags in ((torch.bfloat16, {}), (torch.float32, FUSED_VIT)):
+            name = str(dtype)[6:]
+            ref_model = copy.deepcopy(base).to("cuda", dtype).eval()
+            same = copy.deepcopy(base).to("cuda", dtype).eval()
+            check(tpm.tensor_parallel(same, mesh) is same and not any(
+                isinstance(m, tpm.ShardedLeaf) for m in same.modules()),
+                f"tp {name}: the (1, 1) transform changed the model")
+            pieces = {tp: tpm.tensor_parallel(copy.deepcopy(base).to("cuda", dtype).eval(),
+                                              tp=tp) for tp in (2, 4)}
+            for mlp in ("0", "1"):
+                with env_flags(XMIR_FUSED_LN_MLP=mlp, **flags):
+                    reset_launches()
+                    ref = unit_cls(ref_model, x.to(dtype))
+                    l_ref = read_launches()
+                    reset_launches()
+                    got = unit_cls(same, x.to(dtype))
+                    l_same = read_launches()
+                    want = dict.fromkeys(WRAPPERS, 0)
+                    want.update(K2=VIT["depth"], K7=VIT["depth"],
+                                K8=VIT["depth"] if mlp == "1" else 0)
+                    check(torch.equal(ref, got) and l_ref == l_same == want,
+                          f"tp {name} mlp={mlp}: (1, 1) against the model: bit-equal "
+                          f"{torch.equal(ref, got)}, launches {l_same} / {l_ref}, want {want}")
+                    for key in WRAPPERS:
+                        path_launches[key] += l_same[key]
+                    for tp, model in pieces.items():
+                        tpm.GATHERS.clear()
+                        reset_launches()
+                        with vit_piece_shapes() as seen:
+                            e = unit_cls(model, x.to(dtype))
+                        launches = read_launches()
+                        for key in WRAPPERS:
+                            path_launches[key] += launches[key]
+                        w_launches, w_k2, w_k8 = tp_want(tp, mlp)
+                        err = (e - ref).abs().max().item()
+                        gathered = dict(tpm.GATHERS)
+                        want_gathers = {"cls_token": 1, "pos_embed": 1} if tp == 2 else {
+                            "cls_token": 1}  # 1370 % 4 = 2: pos_embed replicates
+                        check(err <= TP_TOL[dtype], f"tp {name} mlp={mlp} at {tp} pieces: "
+                                                    f"{err} from world 1 > {TP_TOL[dtype]}")
+                        check(launches == w_launches and seen["K2"] == w_k2
+                              and seen["K8"] == w_k8 and gathered == want_gathers,
+                              f"tp {name} mlp={mlp} at {tp} pieces: launches {launches} (want "
+                              f"{w_launches}), K2 sizes {sorted(set(seen['K2']))}, K8 calls "
+                              f"{sorted(set(seen['K8']))}, gathered {gathered}")
+                        out["errs"][f"{name} mlp={mlp} tp={tp}"] = err
+                        out["launches"][f"{name} mlp={mlp} tp={tp}"] = {
+                            k: v for k, v in launches.items() if v}
+            del ref_model, same, pieces
+            torch.cuda.empty_cache()
+    # K8 at the pieces' shapes (bf16 and f32): rows B N, C = 768, the qkv
+    # pieces' 3C / tp columns and the fc1 pieces' 4C / tp, against its plain
+    # version; the bf16 qkv pieces timed
+    rows, c = TP_BATCH * VIT["n"], VIT["c"]
+    gen = torch.Generator().manual_seed(57)
+    out["k8_qkv_piece"] = {}
+    for tp in (2, 4):
+        for piece, m in (("qkv", 3 * c // tp), ("fc1", 4 * c // tp)):
+            entry = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                xr, lns, lnb, w, b = _ln_inputs(gen, 1, rows, c, m, dtype)
+                entry[f"max_err_{str(dtype)[6:]}"] = k8_err(xr[0], lns, lnb, w, b,
+                                                            f"tp={tp} {piece} piece")
+            if piece == "qkv":
+                entry["device_ms"] = device_ms(lambda: ld.ln_dense_fused(xr[0], lns, lnb, w, b))
+                entry["bound_ms"], entry["bound_by"] = bound(
+                    2 * rows * c * m, (rows * c + m * c + rows * m) * 2 + (2 * c + m) * 4,
+                    "bfloat16")
+            out["k8_qkv_piece"][f"tp={tp} {piece} ({m} columns)"] = entry
+            del xr, w
+    out["path_launches"] = path_launches
+    log(f"[tp] phase 55: (1, 1) bit-equal with equal launches; pieces at tp 2 / 4 against "
+        f"world 1: {out['errs']} (bounds {[TP_TOL[d] for d in TP_TOL]}); launches "
+        f"{out['launches']}; K8 at the pieces {out['k8_qkv_piece']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# --cards: the models split over (1, n) and (n / 2, 2) meshes, one card a
+# rank. (name, model factory, dtype, image size, batch, switches, min_dim)
+def _card_dinov2():
+    return randomized_vit(55)
+
+
+def _card_densenet():
+    model, _ = create_model("densenet121", generator=torch.Generator().manual_seed(58))
+    return model
+
+
+def _cpu_vit():
+    return randomized_vit(55, img_size=56, dim=256, depth=2, num_heads=4)
+
+
+def _cpu_tiny():
+    model, _ = create_model("tiny", embedding_dim=16,
+                            generator=torch.Generator().manual_seed(58))
+    return model
+
+
+TP_CARD_MODELS = {
+    "cuda": (("dinov2 bf16", _card_dinov2, torch.bfloat16, 518, TP_BATCH, {}, 256),
+             ("dinov2 f32", _card_dinov2, torch.float32, 518, TP_BATCH, FUSED_VIT, 256),
+             ("densenet121 f32", _card_densenet, torch.float32, 224, 64, {}, 256)),
+    "cpu": (("dinov2 f32", _cpu_vit, torch.float32, 56, 8, FUSED_VIT, 256),
+            ("tiny f32", _cpu_tiny, torch.float32, 64, 8, {}, 16)),
+}
+
+
+def card_embed(model, x):
+    out = model(x)
+    return l2_normalize((out["cls"] if "cls" in out else out["embedding"]).float(), dim=1)
+
+
+def timed_forward(model, x, device, reps=5):
+    """ms of one forward: CUDA events around ``reps`` calls (wall time on the
+    CPU), after one untimed call."""
+    with torch.no_grad():
+        model(x)
+        if device == "cpu":
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                model(x)
+            return (time.perf_counter() - t0) * 1e3 / reps
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            model(x)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+
+def tp_card_inputs(size, batch, seed=59):
+    return torch.randn((batch, size, size, 3), generator=torch.Generator().manual_seed(seed))
+
+
+def tp_ranks_main(shape, device, out_path):
+    """One rank of ``--cards`` under torchrun: each model of
+    TP_CARD_MODELS[device] split over a (data, model) mesh of ``shape``, the
+    batch over the data axis; rank 0 saves the gathered unit embeddings and
+    every rank's launches, K2 sizes, gathers and forward ms, and on the card
+    a torch.profiler split of one forward's device time: NCCL's kernels by
+    name and the rest."""
+    import torch.distributed as dist
+
+    from xmir_tpu_torch.parallel import make_mesh, shard_batch
+    from xmir_tpu_torch.parallel import tensor_parallel as tpm
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as phase_device sets them in world 1
+    torch.backends.cudnn.allow_tf32 = False
+    results = {}
+    with make_mesh(device, shape) as mesh:
+        for name, build, dtype, size, batch, flags, min_dim in TP_CARD_MODELS[device]:
+            with env_flags(**flags):
+                model = tpm.tensor_parallel(build().to(mesh.device, dtype).eval(), mesh,
+                                            min_dim=min_dim)
+                x, _ = shard_batch(tp_card_inputs(size, batch).to(mesh.device, dtype), mesh)
+                tpm.GATHERS.clear()
+                reset_launches()
+                with vit_piece_shapes() as seen, torch.no_grad():
+                    e = card_embed(model, x)
+                launches = (read_launches() if device == "cuda"
+                            else {k: w.launches for k, w in WRAPPERS.items()})
+                mine = {"launches": launches, "k2_sizes": sorted(set(seen["K2"])),
+                        "k8_calls": sorted(set(seen["K8"])), "gathers": dict(tpm.GATHERS),
+                        "ms": timed_forward(model, x, device),
+                        "sharded": sum(isinstance(m, tpm.ShardedLeaf) for m in model.modules())}
+                if device == "cuda":
+                    with torch.no_grad():
+                        split = profiled_split(lambda: model(x), reps=3)
+                    # NCCL's kernels (their time holds any wait for the group's
+                    # other ranks); its "nccl:*" annotations repeat them
+                    mine["nccl_ms"] = {k: v for k, v in split.items()
+                                       if k.startswith("nccl") and ":" not in k}
+                    mine["other_kernels_ms"] = sum(v for k, v in split.items()
+                                                   if not k.startswith("nccl"))
+                emb = mesh.all_gather(e).reshape(-1, e.shape[1])
+                ranks = [None] * mesh.world
+                dist.all_gather_object(ranks, mine)
+                results[name] = {"emb": emb.cpu(), "ranks": ranks}
+                del model
+        if mesh.rank == 0:
+            torch.save(results, out_path)
+        mesh.barrier()
+
+
+def phase_cards_tp(workdir: Path, n: int, device: str = "cuda"):
+    """``--cards n``, tensor parallel: TP_CARD_MODELS[device] at meshes (1, n)
+    and (n / 2, 2) under torchrun against a world of 1 in this process: unit
+    embeddings within TP_TOL; on a (1, n) mesh each rank's DINOv2 runs K2 12
+    times a forward on H / n heads; no qkv / proj / fc1 / fc2 weight is
+    gathered whole; the forward ms of each mesh beside world 1's, and each
+    rank's device time in NCCL's kernels (torch.profiler) beside the bytes
+    that DINOv2's row-parallel sums move (2 a block, f32 (B / data, N, C))."""
+    out = {}
+    one = {}
+    for name, build, dtype, size, batch, flags, _ in TP_CARD_MODELS[device]:
+        with env_flags(**flags):
+            model = build().to(device, dtype).eval()
+            x = tp_card_inputs(size, batch).to(device, dtype)
+            one[name] = (card_embed(model, x), timed_forward(model, x, device))
+            del model
+    for shape in ((1, n), (n // 2, 2)):
+        tag = f"{shape[0]}x{shape[1]}"
+        path = workdir / f"tp_{tag}.pt"
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={n}", str(REPO / "chip_smoke.py"), "--tp-ranks", tag,
+               "--tp-device", device, "--tp-out", str(path)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=REPO)
+        check(proc.returncode == 0, f"cards tp {tag}: rc {proc.returncode}\n"
+                                    f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+        results = torch.load(path)
+        for name, dtype in ((m[0], m[2]) for m in TP_CARD_MODELS[device]):
+            ref, ms1 = one[name]
+            rec = results[name]
+            err = (rec["emb"].to(ref.device) - ref).abs().max().item()
+            tp = shape[1]
+            whole = sorted({k for r in rec["ranks"] for k in r["gathers"]
+                            if any(leaf in k for leaf in TP_MODEL_LEAVES)})
+            check(err <= TP_TOL[dtype] and not whole and all(r["sharded"] for r in rec["ranks"]),
+                  f"cards tp {tag} {name}: {err} from world 1 (bound {TP_TOL[dtype]}), "
+                  f"gathered whole {whole}, sharded leaves {[r['sharded'] for r in rec['ranks']]}")
+            if name.startswith("dinov2") and device == "cuda":
+                heads = VIT["heads"] // tp
+                rows = TP_BATCH // shape[0]
+                check(all(r["launches"]["K2"] == VIT["depth"] and r["k2_sizes"] == [rows * heads]
+                          for r in rec["ranks"]),
+                      f"cards tp {tag} {name}: K2 per rank "
+                      f"{[(r['launches']['K2'], r['k2_sizes']) for r in rec['ranks']]}, want "
+                      f"{VIT['depth']} calls on {heads} heads")
+            out[f"{name} {tag}"] = {
+                "max_abs_err": err, "ms_world_1": ms1,
+                "ms_by_rank": [r["ms"] for r in rec["ranks"]],
+                "nccl_ms_by_rank": [r.get("nccl_ms") for r in rec["ranks"]],
+                "other_kernels_ms_by_rank": [r.get("other_kernels_ms") for r in rec["ranks"]],
+                "launches_rank0": {k: v for k, v in rec["ranks"][0]["launches"].items() if v},
+                "k2_sizes": rec["ranks"][0]["k2_sizes"], "k8_calls": rec["ranks"][0]["k8_calls"],
+                "gathers_rank0": rec["ranks"][0]["gathers"]}
+            if name.startswith("dinov2") and device == "cuda":
+                out[f"{name} {tag}"]["sum_bytes_a_forward"] = (
+                    2 * VIT["depth"] * (TP_BATCH // shape[0]) * VIT["n"] * VIT["c"] * 4)
+        out[f"wall_s {tag}"] = time.perf_counter() - t0
+    log(f"[cards] tensor parallel ({device}) at (1, {n}) and ({n // 2}, 2) under torchrun "
+        f"against a world of 1: {json.dumps(out)}")
+    return out
+
+
 def torchrun(n: int, module: str, args, timeout: int = 900):
     """``python -m module args`` on ``n`` ranks of one host under torchrun
     (its rendezvous on localhost); fails the phase if a rank fails. Returns
@@ -7482,6 +7864,7 @@ def phase_cards(workdir: Path, n: int, device: str = "cuda"):
     check(abs(l1[0] - ln[0]) <= 1e-5 and share <= TRAIN_F32_MEAN_TOL and sharded,
           f"cards: training at {n} ranks: first losses {l1[0]} / {ln[0]}, parameters {share} "
           f"of the movement apart, {sharded[:1]}")
+    out["tensor_parallel"] = phase_cards_tp(workdir, n, device)
     out.update(embedding_max_abs_err=emb_err, map_max_abs_err=map_err, auc_err=auc_err,
                first_loss_diff=abs(l1[0] - ln[0]),
                mean_apart_of_moved=share, fsdp=sharded[0].strip())
@@ -7520,20 +7903,36 @@ def main():
     parser.add_argument("--cards-on-cpu", type=int, default=0, metavar="N",
                         help="the same on the CPU (gloo, the tiny model): a rehearsal that "
                              "needs no card")
+    parser.add_argument("--tp-only", action="store_true",
+                        help="only build, then phase 55 (tensor parallel); with --cards or "
+                             "--cards-on-cpu, their tensor-parallel meshes alone; prints no "
+                             "result")
+    parser.add_argument("--tp-ranks", metavar="DxM", help=argparse.SUPPRESS)
+    parser.add_argument("--tp-device", default="cuda", help=argparse.SUPPRESS)
+    parser.add_argument("--tp-out", help=argparse.SUPPRESS)
     opts = parser.parse_args()
+    if opts.tp_ranks:  # one rank of phase_cards_tp, under torchrun
+        tp_ranks_main(tuple(int(v) for v in opts.tp_ranks.split("x")), opts.tp_device,
+                      opts.tp_out)
+        return
+    cards = phase_cards_tp if opts.tp_only else phase_cards
     if opts.cards_on_cpu:
         with tempfile.TemporaryDirectory() as tmp:
-            phase_cards(Path(tmp), opts.cards_on_cpu, "cpu")
+            cards(Path(tmp), opts.cards_on_cpu, "cpu")
         return
     smi = phase_device()
     phase_build()
     if opts.cards:
         with tempfile.TemporaryDirectory() as tmp:
-            phase_cards(Path(tmp), opts.cards)
+            cards(Path(tmp), opts.cards)
         print(smi)
         return
     if opts.mesh_only:
         phases_mesh()
+        print(smi)
+        return
+    if opts.tp_only:
+        phase_tensor_parallel()
         print(smi)
         return
     if opts.resnet_ath_only:
@@ -7645,6 +8044,7 @@ def main():
     shards = phase_shards()
     with tempfile.TemporaryDirectory() as tmp:
         host = phase_host(Path(tmp))
+    tp = phase_tensor_parallel()
     by_path = {key: {"densenet121": d_launches[key], "convnextv2": c_launches[key],
                      "densenet121_mesh": mesh_a["launches"][key],
                      "densenet121_saliency_mesh": sal["mesh"]["launches"][key],
@@ -7667,7 +8067,8 @@ def main():
                      **{path: v[key] for path, v in resnet["launches"].items()},
                      **{path: v[key] for path, v in ath["launches"].items()},
                      **{path: v[key] for path, v in analysis["launches"].items()},
-                     "chestmir_ingest": chest["ingest"]["launches"][key]}
+                     "chestmir_ingest": chest["ingest"]["launches"][key],
+                     "dinov2_tensor_parallel": tp["path_launches"][key]}
                for key in WRAPPERS}
     slice_errs = [slice_err, c_slice_err, nih["hits_err"], distill["hits_err"], resnet["err"],
                   analysis["err"]] + [
@@ -7785,6 +8186,7 @@ def main():
     by_name["ln_qkv_fused"]["siglip_last_tile_and_head_edges"] = clip_errs[
         "K7 last tile and head edges"]
     by_name["convnext_block_fused"]["embedding_max_abs_err_vs_plain_tail"] = emb_err
+    by_name["ln_dense_fused"]["tp_qkv_piece"] = tp["k8_qkv_piece"]
     by_name["convnext_mlp_grn_fused"]["main_path"] = (
         "none: the JAX package reaches it only from its tests")
     print(smi)
@@ -7835,6 +8237,8 @@ def main():
                                "train_dinov2": t_slice["mesh"], "train_cache": mesh_cache,
                                "saliency": {k: v for k, v in sal["mesh"].items()
                                             if k != "launches"}, "host": host},
+                      "tensor_parallel": {k: v for k, v in tp.items()
+                                          if k != "path_launches"},
                       "chestmir": {"detector": chest["detector"],
                                    "ingest": {k: v for k, v in chest["ingest"].items()
                                               if k != "launches"},

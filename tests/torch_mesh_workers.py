@@ -246,3 +246,126 @@ def cli_worker(rank, world, root, common, saliency):
             complete = os.path.exists(os.path.join(cache, "meta.json"))
     return {"info": idx.info(), "hits": hits, "metrics": metrics, "insdel": insdel,
             "cache_complete_after_epoch_1": complete}
+
+
+class TwoDense(torch.nn.Module):
+    """The JAX TP test's model (tests/test_train.py ``TestTensorParallel``):
+    Dense(512) -> ReLU -> Dense(512), torch's layout."""
+
+    def __init__(self, d_in: int = 64, width: int = 512):
+        super().__init__()
+        self.wide1 = torch.nn.Linear(d_in, width)
+        self.wide2 = torch.nn.Linear(width, width)
+
+    def forward(self, x):
+        return {"out": self.wide2(torch.relu(self.wide1(x)))}
+
+
+class Narrowing(torch.nn.Module):
+    """Convolutions that narrow (the rule splits them by their input
+    channels, as it splits DenseNet121's transitions) and a head that widens
+    (split by its outputs): 3 -> 32 (3x3, stride 2) -> 16 (1x1) -> 8 (3x3,
+    padding 1), ReLUs, GAP -> Linear(8, 32)."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv0 = torch.nn.Conv2d(3, 32, 3, stride=2)
+        self.conv1 = torch.nn.Conv2d(32, 16, 1)
+        self.conv2 = torch.nn.Conv2d(16, 8, 3, padding=1)
+        self.fc = torch.nn.Linear(8, 32)
+
+    def forward(self, x):
+        h = x.permute(0, 3, 1, 2)
+        for conv in (self.conv0, self.conv1, self.conv2):
+            h = torch.relu(conv(h))
+        return {"embedding": self.fc(h.mean(dim=(2, 3)))}
+
+
+def tp_model(kind, kwargs):
+    """(module, the output key) of a TP case's model."""
+    from xmir_tpu_torch.models import vit
+    from xmir_tpu_torch.models.embedders import TinyEmbedder
+
+    if kind == "vit":
+        return vit.ViTBackbone(**kwargs), "cls"
+    if kind == "tiny":
+        return TinyEmbedder(**kwargs), "embedding"
+    if kind == "narrowing":
+        return Narrowing(**kwargs), "embedding"
+    return TwoDense(**kwargs), "out"
+
+
+def tp_piece_leaves(model):
+    """parameter name -> (leaf name, split axis, indices along the axis of
+    the whole leaf) of every piece ``tensor_parallel`` left in
+    ``model``: a split layer's weight pieces and a gathered-at-use leaf's
+    stacked pieces (the ranks' indices in rank order)."""
+    from torch.nn.utils import parametrize
+
+    from xmir_tpu_torch.parallel import tensor_parallel as tpm
+
+    leaves = {}
+    for name, module in model.named_modules():
+        prefix = f"{name}." if name else ""
+        if isinstance(module, tpm.ShardedLeaf):
+            leaves.update({f"{prefix}pieces.{r}": (module.name, module.dim, module.rows(int(r)))
+                           for r in module.pieces})
+        if parametrize.is_parametrized(module):
+            for leaf, chain in module.parametrizations.items():
+                (gathered,) = chain
+                size = chain.original.shape[gathered.dim + 1]
+                leaves[f"{prefix}parametrizations.{leaf}.original"] = (
+                    gathered.name, gathered.dim,
+                    torch.cat([torch.arange(r * size, (r + 1) * size)
+                               for r in gathered.axis.ranks]))
+    return leaves
+
+
+def tp_piece_grad(name, grad, dim):
+    """A piece's gradient laid out along ``dim`` as ``tp_piece_leaves``'s
+    indices: a gathered-at-use leaf's stacked pieces joined."""
+    return torch.cat(list(grad.unbind(0)), dim) if "parametrizations." in name else grad
+
+
+def tp_worker(rank, world, shape, cases):
+    """Each case's model split by ``tensor_parallel`` over a (data, model)
+    mesh of ``shape``: the batch split over the data axis, the output
+    gathered over it, the loss sum(out * cotangent) of the rank's rows
+    differentiated and every gradient summed over the data axis. Returns
+    the mesh's layout (coordinates, the ranks of this rank's row and
+    column) and per case the output, the replicated leaves' gradients, the
+    sharded leaves' piece gradients {name: (dim, indices along dim, grad)}
+    and the gathers at use."""
+    from xmir_tpu_torch.parallel import make_mesh, shard_batch
+    from xmir_tpu_torch.parallel import tensor_parallel as tpm
+
+    flags = ("XMIR_FLASH_ATTN", "XMIR_FUSED_LN", "XMIR_FUSED_LN_QKV", "XMIR_FUSED_LN_MLP")
+    with make_mesh("cpu", shape) as mesh:
+        me = torch.tensor([rank])
+        out = {"coords": (mesh.data_rank, mesh.model_rank),
+               "row": mesh.model_all_gather(me).flatten().tolist(),
+               "column": mesh.all_gather(me).flatten().tolist(), "cases": []}
+        for case in cases:
+            for flag in flags:
+                os.environ.pop(flag, None)
+            os.environ.update(case.get("env", {}))
+            model, key = tp_model(*case["model"])
+            model.load_state_dict(case["state_dict"])
+            tpm.tensor_parallel(model, mesh, min_dim=case.get("min_dim", 256))
+            tpm.GATHERS.clear()
+            x, _ = shard_batch(case["x"], mesh)
+            cot, _ = shard_batch(case["cotangent"], mesh)
+            y = model(x)[key]
+            (y * cot).sum().backward()
+            rec = {"out": mesh.all_gather(y.detach()).reshape((-1,) + tuple(y.shape[1:])),
+                   "gathers": dict(tpm.GATHERS), "grads": {}, "pieces": {}}
+            leaves = tp_piece_leaves(model)
+            for name, p in model.named_parameters():
+                g = mesh.all_reduce_(p.grad.clone())
+                if name in leaves:
+                    leaf, dim, rows = leaves[name]
+                    rec["pieces"][leaf] = (dim, rows, tp_piece_grad(name, g, dim))
+                else:
+                    rec["grads"][name] = g
+            out["cases"].append(rec)
+    return out

@@ -173,7 +173,7 @@ def build_train_step(model, loss_name, args, mesh=None):
 def epoch_batches(indices, batch_size: int, mesh=None):
     """The full batches of one epoch's index stream (a partial last batch
     is dropped), each cut to this rank's rows under ``mesh``."""
-    world, rank = (1, 0) if mesh is None else (mesh.world, mesh.rank)
+    world, rank = (1, 0) if mesh is None else (mesh.n_data, mesh.data_rank)
     local = batch_size // world
     return [indices[i + rank * local:i + (rank + 1) * local]
             for i in range(0, len(indices) - batch_size + 1, batch_size)]
@@ -262,7 +262,7 @@ def _train(args, loss_name, device, mesh):
     step = build_train_step(model, loss_name, args, mesh)
 
     batch_size = args.batch_size or args.labels_per_batch * args.samples_per_label
-    world = 1 if mesh is None else mesh.world
+    world = 1 if mesh is None else mesh.n_data
     if batch_size % world:
         raise ValueError(f"the batch of {batch_size} does not split over {world} ranks")
     multilabel = is_multilabel(args.dataset)
@@ -294,7 +294,7 @@ def _train(args, loss_name, device, mesh):
         print(f">> val (untrained): mAP={m['mAP']:.3f}% R@1={m['R@1']:.3f}%")
         log_record({"kind": "eval", "epoch": 0, "time": time.time(), **m})
 
-    shard = (0, 1) if mesh is None else (mesh.rank, mesh.world)
+    shard = (0, 1) if mesh is None else (mesh.data_rank, mesh.n_data)
     for epoch in range(start_epoch, args.epochs + 1):
         generator = epoch_generator(args.seed, epoch)
         if args.use_random_sampler:

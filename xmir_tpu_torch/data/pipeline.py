@@ -222,10 +222,10 @@ def _embed_sharded(dataset, embed_fn, spec, mesh, batch_size, num_workers, skip_
     from .transforms import eval_preprocess
 
     device = mesh.device
-    local = -(-batch_size // mesh.world)
-    batch_size = local * mesh.world
+    local = -(-batch_size // mesh.n_data)
+    batch_size = local * mesh.n_data
     idx = list(range(len(dataset)))
-    mine = [idx[i + mesh.rank * local:i + (mesh.rank + 1) * local]
+    mine = [idx[i + mesh.data_rank * local:i + (mesh.data_rank + 1) * local]
             for i in range(0, len(idx), batch_size)]
     embeds, labels = [], []
     for imgs, _, kept in decode_batches(dataset, mine, spec.resize_size, num_workers,
@@ -237,7 +237,7 @@ def _embed_sharded(dataset, embed_fn, spec, mesh, batch_size, num_workers, skip_
                                 spec.input_size, spec.mean, spec.std, method=spec.interpolation)
             e = embed_fn(x).float()
         meta = torch.tensor([n, 0 if e is None else e.shape[1]], device=device)
-        counts = mesh.all_gather(meta)  # (world, 2): rows and width of each rank's slice
+        counts = mesh.all_gather(meta)  # (n_data, 2): rows and width of each rank's slice
         dim = int(counts[:, 1].max())
         block = torch.zeros((local, dim), device=device)
         ids = torch.full((local,), -1, dtype=torch.int64, device=device)

@@ -86,7 +86,7 @@ def make_sharded_search_step(mesh, k: int, shard_rows: int, n_real: int, metric:
     local_search = make_local_shard_search(k, shard_rows, n_real, metric, compute_dtype)
 
     def search_fn(queries, g_shard):
-        vals, idxs = local_search(queries, g_shard, mesh.rank)
+        vals, idxs = local_search(queries, g_shard, mesh.data_rank)
         return merge_shard_candidates(mesh.all_gather(vals), mesh.all_gather(idxs), k)
 
     return search_fn
@@ -172,10 +172,10 @@ class ShardedGalleryIndex:
             host = sign_codes(host)
         self._n = host.shape[0]
         if self._mesh is not None:
-            self._shard_rows, pad = shard_layout(self._n, self._mesh.world)
+            self._shard_rows, pad = shard_layout(self._n, self._mesh.n_data)
             if pad:
                 host = torch.cat([host, host.new_zeros((pad, self.dim))])
-            lo = self._mesh.rank * self._shard_rows
+            lo = self._mesh.data_rank * self._shard_rows
             host = host[lo:lo + self._shard_rows]
         self._device_embeds = host.to(device=self.device, dtype=self.dtype).contiguous()
         return self
@@ -281,7 +281,7 @@ class ShardedGalleryIndex:
             e = self._device_embeds
             out["sharding"] = ({"devices": 1, "rows_per_shard": self._n}
                                if self._mesh is None else
-                               {"devices": self._mesh.world, "rows_per_shard": self._shard_rows})
+                               {"devices": self._mesh.n_data, "rows_per_shard": self._shard_rows})
             out["device"] = str(e.device)
             out["hbm_bytes"] = int(e.numel() * e.element_size())
         return out

@@ -80,7 +80,12 @@ class GlobalResponseNormMlp(nn.Module):
 
 
 def _conv_nhwc(x, conv: nn.Conv2d):
-    """``conv`` on NHWC x in x's dtype promoted with the weight's."""
+    """``conv`` on NHWC x in x's dtype promoted with the weight's. A layer
+    that is not an ``nn.Conv2d`` (one split over a model axis) computes
+    itself, promoting alike."""
+    if not isinstance(conv, nn.Conv2d):
+        dt = torch.promote_types(x.dtype, conv.dtype)
+        return conv(x.to(dt).permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
     dt = torch.promote_types(x.dtype, conv.weight.dtype)
     y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), conv.weight.to(dt), conv.bias.to(dt),
                  stride=conv.stride)

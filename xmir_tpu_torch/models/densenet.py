@@ -57,8 +57,8 @@ class BatchNorm2d(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, training=False, eps=BN_EPS)
         xs = x.float()
-        if self.mesh is not None and self.mesh.world > 1:
-            n = xs.shape[0] * xs.shape[2] * xs.shape[3] * self.mesh.world
+        if self.mesh is not None and self.mesh.n_data > 1:
+            n = xs.shape[0] * xs.shape[2] * xs.shape[3] * self.mesh.n_data
             sums = self.mesh.all_reduce_with_grad(
                 torch.stack([xs.sum(dim=(0, 2, 3)), (xs * xs).sum(dim=(0, 2, 3))]))
             mean = sums[0] / n

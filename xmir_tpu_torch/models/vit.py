@@ -47,7 +47,10 @@ from .convnext import LayerNorm, _conv_nhwc
 
 def _dense(x, linear: nn.Linear):
     """``linear`` on x in x's dtype promoted with the weight's (flax's
-    ``nn.Dense`` promotion)."""
+    ``nn.Dense`` promotion). A layer that is not an ``nn.Linear`` (one split
+    over a model axis) computes itself, promoting alike."""
+    if not isinstance(linear, nn.Linear):
+        return linear(x)
     dt = torch.promote_types(x.dtype, linear.weight.dtype)
     bias = None if linear.bias is None else linear.bias.to(dt)
     return F.linear(x.to(dt), linear.weight.to(dt), bias)
@@ -134,7 +137,9 @@ class ViTBlock(nn.Module):
         self.mlp = Mlp(dim, self.hidden)
         self.ls2 = LayerScale(dim) if use_layerscale else nn.Identity()
 
-    def forward(self, x, output_attentions: bool = False):
+    def fused_paths(self, x, output_attentions: bool = False):
+        """(fuse_qkv, fuse_mlp): whether the block folds norm1 into the qkv
+        projection (K7) and norm2, fc1 and the GELU into K8 on x."""
         fuse_ln = (
             not output_attentions
             and fused_ln_enabled(x.dtype, x.device)
@@ -142,8 +147,11 @@ class ViTBlock(nn.Module):
             and self.hidden % 128 == 0
             and plain_flash_enabled(x.dtype, x.shape[1], x.device)
         )
-        fuse_qkv = fuse_ln and os.environ.get("XMIR_FUSED_LN_QKV", "1") != "0"
-        fuse_mlp = fuse_ln and os.environ.get("XMIR_FUSED_LN_MLP", "0") == "1"
+        return (fuse_ln and os.environ.get("XMIR_FUSED_LN_QKV", "1") != "0",
+                fuse_ln and os.environ.get("XMIR_FUSED_LN_MLP", "0") == "1")
+
+    def forward(self, x, output_attentions: bool = False):
+        fuse_qkv, fuse_mlp = self.fused_paths(x, output_attentions)
         if fuse_qkv:
             h, attn = self.attn(x, output_attentions, ln=(self.norm1.weight, self.norm1.bias))
         else:

@@ -62,7 +62,7 @@ class MeshTrainState(TrainState):
         self._gathered = True
         for group in self.optimizer.param_groups:
             for i, p in enumerate(group["params"]):
-                if not self.fsdp or fsdp_shard_axis(p.shape, p.dtype, self.mesh.world) is None:
+                if not self.fsdp or fsdp_shard_axis(p.shape, p.dtype, self.mesh.n_data) is None:
                     self._shards.append(None)
                     continue
                 shard = _Shard(p, self._piece(p.detach()), p.shape, p.numel())
@@ -76,7 +76,7 @@ class MeshTrainState(TrainState):
     def _piece(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's piece of ``full``'s flat elements, zero-padded to
         equal pieces."""
-        world, rank = self.mesh.world, self.mesh.rank
+        world, rank = self.mesh.n_data, self.mesh.data_rank
         chunk = -(-full.numel() // world)
         flat = full.reshape(-1)
         flat = torch.cat([flat, flat.new_zeros(chunk * world - flat.numel())])

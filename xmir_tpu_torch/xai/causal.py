@@ -134,13 +134,13 @@ def causal_scores_batch_mesh(embed_fn, q_feat, starts, finishes, ranks, step: in
     in pair order. No sum crosses pairs, so each curve is the one-device
     path's. Returns (P, n_steps + 1) on every rank."""
     p_n = starts.shape[0]
-    pad = (-p_n) % mesh.world
+    pad = (-p_n) % mesh.n_data
     if pad:
         zimg = starts.new_zeros((pad,) + tuple(starts.shape[1:]))
         starts, finishes = torch.cat([starts, zimg]), torch.cat([finishes, zimg])
         ranks = torch.cat([ranks, ranks.new_zeros((pad,) + tuple(ranks.shape[1:]))])
-    rows = starts.shape[0] // mesh.world
-    mine = slice(mesh.rank * rows, (mesh.rank + 1) * rows)
+    rows = starts.shape[0] // mesh.n_data
+    mine = slice(mesh.data_rank * rows, (mesh.data_rank + 1) * rows)
     local = causal_scores_batch(embed_fn, q_feat, starts[mine], finishes[mine], ranks[mine],
                                 step, batch_steps)
     return mesh.all_gather(local.contiguous()).reshape(-1, local.shape[1])[:p_n]
@@ -151,7 +151,7 @@ def _curves(embed_fn, q_feat, starts, finishes, ranks, step: int, batch_steps: i
     """(auc, zero_count) of each pair's curve; batch_steps=0 picks
     auto_batch_steps (for the pairs of one rank, under a mesh)."""
     if not batch_steps:
-        p_eff = starts.shape[0] if mesh is None else -(-starts.shape[0] // mesh.world)
+        p_eff = starts.shape[0] if mesh is None else -(-starts.shape[0] // mesh.n_data)
         batch_steps = auto_batch_steps(starts.shape[1] * starts.shape[2], step, p_eff)
     if mesh is not None:
         scores = causal_scores_batch_mesh(embed_fn, q_feat, starts, finishes, ranks, step,

@@ -117,9 +117,9 @@ def _pad_mask_axis(masks, world: int):
 
 def _local_masks(masks, mesh, chunk: int):
     """(this rank's slice of the padded mask stack, its chunk size)."""
-    masks_p = _pad_mask_axis(masks, mesh.world)
-    rows = masks_p.shape[0] // mesh.world
-    return masks_p[mesh.rank * rows:(mesh.rank + 1) * rows], min(chunk, rows)
+    masks_p = _pad_mask_axis(masks, mesh.n_data)
+    rows = masks_p.shape[0] // mesh.n_data
+    return masks_p[mesh.data_rank * rows:(mesh.data_rank + 1) * rows], min(chunk, rows)
 
 
 def sbsm_self_saliency_mesh(embed_fn, x, masks, mesh, chunk: int = 128):
