@@ -36,7 +36,13 @@ fc1 / fc2 weight gathered whole, the ViT-B/14 rule table of chip_smoke.py
 phase 55) must refuse a row-parallel bias added on every rank, a sum whose
 backward sums again, qkv's head slots cut in the wrong rank order (rank r
 computing another rank's heads) and the rule's tie read in the torch
-layout.
+layout. The export checks (``--only export``): chip_smoke.py phase 56
+(``phase_export``, on timm-layout .pt files of random weights) must refuse
+an op's CUDA implementation that calls the kernel's plain version (K9's: no
+launch is counted), a fake implementation one row short (K2's: the trace
+refuses it), and a ``--format torch`` export of DINOv2 with the q and k rows
+of one block's ``attn.qkv.weight`` swapped (the same shapes: the reload's
+bit-equality refuses it).
 Each line prints how far the reading goes toward its bounds (above 1: past
 one of them).
 
@@ -56,12 +62,14 @@ if a real kernel is outside its bounds or a planted fault inside them.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import re
 import shutil
 import sys
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from xmir_tpu_torch.models import yolo
@@ -1094,13 +1102,92 @@ def tp_agrees(reading) -> bool:
             and not reading["gathered"] and reading["rule_ok"])
 
 
+@contextlib.contextmanager
+def op_cuda_calls_plain():
+    """xmir::convnext_tail's CUDA implementation replaced by the tail's plain
+    version: the same numbers, and no launch counted."""
+    torch.library.register_kernel("xmir::convnext_tail", "cuda", cb.block_tail_reference)
+    try:
+        yield
+    finally:
+        torch.library.register_kernel("xmir::convnext_tail", "cuda", cb.convnext_tail_op._init_fn)
+
+
+@contextlib.contextmanager
+def fake_one_row_short():
+    """xmir::vit_attention's fake implementation one query row short."""
+    op = va.vit_attention_op
+    real = op._abstract_fn
+
+    def short(q, k, v, sm_scale, want_stats):
+        return [x[:, :-1] for x in real(q, k, v, sm_scale, want_stats)]
+
+    op.register_fake(short)
+    try:
+        yield
+    finally:
+        op.register_fake(real)
+
+
+@contextlib.contextmanager
+def export_swaps_q_and_k():
+    """``export_backbone`` with the q and k rows of blocks.0.attn.qkv.weight
+    swapped."""
+    from xmir_tpu_torch.models import export as ex
+
+    real = ex.export_backbone
+
+    def swapped(name, model):
+        sd = real(name, model)
+        w = sd["blocks.0.attn.qkv.weight"]
+        c = w.shape[1]
+        sd["blocks.0.attn.qkv.weight"] = np.concatenate([w[c:2 * c], w[:c], w[2 * c:]])
+        return sd
+
+    ex.export_backbone = swapped
+    try:
+        yield
+    finally:
+        ex.export_backbone = real
+
+
+EXPORT_FAULTS = {
+    "export: xmir::convnext_tail's CUDA implementation calls the plain version":
+        ("convnextv2", op_cuda_calls_plain),
+    "export: xmir::vit_attention's fake implementation one row short":
+        ("dinov2", fake_one_row_short),
+    "export: --format torch with one block's q and k rows swapped":
+        ("dinov2", export_swaps_q_and_k),
+}
+
+
+def read_export(name, fault=contextlib.nullcontext):
+    """chip_smoke.py phase 56 on ``name`` (a timm-layout .pt of random
+    weights, 8 query PNGs): {"refused": whether a check raised, "by": the
+    check's message}."""
+    import chip_smoke as cs
+
+    writers = {"dinov2": cs.write_vit_checkpoint, "convnextv2": cs.write_timm_checkpoint}
+    with tempfile.TemporaryDirectory() as tmp:
+        queries = cs.write_synthetic_covidx(str(Path(tmp) / "q"), n=8, size=256, seed=56)
+        pt = str(Path(tmp) / f"{name}.pt")
+        writers[name](pt, seed=57)
+        try:
+            with fault():
+                cs.phase_export(Path(tmp), name, pt, queries)
+        except Exception as e:  # noqa: BLE001  (any check or the trace refusing)
+            return {"refused": True, "by": f"{type(e).__name__}: {str(e)[:400]}"}
+    return {"refused": False}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--only", nargs="+", metavar="KERNEL",
                         help="the kernels to read and plant faults in (K1 K1' K2 ... K11), "
                              "ath: the ATH train step's checks, chestmir: the YOLOv5 "
                              "detector's, mesh: the sharded search's and the "
-                             "data-parallel step's, or tp: the tensor-parallel split's")
+                             "data-parallel step's, tp: the tensor-parallel split's, or "
+                             "export: chip_smoke.py phase 56's")
     only = parser.parse_args().only
 
     def want(*kernels):
@@ -1170,6 +1257,13 @@ def main():
                True, tp_agrees)
         for fault in TP_FAULTS:
             report(f"TP: {fault}", "TP", read_tp(fault), False, tp_agrees)
+    if want("export"):
+        for name in ("dinov2", "convnextv2"):
+            report(f"phase 56 on {name} (cli.export, both formats)", "export", read_export(name),
+                   True, lambda r: not r["refused"])
+        for fault, (name, plant) in EXPORT_FAULTS.items():
+            report(fault, "export", read_export(name, plant), False,
+                   lambda r: not r["refused"])
     if want("ath"):
         report("cli.train_ath on the card against the CPU and float64 (phase 44)", "ath",
                read_ath(), True, lambda r: r["agree"])

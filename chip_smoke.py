@@ -127,7 +127,7 @@ Phases, each of which raises (exit code != 0) on any failure:
              XMIR_SWIN_KERNEL=v1: K6 in every block, K4 in none; the hits
              against the plain top-k, and the query embeddings against the
              same model with the kernels' plain versions and on the eager path
- 15. slice   cli.query --top-k 0 over a DenseNet121 gallery of 2048 rows: K1'
+ 15. slice   cli.query --top-k 0 over a DenseNet121 gallery of 1152 rows: K1'
              once, K1 never, the whole gallery ranked as a stable sort
  16. rates   K4 and K6 at the six SwinV2-Base shapes at B = 16, bf16 and f32,
              against their plain versions and one
@@ -197,8 +197,8 @@ Phases, each of which raises (exit code != 0) on any failure:
              kernels, their plain versions and on the eager path, and a
              torch.profiler breakdown of the step (K10's share)
  24. slice   main-path step 4 on DenseNet121 at full width (224 px, f32):
-             cli.test --save-dir, cli.compute_saliency --results (2 queries,
-             top 5, 2401 masks), cli.evaluate_saliency --saliency-dir (K1
+             cli.test --save-dir, cli.compute_saliency --results (1 query,
+             top 3, 2401 masks), cli.evaluate_saliency --saliency-dir (K1
              once) and inline: maps finite and nonnegative, AUCs in [0, 1],
              the saved maps' AUCs equal the inline ones; a narrow model's
              maps and AUCs on the card against the CPU; SBSM images/s and
@@ -390,7 +390,7 @@ Phases, each of which raises (exit code != 0) on any failure:
              confidence lies within 1e-5 of a gate); batch-1 latency by CUDA
              events and device_ms, run_detector's wall time on a 1024^2 film
  48. slice   cli.chestmir_ingest --model convnextv2 (f32 under
-             XMIR_FUSED_MLP=1) on 24 generated 1024^2 grayscale films with a
+             XMIR_FUSED_MLP=1) on 8 generated 1024^2 grayscale films with a
              --detector-plugin of the five folds, --raw-detector-outputs --tta
              0,4: K9 = 36 x (global + region batches), no other kernel; again
              with the tail's plain version: global and region vectors within
@@ -431,8 +431,8 @@ the card, at full width):
              byte-equal to fresh decodes), then --resume of it for epoch 2
              read from the cache: losses and tensors bit-equal to phase 19's
              two-epoch run without the cache
- 53. mesh D  (in phase 24's directory) cli.compute_saliency --use-mesh (2
-             queries, top 3, 2401 masks) -> cli.evaluate_saliency --use-mesh:
+ 53. mesh D  (in phase 24's directory) cli.compute_saliency --use-mesh (1
+             query, top 2, 2401 masks) -> cli.evaluate_saliency --use-mesh:
              maps and AUCs within 1e-6 of phase 24's, its JSON's use_mesh and
              mesh_devices, K1 once
  54. mesh E  the native NIH reader built with g++ under build/ and a batch of
@@ -455,6 +455,25 @@ the card, at full width):
              cls_token and pos_embed gathered whole; K8 against its plain
              version at the pieces' shapes (B N rows by 3C / tp and 4C / tp
              columns), timed at the qkv pieces
+ 56. export  (in the directories of phases 18, 26 and 29, after each) cli.export
+             of the phase's trained DINOv2 ViT-B/14, ConvNeXtV2-Base and
+             SwinV2-Base checkpoint: --format torch read back through
+             --resume (models/convert.py::load_torch_checkpoint) into a model
+             of torch's default init, the f32 unit embeddings of the phase's
+             validation PNGs bit-equal to the checkpoint's model; --format
+             exported at full width on the card (DINOv2 518 px under
+             XMIR_FLASH_ATTN=1 XMIR_FUSED_LN=1 with a dynamic batch run at 2
+             and 3; ConvNeXtV2 384 px under XMIR_FUSED_MLP=1; SwinV2 384 px
+             under XMIR_FUSED_ATTN=1): the graph calls xmir::ln_qkv and
+             xmir::vit_attention 12 times, xmir::convnext_tail 36,
+             xmir::biased_attention 24; tracing launches nothing; the program
+             loaded by torch.export.load launches K7 = K2 = 12, K9 = 36, K4 =
+             24 a forward, its unit embeddings within 1e-6 of the eager
+             model's on the kernels and within the slices' bounds of the
+             plain path (5e-6, 1e-4, 2e-6)
+Every phase logs its seconds ("[time] phase_...: s"), the run its total
+before the kernels line; the summary's "phase_seconds" holds the top-level
+phases'.
 ``--train-only`` builds and runs phases 17 to 23, 25 to 28, 31 to 33 and 38
 to 40 alone, ``--siglip-only`` phases 38 to 41, ``--resnet-ath-only`` phases
 42 to 46, ``--chestmir-only`` phases 47 to 49, ``--mesh-only`` phases 4, 18,
@@ -463,7 +482,9 @@ result line). ``--cards N`` (N cards of one host) runs the mesh CLIs at N
 ranks under torchrun against a world of 1 (``phase_cards``; no result line),
 and DINOv2 (bf16, f32) and DenseNet121 (f32, 224 px, B = 64) split over
 (1, N) and (N / 2, 2) meshes (``phase_cards_tp``), ``--cards-on-cpu N`` the
-same with gloo and narrow models, a rehearsal; ``--tp-only`` phase 55.
+same with gloo and narrow models, a rehearsal; ``--tp-only`` phase 55;
+``--export-only`` phase 56 on timm-layout .pt files of random weights (no
+training runs).
 The launch counts are set to 0 before each slice and read after it. Each
 kernel's bound (the least time the card could take: bytes moved once over
 3.35 TB/s, or operations over the peak of their type) is reckoned from the
@@ -477,6 +498,7 @@ import collections
 import contextlib
 import copy
 import ctypes
+import functools
 import importlib
 import io
 import json
@@ -610,6 +632,10 @@ KERNELS = {
             "source": "xmir_tpu_torch/csrc/convnext_block.cu",
             "replaces": "xmir_tpu/ops/convnext_block_pallas.py:45"},
 }
+# the forward kernels an exported program calls, as torch.library custom ops
+EXPORT_OPS = {"K2": "xmir::vit_attention", "K4": "xmir::biased_attention",
+              "K6": "xmir::window_attention", "K7": "xmir::ln_qkv", "K8": "xmir::ln_dense",
+              "K9": "xmir::convnext_tail"}
 METRICS = ("cosine", "ip", "l2", "hamming")
 TIE_GAP = 1e-5  # ids may differ only where the exact ranking's gap is below this
 # the H100's published peaks (SXM, dense): operations per second by operand
@@ -917,11 +943,17 @@ def read_launches():
     return {key: wrapper.launches for key, wrapper in WRAPPERS.items()}
 
 
+# the DenseNet121 slice's gallery and query images
+SLICE_ROWS = (128, 32)
+
+
 def phase_slice(workdir: Path):
     t0 = time.perf_counter()
-    img_dir, g_manifest = write_synthetic_covidx(str(workdir / "gallery"), n=256, size=256, seed=0)
-    q_dir, q_manifest = write_synthetic_covidx(str(workdir / "queries"), n=64, size=256, seed=1)
-    log(f"[slice] wrote 256 gallery + 64 query PNGs (256 px) in {time.perf_counter() - t0:.1f} s")
+    n_g, n_q = SLICE_ROWS
+    img_dir, g_manifest = write_synthetic_covidx(str(workdir / "gallery"), n=n_g, size=256, seed=0)
+    q_dir, q_manifest = write_synthetic_covidx(str(workdir / "queries"), n=n_q, size=256, seed=1)
+    log(f"[slice] wrote {n_g} gallery + {n_q} query PNGs (256 px) in "
+        f"{time.perf_counter() - t0:.1f} s")
     gal, hits_path = str(workdir / "gallery.npz"), str(workdir / "hits.json")
     model_args = ["--model", "densenet121", "--device", "cuda", "--seed", "0",
                   "--batch-size", "64", "-j", "8"]
@@ -940,7 +972,7 @@ def phase_slice(workdir: Path):
     check(all(n == 0 for key, n in launches.items() if key != "K1"),
           f"DenseNet121 launched another model's kernel: {launches}")
     log(f"[slice] DenseNet121: launches {launches}")
-    err = check_hits(calls, results, 256, 64, 1024)
+    err = check_hits(calls, results, n_g, n_q, 1024)
     mesh = phase_mesh_slice(workdir, (img_dir, g_manifest), (q_dir, q_manifest), model_args,
                             gal, results)
     return launches, err, mesh
@@ -1176,7 +1208,7 @@ CONVNEXT_EMBED_TOL = 1e-4  # K9 vs the tail's plain version, f32, unit embedding
 
 def phase_slice_convnext(workdir: Path):
     t0 = time.perf_counter()
-    n_g, n_q, batch = 128, 32, 32
+    n_g, n_q, batch = 64, 32, 32
     img_dir, g_manifest = write_synthetic_covidx(str(workdir / "c_gallery"), n=n_g, size=256,
                                                  seed=2)
     q_dir, q_manifest = write_synthetic_covidx(str(workdir / "c_queries"), n=n_q, size=256,
@@ -1227,9 +1259,10 @@ def phase_slice_convnext(workdir: Path):
     return launches, err, emb_err
 
 
-def _in_turns(fns, rounds=3, reps=3):
+def _in_turns(fns, rounds=3, reps=2):
     """Median ms of each of fns {name: fn}, timed with CUDA events in turns:
-    the order reverses every round (a, b, b, a, ...)."""
+    the order reverses every round (a, b, b, a, ...); a round times ``reps``
+    calls of each."""
     names, times = list(fns), {name: [] for name in fns}
     for fn in fns.values():
         fn()
@@ -1570,7 +1603,7 @@ FUSED_VIT = {"XMIR_FLASH_ATTN": "1", "XMIR_FUSED_LN": "1", "XMIR_FUSED_LN_QKV": 
 
 def phase_slice_dinov2(workdir: Path):
     t0 = time.perf_counter()
-    n_g, n_q, batch = 32, 16, 16
+    n_g, n_q, batch = 16, 16, 16
     img_dir, g_manifest = write_synthetic_covidx(str(workdir / "v_gallery"), n=n_g, size=256,
                                                  seed=4)
     q_dir, q_manifest = write_synthetic_covidx(str(workdir / "v_queries"), n=n_q, size=256,
@@ -2204,7 +2237,7 @@ SWIN_EMBED_TOL = {"plain versions": 2e-6, "eager": 2e-6}
 
 def phase_slice_swinv2(workdir: Path):
     t0 = time.perf_counter()
-    n_g, n_q, batch = 32, 16, 16
+    n_g, n_q, batch = 16, 16, 16
     img_dir, g_manifest = write_synthetic_covidx(str(workdir / "s_gallery"), n=n_g, size=256,
                                                  seed=6)
     q_dir, q_manifest = write_synthetic_covidx(str(workdir / "s_queries"), n=n_q, size=256,
@@ -2322,7 +2355,7 @@ def check_evaluation(save_dir, metrics, n, dim=1024):
 def phase_slice_full_ranking(workdir: Path):
     """--top-k 0 over a gallery above 1024 rows: the select kernel's path."""
     t0 = time.perf_counter()
-    n_g, n_q = 2048, 16
+    n_g, n_q = 1152, 16
     img_dir, g_manifest = write_synthetic_covidx(str(workdir / "r_gallery"), n=n_g, size=64,
                                                  seed=8)
     q_dir, q_manifest = write_synthetic_covidx(str(workdir / "r_queries"), n=n_q, size=64, seed=9)
@@ -2961,7 +2994,7 @@ def phase_train_dinov2(workdir: Path):
             f"({steps[0]} train steps + {eval_batches} evaluation batches) forwards, x "
             f"{steps[0]} backwards); losses {[round(v, 4) for _, _, v in losses]}; {wall:.1f} s "
             "wall")
-        out["launches"] = launches
+        out["launches"], out["ckpt"], out["queries"] = launches, ckpt, data[2:]
         trained = load_checkpoint(ckpt)
         still = [key for key, v in trained.items() if torch.equal(v, start[key])]
         check(not still, f"parameters that did not move: {still}")
@@ -2982,7 +3015,7 @@ def phase_train_dinov2(workdir: Path):
             f"backbone's {sum(key.startswith('backbone.') for key in frozen)} tensors did not "
             f"and the head's did (the backward stops at the head: launches {frozen_launches})")
         check_resume(make_trainer(workdir, "dinov2", data, "-p", str(p), "--bf16"), steps,
-                     "cli.train dinov2 --bf16", "--resume", pt)
+                     "cli.train dinov2 --bf16", "--resume", pt, first_run=(losses, ckpt))
         out["mesh"] = mesh_train_dinov2(workdir, run, pt, start, losses, ckpt, launches, steps)
         reading = f32_kernels_against_plain(run, pt, start, steps[0])
     check(reading["mean_apart_of_mean_moved"] <= TRAIN_F32_MEAN_TOL,
@@ -3141,7 +3174,7 @@ def phase_train_rates():
             torch.cuda.synchronize()
             peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
         ms, runs = _in_turns({**paths, "forward": forward_only,
-                              "forward + backward": forward_backward}, rounds=3, reps=2)
+                              "forward + backward": forward_backward}, rounds=3, reps=1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
@@ -3440,7 +3473,7 @@ def phase_train_convnext(workdir: Path):
         log(f"[slice] cli.train convnextv2 --bf16: launches {launches} ({FUSED_TRAIN_BLOCKS} fused "
             f"blocks x {steps[0]} steps, forward and backward); losses "
             f"{[round(v, 4) for _, _, v in losses]}; {wall:.1f} s wall")
-        out["launches"] = launches
+        out["launches"], out["ckpt"], out["queries"] = launches, ckpt, data[2:]
         trained = load_checkpoint(ckpt)
         still = [key for key, v in trained.items() if torch.equal(v, start[key])]
         check(not still, f"parameters that did not move: {still}")
@@ -3462,7 +3495,7 @@ def phase_train_convnext(workdir: Path):
             f"backbone's {sum(key.startswith('convnext.') for key in frozen)} tensors did not and "
             f"the head's did (launches {frozen_launches})")
         check_resume(make_trainer(workdir, "convnextv2", data, "-p", str(p), "--bf16"), steps,
-                     "cli.train convnextv2 --bf16", "--resume", pt)
+                     "cli.train convnextv2 --bf16", "--resume", pt, first_run=(losses, ckpt))
         for model in ("convnextv2_sra", "convnextv2_pcam"):
             reset_launches()
             losses, _ = make_trainer(workdir, model, data, "-p", str(p))(
@@ -3547,7 +3580,7 @@ def phase_convnext_train_rates():
             torch.cuda.synchronize()
             peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
         ms, runs = _in_turns({**paths, "forward": forward_only,
-                              "forward + backward": forward_backward}, rounds=3, reps=2)
+                              "forward + backward": forward_backward}, rounds=3, reps=1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
@@ -3640,9 +3673,10 @@ def write_whitened_densenet(path, img_dir, manifest, dim=32):
 def phase_saliency(workdir: Path):
     """Main-path step 4 on DenseNet121 at full width (224 px, f32; a head
     that whitens the gallery's features, ``write_whitened_densenet``):
-    cli.test --save-dir, cli.compute_saliency --results on 2 queries (top 5,
+    cli.test --save-dir, cli.compute_saliency --results on 1 query (top 3,
     window 24, stride 5: 2401 masks), cli.evaluate_saliency --saliency-dir
-    and the same inline; then the rates of SBSM and of the curves."""
+    and the same inline; then the rates of SBSM and of the curves (one
+    query's top 5)."""
     from xmir_tpu_torch.cli import compute_saliency, evaluate_saliency
     from xmir_tpu_torch.xai import (
         blur_substrate,
@@ -3652,7 +3686,7 @@ def phase_saliency(workdir: Path):
         zeros_substrate,
     )
 
-    n, n_q, top_k = 64, 2, 5
+    n, n_q, top_k, rate_k = 64, 1, 3, 5
     img_dir, manifest = write_synthetic_covidx(str(workdir / "sal"), n=n, size=256, seed=16)
     pt = str(workdir / "densenet121_whitened.pt")
     write_whitened_densenet(pt, img_dir, manifest)
@@ -3692,7 +3726,7 @@ def phase_saliency(workdir: Path):
         check(all(0.0 <= a <= 1.0 for a in got), f"AUCs outside [0, 1]: {got}")
         check(np.allclose(got, s["per_pair_del"] + s["per_pair_ins"], atol=1e-6, rtol=0),
               f"the saved maps' AUCs {got} differ from the inline maps' {s}")
-    mesh = mesh_saliency(workdir, common, xai, maps, saved_out)
+    mesh = mesh_saliency(workdir, common, xai, maps, saved_out, n_q, top_k)
     log(f"[slice] saliency DenseNet121 @224 f32: {len(saved)} SBSM maps ({n_q} queries x top "
         f"{top_k}, 2401 masks) in {sbsm_wall:.1f} s wall through cli.compute_saliency; "
         f"cli.evaluate_saliency launches {launches}; mean deletion AUC "
@@ -3713,7 +3747,7 @@ def phase_saliency(workdir: Path):
     model, spec = create_model("densenet121", generator=torch.Generator().manual_seed(0))
     embed = make_embed_fn(model.to("cuda", memory_format=torch.channels_last).eval())
     gen = torch.Generator().manual_seed(31)
-    q, r = (torch.randn((k, 224, 224, 3), generator=gen).cuda() for k in (1, top_k))
+    q, r = (torch.randn((k, 224, 224, 3), generator=gen).cuda() for k in (1, rate_k))
     masks = torch.from_numpy(generate_masks(224, 24, 5)).cuda()
     sal = sbsm_pair_saliency(embed, q, r, masks)
     blur = blur_substrate()
@@ -3732,11 +3766,11 @@ def phase_saliency(workdir: Path):
     curves()
     torch.cuda.synchronize()
     curves_s = time.perf_counter() - t0
-    rates = {"sbsm_img_per_s": top_k * masks.shape[0] / sbsm_s,
-             "insdel_pair_evals_per_s": top_k / curves_s, "sbsm_s": sbsm_s, "curves_s": curves_s}
-    log(f"[rates] SBSM DenseNet121 @224 f32: {top_k} x {masks.shape[0]} masked images in "
+    rates = {"sbsm_img_per_s": rate_k * masks.shape[0] / sbsm_s,
+             "insdel_pair_evals_per_s": rate_k / curves_s, "sbsm_s": sbsm_s, "curves_s": curves_s}
+    log(f"[rates] SBSM DenseNet121 @224 f32: {rate_k} x {masks.shape[0]} masked images in "
         f"{sbsm_s:.2f} s = {rates['sbsm_img_per_s']:.0f} images/s; insertion + deletion of "
-        f"{top_k} pairs (52 reveal slots each, both curves) in {curves_s:.3f} s = "
+        f"{rate_k} pairs (52 reveal slots each, both curves) in {curves_s:.3f} s = "
         f"{rates['insdel_pair_evals_per_s']:.1f} pair-evals/s (wall, one query)")
     return {"launches": launches, "rates": rates, "mesh": mesh,
             "card_vs_cpu": {"maps": map_err, "aucs": auc_err},
@@ -3970,7 +4004,7 @@ def phase_train_swinv2(workdir: Path):
         log(f"[slice] cli.train swinv2 --bf16: launches {launches} ({SWIN_DEPTH} blocks x "
             f"{steps[0]} steps, forward and backward; the f32 evaluation eager); losses "
             f"{[round(v, 4) for _, _, v in losses]}; {wall:.1f} s wall")
-        out["launches"] = launches
+        out["launches"], out["ckpt"], out["queries"] = launches, ckpt, data[2:]
         trained = load_checkpoint(ckpt)
         still = [key for key, v in trained.items() if torch.equal(v, start[key])]
         check(not still, f"parameters that did not move: {still}")
@@ -4001,7 +4035,7 @@ def phase_train_swinv2(workdir: Path):
             f"backbone's {sum(key.startswith('backbone.') for key in frozen)} tensors did not and "
             f"the head's did (launches {frozen_launches})")
         check_resume(make_trainer(workdir, "swinv2", data, "-p", str(p), "--bf16"), steps,
-                     "cli.train swinv2 --bf16", "--resume", pt)
+                     "cli.train swinv2 --bf16", "--resume", pt, first_run=(losses, ckpt))
     # f32 under XMIR_FUSED_ATTN=1: every block takes K4 + K5 in f32
     with env_flags(XMIR_FUSED_ATTN="1", XMIR_SWIN_KERNEL=None):
         reset_launches()
@@ -4079,7 +4113,7 @@ def phase_swin_train_rates():
             torch.cuda.synchronize()
             peak[name] = torch.cuda.max_memory_allocated() / 2 ** 30
         ms, runs = _in_turns({**paths, "forward": forward_only,
-                              "forward + backward": forward_backward}, rounds=3, reps=2)
+                              "forward + backward": forward_backward}, rounds=3, reps=1)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(3):
@@ -4665,7 +4699,7 @@ def step_reading(label, fns, batch):
     step()
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    ms, runs = _in_turns(fns, rounds=3, reps=2)
+    ms, runs = _in_turns(fns, rounds=3, reps=1)
     try:
         dev = device_ms(step, reps=2)
     except SpinTooShort as e:
@@ -4923,7 +4957,7 @@ def phase_slice_clip(workdir: Path):
     FUSED_VIT, with XMIR_FUSED_LN_QKV72 unset (K2 alone) and set to 1 (K7 +
     K2); then K1 bit-equal at D = 512 and 1152 on integer inputs."""
     t0 = time.perf_counter()
-    n_g, n_q, batch = 32, 16, 16
+    n_g, n_q, batch = 16, 16, 16
     img_dir, g_manifest = write_synthetic_covidx(str(workdir / "c_gallery"), n=n_g, size=256,
                                                  seed=14)
     q_dir, q_manifest = write_synthetic_covidx(str(workdir / "c_queries"), n=n_q, size=256,
@@ -5406,6 +5440,46 @@ MEDSIGLIP_TRAIN_FLAGS = dict(XMIR_FLASH_ATTN="1", XMIR_FUSED_LN=None, XMIR_FUSED
 # other orders (PERF.md §6)
 SIGLIP_TRAIN_LOSS_RTOL = 1e-4
 MEDSIGLIP_UNFREEZE = 2  # the CLI's --unfreeze-layers default: K3 in 2 layers a tower
+
+
+# the largest model registry_draws_cached keeps a draw of: the SigLIP family's
+# towers (400M and up) are shared by registry_models_drawn_once instead
+DRAW_CACHE_PARAMS = 2 * 10 ** 8
+
+
+@contextlib.contextmanager
+def registry_draws_cached(keep=4):
+    """``registry.create_model`` with a seeded generator draws its weights on
+    the host once per (name, arguments, seed): later calls get a deep copy of
+    the first draw, the same weights bit for bit, in a model of their own
+    (which they may train), for ~0.1 s where a full-width draw takes ~1.5 s.
+    The ``keep`` most recent draws are held on the host."""
+    from xmir_tpu_torch.models import registry
+
+    real, drawn = registry.create_model, collections.OrderedDict()
+
+    def create(name, **overrides):
+        gen = overrides.get("generator")
+        if gen is None:
+            return real(name, **overrides)
+        key = (name, tuple(sorted((k, v) for k, v in overrides.items() if k != "generator")),
+               gen.initial_seed())
+        if key in drawn:
+            drawn.move_to_end(key)
+            model, spec = drawn[key]
+            return copy.deepcopy(model), spec
+        model, spec = real(name, **overrides)
+        if sum(p.numel() for p in model.parameters()) <= DRAW_CACHE_PARAMS:
+            drawn[key] = (copy.deepcopy(model), spec)
+            while len(drawn) > keep:
+                drawn.popitem(last=False)
+        return model, spec
+
+    registry.create_model = create
+    try:
+        yield
+    finally:
+        registry.create_model = real
 
 
 @contextlib.contextmanager
@@ -6524,7 +6598,7 @@ YOLO_TARGET_ROWS = 40
 # spreads them as a trained head's are
 YOLO_HEAD_GAIN = 32.0
 YOLO_FOLD_NOISE = 0.02  # each fold: the base's conv weights x (1 + 0.02 N(0, 1))
-CHEST_N, CHEST_SIZE, CHEST_BATCH = 24, 1024, 16  # the ingest's gallery: 1024^2 grayscale films
+CHEST_N, CHEST_SIZE, CHEST_BATCH = 8, 1024, 16  # the ingest's gallery: 1024^2 grayscale films
 CHEST_SCORE = 0.01  # --score-thres: a random fold's boxes fuse below the default 0.1
 CHEST_TTA = "0,4"
 
@@ -7037,10 +7111,10 @@ def phase_mesh_slice(workdir: Path, gallery, queries, model_args, gal, results):
                       "--output", str(workdir / "hits_mesh.json"), "--use-mesh"] + model_args)
     launches = read_launches()
     want = dict.fromkeys(WRAPPERS, 0)
-    want["K1"] = 1  # one search of the 64 queries, one shard
+    want["K1"] = 1  # one search of the queries, one shard
     check(not any(ingest_launches.values()) and launches == want,
           f"mesh A: launches {launches} (ingest {ingest_launches}), expected {want}")
-    check(idx.info()["sharding"] == {"devices": 1, "rows_per_shard": 256},
+    check(idx.info()["sharding"] == {"devices": 1, "rows_per_shard": SLICE_ROWS[0]},
           f"mesh A: info {idx.info()}")
     a, b = np.load(gal), np.load(mesh_gal)
     check(np.array_equal(a["embeds"], b["embeds"]) and np.array_equal(a["labels"], b["labels"])
@@ -7260,24 +7334,26 @@ def mesh_train_cache(workdir: Path, run, data, steps):
     return {"cache_rows": len(dataset), "size": size, "bit_equal": True}
 
 
-def mesh_saliency(workdir: Path, common_args, xai, maps, saved_out):
+def mesh_saliency(workdir: Path, common_args, xai, maps, saved_out, n_q, top_k):
     """Mesh D (phase 53): compute_saliency / evaluate_saliency --use-mesh
-    against phase 24's runs without it."""
+    against phase 24's runs without it (phase 24's n_q queries, of whose top
+    top_k the maps of the first top_k - 1 are made again)."""
     from xmir_tpu_torch.cli import compute_saliency, evaluate_saliency
 
     mesh_maps = workdir / "sal_maps_mesh"
-    top3 = xai[:xai.index("--top-k")] + ["--top-k", "3", "--limit", "2"]
+    fewer = xai[:xai.index("--top-k")] + ["--top-k", str(top_k - 1), "--limit", str(n_q)]
     t0 = time.perf_counter()
-    compute_saliency.main(common_args + top3 + [
+    compute_saliency.main(common_args + fewer + [
         "--results", str(workdir / "sal_res" / "evaluation_results.npz"),
         "--save-dir", str(mesh_maps), "--use-mesh"])
     sbsm_wall = time.perf_counter() - t0
     saved = sorted(mesh_maps.iterdir())
-    check(len(saved) == 6, f"mesh D: {len(saved)} maps for 2 queries x top 3")
+    check(len(saved) == n_q * (top_k - 1),
+          f"mesh D: {len(saved)} maps for {n_q} queries x top {top_k - 1}")
     map_err = max(float(np.abs(np.load(p) - np.load(maps / p.name)).max()) for p in saved)
     check(map_err <= 1e-6, f"mesh D: maps {map_err} apart from phase 24's")
     reset_launches()
-    ins = ["--step", "1000", "--top-k", "5", "--limit", "2"]
+    ins = ["--step", "1000", "--top-k", str(top_k), "--limit", str(n_q)]
     got = evaluate_saliency.main(common_args + ins + ["--saliency-dir", str(maps), "--output",
                                                       str(workdir / "insdel_mesh.json"),
                                                       "--use-mesh"])
@@ -7289,7 +7365,7 @@ def mesh_saliency(workdir: Path, common_args, xai, maps, saved_out):
     summary = got["summary"]
     check(auc_err <= 1e-6 and summary["use_mesh"] is True and summary["mesh_devices"] == 1,
           f"mesh D: AUCs {auc_err} apart, summary {summary['use_mesh'], summary['mesh_devices']}")
-    log(f"[mesh D] cli.compute_saliency --use-mesh (2 queries x top 3, 2401 masks, "
+    log(f"[mesh D] cli.compute_saliency --use-mesh ({n_q} queries x top {top_k - 1}, 2401 masks, "
         f"{sbsm_wall:.1f} s) maps within {map_err:.3g} of phase 24's; cli.evaluate_saliency "
         f"--use-mesh AUCs within {auc_err:.3g}, use_mesh {summary['use_mesh']}, mesh_devices "
         f"{summary['mesh_devices']}, launches {launches}")
@@ -7878,6 +7954,190 @@ def phase_cards(workdir: Path, n: int, device: str = "cuda"):
     return out
 
 
+# ------------------------------------------------------------------ export
+# phase 56: cli.export on trained checkpoints of phases 18, 26 and 29. Per
+# model: the f32 switches that route the full-width forward to its kernels,
+# the xmir:: ops (and the counters they move) one forward calls, the input
+# size, the bound of the kernels' plain path (the slices' own), and whether
+# the program's batch is dynamic (run at two sizes).
+EXPORT_CELLS = {
+    "dinov2": dict(flags=dict(XMIR_FLASH_ATTN="1", XMIR_FUSED_LN="1", XMIR_FUSED_LN_QKV=None,
+                              XMIR_FUSED_LN_MLP=None),
+                   ops={"ln_qkv": VIT["depth"], "vit_attention": VIT["depth"]},
+                   launches={"K7": VIT["depth"], "K2": VIT["depth"]}, size=518,
+                   plain=vit_plain_versions, plain_tol=VIT_EMBED_TOL["plain versions"],
+                   dynamic=True),
+    "convnextv2": dict(flags=dict(XMIR_FUSED_MLP="1"), ops={"convnext_tail": DEPTH},
+                       launches={"K9": DEPTH}, size=384, plain=convnext_plain_versions,
+                       plain_tol=CONVNEXT_EMBED_TOL, dynamic=False),
+    "swinv2": dict(flags=dict(XMIR_FUSED_ATTN="1", XMIR_SWIN_KERNEL=None),
+                   ops={"biased_attention": SWIN_DEPTH}, launches={"K4": SWIN_DEPTH}, size=384,
+                   plain=swin_plain_versions, plain_tol=SWIN_EMBED_TOL["plain versions"],
+                   dynamic=False),
+}
+# the loaded program's f32 unit embeddings against the eager module's on the
+# same kernels: the same launches in the same order, so 0 is expected; 1e-6
+# bounds an op that a trace had reordered or decomposed
+EXPORT_EAGER_TOL = 1e-6
+EXPORT_BATCHES = (2, 3)  # a dynamic program runs at both, a static one at the first
+
+
+def export_model(name, args):
+    """The CLIs' model for ``args`` (``common.build_model``: its seeded draw,
+    then --resume), in eval mode on the card."""
+    p = argparse.ArgumentParser()
+    common.add_dataset_args(p)
+    common.add_model_args(p)
+    return common.build_model(p.parse_known_args(["--model", name, *args])[0],
+                              torch.device("cuda"))
+
+
+def phase_export(workdir: Path, name: str, ckpt: str, queries):
+    """Phase 56 for one model: (a) ``cli.export --format torch`` of ``ckpt``
+    (a checkpoint of cli.train, or a timm-layout .pt), read back through
+    --resume into a model of other weights: its f32 unit embeddings of the
+    query images ``queries`` (dir, manifest) bit-equal to the checkpoint's
+    model; (b) ``cli.export --format exported`` of it at full width on the
+    card under EXPORT_CELLS' switches: the graph names the ops at their
+    counts, tracing launches nothing, the loaded program launches the
+    kernels by the same counts, its embeddings lie within EXPORT_EAGER_TOL of
+    the eager model's on the kernels and within the slice's bound of the
+    plain path; a dynamic program runs at two batch sizes."""
+    from xmir_tpu_torch.cli import export as export_cli
+    from xmir_tpu_torch.models.export import xmir_op_counts
+
+    t0 = time.perf_counter()
+    cell = EXPORT_CELLS[name]
+    out = {"model": name}
+    q_args = ["--dataset", "covid", "--dataset-dir", queries[0], "--test-image-list",
+              queries[1]]
+    exported = str(workdir / f"{name}_export.pt")
+    with registry_models_drawn_once():
+        export_cli.main(["--model", name, "--resume", ckpt, "--format", "torch",
+                         "--output", exported, "--device", "cuda"])
+        model, spec = export_model(name, ["--resume", ckpt, *q_args])
+        # torch's default init (other weights than the checkpoint's, and no
+        # seeded draw on the host), then the --resume path
+        fresh = load_torch_checkpoint(create_model(name)[0], exported)
+        fresh = fresh.to(device="cuda", memory_format=torch.channels_last).eval()
+        p = argparse.ArgumentParser()
+        common.add_dataset_args(p)
+        args = p.parse_known_args(q_args)[0]
+        embeds = [embed_dataset(common.build_dataset(args, "test"), make_embed_fn(m), spec,
+                                device="cuda", batch_size=8, num_workers=8)[0]
+                  for m in (model, fresh)]
+        n_tensors = len(torch.load(exported, mmap=True))
+        check(torch.equal(*embeds), f"export {name}: the reloaded export's embeddings differ from "
+                                    f"the trained model's by "
+                                    f"{(embeds[0] - embeds[1]).abs().max().item()}")
+        log(f"[export] {name} --format torch: {n_tensors} tensors; reloaded through --resume into "
+            f"a model of other weights, the {embeds[0].shape[0]} query embeddings (f32) equal the "
+            "trained model's bit for bit")
+        out["reload_bit_equal"], out["torch_tensors"] = True, n_tensors
+        out["torch_seconds"] = time.perf_counter() - t0
+        program = str(workdir / f"{name}.pt2")
+        with env_flags(**cell["flags"]):
+            reset_launches()
+            export_cli.main(["--model", name, "--resume", ckpt, "--format", "exported",
+                             "--batch", "0" if cell["dynamic"] else str(EXPORT_BATCHES[0]),
+                             "--output", program, "--device", "cuda"])
+            traced = read_launches()
+            check(not any(traced.values()), f"export {name}: tracing launched {traced}")
+            ep = torch.export.load(program)
+            ops = xmir_op_counts(ep)
+            check(ops == cell["ops"], f"export {name}: the program's ops {ops}, expected "
+                                      f"{cell['ops']}")
+            loaded = ep.module()
+            gen = torch.Generator(device="cuda").manual_seed(56)
+            runs = []
+            for b in EXPORT_BATCHES[:2 if cell["dynamic"] else 1]:
+                x = torch.randn((b, cell["size"], cell["size"], 3), generator=gen, device="cuda")
+                with torch.no_grad():
+                    reset_launches()
+                    got = loaded(x)
+                    launches = read_launches()
+                    want = dict.fromkeys(WRAPPERS, 0)
+                    want.update(cell["launches"])
+                    check(launches == want, f"export {name} at B={b}: the loaded program "
+                                            f"launched {launches}, expected {want}")
+                    eager = model(x)["embedding"]
+                    with cell["plain"]():
+                        reset_launches()
+                        plain = model(x)["embedding"]
+                        check(not any(read_launches().values()),
+                              "the plain versions launched a kernel")
+                errs = {"eager": (got - eager).abs().max().item(),
+                        "plain": (got - plain).abs().max().item()}
+                check(got.shape == (b, spec.embed_dim) and torch.isfinite(got).all(),
+                      f"export {name}: embeddings {tuple(got.shape)}")
+                check(errs["eager"] <= EXPORT_EAGER_TOL and errs["plain"] <= cell["plain_tol"],
+                      f"export {name} at B={b}: {errs} against the bounds {EXPORT_EAGER_TOL} "
+                      f"(eager, the kernels) and {cell['plain_tol']} (the plain path)")
+                runs.append({"batch": b, "launches": {k: v for k, v in launches.items() if v},
+                             "max_abs_err_vs_eager": errs["eager"],
+                             "max_abs_err_vs_plain": errs["plain"]})
+    out["exported_seconds"] = time.perf_counter() - t0 - out["torch_seconds"]
+    log(f"[export] {name} --format exported ({'dynamic' if cell['dynamic'] else 'static'} "
+        f"batch, {cell['size']} px, f32 under {cell['flags']}): the graph calls {ops}; tracing "
+        f"launched nothing; the loaded program {runs} (bounds {EXPORT_EAGER_TOL} against the "
+        f"eager kernels, {cell['plain_tol']} against the plain path)")
+    out.update(ops=ops, runs=runs, launches=sum_launches(r["launches"] for r in runs),
+               seconds=time.perf_counter() - t0)
+    log(f"[export] {name}: {out['seconds']:.1f} s")
+    return out
+
+
+def sum_launches(readings):
+    """{kernel: launches} summed over readings, every wrapper's key present."""
+    total = dict.fromkeys(WRAPPERS, 0)
+    for r in readings:
+        for k, v in r.items():
+            total[k] += v
+    return total
+
+
+def phase_export_only(workdir: Path):
+    """Phase 56 alone (``--export-only``), on timm-layout .pt files of random
+    nonzero weights (the phases' training does not run) and 8 query PNGs."""
+    queries = write_synthetic_covidx(str(workdir / "x_queries"), n=8, size=256, seed=56)
+    pts = {"dinov2": write_vit_checkpoint, "convnextv2": write_timm_checkpoint,
+           "swinv2": write_swin_checkpoint}
+    out = {}
+    for name, write in pts.items():
+        pt = str(workdir / f"{name}_timm.pt")
+        write(pt, seed=57)
+        out[name] = phase_export(workdir, name, pt, queries)
+    return out
+
+
+# each phase's seconds: a phase logs its own; one that no other phase called
+# adds them to PHASE_SECONDS, which with the time before the first phase
+# makes up the run (the default run has 1,200 s)
+PHASE_SECONDS = {}
+_PHASE_DEPTH = [0]
+
+
+def timed_phase(fn):
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        _PHASE_DEPTH[0] += 1
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            _PHASE_DEPTH[0] -= 1
+            dt = time.perf_counter() - t0
+            if _PHASE_DEPTH[0] == 0:
+                PHASE_SECONDS[fn.__name__] = PHASE_SECONDS.get(fn.__name__, 0.0) + dt
+            log(f"[time] {fn.__name__}: {dt:.1f} s")
+    return run
+
+
+for _name, _fn in list(globals().items()):
+    if _name.startswith(("phase_", "phases_")) and callable(_fn):
+        globals()[_name] = timed_phase(_fn)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--profile-swin", action="store_true",
@@ -7907,6 +8167,9 @@ def main():
                         help="only build, then phase 55 (tensor parallel); with --cards or "
                              "--cards-on-cpu, their tensor-parallel meshes alone; prints no "
                              "result")
+    parser.add_argument("--export-only", action="store_true",
+                        help="only build, then phase 56 (cli.export, both formats) on "
+                             "timm-layout .pt files of random weights; prints no result")
     parser.add_argument("--tp-ranks", metavar="DxM", help=argparse.SUPPRESS)
     parser.add_argument("--tp-device", default="cuda", help=argparse.SUPPRESS)
     parser.add_argument("--tp-out", help=argparse.SUPPRESS)
@@ -7922,6 +8185,13 @@ def main():
         return
     smi = phase_device()
     phase_build()
+    with registry_draws_cached():
+        return run_phases(opts, smi)
+
+
+def run_phases(opts, smi):
+    """The phases ``opts`` asks for, after the device and the build."""
+    cards = phase_cards_tp if opts.tp_only else phase_cards
     if opts.cards:
         with tempfile.TemporaryDirectory() as tmp:
             cards(Path(tmp), opts.cards)
@@ -7933,6 +8203,11 @@ def main():
         return
     if opts.tp_only:
         phase_tensor_parallel()
+        print(smi)
+        return
+    if opts.export_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_export_only(Path(tmp))
         print(smi)
         return
     if opts.resnet_ath_only:
@@ -8004,8 +8279,10 @@ def main():
     window_rates = phase_window_rates()
     swin_rates = phase_swin_model_rates()
     bwd_errs = phase_kernel_bwd()
+    exports = {}
     with tempfile.TemporaryDirectory() as tmp:
         t_slice = phase_train_dinov2(Path(tmp))
+        exports["dinov2"] = phase_export(Path(tmp), "dinov2", t_slice["ckpt"], t_slice["queries"])
     with tempfile.TemporaryDirectory() as tmp:
         dt_launches, mesh_cache = phase_train_densenet(Path(tmp))
     bwd_rates = phase_bwd_rates()
@@ -8013,6 +8290,8 @@ def main():
     tail_bwd_errs = phase_kernel_tail_bwd()
     with tempfile.TemporaryDirectory() as tmp:
         ct_slice = phase_train_convnext(Path(tmp))
+        exports["convnextv2"] = phase_export(Path(tmp), "convnextv2", ct_slice["ckpt"],
+                                             ct_slice["queries"])
     tail_bwd_rates = phase_tail_bwd_rates()
     convnext_train_rates = phase_convnext_train_rates()
     with tempfile.TemporaryDirectory() as tmp:
@@ -8020,6 +8299,8 @@ def main():
     k5_errs = phase_kernel_window_bwd()
     with tempfile.TemporaryDirectory() as tmp:
         sw_slice = phase_train_swinv2(Path(tmp))
+        exports["swinv2"] = phase_export(Path(tmp), "swinv2", sw_slice["ckpt"],
+                                         sw_slice["queries"])
     k5_rates = phase_window_bwd_rates()
     swin_train_rates = phase_swin_train_rates()
     with tempfile.TemporaryDirectory() as tmp:
@@ -8068,7 +8349,8 @@ def main():
                      **{path: v[key] for path, v in ath["launches"].items()},
                      **{path: v[key] for path, v in analysis["launches"].items()},
                      "chestmir_ingest": chest["ingest"]["launches"][key],
-                     "dinov2_tensor_parallel": tp["path_launches"][key]}
+                     "dinov2_tensor_parallel": tp["path_launches"][key],
+                     **{f"export_{path}": v["launches"][key] for path, v in exports.items()}}
                for key in WRAPPERS}
     slice_errs = [slice_err, c_slice_err, nih["hits_err"], distill["hits_err"], resnet["err"],
                   analysis["err"]] + [
@@ -8189,6 +8471,10 @@ def main():
     by_name["ln_dense_fused"]["tp_qkv_piece"] = tp["k8_qkv_piece"]
     by_name["convnext_mlp_grn_fused"]["main_path"] = (
         "none: the JAX package reaches it only from its tests")
+    for key, op in EXPORT_OPS.items():
+        by_name[KERNELS[key]["name"]]["op"] = op
+    log(f"[time] total {time.perf_counter() - _START:.1f} s; by phase (s) "
+        f"{ {k: round(v, 1) for k, v in PHASE_SECONDS.items()} }")
     print(smi)
     print(json.dumps({"kernels": kernels, "convnextv2_embed_img_per_s": rates["embed_rate"],
                       "dinov2_embed_img_per_s": vit_rates["embed_rate"],
@@ -8239,6 +8525,9 @@ def main():
                                             if k != "launches"}, "host": host},
                       "tensor_parallel": {k: v for k, v in tp.items()
                                           if k != "path_launches"},
+                      "export": {path: {k: v for k, v in e.items() if k != "launches"}
+                                 for path, e in exports.items()},
+                      "phase_seconds": PHASE_SECONDS,
                       "chestmir": {"detector": chest["detector"],
                                    "ingest": {k: v for k, v in chest["ingest"].items()
                                               if k != "launches"},

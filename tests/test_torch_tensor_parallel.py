@@ -80,66 +80,155 @@ def jax_rule_axes(params, shape):
         specs, is_leaf=lambda s: isinstance(s, jax.sharding.NamedSharding))
 
 
-def torch_axes_of(params, axes, to_state_dict):
+def varying_axis(name, a):
+    """The one axis along which a converted tag array varies (None for a
+    constant one). A tag the converter only transposed or reshaped is still
+    numpy's broadcast view, whose constant axes have stride 0: only the
+    others are compared, so a full-width tree costs no copy."""
+    a = np.asarray(a)
+    varying = [d for d in range(a.ndim) if a.shape[d] > 1 and a.strides[d] != 0
+               and not np.array_equal(a.take(0, axis=d), a.take(1, axis=d))]
+    assert len(varying) <= 1, name
+    if not varying:
+        return None
+    d = varying[0]
+    line = a[tuple(slice(None) if i == d else 0 for i in range(a.ndim))]
+    assert np.array_equal(line, np.arange(a.shape[d])), name
+    return d
+
+
+def torch_axes_of(params, axes, to_state_dict, monkeypatch):
     """The JAX rule carried to the torch layout by the converter: each leaf
     sharded at JAX axis a holds its index along a; the converted tensor's
-    varying axis is the torch axis (None for a constant one)."""
+    varying axis is the torch axis (None for a constant one). The
+    converters' last step, a float32 copy into torch, is skipped (their
+    numpy dict is read), so that the tags stay views. Returns (name -> the
+    torch axis, name -> a meta tensor of the converted shape)."""
     def tag(leaf, a):
         if a is None:
-            return np.zeros(leaf.shape, np.int16)
+            return np.broadcast_to(np.int16(0), leaf.shape)
         idx = np.arange(leaf.shape[a], dtype=np.int16).reshape(
             [-1 if i == a else 1 for i in range(len(leaf.shape))])
         return np.broadcast_to(idx, leaf.shape)
 
-    sd = to_state_dict(jax.tree_util.tree_map(tag, params, axes))
-    out = {}
-    for name, t in sd.items():
-        varying = [d for d in range(t.dim()) if t.shape[d] > 1
-                   and not torch.equal(t.narrow(d, 0, 1), t.narrow(d, 1, 1))]
-        assert len(varying) <= 1, name
-        if varying:
-            d = varying[0]
-            assert torch.equal(t.amax(dim=[i for i in range(t.dim()) if i != d]),
-                               torch.arange(t.shape[d], dtype=t.dtype)), name
-        out[name] = varying[0] if varying else None
-    return out
+    with monkeypatch.context() as m:
+        m.setattr(convert, "_to_torch", dict)
+        sd = to_state_dict(jax.tree_util.tree_map(tag, params, axes))
+    return ({name: varying_axis(name, t) for name, t in sd.items()},
+            {name: torch.empty(np.shape(t), device="meta") for name, t in sd.items()})
 
 
-def _trees():
-    x = jnp.zeros((16, 64), jnp.float32)
-    mlp = M().init(jax.random.PRNGKey(0), x)["params"]
-    narrow = jax_vit.ViTBackbone(**NARROW_VIT).init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 56, 56, 3)))["params"]
-    base = jax.eval_shape(jax_vit.vit_base_patch14_dinov2().init, jax.random.PRNGKey(0),
-                          jnp.zeros((1, 518, 518, 3)))["params"]
-    return {"mlp": (mlp, mlp_state_dict), "narrow_vit": (narrow, vit_state_dict),
-            "vit_b14": (base, vit_state_dict)}
+def _shapes_to_state_dict(to_state_dict, variables_of):
+    """A converter of a params tree that also needs the model's
+    ``batch_stats`` (zeros: the JAX rule reads params only)."""
+    def convert_tree(params):
+        return to_state_dict(variables_of(params))
+    return convert_tree
 
 
-@pytest.fixture(scope="module")
-def trees():
-    return _trees()
+def _registry_tree(name):
+    """(params at the registry model's real shapes by ``jax.eval_shape``, a
+    converter of a params tree to the port's state dict) for a registry
+    model the converters of models/convert.py cover."""
+    from xmir_tpu.models import registry as jax_registry
+
+    model, spec = jax_registry.create_model(name)
+    x = jnp.zeros((1, spec.input_size, spec.input_size, 3))
+    ids = jnp.zeros((1, 8), jnp.int32)
+    init = {
+        "conceptclip": lambda r: model.init(r, x, ids, method=type(model).forward_clip),
+        "biomedclip": lambda r: model.init(r, x, ids, method=type(model).init_towers),
+    }.get(name, lambda r: model.init(r, x, train=True))
+    shapes = jax.eval_shape(init, jax.random.PRNGKey(0))
+    stats = jax.tree_util.tree_map(lambda leaf: np.zeros(leaf.shape, np.int16),
+                                   shapes.get("batch_stats", {}))
+    to_sd = {
+        "densenet121": convert.densenet_state_dict_from_jax,
+        "resnet50": convert.resnet50_state_dict_from_jax,
+        "convnextv2": convert.convnextv2_state_dict_from_jax,
+        "convnextv2_sra": convert.convnextv2_state_dict_from_jax,
+        "convnextv2_pcam": convert.convnextv2_state_dict_from_jax,
+        "swinv2": convert.swinv2_state_dict_from_jax,
+        "dinov2": convert.vit_state_dict_from_jax,
+        "nih_dinov2": lambda v: convert.nih_dual_head_state_dict_from_jax(v, "dinov2"),
+        "nih_convnextv2": lambda v: convert.nih_dual_head_state_dict_from_jax(v, "convnextv2"),
+        "ath": convert.ath_state_dict_from_jax,
+        "tiny": convert.tiny_state_dict_from_jax,
+        "medsiglip": convert.medsiglip_state_dict_from_jax,
+        "conceptclip": convert.conceptclip_state_dict_from_jax,
+        "biomedclip": convert.biomedclip_state_dict_from_jax,
+        "convnextv2_dino_distill": convert.distill_state_dict_from_jax,
+        "convnextv2_raddino_distill": convert.distill_state_dict_from_jax,
+    }[name]
+    return shapes["params"], _shapes_to_state_dict(
+        to_sd, lambda params: {"params": params, "batch_stats": stats})
 
 
-@pytest.mark.parametrize("tree", ["mlp", "narrow_vit", "vit_b14"])
+# every registry tree a converter of models/convert.py covers
+REGISTRY_TREES = ["densenet121", "resnet50", "convnextv2", "convnextv2_sra", "convnextv2_pcam",
+                  "swinv2", "dinov2", "nih_dinov2", "nih_convnextv2", "ath", "tiny", "medsiglip",
+                  "conceptclip", "biomedclip", "convnextv2_dino_distill",
+                  "convnextv2_raddino_distill"]
+_TREES = {}
+
+
+def rule_tree(name):
+    """(params, converter), built once a module run."""
+    if name not in _TREES:
+        if name == "mlp":
+            mlp = M().init(jax.random.PRNGKey(0), jnp.zeros((16, 64), jnp.float32))["params"]
+            _TREES[name] = (mlp, mlp_state_dict)
+        elif name == "narrow_vit":
+            narrow = jax_vit.ViTBackbone(**NARROW_VIT).init(
+                jax.random.PRNGKey(0), jnp.zeros((1, 56, 56, 3)))["params"]
+            _TREES[name] = (narrow, vit_state_dict)
+        elif name == "vit_b14":
+            base = jax.eval_shape(jax_vit.vit_base_patch14_dinov2().init, jax.random.PRNGKey(0),
+                                  jnp.zeros((1, 518, 518, 3)))["params"]
+            _TREES[name] = (base, vit_state_dict)
+        else:
+            _TREES[name] = _registry_tree(name)
+    return _TREES[name]
+
+
+def port_module(name):
+    """The port's registry model of ``name`` on the meta device (names and
+    shapes only)."""
+    from xmir_tpu_torch.models.registry import create_model
+
+    with torch.device("meta"):
+        return create_model(name)[0]
+
+
+@pytest.mark.parametrize("tree", ["mlp", "narrow_vit", "vit_b14"] + REGISTRY_TREES)
 @pytest.mark.parametrize("shape", MESHES)
-def test_rule_equals_jax(trees, tree, shape):
-    params, to_sd = trees[tree]
-    want = torch_axes_of(params, jax_rule_axes(params, shape), to_sd)
+def test_rule_equals_jax(tree, shape, monkeypatch):
+    params, to_sd = rule_tree(tree)
+    want, sd = torch_axes_of(params, jax_rule_axes(params, shape), to_sd, monkeypatch)
     mesh = Mesh(world=8, rank=0, device=torch.device("cpu"), shape=shape)
-    sd = to_sd(jax.tree_util.tree_map(lambda leaf: np.zeros(leaf.shape, np.float32), params))
     assert auto_param_shardings(sd, mesh) == want
     if tree == "mlp":
         assert auto_param_shardings(TwoDense(), mesh) == want
     if tree == "narrow_vit":
         module, _ = tp_model("vit", NARROW_VIT)
         assert auto_param_shardings(module, mesh) == want
+    if tree in REGISTRY_TREES:
+        # the module's parameters (its BatchNorm statistics are buffers)
+        got = auto_param_shardings(port_module(tree), mesh)
+        assert set(got) <= set(want)
+        assert got == {k: want[k] for k in got}
     if tree == "vit_b14" and shape[1] > 1:
         # the layouts that decide Megatron's split of the block
         block = {k.split(".", 2)[-1]: v for k, v in want.items() if k.startswith("blocks.0.")}
         assert (block["attn.qkv.weight"], block["attn.proj.weight"],
                 block["mlp.fc1.weight"], block["mlp.fc2.weight"]) == (0, 1, 0, 1)
         assert want["pos_embed"] == (1 if shape[1] == 2 else None)  # 1370 % 4 = 2
+    if tree in ("medsiglip", "conceptclip") and shape[1] > 1:
+        # the pooling head's packed q | k | v in-projection splits by its input, as
+        # the JAX rule splits each of attn_q / attn_k / attn_v
+        key = ("visual." if tree == "conceptclip" else "backbone.") + (
+            "head.attention.in_proj_weight")
+        assert want[key] == 1
 
 
 def test_rule_ties_go_to_the_first_jax_axis():

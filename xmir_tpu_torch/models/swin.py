@@ -118,12 +118,21 @@ def _shift_attn_mask(grid: int, win: int, shift: int):
     return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
 
 
-@functools.lru_cache(maxsize=256)
 def _on_device(make, args, device):
     """``make(*args)`` (a cached numpy constant) as a tensor on ``device``,
     made once per device, and never as an inference tensor: a constant first
     made under ``torch.inference_mode`` would refuse to be saved for a later
-    training step's backward."""
+    training step's backward. Under tracing (``torch.export``, whose tensors
+    are fake) it is made anew and not cached: a cached fake tensor would
+    stand in for the constant in every later eager call; the program records
+    the constant itself."""
+    if torch._guards.detect_fake_mode() is not None:
+        return torch.from_numpy(np.ascontiguousarray(make(*args))).to(device)
+    return _cached_on_device(make, args, device)
+
+
+@functools.lru_cache(maxsize=256)
+def _cached_on_device(make, args, device):
     with torch.inference_mode(False):
         return torch.from_numpy(np.ascontiguousarray(make(*args))).to(device)
 

@@ -10,12 +10,24 @@ rounded h in f32, and the residual is added in f32.
 ``convnext_block_fused`` is an autograd Function over the whole block, as the
 JAX ``custom_vjp`` is: its forward is the dwconv on cuDNN and K9, its
 backward recomputes the dwconv under autograd for the conv's vjp and runs K10
-(``convnext_tail_bwd``) on the tail. ``convnext_mlp_grn_fused`` (K11) is
+(``convnext_tail_bwd``) on the tail. Where no gradient is wanted the block
+runs its forward without the Function. ``convnext_mlp_grn_fused`` (K11) is
 forward only, as in the JAX package. The wrappers launch
 ``csrc/convnext_block.cu`` and ``csrc/convnext_block_bwd.cu`` for CUDA tensors
 and count each launch in their ``launches``. A tensor on the CPU takes the
 plain version instead; any other device raises. There is no fallback from a
 kernel to its plain version.
+
+K9 is also the custom op ``xmir::convnext_tail`` (``convnext_tail_op``), which
+the block's forward calls, so that ``torch.export`` keeps it as one node: its
+CUDA implementation is the launch (with the count), its CPU implementation
+``block_tail_reference``, and its fake implementation gives the output's
+shape under tracing, where nothing launches or counts. No other device is
+registered. The other forward kernels of an exported backbone are ops of the
+same namespace: ``xmir::vit_attention`` (K2) and ``xmir::biased_attention``
+(K4) in ops/vit_attn.py, ``xmir::window_attention`` (K6) in
+ops/window_attn.py, ``xmir::ln_qkv`` (K7) and ``xmir::ln_dense`` (K8) in
+ops/ln_dense.py; importing ``xmir_tpu_torch.ops`` registers all six.
 
 Layouts: activations are NHWC, as in the JAX package, and the kernels read
 them as (B, R, C) rows, which a channels_last NCHW tensor permuted to NHWC
@@ -34,6 +46,24 @@ LN_EPS = 1e-6
 GELU_K0 = 0.7978845608028654  # sqrt(2 / pi): the tanh GELU's constants, as in JAX
 GELU_K1 = 0.044715
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def grad_wanted(*tensors) -> bool:
+    """Whether autograd would record a call on ``tensors`` (None allowed):
+    the wrappers take their autograd Function only then, and call their op
+    directly otherwise (eval, ``torch.no_grad``, ``torch.export``)."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def same_shapes(*tensors):
+    """A fake implementation's shape check: ``torch._check`` that the tensors'
+    shapes agree axis by axis, which holds symbolically for a batch that
+    ``torch.export`` leaves dynamic (nothing is specialised)."""
+    first = tensors[0]
+    torch._check(all(t.dim() == first.dim() for t in tensors))
+    for t in tensors[1:]:
+        for a, b in zip(t.shape, first.shape):
+            torch._check(a == b)
 
 
 def fused_mlp_enabled(dtype, device) -> bool:
@@ -411,17 +441,41 @@ def tail_bwd_recomputes_ab(h, dy, ln_scale, ln_bias, w1, b1, w2, gamma, beta) ->
     return torch.equal(check[0], check[1])
 
 
+@torch.library.custom_op("xmir::convnext_tail", mutates_args=(), device_types="cuda")
+def convnext_tail_op(h: torch.Tensor, x: torch.Tensor, ln_scale: torch.Tensor,
+                     ln_bias: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+                     b2: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """K9 on CUDA operands (B, R, C), counted in
+    ``convnext_block_fused.launches``; raises where the kernel cannot run."""
+    out = _launch(h, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta)
+    convnext_block_fused.launches += 1
+    return out
+
+
+@convnext_tail_op.register_kernel("cpu")
+def _convnext_tail_cpu(h, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta):
+    return block_tail_reference(h, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta)
+
+
+@convnext_tail_op.register_fake
+def _convnext_tail_fake(h, x, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta):
+    torch._check(h.dim() == 3)
+    same_shapes(h, x)
+    c, c4 = h.shape[2], w1.shape[0]
+    same_shapes(w1, w2.t())
+    for t, n in ((ln_scale, c), (ln_bias, c), (b2, c), (b1, c4), (gamma, c4), (beta, c4)):
+        torch._check(t.dim() == 1 and t.shape[0] == n)
+    torch._check(w1.shape[1] == c)
+    return torch.empty_like(x)
+
+
 def _block_forward(x, dw_weight, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta):
     b, hh, ww, c = x.shape
     rows = (b, hh * ww, c)
     h = dwconv(x, dw_weight, dw_bias).reshape(rows)
     x_rows = x.reshape(rows)
     _check_tail(h, x_rows, w1, b1, w2, b2, gamma, beta)
-    if x.device.type == "cpu":
-        out = block_tail_reference(h, x_rows, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta)
-    else:
-        out = _launch(h, x_rows, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta)
-        convnext_block_fused.launches += 1
+    out = convnext_tail_op(h, x_rows, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta)
     return out.reshape(b, hh, ww, c)
 
 
@@ -468,13 +522,22 @@ def convnext_block_fused(x, dw_weight, dw_bias, ln_scale, ln_bias, w1, b1, w2, b
     c = x.shape[-1]
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no ConvNeXt block kernel for device {x.device}")
-    if x.device.type == "cuda" and not x.is_contiguous():
+    # not on the fake tensors torch.export traces with: PyTorch's fake
+    # convolution lays a channels_last convolution's output out as
+    # contiguous NCHW, where cuDNN writes channels_last, so the traced x can
+    # look strided where the run's is not; the op's CUDA implementation
+    # checks the operands it is given
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    if x.device.type == "cuda" and not x.is_contiguous() and not isinstance(x, FakeTensor):
         raise ValueError("x must be a contiguous NHWC tensor (a channels_last NCHW tensor "
                          "permuted to NHWC is); nothing is copied here")
     if ln_scale.shape != (c,) or ln_bias.shape != (c,):
         raise ValueError(f"ln_scale and ln_bias must be ({c},)")
-    return _ConvNeXtBlock.apply(x, dw_weight, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma,
-                                beta)
+    args = (x, dw_weight, dw_bias, ln_scale, ln_bias, w1, b1, w2, b2, gamma, beta)
+    if grad_wanted(*args):
+        return _ConvNeXtBlock.apply(*args)
+    return _block_forward(*args)
 
 
 convnext_mlp_grn_fused.launches = 0

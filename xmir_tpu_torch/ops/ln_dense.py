@@ -22,7 +22,9 @@ Both calls are differentiable (``torch.autograd.Function``s), with the JAX
 package's backwards, which are plain tensor code there too: K7's is the
 analytic ``ln_qkv_backward`` (two matrix products and the closed-form
 LayerNorm chain), K8's differentiates ``ln_dense_reference`` on the saved
-inputs.
+inputs. Both forwards are custom ops, ``xmir::ln_qkv`` and ``xmir::ln_dense``
+(see ops/convnext_block.py for what their parts are); a call that wants no
+gradient calls its op without the Function.
 
 Weights are in torch's ``nn.Linear`` layout (out, in): ``w`` is (3C, C) for
 K7, rows ordered q | k | v with the heads inside each (timm's ``qkv.weight``,
@@ -35,8 +37,10 @@ import os
 import torch
 import torch.nn.functional as F
 
+from typing import Optional, Tuple
+
 from .convnext_block import (  # noqa: F401  (agreement, agrees: this module's bounds too)
-    DTYPE_CODES, LN_EPS, agreement, agrees, layer_norm, linear_f32)
+    DTYPE_CODES, LN_EPS, agreement, agrees, grad_wanted, layer_norm, linear_f32, same_shapes)
 
 
 def fused_ln_enabled(dtype, device) -> bool:
@@ -186,6 +190,32 @@ def ln_qkv_backward(x, lns, lnb, w, b, gq, gk, gv, eps: float = LN_EPS):
     return dx.to(x.dtype), dlns, dlnb, dw, db
 
 
+@torch.library.custom_op("xmir::ln_qkv", mutates_args=(), device_types="cuda")
+def ln_qkv_op(x: torch.Tensor, lns: torch.Tensor, lnb: torch.Tensor, w: torch.Tensor,
+              b: Optional[torch.Tensor], num_heads: int,
+              eps: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K7 on CUDA operands (``_launch_ln_qkv``)."""
+    return _launch_ln_qkv(x, lns, lnb, w, b, num_heads, eps)
+
+
+@ln_qkv_op.register_kernel("cpu")
+def _ln_qkv_cpu(x, lns, lnb, w, b, num_heads, eps):
+    # an op's outputs may not share storage: q, k and v can be views of one
+    # product (where B = N = 1 the head-major split moves no element)
+    return tuple(t.clone() for t in ln_qkv_reference(x, lns, lnb, w, b, num_heads, eps))
+
+
+@ln_qkv_op.register_fake
+def _ln_qkv_fake(x, lns, lnb, w, b, num_heads, eps):
+    torch._check(x.dim() == 3)
+    bsz, n, c = x.shape
+    torch._check(c % num_heads == 0)
+    torch._check(w.dim() == 2 and w.shape[0] == 3 * c and w.shape[1] == c)
+    same_shapes(lns, lnb)
+    torch._check(lns.dim() == 1 and lns.shape[0] == c)
+    return tuple(x.new_empty((bsz, num_heads, n, c // num_heads)) for _ in range(3))
+
+
 class _LnQkv(torch.autograd.Function):
     """K7 forward (CPU: its plain version), ``ln_qkv_backward`` backward."""
 
@@ -193,9 +223,7 @@ class _LnQkv(torch.autograd.Function):
     def forward(ctx, x, lns, lnb, w, b, num_heads, eps):
         ctx.eps = eps
         ctx.save_for_backward(x, lns, lnb, w, b)
-        if x.device.type == "cpu":
-            return ln_qkv_reference(x, lns, lnb, w, b, num_heads, eps)
-        return _launch_ln_qkv(x, lns, lnb, w, b, num_heads, eps)
+        return ln_qkv_op(x, lns, lnb, w, b, num_heads, eps)
 
     @staticmethod
     def backward(ctx, gq, gk, gv):
@@ -214,7 +242,9 @@ def ln_qkv_fused(x, lns, lnb, w, b, num_heads: int, eps: float = LN_EPS):
     if num_heads < 1 or c % num_heads:
         raise ValueError(f"C={c} does not split into {num_heads} heads")
     _check(x, lns, lnb, w, b, c, 3 * c)
-    return _LnQkv.apply(x, lns, lnb, w, b, num_heads, eps)
+    if grad_wanted(x, lns, lnb, w, b):
+        return _LnQkv.apply(x, lns, lnb, w, b, num_heads, eps)
+    return ln_qkv_op(x, lns, lnb, w, b, num_heads, eps)
 
 
 def _launch_ln_dense(x, lns, lnb, w, b, eps: float, act: str):
@@ -243,6 +273,26 @@ def _launch_ln_dense(x, lns, lnb, w, b, eps: float, act: str):
     return out
 
 
+@torch.library.custom_op("xmir::ln_dense", mutates_args=(), device_types="cuda")
+def ln_dense_op(x: torch.Tensor, lns: torch.Tensor, lnb: torch.Tensor, w: torch.Tensor,
+                b: Optional[torch.Tensor], eps: float, act: str) -> torch.Tensor:
+    """K8 on CUDA operands (``_launch_ln_dense``)."""
+    return _launch_ln_dense(x, lns, lnb, w, b, eps, act)
+
+
+@ln_dense_op.register_kernel("cpu")
+def _ln_dense_cpu(x, lns, lnb, w, b, eps, act):
+    return ln_dense_reference(x, lns, lnb, w, b, eps, act)
+
+
+@ln_dense_op.register_fake
+def _ln_dense_fake(x, lns, lnb, w, b, eps, act):
+    torch._check(x.dim() == 2 and w.dim() == 2 and w.shape[1] == x.shape[1])
+    same_shapes(lns, lnb)
+    torch._check(lns.dim() == 1 and lns.shape[0] == x.shape[1])
+    return x.new_empty((x.shape[0], w.shape[0]))
+
+
 class _LnDense(torch.autograd.Function):
     """K8 forward (CPU: its plain version); the backward differentiates
     ``ln_dense_reference`` on the saved inputs (``_ln_dense_bwd`` of the TPU
@@ -252,9 +302,7 @@ class _LnDense(torch.autograd.Function):
     def forward(ctx, x, lns, lnb, w, b, eps, act):
         ctx.eps, ctx.act = eps, act
         ctx.save_for_backward(x, lns, lnb, w, b)
-        if x.device.type == "cpu":
-            return ln_dense_reference(x, lns, lnb, w, b, eps, act)
-        return _launch_ln_dense(x, lns, lnb, w, b, eps, act)
+        return ln_dense_op(x, lns, lnb, w, b, eps, act)
 
     @staticmethod
     def backward(ctx, g):
@@ -280,7 +328,9 @@ def ln_dense_fused(x, lns, lnb, w, b, eps: float = LN_EPS, act: str = ""):
     if act not in ("", "gelu"):
         raise ValueError(f"act must be '' or 'gelu', got {act!r}")
     _check(x, lns, lnb, w, b, x.shape[1], w.shape[0])
-    return _LnDense.apply(x, lns, lnb, w, b, eps, act)
+    if grad_wanted(x, lns, lnb, w, b):
+        return _LnDense.apply(x, lns, lnb, w, b, eps, act)
+    return ln_dense_op(x, lns, lnb, w, b, eps, act)
 
 
 ln_qkv_fused.launches = 0

@@ -11,7 +11,11 @@ other device raises. There is no fallback from the kernel to a plain version.
 The call is differentiable: it is a ``torch.autograd.Function`` whose
 backward, ``vit_attention_bwd``, launches ``csrc/vit_attn_bwd.cu`` (K3) for
 CUDA tensors, counted in its own ``launches``, and takes
-``attention_bwd_plain`` on the CPU.
+``attention_bwd_plain`` on the CPU. The forwards of K2 and K4 are custom ops,
+``xmir::vit_attention`` and ``xmir::biased_attention`` (see
+ops/convnext_block.py for what their parts are); a call that wants no
+gradient calls its op without the Function, and K2's op then returns no row
+statistics.
 
 Two plain versions:
 
@@ -30,11 +34,12 @@ Two plain versions:
 from __future__ import annotations
 
 import ctypes
+from typing import List
 
 import torch
 
 from .convnext_block import DTYPE_CODES, agrees  # noqa: F401  (agrees: this module's too)
-from .convnext_block import bf16_step
+from .convnext_block import bf16_step, grad_wanted, same_shapes
 from .convnext_block import agreement as _agreement
 
 LOG2E = 1.4426950408889634
@@ -64,6 +69,15 @@ def attention_plain(q, k, v, sm_scale: float):
     z = e.sum(dim=-1, keepdim=True)
     o = torch.matmul(e.to(v.dtype).float(), v.float())
     return (o / z).to(v.dtype)
+
+
+def attention_stats_plain(q, k, sm_scale: float):
+    """K2's row statistics by ``attention_plain``'s arithmetic: (BH, N, 2)
+    f32, each query row's shift ceil(row max) and the sum z of its e."""
+    qs = q * torch.tensor(scale_constant(sm_scale, q.dtype), dtype=q.dtype, device=q.device)
+    s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
+    m = torch.ceil(s.amax(dim=-1, keepdim=True))
+    return torch.cat([m, torch.exp2(s - m).sum(dim=-1, keepdim=True)], dim=-1)
 
 
 # How far K2 may lie from ``attention_plain``, which rounds where the kernel
@@ -154,6 +168,31 @@ def launch_attention_forward(q, k, v, sm_scale: float, want_stats: bool):
         raise RuntimeError(f"attention kernel launch failed: cudaError_t {err}")
     vit_attention_fused.launches += 1
     return out, stats
+
+
+@torch.library.custom_op("xmir::vit_attention", mutates_args=(), device_types="cuda")
+def vit_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
+                     want_stats: bool) -> List[torch.Tensor]:
+    """K2 on CUDA tensors (``launch_attention_forward``): [out], or
+    [out, stats] where ``want_stats``."""
+    out, stats = launch_attention_forward(q, k, v, sm_scale, want_stats)
+    return [out] if stats is None else [out, stats]
+
+
+@vit_attention_op.register_kernel("cpu")
+def _vit_attention_cpu(q, k, v, sm_scale, want_stats):
+    out = attention_plain(q, k, v, sm_scale)
+    return [out, attention_stats_plain(q, k, sm_scale)] if want_stats else [out]
+
+
+@vit_attention_op.register_fake
+def _vit_attention_fake(q, k, v, sm_scale, want_stats):
+    torch._check(q.dim() == 3)
+    same_shapes(q, k, v)
+    out = torch.empty_like(v)
+    if not want_stats:
+        return [out]
+    return [out, q.new_empty((q.shape[0], q.shape[1], 2), dtype=torch.float32)]
 
 
 def attention_bwd_reference(q, k, v, g, sm_scale: float):
@@ -297,15 +336,15 @@ vit_attention_bwd.launches = 0
 
 
 class _VitAttention(torch.autograd.Function):
-    """K2 forward, K3 backward; on the CPU their plain versions."""
+    """K2 forward, K3 backward; on the CPU their plain versions. Taken only
+    where a gradient is wanted, so K2 keeps its row statistics for K3 (the
+    CPU's backward finds its own)."""
 
     @staticmethod
     def forward(ctx, q, k, v, sm_scale):
-        if q.device.type == "cpu":
-            out, stats = attention_plain(q, k, v, sm_scale), None
-        else:
-            needs_grad = any(ctx.needs_input_grad[:3])
-            out, stats = launch_attention_forward(q, k, v, sm_scale, want_stats=needs_grad)
+        want_stats = q.device.type == "cuda"
+        res = vit_attention_op(q, k, v, sm_scale, want_stats)
+        out, stats = res[0], res[1] if want_stats else None
         ctx.sm_scale = sm_scale
         ctx.save_for_backward(q, k, v, out, stats)
         return out
@@ -325,7 +364,9 @@ def vit_attention_fused(q, k, v, sm_scale: float):
     (float32 or bfloat16). Returns (BH, N, hd) in v's dtype. On CUDA:
     contiguous, 16-byte aligned, hd a multiple of 8 up to 128, any N >= 1."""
     _check_qkv(q, k, v)
-    return _VitAttention.apply(q, k, v, float(sm_scale))
+    if grad_wanted(q, k, v):
+        return _VitAttention.apply(q, k, v, float(sm_scale))
+    return vit_attention_op(q, k, v, float(sm_scale), False)[0]
 
 
 vit_attention_fused.launches = 0
@@ -707,17 +748,39 @@ def biased_attention_bwd(q, k, v, bias, scale, o, g, g_size: int = 1, cosine: bo
 biased_attention_bwd.launches = 0
 
 
+@torch.library.custom_op("xmir::biased_attention", mutates_args=(), device_types="cuda")
+def biased_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+                        scale: torch.Tensor, g_size: int, cosine: bool) -> torch.Tensor:
+    """K4 on CUDA tensors (``launch_window_attention``, mode 1 with the
+    cosine normalisation, else 0), counted in
+    ``biased_attention_fused.launches``."""
+    out = launch_window_attention(q, k, v, bias, scale.reshape(-1), 1 if cosine else 0,
+                                  (g_size, bias.shape[0], 1, 1, 1, 0))
+    biased_attention_fused.launches += 1
+    return out
+
+
+@biased_attention_op.register_kernel("cpu")
+def _biased_attention_cpu(q, k, v, bias, scale, g_size, cosine):
+    return biased_attention_plain(q, k, v, bias, scale, g_size, cosine)
+
+
+@biased_attention_op.register_fake
+def _biased_attention_fake(q, k, v, bias, scale, g_size, cosine):
+    torch._check(q.dim() == 3 and bias.dim() == 3)
+    same_shapes(q, k, v)
+    n = q.shape[1]
+    torch._check(bias.shape[1] == n and bias.shape[2] == n)
+    torch._check(scale.numel() == bias.shape[0])
+    return torch.empty_like(v)
+
+
 class _BiasedAttention(torch.autograd.Function):
     """K4 forward, K5 backward; on the CPU their plain versions."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, g_size, cosine):
-        if q.device.type == "cpu":
-            out = biased_attention_plain(q, k, v, bias, scale, g_size, cosine)
-        else:
-            out = launch_window_attention(q, k, v, bias, scale.reshape(-1), 1 if cosine else 0,
-                                          (g_size, bias.shape[0], 1, 1, 1, 0))
-            biased_attention_fused.launches += 1
+        out = biased_attention_op(q, k, v, bias, scale, g_size, cosine)
         ctx.g_size, ctx.cosine = g_size, cosine
         ctx.save_for_backward(q, k, v, bias, scale, out)
         return out
@@ -744,7 +807,9 @@ def biased_attention_fused(q, k, v, bias, scale, g_size: int = 1, cosine: bool =
     and V within a block's shared memory (N = 576 at hd = 32 fits in both
     dtypes); the backward takes ``biased_bwd_eligible``'s folds."""
     _check_biased(q, k, v, bias, scale, g_size)
-    return _BiasedAttention.apply(q, k, v, bias, scale, int(g_size), bool(cosine))
+    if grad_wanted(q, k, v, bias, scale):
+        return _BiasedAttention.apply(q, k, v, bias, scale, g_size, bool(cosine))
+    return biased_attention_op(q, k, v, bias, scale, g_size, bool(cosine))
 
 
 biased_attention_fused.launches = 0

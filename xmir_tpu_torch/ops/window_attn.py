@@ -8,7 +8,9 @@ k normalised, and a combined bias (CPB + shift mask); it launches
 switched on at compile time) for CUDA tensors and counts each call in its
 ``launches``. A tensor on the CPU takes ``window_attention_plain`` instead;
 any other device raises. There is no fallback from the kernel to the plain
-version, and no backward: inference only, as in the JAX package.
+version, and no backward: inference only, as in the JAX package. The call is
+the custom op ``xmir::window_attention`` (see ops/convnext_block.py for what
+its parts are).
 
 The v1 arithmetic differs from K4's in where it rounds: natural exp, and the
 weights p = e / sum(e) are normalised BEFORE they are rounded to v's dtype
@@ -22,6 +24,7 @@ import os
 
 import torch
 
+from .convnext_block import same_shapes
 from .vit_attn import launch_window_attention
 
 
@@ -35,6 +38,36 @@ def window_attention_plain(q_scaled, k_norm, v, bias):
     e = torch.exp(s - s.amax(dim=-1, keepdim=True))
     p = e / e.sum(dim=-1, keepdim=True)
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+@torch.library.custom_op("xmir::window_attention", mutates_args=(), device_types="cuda")
+def window_attention_op(q_scaled: torch.Tensor, k_norm: torch.Tensor, v: torch.Tensor,
+                        bias: torch.Tensor) -> torch.Tensor:
+    """K6 on CUDA tensors (``launch_window_attention``, mode 2), counted in
+    ``window_attention_fused.launches``."""
+    if bias.dtype != torch.float32:
+        raise TypeError(f"bias must be float32, got {bias.dtype}")
+    nw, b, h, n, d = q_scaled.shape
+    # row i = (window * B + image) * H + head uses slice window * H + head
+    out = launch_window_attention(
+        q_scaled.reshape(-1, n, d), k_norm.reshape(-1, n, d), v.reshape(-1, n, d), bias, None,
+        2, (b * h, bias.shape[0], h, 1, h, 1))
+    window_attention_fused.launches += 1
+    return out.reshape(nw, b, h, n, d)
+
+
+@window_attention_op.register_kernel("cpu")
+def _window_attention_cpu(q_scaled, k_norm, v, bias):
+    return window_attention_plain(q_scaled, k_norm, v, bias)
+
+
+@window_attention_op.register_fake
+def _window_attention_fake(q_scaled, k_norm, v, bias):
+    torch._check(q_scaled.dim() == 5 and bias.dim() == 4)
+    same_shapes(q_scaled, k_norm, v)
+    _, _, h, n, _ = q_scaled.shape
+    torch._check(bias.shape[1] == h and bias.shape[2] == n and bias.shape[3] == n)
+    return torch.empty_like(v)
 
 
 def window_attention_fused(q_scaled, k_norm, v, bias):
@@ -54,18 +87,9 @@ def window_attention_fused(q_scaled, k_norm, v, bias):
     nwb = bias.shape[0]
     if nwb not in (1, nw) or bias.shape != (nwb, h, n, n):
         raise ValueError(f"need bias (1 or {nw}, {h}, {n}, {n}), got {tuple(bias.shape)}")
-    if q_scaled.device.type == "cpu":
-        return window_attention_plain(q_scaled, k_norm, v, bias)
-    if q_scaled.device.type != "cuda":
+    if q_scaled.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no attention kernel for device {q_scaled.device}")
-    if bias.dtype != torch.float32:
-        raise TypeError(f"bias must be float32, got {bias.dtype}")
-    # row i = (window * B + image) * H + head uses slice window * H + head
-    out = launch_window_attention(
-        q_scaled.reshape(-1, n, d), k_norm.reshape(-1, n, d), v.reshape(-1, n, d), bias, None,
-        2, (b * h, nwb, h, 1, h, 1))
-    window_attention_fused.launches += 1
-    return out.reshape(nw, b, h, n, d)
+    return window_attention_op(q_scaled, k_norm, v, bias)
 
 
 window_attention_fused.launches = 0

@@ -306,6 +306,10 @@ def fsdp_state_shardings(tree: Dict[str, torch.Tensor], world: Union[int, Mesh],
 # conv kernel is HWIO where nn.Conv2d's is OIHW; every other leaf keeps its
 # layout (``_TORCH_AXIS[kind][jax axis] = torch axis``).
 _TORCH_AXIS = {"linear": (1, 0), "conv": (2, 3, 1, 0)}
+# nn.MultiheadAttention's name for its packed in-projection (3D, D): three
+# (D, D) Linear weights, q | k | v along torch axis 0, where the JAX modules
+# hold three Dense kernels (SigLIP's pooling head: attn_q / attn_k / attn_v)
+PACKED_IN_PROJ = "in_proj_weight"
 
 
 def tp_shard_axis(shape, kind: str, n_model: int, min_dim: int = TP_MIN_DIM) -> Optional[int]:
@@ -314,8 +318,17 @@ def tp_shard_axis(shape, kind: str, n_model: int, min_dim: int = TP_MIN_DIM) -> 
     as ``np.argmax`` takes them, sharded where it is at least ``min_dim``
     wide and ``n_model`` divides it), and returned as the torch axis. Leaves
     of fewer than 2 axes, and every leaf at a model axis of 1, replicate
-    (None). ``kind``: "linear", "conv" or "same" (the layouts agree)."""
+    (None). ``kind``: "linear", "conv", "same" (the layouts agree) or
+    "packed_in_proj" (a (3D, D) ``in_proj_weight``): a packed in-projection
+    is decided on one of its (D, D) Linear blocks, as the JAX rule decides
+    each of the three Dense kernels; the rule's axis there is the block's
+    input (its tie goes to the first JAX axis), torch axis 1, and a split of
+    the packed leaf along axis 1 is each block's split."""
     shape = tuple(int(s) for s in shape)
+    if kind == "packed_in_proj":
+        if len(shape) != 2 or shape[0] != 3 * shape[1]:
+            raise ValueError(f"a packed in-projection must be (3D, D), got {shape}")
+        shape, kind = (shape[1], shape[1]), "linear"
     if len(shape) < 2 or n_model <= 1:
         return None
     to_torch = _TORCH_AXIS.get(kind, tuple(range(len(shape))))
@@ -333,7 +346,9 @@ def _leaf_kinds(module_or_state_dict) -> Dict[str, Tuple[torch.Tensor, str]]:
     rule's ``params``), or of every tensor of a state dict. A module's kinds
     come from its layers' types (an ``nn.Linear``'s or ``nn.Conv2d``'s
     weight); a bare state dict's from the names: a 2-axis ``*weight`` is a
-    Linear's, a 4-axis one a convolution's."""
+    Linear's, a 4-axis one a convolution's. In both, a leaf named
+    ``in_proj_weight`` (``PACKED_IN_PROJ``: nn.MultiheadAttention's layout,
+    which SigLIP's pooling head keeps) is a packed in-projection."""
     if isinstance(module_or_state_dict, nn.Module):
         out = {}
         for prefix, mod in module_or_state_dict.named_modules():
@@ -341,12 +356,15 @@ def _leaf_kinds(module_or_state_dict) -> Dict[str, Tuple[torch.Tensor, str]]:
                     else "conv" if isinstance(mod, nn.Conv2d) else "same")
             for name, t in mod.named_parameters(recurse=False):
                 key = f"{prefix}.{name}" if prefix else name
-                out[key] = (t, kind if name == "weight" else "same")
+                out[key] = (t, "packed_in_proj" if name == PACKED_IN_PROJ
+                            else kind if name == "weight" else "same")
         return out
     out = {}
     for key, t in module_or_state_dict.items():
         kind = "same"
-        if key.endswith("weight"):
+        if key.endswith(PACKED_IN_PROJ):
+            kind = "packed_in_proj"
+        elif key.endswith("weight"):
             kind = {2: "linear", 4: "conv"}.get(t.dim(), "same")
         out[key] = (t, kind)
     return out
