@@ -43,6 +43,13 @@ launch is counted), a fake implementation one row short (K2's: the trace
 refuses it), and a ``--format torch`` export of DINOv2 with the q and k rows
 of one block's ``attn.qkv.weight`` swapped (the same shapes: the reload's
 bit-equality refuses it).
+The f32 routes of K3 and K5 (3xTF32 wgmma, csrc/attn_bwd_f32.cuh) must
+refuse 2xTF32 (small . big dropped) and 1xTF32 (both small products
+dropped) by K3's f32 bounds (chip_smoke.py phases 17 and 38's cases) and
+K5's (phase 25's); the score product, which the design keeps on IEEE FMAs,
+and K3's dp (on FMAs too) moved onto 3xTF32 must be refused by K3's bounds
+on phase 17's hard rows (their readings at phase 38's random shapes and
+K5's are recorded; PERF.md says whether they are refused).
 Each line prints how far the reading goes toward its bounds (above 1: past
 one of them).
 
@@ -110,18 +117,19 @@ SOURCE_FAULTS = {
         f"        dk_acc[i2] = {ROUND_BF16.format('dk_acc[i2]')};\n"),
     "K3: scale missing from dk": (
         "vit_attn_bwd.cu", "rqz = scale8(rq, scale * zinv);", "rqz = scale8(rq, zinv);",
-        "[&](int row) { return scale * zinv(row); }", "zinv"),
+        "sz_s[r] = live ? scale * zinv : 0.f;", "sz_s[r] = live ? zinv : 0.f;"),
     "K3: dead key columns unmasked": (
         "vit_attn_bwd.cu",
         "const float ev = live_key[e >> 1] ? exp2_fast(s[4 * j + e] - r.x) : 0.f;",
         "const float ev = exp2_fast(s[4 * j + e] - r.x);",
-        "const float ev = k0 + tx + 16 * j < n ? exp2f(s[i][j] - m_row[i]) : 0.f;",
-        "const float ev = exp2f(s[i][j] - m_row[i]);"),
-    "K3 f32 kernel, hd 72: each head's padding lanes 72-79 hold the row's index, not zeros": (
+        "const float ev = live_key[e >> 1] ? exp2f(s[4 * j + e] - r.x) : 0.f;",
+        "const float ev = exp2f(s[4 * j + e] - r.x);"),
+    "K3 f32 kernel, hd 72: each streamed q and g row's last panel (lanes 64-71) read from lanes "
+    "0-7": (
         "vit_attn_bwd.cu",
-        "    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);\n    if (row0 + r < n && vc < hd) {",
-        "    const float pad = vc < hd ? 0.f : 1e-2f * (row0 + r);\n"
-        "    float4 f = make_float4(pad, pad, pad, pad);\n    if (row0 + r < n && vc < hd) {"),
+        "tma_load(tiles + op * St::kTile + pn * QB * P::kRowBytes, rows[op], pn * P::kWidth / 2,",
+        "tma_load(tiles + op * St::kTile + pn * QB * P::kRowBytes, rows[op],\n"
+        "                     (pn + 1 == P::kCount ? 0 : pn) * P::kWidth / 2,"),
     "K3 bf16 kernel: one key unit's dq part skipped": (
         "vit_attn_bwd.cu", "tma_reduce_add(&dq_map, c0, i * kBQ, head, src + c0 * (kBQ * 4));",
         "if (u != 1) tma_reduce_add(&dq_map, c0, i * kBQ, head, src + c0 * (kBQ * 4));"),
@@ -130,6 +138,17 @@ SOURCE_FAULTS = {
         "while (false && ld_acquire_gpu(cnt) != u) {"),
     "K3 bf16 kernel: qz written without the 1 / z factor": (
         "vit_attn_bwd.cu", "rqz = scale8(rq, scale * zinv);", "rqz = scale8(rq, scale);"),
+    # the f32 routes' arithmetic (attn_bwd_f32.cuh, both K3 and K5): the TF32
+    # shortcuts the unchanged f32 bounds must refuse, and the two products the
+    # design keeps on IEEE FMAs moved to the tensor cores
+    "K3, K5 f32 route: 2xTF32 (small . big dropped)": (
+        "attn_bwd_f32.cuh", "constexpr int kProductTerms = 3;", "constexpr int kProductTerms = 2;"),
+    "K3, K5 f32 route: 1xTF32 (both small products dropped)": (
+        "attn_bwd_f32.cuh", "constexpr int kProductTerms = 3;", "constexpr int kProductTerms = 1;"),
+    "K3, K5 f32 route: the score product on 3xTF32 (not IEEE FMAs)": (
+        "attn_bwd_f32.cuh", "constexpr int kScoreTerms = 0;", "constexpr int kScoreTerms = 3;"),
+    "K3 f32 route: dp on 3xTF32 (not IEEE FMAs), each depth step's sum added in f32": (
+        "vit_attn_bwd.cu", "constexpr int kDpTerms = 0;", "constexpr int kDpTerms = 3;"),
     "K7, K8: LN eps 1e-5 for 1e-6": (
         "gemm_tile.cuh", "constexpr float kLnEps = 1e-6f;", "constexpr float kLnEps = 1e-5f;"),
     # the tanh form of f32 K8 (gelu_tanh) and of bf16 K8 (gelu_sigmoid)
@@ -241,21 +260,19 @@ SOURCE_FAULTS = {
     "K5: dbias summed over the group's first folded row only": (
         "window_attn_bwd.cu",
         "tma_reduce_add(&maps.dbias, kc, i * kT, un.group, src + kb * (kT * 128));",
-        "(void)kc;", "for (int jb = 0; jb < p.g_size; ++jb) {",
-        "for (int jb = 0; jb < 1; ++jb) {"),
+        "(void)kc;", "tma_reduce_add(&maps.dbias, kc, i * QB, un.group, part);", "(void)part;"),
     "K5: the cosine chain's - qh alpha term dropped from dq": (
         "window_attn_bwd.cu",
-        "__fmul_rn(__fsub_rn(dqh[i], __fmul_rn(qh[i], a)), qinv)", "__fmul_rn(dqh[i], qinv)",
-        "__fmul_rn(__fsub_rn(dqh[j], __fmul_rn(qh[j], a)), qinv)", "__fmul_rn(dqh[j], qinv)"),
+        "__fmul_rn(__fsub_rn(dqh[i], __fmul_rn(qh[i], a)), qinv)", "__fmul_rn(dqh[i], qinv)"),
     "K5: z taken from the neighbouring row for dk and dv": (
         "window_attn_bwd.cu",
         "const float zinv = 1.f / z[h], szr = __fmul_rn(sc, zinv);",
         "const float zinv = 1.f / z[h], szr = __fmul_rn(sc, 1.f / z[h ^ 1]);",
         "gv[k2] = __fmul_rn(gv[k2], zinv);", "gv[k2] = __fmul_rn(gv[k2], 1.f / z[h ^ 1]);",
-        "auto zinv = [&](int r) { return st[r].y; };",
-        "auto zinv = [&](int r) { return st[r ^ 1].y; };",
-        "auto szinv = [&](int r) { return __fmul_rn(sc, st[r].y); };",
-        "auto szinv = [&](int r) { return __fmul_rn(sc, st[r ^ 1].y); };"),
+        "const float x = __fmul_rn(q_s[r * SQ + d], sz_s[r]), y = __fmul_rn(k_s[r * SQ + d], "
+        "zinv_s[r]);",
+        "const float x = __fmul_rn(q_s[r * SQ + d], sz_s[r ^ 1]), y = __fmul_rn(k_s[r * SQ + d], "
+        "zinv_s[r ^ 1]);"),
     "K5 bf16 kernel: one key unit's dq part skipped": (
         "window_attn_bwd.cu", "tma_reduce_add(&maps.dq, c0, i * kT, un.row, part);",
         "if (un.u != 1) tma_reduce_add(&maps.dq, c0, i * kT, un.row, part);"),
@@ -395,17 +412,22 @@ def read_tail(dtype):
 
 def backward_cases(gen, dtype):
     """K3's operands (q, k, v, g, scale): random scores at the DINOv2 shape
-    and ragged ones, rows with few dominant scores, and rows whose every
-    shift lies below -128 at a ragged N (where 2^-m of an unmasked dead key
-    column overflows)."""
+    and ragged ones, rows with few dominant scores, rows whose every shift
+    lies below -128 at a ragged N (where 2^-m of an unmasked dead key column
+    overflows), and chip_smoke.py phase 17's rows of very negative scores
+    with one dominant key in the last tile (t = e (dp - c) a residue of dp)."""
     for bh, n, hd, gain in ((24, 1370, 64, 1.0), (3, 257, 64, 1.0), (2, 300, 72, 1.0),
-                            (3, 729, 64, 4.0), (4, 300, 64, -8.0)):
+                            (3, 729, 64, 4.0), (4, 300, 64, -8.0), (4, 300, 64, 0.0)):
         q, k, v, g = (torch.randn((bh, n, hd), generator=gen).cuda() for _ in range(4))
         if gain < 0:
             q, k = q.abs() * gain, k.abs() * -gain
+        elif gain == 0.0:  # phase 17's: scores of -3 |q| . 3 |k|, key 290 twelve times the other way
+            q, k = -q.abs() * 3, k.abs() * 3
+            k[:, 290] *= -4.0
         else:
             q = q * gain
-        yield q.to(dtype), k.to(dtype), v.to(dtype), g.to(dtype), hd ** -0.5
+        sc = 0.125 if gain == 0.0 else hd ** -0.5
+        yield q.to(dtype), k.to(dtype), v.to(dtype), g.to(dtype), sc
 
 
 def backward_plain_with(fault):
@@ -1201,9 +1223,10 @@ def main():
     ok = True
 
     def report(name, kernel, reading, want_inside, agrees=cb.agrees):
+        """want_inside None: a reading recorded either way (PERF.md says which)."""
         nonlocal ok
         inside = agrees(reading)
-        ok &= inside == want_inside
+        ok &= want_inside is None or inside == want_inside
         # how far the reading goes toward its bounds (above 1: past one of them)
         if "ulps" in reading:
             share = reading["ulps"] / cs.CONCEPT_GATHER_ULPS
@@ -1215,9 +1238,10 @@ def main():
             share = reading["of_bound"]
         else:
             share = float("nan")
+        expected = ("recorded" if want_inside is None
+                    else "expected inside" if want_inside else "expected outside")
         print(f"[faults] {name:60s} {kernel:9s} {'inside' if inside else 'OUTSIDE'} "
-              f"(expected {'inside' if want_inside else 'outside'}; {share:.3g} of the bounds): "
-              f"{reading}", flush=True)
+              f"({expected}; {share:.3g} of the bounds): {reading}", flush=True)
 
     use_sources(REAL_CSRC)
     if want("K2"):
@@ -1344,6 +1368,18 @@ def main():
             use_sources(directory)
             if name.startswith("K2"):
                 report(name, "K2 bf16", read_attention(), False)
+                continue
+            if "f32 route" in name:  # the f32 routes of K3 and K5 alone
+                # the TF32 shortcuts must be refused by every check; the two
+                # products kept on IEEE FMAs by phase 17's hard rows (K3's
+                # cases), their readings at phase 38's random shapes and K5's
+                # recorded (PERF.md)
+                kept = None if "IEEE FMAs" in name else False
+                report(name, "K3 float32", read_backward(torch.float32), False, va.grad_agrees)
+                report(name, "K3 f32 hd 72", cs.k3_hd72_reading(torch.float32), kept,
+                       cs.k3_hd72_agrees)
+                if "K5" in name:
+                    report(name, "K5 float32", read_k5(torch.float32), kept, va.grad_agrees)
                 continue
             if name.startswith("K3") and "hd 72" in name:  # phase 38's check must refuse it
                 report(name, "K3 f32", cs.k3_hd72_reading(torch.float32), False,

@@ -148,7 +148,8 @@ Phases, each of which raises (exit code != 0) on any failure:
              rows of negative scores and rows with few
              dominant keys; within the bounds of
              ops/vit_attn.py::grad_agreement; two runs bit-equal; f32 also
-             within 3e-5 of the largest magnitude of the exact gradient; K7's
+             within 3e-5 of the largest magnitude of the exact gradient (f32
+             takes the 3xTF32 route of csrc/attn_bwd_f32.cuh); K7's
              analytic backward against autograd through its plain forward
  18. slice   cli.train with DINOv2 ViT-B/14 at full width (518 px, 12 blocks,
              --bf16 -p 2 -k 4: batch 8) on COVIDx-format PNGs: one epoch of
@@ -166,11 +167,12 @@ Phases, each of which raises (exit code != 0) on any failure:
              scaled_dot_product_attention call (timed here, used nowhere in
              the port; its backend, the one the default dispatch picks for the
              forward, named and pinned once outside the timed windows; CUDA
-             events and device time, with torch.profiler's share of K3's);
-             the bf16 DINOv2 train step at batch 8 with the
-             kernels, with their plain versions and on the eager path: img/s,
-             peak memory, forward / backward / optimiser shares, and the
-             device time by kernel (torch.profiler), K3's share of it
+             events and device time, with torch.profiler's share of K3's; the
+             bound under each dtype's arithmetic, f32's beside the FMA
+             bound, attn_bwd_bound); the bf16 DINOv2 train step at batch 8
+             with the kernels, with their plain versions and on the eager
+             path: img/s, peak memory, forward / backward / optimiser shares,
+             and the device time by kernel (torch.profiler), K3's share of it
  21. kernel  K10 (csrc/convnext_block_bwd.cu) against tail_backward_reference,
              f32 and bf16: ConvNeXtV2-Base's four stage shapes at 384 px
              (B = 2), 49 rows and 1 row at C = 96, 144 rows at B = 3; within
@@ -225,7 +227,8 @@ Phases, each of which raises (exit code != 0) on any failure:
              needs a gradient (timed here, used nowhere in the port; the
              SDPA backend the default dispatch picks, named and pinned once
              outside the timed windows; CUDA events, and the device time of
-             both, device_ms)
+             both, device_ms; the bound under each dtype's arithmetic,
+             attn_bwd_bound)
  28. rates   the bf16 SwinV2-Base train step at batch 8, 384 px with the
              kernels, their plain versions and on the eager path: img/s, peak
              memory, forward / backward / optimiser, the host's enqueue time
@@ -311,8 +314,8 @@ Phases, each of which raises (exit code != 0) on any failure:
              BiomedCLIP's image tower at batch 64 (224 px) with K7 + K2 and
              eager: events in turns, device_ms where a forward's launches
              fit the launch queue, peak memory, a torch.profiler breakdown
- 38. kernel  K2 (with its row statistics) and K3 at head width 72 (K3 pads it
-             to 80) at the SigLIP train steps' shapes: bf16 (BH, N) = (128,
+ 38. kernel  K2 (with its row statistics) and K3 at head width 72 (bf16 K3
+             pads it to 80, f32 runs 72) at the SigLIP train steps' shapes: bf16 (BH, N) = (128,
              729) (ConceptCLIP-384 at B = 8), f32 (256, 1024) and (256, 64)
              (MedSigLIP-448's towers at B = 16); K3 through the Function
              within ops/vit_attn.py::grad_agreement's bounds, every head's
@@ -606,12 +609,25 @@ KERNELS = {
            "replaces": "xmir_tpu/ops/vit_attn_pallas.py:199"},
     "K3": {"name": "vit_attention_bwd", "route": "cuda",
            "source": "xmir_tpu_torch/csrc/vit_attn_bwd.cu",
+           "sources": ["xmir_tpu_torch/csrc/vit_attn_bwd.cu",
+                       "xmir_tpu_torch/csrc/attn_bwd_f32.cuh"],
+           "bodies": "bf16: bwd_prep_bf16 + bwd_bf16_wg (wgmma bf16, persistent, TMA ring, "
+                     "ordered dq adds) + bwd_dq_finish; f32: bwd_prep_f32 + bwd_f32_wg "
+                     "(persistent, TMA ring, ordered dq adds; s and dp on IEEE FMAs, dv, dk, "
+                     "dq as 3xTF32 wgmma) + bwd_dq_finish_f32",
            "replaces": "xmir_tpu/ops/vit_attn_pallas.py:683"},
     "K4": {"name": "biased_attention_fused", "route": "cuda",
            "source": "xmir_tpu_torch/csrc/window_attn.cu",
            "replaces": "xmir_tpu/ops/vit_attn_pallas.py:320"},
     "K5": {"name": "biased_attention_bwd", "route": "cuda",
            "source": "xmir_tpu_torch/csrc/window_attn_bwd.cu",
+           "sources": ["xmir_tpu_torch/csrc/window_attn_bwd.cu",
+                       "xmir_tpu_torch/csrc/attn_bwd_f32.cuh"],
+           "bodies": "bf16: window_bwd_prep (wgmma scores, exact max and z) + window_bwd_main "
+                     "(wgmma bf16, persistent, ordered dq and dbias adds) + window_bwd_finish; "
+                     "f32: window_prep_f32 (FMA scores, exact max and z) + window_bwd_f32_wg "
+                     "(persistent, TMA ring, ordered dq and dbias adds; s on IEEE FMAs, dp, "
+                     "dv, dk, dq as 3xTF32 wgmma) + window_bwd_finish_f32",
            "replaces": "xmir_tpu/ops/vit_attn_pallas.py:486"},
     "K6": {"name": "window_attention_fused", "route": "cuda",
            "source": "xmir_tpu_torch/csrc/window_attn.cu",
@@ -2749,6 +2765,42 @@ def phase_select_rates():
     return out
 
 
+# the f32 routes' products on IEEE FMAs (the rest 3xTF32 on wgmma;
+# csrc/attn_bwd_f32.cuh): K3's s and dp, K5's s
+F32_FMA_PRODUCTS = {"K3": ("s", "dp"), "K5": ("s",)}
+
+
+def attn_bwd_bound(ops, nbytes, dtype, kernel="K3"):
+    """K3 / K5's bound under its arithmetic, beside the FMA bound (``ops``:
+    the five products' 10 BH N^2 hd, the work the function needs; bytes each
+    input read and each output written once): bf16, the five products on the
+    tensor cores; f32, the kernel's F32_FMA_PRODUCTS on IEEE FMAs and the
+    others as three TF32 products each (3xTF32), the larger of the two
+    parts, which run on separate units; the FMA bound, all five on IEEE
+    FMAs."""
+    if dtype == torch.bfloat16:
+        ms, by = bound(ops, nbytes, "bfloat16")
+        return {"bound_ms": ms, "bound_by": by, "arithmetic": "bf16 wgmma"}
+    on_fma = F32_FMA_PRODUCTS[kernel]
+    fma_part = bound(ops * len(on_fma) / 5, nbytes, "float32")
+    tf32_part = bound(3 * ops * (5 - len(on_fma)) / 5, nbytes, "tfloat32")
+    ms, by = max(fma_part, tf32_part)
+    fma_ms, fma_by = bound(ops, nbytes, "float32")
+    return {"bound_ms": ms, "bound_by": by, "fma_part_ms": fma_part[0],
+            "tf32_part_ms": tf32_part[0], "fma_bound_ms": fma_ms, "fma_bound_by": fma_by,
+            "arithmetic": f"{', '.join(on_fma)} IEEE FMA; the other products 3xTF32 wgmma"}
+
+
+def bound_text(b, ms):
+    """``attn_bwd_bound``'s reading against a time, for the log."""
+    text = f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['arithmetic']}), " \
+           f"{b['bound_ms'] / ms:.1%} of it"
+    if "fma_bound_ms" in b:
+        text += (f"; FMA part {b['fma_part_ms']:.4f} ms, 3xTF32 part {b['tf32_part_ms']:.4f} ms; "
+                 f"all on FMAs {b['fma_bound_ms']:.4f} ms, {b['fma_bound_ms'] / ms:.1%} of it")
+    return text
+
+
 def grad_err(outs, refs, floors, what):
     """The worst ``va.grad_agreement`` reading over (dq, dk, dv), each with
     its ``va.grad_floors`` entry; raises past the bounds stated in
@@ -3097,21 +3149,22 @@ def phase_bwd_rates():
                 k3_share = profiler_share(fns["K3"], dev["K3"])
             ms.update(_in_turns({"K3 plain": fns["K3 plain"]})[0])
             ops, nbytes = _bwd_work(bh, n, hd, dtype)
-            bound_ms, bound_by = bound(ops, nbytes, name)
+            bnd = attn_bwd_bound(ops, nbytes, dtype)
             out[f"{name} B={b}"] = {"ms": ms["K3"], "plain_ms": ms["K3 plain"],
                                     "library_ms": ms["K3 library"], "forward_ms": ms["K2"],
-                                    "bound_ms": bound_ms, "bound_by": bound_by, "agreement": e,
+                                    **bnd, "agreement": e,
                                     "device_ms": dev["K3"], "library_device_ms": dev["K3 library"],
                                     "profiler_share": k3_share,
                                     "library": f"scaled_dot_product_attention backward, {backend}"}
-            log(f"[rates] K3 {name:8s} B={b} BH={bh} N={n} hd={hd}: {ms['K3']:.3f} ms "
-                f"({ops / ms['K3'] / 1e9:.1f} TFLOP/s of the 10 BH N^2 hd it must do; bound "
-                f"{bound_ms:.3f} ms by {bound_by}, {bound_ms / ms['K3']:.1%} of it) vs plain "
+            log(f"[rates] K3 {name:8s} B={b} BH={bh} N={n} hd={hd}: {ms['K3']:.3f} ms by "
+                f"events ({ops / ms['K3'] / 1e9:.1f} TFLOP/s of the 10 BH N^2 hd it must do; "
+                f"device time {bound_text(bnd, dev['K3'])}) vs plain "
                 f"{ms['K3 plain']:.3f} ms, library backward ({backend}) {ms['K3 library']:.3f} ms, "
                 f"K2 with statistics {ms['K2']:.3f} ms; device time K3 {dev['K3']:.4f} ms "
                 f"(torch.profiler's records hold {k3_share:.1%} of it), library "
-                f"backward {dev['K3 library']:.4f} ms; agreement {e}; within {lib_rel:.3g} of the "
-                "library's gradients' largest magnitude")
+                f"backward {dev['K3 library']:.4f} ms ({dev['K3'] / dev['K3 library']:.2f}x); "
+                f"agreement {e}; within {lib_rel:.3g} of the library's gradients' largest "
+                "magnitude")
             del q, k, v, g, o, stats, lq, lk, lv, lo, lg, fns
             torch.cuda.empty_cache()
     return out
@@ -3209,6 +3262,96 @@ def phase_train_rates():
         f"kernels, K3's launches {k3_ms:.3f} ms of it ({k3_share:.1%}); by kernel:")
     for name, t, count in rows[:12]:
         log(f"[profile] {t:8.3f} ms  {count:6d} x  {name[:110]}")
+    return out
+
+
+def phase_f32_train_steps():
+    """The f32 train steps that reach K3's and K5's f32 routes, each with the
+    kernels and with their plain versions, by CUDA events in turns: DINOv2
+    ViT-B/14 at batch 8, 518 px, under XMIR_FLASH_ATTN=1 XMIR_FUSED_LN=1 (K3
+    in every block); SwinV2-Base at batch 8, 384 px, under XMIR_FUSED_ATTN=1
+    (K5 in every block); the MedSigLIP-448 IT-Align step at batch 16 (f32
+    towers, bf16 pixels) under XMIR_FLASH_ATTN=1 (K3 in the 2 + 2 unfrozen
+    layers). Launches a step checked."""
+    from xmir_tpu_torch.cli import train_medsiglip
+    from xmir_tpu_torch.models.siglip_text import MedSigLIPDualEncoder
+
+    out = {}
+
+    def reading(label, fns, want, flags):
+        with env_flags(**flags):
+            reset_launches()
+            fns["kernels"]()
+            torch.cuda.synchronize()
+            launches = read_launches()
+            check(all(launches[key] == n for key, n in want.items()),
+                  f"{label}: launches {launches}, expected {want} a step")
+            ms, runs = _in_turns(fns, rounds=3, reps=1)
+        out[label] = {"ms": ms, "launches": {k: v for k, v in launches.items() if v}}
+        log(f"[rates] {label}, f32: {ms['kernels']:.2f} ms a step by CUDA events with the "
+            f"kernels, {ms['plain versions']:.2f} ms with their plain versions; launches a step "
+            f"{out[label]['launches']}; runs "
+            f"{({k: [round(v, 2) for v in r] for k, r in runs.items()})}")
+
+    model, _ = create_model("dinov2", generator=torch.Generator().manual_seed(23))
+    with torch.no_grad():  # LayerScale at its 1e-5 init would hide the blocks
+        for name, p in model.named_parameters():
+            if name.endswith(".gamma"):
+                p.fill_(0.5)
+    model = model.to("cuda").train()
+    state = TrainState(model, build_optimizer(model, lr=1e-5))
+    step = make_embedding_train_step(model, "triplet", {"margin": 0.2})
+    x = torch.randn((8, 518, 518, 3), generator=torch.Generator().manual_seed(24)).cuda()
+    labels = torch.tensor([0, 0, 0, 0, 1, 1, 1, 1], device="cuda")
+
+    def plain_dinov2():
+        with vit_plain_versions():
+            step(state, x, labels)
+
+    reading("DINOv2 ViT-B/14 train step at batch 8, 518 px",
+            {"kernels": lambda: step(state, x, labels), "plain versions": plain_dinov2},
+            {"K3": VIT["depth"]}, FUSED_VIT)
+    del model, state, step, x
+    torch.cuda.empty_cache()
+
+    model, _ = create_model("swinv2", generator=torch.Generator().manual_seed(35))
+    randomize_swin_(model.backbone, 36)
+    model = model.to("cuda").train()
+    state = TrainState(model, build_optimizer(model, lr=1e-5))
+    step = make_embedding_train_step(model, "triplet", {"margin": 2.0})
+    x = torch.randn((8, 384, 384, 3), generator=torch.Generator().manual_seed(37)).cuda()
+
+    def plain_swin():
+        with swin_plain_versions():
+            step(state, x, labels)
+
+    reading("SwinV2-Base train step at batch 8, 384 px",
+            {"kernels": lambda: step(state, x, labels), "plain versions": plain_swin},
+            {"K5": SWIN_DEPTH}, dict(XMIR_FUSED_ATTN="1", XMIR_SWIN_KERNEL=None))
+    del model, state, step, x
+    torch.cuda.empty_cache()
+
+    model = MedSigLIPDualEncoder(img_size=448, text_vocab=256000,
+                                 generator=torch.Generator().manual_seed(0)).cuda().train()
+    frozen = train_medsiglip.frozen_predicate(SIGLIP["depth"], MEDSIGLIP_UNFREEZE)
+    for name, p in model.named_parameters():  # as the CLI's build_optimizer leaves them
+        p.requires_grad_(not frozen(name))
+    state = TrainState(model, build_optimizer(model, lr=1e-4, backbone_lr_scale=1.0,
+                                              frozen_predicate=frozen))
+    step = make_it_align_train_step(model, torch.bfloat16)
+    gen = torch.Generator().manual_seed(40)
+    x = torch.randn((16, 448, 448, 3), generator=gen).cuda()
+    ids = torch.randint(1, 30000, (16, 64), generator=gen).cuda()
+
+    def plain_medsiglip():
+        with vit_plain_versions():
+            step(state, x, ids)
+
+    reading("MedSigLIP-448 IT-Align train step at batch 16 (f32 towers, --bf16 pixels)",
+            {"kernels": lambda: step(state, x, ids), "plain versions": plain_medsiglip},
+            {"K3": 2 * MEDSIGLIP_UNFREEZE}, MEDSIGLIP_TRAIN_FLAGS)
+    del model, state, step, x, ids
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3906,7 +4049,8 @@ def phase_window_bwd_rates():
     for dtype in (torch.bfloat16, torch.float32):
         name = str(dtype)[6:]
         total = dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
-                               "library_device_ms"), 0.0)
+                               "library_device_ms", "fma_bound_ms", "fma_part_ms",
+                               "tf32_part_ms"), 0.0)
         bound_by = {"bytes": 0.0, "operations": 0.0}  # ms of the summed bound by what bounds it
         backend = None
         for nw, h, n, shifted, count in SWIN_SHAPES:
@@ -3945,32 +4089,40 @@ def phase_window_bwd_rates():
                 dev = {key: device_ms(fns[key], reps=10) for key in ("K5", "library")}
             ms.update(_in_turns({"plain": fns["plain"]}, reps=2)[0])
             ops, nbytes = _k5_work(bh, groups, n, SWIN_HD, dtype)
-            bound_ms, by = bound(ops, nbytes, name)
+            bnd = attn_bwd_bound(ops, nbytes, dtype, "K5")
+            bound_ms, by = bnd["bound_ms"], bnd["bound_by"]
             bound_by[by] += count * bound_ms
+            for key in ("fma_bound_ms", "fma_part_ms", "tf32_part_ms"):
+                total[key] += count * bnd.get(key, 0.0)
             shape = (f"B={b} windows={nw} H={h} N={n} "
                      f"{'shifted' if shifted else 'unshifted'} x{count}")
             out[f"{name} {shape}"] = {"ms": ms["K5"], "plain_ms": ms["plain"],
-                                      "library_ms": ms["library"], "bound_ms": bound_ms,
-                                      "bound_by": by, "agreement": e, "device_ms": dev["K5"],
-                                      "library_device_ms": dev["library"]}
+                                      "library_ms": ms["library"], **bnd, "agreement": e,
+                                      "device_ms": dev["K5"], "library_device_ms": dev["library"]}
             for field, key in (("ms", "K5"), ("plain_ms", "plain"), ("library_ms", "library")):
                 total[field] += count * ms[key]
             total["device_ms"] += count * dev["K5"]
             total["library_device_ms"] += count * dev["library"]
             total["bound_ms"] += count * bound_ms
-            log(f"[rates] K5 {name:8s} {shape}: {ms['K5']:.3f} ms ({ops / ms['K5'] / 1e9:.1f} "
-                f"TFLOP/s of the 10 BH N^2 hd it must do; bound {bound_ms:.3f} ms by {by}) vs "
+            log(f"[rates] K5 {name:8s} {shape}: {ms['K5']:.3f} ms by events "
+                f"({ops / ms['K5'] / 1e9:.1f} TFLOP/s of the 10 BH N^2 hd it must do) vs "
                 f"plain {ms['plain']:.3f} ms, library ({backend}) {ms['library']:.3f} ms; device "
-                f"time K5 {dev['K5']:.4f} ms, library {dev['library']:.4f} ms; agreement {e}")
+                f"time K5 {dev['K5']:.4f} ms ({bound_text(bnd, dev['K5'])}), library "
+                f"{dev['library']:.4f} ms; agreement {e}")
             del q, k, v, bias, scale, g, o, qf, kf, lq, lk, leaves, lo, lg, fns
             torch.cuda.empty_cache()
         library = f"scaled_dot_product_attention backward (mask gradient), {backend} backend"
         out[name] = dict(total, bound_by=max(bound_by, key=bound_by.get), library=library)
+        fma = (f"; FMA part {total['fma_part_ms']:.4f}, 3xTF32 part {total['tf32_part_ms']:.4f}, "
+               f"all on FMAs {total['fma_bound_ms']:.4f} ms" if dtype == torch.float32 else "")
         log(f"[rates] K5 {name:8s} the {SWIN_DEPTH} calls of one SwinV2-Base train step at B={b}: "
-            f"{total['ms']:.3f} ms (plain {total['plain_ms']:.3f}, library "
-            f"{total['library_ms']:.3f}, bound {total['bound_ms']:.3f} by "
-            f"{out[name]['bound_by']}); device time K5 {total['device_ms']:.4f} ms, library "
-            f"{total['library_device_ms']:.4f} ms; library = {library}")
+            f"{total['ms']:.3f} ms by events (plain {total['plain_ms']:.3f}, library "
+            f"{total['library_ms']:.3f}); device time K5 {total['device_ms']:.4f} ms, library "
+            f"{total['library_device_ms']:.4f} ms "
+            f"({total['device_ms'] / total['library_device_ms']:.2f}x); "
+            f"bound {total['bound_ms']:.4f} by {out[name]['bound_by']} "
+            f"({total['bound_ms'] / total['device_ms']:.1%} of the device time){fma}; "
+            f"library = {library}")
     return out
 
 
@@ -5408,15 +5560,15 @@ def phase_kernel_siglip_bwd():
         ms.update(_in_turns({"K3 plain": lambda: va.attention_bwd_plain(q, k, v, o, g, sc)},
                             rounds=1, reps=1)[0])
         ops, nbytes = _bwd_work(bh, n, hd, dtype)
-        bound_ms, bound_by = bound(ops, nbytes, name)
+        bnd = attn_bwd_bound(ops, nbytes, dtype)
         out["rates"][f"{name} BH={bh} N={n}"] = {
             "ms": ms["K3"], "plain_ms": ms["K3 plain"], "library_ms": ms["K3 library"],
             "forward_ms": ms["K2 with statistics"], "device_ms": dev["K3"],
-            "library_device_ms": dev["K3 library"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_device_ms": dev["K3 library"], **bnd,
             "library": f"scaled_dot_product_attention backward, {backend}", "what": what}
         log(f"[rates] K3 {name:8s} {label}: device time {dev['K3']:.4f} ms "
-            f"({ops / dev['K3'] / 1e9:.1f} TFLOP/s of the 10 BH N^2 hd; bound {bound_ms:.4f} ms "
-            f"by {bound_by}, {bound_ms / dev['K3']:.1%} of it), events {ms['K3']:.3f} ms; plain "
+            f"({ops / dev['K3'] / 1e9:.1f} TFLOP/s of the 10 BH N^2 hd; "
+            f"{bound_text(bnd, dev['K3'])}), events {ms['K3']:.3f} ms; plain "
             f"{ms['K3 plain']:.3f} ms; SDPA's backward ({backend}) device time "
             f"{dev['K3 library']:.4f} ms, events {ms['K3 library']:.3f} ms (K3 "
             f"{dev['K3'] / dev['K3 library']:.2f}x it); K2 with statistics "
@@ -8170,6 +8322,10 @@ def main():
     parser.add_argument("--export-only", action="store_true",
                         help="only build, then phase 56 (cli.export, both formats) on "
                              "timm-layout .pt files of random weights; prints no result")
+    parser.add_argument("--f32-bwd-only", action="store_true",
+                        help="only build, then K3's and K5's kernel and rate phases (17, 20, 25, "
+                             "27, 38) and the f32 train steps that reach their f32 routes, with "
+                             "the kernels and with their plain versions; prints no result")
     parser.add_argument("--tp-ranks", metavar="DxM", help=argparse.SUPPRESS)
     parser.add_argument("--tp-device", default="cuda", help=argparse.SUPPRESS)
     parser.add_argument("--tp-out", help=argparse.SUPPRESS)
@@ -8224,6 +8380,12 @@ def run_phases(opts, smi):
         return
     if opts.siglip_only:
         phases_siglip_train()
+        print(smi)
+        return
+    if opts.f32_bwd_only:
+        for phase in (phase_kernel_bwd, phase_bwd_rates, phase_kernel_siglip_bwd,
+                      phase_kernel_window_bwd, phase_window_bwd_rates, phase_f32_train_steps):
+            phase()
         print(smi)
         return
     if opts.train_only:
@@ -8399,6 +8561,9 @@ def run_phases(opts, smi):
         library=k3["library"], device_ms=k3["device_ms"],
         library_device_ms=k3["library_device_ms"],
         shape="bf16, one DINOv2 ViT-B/14 block's backward call at B=16, 518 px",
+        f32={key: bwd_rates["float32 B=16"][key] for key in
+             ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+              "bound_by", "fma_bound_ms", "arithmetic")},
         by_shape=bwd_rates, siglip_hd72=siglip_bwd["rates"], siglip_hd72_err=siglip_bwd["err"],
         launches_by_path=by_path["K3"]))
     for key in ("K4", "K6"):
@@ -8422,7 +8587,8 @@ def run_phases(opts, smi):
         library=k5["library"], device_ms=k5["device_ms"],
         library_device_ms=k5["library_device_ms"],
         f32_sum={key: k5_rates["float32"][key] for key in
-                 ("ms", "plain_ms", "library_ms", "bound_ms")},
+                 ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+                  "bound_by", "fma_bound_ms")},
         shape=f"bf16, the {SWIN_DEPTH} calls of one SwinV2-Base train step's backward at B=8, "
               "384 px (sum over the six stage shapes by their block counts)",
         ms_by_shape=k5_rates, function_grad_rel_err=k5_errs["function"],

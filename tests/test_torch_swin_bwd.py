@@ -351,11 +351,19 @@ def test_k5_workspace_holds_every_part(dtype, bh, n, hd, groups):
     """``biased_bwd_workspace_bytes``: the (BH, N, 4) f32 row statistics the
     wrapper reads alpha from, and in bf16 qh, qz, gz, the f32 dq sums and
     the two tables of int32 counters, one a (row, 64-row tile) and one a
-    (group, tile, 128-key unit)."""
+    (group, tile, 128-key unit); in f32 qh and the TF32 small parts of qh
+    and g, qz^T and gz^T with their small parts (N padded to 64), the dq
+    sums and the counters, one a (row, 32-row tile) and one a (group, tile,
+    64-key unit)."""
     got = va.biased_bwd_workspace_bytes(dtype, bh, n, hd, groups)
     stats = bh * n * 4 * 4
     if dtype == torch.float32:
-        assert got == stats
+        n_pad, tiles, units = (n + 63) // 64 * 64, (n + 31) // 32, (n + 63) // 64
+        rows_part = 4 * bh * n * hd * 4
+        transposed = 4 * bh * hd * n_pad * 4
+        counters = bh * tiles * 4 + groups * tiles * units * 4
+        assert got == stats + rows_part + transposed + counters
+        assert (stats + rows_part + transposed) % 16 == 0
         return
     tiles, units = (n + 63) // 64, (n + 127) // 128
     operands = 3 * bh * n * hd * 2 + bh * n * hd * 4

@@ -95,6 +95,26 @@ def test_function_grads_on_card_match_the_plain_path(dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bh,G,gs,n,shifted", [(32, 16, 2, 576, False), (64, 32, 2, 144, False),
+                                               (128, 64, 2, 576, True)])
+def test_f32_route_at_the_scale_clamp_on_card(bh, G, gs, n, shifted):
+    """K5's f32 route (3xTF32 dv, dk, dq; s and dp on IEEE FMAs) with every
+    logit scale at SwinV2's clamp of 100: logits of +-144 in exp2 units."""
+    _need_card()
+    q, k, v, bias, scale, g = _inputs(bh, G, n, 32, torch.float32, shifted, seed=bh + n)
+    scale.fill_(100.0)
+    o = va.biased_attention_plain(q, k, v, bias, scale, gs, True)
+    got = va.biased_attention_bwd(q, k, v, bias, scale, o, g, gs, True)
+    again = va.biased_attention_bwd(q, k, v, bias, scale, o, g, gs, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = va.biased_attention_bwd_plain(q, k, v, bias, scale, o, g, gs, True)
+    floors = va.biased_grad_floors(q, k, v, bias, scale, g, gs, True)
+    for name, e in va.biased_grad_agreement(got, want, floors, torch.float32).items():
+        assert va.grad_agrees(e), (name, e)
+
+
+@pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take():
     _need_card()
     q, k, v, bias, scale, g = _inputs(16, 2, 140, 32, torch.bfloat16, False, seed=4)
@@ -111,7 +131,9 @@ def test_kernel_refuses_what_it_does_not_take():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("bh,n,hd,groups", [(512, 576, 32, 4), (256, 144, 32, 32),
-                                            (12, 72, 16, 4), (6, 64, 64, 3)])
+                                            (12, 72, 16, 4), (6, 64, 64, 3),
+                                            # f32: 32-row query tiles, N padded to 64
+                                            (16, 136, 40, 2)])
 def test_workspace_size_is_the_kernels(dtype, bh, n, hd, groups):
     """``biased_bwd_workspace_bytes`` (which the wrapper allocates) equals the
     scratch the CUDA source lays out (``xmir_window_attn_bwd_workspace``)."""

@@ -75,6 +75,37 @@ def test_backward_negative_and_dominant_rows_on_card(dtype):
             assert va.grad_agrees(e), e
 
 
+# the f32 route's hard rows (3xTF32 dv, dk, dq; s and dp on IEEE FMAs): every
+# shift below -128, one dominant key among very negative scores, N 1, and the
+# MedSigLIP head width 72 at a ragged N
+F32_HARD = {"scores below -128": (4, 300, 64, -8.0),
+            "negative, one dominant key": (4, 300, 64, 0.0),
+            "N 1": (2, 1, 64, 1.0), "hd 72": (4, 729, 72, 1.0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(F32_HARD))
+def test_f32_route_hard_rows_on_card(case):
+    _need_card()
+    bh, n, hd, gain = F32_HARD[case]
+    gen = torch.Generator().manual_seed(7)
+    q, k, v, g = (torch.randn((bh, n, hd), generator=gen).cuda() for _ in range(4))
+    sc = hd ** -0.5 if gain == 1.0 else 0.125
+    if gain < 0:
+        q, k = q.abs() * gain, k.abs() * -gain
+    elif gain == 0.0:
+        q, k = -q.abs() * 3, k.abs() * 3
+        k[:, n - 10] *= -4.0
+    out, got = _grads(q, k, v, g, sc)
+    for a, b in zip(got, _grads(q, k, v, g, sc)[1]):
+        assert torch.equal(a, b)
+    for a, b, floor in zip(got, va.attention_bwd_plain(q, k, v, out, g, sc),
+                           va.grad_floors(q, k, v, g, sc)):
+        assert torch.isfinite(a).all()
+        e = va.grad_agreement(a, b, floor)
+        assert va.grad_agrees(e), e
+
+
 @pytest.mark.cuda
 def test_backward_wrapper_raises_on_card():
     _need_card()

@@ -144,15 +144,6 @@ __device__ __forceinline__ float word_score(uint32_t w) {
   return __uint_as_float((w & 0x80000000u) ? (w & 0x7fffffffu) : ~w);
 }
 
-// The small part of x under 3xTF32: x less what a TF32 product reads of it
-// (its 13 low mantissa bits cleared), rounded to TF32 as cvt.rna.tf32.f32
-// does (half of the lowest kept bit added to the magnitude, the dropped bits
-// cleared: ties away from zero), in integer operations.
-__device__ __forceinline__ float tf32_small(float x) {
-  const float rest = x - __uint_as_float(__float_as_uint(x) & 0xffffe000u);  // exact
-  return __uint_as_float((__float_as_uint(rest) + 0x1000u) & 0xffffe000u);
-}
-
 struct ScoreArgs {
   const float* bias;
   int n_queries, n_rows, depth, k, q_blocks, rows_per_split, n_splits, stages;

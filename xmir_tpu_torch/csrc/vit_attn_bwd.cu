@@ -59,13 +59,38 @@
 // warpgroups' barrier, the ordered adds) each cost a share, the warpgroups
 // run in step so that their tensor and ALU work do not overlap (PERF.md).
 
-// f32 (only under XMIR_FLASH_ATTN=1 XMIR_FUSED_LN=1 f32 training), three
-// kernels that each own their output: rowdot (c, one warp a row); dq (one
-// block per (head, 64-query tile) streams the 64-key tiles of K and V past
-// it); dk, dv (one block per (head, 64-key tile) streams the 64-query tiles
-// and keeps dk and dv in f32 registers). Scores and dp are computed twice
-// (14 BH N^2 hd operations); IEEE f32 FMAs (no TF32), 256 threads with a 4 x
-// 4 score block each.
+// f32 (f32 training under XMIR_FLASH_ATTN=1 XMIR_FUSED_LN=1, and the f32
+// towers of the MedSigLIP IT-Align step at hd 72). What bounds it on the
+// H100: the same 10 BH N^2 hd operations, which the CUDA cores' f32 FMAs
+// (67 TFLOP/s) take 3.4 ms for at B = 16 against 1.4 ms as three TF32
+// products each on the tensor cores (3 x 495 TFLOP/s). So dv, dk and dq are
+// 3xTF32 on wgmma (attn_bwd_f32.cuh: the split, the operand layouts), and
+// the scores and dp stay on IEEE FMAs: e = exp2(s - m) scales an error of s
+// up, and a row with one dominant key leaves t = e (dp - c) a residue of
+// dp, which 3xTF32 moved past the f32 bounds (PERF.md). Those two products
+// are then the bound: 1.4 ms of FMAs at B = 16, whose operands come from
+// shared memory at 2.5 loads a product (the accumulator layout gives a
+// thread two keys). An f32 tile and its small part are four times a bf16
+// tile, so the design keeps the bf16 route's single pass with smaller
+// pieces, four launches:
+//   bwd_prep_f32       per row qs = q c and (m, c = rowsum(g . o)), the
+//                      small parts of qs and g, and qz = q (scale / z),
+//                      gz = g / z written transposed (hd, N) with their small
+//                      parts, since TF32 reads no MN-major operand;
+//   bwd_f32_wg         a persistent block per SM takes (head, 64-key) units
+//                      in order: the unit's k and v stay resident (big and
+//                      small, 32-128 KB), a producer warp streams the QB-row
+//                      query tiles (QB = 32; 16 at hd 80, 8 at hd 128)
+//                      through a ring of two stages of eight operand tiles
+//                      (TMA), one stage for each of two consumer warpgroups
+//                      that take the tiles in turns; per tile s^T, dp^T
+//                      (IEEE FMAs), dv, dk and the dq part (3xTF32 wgmma)
+//                      once each (10 BH N^2 hd operations), the dq parts
+//                      added in key-unit order behind the bf16 route's
+//                      per-tile counters, the warpgroups' dk, dv parts
+//                      added in a fixed order at the unit's end;
+//   bwd_dq_finish_f32  dq = (the sum) (scale / z);
+// plus a memset of the counters. Two runs are bit-equal.
 //
 // Rounding points, the TPU kernel's (:659-677) with the forward's shift in
 // place of the row max: qs = q times scale log2(e) (a constant already
@@ -80,8 +105,9 @@
 // Ragged N: dead key rows get e = 0, dead query rows are zero-filled in
 // shared memory (so they add nothing to dk and dv) and are not stored. hd is
 // any multiple of 8 up to 128, zero-padded in shared memory to the next
-// instantiated width (16, 32, 64, 80, 128). Launches go on the caller's
-// stream and allocate nothing: the wrapper hands over the scratch.
+// instantiated width (bf16: 16, 32, 64, 80, 128; f32: 32, 64, 72, 80, 128).
+// Launches go on the caller's stream and allocate nothing: the wrapper hands
+// over the scratch.
 
 #include <cmath>
 #include <cstdint>
@@ -90,6 +116,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attn_bwd_f32.cuh"
 #include "attn_mma.cuh"
 #include "wgmma.cuh"
 
@@ -97,24 +124,6 @@ namespace {
 
 constexpr int kBQ = 64;  // query rows per tile
 constexpr int kBK = 64;  // keys per tile
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
-// c[row] = sum_d g[row][d] o[row][d] in f32, one warp a row.
-template <typename T>
-__global__ void __launch_bounds__(256) rowdot(const T* __restrict__ g, const T* __restrict__ o,
-                                              float* __restrict__ c, long long rows, int hd) {
-  const long long row = static_cast<long long>(blockIdx.x) * 8 + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const int lane = threadIdx.x & 31;
-  const T* gr = g + row * hd;
-  const T* orow = o + row * hd;
-  float sum = 0.f;
-  for (int d = lane; d < hd; d += 32) sum = fmaf(to_f32(gr[d]), to_f32(orow[d]), sum);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-  if (lane == 0) c[row] = sum;
-}
 
 // Eight bf16 values times f, each product rounded once to bf16.
 __device__ __forceinline__ uint4 scale8(uint4 raw, float f) {
@@ -537,287 +546,345 @@ __global__ void __launch_bounds__(256) bwd_dq_finish(const float4* __restrict__ 
 }
 
 // ---------------------------------------------------------------------------
-// f32: thread (ty, tx) = (tid / 16, tid % 16) owns tile rows ty + 16 i
-// (i < 4), score columns tx + 16 j and output columns tx + 16 j
-// (j < DP / 16). The 16 threads of a row are half a warp.
+// f32: bwd_prep_f32 writes the operands the main kernel streams, bwd_f32_wg
+// does the five products in 3xTF32 (attn_bwd_f32.cuh), bwd_dq_finish_f32
+// scales dq.
 
-// Rows row0 .. row0 + rows - 1 of src (n rows of hd), each times f(row), into
-// dst[rows][stride]; dead rows and the head's padding are zeros.
-template <int DP, typename F>
-__device__ __forceinline__ void load_rows_f32(float* dst, int stride, const float* src,
-                                              size_t base, int row0, int rows, int n, int hd,
-                                              int tid, F factor) {
-  constexpr int VPR = DP / 4;
-  for (int idx = tid; idx < rows * VPR; idx += 256) {
-    const int r = idx / VPR, vc = (idx - r * VPR) * 4;
-    float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n && vc < hd) {
-      f = __ldg(reinterpret_cast<const float4*>(src + base + static_cast<size_t>(row0 + r) * hd +
-                                                vc));
-      const float m = factor(row0 + r);
-      f.x *= m;
-      f.y *= m;
-      f.z *= m;
-      f.w *= m;
+namespace tb = tf32bwd;
+
+// dp's route: IEEE FMAs (0). A row with one dominant key leaves t = e (dp - c)
+// a residue of dp, which dp on 3xTF32 (3) moved past the f32 bounds, each
+// depth step's sum added in f32 or not (PERF.md); chip_faults.py plants 3.
+constexpr int kDpTerms = 0;
+
+// One block per (head, 64-query tile): c = rowsum(g . o) per row (a warp a
+// row, the lanes' strided sums then a butterfly), qs = q c, the small parts
+// of qs and g, and qz^T = (q (scale / z))^T, gz^T = (g / z)^T big and small
+// at (hd, n_pad) a head in slot_query's order; (m, c) at n_pad rows a head.
+// The rows past n are zeros in the transposed operands and in (m, c);
+// `plane` is the elements of one transposed operand (its small part
+// follows).
+template <int DP>
+__global__ void __launch_bounds__(256) bwd_prep_f32(
+    const float* __restrict__ q, const float* __restrict__ go, const float* __restrict__ o,
+    const float2* __restrict__ stats, float* __restrict__ qs, float* __restrict__ qs_small,
+    float* __restrict__ g_small, float* __restrict__ qzt, float* __restrict__ gzt,
+    float2* __restrict__ mc, int n, int n_pad, int hd, size_t plane, float c, float scale) {
+  constexpr int S = DP + 1, VPR = DP / 4;
+  extern __shared__ float prep_smem[];
+  float* const qz_s = prep_smem;  // [64][S]
+  float* const gz_s = qz_s + 64 * S;
+  float* const zinv_s = gz_s + 64 * S;  // [64]
+  float* const sz_s = zinv_s + 64;
+  const int tiles = n_pad / 64, head = blockIdx.x / tiles, q0 = (blockIdx.x - head * tiles) * 64;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t row0 = static_cast<size_t>(head) * n;
+  for (int r = warp; r < 64; r += 8) {
+    const int row = q0 + r;
+    float sum = 0.f;
+    if (row < n) {
+      const size_t off = (row0 + row) * hd;
+      for (int d = lane; d < hd; d += 32) sum = fmaf(go[off + d], o[off + d], sum);
     }
-    float* d = dst + r * stride + vc;
-    d[0] = f.x;
-    d[1] = f.y;
-    d[2] = f.z;
-    d[3] = f.w;
+#pragma unroll
+    for (int off2 = 16; off2 > 0; off2 >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off2);
+    if (lane == 0) {
+      const bool live = row < n;
+      const float2 st = live ? __ldg(stats + row0 + row) : make_float2(0.f, 1.f);
+      const float zinv = 1.0f / st.y;
+      zinv_s[r] = live ? zinv : 0.f;
+      sz_s[r] = live ? scale * zinv : 0.f;
+      mc[static_cast<size_t>(head) * n_pad + row] = live ? make_float2(st.x, sum) : make_float2(0.f, 0.f);
+    }
+  }
+  __syncthreads();
+  for (int idx = tid; idx < 64 * VPR; idx += 256) {
+    const int r = idx / VPR, vc = (idx - r * VPR) * 4, row = q0 + r;
+    float4 qv = make_float4(0.f, 0.f, 0.f, 0.f), gv = qv;
+    if (row < n && vc < hd) {
+      const size_t off = (row0 + row) * hd + vc;
+      qv = __ldg(reinterpret_cast<const float4*>(q + off));
+      gv = __ldg(reinterpret_cast<const float4*>(go + off));
+      const float4 x = make_float4(qv.x * c, qv.y * c, qv.z * c, qv.w * c);
+      *reinterpret_cast<float4*>(qs + off) = x;
+      *reinterpret_cast<float4*>(qs_small + off) =
+          make_float4(tf32_small(x.x), tf32_small(x.y), tf32_small(x.z), tf32_small(x.w));
+      *reinterpret_cast<float4*>(g_small + off) =
+          make_float4(tf32_small(gv.x), tf32_small(gv.y), tf32_small(gv.z), tf32_small(gv.w));
+    }
+    const float sz = sz_s[r], zinv = zinv_s[r];
+    float* const qz = qz_s + r * S + vc;
+    float* const gz = gz_s + r * S + vc;
+    qz[0] = qv.x * sz;
+    qz[1] = qv.y * sz;
+    qz[2] = qv.z * sz;
+    qz[3] = qv.w * sz;
+    gz[0] = gv.x * zinv;
+    gz[1] = gv.y * zinv;
+    gz[2] = gv.z * zinv;
+    gz[3] = gv.w * zinv;
+  }
+  __syncthreads();
+  for (int idx = tid; idx < hd * 64; idx += 256) {
+    const int d = idx >> 6, p = idx & 63;
+    const int qr = tb::slot_query(p);
+    const size_t dst = (static_cast<size_t>(head) * hd + d) * n_pad + q0 + p;
+    const float x = qz_s[qr * S + d], y = gz_s[qr * S + d];
+    qzt[dst] = x;
+    qzt[plane + dst] = tf32_small(x);
+    gzt[dst] = y;
+    gzt[plane + dst] = tf32_small(y);
   }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(256) bwd_dq_f32(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ go, const float* __restrict__ stats,
-    const float* __restrict__ crow, float* __restrict__ dq, int n, int hd, int q_tiles, float c,
-    float scale) {
-  constexpr int SQ = DP + 1;  // odd stride: conflict-free reads down a column
-  constexpr int SP = kBK + 1;
-  constexpr int DJ = DP / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* const q_s = reinterpret_cast<float*>(smem);  // [kBQ][SQ], q times c
-  float* const g_s = q_s + kBQ * SQ;                  // [kBQ][SQ]
-  float* const k_s = g_s + kBQ * SQ;                  // [kBK][SQ]
-  float* const v_s = k_s + kBK * SQ;                  // [kBK][SQ]
-  float* const p_s = v_s + kBK * SQ;                  // [kBQ][SP]
+struct F32Layout {  // byte offsets in the block's 1024-aligned shared memory
+  using C = tb::Cfg<DP>;
+  using St = tb::Stage<DP>;
+  static constexpr int kQB = C::kQB, kStages = C::kStages;
+  static constexpr int kUnit = tb::kUnitKeys * DP * 4;  // the unit's k (or v), big or small
+  static constexpr int kK = 0, kV = 2 * kUnit, kRing = 4 * kUnit;  // big, then small
+  static constexpr int kMc = St::kOperands;             // in a stage: the rows' (m, c)
+  static constexpr int kStage = St::kOperands + 1024;
+  static constexpr int kBars = kRing + kStages * kStage;
+  static constexpr int kTotal = kBars + 3 * kStages * 8 + 1024;
+};
 
-  const int bh = blockIdx.x / q_tiles, q0 = (blockIdx.x - bh * q_tiles) * kBQ;
-  const size_t base = static_cast<size_t>(bh) * n * hd;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  auto one = [](int) { return 1.f; };
+struct F32Maps {  // the copy engine's tensor maps, passed by value
+  CUtensorMap qs, qs_small, g, g_small, qzt, qzt_small, gzt, gzt_small, dq;
+};
 
-  load_rows_f32<DP>(q_s, SQ, q, base, q0, kBQ, n, hd, tid, [c](int) { return c; });
-  load_rows_f32<DP>(g_s, SQ, go, base, q0, kBQ, n, hd, tid, one);
+// One block per SM walks units of (head, 64 keys) in (head, key tile) order.
+// Warps 0-7 hold the unit's k and v (big and small); warpgroup w takes the
+// query tiles of walk count w mod 2 (ring stage w): s^T and dp^T on FMAs,
+// e = exp2(s - m) and t = e (dp - c) in registers, dv += e^T gz and
+// dk += t^T qz with e and t as A from registers, t staged over the stage's
+// consumed qs and g tiles, dq^T = k^T t^T, staged over its qz^T tiles; at
+// the unit's end warpgroup 0 stores its dk, dv parts and warpgroup 1 adds its
+// own. Warp 8 streams the tiles (eight operand tiles by TMA, the rows' (m, c)
+// by a bulk copy); warp 9 + s adds the dq parts staged in ring stage s to the
+// f32 sums in key-unit order (the bf16 kernel's counters), and frees the
+// stage. Units are taken in order and every block is resident, so a wait is
+// for a unit that a running block holds or has done.
+template <int DP>
+__global__ void __launch_bounds__(tb::kThreads, 1) bwd_f32_wg(
+    const float* __restrict__ k, const float* __restrict__ v, const __grid_constant__ F32Maps maps,
+    const float2* __restrict__ mc, float* __restrict__ dk, float* __restrict__ dv,
+    int* __restrict__ counters, int bh, int n, int n_pad, int hd) {
+  using L = F32Layout<DP>;
+  using St = tb::Stage<DP>;
+  constexpr int QB = L::kQB, kS = L::kStages, MT = (DP + 63) / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = align_1024(smem_raw);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* const empty = full + kS;
+  uint64_t* const dq_ready = empty + kS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int units = (n + tb::kUnitKeys - 1) / tb::kUnitKeys, q_tiles = (n + QB - 1) / QB;
+  const long long total = static_cast<long long>(bh) * units;
 
-  float m_row[4], c_row[4], sz_row[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    m_row[i] = c_row[i] = sz_row[i] = 0.f;
-    if (row < n) {
-      const float2 st = __ldg(reinterpret_cast<const float2*>(stats) +
-                              static_cast<size_t>(bh) * n + row);
-      m_row[i] = st.x;
-      sz_row[i] = scale * (1.0f / st.y);
-      c_row[i] = __ldg(crow + static_cast<size_t>(bh) * n + row);
+  if (tid == 0) {
+    for (int st = 0; st < kS; ++st) {
+      mbar_init(full + st, 1);      // the producer, once its copies land
+      mbar_init(empty + st, 1);     // its dq warp, once its add has read the stage
+      mbar_init(dq_ready + st, 4);  // one arrival per warp of the tile's warpgroup
     }
+    mbar_init_fence();
   }
+  __syncthreads();
 
-  float acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-
-  const int tiles = (n + kBK - 1) / kBK;
-  for (int tile = 0; tile < tiles; ++tile) {
-    const int k0 = tile * kBK;
-    __syncthreads();  // the last tile's reads are done
-    load_rows_f32<DP>(k_s, SQ, k, base, k0, kBK, n, hd, tid, one);
-    load_rows_f32<DP>(v_s, SQ, v, base, k0, kBK, n, hd, tid, one);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float qv[4], gv[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = q_s[(ty + 16 * i) * SQ + d];
-        gv[i] = g_s[(ty + 16 * i) * SQ + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = k_s[(tx + 16 * j) * SQ + d];
-        vv[j] = v_s[(tx + 16 * j) * SQ + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+  if (warp >= 8) {  // the third warpgroup gives (168 - 40) x 128 registers to the consumers
+    regs_shrink<40>();
+    if (lane != 0 || warp - 9 >= kS) return;
+    if (warp >= 9) {  // dq warp 5 + s: ring stage s's staged parts into the sums, in unit order
+      const int stage = warp - 9;
+      int it = 0;
+      for (long long x = blockIdx.x; x < total; x += gridDim.x) {
+        const int head = static_cast<int>(x / units), u = static_cast<int>(x % units);
+        for (int i = 0; i < q_tiles; ++i, ++it) {
+          if (it % kS != stage) continue;
+          mbar_wait(dq_ready + stage, (it / kS) & 1);
+          int* const cnt = counters + static_cast<size_t>(head) * q_tiles + i;
+          const unsigned char* const src = smem + L::kRing + stage * L::kStage + St::kQzT;
+          while (ld_acquire_gpu(cnt) != u) {
+          }
+          fence_async_global();
+          for (int c0 = 0; c0 < hd; c0 += 16) {  // a box of 16 columns; rows past N not written
+            if (u == 0) {  // the first unit's part is the sum so far
+              tma_store(&maps.dq, c0, i * QB, head, src + c0 * (QB * 4));
+            } else {
+              tma_reduce_add(&maps.dq, c0, i * QB, head, src + c0 * (QB * 4));
+            }
+          }
+          bulk_commit();
+          bulk_wait_read();
+          mbar_arrive(empty + stage);
+          bulk_wait();  // added in device memory: the next unit may add its part
+          fence_async_global();
+          __threadfence();
+          st_release_gpu(cnt, u + 1);
         }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float ev = k0 + tx + 16 * j < n ? exp2f(s[i][j] - m_row[i]) : 0.f;
-        p_s[(ty + 16 * i) * SP + tx + 16 * j] = ev * (dp[i][j] - c_row[i]);
       }
-    __syncwarp();  // a row's t is written and read by the same half warp
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pv[4], kv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty + 16 * i) * SP + kk];
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) kv[j] = k_s[kk * SQ + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) acc[i][j] = fmaf(pv[i], kv[j], acc[i][j]);
+      return;
     }
+    // warp 8, the producer: every unit's query tiles, in the consumers' order
+    using P = Panels<2 * DP>;
+    const CUtensorMap* const rows[4] = {&maps.qs, &maps.qs_small, &maps.g, &maps.g_small};
+    const CUtensorMap* const cols[4] = {&maps.qzt, &maps.qzt_small, &maps.gzt, &maps.gzt_small};
+    int it = 0;
+    for (long long x = blockIdx.x; x < total; x += gridDim.x) {
+      const int head = static_cast<int>(x / units);
+      for (int i = 0; i < q_tiles; ++i, ++it) {
+        const int stage = it % kS;
+        mbar_wait(empty + stage, ((it / kS) & 1) ^ 1);
+        unsigned char* const tiles = smem + L::kRing + stage * L::kStage;
+        // every box reads zeros outside its tensor, so the stage's bytes are
+        // always its eight tiles; the rows' (m, c) are zeros past N
+        mbar_arrive_expect_tx(full + stage, St::kOperands + QB * 8);
+        bulk_load(tiles + L::kMc, mc + static_cast<size_t>(head) * n_pad + i * QB, QB * 8,
+                  full + stage);
+#pragma unroll
+        for (int op = 0; op < 4; ++op) {
+#pragma unroll
+          for (int pn = 0; pn < P::kCount; ++pn) {
+            tma_load(tiles + op * St::kTile + pn * QB * P::kRowBytes, rows[op], pn * P::kWidth / 2,
+                     i * QB, head, full + stage);
+          }
+          tma_load(tiles + St::kQzT + op * St::kTile, cols[op], i * QB, 0, head, full + stage);
+        }
+      }
+    }
+    return;
   }
 
+  regs_grow<232>();
+  // warpgroup wg takes the query tiles of parity wg (of the walk's count)
+  const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3;
+  unsigned char* const k_s = smem + L::kK;
+  unsigned char* const v_s = smem + L::kV;
+  auto no_norm = [](float) { return 1.f; };
+  int it = 0;
+  for (long long x = blockIdx.x; x < total; x += gridDim.x) {
+    const int head = static_cast<int>(x / units), u = static_cast<int>(x - static_cast<long long>(head) * units);
+    const int k0 = u * tb::kUnitKeys;
+    const size_t row0 = static_cast<size_t>(head) * n;
+    named_barrier(1, tb::kConsumers);  // the last unit's products have read k and v
+    tb::load_unit<DP>(k_s, k_s + L::kUnit, k + row0 * hd, k0, n, hd, false, no_norm, tid);
+    tb::load_unit<DP>(v_s, v_s + L::kUnit, v + row0 * hd, k0, n, hd, false, no_norm, tid);
+    fence_async_smem();
+    named_barrier(1, tb::kConsumers);
+
+    const int key = k0 + 16 * wq + g;  // this thread's key rows: key, key + 8
+    const bool live_key[2] = {key < n, key + 8 < n};
+    float dk_acc[DP / 2], dv_acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= n) continue;
+    for (int j = 0; j < DP / 2; ++j) dk_acc[j] = dv_acc[j] = 0.f;
+    for (int i = 0; i < q_tiles; ++i, ++it) {
+      if ((it & 1) != wg) continue;
+      const int stage = it % kS;
+      unsigned char* const tiles = smem + L::kRing + stage * L::kStage;
+      const uint32_t tiles_a = smem_addr(tiles);
+      float s[QB / 2], dp[QB / 2];
+      mbar_wait(full + stage, (it / kS) & 1);
+      tb::scores_and_dp<DP, kDpTerms>(s, dp, k_s, v_s, L::kUnit, tiles, wq, g, t);
+
+      // e = exp2(s - m), 0 on dead keys; t = e (dp - c); per query column
+      const float2* const mcs = reinterpret_cast<const float2*>(tiles + L::kMc);
 #pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int col = tx + 16 * j;
-      if (col < hd) dq[base + static_cast<size_t>(row) * hd + col] = acc[i][j] * sz_row[i];
+      for (int j = 0; j < QB / 8; ++j) {
+        const float2 mq[2] = {mcs[8 * j + 2 * t], mcs[8 * j + 2 * t + 1]};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 r = mq[e & 1];
+          const float ev = live_key[e >> 1] ? exp2f(s[4 * j + e] - r.x) : 0.f;
+          dp[4 * j + e] = ev * (dp[4 * j + e] - r.y);
+          s[4 * j + e] = ev;
+        }
+      }
+      uint32_t eb[QB / 8][4], es[QB / 8][4], tb_[QB / 8][4], ts[QB / 8][4];
+      tb::split_fragments<QB / 8>(s, eb, es);
+      tb::split_fragments<QB / 8>(dp, tb_, ts);
+      tb::issue_dkv<DP>(dv_acc, dk_acc, eb, es, tb_, ts, tiles_a);
+      tb::stage_t<QB>(tiles + St::kQs, tb_, ts, wq, g, t);  // over the consumed qs, g tiles
+      fence_async_smem();
+      named_barrier(2 + wg, 128);  // every warp's t is in
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(eb);
+      fence_regs(es);
+      fence_regs(tb_);
+      fence_regs(ts);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float dq_acc[QB / 2];
+        tb::issue_dq<DP>(dq_acc, k_s, k_s + L::kUnit, tiles_a + St::kQs, mt, wq, g, t);
+        tb::stage_dq<DP>(tiles + St::kQzT, dq_acc, mt, wq, g, t);  // over the consumed qz^T tiles
+      }
+      fence_async_smem();  // the copy engine reads the staging through the asynchronous proxy
+      __syncwarp();
+      if (lane == 0) mbar_arrive(dq_ready + stage);
+    }
+
+    // dk and dv: warpgroup 0's parts through the outputs, then warpgroup 1
+    // adds its own to them (in that order) and stores the sums
+    if (wg == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!live_key[h]) continue;
+        const size_t off = (row0 + key + 8 * h) * hd;
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          const int col = 8 * j + 2 * t;
+          if (col < hd) {
+            *reinterpret_cast<float2*>(dk + off + col) =
+                make_float2(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
+            *reinterpret_cast<float2*>(dv + off + col) =
+                make_float2(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+          }
+        }
+      }
+    }
+    __threadfence_block();
+    named_barrier(1, tb::kConsumers);
+    if (wg == 1) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!live_key[h]) continue;
+        const size_t off = (row0 + key + 8 * h) * hd;
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          const int col = 8 * j + 2 * t;
+          if (col < hd) {
+            float2* const pk = reinterpret_cast<float2*>(dk + off + col);
+            float2* const pv = reinterpret_cast<float2*>(dv + off + col);
+            const float2 a = *pk, b = *pv;
+            *pk = make_float2(a.x + dk_acc[4 * j + 2 * h], a.y + dk_acc[4 * j + 2 * h + 1]);
+            *pv = make_float2(b.x + dv_acc[4 * j + 2 * h], b.y + dv_acc[4 * j + 2 * h + 1]);
+          }
+        }
+      }
     }
   }
 }
 
-// f32, dk and dv: the block's 64 keys against query tiles of BQ rows (64, or
-// 32 where the head is wide, for the shared memory's sake). Thread (ty, tx)
-// owns key rows ty + 16 i, query columns tx + 16 j (j < BQ / 16) of the
-// transposed tiles and output columns tx + 16 j (j < DP / 16).
-template <int DP, int BQ>
-__global__ void __launch_bounds__(256) bwd_dkv_f32(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ go, const float* __restrict__ stats,
-    const float* __restrict__ crow, float* __restrict__ dk, float* __restrict__ dv, int n,
-    int hd, int k_tiles, float c, float scale) {
-  constexpr int SQ = DP + 1;
-  constexpr int SP = BQ + 1;
-  constexpr int DJ = DP / 16;
-  constexpr int QJ = BQ / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* const k_s = reinterpret_cast<float*>(smem);  // [kBK][SQ]
-  float* const v_s = k_s + kBK * SQ;                  // [kBK][SQ]
-  float* const qs_s = v_s + kBK * SQ;                 // [BQ][SQ], q times c
-  float* const qz_s = qs_s + BQ * SQ;                 // [BQ][SQ], q scale / z
-  float* const g_s = qz_s + BQ * SQ;                  // [BQ][SQ]
-  float* const gz_s = g_s + BQ * SQ;                  // [BQ][SQ], g / z
-  float* const pt_s = gz_s + BQ * SQ;                 // [kBK][SP], t^T
-  float* const pe_s = pt_s + kBK * SP;                // [kBK][SP], e^T
-  float* const m_s = pe_s + kBK * SP;                 // [BQ]
-  float* const c_s = m_s + BQ;                        // [BQ]
-
-  const int bh = blockIdx.x / k_tiles, k0 = (blockIdx.x - bh * k_tiles) * kBK;
-  const size_t base = static_cast<size_t>(bh) * n * hd;
-  const size_t row_base = static_cast<size_t>(bh) * n;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  auto one = [](int) { return 1.f; };
-  auto zinv = [&](int row) { return 1.0f / __ldg(stats + 2 * (row_base + row) + 1); };
-
-  load_rows_f32<DP>(k_s, SQ, k, base, k0, kBK, n, hd, tid, one);
-  load_rows_f32<DP>(v_s, SQ, v, base, k0, kBK, n, hd, tid, one);
-
-  float acc_k[4][DJ], acc_v[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  const int q_tiles = (n + BQ - 1) / BQ;
-  for (int tile = 0; tile < q_tiles; ++tile) {
-    const int q0 = tile * BQ;
-    __syncthreads();  // the last tile's reads are done
-    load_rows_f32<DP>(qs_s, SQ, q, base, q0, BQ, n, hd, tid, [c](int) { return c; });
-    load_rows_f32<DP>(qz_s, SQ, q, base, q0, BQ, n, hd, tid,
-                      [&](int row) { return scale * zinv(row); });
-    load_rows_f32<DP>(g_s, SQ, go, base, q0, BQ, n, hd, tid, one);
-    load_rows_f32<DP>(gz_s, SQ, go, base, q0, BQ, n, hd, tid, zinv);
-    if (tid < BQ) {  // a dead query row: zero operands, shift 0, c 0
-      const bool live = q0 + tid < n;
-      m_s[tid] = live ? __ldg(stats + 2 * (row_base + q0 + tid)) : 0.f;
-      c_s[tid] = live ? __ldg(crow + row_base + q0 + tid) : 0.f;
-    }
-    __syncthreads();
-
-    float st[4][QJ], dpt[4][QJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < QJ; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < DP; ++d) {
-      float kv[4], vv[4], qv[QJ], gv[QJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = k_s[(ty + 16 * i) * SQ + d];
-        vv[i] = v_s[(ty + 16 * i) * SQ + d];
-      }
-#pragma unroll
-      for (int j = 0; j < QJ; ++j) {
-        qv[j] = qs_s[(tx + 16 * j) * SQ + d];
-        gv[j] = g_s[(tx + 16 * j) * SQ + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < QJ; ++j) {
-          st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
-          dpt[i][j] = fmaf(vv[i], gv[j], dpt[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < QJ; ++j) {
-        const int col = tx + 16 * j;
-        const float ev = k0 + ty + 16 * i < n ? exp2f(st[i][j] - m_s[col]) : 0.f;
-        pt_s[(ty + 16 * i) * SP + col] = ev * (dpt[i][j] - c_s[col]);
-        pe_s[(ty + 16 * i) * SP + col] = ev;
-      }
-    __syncwarp();  // a key row's t and e are written and read by the same half warp
-
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float tv[4], ev[4], qz[DJ], gz[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        tv[i] = pt_s[(ty + 16 * i) * SP + qq];
-        ev[i] = pe_s[(ty + 16 * i) * SP + qq];
-      }
-#pragma unroll
-      for (int j = 0; j < DJ; ++j) {
-        qz[j] = qz_s[qq * SQ + tx + 16 * j];
-        gz[j] = gz_s[qq * SQ + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < DJ; ++j) {
-          acc_k[i][j] = fmaf(tv[i], qz[j], acc_k[i][j]);
-          acc_v[i][j] = fmaf(ev[i], gz[j], acc_v[i][j]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= n) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int col = tx + 16 * j;
-      if (col < hd) {
-        dk[base + static_cast<size_t>(row) * hd + col] = acc_k[i][j];
-        dv[base + static_cast<size_t>(row) * hd + col] = acc_v[i][j];
-      }
-    }
-  }
+// dq = (the summed t k) (scale / z); four columns a thread.
+__global__ void __launch_bounds__(256) bwd_dq_finish_f32(const float4* __restrict__ acc,
+                                                         const float2* __restrict__ stats,
+                                                         float4* __restrict__ dq, long long rows,
+                                                         int hd, float scale) {
+  const long long idx = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const int per_row = hd / 4;
+  if (idx >= rows * per_row) return;
+  const float sz = scale * (1.0f / __ldg(stats + idx / per_row).y);
+  const float4 a = __ldg(acc + idx);
+  dq[idx] = make_float4(a.x * sz, a.y * sz, a.z * sz, a.w * sz);
 }
 
 struct Args {
   const void *q, *k, *v, *o, *g;
   const float* stats;
-  float* crow;  // f32: c per row; bf16: the workspace of bf16_workspace
+  float* crow;  // the workspace: f32_workspace's or bf16_workspace's
   void *dq, *dk, *dv;
   int bh, n, hd;
   float c, scale;
@@ -841,6 +908,30 @@ Bf16Workspace bf16_workspace(int bh, int n, int hd) {
   w.mc = w.dq + elems * 4;
   w.counters = w.mc + static_cast<size_t>(bh) * ((n + kBQ - 1) / kBQ) * kBQ * 8;
   w.bytes = w.counters + static_cast<size_t>(bh) * ((n + kBQ - 1) / kBQ) * sizeof(int);
+  return w;
+}
+
+// The f32 workspace: qs, the small parts of qs and g (bh, n, hd); qz^T, gz^T
+// (bh, hd, n_pad), each big then small; (m, c) per row (bh, n_pad); the dq
+// sums (bh, n, hd); a counter per (head, query tile of QB rows).
+struct F32Workspace {
+  size_t qs, qs_small, g_small, qzt, gzt, mc, dq, counters, bytes, plane;
+};
+
+F32Workspace f32_workspace(int bh, int n, int hd) {
+  const size_t elems = static_cast<size_t>(bh) * n * hd, n_pad = (n + 63) / 64 * 64;
+  const int qb = hd <= 72 ? 32 : hd <= 80 ? 16 : 8;  // tb::Cfg's query tile at hd's padded width
+  F32Workspace w;
+  w.plane = static_cast<size_t>(bh) * hd * n_pad * 4;
+  w.qs = 0;
+  w.qs_small = w.qs + elems * 4;
+  w.g_small = w.qs_small + elems * 4;
+  w.qzt = w.g_small + elems * 4;
+  w.gzt = w.qzt + 2 * w.plane;
+  w.mc = w.gzt + 2 * w.plane;
+  w.dq = w.mc + static_cast<size_t>(bh) * n_pad * 8;
+  w.counters = w.dq + elems * 4;
+  w.bytes = w.counters + static_cast<size_t>(bh) * ((n + qb - 1) / qb) * sizeof(int);
   return w;
 }
 
@@ -922,48 +1013,81 @@ cudaError_t launch_bf16(const Args& a) {
 
 template <int DP>
 cudaError_t launch_f32(const Args& a) {
-  constexpr int BQ = DP > 80 ? 32 : 64;
-  constexpr int kSmemQ = (4 * kBQ * (DP + 1) + kBQ * (kBK + 1)) * (int)sizeof(float);
-  constexpr int kSmemKV = (2 * kBK * (DP + 1) + 4 * BQ * (DP + 1) + 2 * kBK * (BQ + 1) + 2 * BQ) *
-                          (int)sizeof(float);
-  cudaError_t err = allow_smem(bwd_dq_f32<DP>, kSmemQ);
+  using L = F32Layout<DP>;
+  constexpr int QB = L::kQB, kPrepSmem = (2 * 64 * (DP + 1) + 2 * 64) * 4;
+  cudaError_t err = allow_smem(bwd_f32_wg<DP>, L::kTotal);
+  if (err == cudaSuccess) err = allow_smem(bwd_prep_f32<DP>, kPrepSmem);
   if (err != cudaSuccess) return err;
-  err = allow_smem(bwd_dkv_f32<DP, BQ>, kSmemKV);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  const long long rows = static_cast<long long>(a.bh) * a.n;
-  rowdot<float><<<static_cast<unsigned>((rows + 7) / 8), 256, 0, a.stream>>>(
-      static_cast<const float*>(a.g), static_cast<const float*>(a.o), a.crow, rows, a.hd);
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const F32Workspace w = f32_workspace(a.bh, a.n, a.hd);
+  unsigned char* const ws = reinterpret_cast<unsigned char*>(a.crow);
+  err = cudaMemsetAsync(ws + w.counters, 0, w.bytes - w.counters, a.stream);
+  if (err != cudaSuccess) return err;
+  const int n_pad = (a.n + 63) / 64 * 64;
+  bwd_prep_f32<DP><<<a.bh * (n_pad / 64), 256, kPrepSmem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.g),
+      static_cast<const float*>(a.o), reinterpret_cast<const float2*>(a.stats),
+      reinterpret_cast<float*>(ws + w.qs), reinterpret_cast<float*>(ws + w.qs_small),
+      reinterpret_cast<float*>(ws + w.g_small), reinterpret_cast<float*>(ws + w.qzt),
+      reinterpret_cast<float*>(ws + w.gzt), reinterpret_cast<float2*>(ws + w.mc), a.n, n_pad,
+      a.hd, w.plane / 4, a.c, a.scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int tiles = (a.n + kBQ - 1) / kBQ;
-  bwd_dq_f32<DP><<<a.bh * tiles, 256, kSmemQ, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.stats, a.crow,
-      static_cast<float*>(a.dq), a.n, a.hd, tiles, a.c, a.scale);
+  // the row operands as (hd, N, BH), a box a panel; the transposed ones as
+  // (n_pad, hd, BH), a box of (QB, DP); the f32 dq sums as (hd, N, BH), boxes
+  // of 16 columns x QB rows, 64-byte swizzled
+  F32Maps maps;
+  using P = Panels<2 * DP>;
+  const void* const rows[4] = {ws + w.qs, ws + w.qs_small, a.g, ws + w.g_small};
+  CUtensorMap* const row_maps[4] = {&maps.qs, &maps.qs_small, &maps.g, &maps.g_small};
+  const void* const cols[4] = {ws + w.qzt, ws + w.qzt + w.plane, ws + w.gzt, ws + w.gzt + w.plane};
+  CUtensorMap* const col_maps[4] = {&maps.qzt, &maps.qzt_small, &maps.gzt, &maps.gzt_small};
+  for (int op = 0; op < 4; ++op) {
+    if (make_tensor_map(row_maps[op], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rows[op], a.hd, a.n, a.bh,
+                        static_cast<uint64_t>(a.hd) * 4, static_cast<uint64_t>(a.n) * a.hd * 4,
+                        P::kWidth / 2, QB, panel_swizzle<2 * DP>()) != 0 ||
+        make_tensor_map(col_maps[op], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, cols[op], n_pad, a.hd, a.bh,
+                        static_cast<uint64_t>(n_pad) * 4, static_cast<uint64_t>(n_pad) * a.hd * 4,
+                        QB, DP, panel_swizzle<2 * QB>()) != 0) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (make_tensor_map(&maps.dq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ws + w.dq, a.hd, a.n, a.bh,
+                      static_cast<uint64_t>(a.hd) * 4, static_cast<uint64_t>(a.n) * a.hd * 4, 16,
+                      QB, CU_TENSOR_MAP_SWIZZLE_64B) != 0) {
+    return cudaErrorInvalidValue;
+  }
+  // persistent: one block per SM (or per unit, where there are fewer)
+  const long long units = static_cast<long long>(a.bh) * ((a.n + tb::kUnitKeys - 1) / tb::kUnitKeys);
+  const int grid = static_cast<int>(units < sms ? units : sms);
+  bwd_f32_wg<DP><<<grid, tb::kThreads, L::kTotal, a.stream>>>(
+      static_cast<const float*>(a.k), static_cast<const float*>(a.v), maps,
+      reinterpret_cast<const float2*>(ws + w.mc), static_cast<float*>(a.dk),
+      static_cast<float*>(a.dv), reinterpret_cast<int*>(ws + w.counters), a.bh, a.n, n_pad, a.hd);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  bwd_dkv_f32<DP, BQ><<<a.bh * tiles, 256, kSmemKV, a.stream>>>(
-      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), static_cast<const float*>(a.g), a.stats, a.crow,
-      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.n, a.hd, tiles, a.c, a.scale);
+  const long long rows_n = static_cast<long long>(a.bh) * a.n, vecs = rows_n * (a.hd / 4);
+  bwd_dq_finish_f32<<<static_cast<unsigned>((vecs + 255) / 256), 256, 0, a.stream>>>(
+      reinterpret_cast<const float4*>(ws + w.dq), reinterpret_cast<const float2*>(a.stats),
+      static_cast<float4*>(a.dq), rows_n, a.hd, a.scale);
   return cudaGetLastError();
 }
 
-template <int DP>
-cudaError_t launch(int dtype, const Args& a) {
-  return dtype == 0 ? launch_f32<DP>(a) : launch_bf16<DP>(a);
-}
 
 }  // namespace
 
-// Bytes of the scratch xmir_vit_attn_bwd takes as `crow`: (bh, n) float32
-// for dtype 0 (float32), the bf16 kernels' workspace for dtype 1.
+// Bytes of the scratch xmir_vit_attn_bwd takes as `crow`: the f32 kernels'
+// workspace for dtype 0 (float32), the bf16 kernels' for dtype 1.
 extern "C" int xmir_vit_attn_bwd_workspace(int dtype, int bh, int n, int hd, long long* bytes) {
   if ((dtype != 0 && dtype != 1) || bh < 1 || n < 1 || hd < 8 || hd > 128 || hd % 8 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  *bytes = dtype == 0 ? static_cast<long long>(bh) * n * 4
-                      : static_cast<long long>(bf16_workspace(bh, n, hd).bytes);
+  *bytes = static_cast<long long>(dtype == 0 ? f32_workspace(bh, n, hd).bytes
+                                             : bf16_workspace(bh, n, hd).bytes);
   return 0;
 }
 
@@ -987,9 +1111,16 @@ extern "C" int xmir_vit_attn_bwd(const void* q, const void* k, const void* v, co
   }
   const Args a{q, k, v, o, g, static_cast<const float*>(stats), static_cast<float*>(crow),
                dq, dk, dv, bh, n, hd, c, scale, static_cast<cudaStream_t>(stream)};
-  if (hd <= 16) return (int)launch<16>(dtype, a);
-  if (hd <= 32) return (int)launch<32>(dtype, a);
-  if (hd <= 64) return (int)launch<64>(dtype, a);
-  if (hd <= 80) return (int)launch<80>(dtype, a);
-  return (int)launch<128>(dtype, a);
+  if (dtype == 0) {  // f32: hd zero-padded to 32, 64, 72, 80, 128
+    if (hd <= 32) return (int)launch_f32<32>(a);
+    if (hd <= 64) return (int)launch_f32<64>(a);
+    if (hd <= 72) return (int)launch_f32<72>(a);
+    if (hd <= 80) return (int)launch_f32<80>(a);
+    return (int)launch_f32<128>(a);
+  }
+  if (hd <= 16) return (int)launch_bf16<16>(a);
+  if (hd <= 32) return (int)launch_bf16<32>(a);
+  if (hd <= 64) return (int)launch_bf16<64>(a);
+  if (hd <= 80) return (int)launch_bf16<80>(a);
+  return (int)launch_bf16<128>(a);
 }

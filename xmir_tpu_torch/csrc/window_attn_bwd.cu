@@ -76,21 +76,41 @@
 // 49 KB: bias 32 KB, four operand tiles, the stats; kh and v of the unit,
 // t^T), 200 KB at hd 64 (two stages); the prep 218 KB at N = 576, hd 32.
 //
-// f32 (only under XMIR_FUSED_ATTN=1 f32 training), three kernels that each
-// own their output:
-//   dq     one block per (folded row, 64-query tile) streams the window's
-//          64-key tiles twice: the exact row max, then z, dp, t and dq. It
-//          writes each query row's (m, 1 / z, c, alpha) to `stats`.
-//   dk dv  one block per (folded row, 64-key tile) streams the query tiles
-//          with those statistics and keeps dk and dv in f32 registers.
-//   dbias  one block per (group, 64-query tile, 64-key tile) walks the
-//          group's g_size folded rows in order, recomputing s and dp for its
-//          tile, and keeps the tile's dbias in f32 registers.
-// Scores four times and dp three times (20 BH N^2 hd operations); IEEE f32
-// FMAs (no TF32), 256 threads with a 4 x 4 block each.
+// f32 (SwinV2 f32 training under XMIR_FUSED_ATTN=1). What bounds it on the
+// H100: the same 10 BH N^2 hd operations and the prep's scores, 6.1 ms a
+// SwinV2-Base step (B = 8) on the CUDA cores' f32 FMAs against about 2.5 ms
+// as three TF32 products each on the tensor cores: so dp, dv, dk and dq are
+// 3xTF32 on wgmma (attn_bwd_f32.cuh; dp's depth steps each added in f32)
+// and the scores, whose error e = exp2(s2 - m) scales up at logits of +-144,
+// stay on IEEE FMAs, the bound now with the prep's (PERF.md). Three launches
+// and a memset of counters, the bf16 route's structure with f32 pieces:
+//   window_prep_f32       a block per (folded row, 64-query tile) streams
+//                         the row's kh tiles past its qh tile on IEEE FMAs
+//                         (the exact row max wants every score of the row
+//                         before any e): s2, each row's max m and z along
+//                         running maxima; then c, stats = (m, 1 / z, c, 0),
+//                         and the main pass's operands: qh with its small
+//                         part, g's small part, qz = qh32 (scale_g / z) and
+//                         gz = g / z transposed (hd, N) with their small
+//                         parts (TF32 reads no MN-major operand);
+//   window_bwd_f32_wg     a persistent block per SM takes (row, 64-key)
+//                         units in the bf16 route's order: kh and v stay
+//                         resident (big and small), a producer warp streams
+//                         the 32-row query tiles (eight operand tiles, the
+//                         bias tile, the stats) through a ring of two
+//                         stages, one for each of two consumer warpgroups
+//                         that take the tiles in turns; per tile s_cos (FMAs)
+//                         and dp (3xTF32) once each feed dv, dk, the dq part
+//                         and the dbias part (t / z over the bias), which a
+//                         reducer per stage adds in the bf16 route's fixed
+//                         orders (counters per (row, query tile) and per
+//                         (group, query tile, key unit));
+//   window_bwd_finish_f32 dq = (the sum) (scale / z), alpha, the cosine chain.
+// 12 BH N^2 hd operations (the prep's scores on FMAs) against 20 in the
+// three FMA kernels this replaces. Two runs are bit-equal.
 //
-// hd is a multiple of 8 up to 64, zero-padded in shared memory to 16, 32 or
-// 64; N a multiple of 8 (ragged tiles are masked, or read as zeros by the
+// hd is a multiple of 8 up to 64, zero-padded in shared memory to 16 (bf16),
+// 32 or 64; N a multiple of 8 (ragged tiles are masked, or read as zeros by the
 // copy engine); BH == G g_size. Launches go on the caller's stream and
 // allocate nothing: the wrapper hands over the scratch.
 
@@ -100,6 +120,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "attn_bwd_f32.cuh"
 #include "attn_mma.cuh"
 #include "wgmma.cuh"
 
@@ -1044,9 +1065,13 @@ __global__ void __launch_bounds__(256) window_bwd_finish(const bf16* __restrict_
 }
 
 // ---------------------------------------------------------------------------
-// f32: thread (ty, tx) = (tid / 16, tid % 16) owns tile rows ty + 16 i
-// (i < 4), columns tx + 16 j (j < 4) of a 64 x 64 score tile and output
-// columns tx + 16 j (j < DP / 16). The 16 threads of a row are half a warp.
+// f32: window_prep_f32 (each row's exact max m and z, on FMAs), the main
+// pass window_bwd_f32_wg (3xTF32, attn_bwd_f32.cuh) and window_bwd_finish_f32.
+// Prep thread (ty, tx) = (tid / 16, tid % 16) owns tile rows ty + 16 i
+// (i < 4) and columns tx + 16 j (j < 4) of a 64 x 64 score tile; the 16
+// threads of a row are half a warp.
+
+namespace tb = tf32bwd;
 
 // s = A B^T: rows ty + 16 i of a_s against rows tx + 16 j of b_s
 template <int DP>
@@ -1071,43 +1096,41 @@ __device__ __forceinline__ void fma_tile(float (&s)[4][4], const float* a_s, con
   }
 }
 
-// acc[i][j] += sum_kk p_s[ty + 16 i][kk] b_s[kk][tx + 16 j]
-template <int DP>
-__device__ __forceinline__ void fma_acc(float (&acc)[4][DP / 16], const float* p_s,
-                                        const float* b_s, int ty, int tx) {
-  constexpr int SQ = DP + 1, SP = kT + 1;
-#pragma unroll 4
-  for (int kk = 0; kk < kT; ++kk) {
-    float pv[4], bv[DP / 16];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = p_s[(ty + 16 * i) * SP + kk];
-#pragma unroll
-    for (int j = 0; j < DP / 16; ++j) bv[j] = b_s[kk * SQ + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < DP / 16; ++j) acc[i][j] = fmaf(pv[i], bv[j], acc[i][j]);
-  }
-}
-
 __device__ __forceinline__ float half_warp_sum(float x) {
 #pragma unroll
   for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
   return x;
 }
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
 
+// The operands the f32 main pass streams (Workspace): qh and the small
+// parts of qh and g as (bh, n, hd); qz^T = (qh32 (scale_g / z))^T and
+// gz^T = (g / z)^T as (bh, hd, n_pad), each big then small (`plane` elements
+// apart), in slot_query's order.
+struct F32Operands {
+  float *qh, *qh_small, *g_small, *qzt, *gzt;
+  size_t plane;
+  int n_pad;
+};
+
+// One block per (folded row, 64-query tile): qh resident, the row's kh tiles
+// streamed; s2 per score on FMAs and, per query row, the running max and z
+// (z rescaled to each new max: it differs from the sum at the exact max by
+// rounding only); then stats = (m, 1 / z, c, 0) and the main pass's operands.
 template <int DP, bool COS>
-__global__ void __launch_bounds__(256) dq_f32(Params p) {
-  constexpr int SQ = DP + 1, SP = kT + 1, DJ = DP / 16;
+__global__ void __launch_bounds__(256) window_prep_f32(Params p, F32Operands ops) {
+  constexpr int SQ = DP + 1;
   extern __shared__ __align__(16) unsigned char smem[];
   float* const q_s = reinterpret_cast<float*>(smem);  // [kT][SQ] qh
-  float* const g_s = q_s + kT * SQ;
-  float* const k_s = g_s + kT * SQ;
-  float* const v_s = k_s + kT * SQ;
-  float* const p_s = v_s + kT * SQ;  // [kT][SP] t
+  float* const k_s = q_s + kT * SQ;                    // [kT][SQ] kh, then g
+  float* const zinv_s = k_s + kT * SQ;                 // [kT]
+  float* const sz_s = zinv_s + kT;                     // [kT]
   const float *q = static_cast<const float*>(p.q), *k = static_cast<const float*>(p.k),
-              *v = static_cast<const float*>(p.v), *o = static_cast<const float*>(p.o),
-              *go = static_cast<const float*>(p.g);
+              *o = static_cast<const float*>(p.o), *go = static_cast<const float*>(p.g);
   const int n = p.n, hd = p.hd;
   const int bh = blockIdx.x / p.tiles, q0 = (blockIdx.x - bh * p.tiles) * kT;
   const size_t base = static_cast<size_t>(bh) * n * hd;
@@ -1118,10 +1141,9 @@ __global__ void __launch_bounds__(256) dq_f32(Params p) {
   auto one = [](int) { return 1.f; };
 
   load_rows<DP>(q_s, q + base, q0, kT, n, hd, COS, one, tid, 256);
-  load_rows<DP>(g_s, go + base, q0, kT, n, hd, false, one, tid, 256);
   int row[4];
   const float* b_row[4];
-  float c_row[4];
+  float c_row[4], m[4], zp[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     row[i] = q0 + ty + 16 * i;
@@ -1132,280 +1154,446 @@ __global__ void __launch_bounds__(256) dq_f32(Params p) {
       for (int d = tx; d < hd; d += 16) sum = fmaf(go[off + d], o[off + d], sum);
     }
     c_row[i] = half_warp_sum(sum);
+    m[i] = -INFINITY;
+    zp[i] = 0.f;
   }
-
-  auto logits = [&](int tile, float (&s)[4][4]) {
-    fma_tile<DP>(s, q_s, k_s, ty, tx);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tile * kT + tx + 16 * j;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[i][j] = col < n ? logit2(s[i][j], csc, __fmul_rn(__ldg(b_row[i] + col), kLog2e))
-                          : -INFINITY;
-      }
-    }
-  };
-
-  const int tiles = p.tiles;
-  float m[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
-  for (int tile = 0; tile < tiles; ++tile) {  // pass 1
+  for (int tile = 0; tile < p.tiles; ++tile) {
     __syncthreads();
     load_rows<DP>(k_s, k + base, tile * kT, kT, n, hd, COS, one, tid, 256);
     __syncthreads();
     float s[4][4];
-    logits(tile, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
-      m[i] = fmaxf(m[i], mx);
-    }
-  }
-
-  float z[4] = {0.f, 0.f, 0.f, 0.f}, acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc[i][j] = 0.f;
-  for (int tile = 0; tile < tiles; ++tile) {  // pass 2
-    __syncthreads();
-    load_rows<DP>(k_s, k + base, tile * kT, kT, n, hd, COS, one, tid, 256);
-    load_rows<DP>(v_s, v + base, tile * kT, kT, n, hd, false, one, tid, 256);
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    logits(tile, s);
-    fma_tile<DP>(dp, g_s, v_s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float ev = exp2f(s[i][j] - m[i]);
-        z[i] += ev;
-        p_s[(ty + 16 * i) * SP + tx + 16 * j] = ev * (dp[i][j] - c_row[i]);
-      }
-    __syncwarp();  // a row's t is written and read by the same half warp
-    fma_acc<DP>(acc, p_s, k_s, ty, tx);
-    __syncwarp();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float zinv = 1.f / half_warp_sum(z[i]), szr = __fmul_rn(sc, zinv);
-    const bool live = row[i] < n;
-    const size_t off = base + static_cast<size_t>(min(row[i], n - 1)) * hd;
-    const float qinv = COS && live ? row_inv_norm<DP>(q + off, hd) : 1.f;
-    float qh[DJ], dqh[DJ], a = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int col = tx + 16 * j;
-      const float x = live && col < hd ? q[off + col] : 0.f;
-      qh[j] = COS ? __fmul_rn(x, qinv) : x;
-      dqh[j] = __fmul_rn(acc[i][j], szr);
-      a = __fadd_rn(a, __fmul_rn(dqh[j], qh[j]));
-    }
-    a = half_warp_sum(a);
-    if (!live) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int col = tx + 16 * j;
-      if (col < hd) {
-        static_cast<float*>(p.dq)[off + col] =
-            COS ? __fmul_rn(__fsub_rn(dqh[j], __fmul_rn(qh[j], a)), qinv) : dqh[j];
-      }
-    }
-    if (tx == 0) p.stats[static_cast<size_t>(bh) * n + row[i]] = make_float4(m[i], zinv, c_row[i], a);
-  }
-}
-
-// dk and dv: key rows ty + 16 i of the block's tile, query columns tx + 16 j
-// of the transposed tiles
-template <int DP, bool COS>
-__global__ void __launch_bounds__(256) dkv_f32(Params p) {
-  constexpr int SQ = DP + 1, SP = kT + 1, DJ = DP / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* const k_s = reinterpret_cast<float*>(smem);  // [kT][SQ] kh
-  float* const v_s = k_s + kT * SQ;
-  float* const qh_s = v_s + kT * SQ;
-  float* const qz_s = qh_s + kT * SQ;
-  float* const g_s = qz_s + kT * SQ;
-  float* const gz_s = g_s + kT * SQ;
-  float* const pt_s = gz_s + kT * SQ;  // [kT][SP] t^T
-  float* const pe_s = pt_s + kT * SP;  // [kT][SP] e^T
-  float* const m_s = pe_s + kT * SP;   // [kT]
-  float* const c_s = m_s + kT;         // [kT]
-  const float *q = static_cast<const float*>(p.q), *k = static_cast<const float*>(p.k),
-              *v = static_cast<const float*>(p.v), *go = static_cast<const float*>(p.g);
-  const int n = p.n, hd = p.hd;
-  const int bh = blockIdx.x / p.tiles, k0 = (blockIdx.x - bh * p.tiles) * kT;
-  const size_t base = static_cast<size_t>(bh) * n * hd;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int group = group_of(p, bh);
-  const float sc = p.scale[group], csc = __fmul_rn(sc, kLog2e);
-  const float* const bias_g = p.bias + static_cast<size_t>(group) * n * n;
-  const float4* const st = p.stats + static_cast<size_t>(bh) * n;
-  auto one = [](int) { return 1.f; };
-  auto zinv = [&](int r) { return st[r].y; };
-  auto szinv = [&](int r) { return __fmul_rn(sc, st[r].y); };
-
-  load_rows<DP>(k_s, k + base, k0, kT, n, hd, COS, one, tid, 256);
-  load_rows<DP>(v_s, v + base, k0, kT, n, hd, false, one, tid, 256);
-  float acc_k[4][DJ], acc_v[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) acc_k[i][j] = acc_v[i][j] = 0.f;
-
-  for (int tile = 0; tile < p.tiles; ++tile) {
-    const int q0 = tile * kT;
-    __syncthreads();
-    load_rows<DP>(qh_s, q + base, q0, kT, n, hd, COS, one, tid, 256);
-    load_rows<DP>(qz_s, q + base, q0, kT, n, hd, COS, szinv, tid, 256);
-    load_rows<DP>(g_s, go + base, q0, kT, n, hd, false, one, tid, 256);
-    load_rows<DP>(gz_s, go + base, q0, kT, n, hd, false, zinv, tid, 256);
-    if (tid < kT) {
-      const bool live = q0 + tid < n;
-      m_s[tid] = live ? st[q0 + tid].x : 0.f;
-      c_s[tid] = live ? st[q0 + tid].z : 0.f;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    fma_tile<DP>(s, k_s, qh_s, ty, tx);
-    fma_tile<DP>(dp, v_s, g_s, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kr = k0 + ty + 16 * i, col = tx + 16 * j;
-        float ev = 0.f;
-        if (kr < n && q0 + col < n) {
-          const float b2 = __fmul_rn(__ldg(bias_g + static_cast<size_t>(q0 + col) * n + kr), kLog2e);
-          ev = exp2f(logit2(s[i][j], csc, b2) - m_s[col]);
-        }
-        pt_s[(ty + 16 * i) * SP + col] = ev * (dp[i][j] - c_s[col]);
-        pe_s[(ty + 16 * i) * SP + col] = ev;
-      }
-    __syncwarp();  // a key row's t and e are written and read by the same half warp
-    fma_acc<DP>(acc_k, pt_s, qz_s, ty, tx);
-    fma_acc<DP>(acc_v, pe_s, gz_s, ty, tx);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kr = k0 + ty + 16 * i;
-    const bool live = kr < n;
-    const size_t off = base + static_cast<size_t>(min(kr, n - 1)) * hd;
-    const float kinv = COS && live ? row_inv_norm<DP>(k + off, hd) : 1.f;
-    float kh[DJ], b = 0.f;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int col = tx + 16 * j;
-      const float x = live && col < hd ? k[off + col] : 0.f;
-      kh[j] = COS ? __fmul_rn(x, kinv) : x;
-      b = __fadd_rn(b, __fmul_rn(acc_k[i][j], kh[j]));
-    }
-    b = half_warp_sum(b);
-    if (!live) continue;
-#pragma unroll
-    for (int j = 0; j < DJ; ++j) {
-      const int col = tx + 16 * j;
-      if (col < hd) {
-        static_cast<float*>(p.dk)[off + col] =
-            COS ? __fmul_rn(__fsub_rn(acc_k[i][j], __fmul_rn(kh[j], b)), kinv) : acc_k[i][j];
-        static_cast<float*>(p.dv)[off + col] = acc_v[i][j];
-      }
-    }
-  }
-}
-
-template <int DP, bool COS>
-__global__ void __launch_bounds__(256) dbias_f32(Params p) {
-  constexpr int SQ = DP + 1;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* const q_s = reinterpret_cast<float*>(smem);
-  float* const g_s = q_s + kT * SQ;
-  float* const k_s = g_s + kT * SQ;
-  float* const v_s = k_s + kT * SQ;
-  const float *q = static_cast<const float*>(p.q), *k = static_cast<const float*>(p.k),
-              *v = static_cast<const float*>(p.v), *go = static_cast<const float*>(p.g);
-  const int n = p.n, hd = p.hd, tiles = p.tiles;
-  const int group = blockIdx.x / (tiles * tiles), rest = blockIdx.x - group * tiles * tiles;
-  const int q0 = rest / tiles * kT, k0 = (rest % tiles) * kT;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const float csc = __fmul_rn(p.scale[group], kLog2e);
-  const size_t tab = static_cast<size_t>(group) * n * n;
-  auto one = [](int) { return 1.f; };
-  float b2[4][4], acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = q0 + ty + 16 * i, col = k0 + tx + 16 * j;
-      b2[i][j] = r < n && col < n
-                     ? __fmul_rn(__ldg(p.bias + tab + static_cast<size_t>(r) * n + col), kLog2e)
-                     : 0.f;
-      acc[i][j] = 0.f;
-    }
-  for (int jb = 0; jb < p.g_size; ++jb) {
-    const int bh = group * p.g_size + jb;
-    const size_t base = static_cast<size_t>(bh) * n * hd;
-    __syncthreads();
-    load_rows<DP>(q_s, q + base, q0, kT, n, hd, COS, one, tid, 256);
-    load_rows<DP>(g_s, go + base, q0, kT, n, hd, false, one, tid, 256);
-    load_rows<DP>(k_s, k + base, k0, kT, n, hd, COS, one, tid, 256);
-    load_rows<DP>(v_s, v + base, k0, kT, n, hd, false, one, tid, 256);
-    __syncthreads();
-    float s[4][4], dp[4][4];
     fma_tile<DP>(s, q_s, k_s, ty, tx);
-    fma_tile<DP>(dp, g_s, v_s, ty, tx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = q0 + ty + 16 * i;
-      const float4 rs = r < n ? p.stats[static_cast<size_t>(bh) * n + r]
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const bool live = r < n && k0 + tx + 16 * j < n;
-        const float ev = live ? exp2f(logit2(s[i][j], csc, b2[i][j]) - rs.x) : 0.f;
-        acc[i][j] = __fadd_rn(acc[i][j], __fmul_rn(ev * (dp[i][j] - rs.z), rs.y));
+        const int col = tile * kT + tx + 16 * j;
+        s[i][j] = col < n ? logit2(s[i][j], csc, __fmul_rn(__ldg(b_row[i] + col), kLog2e))
+                          : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
       }
+      const float mn = fmaxf(m[i], half_warp_max(mx));  // every tile holds a live key
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sum += exp2f(s[i][j] - mn);
+      zp[i] = zp[i] * exp2f(m[i] - mn) + sum;
+      m[i] = mn;
     }
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = q0 + ty + 16 * i, col = k0 + tx + 16 * j;
-      if (r < n && col < n) p.dbias[tab + static_cast<size_t>(r) * n + col] = acc[i][j];
+  for (int i = 0; i < 4; ++i) {
+    const float zinv = 1.f / half_warp_sum(zp[i]);
+    const bool live = row[i] < n;
+    if (tx == 0) {
+      zinv_s[ty + 16 * i] = live ? zinv : 0.f;
+      sz_s[ty + 16 * i] = live ? __fmul_rn(sc, zinv) : 0.f;
+      if (live) p.stats[static_cast<size_t>(bh) * n + row[i]] = make_float4(m[i], zinv, c_row[i], 0.f);
     }
+  }
+  __syncthreads();
+  load_rows<DP>(k_s, go + base, q0, kT, n, hd, false, one, tid, 256);
+  __syncthreads();
+  for (int idx = tid; idx < kT * hd; idx += 256) {
+    const int r = idx / hd, d = idx - r * hd;
+    if (q0 + r >= n) break;
+    const size_t off = base + static_cast<size_t>(q0 + r) * hd + d;
+    const float x = q_s[r * SQ + d];
+    ops.qh[off] = x;
+    ops.qh_small[off] = tf32_small(x);
+    ops.g_small[off] = tf32_small(k_s[r * SQ + d]);
+  }
+  for (int idx = tid; idx < hd * kT; idx += 256) {
+    const int d = idx >> 6, slot = idx & 63;
+    const int r = tb::slot_query(slot);
+    const size_t dst = (static_cast<size_t>(bh) * hd + d) * ops.n_pad + q0 + slot;
+    const float x = __fmul_rn(q_s[r * SQ + d], sz_s[r]), y = __fmul_rn(k_s[r * SQ + d], zinv_s[r]);
+    ops.qzt[dst] = x;
+    ops.qzt[ops.plane + dst] = tf32_small(x);
+    ops.gzt[dst] = y;
+    ops.gzt[ops.plane + dst] = tf32_small(y);
+  }
 }
 
-template <typename K>
-cudaError_t launch(K kernel, int blocks, int threads, int smem, cudaStream_t stream,
-                   const Params& p) {
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<blocks, threads, smem, stream>>>(p);
-  return cudaGetLastError();
+template <int DP>
+struct F32Layout {  // byte offsets in the block's 1024-aligned shared memory
+  using C = tb::Cfg<DP>;
+  using St = tb::Stage<DP>;
+  static constexpr int kQB = C::kQB, kStages = C::kStages;
+  static constexpr int kUnit = tb::kUnitKeys * DP * 4;  // the unit's kh (or v), big or small
+  static constexpr int kK = 0, kV = 2 * kUnit, kRing = 4 * kUnit;  // big, then small
+  // in a stage, after the operands: the unit's bias (then dbias) tile, QB x
+  // 64 f32 in two boxes of 32 keys, and the rows' (m, 1 / z, c, alpha)
+  static constexpr int kBias = St::kOperands, kStats = kBias + kQB * 256;
+  static constexpr int kStage = (kStats + kQB * 16 + 1023) / 1024 * 1024;
+  static constexpr int kBars = kRing + kStages * kStage;
+  static constexpr int kTotal = kBars + 3 * kStages * 8 + 1024;
+};
+
+// Byte offset of f32 element (r, c) of a QB x 64 bias tile: boxes of QB rows
+// x 32 columns, each row 128 bytes with its chunks swizzled by r % 8.
+template <int QB>
+__device__ __forceinline__ int bias_offset_f32(int r, int c) {
+  return (c >> 5) * (QB * 128) + r * 128 + ((((c & 31) >> 2) ^ (r & 7)) << 4) + (c & 3) * 4;
+}
+
+struct F32Maps {  // the copy engine's tensor maps, passed by value
+  CUtensorMap qh, qh_small, g, g_small, qzt, qzt_small, gzt, gzt_small, stats, bias, dq, dbias;
+};
+
+// The bf16 main pass's walk (unit_of, next_unit) over units of (folded row,
+// 64 keys) with two consumer warpgroups (warps 0-7: kh and v of the unit,
+// big and small, resident; warpgroup w takes the query tiles of walk count
+// w mod 2: s_cos^T and dp^T, s2 with the stage's bias, e, t and t / z written
+// over the bias; dv, dk; t staged over the stage's consumed qh and g tiles
+// and dq^T = kh^T t^T over its qz^T tiles; at the unit's end warpgroup 0
+// stores its dkh, dv parts, warpgroup 1 adds its own and finishes dk), a
+// producer (warp 8) and a reducer per stage (warp 9 + s: the dq part after
+// the row's earlier key units, the dbias part after the group's earlier
+// rows, each behind its counter, as the bf16 reducers order them).
+template <int DP, bool COS>
+__global__ void __launch_bounds__(tb::kThreads, 1) window_bwd_f32_wg(
+    const float* __restrict__ k, const float* __restrict__ v, const __grid_constant__ F32Maps maps,
+    const float* __restrict__ scale, float* __restrict__ dk, float* __restrict__ dv,
+    int* __restrict__ dq_count, int* __restrict__ db_count, int n, int hd, int groups,
+    int g_size, int rowwise) {
+  using L = F32Layout<DP>;
+  using St = tb::Stage<DP>;
+  constexpr int QB = L::kQB, kS = L::kStages, MT = (DP + 63) / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* const smem = align_1024(smem_raw);
+  uint64_t* const full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* const empty = full + kS;
+  uint64_t* const dq_ready = empty + kS;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int units = (n + tb::kUnitKeys - 1) / tb::kUnitKeys, q_tiles = (n + QB - 1) / QB;
+  const long long total = static_cast<long long>(groups) * g_size * units;
+
+  if (tid == 0) {
+    for (int st = 0; st < kS; ++st) {
+      mbar_init(full + st, 1);      // the producer, once its copies land
+      mbar_init(empty + st, 1);     // its reducer, once the copy engine has read the stage
+      mbar_init(dq_ready + st, 4);  // one arrival per warp of the tile's warpgroup
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= 8) {  // the third warpgroup gives (168 - 40) x 128 registers to the consumers
+    regs_shrink<40>();
+    if (lane != 0 || warp - 9 >= kS) return;
+    if (warp >= 9) {  // reducer 5 + s: ring stage s's dq and dbias parts, in their fixed orders
+      const int stage = warp - 9;
+      int it = 0;
+      for (long long x = first_unit(rowwise, units); x < total; x = next_unit(x, rowwise, units)) {
+        const Unit un = unit_of(x, units, groups, g_size);
+        for (int i = 0; i < q_tiles; ++i, ++it) {
+          if (it % kS != stage) continue;
+          mbar_wait(dq_ready + stage, (it / kS) & 1);
+          const unsigned char* const src = smem + L::kRing + stage * L::kStage;
+          int* const cq = dq_count + static_cast<size_t>(un.row) * q_tiles + i;
+          int* const cb = db_count + (static_cast<size_t>(un.group) * q_tiles + i) * units + un.u;
+          while (ld_acquire_gpu(cq) != un.u) {
+          }
+          fence_async_global();
+          for (int c0 = 0; c0 < hd; c0 += 16) {  // a box of 16 columns; rows past N not written
+            const unsigned char* const part = src + St::kQzT + c0 * (QB * 4);
+            if (un.u == 0) {  // the first key unit's part is the sum so far
+              tma_store(&maps.dq, c0, i * QB, un.row, part);
+            } else {
+              tma_reduce_add(&maps.dq, c0, i * QB, un.row, part);
+            }
+          }
+          bulk_commit();
+          while (ld_acquire_gpu(cb) != un.level) {
+          }
+          fence_async_global();
+          for (int kb = 0; kb < 2; ++kb) {  // boxes of 32 keys; columns past N not written
+            const int kc = un.u * tb::kUnitKeys + 32 * kb;
+            if (kc >= n) break;
+            const unsigned char* const part = src + L::kBias + kb * (QB * 128);
+            if (un.level == 0) {  // the group's first row's part is the sum so far
+              tma_store(&maps.dbias, kc, i * QB, un.group, part);
+            } else {
+              tma_reduce_add(&maps.dbias, kc, i * QB, un.group, part);
+            }
+          }
+          bulk_commit();
+          bulk_wait_read();
+          mbar_arrive(empty + stage);
+          // each part added in device memory: the next unit in its order may add
+          bulk_wait_older();  // the dq group (the dbias group may be in flight)
+          fence_async_global();
+          __threadfence();
+          st_release_gpu(cq, un.u + 1);
+          bulk_wait();
+          fence_async_global();
+          __threadfence();
+          st_release_gpu(cb, un.level + 1);
+        }
+      }
+      return;
+    }
+    // warp 8, the producer: every unit's query tiles, in the consumers' order
+    using P = Panels<2 * DP>;
+    const CUtensorMap* const rows[4] = {&maps.qh, &maps.qh_small, &maps.g, &maps.g_small};
+    const CUtensorMap* const cols[4] = {&maps.qzt, &maps.qzt_small, &maps.gzt, &maps.gzt_small};
+    int it = 0;
+    for (long long x = first_unit(rowwise, units); x < total; x = next_unit(x, rowwise, units)) {
+      const Unit un = unit_of(x, units, groups, g_size);
+      for (int i = 0; i < q_tiles; ++i, ++it) {
+        const int stage = it % kS;
+        mbar_wait(empty + stage, ((it / kS) & 1) ^ 1);
+        unsigned char* const dst = smem + L::kRing + stage * L::kStage;
+        // every box reads zeros outside its tensor (rows past N, columns past
+        // N or hd), so the stage's bytes are always the whole stage
+        mbar_arrive_expect_tx(full + stage, St::kOperands + QB * 256 + QB * 16);
+#pragma unroll
+        for (int op = 0; op < 4; ++op) {
+#pragma unroll
+          for (int pn = 0; pn < P::kCount; ++pn) {
+            tma_load(dst + op * St::kTile + pn * QB * P::kRowBytes, rows[op], pn * P::kWidth / 2,
+                     i * QB, un.row, full + stage);
+          }
+          tma_load(dst + St::kQzT + op * St::kTile, cols[op], i * QB, 0, un.row, full + stage);
+        }
+#pragma unroll
+        for (int kb = 0; kb < 2; ++kb) {
+          tma_load(dst + L::kBias + kb * (QB * 128), &maps.bias, un.u * tb::kUnitKeys + 32 * kb,
+                   i * QB, un.group, full + stage);
+        }
+        tma_load(dst + L::kStats, &maps.stats, 0, i * QB, un.row, full + stage);
+      }
+    }
+    return;
+  }
+
+  regs_grow<232>();
+  // warpgroup wg takes the query tiles of parity wg (of the walk's count)
+  const int wg = warp >> 2, wq = warp & 3, g = lane >> 2, t = lane & 3;
+  unsigned char* const k_s = smem + L::kK;
+  unsigned char* const v_s = smem + L::kV;
+  int it = 0;
+  for (long long x = first_unit(rowwise, units); x < total; x = next_unit(x, rowwise, units)) {
+    const Unit un = unit_of(x, units, groups, g_size);
+    const int k0 = un.u * tb::kUnitKeys;
+    const size_t row0 = static_cast<size_t>(un.row) * n;
+    const float csc = __fmul_rn(scale[un.group], kLog2e);
+    named_barrier(1, tb::kConsumers);  // the last unit's products have read kh and v
+    tb::load_unit<DP>(k_s, k_s + L::kUnit, k + row0 * hd, k0, n, hd, COS, inv_norm, tid);
+    tb::load_unit<DP>(v_s, v_s + L::kUnit, v + row0 * hd, k0, n, hd, false, inv_norm, tid);
+    fence_async_smem();
+    named_barrier(1, tb::kConsumers);
+
+    const int key = k0 + 16 * wq + g;  // this thread's key rows: key, key + 8
+    const bool live_key[2] = {key < n, key + 8 < n};
+    float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+    for (int j = 0; j < DP / 2; ++j) dk_acc[j] = dv_acc[j] = 0.f;
+    for (int i = 0; i < q_tiles; ++i, ++it) {
+      if ((it & 1) != wg) continue;
+      const int stage = it % kS;
+      unsigned char* const tiles = smem + L::kRing + stage * L::kStage;
+      const uint32_t tiles_a = smem_addr(tiles);
+      float s[QB / 2], dp[QB / 2];
+      mbar_wait(full + stage, (it / kS) & 1);
+      tb::scores_and_dp<DP, tb::kProductTerms>(s, dp, k_s, v_s, L::kUnit, tiles, wq, g, t);
+
+      // per score: s2, e = exp2(s2 - m) (0 on dead keys), t = e (dp - c), and
+      // t / z written over the bias value it was formed from
+      const float4* const mzc = reinterpret_cast<const float4*>(tiles + L::kStats);
+#pragma unroll
+      for (int j = 0; j < QB / 8; ++j) {
+        const float4 rq[2] = {mzc[8 * j + 2 * t], mzc[8 * j + 2 * t + 1]};  // (m, 1 / z, c, 0)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float4 r = rq[e & 1];
+          float* const slot = reinterpret_cast<float*>(
+              tiles + L::kBias + bias_offset_f32<QB>(8 * j + 2 * t + (e & 1), 16 * wq + g + 8 * (e >> 1)));
+          const float s2 = logit2(s[4 * j + e], csc, __fmul_rn(*slot, kLog2e));
+          const float ev = live_key[e >> 1] ? exp2f(s2 - r.x) : 0.f;
+          const float tv = ev * (dp[4 * j + e] - r.z);
+          *slot = __fmul_rn(tv, r.y);
+          dp[4 * j + e] = tv;
+          s[4 * j + e] = ev;
+        }
+      }
+      uint32_t eb[QB / 8][4], es[QB / 8][4], tb_[QB / 8][4], ts[QB / 8][4];
+      tb::split_fragments<QB / 8>(s, eb, es);
+      tb::split_fragments<QB / 8>(dp, tb_, ts);
+      tb::issue_dkv<DP>(dv_acc, dk_acc, eb, es, tb_, ts, tiles_a);
+      tb::stage_t<QB>(tiles + St::kQs, tb_, ts, wq, g, t);  // over the consumed qh, g tiles
+      fence_async_smem();
+      named_barrier(2 + wg, 128);  // every warp's t is in
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      fence_regs(eb);
+      fence_regs(es);
+      fence_regs(tb_);
+      fence_regs(ts);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float dq_acc[QB / 2];
+        tb::issue_dq<DP>(dq_acc, k_s, k_s + L::kUnit, tiles_a + St::kQs, mt, wq, g, t);
+        tb::stage_dq<DP>(tiles + St::kQzT, dq_acc, mt, wq, g, t);  // over the consumed qz^T tiles
+      }
+      fence_async_smem();  // the copy engine reads the stage through the asynchronous proxy
+      __syncwarp();
+      if (lane == 0) mbar_arrive(dq_ready + stage);
+    }
+
+    // dkh and dv: warpgroup 0's parts through the outputs, then warpgroup 1
+    // adds its own to them (in that order) and finishes:
+    // dk = (dkh - kh32 beta) / |k| with the cosine (beta = rowsum(dkh kh32)), dv
+    if (wg == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (!live_key[h]) continue;
+        const size_t off = (row0 + key + 8 * h) * hd;
+#pragma unroll
+        for (int j = 0; j < DP / 8; ++j) {
+          const int col = 8 * j + 2 * t;
+          if (col < hd) {
+            *reinterpret_cast<float2*>(dk + off + col) =
+                make_float2(dk_acc[4 * j + 2 * h], dk_acc[4 * j + 2 * h + 1]);
+            *reinterpret_cast<float2*>(dv + off + col) =
+                make_float2(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+          }
+        }
+      }
+    }
+    __threadfence_block();
+    named_barrier(1, tb::kConsumers);
+    if (wg == 0) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool live = live_key[h];
+      const size_t off = (row0 + min(key + 8 * h, n - 1)) * hd;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (live && col < hd) {
+          const float2 a = *reinterpret_cast<const float2*>(dk + off + col);
+          const float2 c2 = *reinterpret_cast<const float2*>(dv + off + col);
+          dk_acc[4 * j + 2 * h] = a.x + dk_acc[4 * j + 2 * h];
+          dk_acc[4 * j + 2 * h + 1] = a.y + dk_acc[4 * j + 2 * h + 1];
+          dv_acc[4 * j + 2 * h] = c2.x + dv_acc[4 * j + 2 * h];
+          dv_acc[4 * j + 2 * h + 1] = c2.y + dv_acc[4 * j + 2 * h + 1];
+        }
+      }
+      const float kinv = COS && live ? row_inv_norm<DP>(k + off, hd) : 1.f;
+      float kh[DP / 8][2], b = 0.f;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int col = 8 * j + 2 * t + u;
+          const float x = live && col < hd ? k[off + col] : 0.f;
+          kh[j][u] = COS ? __fmul_rn(x, kinv) : x;
+          b = __fadd_rn(b, __fmul_rn(dk_acc[4 * j + 2 * h + u], kh[j][u]));
+        }
+      b += __shfl_xor_sync(kFull, b, 1);
+      b += __shfl_xor_sync(kFull, b, 2);
+      if (!live) continue;
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        if (col >= hd) continue;
+        float r2[2];
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const float dkh = dk_acc[4 * j + 2 * h + u];
+          r2[u] = COS ? __fmul_rn(__fsub_rn(dkh, __fmul_rn(kh[j][u], b)), kinv) : dkh;
+        }
+        *reinterpret_cast<float2*>(dk + off + col) = make_float2(r2[0], r2[1]);
+        *reinterpret_cast<float2*>(dv + off + col) =
+            make_float2(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+      }
+    }
+  }
+}
+
+// Per query row, L = DP / 4 neighbouring lanes of four columns each: dqh =
+// (the summed t kh) (scale_g / z); alpha = rowsum(dqh qh32) into stats;
+// dq = (dqh - qh32 alpha) / |q| with the cosine.
+template <int DP, bool COS>
+__global__ void __launch_bounds__(256) window_bwd_finish_f32(const float* __restrict__ q,
+                                                         const float* __restrict__ acc,
+                                                         const float* __restrict__ scale,
+                                                         float4* __restrict__ stats,
+                                                         float* __restrict__ dq, long long rows,
+                                                         int n, int hd, int g_size) {
+  constexpr int L = DP / 4;
+  const int lane = threadIdx.x & 31;
+  const long long row = (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) / L;
+  const int vc = (lane % L) * 4;
+  if (row >= rows) return;  // a row's L lanes leave together
+  const unsigned mask = (L == 32 ? kFull : ((1u << L) - 1u) << (lane & ~(L - 1)));
+  const bool live = vc < hd;
+  const size_t off = static_cast<size_t>(row) * hd + vc;
+  const float4 raw = live ? __ldg(reinterpret_cast<const float4*>(q + off))
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+  float qinv = 1.f;
+  if (COS) {
+    float ss = sumsq4(raw);
+#pragma unroll
+    for (int o2 = 1; o2 < L; o2 <<= 1) ss += __shfl_xor_sync(mask, ss, o2);
+    qinv = inv_norm(ss);
+  }
+  const float szr = __fmul_rn(scale[row / n / g_size], stats[row].y);
+  const float x[4] = {raw.x, raw.y, raw.z, raw.w};
+  float qh[4], dqh[4], a = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    qh[i] = COS ? __fmul_rn(x[i], qinv) : x[i];  // qh32
+    dqh[i] = live ? __fmul_rn(__ldg(acc + off + i), szr) : 0.f;
+    a = __fadd_rn(a, __fmul_rn(dqh[i], qh[i]));
+  }
+#pragma unroll
+  for (int o2 = 1; o2 < L; o2 <<= 1) a += __shfl_xor_sync(mask, a, o2);
+  if (vc == 0) stats[row].w = a;
+  if (!live) return;
+  float r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    r[i] = COS ? __fmul_rn(__fsub_rn(dqh[i], __fmul_rn(qh[i], a)), qinv) : dqh[i];
+  }
+  *reinterpret_cast<float4*>(dq + off) = make_float4(r[0], r[1], r[2], r[3]);
 }
 
 // The scratch xmir_window_attn_bwd takes as `stats`: each query row's (m,
 // 1 / z, c, alpha) as (bh, n, 4) f32 first; in bf16 then qh, qz, gz (bh, n,
-// hd) bf16, the dq sums (bh, n, hd) f32, a counter per (row, query tile) and
-// one per (group, query tile, key unit). ops/vit_attn.py::
+// hd) bf16, the dq sums (bh, n, hd) f32, a counter per (row, 64-row query
+// tile) and one per (group, query tile, 128-key unit); in f32 then qh and the
+// small parts of qh and g (bh, n, hd), qz^T and gz^T (bh, hd, n_pad) big and
+// small, the dq sums (bh, n, hd), a counter per (row, 32-row query tile) and
+// one per (group, query tile, 64-key unit). ops/vit_attn.py::
 // biased_bwd_workspace_bytes gives the same total.
 struct Workspace {
   size_t qh, qz, gz, dq, dq_count, db_count, bytes;
+  size_t qh_small, g_small, qzt, gzt, plane;  // f32
 };
 
 Workspace workspace(int dtype, int bh, int n, int hd, int groups) {
   const size_t rows = static_cast<size_t>(bh) * n, elems = rows * hd;
-  const size_t q_tiles = (n + kT - 1) / kT, units = (n + kUnitKeys - 1) / kUnitKeys;
   Workspace w{};
   w.qh = rows * 16;
-  w.bytes = w.qh;
-  if (dtype == 0) return w;
+  if (dtype == 0) {
+    const size_t n_pad = (n + kT - 1) / kT * kT, q_tiles = (n + 31) / 32;
+    const size_t units = (n + tf32bwd::kUnitKeys - 1) / tf32bwd::kUnitKeys;
+    w.plane = static_cast<size_t>(bh) * hd * n_pad * 4;
+    w.qh_small = w.qh + elems * 4;
+    w.g_small = w.qh_small + elems * 4;
+    w.qzt = w.g_small + elems * 4;
+    w.gzt = w.qzt + 2 * w.plane;
+    w.dq = w.gzt + 2 * w.plane;
+    w.dq_count = w.dq + elems * 4;
+    w.db_count = w.dq_count + static_cast<size_t>(bh) * q_tiles * 4;
+    w.bytes = w.db_count + static_cast<size_t>(groups) * q_tiles * units * 4;
+    return w;
+  }
+  const size_t q_tiles = (n + kT - 1) / kT, units = (n + kUnitKeys - 1) / kUnitKeys;
   w.qz = w.qh + elems * 2;
   w.gz = w.qz + elems * 2;
   w.dq = w.gz + elems * 2;
@@ -1550,17 +1738,91 @@ cudaError_t launch_bf16(const Params& p, int bh, cudaStream_t stream) {
 }
 
 template <int DP, bool COS>
+cudaError_t launch_f32(const Params& p, int bh, cudaStream_t stream) {
+  using L = F32Layout<DP>;
+  constexpr int QB = L::kQB;
+  constexpr int kPrepSmem = 2 * kT * (DP + 1) * 4 + 2 * kT * 4;
+  const int n = p.n, hd = p.hd, groups = p.n_groups;
+  cudaError_t err = cudaFuncSetAttribute(window_prep_f32<DP, COS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kPrepSmem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(window_bwd_f32_wg<DP, COS>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, L::kTotal);
+  }
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const Workspace w = workspace(0, bh, n, hd, groups);
+  unsigned char* const ws = reinterpret_cast<unsigned char*>(p.stats);
+  err = cudaMemsetAsync(ws + w.dq_count, 0, w.bytes - w.dq_count, stream);  // the counters
+  if (err != cudaSuccess) return err;
+  const int n_pad = p.tiles * kT;
+  const F32Operands ops{reinterpret_cast<float*>(ws + w.qh), reinterpret_cast<float*>(ws + w.qh_small),
+                        reinterpret_cast<float*>(ws + w.g_small), reinterpret_cast<float*>(ws + w.qzt),
+                        reinterpret_cast<float*>(ws + w.gzt), w.plane / 4, n_pad};
+  window_prep_f32<DP, COS><<<bh * p.tiles, 256, kPrepSmem, stream>>>(p, ops);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  // the row operands as (hd, N, BH), a box a panel; the transposed ones as
+  // (n_pad, hd, BH), a box of (QB, DP); the stats as (4, N, BH); the bias and
+  // dbias as (N, N, G), boxes of 32 x QB; the f32 dq sums as (hd, N, BH),
+  // boxes of 16 columns x QB rows, 64-byte swizzled
+  F32Maps maps;
+  using P = Panels<2 * DP>;
+  const void* const rows[4] = {ws + w.qh, ws + w.qh_small, p.g, ws + w.g_small};
+  CUtensorMap* const row_maps[4] = {&maps.qh, &maps.qh_small, &maps.g, &maps.g_small};
+  const void* const cols[4] = {ws + w.qzt, ws + w.qzt + w.plane, ws + w.gzt, ws + w.gzt + w.plane};
+  CUtensorMap* const col_maps[4] = {&maps.qzt, &maps.qzt_small, &maps.gzt, &maps.gzt_small};
+  for (int op = 0; op < 4; ++op) {
+    if (make_tensor_map(row_maps[op], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rows[op], hd, n, bh,
+                        static_cast<uint64_t>(hd) * 4, static_cast<uint64_t>(n) * hd * 4,
+                        P::kWidth / 2, QB, panel_swizzle<2 * DP>()) != 0 ||
+        make_tensor_map(col_maps[op], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, cols[op], n_pad, hd, bh,
+                        static_cast<uint64_t>(n_pad) * 4, static_cast<uint64_t>(n_pad) * hd * 4,
+                        QB, DP, panel_swizzle<2 * QB>()) != 0) {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (make_tensor_map(&maps.stats, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, p.stats, 4, n, bh, 16,
+                      static_cast<uint64_t>(n) * 16, 4, QB, CU_TENSOR_MAP_SWIZZLE_NONE) != 0 ||
+      make_tensor_map(&maps.bias, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, p.bias, n, n, groups,
+                      static_cast<uint64_t>(n) * 4, static_cast<uint64_t>(n) * n * 4, 32, QB,
+                      CU_TENSOR_MAP_SWIZZLE_128B) != 0 ||
+      make_tensor_map(&maps.dbias, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, p.dbias, n, n, groups,
+                      static_cast<uint64_t>(n) * 4, static_cast<uint64_t>(n) * n * 4, 32, QB,
+                      CU_TENSOR_MAP_SWIZZLE_128B) != 0 ||
+      make_tensor_map(&maps.dq, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, ws + w.dq, hd, n, bh,
+                      static_cast<uint64_t>(hd) * 4, static_cast<uint64_t>(n) * hd * 4, 16, QB,
+                      CU_TENSOR_MAP_SWIZZLE_64B) != 0) {
+    return cudaErrorInvalidValue;
+  }
+  // persistent: one block per SM (or per unit, where there are fewer); by rows
+  // where a wave of rows meets at most about eight of a group's
+  const int rowwise = groups >= 16;
+  const int units = (n + tb::kUnitKeys - 1) / tb::kUnitKeys;
+  const long long work = rowwise ? bh : static_cast<long long>(bh) * units;
+  const int grid = static_cast<int>(work < sms ? work : sms);
+  window_bwd_f32_wg<DP, COS><<<grid, tb::kThreads, L::kTotal, stream>>>(
+      static_cast<const float*>(p.k), static_cast<const float*>(p.v), maps, p.scale,
+      static_cast<float*>(p.dk), static_cast<float*>(p.dv), reinterpret_cast<int*>(ws + w.dq_count),
+      reinterpret_cast<int*>(ws + w.db_count), n, hd, groups, p.g_size, rowwise);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const long long rows_n = static_cast<long long>(bh) * n, threads = rows_n * (DP / 4);
+  window_bwd_finish_f32<DP, COS><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
+      static_cast<const float*>(p.q), reinterpret_cast<const float*>(ws + w.dq), p.scale, p.stats,
+      static_cast<float*>(p.dq), rows_n, n, hd, p.g_size);
+  return cudaGetLastError();
+}
+
+template <int DP, bool COS>
 cudaError_t launch_all(int dtype, int bh, const Params& p, cudaStream_t stream) {
   if (dtype == 1) return launch_bf16<DP, COS>(p, bh, stream);
-  const int rows = bh * p.tiles, tables = p.n_groups * p.tiles * p.tiles;
-  constexpr int kTile = kT * (DP + 1) * (int)sizeof(float);
-  constexpr int kP = kT * (kT + 1) * (int)sizeof(float);
-  cudaError_t err = launch(dq_f32<DP, COS>, rows, 256, 4 * kTile + kP, stream, p);
-  if (err != cudaSuccess) return err;
-  err = launch(dkv_f32<DP, COS>, rows, 256, 6 * kTile + 2 * kP + 2 * kT * (int)sizeof(float),
-               stream, p);
-  if (err != cudaSuccess) return err;
-  return launch(dbias_f32<DP, COS>, tables, 256, 4 * kTile, stream, p);
+  if constexpr (DP >= 32) return launch_f32<DP, COS>(p, bh, stream);
+  return cudaErrorInvalidValue;  // f32 pads hd to 32 at least
 }
 
 template <int DP>
@@ -1589,8 +1851,7 @@ extern "C" int xmir_window_attn_bwd_workspace(int dtype, int bh, int n, int hd, 
 // xmir_window_attn_bwd_workspace's bytes, 16-byte aligned, and comes back
 // with each query row's (m, 1 / z, c, alpha) as (bh, n, 4) float32 at its
 // start. hd a multiple of 8 up to 64, n a multiple of 8, bh == groups *
-// g_size. f32: three kernels, in order; bf16: a prep, a main and a finishing
-// kernel.
+// g_size. Each dtype: a prep, a main and a finishing kernel.
 extern "C" int xmir_window_attn_bwd(const void* q, const void* k, const void* v, const void* o,
                                     const void* g, const float* bias, const float* scale,
                                     void* stats, void* dq, void* dk, void* dv, float* dbias,
@@ -1608,7 +1869,7 @@ extern "C" int xmir_window_attn_bwd(const void* q, const void* k, const void* v,
   const Params p{q, k, v, o, g, bias, scale, static_cast<float4*>(stats), dq, dk, dv, dbias,
                  n, hd, tiles, g_size, groups};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd <= 16) return (int)launch_width<16>(dtype, cosine, bh, p, s);
+  if (hd <= 16 && dtype == 1) return (int)launch_width<16>(dtype, cosine, bh, p, s);
   if (hd <= 32) return (int)launch_width<32>(dtype, cosine, bh, p, s);
   return (int)launch_width<64>(dtype, cosine, bh, p, s);
 }

@@ -318,7 +318,8 @@ def vit_attention_bwd(q, k, v, o, g, stats, sm_scale: float):
     nbytes = ctypes.c_longlong()
     if lib.xmir_vit_attn_bwd_workspace(DTYPE_CODES[q.dtype], bh, n, hd, ctypes.byref(nbytes)):
         raise ValueError(f"the backward kernel does not take {tuple(q.shape)} {q.dtype}")
-    # f32: c per row; bf16: the scaled operands, the f32 dq sums and the order counters
+    # the scaled operands (f32: also their TF32 small parts and qz, gz transposed), the
+    # f32 dq sums and the order counters
     scratch = torch.empty(nbytes.value, dtype=torch.uint8, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.xmir_vit_attn_bwd(
@@ -556,10 +557,16 @@ def biased_bwd_workspace_bytes(dtype, bh: int, n: int, hd: int, n_groups: int) -
     ``xmir_window_attn_bwd_workspace`` gives the same): each query row's
     (m, 1 / z, c, alpha) as (BH, N, 4) f32, and in bf16 then qh, qz, gz
     (BH, N, hd) bf16, the dq sums (BH, N, hd) f32, an int32 counter per
-    (row, 64-row query tile) and one per (group, query tile, 128-key unit)."""
+    (row, 64-row query tile) and one per (group, query tile, 128-key unit);
+    in f32 then qh and the TF32 small parts of qh and g (BH, N, hd), qz^T
+    and gz^T with their small parts (BH, hd, N padded to 64), the dq sums
+    (BH, N, hd), an int32 counter per (row, 32-row query tile) and one per
+    (group, query tile, 64-key unit)."""
     rows = bh * n
     if dtype == torch.float32:
-        return rows * 16
+        n_pad, q_tiles, units = -(-n // 64) * 64, -(-n // 32), -(-n // 64)
+        return (rows * 16 + 4 * rows * hd * 4 + 4 * bh * hd * n_pad * 4
+                + 4 * q_tiles * (bh + n_groups * units))
     q_tiles, units = -(-n // 64), -(-n // 128)
     return rows * 16 + rows * hd * (3 * 2 + 4) + 4 * q_tiles * (bh + n_groups * units)
 
