@@ -49,7 +49,11 @@ dropped) by K3's f32 bounds (chip_smoke.py phases 17 and 38's cases) and
 K5's (phase 25's); the score product, which the design keeps on IEEE FMAs,
 and K3's dp (on FMAs too) moved onto 3xTF32 must be refused by K3's bounds
 on phase 17's hard rows (their readings at phase 38's random shapes and
-K5's are recorded; PERF.md says whether they are refused).
+K5's are recorded; PERF.md says whether they are refused). The f32 route of
+K4 and K6 (3xTF32 wgmma, one pass, csrc/window_attn.cu) must refuse both
+products on 2xTF32, both on 1xTF32, the value product alone on 1xTF32 and
+the running max's rescale of the output sums dropped, by phase 12's f32
+readings of both kernels.
 Each line prints how far the reading goes toward its bounds (above 1: past
 one of them).
 
@@ -207,10 +211,23 @@ SOURCE_FAULTS = {
         "window_attn.cu", "const unsigned char* const bt = ring + stage * kBiasTileBytes;",
         "const unsigned char* const bt = ring + (stage + stages - 1) % stages * kBiasTileBytes;"),
     "K6: weights rounded before they are normalised": (
-        "window_attn.cu", "return d < -87.f ? 0.f : expf(d) / z;",
-        f"return d < -87.f ? 0.f : {ROUND_BF16.format('expf(d)')} / z;",
-        "const float e = __fmul_rn(expf(d), 0x1p64f);",
+        "window_attn.cu", "const float e = __fmul_rn(expf(d), 0x1p64f);",
         f"const float e = __fmul_rn({ROUND_BF16.format('expf(d)')}, 0x1p64f);"),
+    # the f32 route's arithmetic (wattn_f32_wg, both K4 and K6): the TF32
+    # shortcuts the unchanged f32 bound must refuse, and the one pass's
+    # rescale of the accumulator by exp(m_old - m_new) dropped
+    "K4, K6 f32 route: both products on 2xTF32 (small . big dropped)": (
+        "window_attn.cu", "constexpr int kScoreTerms = 3;", "constexpr int kScoreTerms = 2;",
+        "constexpr int kValueTerms = 3;", "constexpr int kValueTerms = 2;"),
+    "K4, K6 f32 route: both products on 1xTF32 (both small products dropped)": (
+        "window_attn.cu", "constexpr int kScoreTerms = 3;", "constexpr int kScoreTerms = 1;",
+        "constexpr int kValueTerms = 3;", "constexpr int kValueTerms = 1;"),
+    "K4, K6 f32 route: the value product alone on 1xTF32": (
+        "window_attn.cu", "constexpr int kValueTerms = 3;", "constexpr int kValueTerms = 1;"),
+    "K4, K6 f32 route: the running max's rescale of the accumulator dropped": (
+        "window_attn.cu",
+        "for (int i = 0; i < DP / 2; ++i) acc[i] = acc[i] * alpha[(i >> 1) & 1] + pv[i];",
+        "for (int i = 0; i < DP / 2; ++i) acc[i] = acc[i] + pv[i];"),
     "K6 bf16 kernel: e rounded for the product, the product divided by z": (
         "window_attn.cu",
         "s[i] = v1_weight_rcp(s[i] - m[(i >> 1) & 1], z[(i >> 1) & 1], zr[(i >> 1) & 1]);",
@@ -1368,6 +1385,12 @@ def main():
             use_sources(directory)
             if name.startswith("K2"):
                 report(name, "K2 bf16", read_attention(), False)
+                continue
+            if name.startswith("K4, K6 f32 route"):  # the f32 route of K4 and K6 alone
+                # phase 12's f32 readings must refuse it; bf16 is another body
+                f4, f6 = read_window(torch.float32)
+                report(name, "K4 float32", f4, False)
+                report(name, "K6 float32", f6, False)
                 continue
             if "f32 route" in name:  # the f32 routes of K3 and K5 alone
                 # the TF32 shortcuts must be refused by every check; the two

@@ -135,9 +135,15 @@ Phases, each of which raises (exit code != 0) on any failure:
              here, used nowhere in the port; the SDPA backend the default
              dispatch picks, named and pinned once outside the timed windows;
              CUDA events over windows of 20 calls and the device time of K4,
-             K6 and the library call, device_ms), with the time of the fold
-             and unfold copies around K4; SwinV2-Base bf16 (weights and
-             input) batch 16 at 384 px
+             K6 and the library call, device_ms; the bound under each dtype's
+             arithmetic, f32's (3xTF32) beside the FMA bound, attn_bound;
+             --f32-window-only adds the f32 SwinV2-Base forward at B = 16 and
+             its f32 train step at B = 8), with the time of the fold
+             and unfold copies around K4; the f32 SwinV2-Base forward at B =
+             16, 384 px (randomized logit scales, random normal pixels) with
+             K4, with K6, with the plain versions and eager, its unit
+             embeddings within 2e-6 of the plain versions' and eager's, not
+             timed; SwinV2-Base bf16 (weights and input) batch 16 at 384 px
              with K4, with K6, with the kernels' plain versions and on the
              eager path; CUDA events, in turns
  17. kernel  K3 (csrc/vit_attn_bwd.cu) against its plain version through the
@@ -169,7 +175,7 @@ Phases, each of which raises (exit code != 0) on any failure:
              forward, named and pinned once outside the timed windows; CUDA
              events and device time, with torch.profiler's share of K3's; the
              bound under each dtype's arithmetic, f32's beside the FMA
-             bound, attn_bwd_bound); the bf16 DINOv2 train step at batch 8
+             bound, attn_bound); the bf16 DINOv2 train step at batch 8
              with the kernels, with their plain versions and on the eager
              path: img/s, peak memory, forward / backward / optimiser shares,
              and the device time by kernel (torch.profiler), K3's share of it
@@ -228,7 +234,7 @@ Phases, each of which raises (exit code != 0) on any failure:
              SDPA backend the default dispatch picks, named and pinned once
              outside the timed windows; CUDA events, and the device time of
              both, device_ms; the bound under each dtype's arithmetic,
-             attn_bwd_bound)
+             attn_bound)
  28. rates   the bf16 SwinV2-Base train step at batch 8, 384 px with the
              kernels, their plain versions and on the eager path: img/s, peak
              memory, forward / backward / optimiser, the host's enqueue time
@@ -2438,6 +2444,10 @@ def phase_slice_full_ranking(workdir: Path):
     return launches, max(err, s_err)
 
 
+# the parts of an f32 bound (attn_bound) that add up over a forward's calls
+F32_BOUND_PARTS = ("fma_bound_ms", "fma_part_ms", "tf32_part_ms")
+
+
 def _window_work(b, nw, h, n, shifted, dtype):
     """(operations, bytes) of one K4 / K6 call: two matrix products per
     score, q / k / v / out once, the bias slices and scales once."""
@@ -2453,8 +2463,10 @@ def phase_window_rates():
     with torch.inference_mode():
         for dtype in (torch.bfloat16, torch.float32):
             name = str(dtype)[6:]
+            parts = F32_BOUND_PARTS if dtype == torch.float32 else ()
             total = {key: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
-                                         "library_device_ms"), 0.0) for key in out}
+                                         "library_device_ms", *parts), 0.0)
+                     for key in out}
             bound_by, backends, fold_ms = set(), set(), 0.0
             for nw, h, n, shifted, count in SWIN_SHAPES:
                 q, k, v, bias, scale, g_size = _swin_inputs(gen, b, nw, h, n, shifted, dtype,
@@ -2504,7 +2516,8 @@ def phase_window_rates():
                     dev = {key: device_ms(fns[key]) for key in ("K4", "K6", "library")}
                 ms.update(_in_turns({key: fns[key] for key in fns if key not in fast})[0])
                 work = _window_work(b, nw, h, n, shifted, dtype)
-                bound_ms, by = bound(*work, name)
+                bnd = attn_bound(*work, dtype, "K4")  # K6's arithmetic is K4's
+                bound_ms, by = bnd["bound_ms"], bnd["bound_by"]
                 bound_by.add(by)
                 fold_ms += count * ms["fold"]
                 for key in out:
@@ -2515,11 +2528,12 @@ def phase_window_rates():
                     for field, value in (("ms", ms[key]), ("plain_ms", ms[f"{key} plain"]),
                                          ("library_ms", ms["library"]), ("bound_ms", bound_ms),
                                          ("device_ms", dev[key]),
-                                         ("library_device_ms", dev["library"])):
+                                         ("library_device_ms", dev["library"]),
+                                         *((part, bnd.get(part, 0.0)) for part in parts)):
                         total[key][field] += count * value
                 log(f"[rates] {name:8s} {shape}: K4 {ms['K4']:.3f} ms "
-                    f"({work[0] / ms['K4'] / 1e9:.1f} TFLOP/s; bound {bound_ms:.3f} ms by {by}, "
-                    f"{bound_ms / ms['K4']:.1%} of it) vs "
+                    f"({work[0] / ms['K4'] / 1e9:.1f} TFLOP/s; device time "
+                    f"{bound_text(bnd, dev['K4'])}) vs "
                     f"plain {ms['K4 plain']:.3f} ms; K6 {ms['K6']:.3f} ms vs plain "
                     f"{ms['K6 plain']:.3f} ms; library call (SDPA, {sdpa_name}) "
                     f"{ms['library']:.3f} ms (max |diff| to K6 {lib_err:.3g}); device time K4 "
@@ -2530,14 +2544,15 @@ def phase_window_rates():
             library = f"scaled_dot_product_attention, {'/'.join(sorted(backends))} backend"
             for key in out:
                 out[key][name] = dict(total[key], bound_by="/".join(sorted(bound_by)),
-                                      library=library)
+                                      library=library, arithmetic=bnd["arithmetic"])
             log(f"[rates] {name:8s} the {SWIN_DEPTH} calls of one SwinV2-Base forward at B={b}: "
                 + "; ".join(f"{key} {total[key]['ms']:.3f} ms (plain {total[key]['plain_ms']:.3f}, "
-                            f"library {total[key]['library_ms']:.3f}, bound "
-                            f"{total[key]['bound_ms']:.3f}: "
-                            f"{total[key]['bound_ms'] / total[key]['ms']:.1%} of it; device time "
+                            f"library {total[key]['library_ms']:.3f}); device time "
                             f"{total[key]['device_ms']:.4f} against the library's "
-                            f"{total[key]['library_device_ms']:.4f})" for key in out)
+                            f"{total[key]['library_device_ms']:.4f} "
+                            f"({total[key]['device_ms'] / total[key]['library_device_ms']:.2f}x), "
+                            f"{bound_text(out[key][name], total[key]['device_ms'])}"
+                            for key in out)
                 + f"; K4's fold + unfold copies {fold_ms:.3f} ms; library = {library}")
             out["K4"][name]["fold_ms"] = fold_ms
     return out
@@ -2765,34 +2780,38 @@ def phase_select_rates():
     return out
 
 
-# the f32 routes' products on IEEE FMAs (the rest 3xTF32 on wgmma;
-# csrc/attn_bwd_f32.cuh): K3's s and dp, K5's s
-F32_FMA_PRODUCTS = {"K3": ("s", "dp"), "K5": ("s",)}
+# the f32 routes' products on IEEE FMAs (the rest 3xTF32 on wgmma): K3's s
+# and dp, K5's s (csrc/attn_bwd_f32.cuh); none of K4's and K6's
+# (csrc/window_attn.cu); and the products each kernel's operations hold
+F32_FMA_PRODUCTS = {"K3": ("s", "dp"), "K5": ("s",), "K4": (), "K6": ()}
+PRODUCTS = {"K3": 5, "K5": 5, "K4": 2, "K6": 2}
 
 
-def attn_bwd_bound(ops, nbytes, dtype, kernel="K3"):
-    """K3 / K5's bound under its arithmetic, beside the FMA bound (``ops``:
-    the five products' 10 BH N^2 hd, the work the function needs; bytes each
-    input read and each output written once): bf16, the five products on the
+def attn_bound(ops, nbytes, dtype, kernel="K3"):
+    """An attention kernel's bound under its arithmetic, beside the FMA
+    bound (``ops``: its PRODUCTS' operations, the work the function needs:
+    K3 / K5's five products 10 BH N^2 hd, K4 / K6's two 4 BH N^2 hd; bytes
+    each input read and each output written once): bf16, the products on the
     tensor cores; f32, the kernel's F32_FMA_PRODUCTS on IEEE FMAs and the
     others as three TF32 products each (3xTF32), the larger of the two
-    parts, which run on separate units; the FMA bound, all five on IEEE
-    FMAs."""
+    parts, which run on separate units; the FMA bound, all on IEEE FMAs."""
     if dtype == torch.bfloat16:
         ms, by = bound(ops, nbytes, "bfloat16")
         return {"bound_ms": ms, "bound_by": by, "arithmetic": "bf16 wgmma"}
-    on_fma = F32_FMA_PRODUCTS[kernel]
-    fma_part = bound(ops * len(on_fma) / 5, nbytes, "float32")
-    tf32_part = bound(3 * ops * (5 - len(on_fma)) / 5, nbytes, "tfloat32")
+    on_fma, products = F32_FMA_PRODUCTS[kernel], PRODUCTS[kernel]
+    fma_part = bound(ops * len(on_fma) / products, nbytes, "float32")
+    tf32_part = bound(3 * ops * (products - len(on_fma)) / products, nbytes, "tfloat32")
     ms, by = max(fma_part, tf32_part)
     fma_ms, fma_by = bound(ops, nbytes, "float32")
+    arithmetic = (f"{', '.join(on_fma)} IEEE FMA; the other products 3xTF32 wgmma" if on_fma
+                  else "every product 3xTF32 wgmma")
     return {"bound_ms": ms, "bound_by": by, "fma_part_ms": fma_part[0],
             "tf32_part_ms": tf32_part[0], "fma_bound_ms": fma_ms, "fma_bound_by": fma_by,
-            "arithmetic": f"{', '.join(on_fma)} IEEE FMA; the other products 3xTF32 wgmma"}
+            "arithmetic": arithmetic}
 
 
 def bound_text(b, ms):
-    """``attn_bwd_bound``'s reading against a time, for the log."""
+    """``attn_bound``'s reading against a time, for the log."""
     text = f"bound {b['bound_ms']:.4f} ms by {b['bound_by']} ({b['arithmetic']}), " \
            f"{b['bound_ms'] / ms:.1%} of it"
     if "fma_bound_ms" in b:
@@ -3149,7 +3168,7 @@ def phase_bwd_rates():
                 k3_share = profiler_share(fns["K3"], dev["K3"])
             ms.update(_in_turns({"K3 plain": fns["K3 plain"]})[0])
             ops, nbytes = _bwd_work(bh, n, hd, dtype)
-            bnd = attn_bwd_bound(ops, nbytes, dtype)
+            bnd = attn_bound(ops, nbytes, dtype)
             out[f"{name} B={b}"] = {"ms": ms["K3"], "plain_ms": ms["K3 plain"],
                                     "library_ms": ms["K3 library"], "forward_ms": ms["K2"],
                                     **bnd, "agreement": e,
@@ -3265,6 +3284,148 @@ def phase_train_rates():
     return out
 
 
+def _f32_step_reading(out, label, fns, want, flags):
+    """One f32 train step's launches (``want``: the kernels' counts a step
+    with ``fns["kernels"]``) and its ms a step by CUDA events in turns of
+    each of ``fns``, under the environment ``flags``, into out[label]."""
+    with env_flags(**flags):
+        reset_launches()
+        fns["kernels"]()
+        torch.cuda.synchronize()
+        launches = read_launches()
+        check(all(launches[key] == n for key, n in want.items()),
+              f"{label}: launches {launches}, expected {want} a step")
+        ms, runs = _in_turns(fns, rounds=3, reps=1)
+    out[label] = {"ms": ms, "launches": {k: v for k, v in launches.items() if v}}
+    log(f"[rates] {label}, f32: {ms['kernels']:.2f} ms a step by CUDA events with the "
+        f"kernels, {ms['plain versions']:.2f} ms with their plain versions"
+        + (f", {ms['eager']:.2f} ms on the eager path" if "eager" in ms else "")
+        + f"; launches a step {out[label]['launches']}; runs "
+        f"{({k: [round(v, 2) for v in r] for k, r in runs.items()})}")
+
+
+def f32_swin_train_step(out):
+    """The f32 SwinV2-Base train step at batch 8, 384 px under
+    XMIR_FUSED_ATTN=1 (K4 forward and K5 backward in every block), with the
+    kernels' plain versions and on the eager path, by CUDA events in turns."""
+    model, _ = create_model("swinv2", generator=torch.Generator().manual_seed(35))
+    randomize_swin_(model.backbone, 36)
+    model = model.to("cuda").train()
+    state = TrainState(model, build_optimizer(model, lr=1e-5))
+    step = make_embedding_train_step(model, "triplet", {"margin": 2.0})
+    x = torch.randn((8, 384, 384, 3), generator=torch.Generator().manual_seed(37)).cuda()
+    labels = torch.tensor([0, 0, 0, 0, 1, 1, 1, 1], device="cuda")
+
+    def plain_swin():
+        with swin_plain_versions():
+            step(state, x, labels)
+
+    def eager_swin():
+        with env_flags(XMIR_FUSED_ATTN="0"):
+            step(state, x, labels)
+
+    _f32_step_reading(out, "SwinV2-Base train step at batch 8, 384 px",
+                      {"kernels": lambda: step(state, x, labels), "plain versions": plain_swin,
+                       "eager": eager_swin},
+                      {"K4": SWIN_DEPTH, "K5": SWIN_DEPTH},
+                      dict(XMIR_FUSED_ATTN="1", XMIR_SWIN_KERNEL=None))
+    del model, state, step, x
+    torch.cuda.empty_cache()
+
+
+def _swin_f32_forwards():
+    """(model, forwards): SwinV2-Base in f32 (weights and input) with
+    randomize_swin_'s logit scales (one head of each block above the clamp),
+    batch 16 at 384 px, taken with K4 (the forwards run under
+    XMIR_FUSED_ATTN=1), with K6 (XMIR_SWIN_KERNEL=v1), with the kernels'
+    plain versions and on the eager path."""
+    model, _ = create_model("swinv2", generator=torch.Generator().manual_seed(17))
+    randomize_swin_(model.backbone, 18)
+    model = model.to("cuda").eval()
+    embed = make_embed_fn(model)
+    x = torch.randn((16, 384, 384, 3), generator=torch.Generator().manual_seed(19)).cuda()
+
+    def with_v1():
+        with env_flags(XMIR_SWIN_KERNEL="v1"):
+            return embed(x)
+
+    def with_plain_versions():
+        with swin_plain_versions():
+            return embed(x)
+
+    def eager_path():
+        with env_flags(XMIR_FUSED_ATTN="0"):
+            return embed(x)
+
+    return model, {"K4": lambda: embed(x), "K6": with_v1, "plain versions": with_plain_versions,
+                   "eager": eager_path}
+
+
+def check_swin_f32_embeddings(fns):
+    """The unit embeddings of ``_swin_f32_forwards``: K4's held to the plain
+    versions' and the eager path's, K6's to the eager path's
+    (SWIN_EMBED_TOL), each forward's K4 / K6 launches checked. Run under
+    XMIR_FUSED_ATTN=1. Returns the differences."""
+    want = {"K4": (SWIN_DEPTH, 0), "K6": (0, SWIN_DEPTH)}
+    emb = {}
+    for key, fn in fns.items():
+        reset_launches()
+        emb[key] = l2_normalize(fn())
+        launches = read_launches()
+        got = (launches["K4"], launches["K6"])
+        check(got == want.get(key, (0, 0)),
+              f"f32 SwinV2-Base {key}: launches K4, K6 {got}, expected {want.get(key, (0, 0))}")
+    check(emb["K4"].shape == (16, 1024) and torch.isfinite(emb["K4"]).all(), "bad embeddings")
+    diff = {"K4 vs plain versions": (emb["K4"] - emb["plain versions"]).abs().max().item(),
+            "K4 vs eager": (emb["K4"] - emb["eager"]).abs().max().item(),
+            "K6 vs eager": (emb["K6"] - emb["eager"]).abs().max().item()}
+    for k, v in diff.items():
+        tol = SWIN_EMBED_TOL["plain versions" if "plain" in k else "eager"]
+        check(v <= tol, f"f32 SwinV2-Base embeddings, {k}: {v} > {tol}")
+    return diff
+
+
+def phase_swin_f32_embeddings():
+    """The f32 SwinV2-Base forward at B = 16 with K4, K6, the plain versions
+    and the eager path, its unit embeddings checked (no timing). Random
+    normal pixels move the f32 route's embeddings some 20x more than the
+    slice's synthetic scans do (PERF.md), so this check sees an accumulation
+    drift in K4's and K6's f32 route that the slice's passes."""
+    model, fns = _swin_f32_forwards()
+    with env_flags(XMIR_FUSED_ATTN="1", XMIR_SWIN_KERNEL=None):
+        diff = check_swin_f32_embeddings(fns)
+    log(f"[slice] SwinV2-Base f32 batch 16 @384, randomized logit scales: unit embeddings {diff} "
+        f"(bounds {SWIN_EMBED_TOL})")
+    del model, fns
+    torch.cuda.empty_cache()
+    return diff
+
+
+def phase_swin_f32_rates():
+    """``_swin_f32_forwards`` checked as ``check_swin_f32_embeddings`` does,
+    then timed by CUDA events in turns and by device time (device_ms, "not
+    measured" where a forward's launches do not fit behind the spin)."""
+    model, fns = _swin_f32_forwards()
+    with env_flags(XMIR_FUSED_ATTN="1", XMIR_SWIN_KERNEL=None):
+        diff = check_swin_f32_embeddings(fns)
+        ms, runs = _in_turns(fns, rounds=3, reps=2)
+        dev = {}
+        for key, fn in fns.items():
+            try:
+                dev[key] = device_ms(fn, reps=4)
+            except SpinTooShort:
+                dev[key] = "not measured"
+    log("[rates] SwinV2-Base f32 batch 16 @384 by CUDA events: "
+        + "; ".join(f"{k} {ms[k]:.2f} ms = {16 / ms[k] * 1e3:.1f} img/s" for k in ms)
+        + "; by device time (device_ms): "
+        + "; ".join(f"{k} {v if isinstance(v, str) else f'{v:.4f} ms'}" for k, v in dev.items())
+        + f"; unit embeddings {diff} (bounds {SWIN_EMBED_TOL}); runs "
+        f"{({k: [round(t, 2) for t in v] for k, v in runs.items()})}")
+    del model, fns
+    torch.cuda.empty_cache()
+    return {"ms": ms, "device_ms": dev, "embedding_max_abs_err": diff}
+
+
 def phase_f32_train_steps():
     """The f32 train steps that reach K3's and K5's f32 routes, each with the
     kernels and with their plain versions, by CUDA events in turns: DINOv2
@@ -3277,22 +3438,6 @@ def phase_f32_train_steps():
     from xmir_tpu_torch.models.siglip_text import MedSigLIPDualEncoder
 
     out = {}
-
-    def reading(label, fns, want, flags):
-        with env_flags(**flags):
-            reset_launches()
-            fns["kernels"]()
-            torch.cuda.synchronize()
-            launches = read_launches()
-            check(all(launches[key] == n for key, n in want.items()),
-                  f"{label}: launches {launches}, expected {want} a step")
-            ms, runs = _in_turns(fns, rounds=3, reps=1)
-        out[label] = {"ms": ms, "launches": {k: v for k, v in launches.items() if v}}
-        log(f"[rates] {label}, f32: {ms['kernels']:.2f} ms a step by CUDA events with the "
-            f"kernels, {ms['plain versions']:.2f} ms with their plain versions; launches a step "
-            f"{out[label]['launches']}; runs "
-            f"{({k: [round(v, 2) for v in r] for k, r in runs.items()})}")
-
     model, _ = create_model("dinov2", generator=torch.Generator().manual_seed(23))
     with torch.no_grad():  # LayerScale at its 1e-5 init would hide the blocks
         for name, p in model.named_parameters():
@@ -3308,28 +3453,13 @@ def phase_f32_train_steps():
         with vit_plain_versions():
             step(state, x, labels)
 
-    reading("DINOv2 ViT-B/14 train step at batch 8, 518 px",
-            {"kernels": lambda: step(state, x, labels), "plain versions": plain_dinov2},
-            {"K3": VIT["depth"]}, FUSED_VIT)
+    _f32_step_reading(out, "DINOv2 ViT-B/14 train step at batch 8, 518 px",
+                      {"kernels": lambda: step(state, x, labels), "plain versions": plain_dinov2},
+                      {"K3": VIT["depth"]}, FUSED_VIT)
     del model, state, step, x
     torch.cuda.empty_cache()
 
-    model, _ = create_model("swinv2", generator=torch.Generator().manual_seed(35))
-    randomize_swin_(model.backbone, 36)
-    model = model.to("cuda").train()
-    state = TrainState(model, build_optimizer(model, lr=1e-5))
-    step = make_embedding_train_step(model, "triplet", {"margin": 2.0})
-    x = torch.randn((8, 384, 384, 3), generator=torch.Generator().manual_seed(37)).cuda()
-
-    def plain_swin():
-        with swin_plain_versions():
-            step(state, x, labels)
-
-    reading("SwinV2-Base train step at batch 8, 384 px",
-            {"kernels": lambda: step(state, x, labels), "plain versions": plain_swin},
-            {"K5": SWIN_DEPTH}, dict(XMIR_FUSED_ATTN="1", XMIR_SWIN_KERNEL=None))
-    del model, state, step, x
-    torch.cuda.empty_cache()
+    f32_swin_train_step(out)
 
     model = MedSigLIPDualEncoder(img_size=448, text_vocab=256000,
                                  generator=torch.Generator().manual_seed(0)).cuda().train()
@@ -3347,9 +3477,10 @@ def phase_f32_train_steps():
         with vit_plain_versions():
             step(state, x, ids)
 
-    reading("MedSigLIP-448 IT-Align train step at batch 16 (f32 towers, --bf16 pixels)",
-            {"kernels": lambda: step(state, x, ids), "plain versions": plain_medsiglip},
-            {"K3": 2 * MEDSIGLIP_UNFREEZE}, MEDSIGLIP_TRAIN_FLAGS)
+    _f32_step_reading(out, "MedSigLIP-448 IT-Align train step at batch 16 (f32 towers, --bf16 "
+                           "pixels)",
+                      {"kernels": lambda: step(state, x, ids), "plain versions": plain_medsiglip},
+                      {"K3": 2 * MEDSIGLIP_UNFREEZE}, MEDSIGLIP_TRAIN_FLAGS)
     del model, state, step, x, ids
     torch.cuda.empty_cache()
     return out
@@ -4089,7 +4220,7 @@ def phase_window_bwd_rates():
                 dev = {key: device_ms(fns[key], reps=10) for key in ("K5", "library")}
             ms.update(_in_turns({"plain": fns["plain"]}, reps=2)[0])
             ops, nbytes = _k5_work(bh, groups, n, SWIN_HD, dtype)
-            bnd = attn_bwd_bound(ops, nbytes, dtype, "K5")
+            bnd = attn_bound(ops, nbytes, dtype, "K5")
             bound_ms, by = bnd["bound_ms"], bnd["bound_by"]
             bound_by[by] += count * bound_ms
             for key in ("fma_bound_ms", "fma_part_ms", "tf32_part_ms"):
@@ -5560,7 +5691,7 @@ def phase_kernel_siglip_bwd():
         ms.update(_in_turns({"K3 plain": lambda: va.attention_bwd_plain(q, k, v, o, g, sc)},
                             rounds=1, reps=1)[0])
         ops, nbytes = _bwd_work(bh, n, hd, dtype)
-        bnd = attn_bwd_bound(ops, nbytes, dtype)
+        bnd = attn_bound(ops, nbytes, dtype)
         out["rates"][f"{name} BH={bh} N={n}"] = {
             "ms": ms["K3"], "plain_ms": ms["K3 plain"], "library_ms": ms["K3 library"],
             "forward_ms": ms["K2 with statistics"], "device_ms": dev["K3"],
@@ -8322,6 +8453,11 @@ def main():
     parser.add_argument("--export-only", action="store_true",
                         help="only build, then phase 56 (cli.export, both formats) on "
                              "timm-layout .pt files of random weights; prints no result")
+    parser.add_argument("--f32-window-only", action="store_true",
+                        help="only build, then K4's and K6's kernel and rate phases (12, 16), "
+                             "the f32 SwinV2-Base forward at B = 16 and its f32 train step at B "
+                             "= 8 with the kernels, their plain versions and the eager path; "
+                             "prints no result")
     parser.add_argument("--f32-bwd-only", action="store_true",
                         help="only build, then K3's and K5's kernel and rate phases (17, 20, 25, "
                              "27, 38) and the f32 train steps that reach their f32 routes, with "
@@ -8382,6 +8518,13 @@ def run_phases(opts, smi):
         phases_siglip_train()
         print(smi)
         return
+    if opts.f32_window_only:
+        phase_kernel_window()
+        phase_window_rates()
+        phase_swin_f32_rates()
+        f32_swin_train_step({})
+        print(smi)
+        return
     if opts.f32_bwd_only:
         for phase in (phase_kernel_bwd, phase_bwd_rates, phase_kernel_siglip_bwd,
                       phase_kernel_window_bwd, phase_window_bwd_rates, phase_f32_train_steps):
@@ -8439,6 +8582,7 @@ def run_phases(opts, smi):
     with tempfile.TemporaryDirectory() as tmp:
         r_launches, r_err = phase_slice_full_ranking(Path(tmp))
     window_rates = phase_window_rates()
+    swin_f32_emb = phase_swin_f32_embeddings()
     swin_rates = phase_swin_model_rates()
     bwd_errs = phase_kernel_bwd()
     exports = {}
@@ -8577,6 +8721,9 @@ def run_phases(opts, smi):
             library_device_ms=bf16["library_device_ms"],
             shape=f"bf16, the {SWIN_DEPTH} calls of one SwinV2-Base forward at B=16, 384 px "
                   "(sum over the six stage shapes by their block counts)",
+            f32={field: window_rates[key]["float32"][field] for field in
+                 ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms",
+                  "bound_by", "fma_bound_ms", "arithmetic")},
             ms_by_shape=window_rates[key], launches_by_path=by_path[key]))
     k5 = k5_rates["bfloat16"]
     kernels.append(dict(
@@ -8665,8 +8812,9 @@ def run_phases(opts, smi):
                       "dinov2_embedding_max_abs_err": {
                           path: v["embedding_max_abs_err"] for path, v in v_slices.items()},
                       "swinv2_embedding_max_abs_err": {
-                          path: v["embedding_max_abs_err"] for path, v in s_slices.items()
-                          if "embedding_max_abs_err" in v},
+                          **{path: v["embedding_max_abs_err"] for path, v in s_slices.items()
+                             if "embedding_max_abs_err" in v},
+                          "swinv2_f32_b16_randomized": swin_f32_emb},
                       "clip_embedding_max_abs_err": {
                           path: v["embedding_max_abs_err"] for path, v in c_slices.items()},
                       "clip_zeroshot": {k: v for k, v in zs.items() if k != "launches"},

@@ -128,9 +128,15 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take():
         wide = [_r(gen, 2, 16, 72) for _ in range(3)]
         with pytest.raises(ValueError, match="multiple of 8 up to 64"):
             va.biased_attention_fused(*wide, _r(gen, 1, 16, 16), scale[:1], 1, True)
-        big = [_r(gen, 1, 4096, 32) for _ in range(3)]
+        # bf16 keeps a window's K and V in shared memory; f32 streams them
+        big = [_r(gen, 1, 4096, 32).to(torch.bfloat16) for _ in range(3)]
         with pytest.raises(ValueError, match="shared memory"):
             va.biased_attention_fused(*big, torch.zeros(1, 4096, 4096, device="cuda"), scale[:1])
+        big32 = [t.float() for t in big]
+        bias32 = _r(gen, 1, 4096, 4096, sc=2.0)
+        e = va.window_agreement(va.biased_attention_fused(*big32, bias32, scale[:1], 1, True),
+                                va.biased_attention_plain(*big32, bias32, scale[:1], 1, True))
+        assert va.agrees(e), e  # 64 key tiles: the ring's phases and the tile walk
         # any other refusal of the launcher is not reported as a size problem
         with pytest.raises(RuntimeError, match="cudaError_t 1"):
             va.launch_window_attention(q, k, v, bias, scale.reshape(-1).contiguous(), 7,
@@ -142,6 +148,68 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take():
     with pytest.raises(RuntimeError, match="forward only"):
         va.launch_window_attention(q, k, v, bias, scale.reshape(-1).contiguous(), 1,
                                    (2, 2, 1, 1, 1, 0))
+
+
+def _f32_route(gen, mode, hd, n, clamp=False):
+    """(the kernel's call, its plain version's output) in f32 for one mode:
+    three images a bias group (an odd count: each run's last item has one
+    image), two groups, a -100 shift mask; K4's scales up to the clamp of 100
+    (scaled: up to 1), K6's q normalised and scaled by up to 100. ``clamp``:
+    every scale at 100 and rows with one to three live keys."""
+    if mode < 2:
+        q, k, v, bias, scale = _biased(gen, 6, n, hd, 2, torch.float32, True)
+        if clamp:
+            scale.fill_(100.0)
+        if mode == 0:
+            scale = scale * 0.01
+    else:
+        q, k, v = (_r(gen, 2, 3, 2, n, hd) for _ in range(3))
+        per_head = (1 + 99 * torch.rand((1, 1, 2, 1, 1), generator=gen)).cuda()
+        q = q * va.inv_norm(q) * (100.0 if clamp else per_head)
+        k = k * va.inv_norm(k)
+        bias = _r(gen, 2, 2, n, n, sc=2.0)
+        bias = bias + torch.where(torch.rand(bias.shape, generator=gen) < 0.5, -100.0, 0.0).cuda()
+    if clamp:
+        bias[..., 3:] -= 100.0
+        bias[..., ::5, 1:] -= 100.0
+    if mode < 2:
+        return (lambda: va.biased_attention_fused(q, k, v, bias, scale, 3, mode == 1),
+                va.biased_attention_plain(q, k, v, bias, scale, 3, mode == 1))
+    return (lambda: wa.window_attention_fused(q, k, v, bias),
+            wa.window_attention_plain(q, k, v, bias))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [576, 144, 140, 77, 1])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("mode", [0, 1, 2], ids=["K4 scaled", "K4 cosine", "K6"])
+def test_f32_route_matches_plain_on_card(mode, hd, n):
+    """The f32 route (3xTF32 products, one pass with a running max) in each
+    mode against its plain version, and two runs bit-equal."""
+    _need_card()
+    run, want = _f32_route(torch.Generator().manual_seed(100 * mode + hd + n), mode, hd, n)
+    with torch.inference_mode():
+        out, again = run(), run()
+        torch.cuda.synchronize()
+    e = va.window_agreement(out, want)
+    assert va.agrees(e), e
+    assert torch.equal(out, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [576, 144])
+@pytest.mark.parametrize("mode", [0, 1, 2], ids=["K4 scaled", "K4 cosine", "K6"])
+def test_f32_route_at_the_clamp_on_card(mode, n):
+    """Every scale at the clamp of 100, a -100 shift mask and rows with one
+    to three live keys: the logits the 3xTF32 scores must hold."""
+    _need_card()
+    run, want = _f32_route(torch.Generator().manual_seed(7 * mode + n), mode, 32, n, clamp=True)
+    with torch.inference_mode():
+        out, again = run(), run()
+        torch.cuda.synchronize()
+    e = va.window_agreement(out, want)
+    assert torch.isfinite(out).all() and va.agrees(e), e
+    assert torch.equal(out, again)
 
 
 NARROW = dict(embed_dim=64, depths=(2, 2), num_heads=(2, 4), window=4, pretrained_window=(4, 4))

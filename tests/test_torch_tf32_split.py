@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from xmir_tpu_torch.ops import vit_attn as va
+from xmir_tpu_torch.ops import window_attn as wa
 
 LOW13 = -8192  # 0xffffe000 as int32: every bit but the 13 a TF32 product does not read
 
@@ -226,3 +227,125 @@ def test_k5_products_on_1xtf32_leave_the_f32_bounds():
     got = biased_bwd_tf32(q, k, v, bias, scale, o, g, 2, 1)
     readings = va.biased_grad_agreement(got, want, floors, torch.float32)
     assert not all(va.grad_agrees(e) for e in readings.values()), readings
+
+
+# ---------------------------------------------------------------------------
+# The f32 route of the window attention forwards K4 and K6
+# (xmir_tpu_torch/csrc/window_attn.cu, wattn_f32_wg): both products through
+# the split, held to window_agreement's unchanged f32 bound.
+
+def window_fwd_tf32(s_inputs, v, bias, exp, score_terms=3, value_terms=3, one_pass=False,
+                    normalise_first=False):
+    """softmax-weighted v of the scores q k^T + bias with both products
+    through ``tf32_matmul``: (q, k) = ``s_inputs`` already normalised and
+    scaled, ``exp`` torch.exp2 (K4) or torch.exp (K6). Two passes: the exact
+    row max, then e, z and the value product (``normalise_first``: p = e / z
+    before it, as K6's plain version). One pass (the card's route): per
+    64-key tile a running max m that rescales the accumulator and z by
+    exp(m_old - m_new), out = acc / z at the end."""
+    q, k = s_inputs
+    s = tf32_matmul(q, k.transpose(-1, -2), score_terms) + bias
+    if not one_pass:
+        e = exp(s - s.amax(dim=-1, keepdim=True))
+        z = e.sum(dim=-1, keepdim=True)
+        if normalise_first:
+            return tf32_matmul(e / z, v, value_terms)
+        return tf32_matmul(e, v, value_terms) / z
+    m = torch.full(s.shape[:-1] + (1,), float("-inf"))
+    z = torch.zeros(s.shape[:-1] + (1,))
+    acc = torch.zeros(s.shape[:-1] + (v.shape[-1],))
+    for k0 in range(0, s.shape[-1], 64):
+        tile = s[..., k0:k0 + 64]
+        m_new = torch.maximum(m, tile.amax(dim=-1, keepdim=True))
+        alpha = exp(m - m_new)
+        e = exp(tile - m_new)
+        z = z * alpha + e.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + tf32_matmul(e, v[..., k0:k0 + 64, :], value_terms)
+        m = m_new
+    return acc / z
+
+
+def _window_clamp_case(kernel, n):
+    """chip_smoke.py phase 13's clamp case at small size: 3 images a group,
+    2 groups, hd 32, every scale at SwinV2's clamp of 100 (K4 without the
+    cosine: 1), a CPB-like bias with a -100 shift mask, and rows with one to
+    three live keys. Returns (want, the score inputs, v, the bias as added,
+    exp, normalise_first): ``want`` the plain version's output."""
+    gen = torch.Generator().manual_seed(23 + n)
+    q, k, v = (torch.randn((6, n, 32), generator=gen) for _ in range(3))
+    bias = 16 * torch.rand((2, n, n), generator=gen)
+    bias += torch.where(torch.rand((2, n, n), generator=gen) < 0.4, -100.0, 0.0)
+    bias[:, :, 3:] -= 100.0
+    bias[:, ::5, 1:] -= 100.0
+    gidx = va.group_index(6, 2, 3, q.device)
+    if kernel == "K6":  # its operands as the model passes them: q normalised and scaled
+        qs, kn = q * va.inv_norm(q) * 100.0, k * va.inv_norm(k)
+        want = wa.window_attention_plain(qs[:, None, None], kn[:, None, None], v[:, None, None],
+                                         bias[gidx][:, None])[:, 0, 0]
+        return want, (qs, kn), v, bias[gidx], torch.exp, True
+    cosine = kernel == "K4 cosine"
+    scale = torch.full((2,), 100.0 if cosine else 1.0)
+    want = va.biased_attention_plain(q, k, v, bias, scale, 3, cosine)
+    c = (scale * va.LOG2E)[gidx][:, None, None]
+    qs, ks = ((q * va.inv_norm(q)) * c, k * va.inv_norm(k)) if cosine else (q * c, k)
+    return want, (qs, ks), v, (bias * va.LOG2E)[gidx], torch.exp2, False
+
+
+WINDOW_KERNELS = ["K4 cosine", "K4 scaled", "K6"]
+
+
+@pytest.mark.parametrize("one_pass", [False, True], ids=["two passes", "one pass"])
+@pytest.mark.parametrize("n", [144, 576])
+@pytest.mark.parametrize("kernel", WINDOW_KERNELS)
+def test_window_products_on_3xtf32_stay_within_the_f32_bound(kernel, n, one_pass):
+    want, s_inputs, v, bias, exp, first = _window_clamp_case(kernel, n)
+    got = window_fwd_tf32(s_inputs, v, bias, exp, 3, 3, one_pass, first and not one_pass)
+    e = va.window_agreement(got, want)
+    assert va.agrees(e), e
+
+
+@pytest.mark.parametrize("terms", [(2, 2), (1, 1), (3, 1)],
+                         ids=["2xTF32", "1xTF32", "the value product alone on 1xTF32"])
+@pytest.mark.parametrize("kernel", WINDOW_KERNELS)
+def test_window_products_on_fewer_terms_leave_the_f32_bound(kernel, terms):
+    want, s_inputs, v, bias, exp, _ = _window_clamp_case(kernel, 144)
+    e = va.window_agreement(window_fwd_tf32(s_inputs, v, bias, exp, *terms, True), want)
+    assert not va.agrees(e), e
+
+
+def truncating_split_product(a, b, acc=None):
+    """a @ b as the card's 3xTF32 wgmma forms it: per depth step of 8, the
+    exact sum of the step's products and the accumulator rounded toward
+    zero to f32 (the tensor cores truncate), big . small steps, then small .
+    big, then big . big, into one accumulator (``acc`` to start from)."""
+    (ab, as_), (bb, bs) = tf32_split(a.contiguous()), tf32_split(b.contiguous())
+    out = torch.zeros(a.shape[0], b.shape[1]) if acc is None else acc.clone()
+    for x, y in ((ab, bs), (as_, bb), (ab, bb)):
+        for k0 in range(0, a.shape[1], 8):
+            exact = out.double() + x[:, k0:k0 + 8].double() @ y[k0:k0 + 8].double()
+            near = exact.float()
+            out = torch.where(near.double().abs() > exact.abs(),
+                              torch.nextafter(near, torch.zeros_like(near)), near)
+    return out
+
+
+def test_window_value_product_summed_per_tile_in_f32():
+    """Why the f32 route gives each 64-key tile's e v an accumulator of its
+    own and adds it to the rescaled sum in f32: with the tensor cores'
+    truncating sums, one accumulator over a window's 72 depth steps drifts
+    (it moved the f32 SwinV2 embeddings past their bound on the card,
+    PERF.md), the per-tile form stays within a fraction of its error."""
+    gen = torch.Generator().manual_seed(9)
+    n = 576
+    e = torch.exp2(-8 * torch.rand((64, n), generator=gen))
+    v = torch.randn((n, 32), generator=gen)
+    exact = e.double() @ v.double()
+    one = per_tile = None
+    for k0 in range(0, n, 64):
+        one = truncating_split_product(e[:, k0:k0 + 64], v[k0:k0 + 64], one)
+        tile = truncating_split_product(e[:, k0:k0 + 64], v[k0:k0 + 64])
+        per_tile = tile if per_tile is None else per_tile + tile
+    for stat in (torch.mean, torch.amax):  # the mean error and the check's max-abs one
+        err_one = stat((one.double() - exact).abs()).item()
+        err_tile = stat((per_tile.double() - exact).abs()).item()
+        assert err_tile * 4 < err_one, (stat.__name__, err_tile, err_one)

@@ -59,8 +59,11 @@ _SIGNATURES = {
     "xmir_vit_attn_bwd_workspace": (_I,) * 4 + (_P,),
     # q, k, v, o, g, stats, scratch, dq, dk, dv, dtype, bh, n, hd, scale * log2(e), scale, stream
     "xmir_vit_attn_bwd": (_P,) * 10 + (_I,) * 4 + (_F, _F, _P),
-    # q, k, v, bias, scale, o, dtype, mode, bh, n, hd, d1, m1, s1, d2, m2, s2, stream
-    "xmir_window_attn": (_P,) * 6 + (_I,) * 11 + (_P,),
+    # dtype, mode, bh, n, hd -> bytes of the f32 route's workspace (long long pointer)
+    "xmir_window_attn_workspace": (_I,) * 5 + (_P,),
+    # q, k, v, bias, scale, o, dtype, mode, bh, n, hd, d1, m1, s1, d2, m2, s2, workspace,
+    # stream
+    "xmir_window_attn": (_P,) * 6 + (_I,) * 11 + (_P, _P),
     # dtype, bh, n, hd, groups -> bytes of the backward's scratch (long long pointer)
     "xmir_window_attn_bwd_workspace": (_I,) * 5 + (_P,),
     # q, k, v, o, g, bias, scale, scratch, dq, dk, dv, dbias, dtype, cosine, bh, n, hd,

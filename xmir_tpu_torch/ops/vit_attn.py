@@ -375,11 +375,14 @@ vit_attention_fused.launches = 0
 
 # ---------------------------------------------------------------------------
 # K4: softmax(norm(q) norm(k)^T scale_g + bias_g) v with a bias slice and a
-# logit scale per group of rows (SwinV2's window attention). The kernel
+# logit scale per group of rows (SwinV2's window attention). The bf16 kernel
 # (csrc/window_attn.cu) keeps a window's K and V in shared memory and finds
 # each row's exact max in a first pass, so its arithmetic is the TPU kernel's
 # (``_kernel_biased`` :282-312) with no change: ``biased_attention_plain``
-# writes it out, rounding where both round. ``biased_attention_reference`` is
+# writes it out, rounding where both round. The f32 kernel streams K and V,
+# takes one pass with a running max and both products in 3xTF32: in f32
+# nothing is rounded to a narrower type, so that moves the output by the
+# sums' order and the split's error alone. ``biased_attention_reference`` is
 # the TPU file's ``_biased_reference``: no rounding but the probabilities'.
 
 MAX_WINDOW_HEAD_DIM = 64
@@ -457,7 +460,9 @@ def biased_attention_plain(q, k, v, bias, scale, g_size: int = 1, cosine: bool =
 
 # How far K4 and K6 may lie from their plain versions, which round where the
 # kernels round (and, in bf16, normalise q and k bit for bit alike), so only
-# the order of the f32 sums in the scores and in z differs. SwinV2's logits
+# the order of the f32 sums in the scores and in z differs (in f32 also the
+# running max's rescales and the 3xTF32 products, below 2^-19 of each
+# product: tests/test_torch_tf32_split.py). SwinV2's logits
 # are sharp: cosines times a scale of up to 100, so in exp2 space scores reach
 # +-144, where one f32 ulp is 1.5e-5 and the sums' order moves a weight by
 # that much relatively: f32 per output |out - ref| <= WINDOW_F32_RTOL
@@ -501,14 +506,25 @@ def launch_window_attention(q, k, v, bias, scale, mode: int, groups):
             raise ValueError("q, k, v, bias and scale must be contiguous and 16-byte aligned; "
                              "nothing is copied here")
     out = torch.empty_like(v)
+    lib = _build.load()
+    nbytes = ctypes.c_longlong()
+    err = lib.xmir_window_attn_workspace(DTYPE_CODES[q.dtype], mode, bh, n, hd,
+                                         ctypes.byref(nbytes))
+    if err != 0:
+        raise RuntimeError(f"window attention kernel launch failed: cudaError_t {err}")
+    # the f32 route's k and V^T with their 3xTF32 small parts (none in bf16)
+    scratch = (torch.empty(nbytes.value, dtype=torch.uint8, device=q.device) if nbytes.value
+               else None)
     with torch.cuda.device(q.device):
-        err = _build.load().xmir_window_attn(
+        err = lib.xmir_window_attn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             None if scale is None else scale.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype],
-            mode, bh, n, hd, *groups, torch.cuda.current_stream(q.device).cuda_stream)
-    if err == -1:  # the launcher's own size check, no cudaError_t code
+            mode, bh, n, hd, *groups, None if scratch is None else scratch.data_ptr(),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err == -1:  # the bf16 launcher's own size check, no cudaError_t code
         raise ValueError(f"one window's K and V (N={n}, hd={hd}, {q.dtype}) do not fit a "
-                         "block's shared memory, where the window attention kernel keeps them")
+                         "block's shared memory, where the bf16 window attention kernel keeps "
+                         "them")
     if err != 0:
         raise RuntimeError(f"window attention kernel launch failed: cudaError_t {err}")
     return out
